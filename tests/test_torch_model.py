@@ -4,10 +4,11 @@ the JAX package, on parameters converted with r2d2_tpu_torch.interop.
 Covers `act`, `act_select`, `unroll` (learning view, bootstrap view, mask)
 and parameter gradients, for the mlp encoder (also with extra latent layers)
 and the nature encoder, with the burn-in seam (fused_sequence=True, the
-default) and without it. The nature encoder runs at 36x36 (the smallest frame its trunk takes; 1x1 spatial) and
-at 44x44, whose 2x2x64 conv output pins the NHWC flatten order before
-Dense_0. Float32 throughout; values to 1e-5, gradients to rtol 1e-4 /
-atol 1e-5 (tests/test_pallas_lstm.py's tolerances).
+default) and without it. The nature encoder runs at 36x36 (the smallest
+frame its trunk takes; 1x1 spatial) and at 44x44, whose 2x2x64 conv output
+pins the NHWC flatten order before Dense_0. Float32 throughout; values to
+1e-5, gradients to rtol 1e-4 / atol 1e-5 (tests/test_pallas_lstm.py's
+tolerances).
 """
 
 import jax
