@@ -6,7 +6,7 @@
 Run from the repository root on a machine with a CUDA card. Phases, each on
 its own lines; any failure exits non-zero and prints no result:
 
-1. card   the card's name and power limit (nvidia-smi).
+1. card   the card's name, power limit and SM clock (nvidia-smi).
 2. build  both kernels from r2d2_tpu_torch/csrc with nvcc, in parallel;
           registers, shared memory and spills as ptxas reports them.
 3. check  each kernel against its plain PyTorch version on the card: at the
@@ -23,7 +23,8 @@ its own lines; any failure exits non-zero and prints no result:
           the same update through the plain versions on the CPU.
 6. time   each kernel, its plain version, its bound and (forward only) the
           cuDNN LSTM on the same layer, with CUDA events, at the main path's
-          shapes and with the seams of a batch the main path sampled.
+          shapes and with the seams of a batch the main path sampled; and
+          the SM clock read while forward launches are queued.
 
 The next-to-last lines are the kernels as one JSON object and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -71,14 +72,19 @@ def say(phase, msg):
     print(f"[{time.perf_counter() - T0:7.1f}s] {phase:6s} {msg}", flush=True)
 
 
-def card_line():
+def smi(query):
+    """nvidia-smi's csv line for card 0 and the given fields."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, timeout=60,
     )
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line():
+    return smi("name,power.limit")
 
 
 def median_ms(fn, reps=15, flush=None):
@@ -160,6 +166,7 @@ def main():
     card = card_line()
     say("card", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
+    say("card", f"SM clock now, max: {smi('clocks.sm,clocks.max.sm')}")
 
     # 2. build --------------------------------------------------------------
     t = time.perf_counter()
@@ -338,6 +345,11 @@ def main():
         })
     say("time", f"seams of the sampled batch: {sorted(set(sampled.burn_in_steps.tolist()))}, "
         f"backward steps kept {kept} of {T * B}")
+    for _ in range(120):  # about a second of queued forward launches
+        K.lstm_fwd(proj, wh, h0, c0)
+    loaded = smi("clocks.sm,clocks.max.sm")
+    torch.cuda.synchronize()
+    say("time", f"SM clock under a queue of lstm_fwd launches, max: {loaded}")
 
     if args.profile:
         profile_updates(tr, args.profile)

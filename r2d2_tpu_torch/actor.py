@@ -19,7 +19,7 @@ from typing import Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
-from r2d2_tpu_torch.config import R2D2Config
+from r2d2_tpu_torch.config import R2D2Config, resolve_device
 from r2d2_tpu_torch.models.r2d2 import R2D2Network, initial_carry
 from r2d2_tpu_torch.replay.accumulator import SequenceAccumulator
 
@@ -87,13 +87,13 @@ class VectorizedActor:
         epsilons: np.ndarray,  # (E,) per-env ε (the ladder)
         push_block: Callable,  # (block, priorities, episode_reward) -> None
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         E = env.num_envs
         if len(epsilons) != E:
             raise ValueError(f"{len(epsilons)} epsilons for {E} envs")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.policy = policy.requires_grad_(False)
         self.param_store = param_store
         self.env = env

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from r2d2_tpu_torch.config import R2D2Config, require_ported
+from r2d2_tpu_torch.config import R2D2Config, require_ported, resolve_device
 from r2d2_tpu_torch.models.encoders import dense, make_encoder
 from r2d2_tpu_torch.models.lstm import LSTM, Carry
 from r2d2_tpu_torch.ops.act_tail import epsilon_greedy_actions
@@ -56,9 +56,10 @@ class R2D2Network(nn.Module):
         self.val_out = dense(hidden_dim, 1, g)
 
     @classmethod
-    def from_config(cls, cfg: R2D2Config, generator=None, device="cpu") -> "R2D2Network":
-        """Build for `device`. Refuses what the port cannot run there yet:
-        backward arms other than the default one (K4/K5) on any device."""
+    def from_config(cls, cfg: R2D2Config, generator=None, device="cuda") -> "R2D2Network":
+        """Build on `device` (the card unless the caller passes "cpu").
+        Refuses what the port cannot run there yet: backward arms other
+        than the default one (K4/K5) on any device."""
         require_ported(cfg)
         arm, _ = cfg.resolve_backward_arm(device=device)
         if arm != "default":
@@ -71,11 +72,12 @@ class R2D2Network(nn.Module):
                 "lstm_backend='scan' names the plain PyTorch versions, which "
                 "the port runs only on the CPU; use 'auto' or 'pallas'"
             )
+        dev = resolve_device(device)
         return cls(
             cfg.obs_shape, cfg.action_dim, cfg.hidden_dim, cfg.learning_steps,
             cfg.forward_steps, cfg.encoder, cfg.encoder_depth, cfg.fused_sequence,
             generator=generator,
-        )
+        ).to(dev)
 
     # ----------------------------------------------------------------- util
 
@@ -140,15 +142,15 @@ class R2D2Network(nn.Module):
     forward = unroll
 
 
-def initial_carry(batch: int, hidden_dim: int, device="cpu") -> Carry:
+def initial_carry(batch: int, hidden_dim: int, device="cuda") -> Carry:
     """Zero (h, c) — the episode-start state."""
-    z = torch.zeros((batch, hidden_dim), dtype=torch.float32, device=device)
+    z = torch.zeros((batch, hidden_dim), dtype=torch.float32, device=resolve_device(device))
     return z, z.clone()
 
 
-def init_params(cfg: R2D2Config, seed: int = 0, device="cpu") -> R2D2Network:
+def init_params(cfg: R2D2Config, seed: int = 0, device="cuda") -> R2D2Network:
     """A network with parameters drawn from an explicit torch.Generator
     seeded with `seed` (the same distributions as the flax init; not the
     same numbers)."""
     gen = torch.Generator().manual_seed(seed)
-    return R2D2Network.from_config(cfg, generator=gen, device=device).to(device)
+    return R2D2Network.from_config(cfg, generator=gen, device=device)

@@ -2,7 +2,7 @@
 
 The main path: catch env -> VectorizedActor (acting through the fused
 ε-greedy act tail) -> SequenceAccumulator -> host ReplayBuffer with
-sum-tree PER -> the learner step through the host plane, in strict
+sum-tree PER -> the learner step, in strict
 actor/learner alternation (`Trainer.run_inline`). Cadences: publish
 weights every `publish_interval` updates, actor pull every
 `actor_update_interval` env steps, target sync every
@@ -56,29 +56,6 @@ def build_vec_env(cfg: R2D2Config, seed: int = 0):
     return HostEnvPool([make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)])
 
 
-class _HostPlane:
-    """Host numpy replay; each update ships its batch host -> device.
-    Batches are copied out of the store at sample time."""
-
-    steps_per_update = 1
-
-    def __init__(self, tr: "Trainer"):
-        self.tr = tr
-        self.replay = ReplayBuffer(tr.cfg)
-        self.step_fn = make_train_step(tr.cfg)
-
-    def sample(self):
-        b = self.replay.sample_batch(self.tr.sample_rng)
-        dev = DeviceBatch.from_sampled(b, self.tr.device)
-        return dev, b.idxes, (b.old_ptr, b.old_advances)
-
-    def update(self, state, item):
-        dev, idxes, (old_ptr, old_adv) = item
-        state, m, priorities = self.step_fn(state, dev)
-        self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
-        return state, m
-
-
 class Trainer:
     def __init__(self, cfg: R2D2Config, vec_env=None, device="cuda"):
         self.device = resolve_device(device)
@@ -91,8 +68,9 @@ class Trainer:
         self.net, self.state = init_train_state(cfg, self.device)
         self._step = self.state.step
         self.sample_rng = np.random.default_rng(cfg.seed + 2)
-        self.plane = _HostPlane(self)
-        self.replay = self.plane.replay
+        # host numpy replay; each update ships its batch host -> device
+        self.replay = ReplayBuffer(cfg)
+        self.step_fn = make_train_step(cfg)
         self.param_store = ParamStore(self.state.net)
         self.actor = VectorizedActor(
             cfg,
@@ -109,10 +87,17 @@ class Trainer:
         # device -> host copy of its priorities, so it includes device time
         self.update_seconds: List[float] = []
 
+    def sample(self):
+        """One batch, copied out of the store at sample time, on the device."""
+        b = self.replay.sample_batch(self.sample_rng)
+        return DeviceBatch.from_sampled(b, self.device), b.idxes, (b.old_ptr, b.old_advances)
+
     def _one_update(self, item):
+        dev, idxes, (old_ptr, old_adv) = item
         prev = self._step
-        self.state, m = self.plane.update(self.state, item)
-        self._step += self.plane.steps_per_update
+        self.state, m, priorities = self.step_fn(self.state, dev)
+        self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
+        self._step += 1
         if self._step // self.cfg.publish_interval > prev // self.cfg.publish_interval:
             self.param_store.publish(self.state.net)
         return m
@@ -144,7 +129,7 @@ class Trainer:
         while self._step < cfg.training_steps:
             for _ in range(max(k // self.actor.steps_per_call, 1)):
                 self.actor.step()
-            item = self.plane.sample()
+            item = self.sample()
             t0 = time.perf_counter()
             m = self._one_update(item)
             self.update_seconds.append(time.perf_counter() - t0)

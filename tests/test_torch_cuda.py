@@ -84,7 +84,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     """Three updates through the kernels on the card against the same
     updates through the plain versions on the CPU."""
     cfg = tiny_test().replace(target_net_update_interval=2)
-    net = init_params(cfg, seed=1)
+    net = init_params(cfg, seed=1, device="cpu")
     states = {}
     for dev in ("cpu", "cuda"):
         online = copy.deepcopy(net).to(dev)

@@ -32,7 +32,7 @@ from r2d2_tpu_torch.config import resolve_device, tiny_test
 from r2d2_tpu_torch.envs import make_env
 from r2d2_tpu_torch.envs.catch import CatchEnv, CatchState, CatchVecEnv, catch_params
 from r2d2_tpu_torch.interop import params_from_flax
-from r2d2_tpu_torch.models.r2d2 import R2D2Network
+from r2d2_tpu_torch.models.r2d2 import R2D2Network, init_params, initial_carry
 from r2d2_tpu_torch.ops import lstm_kernel
 from r2d2_tpu_torch.ops.epsilon import epsilon_ladder
 
@@ -149,6 +149,17 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         train.Trainer(tiny_test().replace(env_name="catch"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    cfg = tiny_test().replace(env_name="catch", action_dim=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R2D2Network.from_config(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initial_carry(2, cfg.hidden_dim)
+    net = R2D2Network.from_config(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VectorizedActor(cfg, net, ParamStore(net), CatchVecEnv(3, 12, 12, seed=5),
+                        epsilon_ladder(3, 0.4, 7.0), lambda *a: None)
 
 
 def test_unported_options_are_refused_by_name():

@@ -9,6 +9,13 @@ before its write shows) on a machine without a card. It checks nothing of
 warps, the memory model or speed: the kernels themselves are held against
 the plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
+The emulated subset is small on purpose: one `extern __shared__` array, one
+`<<<>>>` launch per source, `__syncthreads`, `__ldg`, and 1-D thread and
+block indices. A kernel whose body leaves it (clusters, cooperative
+launches, warp intrinsics, wgmma, TMA) is dropped from this test and is
+held against its plain version by tests/test_torch_cuda.py and
+chip_smoke.py only; the header is not meant to grow into a CUDA emulator.
+
 Tolerance: both sides sum in float32 in other orders; forward 1e-5, dz 1e-4
 absolute, and dz exactly zero below each row's seam.
 """

@@ -205,7 +205,7 @@ def test_flax_torch_flax_round_trip_is_bitwise(variant):
 
 def test_port_init_draws_flax_shapes_from_a_seed():
     cfg = tiny_test().replace(encoder="nature", obs_shape=(36, 36, 1))
-    a, b = init_params(cfg, seed=3), init_params(cfg, seed=3)
+    a, b = (init_params(cfg, seed=3, device="cpu") for _ in range(2))
     for (k, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), k
     _, _, params, _ = _build("nature36")
