@@ -73,6 +73,10 @@ class R2D2Config:
     encoder: str = "nature"  # "nature" | "impala" | "mlp"
     # extra Dense(latent)+relu layers after the latent projection
     encoder_depth: int = 0
+    # named model-size preset (MODEL_PRESETS): "base" keeps the run
+    # preset's own dims; applied as plain field overrides by
+    # apply_model_preset() (train.py --model-preset)
+    model_preset: str = "base"
 
     # --- numerics ---------------------------------------------------------
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
@@ -216,6 +220,11 @@ class R2D2Config:
                              "it requires recurrent_core='lstm'")
         if self.encoder_depth < 0:
             raise ValueError("encoder_depth must be >= 0 (extra latent layers)")
+        if self.model_preset not in MODEL_PRESETS:
+            raise ValueError(
+                f"unknown model_preset {self.model_preset!r}; one of "
+                f"{sorted(MODEL_PRESETS)} (config.MODEL_PRESETS)"
+            )
         if self.env_name:
             self._validate_env_geometry(self.env_name, self.obs_shape)
         return self
@@ -313,6 +322,37 @@ PRESETS = {
     "atari": default_atari,
     "tiny_test": tiny_test,
 }
+
+
+# --------------------------------------------------------------------------
+# Model-size presets (the JAX package's MODEL_PRESETS): orthogonal to the run
+# PRESETS above — a run preset fixes the task and replay geometry, a model
+# preset scales the net within it, as plain field overrides
+# --------------------------------------------------------------------------
+
+MODEL_PRESETS = {
+    # the dims of whatever run preset is active
+    "base": {},
+    # wider LSTM/latent: 4x the core matmul FLOPs/bytes of hidden 512
+    "wide": {"hidden_dim": 1024},
+    # 2048-wide core: ~16x the base core
+    "xl": {"hidden_dim": 2048},
+    # deeper encoder at base width: 2 extra latent layers
+    "deep": {"encoder_depth": 2},
+    # wide core + deeper trunk
+    "deep_wide": {"hidden_dim": 1024, "encoder_depth": 2},
+}
+
+
+def apply_model_preset(cfg: R2D2Config, name: Optional[str] = None) -> R2D2Config:
+    """Overlay a MODEL_PRESETS entry onto `cfg` (default: its own
+    cfg.model_preset field) and stamp the name, re-validating."""
+    name = cfg.model_preset if name is None else name
+    if name not in MODEL_PRESETS:
+        raise ValueError(
+            f"unknown model_preset {name!r}; one of {sorted(MODEL_PRESETS)}"
+        )
+    return cfg.replace(model_preset=name, **MODEL_PRESETS[name])
 
 
 def parse_overrides(pairs) -> dict:

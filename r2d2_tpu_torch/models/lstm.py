@@ -16,16 +16,27 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from r2d2_tpu_torch.ops.lstm_kernel import _split_gates, lstm_seq_unroll
+from r2d2_tpu_torch.ops.lstm_kernel import (
+    _split_gates,
+    lstm_seq_unroll,
+    lstm_seq_unroll_ckpt,
+    lstm_seq_unroll_fused_dwh,
+    lstm_unroll,
+)
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each (B, H)
 
 
 class LSTM(nn.Module):
-    def __init__(self, hidden_dim: int, in_dim: int, generator=None):
+    def __init__(self, hidden_dim: int, in_dim: int, generator=None,
+                 backward_arm: Tuple[str, int] = ("default", 0)):
+        """`backward_arm` is the resolved (arm, ckpt_stride) of
+        ``R2D2Config.resolve_backward_arm``: which backward the unroll with
+        a seam runs."""
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
+        self.backward_arm = tuple(backward_arm)
         scale = 1.0 / H ** 0.5
 
         def uniform(*shape):
@@ -50,29 +61,27 @@ class LSTM(nn.Module):
         """Unroll (B, T, D) inputs from `carry`; returns (B, T, H) + carry.
 
         With `burn_in` (B,) the unroll places a per-row stop-gradient seam
-        at step burn_in[b] (the fused sequence op). Without it the gradient
-        runs through every step, which on the card needs the seamless
-        backward kernel (K3), not yet ported."""
+        at step burn_in[b] and runs the backward arm the core was built
+        with; without it the gradient runs through every step (the seamless
+        backward). The op is chosen as the JAX ``LSTM.__call__`` chooses."""
         B, T, D = xs.shape
         h, c = carry
         proj = (xs.reshape(B * T, D) @ self.wi + self.b).reshape(B, T, -1)
         proj_t = proj.transpose(0, 1).contiguous()  # (T, B, 4H) time-major
-        if burn_in is not None:
-            outs_t, (hT, cT) = lstm_seq_unroll(
-                proj_t, self.wh, h.contiguous(), c.contiguous(), burn_in.to(torch.int32)
-            )
-            return outs_t.transpose(0, 1), (hT, cT)
-        if xs.device.type == "cuda":
-            raise NotImplementedError(
-                "the LSTM unroll without the burn-in seam (fused_sequence="
-                "False) needs the seamless backward kernel K3, which is "
-                "queued (ROADMAP.md Queue 2)"
-            )
-        outs = []
-        for t in range(T):
-            h, c = self._gates(proj_t[t], h, c)
-            outs.append(h)
-        return torch.stack(outs, dim=1), (h, c)
+        h, c = h.contiguous(), c.contiguous()
+        arm, stride = self.backward_arm
+        if burn_in is None:
+            outs_t, (hT, cT) = lstm_unroll(proj_t, self.wh, h, c)
+        else:
+            burn_in = burn_in.to(torch.int32)
+            if arm == "ckpt":
+                unroll = lstm_seq_unroll_ckpt(stride)
+            elif arm == "fused_dwh":
+                unroll = lstm_seq_unroll_fused_dwh
+            else:
+                unroll = lstm_seq_unroll
+            outs_t, (hT, cT) = unroll(proj_t, self.wh, h, c, burn_in)
+        return outs_t.transpose(0, 1), (hT, cT)
 
     def step(self, x: torch.Tensor, carry: Carry) -> Tuple[torch.Tensor, Carry]:
         """Single acting step on (B, D) input."""

@@ -40,6 +40,7 @@ class R2D2Network(nn.Module):
         encoder_depth: int = 0,
         fused_sequence: bool = True,
         generator: Optional[torch.Generator] = None,
+        backward_arm: Tuple[str, int] = ("default", 0),
     ):
         super().__init__()
         self.action_dim = action_dim
@@ -49,7 +50,8 @@ class R2D2Network(nn.Module):
         self.fused_sequence = fused_sequence
         g = generator
         self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g)
-        self.core = LSTM(hidden_dim, hidden_dim + action_dim + 1, generator=g)
+        self.core = LSTM(hidden_dim, hidden_dim + action_dim + 1, generator=g,
+                         backward_arm=backward_arm)
         self.adv_hidden = dense(hidden_dim, hidden_dim, g)
         self.adv_out = dense(hidden_dim, action_dim, g)
         self.val_hidden = dense(hidden_dim, hidden_dim, g)
@@ -57,16 +59,10 @@ class R2D2Network(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: R2D2Config, generator=None, device="cuda") -> "R2D2Network":
-        """Build on `device` (the card unless the caller passes "cpu").
-        Refuses what the port cannot run there yet: backward arms other
-        than the default one (K4/K5) on any device."""
+        """Build on `device` (the card unless the caller passes "cpu"),
+        with the core running the backward arm that
+        ``cfg.resolve_backward_arm`` resolves for that device."""
         require_ported(cfg)
-        arm, _ = cfg.resolve_backward_arm(device=device)
-        if arm != "default":
-            raise NotImplementedError(
-                f"backward arm {arm!r} (kernels K4/K5) is queued; use "
-                "backward_arm='default'"
-            )
         if torch.device(device).type == "cuda" and cfg.lstm_backend == "scan":
             raise ValueError(
                 "lstm_backend='scan' names the plain PyTorch versions, which "
@@ -76,7 +72,7 @@ class R2D2Network(nn.Module):
         return cls(
             cfg.obs_shape, cfg.action_dim, cfg.hidden_dim, cfg.learning_steps,
             cfg.forward_steps, cfg.encoder, cfg.encoder_depth, cfg.fused_sequence,
-            generator=generator,
+            generator=generator, backward_arm=cfg.resolve_backward_arm(device=dev.type),
         ).to(dev)
 
     # ----------------------------------------------------------------- util

@@ -2,10 +2,10 @@
 
 Each source under ``r2d2_tpu_torch/csrc/`` has a plain C interface and is
 compiled on its own into a shared library in ``r2d2_tpu_torch/_build/``
-(listed in .gitignore) at first use. The library name carries a hash of
-the source and the flags, so an edited source is never served by a stale
-build. Sources build in parallel: one nvcc process each, all started
-together.
+(listed in .gitignore). The first kernel loaded builds every source, in
+parallel: one nvcc process each, all started together. The library name
+carries a hash of the source and the flags, so an edited source is never
+served by a stale build.
 
 Nothing here runs at import time; the CPU test suite imports this module
 on machines without nvcc.
@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +43,11 @@ def nvcc_path() -> str:
     if found:
         return found
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def sources() -> List[str]:
+    """The kernel names: one per csrc/<name>.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def _library_path(name: str) -> Path:
@@ -88,6 +93,12 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
+def _built() -> Dict[str, Path]:
+    return build(sources())
+
+
+@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for csrc/<name>.cu, building it if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+    """The built library for csrc/<name>.cu; the first call builds every
+    source that has no current build."""
+    return ctypes.CDLL(str(_built()[name]))

@@ -1,7 +1,7 @@
-"""The fused LSTM sequence unroll: two hand-written Hopper kernels, their
-plain PyTorch versions, and the autograd Function that joins them.
+"""The fused LSTM unroll: five hand-written Hopper kernels, their plain
+PyTorch versions, and the autograd Functions that join them.
 
-Port of the default arm of r2d2_tpu/ops/pallas_lstm.py:
+Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
 
 - ``lstm_fwd`` — csrc/lstm_fwd.cu, replacing ``_fwd_kernel``: the fused
   T-step forward. ``proj_t (T,B,4H)`` (x @ Wi + b for every step, computed
@@ -9,11 +9,22 @@ Port of the default arm of r2d2_tpu/ops/pallas_lstm.py:
   ``cs (T,B,H)``.
 - ``lstm_seq_bwd`` — csrc/lstm_seq_bwd.cu, replacing ``_seq_bwd_kernel``:
   the reverse walk with the per-row burn-in seam, -> ``dz (T,B,4H)``.
-- ``lstm_seq_unroll`` — the ``torch.autograd.Function`` with the contract of
-  ``pallas_lstm.lstm_seq_unroll``: one forward launch; in the backward the
-  h_T cotangent folds into ``dout[-1]`` and the c_T cotangent seeds the cell
-  carry, ``dproj = dz``, ``dWh = hprev^T @ dz`` as one matmul outside the
-  kernel, zero tensors for ``dh0`` / ``dc0`` and no gradient for the seam.
+- ``lstm_bwd`` — csrc/lstm_bwd.cu, replacing ``_bwd_kernel``: the reverse
+  walk with no seam, -> ``dz`` and the real ``dh0, dc0 (B,H)``.
+- ``lstm_seq_bwd_fused`` — csrc/lstm_seq_bwd_fused.cu, replacing
+  ``_seq_bwd_fused_kernel``: the seam walk with ``dWh = sum_t
+  h_{t-1}^T @ dz_t`` accumulated inside the kernel, -> ``dz``, ``dwh``.
+- ``lstm_seq_bwd_ckpt`` — csrc/lstm_seq_bwd_ckpt.cu, replacing
+  ``_seq_bwd_ckpt_kernel``: per S-step segment, newest first, the forward
+  recomputed from the segment's checkpointed carry, then the seam walk
+  with the in-kernel dWh, -> ``dz``, ``dwh``.
+
+The autograd Functions carry the contracts of the JAX custom-VJP ops:
+``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
+arm: dWh as one matmul outside the kernel), ``lstm_seq_unroll_fused_dwh``
+and ``lstm_seq_unroll_ckpt(S)`` (the two other backward arms). In every
+backward the h_T cotangent folds into ``dout[-1]`` and the c_T cotangent
+seeds the cell carry.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises. There is no fallback from one to
@@ -25,13 +36,25 @@ Float32 only in this slice (bfloat16 is queued as M7).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
 
+# each kernel (csrc/<name>.cu) and its C arguments: (pointers, ints), then
+# the stream
+_SIGNATURES = {
+    "lstm_fwd": (6, 3),             # ..., T, B, H
+    "lstm_seq_bwd": (10, 3),
+    "lstm_bwd": (11, 3),
+    "lstm_seq_bwd_fused": (13, 3),
+    "lstm_seq_bwd_ckpt": (14, 4),   # ..., T, B, H, S
+}
+KERNELS = tuple(_SIGNATURES)
+
 # kernel launches since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else
-launch_counts: Dict[str, int] = {"lstm_fwd": 0, "lstm_seq_bwd": 0}
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +89,36 @@ def lstm_fwd_plain(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(outs), torch.stack(cs)
 
 
+def _bwd_step(dout_t, proj_tt, h_prev, c_prev, c_t, wh, dh, dc, keep=None, carry_keep=None):
+    """One reverse step of every backward kernel: the gates recomputed from
+    h_{t-1}, -> (dz_t, dh, dc) carried into step t-1. `keep` masks the
+    step's output cotangent and `carry_keep` cuts the carry (the seam);
+    None means no seam."""
+    H = wh.shape[0]
+    z = proj_tt.float() + h_prev.to(wh.dtype) @ wh
+    i, f, g, o = _split_gates(z, H)
+    tanh_c = torch.tanh(c_t)
+    d_out = dout_t.float()
+    if keep is not None:
+        d_out = torch.where(keep, d_out, 0.0)
+    dh_t = d_out + dh
+    do = dh_t * tanh_c
+    dc_t = dh_t * o * (1.0 - tanh_c * tanh_c) + dc
+    di = dc_t * g
+    df = dc_t * c_prev
+    dg = dc_t * i
+    dz_t = torch.cat(
+        [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g), do * o * (1.0 - o)],
+        dim=-1,
+    )
+    dh = dz_t.to(wh.dtype) @ wh.T
+    dc = dc_t * f
+    if carry_keep is not None:
+        dh = torch.where(carry_keep, dh, 0.0)
+        dc = torch.where(carry_keep, dc, 0.0)
+    return dz_t, dh, dc
+
+
 def lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     T, B, H = cs.shape
     burn = burn.reshape(B, 1)
@@ -73,25 +126,62 @@ def lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.T
     dc = dcT.float()
     dz = [None] * T
     for t in reversed(range(T)):
-        keep = t >= burn
-        carry_keep = t > burn
-        z = proj_t[t].float() + hprev[t].to(wh.dtype) @ wh
-        i, f, g, o = _split_gates(z, H)
-        tanh_c = torch.tanh(cs[t])
-        dh_t = torch.where(keep, dout[t].float(), 0.0) + dh
-        do = dh_t * tanh_c
-        dc_t = dh_t * o * (1.0 - tanh_c * tanh_c) + dc
-        di = dc_t * g
-        df = dc_t * cprev[t]
-        dg = dc_t * i
-        dz_t = torch.cat(
-            [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g), do * o * (1.0 - o)],
-            dim=-1,
-        )
-        dz[t] = dz_t
-        dh = torch.where(carry_keep, dz_t.to(wh.dtype) @ wh.T, 0.0)
-        dc = torch.where(carry_keep, dc_t * f, 0.0)
+        dz[t], dh, dc = _bwd_step(dout[t], proj_t[t], hprev[t], cprev[t], cs[t], wh, dh, dc,
+                                  t >= burn, t > burn)
     return torch.stack(dz)
+
+
+def lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT):
+    """(dz, dh0, dc0): the reverse walk with no seam; after step 0 the
+    carry holds the initial state's cotangents."""
+    T, B, H = cs.shape
+    dh = torch.zeros((B, H), dtype=torch.float32, device=cs.device)
+    dc = dcT.float()
+    dz = [None] * T
+    for t in reversed(range(T)):
+        dz[t], dh, dc = _bwd_step(dout[t], proj_t[t], hprev[t], cprev[t], cs[t], wh, dh, dc)
+    return torch.stack(dz), dh, dc
+
+
+def lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
+    """(dz in proj dtype, dwh f32): the seam walk, adding h_{t-1}^T @ dz_t
+    into dWh at every step as the fused kernel does."""
+    T, B, H = cs.shape
+    burn = burn.reshape(B, 1)
+    dh = torch.zeros((B, H), dtype=torch.float32, device=cs.device)
+    dc = dcT.float()
+    dwh = torch.zeros((H, 4 * H), dtype=torch.float32, device=cs.device)
+    dz = [None] * T
+    for t in reversed(range(T)):
+        dz_t, dh, dc = _bwd_step(dout[t], proj_t[t], hprev[t], cprev[t], cs[t], wh, dh, dc,
+                                 t >= burn, t > burn)
+        dwh += hprev[t].float().T @ dz_t
+        dz[t] = dz_t.to(proj_t.dtype)
+    return torch.stack(dz), dwh
+
+
+def lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
+    """(dz in proj dtype, dwh f32) from the N = T/S segment-entry carries:
+    per segment, newest first, the forward recomputed from its checkpoint,
+    then the seam walk on the real step index with dWh added per step."""
+    T, B, H = dout.shape
+    burn = burn.reshape(B, 1)
+    dh = torch.zeros((B, H), dtype=torch.float32, device=dout.device)
+    dc = dcT.float()
+    dwh = torch.zeros((H, 4 * H), dtype=torch.float32, device=dout.device)
+    dz = [None] * T
+    for seg in reversed(range(T // S)):
+        base = seg * S
+        outs, cs = lstm_fwd_plain(proj_t[base : base + S], wh, h_ckpt[seg], c_ckpt[seg])
+        hs = torch.cat([h_ckpt[seg].float()[None], outs.float()])
+        cs = torch.cat([c_ckpt[seg].float()[None], cs])
+        for s in reversed(range(S)):
+            t = base + s
+            dz_t, dh, dc = _bwd_step(dout[t], proj_t[t], hs[s], cs[s], cs[s + 1], wh, dh, dc,
+                                     t >= burn, t > burn)
+            dwh += hs[s].T @ dz_t
+            dz[t] = dz_t.to(proj_t.dtype)
+    return torch.stack(dz), dwh
 
 
 # --------------------------------------------------------------------------
@@ -102,13 +192,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _kernel(name: str, n_ptrs: int):
+def _kernel(name: str):
     from r2d2_tpu_torch.ops import _build
 
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptrs + [_I, _I, _I, _P]
+        n_ptrs, n_ints = _SIGNATURES[name]
+        fn.argtypes = [_P] * n_ptrs + [_I] * n_ints + [_P]
         fn.restype = _I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_I]
@@ -127,11 +218,13 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, n_ptrs: int, tensors, T: int, B: int, H: int, device) -> None:
-    fn, err_str = _kernel(name, n_ptrs)
+def _launch(name: str, tensors, ints, device) -> None:
+    if (len(tensors), len(ints)) != _SIGNATURES[name]:
+        raise TypeError(f"{name} takes {_SIGNATURES[name]} (pointers, ints)")
+    fn, err_str = _kernel(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*(t.data_ptr() for t in tensors), T, B, H, stream)
+        code = fn(*(t.data_ptr() for t in tensors), *ints, stream)
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: {err_str(code).decode()} ({code})")
     launch_counts[name] += 1
@@ -141,6 +234,31 @@ def _device_of(t: torch.Tensor, op: str) -> torch.device:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {t.device}")
     return t.device
+
+
+def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev) -> None:
+    """The operands every reverse walk over saved (T,B,H) residuals takes."""
+    T, B, H = cs.shape
+    f32 = torch.float32
+    _check("dout", dout, (T, B, H), f32, dev)
+    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
+    _check("hprev", hprev, (T, B, H), f32, dev)
+    _check("cprev", cprev, (T, B, H), f32, dev)
+    _check("cs", cs, (T, B, H), f32, dev)
+    _check("wh", wh, (H, 4 * H), f32, dev)
+    _check("dcT", dcT, (B, H), f32, dev)
+
+
+# batch rows per block of the backward kernels (kRows in csrc/*.cu)
+_ROWS_PER_BLOCK = 4
+
+
+def _dwh_workspace(B: int, H: int, dev):
+    """Per-block dWh partials (one per row tile) and the ticket counter
+    with which the last block to finish finds itself and sums them."""
+    tiles = -(-B // _ROWS_PER_BLOCK)
+    return (torch.empty((tiles, H, 4 * H), dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,7 +276,7 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
         return lstm_fwd_plain(proj_t, wh, h0, c0)
     outs = torch.empty((T, B, H), dtype=f32, device=dev)
     cs = torch.empty((T, B, H), dtype=f32, device=dev)
-    _launch("lstm_fwd", 6, (proj_t, wh, h0, c0, outs, cs), T, B, H, dev)
+    _launch("lstm_fwd", (proj_t, wh, h0, c0, outs, cs), (T, B, H), dev)
     return outs, cs
 
 
@@ -168,30 +286,140 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     int32, 0 <= burn[b] < T."""
     dev = _device_of(cs, "lstm_seq_bwd")
     T, B, H = cs.shape
-    f32 = torch.float32
-    _check("dout", dout, (T, B, H), f32, dev)
-    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
-    _check("hprev", hprev, (T, B, H), f32, dev)
-    _check("cprev", cprev, (T, B, H), f32, dev)
-    _check("cs", cs, (T, B, H), f32, dev)
-    _check("wh", wh, (H, 4 * H), f32, dev)
-    _check("dcT", dcT, (B, H), f32, dev)
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
     # the carry product reads wh^T row by row: one contiguous copy per call
     whT = wh.t().contiguous()
-    dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
-    _launch(
-        "lstm_seq_bwd", 10,
-        (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, burn, dz), T, B, H, dev,
-    )
+    dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    _launch("lstm_seq_bwd", (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, burn, dz),
+            (T, B, H), dev)
     return dz
 
 
+def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
+    """(dz (T,B,4H), dh0 (B,H), dc0 (B,H)), all float32, of the backward
+    with no seam. Kernel on CUDA, plain version on the CPU."""
+    dev = _device_of(cs, "lstm_bwd")
+    T, B, H = cs.shape
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
+    if dev.type == "cpu":
+        return lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT)
+    whT = wh.t().contiguous()
+    f32 = torch.float32
+    dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H), dtype=f32, device=dev)
+    dc0 = torch.empty((B, H), dtype=f32, device=dev)
+    _launch("lstm_bwd", (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, dz, dh0, dc0),
+            (T, B, H), dev)
+    return dz, dh0, dc0
+
+
+def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
+    """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the seam backward
+    with dWh accumulated in the kernel. Kernel on CUDA, plain version on
+    the CPU. On the card dz is bitwise the seam kernel's; dWh differs from
+    the plain version by summation order only."""
+    dev = _device_of(cs, "lstm_seq_bwd_fused")
+    T, B, H = cs.shape
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
+    _check("burn", burn, (B,), torch.int32, dev)
+    if dev.type == "cpu":
+        return lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
+    whT = wh.t().contiguous()
+    dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
+    dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
+    part, ticket = _dwh_workspace(B, H, dev)
+    _launch("lstm_seq_bwd_fused",
+            (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, burn, dz, dwh, part, ticket),
+            (T, B, H), dev)
+    return dz, dwh
+
+
+def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
+    """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the checkpointed
+    seam backward. `h_ckpt`, `c_ckpt` (T/S, B, H) are the carries entering
+    each S-step segment. Kernel on CUDA, plain version on the CPU."""
+    dev = _device_of(dout, "lstm_seq_bwd_ckpt")
+    T, B, H = dout.shape
+    if S < 1 or T % S:
+        raise ValueError(f"seq len {T} not divisible by checkpoint segment {S}")
+    N = T // S
+    f32 = torch.float32
+    _check("dout", dout, (T, B, H), f32, dev)
+    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
+    _check("h_ckpt", h_ckpt, (N, B, H), f32, dev)
+    _check("c_ckpt", c_ckpt, (N, B, H), f32, dev)
+    _check("wh", wh, (H, 4 * H), f32, dev)
+    _check("dcT", dcT, (B, H), f32, dev)
+    _check("burn", burn, (B,), torch.int32, dev)
+    if dev.type == "cpu":
+        return lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S)
+    whT = wh.t().contiguous()
+    dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
+    dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
+    part, ticket = _dwh_workspace(B, H, dev)
+    # the recomputed segment's h and c, (S+1, B, H) each; every block
+    # touches only its own rows
+    seg_h = torch.empty((S + 1, B, H), dtype=f32, device=dev)
+    seg_c = torch.empty((S + 1, B, H), dtype=f32, device=dev)
+    _launch("lstm_seq_bwd_ckpt",
+            (dout, proj_t, h_ckpt, c_ckpt, wh, whT, dcT, burn, dz, dwh, part, ticket,
+             seg_h, seg_c),
+            (T, B, H, S), dev)
+    return dz, dwh
+
+
 # --------------------------------------------------------------------------
-# autograd op
+# autograd ops
 # --------------------------------------------------------------------------
+
+
+def _cotangents(douts, dhT, dcT):
+    """(dout with the h_T cotangent folded into its last step, dcT), as
+    fresh contiguous float32 tensors: the incoming cotangent may be a
+    strided view (the caller transposes outs to batch-major)."""
+    douts = douts.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    douts[-1] += dhT.float()
+    return douts, dcT.float().contiguous()
+
+
+def _carries(h0, c0, outs, cs):
+    """(h_{t-1}, c_{t-1}) for every step t."""
+    hprev = torch.cat([h0.to(outs.dtype)[None], outs[:-1]], dim=0)
+    cprev = torch.cat([c0.float()[None], cs[:-1]], dim=0)
+    return hprev, cprev
+
+
+def _outer_dwh(hprev, dz, wh):
+    """dWh = hprev^T @ dz as one matmul outside the kernel: (H, T*B) @ (T*B, 4H)."""
+    T, B, H = hprev.shape
+    return (hprev.reshape(T * B, H).float().T @ dz.reshape(T * B, 4 * H)).to(wh.dtype)
+
+
+class _Unroll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, proj_t, wh, h0, c0):
+        outs, cs = lstm_fwd(proj_t, wh, h0, c0)
+        ctx.save_for_backward(proj_t, wh, h0, c0, outs)
+        ctx.cs = cs
+        return outs, outs[-1].float().clone(), cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, douts, dhT, dcT):
+        proj_t, wh, h0, c0, outs = ctx.saved_tensors
+        douts, dcT = _cotangents(douts, dhT, dcT)
+        hprev, cprev = _carries(h0, c0, outs, ctx.cs)
+        dz, dh0, dc0 = lstm_bwd(douts, proj_t, hprev, cprev, ctx.cs, wh, dcT)
+        return dz.to(proj_t.dtype), _outer_dwh(hprev, dz, wh), dh0.to(h0.dtype), dc0.to(c0.dtype)
+
+
+def lstm_unroll(proj_t, wh, h0, c0):
+    """Fused LSTM unroll with no seam: (outs (T,B,H), (h_T, c_T)). The
+    gradient runs through every step into h0 / c0."""
+    outs, hT, cT = _Unroll.apply(proj_t, wh, h0, c0)
+    return outs, (hT, cT)
 
 
 class _SeqUnroll(torch.autograd.Function):
@@ -205,23 +433,29 @@ class _SeqUnroll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, douts, dhT, dcT):
         proj_t, wh, h0, c0, burn_in, outs = ctx.saved_tensors
-        cs = ctx.cs
-        T, B, H = cs.shape
-        # a fresh contiguous copy: the incoming cotangent may be a strided
-        # view (the caller transposes outs to batch-major)
-        douts = douts.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-        douts[-1] += dhT.float()
-        hprev = torch.cat([h0.to(outs.dtype)[None], outs[:-1]], dim=0)
-        cprev = torch.cat([c0.float()[None], cs[:-1]], dim=0)
-        dz = lstm_seq_bwd(
-            douts, proj_t, hprev, cprev, cs, wh, dcT.float().contiguous(),
-            burn_in.to(torch.int32).contiguous(),
-        )
-        dproj = dz.to(proj_t.dtype)
+        douts, dcT = _cotangents(douts, dhT, dcT)
+        hprev, cprev = _carries(h0, c0, outs, ctx.cs)
+        dz = lstm_seq_bwd(douts, proj_t, hprev, cprev, ctx.cs, wh, dcT,
+                          burn_in.to(torch.int32).contiguous())
         # dz is exactly zero below each row's seam, so burn-in steps drop
-        # out of the weight gradient too: (H, T*B) @ (T*B, 4H)
-        dwh = (hprev.reshape(T * B, H).float().T @ dz.reshape(T * B, 4 * H)).to(wh.dtype)
-        return dproj, dwh, torch.zeros_like(h0), torch.zeros_like(c0), None
+        # out of the weight gradient too
+        return (dz.to(proj_t.dtype), _outer_dwh(hprev, dz, wh),
+                torch.zeros_like(h0), torch.zeros_like(c0), None)
+
+
+class _SeqUnrollFusedDwh(_SeqUnroll):
+    """The default arm's forward and residuals; the backward kernel adds
+    dWh up itself."""
+
+    @staticmethod
+    def backward(ctx, douts, dhT, dcT):
+        proj_t, wh, h0, c0, burn_in, outs = ctx.saved_tensors
+        douts, dcT = _cotangents(douts, dhT, dcT)
+        hprev, cprev = _carries(h0, c0, outs, ctx.cs)
+        dz, dwh = lstm_seq_bwd_fused(douts, proj_t, hprev, cprev, ctx.cs, wh, dcT,
+                                     burn_in.to(torch.int32).contiguous())
+        return (dz.to(proj_t.dtype), dwh.to(wh.dtype),
+                torch.zeros_like(h0), torch.zeros_like(c0), None)
 
 
 def lstm_seq_unroll(proj_t, wh, h0, c0, burn_in):
@@ -232,6 +466,52 @@ def lstm_seq_unroll(proj_t, wh, h0, c0, burn_in):
     0 <= burn_in[b] < T."""
     outs, hT, cT = _SeqUnroll.apply(proj_t, wh, h0, c0, burn_in)
     return outs, (hT, cT)
+
+
+def lstm_seq_unroll_fused_dwh(proj_t, wh, h0, c0, burn_in):
+    """:func:`lstm_seq_unroll` with the fused-dWh backward arm: the same
+    forward, values and residuals; only the backward kernel differs."""
+    outs, hT, cT = _SeqUnrollFusedDwh.apply(proj_t, wh, h0, c0, burn_in)
+    return outs, (hT, cT)
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_seq_unroll_ckpt(S: int):
+    """Build the checkpointed-backward sequence op for segment length S:
+    :func:`lstm_seq_unroll`'s signature and forward values, but the forward
+    saves only the T/S carries entering each segment, not outs / cs. The
+    factory is cached: one op per S. Raises ValueError when T % S."""
+    if S < 1:
+        raise ValueError(f"seq_grad_checkpoint segment length must be >= 1, got {S}")
+
+    class _SeqUnrollCkpt(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, proj_t, wh, h0, c0, burn_in):
+            T = proj_t.shape[0]
+            if T % S:
+                raise ValueError(f"seq len {T} not divisible by checkpoint segment {S}")
+            outs, cs = lstm_fwd(proj_t, wh, h0, c0)
+            # the carries entering segments 1..N-1 are the step-(kS-1)
+            # outputs; segment 0 starts from (h0, c0)
+            h_ckpt = torch.cat([h0.to(outs.dtype)[None], outs[S - 1 : T - 1 : S]])
+            c_ckpt = torch.cat([c0.float()[None], cs[S - 1 : T - 1 : S]])
+            ctx.save_for_backward(proj_t, wh, h0, c0, burn_in, h_ckpt, c_ckpt)
+            return outs, outs[-1].float().clone(), cs[-1].clone()
+
+        @staticmethod
+        def backward(ctx, douts, dhT, dcT):
+            proj_t, wh, h0, c0, burn_in, h_ckpt, c_ckpt = ctx.saved_tensors
+            douts, dcT = _cotangents(douts, dhT, dcT)
+            dz, dwh = lstm_seq_bwd_ckpt(douts, proj_t, h_ckpt, c_ckpt, wh, dcT,
+                                        burn_in.to(torch.int32).contiguous(), S)
+            return (dz.to(proj_t.dtype), dwh.to(wh.dtype),
+                    torch.zeros_like(h0), torch.zeros_like(c0), None)
+
+    def seq_unroll_ckpt(proj_t, wh, h0, c0, burn_in):
+        outs, hT, cT = _SeqUnrollCkpt.apply(proj_t, wh, h0, c0, burn_in)
+        return outs, (hT, cT)
+
+    return seq_unroll_ckpt
 
 
 # --------------------------------------------------------------------------

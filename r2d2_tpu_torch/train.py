@@ -14,6 +14,11 @@ Threaded mode, checkpoints, metrics files and evaluation are queued (M6).
     python -m r2d2_tpu_torch.train --preset atari --env catch --mode inline \
         --steps 100 --set compute_dtype=float32
 
+Every backward arm of the JAX package runs: ``--set backward_arm=fused_dwh``
+or ``--set backward_arm=ckpt`` forces one, ``--set fused_sequence=false``
+trains through the seamless backward, and ``--model-preset xl`` (hidden
+2048) resolves to the checkpointed arm under the default residual budget.
+
 runs on the CUDA device; ``--device cpu`` runs the plain versions of the
 kernels on the CPU instead.
 """
@@ -34,6 +39,7 @@ from r2d2_tpu_torch.actor import HostEnvPool, ParamStore, VectorizedActor
 from r2d2_tpu_torch.config import (
     PRESETS,
     R2D2Config,
+    apply_model_preset,
     parse_overrides,
     require_ported,
     resolve_device,
@@ -146,6 +152,8 @@ class Trainer:
             "episodes": episodes,
             "mean_return": reward_sum / episodes if episodes else None,
             "backward_arm": self.backward_arm[0],
+            **({"backward_arm_stride": self.backward_arm[1]}
+               if self.backward_arm[0] == "ckpt" else {}),
             **m,
         }
 
@@ -157,6 +165,10 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--mode", default="inline", choices=["inline"],
                    help="inline: strict actor/learner alternation (threaded mode is queued, M6)")
+    p.add_argument("--model-preset", default=None,
+                   help="named model-size preset (config.MODEL_PRESETS: wide/xl "
+                        "widen the LSTM, deep/deep_wide add encoder layers) applied "
+                        "over the run preset; --set still wins on single fields")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any R2D2Config field (repeatable)")
     p.add_argument("--device", default="cuda",
@@ -169,6 +181,8 @@ def main(argv=None):
         # init_train_state turns TF32 off (config.set_fp32_numerics)
         print("fp32: TF32 is off for cuBLAS matmuls and cuDNN convolutions", file=sys.stderr)
     cfg = PRESETS[args.preset]()
+    if args.model_preset:
+        cfg = apply_model_preset(cfg, args.model_preset)
     overrides = {}
     if args.env:
         overrides["env_name"] = args.env

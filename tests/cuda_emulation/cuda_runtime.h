@@ -22,6 +22,8 @@ inline std::barrier<>* g_bar = nullptr;
 inline float* g_smem = nullptr;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 typedef int cudaError_t; enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }

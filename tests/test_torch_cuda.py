@@ -9,7 +9,10 @@ and without JAX it runs on its own, skipping the suite's JAX conftest:
 Tolerances: the kernels and the plain versions both work in float32 but sum
 the H-long (and 4H-long) dot products in other orders, and the recurrence
 carries those differences through T steps; 1e-4 absolute (dz also 1e-4
-relative) holds them with room at T=85, H=512.
+relative) holds them with room at T=85, H=512. dWh, summed in the kernel
+over per-block partials, is held to 1e-4 of its largest entry: each entry
+sums T*B products of both signs, so entries that cancel to near zero have
+no meaningful relative error.
 """
 
 import copy
@@ -37,7 +40,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(7, 5, 32), (13, 67, 96), (3, 2, 640), (85, 64, 512)])
+SHAPES = [(7, 5, 32), (13, 67, 96), (3, 2, 640), (85, 64, 512)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_kernels_match_plain_versions(cuda, shape):
     T, B, H = shape
     rng = np.random.default_rng(T * B + H)
@@ -64,7 +70,59 @@ def test_kernels_match_plain_versions(cuda, shape):
         for b in range(B):
             assert not dz[: int(burn_np[b]), b].any()
     torch.cuda.synchronize()
-    assert lstm_kernel.launch_counts == {"lstm_fwd": 1, "lstm_seq_bwd": 4}
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd=1, lstm_seq_bwd=4)
+
+
+def _assert_dwh_close(got, want):
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_arm_kernels_match_plain_versions(cuda, shape):
+    """K3 (no seam), K4 (fused dWh) and K5 (checkpointed, at every divisor
+    stride of T) against their plain versions, seams at 0, mid, T-1 and
+    mixed; K4's dz is the seam kernel's, bit for bit."""
+    T, B, H = shape
+    rng = np.random.default_rng(T * B + H + 1)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda)
+
+    proj = put(rng.normal(size=(T, B, 4 * H)))
+    wh = put(rng.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H))
+    h0, c0 = put(rng.normal(size=(B, H)) * 0.3), put(rng.normal(size=(B, H)) * 0.3)
+    outs, cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    hprev, cprev = torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]])
+    dout, dcT = put(rng.normal(size=(T, B, H))), put(rng.normal(size=(B, H)))
+    walk = (dout, proj, hprev, cprev, cs, wh, dcT)
+    lstm_kernel.reset_launch_counts()
+    for got, want in zip(lstm_kernel.lstm_bwd(*walk), lstm_kernel.lstm_bwd_plain(*walk)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    strides = [S for S in range(1, T + 1) if T % S == 0]
+    for burn_np in (np.zeros(B), np.full(B, T // 2), np.full(B, T - 1), rng.integers(0, T, B)):
+        burn = torch.from_numpy(burn_np.astype(np.int32)).to(cuda)
+        dz, dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)
+        torch.testing.assert_close(dz, p_dz, rtol=1e-4, atol=1e-4)
+        _assert_dwh_close(dwh, p_dwh)
+        assert torch.equal(dz, lstm_kernel.lstm_seq_bwd(*walk, burn))
+        for S in strides:
+            h_ckpt = torch.cat([h0[None], outs[S - 1 : T - 1 : S]])
+            c_ckpt = torch.cat([c0[None], cs[S - 1 : T - 1 : S]])
+            args = (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, S)
+            dz_k, dwh_k = lstm_kernel.lstm_seq_bwd_ckpt(*args)
+            p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(*args)
+            torch.testing.assert_close(dz_k, p_dz, rtol=1e-4, atol=1e-4)
+            _assert_dwh_close(dwh_k, p_dwh)
+            for b in range(B):
+                assert not dz_k[: int(burn_np[b]), b].any()
+        for b in range(B):
+            assert not dz[: int(burn_np[b]), b].any()
+    torch.cuda.synchronize()
+    assert lstm_kernel.launch_counts == dict(
+        lstm_fwd=0, lstm_bwd=1, lstm_seq_bwd=4, lstm_seq_bwd_fused=4,
+        lstm_seq_bwd_ckpt=4 * len(strides))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -83,7 +141,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_train_steps_on_the_card_match_the_cpu(cuda):
     """Three updates through the kernels on the card against the same
     updates through the plain versions on the CPU."""
-    cfg = tiny_test().replace(target_net_update_interval=2)
+    _card_vs_cpu(tiny_test().replace(target_net_update_interval=2), steps=3)
+
+
+@pytest.mark.parametrize("arm", [{"backward_arm": "fused_dwh"}, {"backward_arm": "ckpt"},
+                                 {"fused_sequence": False}], ids=["fused_dwh", "ckpt", "no_seam"])
+def test_train_step_per_arm_on_the_card_matches_the_cpu(cuda, arm):
+    """One update under each other backward arm; "pallas" names the arms'
+    kernels on the card and their plain versions on the CPU."""
+    cfg = tiny_test().replace(lstm_backend="pallas", **arm)
+    want = {"fused_dwh": "fused_dwh", "ckpt": "ckpt"}.get(arm.get("backward_arm"), "default")
+    assert cfg.resolve_backward_arm(device="cuda")[0] == want
+    lstm_kernel.reset_launch_counts()
+    _card_vs_cpu(cfg, steps=1)
+    kernel = {"fused_dwh": "lstm_seq_bwd_fused", "ckpt": "lstm_seq_bwd_ckpt"}.get(want, "lstm_bwd")
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd=2, **{kernel: 1})
+
+
+def _card_vs_cpu(cfg, steps):
     net = init_params(cfg, seed=1, device="cpu")
     states = {}
     for dev in ("cpu", "cuda"):
@@ -97,7 +173,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     class Sampled:
         pass
 
-    for _ in range(3):
+    for _ in range(steps):
         b = Sampled()
         b.obs = rng.integers(0, 256, size=(Bn, T, *cfg.obs_shape), dtype=np.uint8)
         b.last_action = rng.integers(0, cfg.action_dim, size=(Bn, T))

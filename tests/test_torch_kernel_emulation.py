@@ -10,14 +10,18 @@ warps, the memory model or speed: the kernels themselves are held against
 the plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
 The emulated subset is small on purpose: one `extern __shared__` array, one
-`<<<>>>` launch per source, `__syncthreads`, `__ldg`, and 1-D thread and
-block indices. A kernel whose body leaves it (clusters, cooperative
+`<<<>>>` launch per source, `__syncthreads`, `__ldg`, `__threadfence`, an
+integer `atomicAdd`, and 1-D thread and block indices (`__launch_bounds__`
+is dropped). A kernel whose body leaves it (clusters, cooperative
 launches, warp intrinsics, wgmma, TMA) is dropped from this test and is
 held against its plain version by tests/test_torch_cuda.py and
 chip_smoke.py only; the header is not meant to grow into a CUDA emulator.
 
 Tolerance: both sides sum in float32 in other orders; forward 1e-5, dz 1e-4
-absolute, and dz exactly zero below each row's seam.
+absolute, and dz exactly zero below each row's seam. dWh is held to 1e-4 of
+its largest entry: each entry sums T*B products in another order (per-block
+partials, then over blocks), and entries that cancel to near zero have no
+meaningful relative error.
 """
 
 import ctypes
@@ -36,13 +40,21 @@ torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "r2d2_tpu_torch", "csrc")
-N_PTRS = {"lstm_fwd": 6, "lstm_seq_bwd": 10}
+# each kernel's C arguments after the pointers: T, B, H (and S), then the stream
+ARGS = {
+    "lstm_fwd": (6, 3),
+    "lstm_seq_bwd": (10, 3),
+    "lstm_bwd": (11, 3),
+    "lstm_seq_bwd_fused": (13, 3),
+    "lstm_seq_bwd_ckpt": (14, 4),
+}
 
 
 def _emulated(name, out_dir):
     """csrc/<name>.cu rewritten for the emulation header and built with g++."""
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
+    src = re.sub(r"__launch_bounds__\(\w+\)", "", src)  # a register budget: no CPU meaning
     src, n = re.subn(r"(\w+)<<<([^>]*)>>>\((.*?)\);", r"emulate(\2, [&] { \1(\3); });",
                      src, flags=re.S)
     assert n == 1, f"{name}.cu: expected one kernel launch"
@@ -56,7 +68,8 @@ def _emulated(name, out_dir):
         check=True, capture_output=True, text=True,
     )
     fn = getattr(ctypes.CDLL(lib), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * N_PTRS[name] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    n_ptrs, n_ints = ARGS[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,25 +79,54 @@ def kernels(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulated kernels")
     out = str(tmp_path_factory.mktemp("emulated_kernels"))
-    return {name: _emulated(name, out) for name in N_PTRS}
+    return {name: _emulated(name, out) for name in ARGS}
 
 
-def _call(fn, tensors, T, B, H):
-    assert fn(*(t.data_ptr() for t in tensors), T, B, H, None) == 0
+def _call(fn, tensors, *ints):
+    assert fn(*(t.data_ptr() for t in tensors), *ints, None) == 0
 
 
 # (T, B, H): a ragged batch tile, H not a multiple of the 32-thread warp,
 # H above the 512-thread block (two hidden units per thread), a tiny H
-@pytest.mark.parametrize("T,B,H", [(7, 5, 32), (4, 9, 40), (3, 2, 600), (6, 4, 8)])
+SHAPES = [(7, 5, 32), (4, 9, 40), (3, 2, 600), (6, 4, 8)]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+def _operands(T, B, H):
+    """Random operands and the plain forward's residuals at one shape."""
+    rng = np.random.default_rng(T * B + H)
+    proj = _t(rng.normal(size=(T, B, 4 * H)))
+    wh = _t(rng.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H))
+    h0, c0 = _t(rng.normal(size=(B, H)) * 0.3), _t(rng.normal(size=(B, H)) * 0.3)
+    outs, cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    dout, dcT = _t(rng.normal(size=(T, B, H))), _t(rng.normal(size=(B, H)))
+    return rng, proj, wh, h0, c0, outs, cs, dout, dcT
+
+
+def _burns(rng, T, B):
+    """Seams at 0, mid, T-1 and mixed per row."""
+    return [np.zeros(B), np.full(B, T // 2), np.full(B, T - 1), rng.integers(0, T, B)]
+
+
+def _assert_dwh_close(got, want):
+    tol = 1e-4 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def _assert_zero_below_seam(dz, burn_np):
+    for b in range(dz.shape[1]):
+        assert not dz[: int(burn_np[b]), b].any()
+
+
+@pytest.mark.parametrize("T,B,H", SHAPES)
 def test_emulated_kernels_match_plain_versions(kernels, T, B, H):
     rng = np.random.default_rng(T * B + H)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
-
-    proj = t(rng.normal(size=(T, B, 4 * H)))
-    wh = t(rng.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H))
-    h0, c0 = t(rng.normal(size=(B, H)) * 0.3), t(rng.normal(size=(B, H)) * 0.3)
+    proj = _t(rng.normal(size=(T, B, 4 * H)))
+    wh = _t(rng.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H))
+    h0, c0 = _t(rng.normal(size=(B, H)) * 0.3), _t(rng.normal(size=(B, H)) * 0.3)
     outs, cs = torch.empty(T, B, H), torch.empty(T, B, H)
     _call(kernels["lstm_fwd"], (proj, wh, h0, c0, outs, cs), T, B, H)
     p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
@@ -93,13 +135,86 @@ def test_emulated_kernels_match_plain_versions(kernels, T, B, H):
 
     hprev = torch.cat([h0[None], outs[:-1]])
     cprev = torch.cat([c0[None], cs[:-1]])
-    dout, dcT = t(rng.normal(size=(T, B, H))), t(rng.normal(size=(B, H)))
-    for burn_np in (np.zeros(B), np.full(B, T // 2), np.full(B, T - 1), rng.integers(0, T, B)):
+    dout, dcT = _t(rng.normal(size=(T, B, H))), _t(rng.normal(size=(B, H)))
+    for burn_np in _burns(rng, T, B):
         burn = torch.from_numpy(burn_np.astype(np.int32))
         dz = torch.empty(T, B, 4 * H)
         _call(kernels["lstm_seq_bwd"],
               (dout, proj, hprev, cprev, cs, wh, wh.t().contiguous(), dcT, burn, dz), T, B, H)
         plain = lstm_kernel.lstm_seq_bwd_plain(dout, proj, hprev, cprev, cs, wh, dcT, burn)
         torch.testing.assert_close(dz, plain, rtol=0, atol=1e-4)
-        for b in range(B):
-            assert not dz[: int(burn_np[b]), b].any()
+        _assert_zero_below_seam(dz, burn_np)
+
+
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_emulated_seamless_backward_matches_plain_version(kernels, T, B, H):
+    _, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    hprev, cprev = torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]])
+    dz, dh0, dc0 = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
+    _call(kernels["lstm_bwd"],
+          (dout, proj, hprev, cprev, cs, wh, wh.t().contiguous(), dcT, dz, dh0, dc0), T, B, H)
+    p_dz, p_dh0, p_dc0 = lstm_kernel.lstm_bwd_plain(dout, proj, hprev, cprev, cs, wh, dcT)
+    torch.testing.assert_close(dz, p_dz, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dh0, p_dh0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dc0, p_dc0, rtol=0, atol=1e-4)
+
+
+def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn):
+    T, B, H = cs.shape
+    dz, dwh = torch.empty(T, B, 4 * H), torch.empty(H, 4 * H)
+    part, ticket = lstm_kernel._dwh_workspace(B, H, torch.device("cpu"))
+    _call(kernels["lstm_seq_bwd_fused"],
+          (dout, proj, hprev, cprev, cs, wh, wh.t().contiguous(), dcT, burn, dz, dwh, part,
+           ticket), T, B, H)
+    return dz, dwh
+
+
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_emulated_fused_dwh_backward_matches_plain_version(kernels, T, B, H):
+    """dz is the seam kernel's, bit for bit; dWh is summed in the kernel."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    hprev, cprev = torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]])
+    for burn_np in _burns(rng, T, B):
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        dz, dwh = _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(
+            dout, proj, hprev, cprev, cs, wh, dcT, burn)
+        torch.testing.assert_close(dz, p_dz, rtol=0, atol=1e-4)
+        _assert_dwh_close(dwh, p_dwh)
+        _assert_zero_below_seam(dz, burn_np)
+        seam_dz = torch.empty(T, B, 4 * H)
+        _call(kernels["lstm_seq_bwd"], (dout, proj, hprev, cprev, cs, wh, wh.t().contiguous(),
+                                        dcT, burn, seam_dz), T, B, H)
+        assert torch.equal(dz, seam_dz)
+
+
+def _strides(T):
+    """Two segment lengths: the smallest divisor >= 2 of T, and 1 or T."""
+    s = min(d for d in range(2, T + 1) if T % d == 0)
+    return [s, T if s < T else 1]
+
+
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_emulated_ckpt_backward_matches_plain_version(kernels, T, B, H):
+    """At two strides, with seams on segment boundaries, inside segments,
+    and at 0 / T-1."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    for S in _strides(T):
+        N = T // S
+        h_ckpt = torch.cat([h0[None], outs[S - 1 : T - 1 : S]]).contiguous()
+        c_ckpt = torch.cat([c0[None], cs[S - 1 : T - 1 : S]]).contiguous()
+        on = rng.integers(0, N, B) * S
+        inside = on + (rng.integers(1, S, B) if S > 1 else 0)
+        for burn_np in (on, np.minimum(inside, T - 1), np.zeros(B), np.full(B, T - 1)):
+            burn = torch.from_numpy(burn_np.astype(np.int32))
+            dz, dwh = torch.empty(T, B, 4 * H), torch.empty(H, 4 * H)
+            part, ticket = lstm_kernel._dwh_workspace(B, H, torch.device("cpu"))
+            seg = torch.empty(S + 1, B, H), torch.empty(S + 1, B, H)
+            _call(kernels["lstm_seq_bwd_ckpt"],
+                  (dout, proj, h_ckpt, c_ckpt, wh, wh.t().contiguous(), dcT, burn, dz, dwh,
+                   part, ticket, *seg), T, B, H, S)
+            p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(
+                dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, S)
+            torch.testing.assert_close(dz, p_dz, rtol=0, atol=1e-4)
+            _assert_dwh_close(dwh, p_dwh)
+            _assert_zero_below_seam(dz, burn_np)

@@ -141,7 +141,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x = _inputs(5)
     port.lstm_fwd(*(torch.from_numpy(x[k]) for k in ("proj_t", "wh", "h0", "c0")))
     _port_unroll(x, BURNS["mixed"])
-    assert port.launch_counts == {"lstm_fwd": 0, "lstm_seq_bwd": 0}
+    assert port.launch_counts == dict.fromkeys(port.KERNELS, 0)
 
 
 @pytest.mark.parametrize(
@@ -172,13 +172,17 @@ def test_config_resolves_kernels_on_cuda_and_plain_on_cpu():
     cfg = tiny_test()
     assert cfg.resolve_backward_arm(device="cpu") == ("default", 0)
     assert cfg.resolve_backward_arm(device="cuda") == ("default", 0)
-    # a budget the default arm exceeds: the reference would pick a K4/K5
-    # arm, which the port refuses (queued) instead of running another one
+    # a budget the default arm exceeds: on the card "auto" picks a K4/K5
+    # arm, as the reference does on a TPU; the plain versions keep the
+    # default one
     small = cfg.replace(batch_size=4096, backward_residual_budget_mb=1)
     assert small.resolve_backward_arm(device="cpu") == ("default", 0)
-    arm, _ = small.resolve_backward_arm(device="cuda")
-    assert arm != "default"
-    with pytest.raises(NotImplementedError, match="queued"):
-        R2D2Network.from_config(small, device="cuda")
+    arm = small.resolve_backward_arm(device="cuda")
+    assert arm[0] != "default"
+    # the network is built, and its core carries the arm resolved for its
+    # device ("pallas" names the kernels' arms on the CPU too)
+    assert R2D2Network.from_config(small, device="cpu").core.backward_arm == ("default", 0)
+    pallas = small.replace(lstm_backend="pallas")
+    assert R2D2Network.from_config(pallas, device="cpu").core.backward_arm == arm
     with pytest.raises(ValueError, match="only on the CPU"):
         R2D2Network.from_config(cfg.replace(lstm_backend="scan"), device="cuda")
