@@ -16,8 +16,8 @@
 // least time is set by the fp32 rate. wh and wh^T are 4 MiB each at H=512:
 // they stay in L2, not in shared memory.
 //
-// What the design does about it. The layout of the seam kernel
-// (lstm_seq_bwd.cu), with its two masks gone: a block owns kRows batch rows
+// What the design does about it. A row-tile layout, with the seam
+// kernel's two masks gone: a block owns kRows batch rows
 // for the whole reverse walk, so rows never synchronise across blocks. A
 // thread owns hidden unit j; the recompute reads wh column-wise and the
 // carry reads the contiguous wh^T that the wrapper makes once per call,

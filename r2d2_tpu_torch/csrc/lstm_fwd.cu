@@ -10,124 +10,116 @@
 // What bounds it on this card. The work is 2*T*B*H*4H FMA-flops of a
 // strictly sequential recurrence; at the atari widths (T=85, B=64, H=512)
 // that is 11.4 GFLOP against about 71 MB of device-memory traffic, so the
-// least possible time is set by the fp32 rate, not by HBM. The TPU kernel
-// pins wh (H, 4H) in VMEM for all T steps; at H=512 in f32 that is 4 MiB,
-// which no block's shared memory (227 KB) can hold, but the 50 MB L2 can.
+// least possible time is set by the fp32 rate. Each step depends on the
+// whole of the previous step's h, so the real floor is T steps of
+// (product spread over the SMs + one exchange of h + one grid barrier).
 //
-// What the design does about it. Batch rows are independent, so each block
-// owns a tile of kRows rows and walks all T steps inside one launch: no
-// cross-block synchronisation, one __syncthreads per step. The tile's h
-// lives in shared memory (double-buffered, read as broadcasts) and c in
-// shared memory. A thread owns hidden unit j and computes its four gate dot
-// products (columns j, H+j, 2H+j, 3H+j) for all kRows rows, so for a fixed
-// k neighbouring threads read neighbouring wh addresses (coalesced) and each
-// wh value loaded from L2 feeds kRows FMAs. The price of this simple shape:
-// every block re-reads all of wh from L2 on every step, and at B=64 only
-// B/kRows blocks work. Splitting the 4H columns across a cluster with a
-// per-step h exchange is the later, faster design (ROADMAP.md Queue 2).
-// Ragged B (not a multiple of kRows) and any H are masked.
+// What the design does about it (column_split.cuh): the hidden units are
+// split across a persistent cooperative grid of about one block per SM,
+// each block owning Hb units, their four gate columns of wh (pinned in
+// shared memory where they fit: 32 KB at H=512; streamed in k-tiles at
+// H=2048) and all B rows. Per step a block reads all of h_{t-1} (B x H)
+// through L2, computes its B x 4Hb gates, applies the nonlinearities
+// locally (its c carry never leaves the thread), writes outs[t] and cs[t],
+// and meets the grid at one barrier. outs[t] is the exchange buffer for
+// step t+1: no other scratch.
+//
+// Also here: a kernel that only runs n grid barriers with the same
+// geometry, the floor of this design, timed by chip_smoke.py.
 
 #include <cuda_runtime.h>
 
+#include "column_split.cuh"
+
 namespace {
 
-constexpr int kRows = 4;       // batch rows per block
-constexpr int kMaxThreads = 512;
+using namespace colsplit;
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__global__ void lstm_fwd_kernel(const float* __restrict__ proj,  // (T, B, 4H)
-                                const float* __restrict__ wh,    // (H, 4H)
-                                const float* __restrict__ h0,    // (B, H)
-                                const float* __restrict__ c0,    // (B, H)
-                                float* __restrict__ outs,        // (T, B, H)
-                                float* __restrict__ cs,          // (T, B, H)
-                                int T, int B, int H) {
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_fwd_kernel(const float* __restrict__ proj,  // (T, B, 4H)
+                const float* __restrict__ wh,    // (H, 4H)
+                const float* __restrict__ h0,    // (B, H)
+                const float* __restrict__ c0,    // (B, H)
+                float* outs,  // (T, B, H); read back by other blocks: not restrict
+                float* __restrict__ cs,          // (T, B, H)
+                int* bar,                        // (2,) grid barrier, zeroed
+                int T, int B, int H, int Hb, int kt, int pinned) {
   extern __shared__ float smem[];
-  float* h_cur = smem;                // kRows * H: h_{t-1}
-  float* h_nxt = smem + kRows * H;    // kRows * H: h_t
-  float* c_s = smem + 2 * kRows * H;  // kRows * H: c carry
-  const int row0 = blockIdx.x * kRows;
-  const int H4 = 4 * H;
-
-  for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) {
-    const int r = idx / H, j = idx - r * H, row = row0 + r;
-    const bool ok = row < B;
-    h_cur[idx] = ok ? h0[(size_t)row * H + j] : 0.0f;
-    h_nxt[idx] = 0.0f;
-    c_s[idx] = ok ? c0[(size_t)row * H + j] : 0.0f;
+  const int j0 = blockIdx.x * Hb;
+  const int n_units = imin(Hb, H - j0);
+  const int Bp = (B + 3) & ~3, nrg = Bp / 4;
+  // the gate columns (pinned: H x 4Hb; streamed: kStages kt x 4Hb tiles),
+  // kStages Bp x (kt + kPad) staging tiles of h, and the slices' partials
+  const int wc_floats = (pinned ? H : kStages * kt) * 4 * Hb;
+  const int st_floats = kStages * Bp * (kt + kPad);
+  float* wc = smem;
+  float* st = wc + wc_floats;
+  float* red = st + st_floats;
+  zero_smem(smem, wc_floats + st_floats);
+  const Item it(nrg, Hb);
+  // the owner's outputs: rows rg + r*nrg of unit j (clamped for the loads
+  // of padding rows and units, whose results are never stored)
+  const int j = j0 + imin(it.col, n_units - 1);
+  const bool unit_ok = it.col < n_units;
+  int row[4];
+  float c[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    row[r] = imin(it.rg + r * nrg, B - 1);
+    c[r] = __ldg(c0 + (size_t)row[r] * H + j);
   }
-  __syncthreads();
+  if (pinned) load_cols(wc, wh, H, j0, n_units, Hb, 0, H);  // lands with the first tile
 
   for (int t = 0; t < T; ++t) {
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[kRows][4];
+    const float* h = t == 0 ? h0 : outs + (size_t)(t - 1) * B * H;
+    // the step's input projections, loaded before the product hides them
+    float z[4][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < 4; ++r) {
+      const float* p = proj + ((size_t)t * B + row[r]) * 4 * H + j;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
-      }
-      const float* w = wh + j;
-      // several k in flight: each iteration waits on four L2 loads
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float* wk = w + (size_t)k * H4;
-        const float w0 = __ldg(wk), w1 = __ldg(wk + H);
-        const float w2 = __ldg(wk + 2 * H), w3 = __ldg(wk + 3 * H);
+      for (int g = 0; g < 4; ++g) z[r][g] = it.owner() ? __ldg(p + g * H) : 0.0f;
+    }
+    float acc[4][4];
+    gate_product(acc, h, wh, wc, st, red, it, B, Bp, H, Hb, j0, n_units, kt, pinned);
+    if (it.owner() && unit_ok) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hk = h_cur[r * H + k];
-          acc[r][0] = fmaf(hk, w0, acc[r][0]);
-          acc[r][1] = fmaf(hk, w1, acc[r][1]);
-          acc[r][2] = fmaf(hk, w2, acc[r][2]);
-          acc[r][3] = fmaf(hk, w3, acc[r][3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = row0 + r;
-        if (row >= B) continue;
-        const float* p = proj + ((size_t)t * B + row) * H4 + j;
-        const float ig = sigmoid_f32(p[0] + acc[r][0]);
-        const float fg = sigmoid_f32(p[H] + acc[r][1]);
-        const float gg = tanhf(p[2 * H] + acc[r][2]);
-        const float og = sigmoid_f32(p[3 * H] + acc[r][3]);
-        const float c = fg * c_s[r * H + j] + ig * gg;
-        const float h = og * tanhf(c);
-        c_s[r * H + j] = c;
-        h_nxt[r * H + j] = h;
-        const size_t off = ((size_t)t * B + row) * H + j;
-        outs[off] = h;
-        cs[off] = c;
+      for (int r = 0; r < 4; ++r) {
+        const float ig = sigmoid_f32(z[r][0] + acc[r][0]);
+        const float fg = sigmoid_f32(z[r][1] + acc[r][1]);
+        const float gg = tanhf(z[r][2] + acc[r][2]);
+        const float og = sigmoid_f32(z[r][3] + acc[r][3]);
+        c[r] = fg * c[r] + ig * gg;
+        if (it.rg + r * nrg >= B) continue;
+        const size_t o = ((size_t)t * B + row[r]) * H + j;
+        outs[o] = og * tanhf(c[r]);
+        cs[o] = c[r];
       }
     }
-    __syncthreads();  // h_t complete before anyone reads it as h_{t-1}
-    float* tmp = h_cur;
-    h_cur = h_nxt;
-    h_nxt = tmp;
+    if (t + 1 < T) grid_barrier(bar);  // h_t complete before anyone reads it
   }
+}
+
+__global__ void grid_barriers_kernel(int* bar, int n) {
+  for (int i = 0; i < n; ++i) grid_barrier(bar);
 }
 
 }  // namespace
 
-extern "C" int lstm_fwd_launch(const float* proj, const float* wh,
-                               const float* h0, const float* c0, float* outs,
-                               float* cs, int T, int B, int H, void* stream) {
+extern "C" int lstm_fwd_launch(const float* proj, const float* wh, const float* h0,
+                               const float* c0, float* outs, float* cs, int* bar, int T,
+                               int B, int H, int Hb, int grid, int threads, int kt,
+                               int pinned, int smem, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = 3 * (size_t)kRows * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      proj, wh, h0, c0, outs, cs, T, B, H);
-  return (int)cudaGetLastError();
+  return (int)launch_cooperative(lstm_fwd_kernel, grid, threads, smem, stream, proj, wh, h0,
+                                 c0, outs, cs, bar, T, B, H, Hb, kt, pinned);
+}
+
+// n grid barriers and nothing else, with a forward launch's grid, threads
+// and shared memory: the per-step floor of the column split.
+extern "C" int lstm_fwd_barriers_launch(int* bar, int n, int grid, int threads, int smem,
+                                        void* stream) {
+  return (int)launch_cooperative(grid_barriers_kernel, grid, threads, smem, stream, bar, n);
 }
 
 extern "C" const char* lstm_fwd_error_string(int code) {

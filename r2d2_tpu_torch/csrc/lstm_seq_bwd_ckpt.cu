@@ -7,10 +7,10 @@
 // only the (h, c) carries entering each S-step segment, h_ckpt / c_ckpt
 // (N = T/S, B, H). Per segment, newest first:
 //   1. the segment's forward is recomputed from its checkpoint, with the
-//      forward kernel's own arithmetic (lstm_fwd.cu), into a (S+1, B, H)
+//      forward's per-step arithmetic, into a (S+1, B, H)
 //      h and c scratch;
-//   2. the segment is walked in reverse as the seam kernel walks
-//      (lstm_seq_bwd.cu), the masks keep = t >= burn[b] and carry_keep =
+//   2. the segment is walked in reverse as lstm_seq_bwd_fused.cu walks,
+//      the masks keep = t >= burn[b] and carry_keep =
 //      t > burn[b] on the real step t = seg*S + s, writing dz[t] and adding
 //      h_{t-1}^T @ dz_t into dWh (the h sequence is never in device memory
 //      for a matmul outside to read);
@@ -22,13 +22,13 @@
 // work against about 100 MB that the function must move, so the least
 // time is set by the fp32 rate.
 //
-// What the design does about it. The seam kernel's layout: a block owns
+// What the design does about it. A row-tile layout: a block owns
 // kRows batch rows for the whole walk, so the recompute, like the walk,
 // needs no synchronisation across blocks. The segment's recomputed h and c
 // cannot sit in shared memory for every S (at H=2048 and S=85 it would be
 // 5.6 MB per block), so they go to a global scratch the wrapper allocates,
 // (S+1, B, H) twice; each block reads and writes only its own rows. Shared
-// memory stays the seam kernel's 7*kRows*H floats (229,376 bytes at
+// memory stays lstm_seq_bwd_fused.cu's 7*kRows*H floats (229,376 bytes at
 // H=2048, under the 232,448 a block may have): the recompute double-buffers
 // h in the tiles the walk later uses for h and dz. dWh is added into a
 // per-block partial and the partials are summed by the block that finishes
@@ -46,7 +46,7 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 }
 
 // acc[r][g] = sum_k h[r, k] * wh[k, g*H+j]: the four gate columns of unit j
-// for every row of the tile, in the forward kernel's order
+// for every row of the tile, summed over k in order
 __device__ __forceinline__ void gate_products(const float* __restrict__ wh,
                                               const float* h, int j, int H,
                                               float (&acc)[kRows][4]) {

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel `_seq_bwd_fused_kernel` /
 // `_lstm_seq_bwd_fused_call` of r2d2_tpu/ops/pallas_lstm.py (the fused_dwh
-// backward arm). The reverse walk is the seam kernel's (lstm_seq_bwd.cu):
+// backward arm). The reverse walk is the seam walk of lstm_seq_bwd.cu:
 // keep = t >= burn[b] masks the step's output cotangent, carry_keep =
 // t > burn[b] cuts the (dh, dc) carry into t-1, dz[t] is written out.
 // On top of it, every step adds h_{t-1}^T @ dz_t into dWh (H, 4H), so no
@@ -27,8 +27,9 @@
 // The partials are summed inside the same launch: each block fences its
 // writes and takes a ticket with one integer atomic, and the block that
 // takes the last ticket adds the partials in block order. One launch, and
-// dWh is the same bits on every run. dz is computed by the seam kernel's
-// own arithmetic, so it is the same bits as lstm_seq_bwd's dz.
+// dWh is the same bits on every run. dz is formed in a row-tile layout
+// that sums in another order than lstm_seq_bwd.cu's column split, so the
+// two agree to rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Each source under ``r2d2_tpu_torch/csrc/`` has a plain C interface and is
-compiled on its own into a shared library in ``r2d2_tpu_torch/_build/``
+compiled on its own (with the headers it includes from
+``csrc/*.cuh``) into a shared library in ``r2d2_tpu_torch/_build/``
 (listed in .gitignore). The first kernel loaded builds every source, in
 parallel: one nvcc process each, all started together. The library name
 carries a hash of the source and the flags, so an edited source is never
@@ -51,7 +52,8 @@ def sources() -> List[str]:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's identity
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -9,6 +9,8 @@ Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
   ``cs (T,B,H)``.
 - ``lstm_seq_bwd`` — csrc/lstm_seq_bwd.cu, replacing ``_seq_bwd_kernel``:
   the reverse walk with the per-row burn-in seam, -> ``dz (T,B,4H)``.
+  These two split the hidden units across the SMs in one cooperative
+  launch (csrc/column_split.cuh); ``lstm_geometry`` decides the split.
 - ``lstm_bwd`` — csrc/lstm_bwd.cu, replacing ``_bwd_kernel``: the reverse
   walk with no seam, -> ``dz`` and the real ``dh0, dc0 (B,H)``.
 - ``lstm_seq_bwd_fused`` — csrc/lstm_seq_bwd_fused.cu, replacing
@@ -37,15 +39,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 # each kernel (csrc/<name>.cu) and its C arguments: (pointers, ints), then
 # the stream
 _SIGNATURES = {
-    "lstm_fwd": (6, 3),             # ..., T, B, H
-    "lstm_seq_bwd": (10, 3),
+    "lstm_fwd": (7, 9),             # ..., barrier, T, B, H, then the Geometry
+    "lstm_seq_bwd": (10, 9),
     "lstm_bwd": (11, 3),
     "lstm_seq_bwd_fused": (13, 3),
     "lstm_seq_bwd_ckpt": (14, 4),   # ..., T, B, H, S
@@ -261,6 +263,101 @@ def _dwh_workspace(B: int, H: int, dev):
             torch.zeros(1, dtype=torch.int32, device=dev))
 
 
+# the column-split kernels (K1, K2; csrc/column_split.cuh): at most this
+# many threads per block (and the most the slices of a block's items are
+# widened to), the widest tile of h (or dz) columns staged in shared memory
+# at once, the padding of a staged row (kPad) and the tiles in the copy
+# pipeline (kStages)
+_MAX_THREADS = 512
+_SLICED_THREADS = 256
+_MAX_K_TILE = 128
+_ROW_PAD = 4
+_STAGES = 4
+
+
+class Geometry(NamedTuple):
+    """How a column-split kernel cuts its work, passed to it as ints."""
+
+    units: int       # hidden units per block (Hb); the last block may own fewer
+    grid: int        # blocks, all resident at once (a cooperative launch)
+    threads: int     # per block: row groups x Hb items, times the k-slices
+    k_tile: int      # columns of h (or dz) staged per tile
+    pinned: bool     # the block's wh slice stays in shared memory all launch
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def lstm_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int) -> Geometry:
+    """The column split of K1 (``backward=False``) or K2 on a card with
+    `num_sms` SMs and `smem_limit` bytes of shared memory per block.
+
+    Each block owns ``Hb = ceil(H / num_sms)`` hidden units (their four
+    gate columns of wh, and for K2 also their rows), so ``grid =
+    ceil(H / Hb) <= num_sms``. A thread owns 4 rows x one unit's 4 gates
+    over one k-slice; the ceil(B/4) x Hb items are split into the most
+    k-slices that keep the block within 256 threads. The wh slice is
+    pinned in shared memory where it fits beside the staging tiles, else
+    streamed in k-tiles beside them; the tiles narrow until the shared
+    memory fits. Raises ValueError where no tile fits, the items exceed a
+    block's threads, or H is not a multiple of 4 (the kernels copy 16-byte
+    rows)."""
+    if H % 4:
+        raise ValueError(f"hidden size {H} is not a multiple of 4")
+    units = -(-H // num_sms)
+    grid = -(-H // units)
+    row_groups = -(-B // 4)
+    items = row_groups * units
+    if items > _MAX_THREADS:
+        raise ValueError(f"batch {B} x {units} units per block needs {items} threads, over "
+                         f"{_MAX_THREADS}")
+    slices = 1
+    while items * slices * 2 <= _SLICED_THREADS:
+        slices *= 2
+    threads = items * slices
+    Bp, Hbp = 4 * row_groups, 4 * -(-units // 4)
+    widest = min(H, _MAX_K_TILE)
+    tiles = [widest] + [k for k in (64, 32, 16, 8) if k < widest]
+    for pinned in (True, False):
+        for kt in tiles:
+            # the staged rows, the slices' partials and (K2) the dh carry
+            floats = _STAGES * Bp * (kt + _ROW_PAD) + 16 * threads
+            if backward:
+                floats += Bp * units
+            # the wh slice: gate columns, and (K2) rows padded to 4 units
+            if pinned:
+                floats += H * 4 * units + (Hbp * (4 * H + _ROW_PAD) if backward else 0)
+            else:
+                floats += _STAGES * (kt * 4 * units + (Hbp * (kt + _ROW_PAD) if backward else 0))
+            if 4 * floats <= smem_limit:
+                return Geometry(units, grid, threads, kt, pinned, 4 * floats)
+    raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory bytes a block may opt in to) of a CUDA device."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _geometry(B: int, H: int, backward: bool, dev) -> Geometry:
+    return lstm_geometry(B, H, backward, *_device_limits(dev.index or 0))
+
+
+def _geometry_ints(g: Geometry) -> Tuple[int, ...]:
+    return (g.units, g.grid, g.threads, g.k_tile, int(g.pinned), g.smem_bytes)
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The column-split kernels copy rows of these 16 bytes at a time."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _barrier(dev) -> torch.Tensor:
+    """The grid barrier's arrival count and generation, zeroed per launch."""
+    return torch.zeros(2, dtype=torch.int32, device=dev)
+
+
 def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(outs (T,B,H) in proj dtype, cs (T,B,H) float32). Kernel on CUDA,
     plain version on the CPU; the same operand checks on both."""
@@ -274,10 +371,31 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("c0", c0, (B, H), f32, dev)
     if dev.type == "cpu":
         return lstm_fwd_plain(proj_t, wh, h0, c0)
+    geo = _geometry(B, H, False, dev)
+    _check_aligned("h0", h0)
     outs = torch.empty((T, B, H), dtype=f32, device=dev)
     cs = torch.empty((T, B, H), dtype=f32, device=dev)
-    _launch("lstm_fwd", (proj_t, wh, h0, c0, outs, cs), (T, B, H), dev)
+    _launch("lstm_fwd", (proj_t, wh, h0, c0, outs, cs, _barrier(dev)),
+            (T, B, H, *_geometry_ints(geo)), dev)
     return outs, cs
+
+
+def grid_barriers(n: int, B: int, H: int, dev) -> None:
+    """Launch n grid barriers alone, with K1's geometry at (B, H): the
+    column split's per-step floor, for timing. Counts no launch."""
+    from r2d2_tpu_torch.ops import _build
+
+    geo = _geometry(B, H, False, dev)
+    _, err_str = _kernel("lstm_fwd")
+    fn = _build.load("lstm_fwd").lstm_fwd_barriers_launch
+    fn.argtypes = [_P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    bar = _barrier(dev)
+    with torch.cuda.device(dev):
+        code = fn(bar.data_ptr(), n, geo.grid, geo.threads, geo.smem_bytes,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"grid barrier launch failed: {err_str(code).decode()} ({code})")
 
 
 def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
@@ -290,11 +408,12 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
-    # the carry product reads wh^T row by row: one contiguous copy per call
-    whT = wh.t().contiguous()
+    geo = _geometry(B, H, True, dev)
+    _check_aligned("hprev", hprev)
+    _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    _launch("lstm_seq_bwd", (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, burn, dz),
-            (T, B, H), dev)
+    _launch("lstm_seq_bwd", (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, _barrier(dev)),
+            (T, B, H, *_geometry_ints(geo)), dev)
     return dz
 
 
@@ -319,8 +438,8 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the seam backward
     with dWh accumulated in the kernel. Kernel on CUDA, plain version on
-    the CPU. On the card dz is bitwise the seam kernel's; dWh differs from
-    the plain version by summation order only."""
+    the CPU. dz and dWh differ from the plain version (and dz from the
+    seam kernel's) by summation order only."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
@@ -480,7 +599,9 @@ def lstm_seq_unroll_ckpt(S: int):
     """Build the checkpointed-backward sequence op for segment length S:
     :func:`lstm_seq_unroll`'s signature and forward values, but the forward
     saves only the T/S carries entering each segment, not outs / cs. The
-    factory is cached: one op per S. Raises ValueError when T % S."""
+    factory is cached: one op per S. As the JAX op raises only in its VJP
+    forward, this raises ValueError when T % S only if a gradient is
+    wanted; an undifferentiated call returns lstm_seq_unroll's values."""
     if S < 1:
         raise ValueError(f"seq_grad_checkpoint segment length must be >= 1, got {S}")
 
@@ -488,8 +609,6 @@ def lstm_seq_unroll_ckpt(S: int):
         @staticmethod
         def forward(ctx, proj_t, wh, h0, c0, burn_in):
             T = proj_t.shape[0]
-            if T % S:
-                raise ValueError(f"seq len {T} not divisible by checkpoint segment {S}")
             outs, cs = lstm_fwd(proj_t, wh, h0, c0)
             # the carries entering segments 1..N-1 are the step-(kS-1)
             # outputs; segment 0 starts from (h0, c0)
@@ -508,6 +627,11 @@ def lstm_seq_unroll_ckpt(S: int):
                     torch.zeros_like(h0), torch.zeros_like(c0), None)
 
     def seq_unroll_ckpt(proj_t, wh, h0, c0, burn_in):
+        T = proj_t.shape[0]
+        wants_grad = torch.is_grad_enabled() and any(
+            x.requires_grad for x in (proj_t, wh, h0, c0))
+        if T % S and wants_grad:
+            raise ValueError(f"seq len {T} not divisible by checkpoint segment {S}")
         outs, hT, cT = _SeqUnrollCkpt.apply(proj_t, wh, h0, c0, burn_in)
         return outs, (hT, cT)
 

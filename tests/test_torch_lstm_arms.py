@@ -217,6 +217,7 @@ def test_fused_dwh_dproj_is_the_default_arms_bit_for_bit(burn_name):
 
 
 def test_ckpt_refuses_a_stride_that_does_not_divide_T():
+    """Where a gradient is wanted; the backward kernel refuses it too."""
     x = _inputs(7)
     with pytest.raises(ValueError, match="not divisible"):
         _port_op(port.lstm_seq_unroll_ckpt(4), x, BURNS["mixed"])
@@ -225,6 +226,25 @@ def test_ckpt_refuses_a_stride_that_does_not_divide_T():
             (T, B, H), (T, B, 4 * H), (1, B, H), (1, B, H), (H, 4 * H), (B, H))),
             torch.zeros(B, dtype=torch.int32), 4)
     assert port.lstm_seq_unroll_ckpt(3) is port.lstm_seq_unroll_ckpt(3)
+
+
+def test_ckpt_runs_an_undifferentiated_call_at_a_stride_that_does_not_divide_T():
+    """As the JAX op, which raises only in its VJP forward: with no
+    gradient wanted the values are the plain unroll's."""
+    x = _inputs(7)
+    burn = BURNS["mixed"]
+    j_outs, (j_hT, j_cT) = ref.lstm_seq_unroll_ckpt(4)(
+        *(jnp.asarray(x[k]) for k in KEYS), jnp.asarray(burn))
+    args = [torch.from_numpy(x[k]) for k in KEYS]
+    got = port.lstm_seq_unroll_ckpt(4)(*args, torch.from_numpy(burn))
+    # no grad mode: the inputs may require a gradient that nobody takes
+    with torch.no_grad():
+        args_rg = [a.clone().requires_grad_(True) for a in args]
+        no_grad = port.lstm_seq_unroll_ckpt(4)(*args_rg, torch.from_numpy(burn))
+    for outs, (hT, cT) in (got, no_grad):
+        np.testing.assert_allclose(outs.numpy(), np.asarray(j_outs), atol=1e-5)
+        np.testing.assert_allclose(hT.numpy(), np.asarray(j_hT), atol=1e-5)
+        np.testing.assert_allclose(cT.numpy(), np.asarray(j_cT), atol=1e-5)
 
 
 def test_cpu_arms_launch_no_kernel():

@@ -186,3 +186,41 @@ def test_config_resolves_kernels_on_cuda_and_plain_on_cpu():
     assert R2D2Network.from_config(pallas, device="cpu").core.backward_arm == arm
     with pytest.raises(ValueError, match="only on the CPU"):
         R2D2Network.from_config(cfg.replace(lstm_backend="scan"), device="cuda")
+
+
+# the H100: 132 SMs, 232,448 bytes of shared memory a block may opt in to
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("H_", [8, 32, 96, 512, 640, 2048])
+def test_column_split_geometry_at_the_atari_batch(H_, backward):
+    """K1/K2's column split at B=64 on the H100: every hidden unit owned by
+    exactly one block, no block empty, the grid within the SM count (one
+    resident block per SM), a whole number of k-slices of the block's
+    (4 rows x 1 unit) items, the shared memory within the card's limit,
+    and the wh slice pinned at the atari width and streamed at the xl
+    width."""
+    B_ = 64
+    g = port.lstm_geometry(B_, H_, backward, H100_SMS, H100_SMEM)
+    owned = [j for blk in range(g.grid) for j in range(blk * g.units, min(H_, (blk + 1) * g.units))]
+    assert owned == list(range(H_))
+    assert (g.grid - 1) * g.units < H_  # the last block owns at least one unit
+    assert g.grid <= H100_SMS
+    items = (B_ // 4) * g.units
+    assert g.threads % items == 0 and g.threads <= 512
+    assert g.k_tile <= H_
+    assert g.smem_bytes <= H100_SMEM
+    if H_ == 512:
+        assert g.pinned and (g.units, g.grid) == (4, 128)
+    if H_ == 2048:
+        assert not g.pinned and (g.units, g.grid) == (16, 128)
+
+
+def test_column_split_geometry_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="threads"):
+        port.lstm_geometry(256, 2048, True, H100_SMS, H100_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.lstm_geometry(64, 512, True, H100_SMS, 1024)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        port.lstm_geometry(64, 510, False, H100_SMS, H100_SMEM)
