@@ -127,22 +127,27 @@ __device__ __forceinline__ void zero_smem(float* smem, int floats) {
 }
 
 // The slices' partial sums of acc (4 x 4 per item) added in slice order
-// into slice 0's acc, through red (threads x 16 floats)
+// into slice 0's acc, through red (threads x 16 floats). Every thread adds
+// up some of the 16 x items outputs, so the owners do not add alone.
 __device__ __forceinline__ void reduce_slices(float (&acc)[4][4], float* red, const Item& it) {
   if (it.ks == 1) return;
-  const int item = threadIdx.x % it.items;
+  const int item = threadIdx.x % it.items, outputs = 16 * it.items;
   if (it.slice < it.ks) {
 #pragma unroll
     for (int e = 0; e < 16; ++e) red[(it.slice * 16 + e) * it.items + item] = acc[e / 4][e % 4];
   }
   __syncthreads();
+  // output o = e * items + item sums red[s * outputs + o] over s, into
+  // slice 0's slot, which only this thread reads
+  for (int o = threadIdx.x; o < outputs; o += blockDim.x) {
+    float v = red[o];
+    for (int s = 1; s < it.ks; ++s) v += red[s * outputs + o];
+    red[o] = v;
+  }
+  __syncthreads();
   if (it.owner()) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      float v = red[e * it.items + item];
-      for (int s = 1; s < it.ks; ++s) v += red[(s * 16 + e) * it.items + item];
-      acc[e / 4][e % 4] = v;
-    }
+    for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] = red[e * it.items + item];
   }
   __syncthreads();  // red is free again
 }
@@ -150,8 +155,10 @@ __device__ __forceinline__ void reduce_slices(float (&acc)[4][4], float* red, co
 // Tiles 0..n-1 through a kStages-buffer pipeline, starting at tile
 // `first` and wrapping: issue(c, buf) starts tile c's copies into buffer
 // buf, use(c, buf) reads them once they have landed. One commit group per
-// tile (empty past the end), so waiting for all but the newest
-// kStages - 1 groups means tile i has landed.
+// tile (empty past the end): before tile i is used, i + kStages - 1 groups
+// are committed, so waiting for all but the newest kStages - 2 means tile
+// i has landed. The barrier after that wait also means every thread is
+// done with tile i-1, whose buffer tile i + kStages - 1 then takes.
 template <class Issue, class Use>
 __device__ __forceinline__ void pipelined_tiles(int n, int first, Issue issue, Use use) {
   for (int s = 0; s < kStages - 1; ++s) {
@@ -159,14 +166,14 @@ __device__ __forceinline__ void pipelined_tiles(int n, int first, Issue issue, U
     copies_commit();
   }
   for (int i = 0; i < n; ++i) {
+    copies_wait<kStages - 2>();
+    __syncthreads();
     const int ahead = i + kStages - 1;
     if (ahead < n) issue((first + ahead) % n, ahead % kStages);
     copies_commit();
-    copies_wait<kStages - 1>();
-    __syncthreads();
     use((first + i) % n, i % kStages);
-    __syncthreads();  // buffer i % kStages is free for tile i + kStages
   }
+  __syncthreads();  // the buffers are free for the caller
 }
 
 // st[b][v] = x[b][c0 + v] for b < rows, v < cn (cn a multiple of 4), rows
