@@ -33,7 +33,8 @@ its own lines; any failure exits non-zero and prints no result:
           update against the CPU as in phase 5.
 7. xl     the atari preset under model preset xl (hidden 2048), fp32, the
           default backward_arm=auto, which resolves to the checkpointed arm
-          at stride 85; two updates and their ms per update.
+          at stride 85; two updates and their ms per update, and one update
+          against the CPU as in phase 5.
 8. time   each kernel, its plain version, its bound and, where one PyTorch
           call computes the same function, that call (the cuDNN LSTM
           forward, and its backward for the seamless backward), with CUDA
@@ -417,6 +418,7 @@ def main():
     if x_launches != {"lstm_fwd": 2 * XL_UPDATES, "lstm_seq_bwd_ckpt": XL_UPDATES}:
         fail(f"xl: expected {2 * XL_UPDATES} lstm_fwd and {XL_UPDATES} lstm_seq_bwd_ckpt "
              f"launches, got {x_launches}")
+    agree(x_tr, "xl")
     del x_tr
 
     # 8. timings at the main path's shapes ----------------------------------
