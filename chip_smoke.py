@@ -13,10 +13,12 @@ its own lines; any failure exits non-zero and prints no result:
           atari widths (T=85, B=64, H=512, fp32), at the xl width (H=2048)
           and at ragged small shapes, with seams at 0, mid, T-1 and mixed
           per row; the checkpointed backward at every divisor stride of T,
-          with seams on segment boundaries too. The column split of the
-          forward and seam backward (units per block, grid, threads, k-tile,
-          wh slice pinned or streamed) is printed per shape, and two
-          launches of each at the atari widths must give the same bits.
+          with seams on segment boundaries too. The column split of K1,
+          K2, K3 and K5 (units per block, grid, threads, k-tile, wh slice
+          pinned or streamed) is printed per shape; at the atari widths two
+          launches of each must give the same bits (K3: dz, dh0, dc0; K5:
+          dz and dWh at S=5), and whether K5's dz equals K2's bit for bit
+          at the same inputs is printed (not required).
 4. train  the main path: Trainer.run_inline at the atari preset's widths
           (84x84x1 frames, nature encoder, hidden 512, burn-in / learning /
           forward 40/40/5, batch 64, fp32) on catch, with only the host
@@ -40,9 +42,9 @@ its own lines; any failure exits non-zero and prints no result:
           forward, and its backward for the seamless backward), with CUDA
           events, at the main path's shapes and with the seams of a batch
           the main path sampled; T grid barriers alone at the forward's
-          geometry (the column split's floor); the forward and the
-          checkpointed backward also at xl; and the SM clock read while
-          forward launches are queued.
+          geometry (the column split's floor); the forward, the seam and
+          seamless backwards and the checkpointed backward also at xl; and
+          the SM clock read while forward launches are queued.
 
 The next-to-last lines are the kernels as one JSON object and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -76,9 +78,10 @@ PEAK_BYTES = 3.35e12
 # orders, differences carried through T recurrent steps
 ATOL = 1e-4
 RTOL = 1e-4
-# dWh summed in the kernel (per-block partials, then over blocks) against
-# the plain version's per-step matmuls: each entry sums T*B products of both
-# signs, so the error is held against the largest entry, not entry by entry
+# dWh summed in the kernel (K4: per-block partials, then over blocks; K5:
+# per column slice, segments newest first) against the plain version's
+# per-step matmuls: each entry sums T*B products of both signs, so the
+# error is held against the largest entry, not entry by entry
 DWH_TOL = 1e-4
 
 UPDATES = 8
@@ -340,10 +343,24 @@ def main():
             again = K.lstm_fwd(proj, wh, h0, c0)
             if not (torch.equal(outs, again[0]) and torch.equal(cs, again[1])):
                 fail(f"lstm_fwd: two launches differ {at}")
-            if not torch.equal(K.lstm_seq_bwd(*walk, mixed), K.lstm_seq_bwd(*walk, mixed)):
+            seam_dz = K.lstm_seq_bwd(*walk, mixed)
+            if not torch.equal(seam_dz, K.lstm_seq_bwd(*walk, mixed)):
                 fail(f"lstm_seq_bwd: two launches differ {at}")
-            say("check", f"{at}: two launches each of lstm_fwd and lstm_seq_bwd give "
-                "identical bits")
+            if not all(map(torch.equal, K.lstm_bwd(*walk), K.lstm_bwd(*walk))):
+                fail(f"lstm_bwd: two launches differ (dz, dh0 or dc0) {at}")
+            S = 5
+            args = (dout, proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
+                    torch.cat([c0[None], cs[S - 1 : T - 1 : S]]), wh, dcT, mixed, S)
+            k_dz, k_dwh = K.lstm_seq_bwd_ckpt(*args)
+            again = K.lstm_seq_bwd_ckpt(*args)
+            if not (torch.equal(k_dz, again[0]) and torch.equal(k_dwh, again[1])):
+                fail(f"lstm_seq_bwd_ckpt: two launches differ (dz or dWh) {at} S={S}")
+            say("check", f"{at}: two launches each of lstm_fwd, lstm_seq_bwd, lstm_bwd and "
+                f"lstm_seq_bwd_ckpt (S={S}) give identical bits")
+            same = torch.equal(k_dz, seam_dz)
+            say("check", f"{at}: lstm_seq_bwd_ckpt's dz (S={S}) {'equals' if same else 'differs from'}"
+                f" lstm_seq_bwd's bit for bit at the same inputs, seam mixed (max |diff| "
+                f"{float((k_dz - seam_dz).abs().max()):.3e}; not required)")
         torch.cuda.synchronize()
         say("check", f"T={T} B={B} H={H}: all five kernels (seams 0, mid, T-1, mixed; ckpt "
             f"at S in {strides}, plus seams on segment boundaries) within atol {ATOL} + rtol "
@@ -351,9 +368,9 @@ def main():
 
     for i, shape in enumerate(((7, 5, 32), (13, 67, 96), (3, 2, 640), (85, 64, 512),
                                (85, 64, 2048))):
-        for kernel, backward in (("lstm_fwd", False), ("lstm_seq_bwd", True)):
+        for kernel in K.COLUMN_SPLIT:
             say("check", f"T={shape[0]} B={shape[1]} H={shape[2]}: {kernel} column split "
-                f"{K._geometry(shape[1], shape[2], backward, dev)}")
+                f"{K._geometry(shape[1], shape[2], kernel, dev)}")
         check(*shape, seed=i)
     say("check", "max |kernel - plain| (dz, dh0/dc0 and dWh alike): " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items()))
@@ -482,31 +499,33 @@ def main():
     # bounds: the bytes each function must move (inputs read once, outputs
     # written once) and its matmul FLOPs; the gate math adds under 1%
     f32 = 4
-    mm = 2 * H * 4 * H  # one (row, step) through an H x 4H product
     # the seam backward needs the gate recompute for steps t >= burn[b] and
     # the carry product for steps t > burn[b]; below the seam dz is zero
     kept = int((T - burn.long()).sum())
     carried = int((T - 1 - burn.long()).clamp(min=0).sum())
-    walk_bytes = f32 * (4 * T * B * H + T * B * 4 * H + H * 4 * H + B * H)
 
-    def fwd_work(h):
-        return 2 * h * 4 * h * T * B, f32 * (T * B * 4 * h + h * 4 * h + 2 * B * h + 2 * T * B * h)
+    def works(h, s):
+        """{kernel: (FLOPs, bytes)} at hidden size h, K5 at stride s."""
+        mm = 2 * h * 4 * h  # one (row, step) through an h x 4h product
+        walk_bytes = f32 * (4 * T * B * h + T * B * 4 * h + h * 4 * h + B * h)
+        return {
+            "lstm_fwd": (mm * T * B,
+                         f32 * (T * B * 4 * h + h * 4 * h + 2 * B * h + 2 * T * B * h)),
+            "lstm_seq_bwd": (mm * (kept + carried), walk_bytes + f32 * (B + T * B * 4 * h)),
+            # no seam: the recompute and the carry on every (row, step), and
+            # the outputs dz, dh0, dc0
+            "lstm_bwd": (mm * 2 * T * B, walk_bytes + f32 * (T * B * 4 * h + 2 * B * h)),
+            # plus dWh on every kept (row, step), and dWh written once
+            "lstm_seq_bwd_fused": (mm * (2 * kept + carried),
+                                   walk_bytes + f32 * (B + T * B * 4 * h + h * 4 * h)),
+            # plus the forward recompute of every (row, step); reads T/s
+            # checkpoints instead of the h, c sequences
+            "lstm_seq_bwd_ckpt": (mm * (T * B + 2 * kept + carried),
+                                  f32 * (T * B * h + T * B * 4 * h + 2 * (T // s) * B * h
+                                         + h * 4 * h + B * h + B + T * B * 4 * h + h * 4 * h)),
+        }
 
-    work = {
-        "lstm_fwd": fwd_work(H),
-        "lstm_seq_bwd": (mm * (kept + carried), walk_bytes + f32 * (B + T * B * 4 * H)),
-        # no seam: the recompute and the carry on every (row, step), and
-        # the outputs dz, dh0, dc0
-        "lstm_bwd": (mm * 2 * T * B, walk_bytes + f32 * (T * B * 4 * H + 2 * B * H)),
-        # plus dWh on every kept (row, step), and dWh written once
-        "lstm_seq_bwd_fused": (mm * (2 * kept + carried),
-                               walk_bytes + f32 * (B + T * B * 4 * H + H * 4 * H)),
-        # plus the forward recompute of every (row, step); reads T/S
-        # checkpoints instead of the h, c sequences
-        "lstm_seq_bwd_ckpt": (mm * (T * B + 2 * kept + carried),
-                              f32 * (T * B * H + T * B * 4 * H + 2 * (T // S) * B * H
-                                     + H * 4 * H + B * H + B + T * B * 4 * H + H * 4 * H)),
-    }
+    work = works(H, S)
 
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -535,33 +554,37 @@ def main():
         f"backward steps kept {kept} of {T * B}; ckpt at S={S}")
     # the column split's floor: one grid barrier per step and nothing else
     bar_ms = median_ms(lambda: K.grid_barriers(T, B, H, dev))
-    say("time", f"{T} grid barriers alone at lstm_fwd's geometry {K._geometry(B, H, False, dev)}: "
+    say("time", f"{T} grid barriers alone at lstm_fwd's geometry {K._geometry(B, H, 'lstm_fwd', dev)}: "
         f"{bar_ms:.3f} ms, {bar_ms / T * 1e3:.2f} us per barrier; lstm_fwd "
         f"{times['lstm_fwd'][0]:.3f} ms, lstm_seq_bwd {times['lstm_seq_bwd'][0]:.3f} ms")
 
-    # the forward and the checkpointed backward at the xl width, where auto
-    # takes the checkpointed arm
+    # the forward, the seam and seamless backwards and the checkpointed
+    # backward at the xl width, where auto takes the checkpointed arm
     Hx, Sx = 2048, 85
     gx = torch.Generator(device=dev).manual_seed(8)
     projx = torch.randn(T, B, 4 * Hx, device=dev, generator=gx)
     whx = (torch.rand(Hx, 4 * Hx, device=dev, generator=gx) * 2 - 1) * Hx ** -0.5
     hx = torch.randn(1, B, Hx, device=dev, generator=gx) * 0.3
     cx = torch.randn(1, B, Hx, device=dev, generator=gx) * 0.3
-    xl_args = (torch.randn(T, B, Hx, device=dev, generator=gx), projx, hx, cx, whx,
-               torch.randn(B, Hx, device=dev, generator=gx), burn, Sx)
-    xl_fwd = (projx, whx, hx[0], cx[0])
-    xl_fwd_ms = median_ms(lambda: K.lstm_fwd(*xl_fwd), flush=flush)
-    xl_fwd_b, xl_fwd_by = bound(*fwd_work(Hx))
-    say("time", f"lstm_fwd at xl (T={T} B={B} H={Hx}, {K._geometry(B, Hx, False, dev)}): "
-        f"{xl_fwd_ms:.3f} ms, bound {xl_fwd_b:.4f} ms by {xl_fwd_by} "
-        f"({fwd_work(Hx)[0] / 1e9:.2f} GFLOP) = {xl_fwd_b / xl_fwd_ms:.1%} of the bound")
-    xl_ms = median_ms(lambda: K.lstm_seq_bwd_ckpt(*xl_args), reps=5, flush=flush)
-    xl_flops = 2 * Hx * 4 * Hx * (T * B + 2 * kept + carried)
-    xl_b, xl_by = bound(xl_flops, f32 * (2 * T * B * 4 * Hx + T * B * Hx + 2 * B * Hx
-                                         + 2 * Hx * 4 * Hx + B * Hx + B))
-    say("time", f"lstm_seq_bwd_ckpt at xl (T={T} B={B} H={Hx} S={Sx}): {xl_ms:.3f} ms (median "
-        f"of 5), bound {xl_b:.4f} ms by {xl_by} ({xl_flops / 1e9:.2f} GFLOP) = "
-        f"{xl_b / xl_ms:.1%} of the bound")
+    outsx, csx = K.lstm_fwd(projx, whx, hx[0], cx[0])
+    walkx = (torch.randn(T, B, Hx, device=dev, generator=gx), projx,
+             torch.cat([hx, outsx[:-1]]), torch.cat([cx, csx[:-1]]), csx, whx,
+             torch.randn(B, Hx, device=dev, generator=gx))
+    work_x = works(Hx, Sx)
+    for name, fn, reps in (
+        ("lstm_fwd", lambda: K.lstm_fwd(projx, whx, hx[0], cx[0]), 15),
+        ("lstm_seq_bwd", lambda: K.lstm_seq_bwd(*walkx, burn), 15),
+        ("lstm_bwd", lambda: K.lstm_bwd(*walkx), 15),
+        ("lstm_seq_bwd_ckpt",
+         lambda: K.lstm_seq_bwd_ckpt(walkx[0], projx, hx, cx, whx, walkx[6], burn, Sx), 5),
+    ):
+        t_ms = median_ms(fn, reps=reps, flush=flush)
+        b_ms, b_by = bound(*work_x[name])
+        stride = f" S={Sx}" if name == "lstm_seq_bwd_ckpt" else ""
+        say("time", f"{name} at xl (T={T} B={B} H={Hx}{stride}, "
+            f"{K._geometry(B, Hx, name, dev)}): {t_ms:.3f} ms (median of {reps}), bound "
+            f"{b_ms:.4f} ms by {b_by} ({work_x[name][0] / 1e9:.2f} GFLOP) = {b_ms / t_ms:.1%} "
+            f"of the bound")
 
     for _ in range(120):  # about a second of queued forward launches
         K.lstm_fwd(proj, wh, h0, c0)

@@ -1,5 +1,6 @@
-// Shared pieces of the column-split LSTM kernels (lstm_fwd.cu and
-// lstm_seq_bwd.cu), float32, for Hopper (sm_90a).
+// Shared pieces of the column-split LSTM kernels (lstm_fwd.cu, and the
+// reverse walk of lstm_seq_bwd.cu, lstm_bwd.cu and lstm_seq_bwd_ckpt.cu),
+// float32, for Hopper (sm_90a).
 //
 // The layout. A persistent cooperative grid of about one block per SM.
 // Block x owns the hidden units j0 = x*Hb .. j0+n_units-1 and their four
@@ -57,7 +58,9 @@ __device__ __forceinline__ void copy16_cg(float* dst, const float* src) {
 #endif
 }
 
-// 4 bytes global -> shared, for read-only data (wh)
+// 4 bytes global -> shared (cp.async of 4 bytes may only go through L1):
+// for read-only data (wh), and for dz columns the block itself wrote, in
+// lines no block writes again in the launch (Walk::add_dwh)
 __device__ __forceinline__ void copy4_ca(float* dst, const float* src) {
 #if defined(__CUDA_ARCH__)
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -246,6 +249,281 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const float* h,
       });
   reduce_slices(acc, red, it);
 }
+
+// One block's part of the reverse walk, shared by the backward kernels.
+// The block owns Hb units, their four gate columns of wh (for the gate
+// recompute) and their Hb rows of wh (for the carry), both pinned in
+// shared memory where they fit or streamed in k-tiles, and all B rows. A
+// step t is
+//   1. dz_step: recompute the block's B x 4Hb gates from h_{t-1}, form
+//      dz[t] for its columns from its (dh, dc) carry and write it (dz is
+//      both the output and the exchange buffer);
+//   2. the caller's grid barrier;
+//   3. carry_product: read the whole dz[t] (B x 4H) through L2 and form
+//      dh for the block's units against its rows of wh; store_carry keeps
+//      it in shared memory for step t-1.
+// The (dh, dc) carry of the block's units never leaves the SM, so one
+// barrier per step is enough, and the carry reads wh's rows directly (no
+// wh^T copy). With kSeam, row b keeps step t's output cotangent only where
+// t >= burn[b] and its carry into t-1 only where t > burn[b]; without,
+// every step keeps both.
+//
+// Shared memory: the gate columns (pinned: H x 4Hb; streamed: kStages
+// kt x 4Hb tiles); the rows, wr[u][m] = wh[j0 + u, m], Hbp rows of wr_ld
+// floats (pinned: all 4H columns; streamed: kStages tiles of kt); the
+// kStages Bp x (kt + kPad) staging tiles (of h or dz); the dh carry
+// dh_s[row][unit]; the slices' partials.
+struct Walk {
+  const float* wh;
+  const int* burn;  // (B,) seams, or null without kSeam
+  int B, H, Hb, kt, pinned;
+  int j0, n_units, Bp, nrg, Hbp, ld, wr_ld;
+  int wc_floats, wr_floats, st_floats;
+  float *wc, *wr, *st, *dh_s, *red;
+  Item it;  // the gate product's items: 4 rows x 1 unit
+  Item ic;  // the carry product's: 4 rows x 4 units
+  int j;    // the item's unit, clamped for padding units (never stored)
+  bool unit_ok;
+  int row[4], seam[4];  // the item's rows, clamped for padding rows
+  float dc[4];          // the item's dc carry
+
+  __device__ __forceinline__ Walk(float* smem, const float* wh_, const float* dcT,
+                                  const int* burn_, int B_, int H_, int Hb_, int kt_, int pinned_)
+      : wh(wh_), burn(burn_), B(B_), H(H_), Hb(Hb_), kt(kt_), pinned(pinned_),
+        j0(blockIdx.x * Hb_), n_units(imin(Hb_, H_ - (int)blockIdx.x * Hb_)),
+        Bp((B_ + 3) & ~3), nrg(((B_ + 3) & ~3) / 4), Hbp((Hb_ + 3) & ~3), ld(kt_ + kPad),
+        wr_ld((pinned_ ? 4 * H_ : kt_) + kPad), it(nrg, Hb_), ic(nrg, Hbp / 4) {
+    const int H4 = 4 * H;
+    wc_floats = (pinned ? H : kStages * kt) * 4 * Hb;
+    wr_floats = (pinned ? 1 : kStages) * Hbp * wr_ld;
+    st_floats = kStages * Bp * ld;
+    wc = smem;
+    wr = wc + wc_floats;
+    st = wr + wr_floats;
+    dh_s = st + st_floats;  // 0 at first: the h_T cotangent is folded into dout[T-1]
+    red = dh_s + Bp * Hb;
+    zero_smem(smem, wc_floats + wr_floats + st_floats + Bp * Hb);
+    j = j0 + imin(it.col, n_units - 1);
+    unit_ok = it.col < n_units;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      row[r] = imin(it.rg + r * nrg, B - 1);
+      seam[r] = burn ? __ldg(burn + row[r]) : 0;
+      dc[r] = __ldg(dcT + (size_t)row[r] * H + j);
+    }
+    if (pinned) {  // lands with the first tile
+      load_cols(wc, wh, H, j0, n_units, Hb, 0, H);
+      stage_rows(wr, wr_ld, wh + (size_t)j0 * H4, H4, n_units, 0, H4);
+    }
+  }
+
+  // Step t's dz columns of this block, from h_{t-1} (hprev), c_{t-1}
+  // (cprev) and c_t (ct), each (B, H), dout (B, H) and proj (B, 4H),
+  // written into dz_t (B, 4H); the dc carry moves on to step t-1.
+  template <bool kSeam>
+  __device__ __forceinline__ void dz_step(int t, const float* dout, const float* proj,
+                                          const float* hprev, const float* cprev,
+                                          const float* ct, float* dz_t) {
+    // the step's inputs (owners of real rows only), loaded before the
+    // product hides them; c through L2 (K5 wrote it in this launch)
+    float z[4][4], d_out[4], c_t[4], c_prev[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const size_t o = (size_t)row[r] * H + j;
+      const bool load = it.owner() && it.rg + r * nrg < B;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[r][g] = load ? __ldg(proj + 4 * (o - j) + g * H + j) : 0.0f;
+      d_out[r] = load && (!kSeam || t >= seam[r]) ? __ldg(dout + o) : 0.0f;
+      c_t[r] = load ? __ldcg(ct + o) : 0.0f;
+      c_prev[r] = load ? __ldcg(cprev + o) : 0.0f;
+    }
+    float acc[4][4];
+    gate_product(acc, hprev, wh, wc, st, red, it, B, Bp, H, Hb, j0, n_units, kt, pinned);
+    if (!it.owner()) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float ig = sigmoid_f32(z[r][0] + acc[r][0]);
+      const float fg = sigmoid_f32(z[r][1] + acc[r][1]);
+      const float gg = tanhf(z[r][2] + acc[r][2]);
+      const float og = sigmoid_f32(z[r][3] + acc[r][3]);
+      const float tc = tanhf(c_t[r]);
+      const float dht = d_out[r] + dh_s[(it.rg + r * nrg) * Hb + it.col];
+      const float d_o = dht * tc;
+      const float dct = dht * og * (1.0f - tc * tc) + dc[r];
+      const float di = dct * gg;
+      const float df = dct * c_prev[r];
+      const float dg = dct * ig;
+      dc[r] = (!kSeam || t > seam[r]) ? dct * fg : 0.0f;
+      if (!unit_ok || it.rg + r * nrg >= B) continue;
+      float* out = dz_t + (size_t)row[r] * 4 * H + j;
+      out[0] = di * ig * (1.0f - ig);
+      out[H] = df * fg * (1.0f - fg);
+      out[2 * H] = dg * (1.0f - gg * gg);
+      out[3 * H] = d_o * og * (1.0f - og);
+    }
+  }
+
+  // a[r][u] = sum_m dz_t[rg + r*nrg, m] * wh[j0 + 4col + u, m] for the
+  // owner of carry item (rg, col), over the 4H columns m in tiles; dz_t
+  // complete (after the grid barrier)
+  __device__ __forceinline__ void carry_product(float (&a)[4][4], const float* dz_t) {
+    const int H4 = 4 * H;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
+    const int n = (H4 + kt - 1) / kt;
+    pipelined_tiles(
+        n, blockIdx.x % n,
+        [&](int c, int buf) {
+          const int m0 = c * kt, mn = imin(kt, H4 - m0);
+          stage_rows(st + buf * Bp * ld, ld, dz_t, H4, B, m0, mn);
+          if (!pinned)
+            stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
+        },
+        [&](int c, int buf) {
+          if (ic.slice >= ic.ks) return;
+          const int m0 = c * kt, mn = imin(kt, H4 - m0);
+          const float* s = st + buf * Bp * ld + ic.rg * ld;
+          const float* w = (pinned ? wr + m0 : wr + buf * Hbp * wr_ld) + 4 * ic.col * wr_ld;
+          for (int m = 4 * ic.slice; m < mn; m += 4 * ic.ks) {
+            float4 d[4], w4[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) d[r] = *reinterpret_cast<const float4*>(s + r * nrg * ld + m);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) w4[u] = *reinterpret_cast<const float4*>(w + u * wr_ld + m);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                a[r][u] = fmaf(d[r].x, w4[u].x, a[r][u]);
+                a[r][u] = fmaf(d[r].y, w4[u].y, a[r][u]);
+                a[r][u] = fmaf(d[r].z, w4[u].z, a[r][u]);
+                a[r][u] = fmaf(d[r].w, w4[u].w, a[r][u]);
+              }
+            }
+          }
+        });
+    reduce_slices(a, red, ic);
+  }
+
+  // the carry product's dh, into dh_s for step t-1 (masked with kSeam)
+  template <bool kSeam>
+  __device__ __forceinline__ void store_carry(const float (&a)[4][4], int t) {
+    if (!ic.owner()) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int rr = ic.rg + r * nrg;
+      const bool keep = rr < B && (!kSeam || t > __ldg(burn + imin(rr, B - 1)));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int uu = 4 * ic.col + u;
+        if (uu < Hb) dh_s[rr * Hb + uu] = keep ? a[r][u] : 0.0f;
+      }
+    }
+  }
+
+  // the carry product's dh of the real rows and units into x (B, H)
+  __device__ __forceinline__ void store_dh(const float (&a)[4][4], float* x) const {
+    if (!ic.owner()) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int rr = ic.rg + r * nrg;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int uu = 4 * ic.col + u;
+        if (rr < B && uu < n_units) x[(size_t)rr * H + j0 + uu] = a[r][u];
+      }
+    }
+  }
+
+  // the dc carry of the real rows and units into x (B, H)
+  __device__ __forceinline__ void store_dc(float* x) const {
+    if (!it.owner() || !unit_ok) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (it.rg + r * nrg < B) x[(size_t)row[r] * H + j] = dc[r];
+  }
+
+  // The block's columns of dWh: dwh[k, g*H + j0 + u] for every k < H and
+  // the block's units u, set (or, with accumulate, added to) the sum over
+  // m = s*B + b, in that order, of h_s[b, k] * dz[m, g*H + j0 + u], where
+  // hrows(s) is the (B, H) h entering step s and dz the steps' (B, 4H)
+  // rows, `steps` of them. The columns belong to this block alone: no
+  // partials, no atomics, one summation order. Thread (kg, ug) owns rows
+  // k0 + 4kg .. +3 of a kc-row chunk and unit ug's four gates; the rows
+  // of h and dz are staged in tiles of mt through the copy pipeline, in
+  // the staging tiles (pinned) or in all the walk's tile buffers
+  // (streamed). lstm_geometry makes sure a tile holds a row. The caller
+  // orders dz's writes before this (a barrier); the steps' dz rows are
+  // written no more in the launch.
+  template <class HRows>
+  __device__ __forceinline__ void add_dwh(float* dwh, HRows hrows, const float* dz, int steps,
+                                          bool accumulate) {
+    const int H4 = 4 * H;
+    const int ug = threadIdx.x % Hb, kg = threadIdx.x / Hb;
+    const int kc = imin(H, 4 * ((int)blockDim.x / Hb));
+    const int h_ld = kc + kPad, d_ld = 4 * Hb + kPad;
+    float* tiles = pinned ? st : wc;
+    const int stage = ((pinned ? st_floats : wc_floats + wr_floats + st_floats) / kStages) & ~3;
+    const int mt = stage / (h_ld + d_ld);
+    const int M = steps * B, n = (M + mt - 1) / mt;
+    for (int k0 = 0; k0 < H; k0 += kc) {
+      const int kn = imin(kc, H - k0);
+      const bool mine = 4 * kg < kn && ug < n_units;
+      float* out = dwh + (size_t)(k0 + 4 * kg) * H4 + j0 + ug;
+      float acc[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[kk][g] = mine && accumulate ? out[kk * H4 + g * H] : 0.0f;
+      }
+      pipelined_tiles(
+          n, 0,
+          [&](int c, int buf) {
+            const int m0 = c * mt, mn = imin(mt, M - m0);
+            float* hs = tiles + buf * stage;
+            float* ds = hs + mt * h_ld;
+            const int q = kn >> 2;
+            for (int idx = threadIdx.x; idx < mn * q; idx += blockDim.x) {
+              const int m = idx / q, v = 4 * (idx - m * q);
+              const int s = (m0 + m) / B, b = m0 + m - s * B;
+              copy16_cg(hs + m * h_ld + v, hrows(s) + (size_t)b * H + k0 + v);
+            }
+            // the block's dz columns, unit-major: ds[m][4u + g]
+            const int per = 4 * n_units;
+            for (int idx = threadIdx.x; idx < mn * per; idx += blockDim.x) {
+              const int m = idx / per, r = idx - m * per;
+              const int g = r / n_units, u = r - g * n_units;
+              copy4_ca(ds + m * d_ld + 4 * u + g, dz + (size_t)(m0 + m) * H4 + g * H + j0 + u);
+            }
+          },
+          [&](int c, int buf) {
+            if (!mine) return;
+            const int mn = imin(mt, M - c * mt);
+            const float* hs = tiles + buf * stage + 4 * kg;
+            const float* ds = tiles + buf * stage + mt * h_ld + 4 * ug;
+            for (int m = 0; m < mn; ++m) {
+              const float4 h4 = *reinterpret_cast<const float4*>(hs + m * h_ld);
+              const float4 d4 = *reinterpret_cast<const float4*>(ds + m * d_ld);
+              const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                acc[kk][0] = fmaf(hv[kk], d4.x, acc[kk][0]);
+                acc[kk][1] = fmaf(hv[kk], d4.y, acc[kk][1]);
+                acc[kk][2] = fmaf(hv[kk], d4.z, acc[kk][2]);
+                acc[kk][3] = fmaf(hv[kk], d4.w, acc[kk][3]);
+              }
+            }
+          });
+      if (mine) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) out[kk * H4 + g * H] = acc[kk][g];
+        }
+      }
+    }
+  }
+};
 
 // A cooperative launch: every block resident at once, or no launch. The
 // grid is checked against the card's occupancy for this kernel first.

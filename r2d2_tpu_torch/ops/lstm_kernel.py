@@ -9,8 +9,6 @@ Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
   ``cs (T,B,H)``.
 - ``lstm_seq_bwd`` — csrc/lstm_seq_bwd.cu, replacing ``_seq_bwd_kernel``:
   the reverse walk with the per-row burn-in seam, -> ``dz (T,B,4H)``.
-  These two split the hidden units across the SMs in one cooperative
-  launch (csrc/column_split.cuh); ``lstm_geometry`` decides the split.
 - ``lstm_bwd`` — csrc/lstm_bwd.cu, replacing ``_bwd_kernel``: the reverse
   walk with no seam, -> ``dz`` and the real ``dh0, dc0 (B,H)``.
 - ``lstm_seq_bwd_fused`` — csrc/lstm_seq_bwd_fused.cu, replacing
@@ -20,6 +18,10 @@ Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
   ``_seq_bwd_ckpt_kernel``: per S-step segment, newest first, the forward
   recomputed from the segment's checkpointed carry, then the seam walk
   with the in-kernel dWh, -> ``dz``, ``dwh``.
+
+All but ``lstm_seq_bwd_fused`` split the hidden units across the SMs in
+one cooperative launch (csrc/column_split.cuh; the backward ones share
+its reverse walk); ``lstm_geometry`` decides the split.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -48,9 +50,9 @@ import torch
 _SIGNATURES = {
     "lstm_fwd": (7, 9),             # ..., barrier, T, B, H, then the Geometry
     "lstm_seq_bwd": (10, 9),
-    "lstm_bwd": (11, 3),
+    "lstm_bwd": (11, 9),
     "lstm_seq_bwd_fused": (13, 3),
-    "lstm_seq_bwd_ckpt": (14, 4),   # ..., T, B, H, S
+    "lstm_seq_bwd_ckpt": (12, 10),  # ..., barrier, T, B, H, S, then the Geometry
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -251,23 +253,28 @@ def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev) -> None:
     _check("dcT", dcT, (B, H), f32, dev)
 
 
-# batch rows per block of the backward kernels (kRows in csrc/*.cu)
+# batch rows per block of the fused-dWh backward (kRows in
+# csrc/lstm_seq_bwd_fused.cu)
 _ROWS_PER_BLOCK = 4
 
 
 def _dwh_workspace(B: int, H: int, dev):
-    """Per-block dWh partials (one per row tile) and the ticket counter
-    with which the last block to finish finds itself and sums them."""
+    """The fused-dWh backward's per-block dWh partials (one per row tile)
+    and the ticket counter with which the last block to finish finds
+    itself and sums them."""
     tiles = -(-B // _ROWS_PER_BLOCK)
     return (torch.empty((tiles, H, 4 * H), dtype=torch.float32, device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
 
 
-# the column-split kernels (K1, K2; csrc/column_split.cuh): at most this
-# many threads per block (and the most the slices of a block's items are
-# widened to), the widest tile of h (or dz) columns staged in shared memory
-# at once, the padding of a staged row (kPad) and the tiles in the copy
-# pipeline (kStages)
+# the column-split kernels (csrc/column_split.cuh): K1 and the reverse
+# walk's K2, K3 and K5 (K5 also stages its dWh tiles in the walk's buffers)
+COLUMN_SPLIT = ("lstm_fwd", "lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_ckpt")
+
+# at most this many threads per block (and the most the slices of a block's
+# items are widened to), the widest tile of h (or dz) columns staged in
+# shared memory at once, the padding of a staged row (kPad) and the tiles
+# in the copy pipeline (kStages)
 _MAX_THREADS = 512
 _SLICED_THREADS = 256
 _MAX_K_TILE = 128
@@ -286,22 +293,39 @@ class Geometry(NamedTuple):
     smem_bytes: int  # dynamic shared memory per block
 
 
-def lstm_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int) -> Geometry:
-    """The column split of K1 (``backward=False``) or K2 on a card with
+def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bp: int,
+                   Hbp: int) -> int:
+    """Rows of (h, dz) that one stage of K5's dWh pass holds
+    (column_split.cuh, ``Walk::add_dwh``): the staging tiles, and when wh
+    is streamed also its tile buffers, cut in _STAGES."""
+    k_chunk = min(H, 4 * (threads // units))
+    row = k_chunk + 4 * units + 2 * _ROW_PAD
+    region = _STAGES * Bp * (kt + _ROW_PAD)
+    if not pinned:
+        region += _STAGES * (kt * 4 * units + Hbp * (kt + _ROW_PAD))
+    return ((region // _STAGES) & ~3) // row
+
+
+def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int) -> Geometry:
+    """The column split of `kernel` (one of COLUMN_SPLIT) on a card with
     `num_sms` SMs and `smem_limit` bytes of shared memory per block.
 
     Each block owns ``Hb = ceil(H / num_sms)`` hidden units (their four
-    gate columns of wh, and for K2 also their rows), so ``grid =
-    ceil(H / Hb) <= num_sms``. A thread owns 4 rows x one unit's 4 gates
-    over one k-slice; the ceil(B/4) x Hb items are split into the most
-    k-slices that keep the block within 256 threads. The wh slice is
+    gate columns of wh, and for the reverse walk also their rows), so
+    ``grid = ceil(H / Hb) <= num_sms``. A thread owns 4 rows x one unit's 4
+    gates over one k-slice; the ceil(B/4) x Hb items are split into the
+    most k-slices that keep the block within 256 threads. The wh slice is
     pinned in shared memory where it fits beside the staging tiles, else
     streamed in k-tiles beside them; the tiles narrow until the shared
-    memory fits. Raises ValueError where no tile fits, the items exceed a
-    block's threads, or H is not a multiple of 4 (the kernels copy 16-byte
+    memory fits (and, for K5, until a stage of its dWh pass holds a row).
+    Raises ValueError where no tile fits, the items exceed a block's
+    threads, or H is not a multiple of 4 (the kernels copy 16-byte
     rows)."""
+    if kernel not in COLUMN_SPLIT:
+        raise ValueError(f"{kernel!r} is not a column-split kernel: {COLUMN_SPLIT}")
     if H % 4:
         raise ValueError(f"hidden size {H} is not a multiple of 4")
+    backward = kernel != "lstm_fwd"
     units = -(-H // num_sms)
     grid = -(-H // units)
     row_groups = -(-B // 4)
@@ -318,17 +342,21 @@ def lstm_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int)
     tiles = [widest] + [k for k in (64, 32, 16, 8) if k < widest]
     for pinned in (True, False):
         for kt in tiles:
-            # the staged rows, the slices' partials and (K2) the dh carry
+            # the staged rows, the slices' partials and (walk) the dh carry
             floats = _STAGES * Bp * (kt + _ROW_PAD) + 16 * threads
             if backward:
                 floats += Bp * units
-            # the wh slice: gate columns, and (K2) rows padded to 4 units
+            # the wh slice: gate columns, and (walk) rows padded to 4 units
             if pinned:
                 floats += H * 4 * units + (Hbp * (4 * H + _ROW_PAD) if backward else 0)
             else:
                 floats += _STAGES * (kt * 4 * units + (Hbp * (kt + _ROW_PAD) if backward else 0))
-            if 4 * floats <= smem_limit:
-                return Geometry(units, grid, threads, kt, pinned, 4 * floats)
+            if 4 * floats > smem_limit:
+                continue
+            if (kernel == "lstm_seq_bwd_ckpt"
+                    and _dwh_tile_rows(H, units, threads, kt, pinned, Bp, Hbp) < 1):
+                continue
+            return Geometry(units, grid, threads, kt, pinned, 4 * floats)
     raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
 
 
@@ -339,8 +367,8 @@ def _device_limits(index: int) -> Tuple[int, int]:
     return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
-def _geometry(B: int, H: int, backward: bool, dev) -> Geometry:
-    return lstm_geometry(B, H, backward, *_device_limits(dev.index or 0))
+def _geometry(B: int, H: int, kernel: str, dev) -> Geometry:
+    return lstm_geometry(B, H, kernel, *_device_limits(dev.index or 0))
 
 
 def _geometry_ints(g: Geometry) -> Tuple[int, ...]:
@@ -371,7 +399,7 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("c0", c0, (B, H), f32, dev)
     if dev.type == "cpu":
         return lstm_fwd_plain(proj_t, wh, h0, c0)
-    geo = _geometry(B, H, False, dev)
+    geo = _geometry(B, H, "lstm_fwd", dev)
     _check_aligned("h0", h0)
     outs = torch.empty((T, B, H), dtype=f32, device=dev)
     cs = torch.empty((T, B, H), dtype=f32, device=dev)
@@ -385,7 +413,7 @@ def grid_barriers(n: int, B: int, H: int, dev) -> None:
     column split's per-step floor, for timing. Counts no launch."""
     from r2d2_tpu_torch.ops import _build
 
-    geo = _geometry(B, H, False, dev)
+    geo = _geometry(B, H, "lstm_fwd", dev)
     _, err_str = _kernel("lstm_fwd")
     fn = _build.load("lstm_fwd").lstm_fwd_barriers_launch
     fn.argtypes = [_P, _I, _I, _I, _I, _P]
@@ -408,7 +436,7 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
-    geo = _geometry(B, H, True, dev)
+    geo = _geometry(B, H, "lstm_seq_bwd", dev)
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -425,13 +453,15 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
     if dev.type == "cpu":
         return lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT)
-    whT = wh.t().contiguous()
+    geo = _geometry(B, H, "lstm_bwd", dev)
+    _check_aligned("hprev", hprev)
+    _check_aligned("wh", wh)
     f32 = torch.float32
     dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
-    _launch("lstm_bwd", (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, dz, dh0, dc0),
-            (T, B, H), dev)
+    _launch("lstm_bwd", (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, _barrier(dev)),
+            (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dh0, dc0
 
 
@@ -475,18 +505,18 @@ def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S)
-    whT = wh.t().contiguous()
+    geo = _geometry(B, H, "lstm_seq_bwd_ckpt", dev)
+    _check_aligned("h_ckpt", h_ckpt)
+    _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
-    part, ticket = _dwh_workspace(B, H, dev)
-    # the recomputed segment's h and c, (S+1, B, H) each; every block
-    # touches only its own rows
+    # the recomputed segment's h (every block reads it whole) and c (each
+    # block touches only its own units), (S+1, B, H) each
     seg_h = torch.empty((S + 1, B, H), dtype=f32, device=dev)
     seg_c = torch.empty((S + 1, B, H), dtype=f32, device=dev)
     _launch("lstm_seq_bwd_ckpt",
-            (dout, proj_t, h_ckpt, c_ckpt, wh, whT, dcT, burn, dz, dwh, part, ticket,
-             seg_h, seg_c),
-            (T, B, H, S), dev)
+            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, _barrier(dev)),
+            (T, B, H, S, *_geometry_ints(geo)), dev)
     return dz, dwh
 
 

@@ -10,7 +10,8 @@ Tolerances: the kernels and the plain versions both work in float32 but sum
 the H-long (and 4H-long) dot products in other orders, and the recurrence
 carries those differences through T steps; 1e-4 absolute (dz also 1e-4
 relative) holds them with room at T=85, H=512. dWh, summed in the kernel
-over per-block partials, is held to 1e-4 of its largest entry: each entry
+(K4 over per-block partials, K5 per column slice and segment), is held to
+1e-4 of its largest entry: each entry
 sums T*B products of both signs, so entries that cancel to near zero have
 no meaningful relative error.
 """
@@ -126,8 +127,9 @@ def test_backward_arm_kernels_match_plain_versions(cuda, shape):
 
 
 def test_column_split_kernels_give_the_same_bits_every_launch(cuda):
-    """K1 and K2 at the atari widths: no float atomics, each output summed
-    by one thread in a fixed order."""
+    """K1, K2, K3 (dz, dh0, dc0) and K5 (dz, dWh at S=5) at the atari
+    widths: no float atomics, each output summed by one thread in a fixed
+    order."""
     T, B, H = 85, 64, 512
     g = torch.Generator(device=cuda).manual_seed(3)
     proj = torch.randn(T, B, 4 * H, device=cuda, generator=g)
@@ -141,6 +143,13 @@ def test_column_split_kernels_give_the_same_bits_every_launch(cuda):
             torch.randn(B, H, device=cuda, generator=g),
             torch.randint(0, T, (B,), device=cuda, generator=g, dtype=torch.int32))
     assert torch.equal(lstm_kernel.lstm_seq_bwd(*walk), lstm_kernel.lstm_seq_bwd(*walk))
+    for a, b in zip(lstm_kernel.lstm_bwd(*walk[:-1]), lstm_kernel.lstm_bwd(*walk[:-1])):
+        assert torch.equal(a, b)
+    S = 5
+    ckpt = (walk[0], proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
+            torch.cat([c0[None], cs[S - 1 : T - 1 : S]]), wh, walk[6], walk[7], S)
+    for a, b in zip(lstm_kernel.lstm_seq_bwd_ckpt(*ckpt), lstm_kernel.lstm_seq_bwd_ckpt(*ckpt)):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

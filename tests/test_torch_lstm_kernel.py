@@ -192,17 +192,19 @@ def test_config_resolves_kernels_on_cuda_and_plain_on_cpu():
 H100_SMS, H100_SMEM = 132, 232_448
 
 
-@pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_ckpt"],
+                         ids=["K1", "K2", "K3", "K5"])
 @pytest.mark.parametrize("H_", [8, 32, 96, 512, 640, 2048])
-def test_column_split_geometry_at_the_atari_batch(H_, backward):
-    """K1/K2's column split at B=64 on the H100: every hidden unit owned by
-    exactly one block, no block empty, the grid within the SM count (one
-    resident block per SM), a whole number of k-slices of the block's
-    (4 rows x 1 unit) items, the shared memory within the card's limit,
-    and the wh slice pinned at the atari width and streamed at the xl
-    width."""
+def test_column_split_geometry_at_the_atari_batch(H_, kernel):
+    """The column split of K1, K2, K3 and K5 at B=64 on the H100: every
+    hidden unit owned by exactly one block, no block empty, the grid within
+    the SM count (one resident block per SM), a whole number of k-slices
+    of the block's (4 rows x 1 unit) items, the shared memory within the
+    card's limit, and the wh slice pinned at the atari width and streamed
+    at the xl width. The reverse walks (K2, K3, K5) share one layout, and
+    a stage of K5's dWh pass holds at least one row."""
     B_ = 64
-    g = port.lstm_geometry(B_, H_, backward, H100_SMS, H100_SMEM)
+    g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM)
     owned = [j for blk in range(g.grid) for j in range(blk * g.units, min(H_, (blk + 1) * g.units))]
     assert owned == list(range(H_))
     assert (g.grid - 1) * g.units < H_  # the last block owns at least one unit
@@ -215,12 +217,19 @@ def test_column_split_geometry_at_the_atari_batch(H_, backward):
         assert g.pinned and (g.units, g.grid) == (4, 128)
     if H_ == 2048:
         assert not g.pinned and (g.units, g.grid) == (16, 128)
+    if kernel != "lstm_fwd":
+        assert g == port.lstm_geometry(B_, H_, "lstm_seq_bwd", H100_SMS, H100_SMEM)
+    if kernel == "lstm_seq_bwd_ckpt":
+        assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, B_,
+                                   4 * -(-g.units // 4)) >= 1
 
 
 def test_column_split_geometry_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="threads"):
-        port.lstm_geometry(256, 2048, True, H100_SMS, H100_SMEM)
+        port.lstm_geometry(256, 2048, "lstm_seq_bwd", H100_SMS, H100_SMEM)
     with pytest.raises(ValueError, match="shared memory"):
-        port.lstm_geometry(64, 512, True, H100_SMS, 1024)
+        port.lstm_geometry(64, 512, "lstm_bwd", H100_SMS, 1024)
     with pytest.raises(ValueError, match="multiple of 4"):
-        port.lstm_geometry(64, 510, False, H100_SMS, H100_SMEM)
+        port.lstm_geometry(64, 510, "lstm_fwd", H100_SMS, H100_SMEM)
+    with pytest.raises(ValueError, match="column-split"):
+        port.lstm_geometry(64, 512, "lstm_seq_bwd_fused", H100_SMS, H100_SMEM)
