@@ -13,12 +13,13 @@ its own lines; any failure exits non-zero and prints no result:
           atari widths (T=85, B=64, H=512, fp32), at the xl width (H=2048)
           and at ragged small shapes, with seams at 0, mid, T-1 and mixed
           per row; the checkpointed backward at every divisor stride of T,
-          with seams on segment boundaries too. The column split of K1,
-          K2, K3 and K5 (units per block, grid, threads, k-tile, wh slice
-          pinned or streamed) is printed per shape; at the atari widths two
-          launches of each must give the same bits (K3: dz, dh0, dc0; K5:
-          dz and dWh at S=5), and whether K5's dz equals K2's bit for bit
-          at the same inputs is printed (not required).
+          with seams on segment boundaries too. The column split of every
+          kernel (units per block, grid, threads, k-tile, wh slice pinned
+          or streamed) is printed per shape; at the atari widths two
+          launches of each must give the same bits (K3: dz, dh0, dc0; K4:
+          dz and dWh; K5: dz and dWh at S=5), K4's dz must equal K2's bit
+          for bit at the same inputs (the same walk in the same geometry),
+          and whether K5's dz equals K2's is printed (not required).
 4. train  the main path: Trainer.run_inline at the atari preset's widths
           (84x84x1 frames, nature encoder, hidden 512, burn-in / learning /
           forward 40/40/5, batch 64, fp32) on catch, with only the host
@@ -41,10 +42,11 @@ its own lines; any failure exits non-zero and prints no result:
           call computes the same function, that call (the cuDNN LSTM
           forward, and its backward for the seamless backward), with CUDA
           events, at the main path's shapes and with the seams of a batch
-          the main path sampled; T grid barriers alone at the forward's
-          geometry (the column split's floor); the forward, the seam and
-          seamless backwards and the checkpointed backward also at xl; and
-          the SM clock read while forward launches are queued.
+          the main path sampled; the default arm's backward pair (K2 and
+          the hprev^T @ dz matmul) beside K4, as a yardstick; T grid
+          barriers alone at the forward's geometry (the column split's
+          floor); the forward and the four backwards also at xl; and the
+          SM clock read while forward launches are queued.
 
 The next-to-last lines are the kernels as one JSON object and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -78,10 +80,10 @@ PEAK_BYTES = 3.35e12
 # orders, differences carried through T recurrent steps
 ATOL = 1e-4
 RTOL = 1e-4
-# dWh summed in the kernel (K4: per-block partials, then over blocks; K5:
-# per column slice, segments newest first) against the plain version's
-# per-step matmuls: each entry sums T*B products of both signs, so the
-# error is held against the largest entry, not entry by entry
+# dWh summed in the kernel (per column slice; K4 over (t, b), K5 segments
+# newest first) against the plain version's per-step matmuls: each entry
+# sums T*B products of both signs, so the error is held against the
+# largest entry, not entry by entry
 DWH_TOL = 1e-4
 
 UPDATES = 8
@@ -348,6 +350,14 @@ def main():
                 fail(f"lstm_seq_bwd: two launches differ {at}")
             if not all(map(torch.equal, K.lstm_bwd(*walk), K.lstm_bwd(*walk))):
                 fail(f"lstm_bwd: two launches differ (dz, dh0 or dc0) {at}")
+            f_dz, f_dwh = K.lstm_seq_bwd_fused(*walk, mixed)
+            again = K.lstm_seq_bwd_fused(*walk, mixed)
+            if not (torch.equal(f_dz, again[0]) and torch.equal(f_dwh, again[1])):
+                fail(f"lstm_seq_bwd_fused: two launches differ (dz or dWh) {at}")
+            # the same walk in the same geometry: the same dz
+            if not torch.equal(f_dz, seam_dz):
+                fail(f"lstm_seq_bwd_fused: dz differs from lstm_seq_bwd's {at} seam mixed "
+                     f"(max |diff| {float((f_dz - seam_dz).abs().max()):.3e})")
             S = 5
             args = (dout, proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
                     torch.cat([c0[None], cs[S - 1 : T - 1 : S]]), wh, dcT, mixed, S)
@@ -355,8 +365,9 @@ def main():
             again = K.lstm_seq_bwd_ckpt(*args)
             if not (torch.equal(k_dz, again[0]) and torch.equal(k_dwh, again[1])):
                 fail(f"lstm_seq_bwd_ckpt: two launches differ (dz or dWh) {at} S={S}")
-            say("check", f"{at}: two launches each of lstm_fwd, lstm_seq_bwd, lstm_bwd and "
-                f"lstm_seq_bwd_ckpt (S={S}) give identical bits")
+            say("check", f"{at}: two launches each of lstm_fwd, lstm_seq_bwd, lstm_bwd, "
+                f"lstm_seq_bwd_fused and lstm_seq_bwd_ckpt (S={S}) give identical bits; "
+                f"lstm_seq_bwd_fused's dz equals lstm_seq_bwd's bit for bit, seam mixed")
             same = torch.equal(k_dz, seam_dz)
             say("check", f"{at}: lstm_seq_bwd_ckpt's dz (S={S}) {'equals' if same else 'differs from'}"
                 f" lstm_seq_bwd's bit for bit at the same inputs, seam mixed (max |diff| "
@@ -550,6 +561,13 @@ def main():
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library.get(name),
         })
+    # the default arm's backward, two calls: the seam walk, then dWh as one
+    # matmul outside it; a yardstick for K4, not one call for its function
+    pair_ms = median_ms(lambda: K._outer_dwh(hprev, K.lstm_seq_bwd(*walk, burn), wh), flush=flush)
+    say("time", f"default arm's pair (lstm_seq_bwd + hprev^T @ dz matmul) {pair_ms:.3f} ms beside "
+        f"lstm_seq_bwd_fused {times['lstm_seq_bwd_fused'][0]:.3f} ms; lstm_seq_bwd alone "
+        f"{times['lstm_seq_bwd'][0]:.3f} ms, so K4's dWh pass takes about "
+        f"{times['lstm_seq_bwd_fused'][0] - times['lstm_seq_bwd'][0]:.3f} ms")
     say("time", f"seams of the sampled batch: {sorted(set(sampled.burn_in_steps.tolist()))}, "
         f"backward steps kept {kept} of {T * B}; ckpt at S={S}")
     # the column split's floor: one grid barrier per step and nothing else
@@ -558,8 +576,8 @@ def main():
         f"{bar_ms:.3f} ms, {bar_ms / T * 1e3:.2f} us per barrier; lstm_fwd "
         f"{times['lstm_fwd'][0]:.3f} ms, lstm_seq_bwd {times['lstm_seq_bwd'][0]:.3f} ms")
 
-    # the forward, the seam and seamless backwards and the checkpointed
-    # backward at the xl width, where auto takes the checkpointed arm
+    # the forward and the four backwards at the xl width, where auto takes
+    # the checkpointed arm
     Hx, Sx = 2048, 85
     gx = torch.Generator(device=dev).manual_seed(8)
     projx = torch.randn(T, B, 4 * Hx, device=dev, generator=gx)
@@ -575,6 +593,7 @@ def main():
         ("lstm_fwd", lambda: K.lstm_fwd(projx, whx, hx[0], cx[0]), 15),
         ("lstm_seq_bwd", lambda: K.lstm_seq_bwd(*walkx, burn), 15),
         ("lstm_bwd", lambda: K.lstm_bwd(*walkx), 15),
+        ("lstm_seq_bwd_fused", lambda: K.lstm_seq_bwd_fused(*walkx, burn), 15),
         ("lstm_seq_bwd_ckpt",
          lambda: K.lstm_seq_bwd_ckpt(walkx[0], projx, hx, cx, whx, walkx[6], burn, Sx), 5),
     ):
@@ -585,6 +604,10 @@ def main():
             f"{K._geometry(B, Hx, name, dev)}): {t_ms:.3f} ms (median of {reps}), bound "
             f"{b_ms:.4f} ms by {b_by} ({work_x[name][0] / 1e9:.2f} GFLOP) = {b_ms / t_ms:.1%} "
             f"of the bound")
+    pair_x = median_ms(lambda: K._outer_dwh(walkx[2], K.lstm_seq_bwd(*walkx, burn), whx),
+                       flush=flush)
+    say("time", f"default arm's pair at xl (lstm_seq_bwd + hprev^T @ dz matmul): "
+        f"{pair_x:.3f} ms (median of 15)")
 
     for _ in range(120):  # about a second of queued forward launches
         K.lstm_fwd(proj, wh, h0, c0)

@@ -1,6 +1,6 @@
 // Shared pieces of the column-split LSTM kernels (lstm_fwd.cu, and the
-// reverse walk of lstm_seq_bwd.cu, lstm_bwd.cu and lstm_seq_bwd_ckpt.cu),
-// float32, for Hopper (sm_90a).
+// reverse walk of lstm_seq_bwd.cu, lstm_bwd.cu, lstm_seq_bwd_fused.cu and
+// lstm_seq_bwd_ckpt.cu), float32, for Hopper (sm_90a).
 //
 // The layout. A persistent cooperative grid of about one block per SM.
 // Block x owns the hidden units j0 = x*Hb .. j0+n_units-1 and their four

@@ -13,15 +13,17 @@ Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
   walk with no seam, -> ``dz`` and the real ``dh0, dc0 (B,H)``.
 - ``lstm_seq_bwd_fused`` — csrc/lstm_seq_bwd_fused.cu, replacing
   ``_seq_bwd_fused_kernel``: the seam walk with ``dWh = sum_t
-  h_{t-1}^T @ dz_t`` accumulated inside the kernel, -> ``dz``, ``dwh``.
+  h_{t-1}^T @ dz_t`` formed inside the kernel, -> ``dz``, ``dwh``.
 - ``lstm_seq_bwd_ckpt`` — csrc/lstm_seq_bwd_ckpt.cu, replacing
   ``_seq_bwd_ckpt_kernel``: per S-step segment, newest first, the forward
   recomputed from the segment's checkpointed carry, then the seam walk
   with the in-kernel dWh, -> ``dz``, ``dwh``.
 
-All but ``lstm_seq_bwd_fused`` split the hidden units across the SMs in
-one cooperative launch (csrc/column_split.cuh; the backward ones share
-its reverse walk); ``lstm_geometry`` decides the split.
+Each splits the hidden units across the SMs in one cooperative launch
+(csrc/column_split.cuh; the backward ones share its reverse walk);
+``lstm_geometry`` decides the split. ``lstm_seq_bwd_fused`` runs
+``lstm_seq_bwd``'s walk in the same geometry, so its dz is
+``lstm_seq_bwd``'s bit for bit on the card.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -51,7 +53,7 @@ _SIGNATURES = {
     "lstm_fwd": (7, 9),             # ..., barrier, T, B, H, then the Geometry
     "lstm_seq_bwd": (10, 9),
     "lstm_bwd": (11, 9),
-    "lstm_seq_bwd_fused": (13, 3),
+    "lstm_seq_bwd_fused": (11, 9),
     "lstm_seq_bwd_ckpt": (12, 10),  # ..., barrier, T, B, H, S, then the Geometry
 }
 KERNELS = tuple(_SIGNATURES)
@@ -149,7 +151,7 @@ def lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT):
 
 def lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     """(dz in proj dtype, dwh f32): the seam walk, adding h_{t-1}^T @ dz_t
-    into dWh at every step as the fused kernel does."""
+    into dWh at every step."""
     T, B, H = cs.shape
     burn = burn.reshape(B, 1)
     dh = torch.zeros((B, H), dtype=torch.float32, device=cs.device)
@@ -253,23 +255,12 @@ def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev) -> None:
     _check("dcT", dcT, (B, H), f32, dev)
 
 
-# batch rows per block of the fused-dWh backward (kRows in
-# csrc/lstm_seq_bwd_fused.cu)
-_ROWS_PER_BLOCK = 4
-
-
-def _dwh_workspace(B: int, H: int, dev):
-    """The fused-dWh backward's per-block dWh partials (one per row tile)
-    and the ticket counter with which the last block to finish finds
-    itself and sums them."""
-    tiles = -(-B // _ROWS_PER_BLOCK)
-    return (torch.empty((tiles, H, 4 * H), dtype=torch.float32, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
-
-
-# the column-split kernels (csrc/column_split.cuh): K1 and the reverse
-# walk's K2, K3 and K5 (K5 also stages its dWh tiles in the walk's buffers)
-COLUMN_SPLIT = ("lstm_fwd", "lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_ckpt")
+# the column-split kernels (csrc/column_split.cuh), all five: K1 and the
+# reverse walk's K2, K3, K4 and K5 (K4 and K5 also stage their dWh tiles
+# in the walk's buffers)
+COLUMN_SPLIT = KERNELS
+# the kernels with Walk::add_dwh's dWh pass
+_DWH_PASS = ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
 
 # at most this many threads per block (and the most the slices of a block's
 # items are widened to), the widest tile of h (or dz) columns staged in
@@ -295,7 +286,7 @@ class Geometry(NamedTuple):
 
 def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bp: int,
                    Hbp: int) -> int:
-    """Rows of (h, dz) that one stage of K5's dWh pass holds
+    """Rows of (h, dz) that one stage of K4's and K5's dWh pass holds
     (column_split.cuh, ``Walk::add_dwh``): the staging tiles, and when wh
     is streamed also its tile buffers, cut in _STAGES."""
     k_chunk = min(H, 4 * (threads // units))
@@ -317,7 +308,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int) ->
     most k-slices that keep the block within 256 threads. The wh slice is
     pinned in shared memory where it fits beside the staging tiles, else
     streamed in k-tiles beside them; the tiles narrow until the shared
-    memory fits (and, for K5, until a stage of its dWh pass holds a row).
+    memory fits (and, for K4 and K5, until a stage of their dWh pass
+    holds a row).
     Raises ValueError where no tile fits, the items exceed a block's
     threads, or H is not a multiple of 4 (the kernels copy 16-byte
     rows)."""
@@ -353,7 +345,7 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int) ->
                 floats += _STAGES * (kt * 4 * units + (Hbp * (kt + _ROW_PAD) if backward else 0))
             if 4 * floats > smem_limit:
                 continue
-            if (kernel == "lstm_seq_bwd_ckpt"
+            if (kernel in _DWH_PASS
                     and _dwh_tile_rows(H, units, threads, kt, pinned, Bp, Hbp) < 1):
                 continue
             return Geometry(units, grid, threads, kt, pinned, 4 * floats)
@@ -467,22 +459,24 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
 
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the seam backward
-    with dWh accumulated in the kernel. Kernel on CUDA, plain version on
-    the CPU. dz and dWh differ from the plain version (and dz from the
-    seam kernel's) by summation order only."""
+    with dWh formed in the kernel. Kernel on CUDA, plain version on the
+    CPU. On the card dz is lstm_seq_bwd's bit for bit (the same walk in
+    the same geometry); dz and dWh differ from the plain version by
+    summation order only."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
-    whT = wh.t().contiguous()
+    geo = _geometry(B, H, "lstm_seq_bwd_fused", dev)
+    _check_aligned("hprev", hprev)
+    _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
-    part, ticket = _dwh_workspace(B, H, dev)
     _launch("lstm_seq_bwd_fused",
-            (dout, proj_t, hprev, cprev, cs, wh, whT, dcT, burn, dz, dwh, part, ticket),
-            (T, B, H), dev)
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, _barrier(dev)),
+            (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dwh
 
 

@@ -3,10 +3,9 @@
 // machine without a card (tests/test_torch_kernel_emulation.py). One
 // std::thread per CUDA thread, a std::barrier per block for
 // __syncthreads, shared memory poisoned so a read before a write shows.
-// A `<<<>>>` launch (rewritten to emulate()) runs its blocks one after
-// another; a cooperative cudaLaunchKernelEx runs all of them at once, so
-// a grid barrier built on atomics meets. It says nothing about warps, the
-// memory model or speed.
+// A cooperative cudaLaunchKernelEx runs all its blocks at once, so a grid
+// barrier built on atomics meets. It says nothing about warps, the memory
+// model or speed.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -48,9 +47,8 @@ template <class F> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiproces
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
-// blocks [b0, b1) at once, each with its own barrier and shared memory
-template <class F> void run_blocks(unsigned b0, unsigned b1, int threads, size_t smem_bytes, F fn) {
-  const unsigned n = b1 - b0;
+// n blocks at once, each with its own barrier and shared memory
+template <class F> void run_blocks(unsigned n, int threads, size_t smem_bytes, F fn) {
   std::vector<std::vector<float>> sm(n, std::vector<float>(smem_bytes / 4 + 1, -1e30f));  // poison
   std::deque<std::barrier<>> bars;  // not movable: a deque never moves them
   for (unsigned i = 0; i < n; ++i) bars.emplace_back(threads);
@@ -58,21 +56,15 @@ template <class F> void run_blocks(unsigned b0, unsigned b1, int threads, size_t
   for (unsigned i = 0; i < n; ++i)
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, i, t] {
-        blockIdx.x = b0 + i; threadIdx.x = t; g_bar = &bars[i]; g_smem = sm[i].data(); fn();
+        blockIdx.x = i; threadIdx.x = t; g_bar = &bars[i]; g_smem = sm[i].data(); fn();
       });
   for (auto& x : ts) x.join();
-}
-
-template <class F> void emulate(dim3 grid, int threads, size_t smem_bytes, cudaStream_t, F fn) {
-  blockDim = dim3(threads);
-  gridDim = grid;
-  for (unsigned b = 0; b < grid.x; ++b) run_blocks(b, b + 1, threads, smem_bytes, fn);
 }
 
 template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
   blockDim = cfg->blockDim;
   gridDim = cfg->gridDim;
-  run_blocks(0, cfg->gridDim.x, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, [&] { kernel(args...); });
+  run_blocks(cfg->gridDim.x, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, [&] { kernel(args...); });
   return 0;
 }

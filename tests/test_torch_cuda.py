@@ -10,10 +10,11 @@ Tolerances: the kernels and the plain versions both work in float32 but sum
 the H-long (and 4H-long) dot products in other orders, and the recurrence
 carries those differences through T steps; 1e-4 absolute (dz also 1e-4
 relative) holds them with room at T=85, H=512. dWh, summed in the kernel
-(K4 over per-block partials, K5 per column slice and segment), is held to
-1e-4 of its largest entry: each entry
-sums T*B products of both signs, so entries that cancel to near zero have
-no meaningful relative error.
+(K4 per column slice over (t, b), K5 per column slice and segment), is
+held to 1e-4 of its largest entry: each entry sums T*B products of both
+signs, so entries that cancel to near zero have no meaningful relative
+error. K4's dz is held to K2's bit for bit: the same walk in the same
+geometry.
 """
 
 import copy
@@ -127,9 +128,9 @@ def test_backward_arm_kernels_match_plain_versions(cuda, shape):
 
 
 def test_column_split_kernels_give_the_same_bits_every_launch(cuda):
-    """K1, K2, K3 (dz, dh0, dc0) and K5 (dz, dWh at S=5) at the atari
-    widths: no float atomics, each output summed by one thread in a fixed
-    order."""
+    """K1, K2, K3 (dz, dh0, dc0), K4 (dz, dWh) and K5 (dz, dWh at S=5) at
+    the atari widths: no float atomics, each output summed by one thread
+    in a fixed order."""
     T, B, H = 85, 64, 512
     g = torch.Generator(device=cuda).manual_seed(3)
     proj = torch.randn(T, B, 4 * H, device=cuda, generator=g)
@@ -145,11 +146,33 @@ def test_column_split_kernels_give_the_same_bits_every_launch(cuda):
     assert torch.equal(lstm_kernel.lstm_seq_bwd(*walk), lstm_kernel.lstm_seq_bwd(*walk))
     for a, b in zip(lstm_kernel.lstm_bwd(*walk[:-1]), lstm_kernel.lstm_bwd(*walk[:-1])):
         assert torch.equal(a, b)
+    for a, b in zip(lstm_kernel.lstm_seq_bwd_fused(*walk), lstm_kernel.lstm_seq_bwd_fused(*walk)):
+        assert torch.equal(a, b)
     S = 5
     ckpt = (walk[0], proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
             torch.cat([c0[None], cs[S - 1 : T - 1 : S]]), wh, walk[6], walk[7], S)
     for a, b in zip(lstm_kernel.lstm_seq_bwd_ckpt(*ckpt), lstm_kernel.lstm_seq_bwd_ckpt(*ckpt)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(85, 64, 2048)])
+def test_fused_dwh_dz_is_the_seam_backwards_bit_for_bit(cuda, shape):
+    """K4 runs K2's walk in K2's geometry: the same dz bits at the same
+    inputs, seams at 0, mid, T-1 and mixed."""
+    T, B, H = shape
+    g = torch.Generator(device=cuda).manual_seed(T * B + H)
+    proj = torch.randn(T, B, 4 * H, device=cuda, generator=g)
+    wh = (torch.rand(H, 4 * H, device=cuda, generator=g) * 2 - 1) * H ** -0.5
+    h0, c0 = (torch.randn(B, H, device=cuda, generator=g) * 0.3 for _ in range(2))
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    walk = (torch.randn(T, B, H, device=cuda, generator=g), proj,
+            torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]]), cs, wh,
+            torch.randn(B, H, device=cuda, generator=g))
+    mixed = torch.randint(0, T, (B,), device=cuda, generator=g, dtype=torch.int32)
+    for burn in (torch.zeros_like(mixed), torch.full_like(mixed, T // 2),
+                 torch.full_like(mixed, T - 1), mixed):
+        assert torch.equal(lstm_kernel.lstm_seq_bwd_fused(*walk, burn)[0],
+                           lstm_kernel.lstm_seq_bwd(*walk, burn))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

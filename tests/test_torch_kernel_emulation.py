@@ -10,12 +10,12 @@ warps, the memory model or speed: the kernels themselves are held against
 the plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
 The emulated subset is small on purpose: one `extern __shared__` array,
-one `<<<>>>` launch per source or cooperative launches through the
-template `cudaLaunchKernelEx`, `__syncthreads`, `__ldg`, `__ldcg`,
+cooperative launches through the template `cudaLaunchKernelEx`,
+`__syncthreads`, `__ldg`, `__ldcg`,
 `__threadfence`, `__nanosleep`, an integer `atomicAdd`, `float4`, and 1-D
 thread and block indices (`__launch_bounds__` is dropped). A cooperative
-launch runs all its blocks at once, so the column-split kernels (K1, K2,
-K3, K5) run here with their hand-written grid barrier, at a geometry cut
+launch runs all its blocks at once, so the column-split kernels (K1 to
+K5) run here with their hand-written grid barrier, at a geometry cut
 to four blocks; a misplaced exchange or barrier reads another block's
 columns before they are written. A kernel whose body leaves the subset (clusters,
 warp intrinsics, wgmma, TMA) is dropped from this test and is held
@@ -25,10 +25,11 @@ only; the header is not meant to grow into a CUDA emulator.
 Tolerance: both sides sum in float32 in other orders; forward 1e-5, dz 1e-4
 absolute, and dz exactly zero below each row's seam. dWh is held to 1e-4 of
 its largest entry: each entry sums T*B products in another order (K4:
-per-block partials, then over blocks; K5: per segment, newest first), and
-entries that cancel to near zero have no meaningful relative error. The
+per column slice over (t, b); K5: per segment, newest first), and entries
+that cancel to near zero have no meaningful relative error. The
 column-split kernels sum every output in one fixed order, so two launches
-give the same bits.
+give the same bits, and K4 walks as K2 does in K2's geometry, so its dz
+is K2's bit for bit.
 """
 
 import ctypes
@@ -53,7 +54,7 @@ ARGS = {
     "lstm_fwd": (7, 9),
     "lstm_seq_bwd": (10, 9),
     "lstm_bwd": (11, 9),
-    "lstm_seq_bwd_fused": (13, 3),
+    "lstm_seq_bwd_fused": (11, 9),
     "lstm_seq_bwd_ckpt": (12, 10),
 }
 
@@ -63,10 +64,8 @@ def _emulated(name, out_dir):
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = re.sub(r"__launch_bounds__\(\w+\)", "", src)  # a register budget: no CPU meaning
-    src, n = re.subn(r"(\w+)<<<([^>]*)>>>\((.*?)\);", r"emulate(\2, [&] { \1(\3); });",
-                     src, flags=re.S)
-    # one <<<>>> launch, or cooperative ones (column_split.cuh)
-    assert n == 1 or (n == 0 and "launch_cooperative(" in src), f"{name}.cu: launches?"
+    # every kernel is a cooperative launch (column_split.cuh)
+    assert "launch_cooperative(" in src, f"{name}.cu: launches?"
     cpp = os.path.join(out_dir, f"{name}.cpp")
     with open(cpp, "w") as f:
         f.write(src)
@@ -192,11 +191,16 @@ def test_emulated_seamless_backward_matches_plain_version(kernels, T, B, H):
 def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn):
     T, B, H = cs.shape
     dz, dwh = torch.empty(T, B, 4 * H), torch.empty(H, 4 * H)
-    part, ticket = lstm_kernel._dwh_workspace(B, H, torch.device("cpu"))
-    _call(kernels["lstm_seq_bwd_fused"],
-          (dout, proj, hprev, cprev, cs, wh, wh.t().contiguous(), dcT, burn, dz, dwh, part,
-           ticket), T, B, H)
+    _split(kernels, "lstm_seq_bwd_fused", (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh),
+           T, B, H)
     return dz, dwh
+
+
+def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn):
+    T, B, H = cs.shape
+    dz = torch.empty(T, B, 4 * H)
+    _split(kernels, "lstm_seq_bwd", (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz), T, B, H)
+    return dz
 
 
 @pytest.mark.parametrize("T,B,H", SHAPES)
@@ -277,3 +281,27 @@ def test_emulated_ckpt_backward_gives_the_same_bits_every_launch(kernels, T, B, 
                     torch.from_numpy(burn_np.astype(np.int32)), S)
             for a, b in zip(_ckpt(kernels, *args)[:2], _ckpt(kernels, *args)[:2]):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,B,H", [(7, 5, 32), (6, 4, 8)])
+def test_emulated_fused_dwh_backward_gives_the_same_bits_every_launch(kernels, T, B, H):
+    """dz and dWh, with seams at 0, mid, T-1 and mixed."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    walk = (dout, proj, torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]]), cs,
+            wh, dcT)
+    for burn_np in _burns(rng, T, B):
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        for a, b in zip(_fused(kernels, *walk, burn), _fused(kernels, *walk, burn)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_emulated_fused_dwh_dz_is_the_seam_backwards_bit_for_bit(kernels, T, B, H):
+    """K4 runs K2's walk in K2's geometry: the same dz bits at the same
+    inputs, seams at 0, mid, T-1 and mixed."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    walk = (dout, proj, torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]]), cs,
+            wh, dcT)
+    for burn_np in _burns(rng, T, B):
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        assert torch.equal(_fused(kernels, *walk, burn)[0], _seam(kernels, *walk, burn))
