@@ -25,7 +25,8 @@
 // and forms dh for its units from the whole dz[t] against wh's rows (no
 // wh^T copy). The carry also runs after step 0, so T barriers: each block
 // then writes dh0 for its units from that product and dc0 from its dc
-// registers.
+// registers. A batch wider than one chunk of rows is walked in chunks
+// inside each step, the carry then kept in the block's slabs of `carry`.
 
 #include <cuda_runtime.h>
 
@@ -46,22 +47,26 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 float* dz,                        // (T, B, 4H); read back by other blocks
                 float* __restrict__ dh0,          // (B, H)
                 float* __restrict__ dc0,          // (B, H)
-                int* bar,                         // (2,) grid barrier, zeroed
-                int T, int B, int H, int Hb, int kt, int pinned) {
+                float* carry,  // more than one chunk: (2, grid, chunks*Bc, Hb)
+                int* bar,      // (2,) grid barrier, zeroed
+                int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned);
+  Walk<float> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    w.dz_step<false>(t, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
-                     cs + t * BH, dz_t);
+    for (int c = 0; c < w.chunks; ++c)
+      w.dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
+                       cs + t * BH, dz_t, nullptr);
     grid_barrier(bar);  // dz[t] complete before anyone reads it
-    float a[4][4];
-    w.carry_product(a, dz_t);
-    if (t > 0)
-      w.store_carry<false>(a, t);
-    else
-      w.store_dh(a, dh0);  // the carry out of step 0: d h0
+    for (int c = 0; c < w.chunks; ++c) {
+      float a[4][4];
+      w.carry_product(a, dz_t, c);
+      if (t > 0)
+        w.store_carry<false>(a, t, c);
+      else
+        w.store_dh(a, dh0, c);  // the carry out of step 0: d h0
+    }
   }
   w.store_dc(dc0);
 }
@@ -70,12 +75,13 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
 
 extern "C" int lstm_bwd_launch(const float* dout, const float* proj, const float* hprev,
                                const float* cprev, const float* cs, const float* wh,
-                               const float* dcT, float* dz, float* dh0, float* dc0, int* bar,
-                               int T, int B, int H, int Hb, int grid, int threads, int kt,
-                               int pinned, int smem, void* stream) {
+                               const float* dcT, float* dz, float* dh0, float* dc0, float* carry,
+                               int* bar, int T, int B, int H, int Hb, int grid, int threads,
+                               int kt, int pinned, int smem, int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   return (int)launch_cooperative(lstm_bwd_kernel, grid, threads, smem, stream, dout, proj, hprev,
-                                 cprev, cs, wh, dcT, dz, dh0, dc0, bar, T, B, H, Hb, kt, pinned);
+                                 cprev, cs, wh, dcT, dz, dh0, dc0, carry, bar, T, B, H, Hb, kt,
+                                 pinned, Bc);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

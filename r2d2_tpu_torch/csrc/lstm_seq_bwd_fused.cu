@@ -27,7 +27,8 @@
 //      atomics, no ticket, the same bits every launch. The pass reads only
 //      the block's own dz columns, which its own threads wrote, and hprev,
 //      an input: a block barrier orders it after the walk, and no grid
-//      barrier is needed.
+//      barrier is needed. A batch walked in row chunks changes none of
+//      this: every chunk's dz columns of the block are its own threads'.
 
 #include <cuda_runtime.h>
 
@@ -46,23 +47,27 @@ lstm_seq_bwd_fused_kernel(const float* __restrict__ dout,   // (T, B, H)
                           const float* __restrict__ wh,     // (H, 4H)
                           const float* __restrict__ dcT,    // (B, H)
                           const int* __restrict__ burn,     // (B,)
-                          float* dz,   // (T, B, 4H); read back by other blocks: not restrict
-                          float* dwh,  // (H, 4H)
-                          int* bar,    // (2,) grid barrier, zeroed
-                          int T, int B, int H, int Hb, int kt, int pinned) {
+                          float* dz,     // (T, B, 4H); read back by other blocks: not restrict
+                          float* dwh,    // (H, 4H)
+                          float* carry,  // more than one chunk: (2, grid, chunks*Bc, Hb)
+                          int* bar,      // (2,) grid barrier, zeroed
+                          int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk w(smem, wh, dcT, burn, B, H, Hb, kt, pinned);
+  Walk<float> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   // 1. the seam walk, lstm_seq_bwd.cu's loop
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    w.dz_step<true>(t, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
-                    cs + t * BH, dz_t);
+    for (int c = 0; c < w.chunks; ++c)
+      w.dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
+                      cs + t * BH, dz_t, nullptr);
     if (t == 0) break;  // the carry out of step 0 is not wanted
     grid_barrier(bar);  // dz[t] complete before anyone reads it
-    float a[4][4];
-    w.carry_product(a, dz_t);
-    w.store_carry<true>(a, t);
+    for (int c = 0; c < w.chunks; ++c) {
+      float a[4][4];
+      w.carry_product(a, dz_t, c);
+      w.store_carry<true>(a, t, c);
+    }
   }
   // 2. the block's dWh columns over all T steps
   __syncthreads();  // the block's dz columns of every step are written
@@ -74,13 +79,14 @@ lstm_seq_bwd_fused_kernel(const float* __restrict__ dout,   // (T, B, H)
 extern "C" int lstm_seq_bwd_fused_launch(const float* dout, const float* proj,
                                          const float* hprev, const float* cprev,
                                          const float* cs, const float* wh, const float* dcT,
-                                         const int* burn, float* dz, float* dwh, int* bar,
-                                         int T, int B, int H, int Hb, int grid, int threads,
-                                         int kt, int pinned, int smem, void* stream) {
+                                         const int* burn, float* dz, float* dwh, float* carry,
+                                         int* bar, int T, int B, int H, int Hb, int grid,
+                                         int threads, int kt, int pinned, int smem, int Bc,
+                                         void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   return (int)launch_cooperative(lstm_seq_bwd_fused_kernel, grid, threads, smem, stream, dout,
-                                 proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, bar, T, B, H,
-                                 Hb, kt, pinned);
+                                 proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, carry, bar, T, B,
+                                 H, Hb, kt, pinned, Bc);
 }
 
 extern "C" const char* lstm_seq_bwd_fused_error_string(int code) {

@@ -21,9 +21,19 @@ Port of r2d2_tpu/ops/pallas_lstm.py, one CUDA source per Pallas kernel:
 
 Each splits the hidden units across the SMs in one cooperative launch
 (csrc/column_split.cuh; the backward ones share its reverse walk);
-``lstm_geometry`` decides the split. ``lstm_seq_bwd_fused`` runs
+``lstm_geometry`` decides the split, and walks a batch wider than a block
+in row chunks inside each step. ``lstm_seq_bwd_fused`` runs
 ``lstm_seq_bwd``'s walk in the same geometry, so its dz is
 ``lstm_seq_bwd``'s bit for bit on the card.
+
+Dtypes. Every kernel takes float32. ``lstm_fwd``, ``lstm_seq_bwd`` and
+``lstm_seq_bwd_ckpt`` also take bfloat16 operands where the Pallas kernels
+do under bf16 compute (proj, wh, and h0/c0, hprev or h_ckpt), each through
+its own bf16 kernel form (``<name>_bf16``, counted under that key), with
+the Pallas kernels' casts: products of bf16 values summed in float32, the
+(h, c) carry and c residuals in float32, outs (and K5's dz) in the proj
+dtype, K2's dz in float32. ``lstm_bwd`` and ``lstm_seq_bwd_fused`` take
+float32 only (their bf16 forms are queued).
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -35,8 +45,6 @@ seeds the cell carry.
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises. There is no fallback from one to
 the other. Each wrapper counts its kernel launches in ``launch_counts``.
-
-Float32 only in this slice (bfloat16 is queued as M7).
 """
 
 from __future__ import annotations
@@ -47,16 +55,22 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-# each kernel (csrc/<name>.cu) and its C arguments: (pointers, ints), then
-# the stream
-_SIGNATURES = {
-    "lstm_fwd": (7, 9),             # ..., barrier, T, B, H, then the Geometry
-    "lstm_seq_bwd": (10, 9),
-    "lstm_bwd": (11, 9),
-    "lstm_seq_bwd_fused": (11, 9),
-    "lstm_seq_bwd_ckpt": (12, 10),  # ..., barrier, T, B, H, S, then the Geometry
+# the kernel sources (csrc/<name>.cu), each with its C arguments:
+# (pointers, ints), then the stream
+_SOURCE_SIGNATURES = {
+    "lstm_fwd": (7, 10),             # ..., barrier, T, B, H, then the Geometry
+    "lstm_seq_bwd": (12, 10),
+    "lstm_bwd": (12, 10),
+    "lstm_seq_bwd_fused": (12, 10),
+    "lstm_seq_bwd_ckpt": (14, 11),   # ..., barrier, T, B, H, S, then the Geometry
 }
-KERNELS = tuple(_SIGNATURES)
+SOURCES = tuple(_SOURCE_SIGNATURES)
+# the bf16 forms: the same source and C arguments, entry point <name>_launch
+BF16_FORMS = ("lstm_fwd_bf16", "lstm_seq_bwd_bf16", "lstm_seq_bwd_ckpt_bf16")
+_SOURCE = {**{n: n for n in SOURCES}, **{n: n[: -len("_bf16")] for n in BF16_FORMS}}
+_SIGNATURES = {n: _SOURCE_SIGNATURES[src] for n, src in _SOURCE.items()}
+# every kernel form a wrapper launches
+KERNELS = SOURCES + BF16_FORMS
 
 # kernel launches since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else
@@ -81,12 +95,20 @@ def _split_gates(z: torch.Tensor, H: int):
 # --------------------------------------------------------------------------
 
 
+def _lo_dot(x, w):
+    """x @ w in float32 with x rounded to w's dtype first: the exact
+    products of w-dtype values (a product of two bf16 values is exact in
+    f32) summed in f32, as jnp.dot(x.astype(w.dtype), w,
+    preferred_element_type=f32). For float32 operands, x @ w."""
+    return x.to(w.dtype).float() @ w.float()
+
+
 def lstm_fwd_plain(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     H = wh.shape[0]
     h, c = h0.float(), c0.float()
     outs, cs = [], []
     for t in range(proj_t.shape[0]):
-        z = proj_t[t].float() + h.to(wh.dtype) @ wh
+        z = proj_t[t].float() + _lo_dot(h, wh)
         i, f, g, o = _split_gates(z, H)
         c = f * c + i * g
         h = o * torch.tanh(c)
@@ -99,9 +121,10 @@ def _bwd_step(dout_t, proj_tt, h_prev, c_prev, c_t, wh, dh, dc, keep=None, carry
     """One reverse step of every backward kernel: the gates recomputed from
     h_{t-1}, -> (dz_t, dh, dc) carried into step t-1. `keep` masks the
     step's output cotangent and `carry_keep` cuts the carry (the seam);
-    None means no seam."""
+    None means no seam. dz_t is float32; the carry product takes it
+    rounded to wh's dtype."""
     H = wh.shape[0]
-    z = proj_tt.float() + h_prev.to(wh.dtype) @ wh
+    z = proj_tt.float() + _lo_dot(h_prev, wh)
     i, f, g, o = _split_gates(z, H)
     tanh_c = torch.tanh(c_t)
     d_out = dout_t.float()
@@ -117,7 +140,7 @@ def _bwd_step(dout_t, proj_tt, h_prev, c_prev, c_t, wh, dh, dc, keep=None, carry
         [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g), do * o * (1.0 - o)],
         dim=-1,
     )
-    dh = dz_t.to(wh.dtype) @ wh.T
+    dh = _lo_dot(dz_t, wh.T)
     dc = dc_t * f
     if carry_keep is not None:
         dh = torch.where(carry_keep, dh, 0.0)
@@ -169,7 +192,9 @@ def lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
 def lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
     """(dz in proj dtype, dwh f32) from the N = T/S segment-entry carries:
     per segment, newest first, the forward recomputed from its checkpoint,
-    then the seam walk on the real step index with dWh added per step."""
+    then the seam walk on the real step index with dWh added per step. The
+    recomputed h is used as the forward's outs are, rounded to the proj
+    dtype; dWh sums the f32 dz, before it is rounded."""
     T, B, H = dout.shape
     burn = burn.reshape(B, 1)
     dh = torch.zeros((B, H), dtype=torch.float32, device=dout.device)
@@ -199,18 +224,21 @@ _I = ctypes.c_int
 
 
 def _kernel(name: str):
+    """The C entry point <name>_launch of kernel form `name` (built from
+    csrc/<source>.cu) and its source's error-string function."""
     from r2d2_tpu_torch.ops import _build
 
-    lib = _build.load(name)
+    src = _SOURCE[name]
+    lib = _build.load(src)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         n_ptrs, n_ints = _SIGNATURES[name]
         fn.argtypes = [_P] * n_ptrs + [_I] * n_ints + [_P]
         fn.restype = _I
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{src}_error_string")
         err.argtypes = [_I]
         err.restype = ctypes.c_char_p
-    return fn, getattr(lib, f"{name}_error_string")
+    return fn, getattr(lib, f"{src}_error_string")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -225,12 +253,14 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 
 def _launch(name: str, tensors, ints, device) -> None:
+    """Launch kernel form `name` on the current stream; a None tensor is a
+    null pointer (a workspace the geometry does not need)."""
     if (len(tensors), len(ints)) != _SIGNATURES[name]:
         raise TypeError(f"{name} takes {_SIGNATURES[name]} (pointers, ints)")
     fn, err_str = _kernel(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*(t.data_ptr() for t in tensors), *ints, stream)
+        code = fn(*(0 if t is None else t.data_ptr() for t in tensors), *ints, stream)
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: {err_str(code).decode()} ({code})")
     launch_counts[name] += 1
@@ -242,34 +272,51 @@ def _device_of(t: torch.Tensor, op: str) -> torch.device:
     return t.device
 
 
-def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev) -> None:
-    """The operands every reverse walk over saved (T,B,H) residuals takes."""
+# the dtypes of the operands that the Pallas kernels take in the compute
+# dtype (proj, wh, and h0/c0, hprev or h_ckpt); the f32 ones stay f32
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _compute_dtype(proj_t: torch.Tensor, op: str, dtypes=COMPUTE_DTYPES) -> torch.dtype:
+    if proj_t.dtype not in dtypes:
+        raise TypeError(f"{op}: proj_t has dtype {proj_t.dtype}, the kernels take {dtypes}")
+    return proj_t.dtype
+
+
+def _form(name: str, dtype: torch.dtype) -> str:
+    """The kernel form of source `name` for compute dtype `dtype`."""
+    return name if dtype == torch.float32 else f"{name}_bf16"
+
+
+def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt) -> None:
+    """The operands every reverse walk over saved (T,B,H) residuals takes:
+    proj_t, hprev and wh in the compute dtype `dt`, the rest float32."""
     T, B, H = cs.shape
     f32 = torch.float32
     _check("dout", dout, (T, B, H), f32, dev)
-    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
-    _check("hprev", hprev, (T, B, H), f32, dev)
+    _check("proj_t", proj_t, (T, B, 4 * H), dt, dev)
+    _check("hprev", hprev, (T, B, H), dt, dev)
     _check("cprev", cprev, (T, B, H), f32, dev)
     _check("cs", cs, (T, B, H), f32, dev)
-    _check("wh", wh, (H, 4 * H), f32, dev)
+    _check("wh", wh, (H, 4 * H), dt, dev)
     _check("dcT", dcT, (B, H), f32, dev)
 
 
 # the column-split kernels (csrc/column_split.cuh), all five: K1 and the
 # reverse walk's K2, K3, K4 and K5 (K4 and K5 also stage their dWh tiles
 # in the walk's buffers)
-COLUMN_SPLIT = KERNELS
+COLUMN_SPLIT = SOURCES
 # the kernels with Walk::add_dwh's dWh pass
 _DWH_PASS = ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
 
 # at most this many threads per block (and the most the slices of a block's
 # items are widened to), the widest tile of h (or dz) columns staged in
-# shared memory at once, the padding of a staged row (kPad) and the tiles
-# in the copy pipeline (kStages)
+# shared memory at once, the bytes of padding of a staged row (kVec
+# elements) and the tiles in the copy pipeline (kStages)
 _MAX_THREADS = 512
 _SLICED_THREADS = 256
 _MAX_K_TILE = 128
-_ROW_PAD = 4
+_ROW_PAD_BYTES = 16
 _STAGES = 4
 
 
@@ -282,73 +329,109 @@ class Geometry(NamedTuple):
     k_tile: int      # columns of h (or dz) staged per tile
     pinned: bool     # the block's wh slice stays in shared memory all launch
     smem_bytes: int  # dynamic shared memory per block
+    rows: int        # batch rows per chunk (a multiple of 4); the batch padded
+                     # to 4 when one chunk holds it
+
+    def chunks(self, B: int) -> int:
+        return -(-B // self.rows)
 
 
-def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bp: int,
-                   Hbp: int) -> int:
+def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bc: int,
+                   Hbp: int, itemsize: int = 4) -> int:
     """Rows of (h, dz) that one stage of K4's and K5's dWh pass holds
     (column_split.cuh, ``Walk::add_dwh``): the staging tiles, and when wh
-    is streamed also its tile buffers, cut in _STAGES."""
-    k_chunk = min(H, 4 * (threads // units))
-    row = k_chunk + 4 * units + 2 * _ROW_PAD
-    region = _STAGES * Bp * (kt + _ROW_PAD)
+    is streamed also its tile buffers, cut in _STAGES; a row is kc h values
+    of `itemsize` bytes and the unit-major f32 dz columns, each padded."""
+    vec = _ROW_PAD_BYTES // itemsize
+    k_chunk = min(H, 4 * (threads // units) // vec * vec)
+    if k_chunk == 0:  # fewer k rows per pass than one 16-byte copy holds
+        return 0
+    row = (k_chunk + vec) * itemsize + (4 * units + 4) * 4
+    region = _STAGES * Bc * (kt * itemsize + _ROW_PAD_BYTES)
     if not pinned:
-        region += _STAGES * (kt * 4 * units + Hbp * (kt + _ROW_PAD))
-    return ((region // _STAGES) & ~3) // row
+        region += _STAGES * (kt * 4 * units + Hbp * kt) * itemsize + _STAGES * Hbp * _ROW_PAD_BYTES
+    return ((region // _STAGES) & ~15) // row
 
 
-def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int) -> Geometry:
+@functools.lru_cache(maxsize=None)
+def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
+                  itemsize: int = 4, max_threads: int = _MAX_THREADS) -> Geometry:
     """The column split of `kernel` (one of COLUMN_SPLIT) on a card with
-    `num_sms` SMs and `smem_limit` bytes of shared memory per block.
+    `num_sms` SMs and `smem_limit` bytes of shared memory per block, for
+    operands of `itemsize` bytes (4: float32, 2: bf16).
 
     Each block owns ``Hb = ceil(H / num_sms)`` hidden units (their four
     gate columns of wh, and for the reverse walk also their rows), so
     ``grid = ceil(H / Hb) <= num_sms``. A thread owns 4 rows x one unit's 4
-    gates over one k-slice; the ceil(B/4) x Hb items are split into the
-    most k-slices that keep the block within 256 threads. The wh slice is
-    pinned in shared memory where it fits beside the staging tiles, else
-    streamed in k-tiles beside them; the tiles narrow until the shared
-    memory fits (and, for K4 and K5, until a stage of their dWh pass
-    holds a row).
-    Raises ValueError where no tile fits, the items exceed a block's
-    threads, or H is not a multiple of 4 (the kernels copy 16-byte
+    gates over one k-slice. The block walks the batch in the fewest row
+    chunks whose ceil(rows/4) x Hb items fit `max_threads` and whose
+    staging tiles fit; the items are split into the most k-slices that keep
+    the block within 256 threads. The wh slice is pinned in shared memory
+    where it fits beside the staging tiles, else streamed in k-tiles beside
+    them; the tiles narrow until the shared memory fits (and, for K4 and
+    K5, until a stage of their dWh pass holds a row). Where one chunk holds
+    the batch the walk's dh carry sits in shared memory; with more, both
+    carries go to a global workspace.
+    Raises ValueError where no tile fits even a chunk of 4 rows, or H is
+    not a multiple of 16 bytes of the operands (the kernels copy 16-byte
     rows)."""
     if kernel not in COLUMN_SPLIT:
         raise ValueError(f"{kernel!r} is not a column-split kernel: {COLUMN_SPLIT}")
-    if H % 4:
-        raise ValueError(f"hidden size {H} is not a multiple of 4")
+    if itemsize not in (2, 4):
+        raise ValueError(f"operands of {itemsize} bytes: the kernels take 4 (f32) or 2 (bf16)")
+    vec = _ROW_PAD_BYTES // itemsize
+    if H % vec:
+        raise ValueError(f"hidden size {H} is not a multiple of {vec} (16-byte rows of "
+                         f"{itemsize}-byte values)")
     backward = kernel != "lstm_fwd"
     units = -(-H // num_sms)
     grid = -(-H // units)
+    if units > max_threads:
+        raise ValueError(f"{units} units per block need more than {max_threads} threads")
     row_groups = -(-B // 4)
-    items = row_groups * units
-    if items > _MAX_THREADS:
-        raise ValueError(f"batch {B} x {units} units per block needs {items} threads, over "
-                         f"{_MAX_THREADS}")
-    slices = 1
-    while items * slices * 2 <= _SLICED_THREADS:
-        slices *= 2
-    threads = items * slices
-    Bp, Hbp = 4 * row_groups, 4 * -(-units // 4)
+    Hbp = 4 * -(-units // 4)
     widest = min(H, _MAX_K_TILE)
     tiles = [widest] + [k for k in (64, 32, 16, 8) if k < widest]
-    for pinned in (True, False):
-        for kt in tiles:
-            # the staged rows, the slices' partials and (walk) the dh carry
-            floats = _STAGES * Bp * (kt + _ROW_PAD) + 16 * threads
-            if backward:
-                floats += Bp * units
-            # the wh slice: gate columns, and (walk) rows padded to 4 units
-            if pinned:
-                floats += H * 4 * units + (Hbp * (4 * H + _ROW_PAD) if backward else 0)
-            else:
-                floats += _STAGES * (kt * 4 * units + (Hbp * (kt + _ROW_PAD) if backward else 0))
-            if 4 * floats > smem_limit:
-                continue
-            if (kernel in _DWH_PASS
-                    and _dwh_tile_rows(H, units, threads, kt, pinned, Bp, Hbp) < 1):
-                continue
-            return Geometry(units, grid, threads, kt, pinned, 4 * floats)
+    tried = set()
+    for n in range(1, row_groups + 1):
+        groups = -(-row_groups // n)  # row groups per chunk
+        items = groups * units
+        if groups in tried or items > max_threads:
+            continue
+        tried.add(groups)
+        rows = 4 * groups
+        one_chunk = rows >= B
+        slices = 1
+        while items * slices * 2 <= min(_SLICED_THREADS, max_threads):
+            slices *= 2
+        # the dWh pass gives each thread 4 k rows of a unit, and stages its
+        # h rows in 16-byte copies: in bf16 that needs 2 threads per unit
+        while (kernel in _DWH_PASS and 4 * groups * slices < vec
+               and items * slices * 2 <= max_threads):
+            slices *= 2
+        threads = items * slices
+        for pinned in (True, False):
+            for kt in tiles:
+                # the staged rows and the slices' partials; with one chunk
+                # also the walk's dh carry
+                nbytes = _STAGES * rows * (kt * itemsize + _ROW_PAD_BYTES) + 64 * threads
+                if backward and one_chunk:
+                    nbytes += 4 * rows * units
+                # the wh slice: gate columns, and (walk) rows padded to 4 units
+                if pinned:
+                    nbytes += H * 4 * units * itemsize
+                    if backward:
+                        nbytes += Hbp * (4 * H * itemsize + _ROW_PAD_BYTES)
+                else:
+                    nbytes += _STAGES * kt * 4 * units * itemsize
+                    if backward:
+                        nbytes += _STAGES * Hbp * (kt * itemsize + _ROW_PAD_BYTES)
+                if nbytes > smem_limit:
+                    continue
+                if (kernel in _DWH_PASS and _dwh_tile_rows(
+                        H, units, threads, kt, pinned, rows, Hbp, itemsize) < 1):
+                    continue
+                return Geometry(units, grid, threads, kt, pinned, nbytes, rows)
     raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
 
 
@@ -359,12 +442,21 @@ def _device_limits(index: int) -> Tuple[int, int]:
     return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
-def _geometry(B: int, H: int, kernel: str, dev) -> Geometry:
-    return lstm_geometry(B, H, kernel, *_device_limits(dev.index or 0))
+def _geometry(B: int, H: int, kernel: str, dev, dtype=torch.float32) -> Geometry:
+    return lstm_geometry(B, H, kernel, *_device_limits(dev.index or 0), dtype.itemsize)
 
 
 def _geometry_ints(g: Geometry) -> Tuple[int, ...]:
-    return (g.units, g.grid, g.threads, g.k_tile, int(g.pinned), g.smem_bytes)
+    return (g.units, g.grid, g.threads, g.k_tile, int(g.pinned), g.smem_bytes, g.rows)
+
+
+def _carry_workspace(g: Geometry, B: int, dev):
+    """The walk's (dh, dc) carry slabs, (2, grid, chunks*rows, units) f32,
+    where the batch takes more than one chunk; else None."""
+    chunks = g.chunks(B)
+    if chunks == 1:
+        return None
+    return torch.empty(2 * g.grid * chunks * g.rows * g.units, dtype=torch.float32, device=dev)
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
@@ -379,23 +471,24 @@ def _barrier(dev) -> torch.Tensor:
 
 
 def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(outs (T,B,H) in proj dtype, cs (T,B,H) float32). Kernel on CUDA,
-    plain version on the CPU; the same operand checks on both."""
+    """(outs (T,B,H) in proj dtype, cs (T,B,H) float32). proj_t, wh, h0 and
+    c0 share one dtype, float32 or bfloat16. Kernel on CUDA, plain version
+    on the CPU; the same operand checks on both."""
     dev = _device_of(proj_t, "lstm_fwd")
     T, B, H4 = proj_t.shape
     H = H4 // 4
-    f32 = torch.float32
-    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
-    _check("wh", wh, (H, 4 * H), f32, dev)
-    _check("h0", h0, (B, H), f32, dev)
-    _check("c0", c0, (B, H), f32, dev)
+    dt = _compute_dtype(proj_t, "lstm_fwd")
+    _check("proj_t", proj_t, (T, B, 4 * H), dt, dev)
+    _check("wh", wh, (H, 4 * H), dt, dev)
+    _check("h0", h0, (B, H), dt, dev)
+    _check("c0", c0, (B, H), dt, dev)
     if dev.type == "cpu":
         return lstm_fwd_plain(proj_t, wh, h0, c0)
-    geo = _geometry(B, H, "lstm_fwd", dev)
+    geo = _geometry(B, H, "lstm_fwd", dev, dt)
     _check_aligned("h0", h0)
-    outs = torch.empty((T, B, H), dtype=f32, device=dev)
-    cs = torch.empty((T, B, H), dtype=f32, device=dev)
-    _launch("lstm_fwd", (proj_t, wh, h0, c0, outs, cs, _barrier(dev)),
+    outs = torch.empty((T, B, H), dtype=dt, device=dev)
+    cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    _launch(_form("lstm_fwd", dt), (proj_t, wh, h0, c0, outs, cs, _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return outs, cs
 
@@ -419,53 +512,62 @@ def grid_barriers(n: int, B: int, H: int, dev) -> None:
 
 
 def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
-    """dz (T,B,4H) float32 of the seam backward. Kernel on CUDA, plain
-    version on the CPU; the same operand checks on both. `burn` is (B,)
-    int32, 0 <= burn[b] < T."""
+    """dz (T,B,4H) float32 of the seam backward. proj_t, hprev and wh in
+    float32 or bfloat16, the rest float32. Kernel on CUDA, plain version
+    on the CPU; the same operand checks on both. `burn` is (B,) int32,
+    0 <= burn[b] < T."""
     dev = _device_of(cs, "lstm_seq_bwd")
     T, B, H = cs.shape
-    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
+    dt = _compute_dtype(proj_t, "lstm_seq_bwd")
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
-    geo = _geometry(B, H, "lstm_seq_bwd", dev)
+    geo = _geometry(B, H, "lstm_seq_bwd", dev, dt)
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    _launch("lstm_seq_bwd", (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, _barrier(dev)),
+    # bf16: dz rounded to bf16 is what the blocks exchange, in a 2-step ring
+    xch = None if dt == torch.float32 else torch.empty((2, B, 4 * H), dtype=dt, device=dev)
+    _launch(_form("lstm_seq_bwd", dt),
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, xch,
+             _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return dz
 
 
 def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     """(dz (T,B,4H), dh0 (B,H), dc0 (B,H)), all float32, of the backward
-    with no seam. Kernel on CUDA, plain version on the CPU."""
+    with no seam; float32 operands only. Kernel on CUDA, plain version on
+    the CPU."""
     dev = _device_of(cs, "lstm_bwd")
     T, B, H = cs.shape
-    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
+    f32 = torch.float32
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, f32)
     if dev.type == "cpu":
         return lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT)
     geo = _geometry(B, H, "lstm_bwd", dev)
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
-    f32 = torch.float32
     dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
-    _launch("lstm_bwd", (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, _barrier(dev)),
+    _launch("lstm_bwd",
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0,
+             _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dh0, dc0
 
 
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the seam backward
-    with dWh formed in the kernel. Kernel on CUDA, plain version on the
-    CPU. On the card dz is lstm_seq_bwd's bit for bit (the same walk in
-    the same geometry); dz and dWh differ from the plain version by
-    summation order only."""
+    with dWh formed in the kernel; float32 operands only. Kernel on CUDA,
+    plain version on the CPU. On the card dz is lstm_seq_bwd's bit for bit
+    (the same walk in the same geometry); dz and dWh differ from the plain
+    version by summation order only."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
-    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev)
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, torch.float32)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
@@ -475,41 +577,48 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
     _launch("lstm_seq_bwd_fused",
-            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, _barrier(dev)),
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh,
+             _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dwh
 
 
 def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
     """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the checkpointed
-    seam backward. `h_ckpt`, `c_ckpt` (T/S, B, H) are the carries entering
-    each S-step segment. Kernel on CUDA, plain version on the CPU."""
+    seam backward. `h_ckpt` (proj dtype), `c_ckpt` (float32), (T/S, B, H),
+    are the carries entering each S-step segment; proj_t and wh in float32
+    or bfloat16, the rest float32. Kernel on CUDA, plain version on the
+    CPU."""
     dev = _device_of(dout, "lstm_seq_bwd_ckpt")
     T, B, H = dout.shape
     if S < 1 or T % S:
         raise ValueError(f"seq len {T} not divisible by checkpoint segment {S}")
     N = T // S
     f32 = torch.float32
+    dt = _compute_dtype(proj_t, "lstm_seq_bwd_ckpt")
     _check("dout", dout, (T, B, H), f32, dev)
-    _check("proj_t", proj_t, (T, B, 4 * H), f32, dev)
-    _check("h_ckpt", h_ckpt, (N, B, H), f32, dev)
+    _check("proj_t", proj_t, (T, B, 4 * H), dt, dev)
+    _check("h_ckpt", h_ckpt, (N, B, H), dt, dev)
     _check("c_ckpt", c_ckpt, (N, B, H), f32, dev)
-    _check("wh", wh, (H, 4 * H), f32, dev)
+    _check("wh", wh, (H, 4 * H), dt, dev)
     _check("dcT", dcT, (B, H), f32, dev)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S)
-    geo = _geometry(B, H, "lstm_seq_bwd_ckpt", dev)
+    geo = _geometry(B, H, "lstm_seq_bwd_ckpt", dev, dt)
     _check_aligned("h_ckpt", h_ckpt)
     _check_aligned("wh", wh)
-    dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
+    dz = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
-    # the recomputed segment's h (every block reads it whole) and c (each
-    # block touches only its own units), (S+1, B, H) each
-    seg_h = torch.empty((S + 1, B, H), dtype=f32, device=dev)
+    # the recomputed segment's h (every block reads it whole; proj dtype)
+    # and c (each block touches only its own units), (S+1, B, H) each
+    seg_h = torch.empty((S + 1, B, H), dtype=dt, device=dev)
     seg_c = torch.empty((S + 1, B, H), dtype=f32, device=dev)
-    _launch("lstm_seq_bwd_ckpt",
-            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, _barrier(dev)),
+    # bf16: the segment's f32 dz, which dWh sums before dz is rounded
+    dz32 = None if dt == f32 else torch.empty((S, B, 4 * H), dtype=f32, device=dev)
+    _launch(_form("lstm_seq_bwd_ckpt", dt),
+            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32,
+             _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, S, *_geometry_ints(geo)), dev)
     return dz, dwh
 

@@ -10,6 +10,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <deque>
 #include <thread>
 #include <vector>
@@ -19,6 +20,9 @@
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline thread_local uint3_ threadIdx;
 inline thread_local uint3_ blockIdx;
 inline dim3 blockDim, gridDim;

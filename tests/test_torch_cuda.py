@@ -15,6 +15,16 @@ held to 1e-4 of its largest entry: each entry sums T*B products of both
 signs, so entries that cancel to near zero have no meaningful relative
 error. K4's dz is held to K2's bit for bit: the same walk in the same
 geometry.
+
+Row chunks: batches wider than one block's threads (B=600 at H=512, B=200
+at H=2048) are walked in two chunks per step, held to the same bounds.
+
+bf16 forms (K1, K2, K5): both sides sum exact products of bf16 values in
+float32 in other orders, so a value may round to the neighbouring bf16
+value (2^-8 relative) where the two sums straddle a rounding boundary,
+and that step feeds the later ones: outs, cs and dz are held to
+BF16_ATOL absolute plus BF16_RTOL relative, dWh to BF16_DWH of its
+largest entry. Two launches still give the same bits.
 """
 
 import copy
@@ -43,6 +53,10 @@ def cuda():
 
 
 SHAPES = [(7, 5, 32), (13, 67, 96), (3, 2, 640), (85, 64, 512)]
+# batches the column split walks in two row chunks per step
+CHUNKED = [(5, 600, 512), (4, 200, 2048)]
+BF16 = torch.bfloat16
+BF16_ATOL, BF16_RTOL, BF16_DWH = 2e-2, 2e-2, 1e-2
 
 
 # K1/K2 also at the xl width, where their wh slice is streamed
@@ -123,7 +137,7 @@ def test_backward_arm_kernels_match_plain_versions(cuda, shape):
             assert not dz[: int(burn_np[b]), b].any()
     torch.cuda.synchronize()
     assert lstm_kernel.launch_counts == dict(
-        lstm_fwd=0, lstm_bwd=1, lstm_seq_bwd=0, lstm_seq_bwd_fused=4,
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_bwd=1, lstm_seq_bwd_fused=4,
         lstm_seq_bwd_ckpt=4 * len(strides))
 
 
@@ -243,3 +257,119 @@ def _card_vs_cpu(cfg, steps):
     for (name, a), b in zip(states["cuda"].net.state_dict().items(),
                             states["cpu"].net.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def _operands(cuda, T, B, H, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    proj = torch.randn(T, B, 4 * H, device=cuda, generator=g).to(dtype)
+    wh = ((torch.rand(H, 4 * H, device=cuda, generator=g) * 2 - 1) * H ** -0.5).to(dtype)
+    h0, c0 = ((torch.randn(B, H, device=cuda, generator=g) * 0.3).to(dtype) for _ in range(2))
+    dout = torch.randn(T, B, H, device=cuda, generator=g)
+    dcT = torch.randn(B, H, device=cuda, generator=g)
+    mixed = torch.randint(0, T, (B,), device=cuda, generator=g, dtype=torch.int32)
+    return proj, wh, h0, c0, dout, dcT, mixed
+
+
+def _ckpt_args(dout, proj, outs, cs, h0, c0, wh, dcT, burn, S):
+    T = proj.shape[0]
+    return (dout, proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
+            torch.cat([c0.float()[None], cs[S - 1 : T - 1 : S]]), wh, dcT, burn, S)
+
+
+@pytest.mark.parametrize("shape", CHUNKED, ids=str)
+def test_kernels_in_row_chunks_match_plain_versions(cuda, shape):
+    """All five kernels with the batch in two row chunks, against their
+    plain versions (seams 0 and mixed; K5 at S=1 and T), each launched
+    twice for the same bits, and K4's dz equal to K2's."""
+    T, B, H = shape
+    for kernel in lstm_kernel.SOURCES:
+        assert lstm_kernel._geometry(B, H, kernel, cuda).chunks(B) == 2
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, torch.float32, T * B + H)
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    for got, want in zip((outs, cs), lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert all(map(torch.equal, (outs, cs), lstm_kernel.lstm_fwd(proj, wh, h0, c0)))
+    walk = (dout, proj, torch.cat([h0[None], outs[:-1]]), torch.cat([c0[None], cs[:-1]]), cs,
+            wh, dcT)
+    got = lstm_kernel.lstm_bwd(*walk)
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert all(map(torch.equal, got, lstm_kernel.lstm_bwd(*walk)))
+    for burn in (torch.zeros_like(mixed), mixed):
+        dz = lstm_kernel.lstm_seq_bwd(*walk, burn)
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn), rtol=1e-4,
+                                   atol=1e-4)
+        assert torch.equal(dz, lstm_kernel.lstm_seq_bwd(*walk, burn))
+        f_dz, f_dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
+        assert torch.equal(f_dz, dz)
+        _assert_dwh_close(f_dwh, lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)[1])
+        assert torch.equal(f_dwh, lstm_kernel.lstm_seq_bwd_fused(*walk, burn)[1])
+        for S in (1, T):
+            args = _ckpt_args(dout, proj, outs, cs, h0, c0, wh, dcT, burn, S)
+            k_dz, k_dwh = lstm_kernel.lstm_seq_bwd_ckpt(*args)
+            p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(*args)
+            torch.testing.assert_close(k_dz, p_dz, rtol=1e-4, atol=1e-4)
+            _assert_dwh_close(k_dwh, p_dwh)
+            assert all(map(torch.equal, (k_dz, k_dwh), lstm_kernel.lstm_seq_bwd_ckpt(*args)))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(85, 64, 2048)] + CHUNKED, ids=str)
+def test_bf16_kernels_match_plain_versions(cuda, shape):
+    """K1, K2 (seams 0, mid, T-1, mixed) and K5 (S=5 where it divides T,
+    and S=T) with bf16 operands against their plain versions, on the
+    plain forward's residuals, each launched twice for the same bits;
+    every launch counted under the bf16 form's own key."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, BF16, T * B + H + 2)
+    lstm_kernel.reset_launch_counts()
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    assert outs.dtype == BF16 and cs.dtype == torch.float32
+    torch.testing.assert_close(outs.float(), p_outs.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(cs, p_cs, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, (outs, cs), lstm_kernel.lstm_fwd(proj, wh, h0, c0)))
+    walk = (dout, proj, torch.cat([h0[None], p_outs[:-1]]), torch.cat([c0.float()[None],
+            p_cs[:-1]]), p_cs, wh, dcT)
+    seams = (torch.zeros_like(mixed), torch.full_like(mixed, T // 2),
+             torch.full_like(mixed, T - 1), mixed)
+    for burn in seams:
+        dz = lstm_kernel.lstm_seq_bwd(*walk, burn)
+        assert dz.dtype == torch.float32
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert torch.equal(dz, lstm_kernel.lstm_seq_bwd(*walk, burn))
+    strides = sorted({5 if T % 5 == 0 else 1, T})
+    for S in strides:
+        args = _ckpt_args(dout, proj, p_outs, p_cs, h0, c0, wh, dcT, mixed, S)
+        k_dz, k_dwh = lstm_kernel.lstm_seq_bwd_ckpt(*args)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(*args)
+        assert k_dz.dtype == BF16
+        torch.testing.assert_close(k_dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert float((k_dwh - p_dwh).abs().max()) <= BF16_DWH * float(p_dwh.abs().max())
+        assert all(map(torch.equal, (k_dz, k_dwh), lstm_kernel.lstm_seq_bwd_ckpt(*args)))
+    torch.cuda.synchronize()
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd_bf16=2, lstm_seq_bwd_bf16=8,
+        lstm_seq_bwd_ckpt_bf16=2 * len(strides))
+
+
+def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):
+    """The bf16 forms take bf16 only where the Pallas kernels do (proj, wh,
+    h0/c0, hprev, h_ckpt); K3 and K4 take float32 only."""
+    T, B, H = 4, 3, 8
+    proj = torch.zeros(T, B, 4 * H, device=cuda, dtype=BF16)
+    wh = torch.zeros(H, 4 * H, device=cuda, dtype=BF16)
+    hb = torch.zeros(T, B, H, device=cuda, dtype=BF16)
+    f = torch.zeros(T, B, H, device=cuda)
+    dcT = torch.zeros(B, H, device=cuda)
+    burn = torch.zeros(B, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="wh"):
+        lstm_kernel.lstm_fwd(proj, wh.float(), hb[0], hb[0])
+    with pytest.raises(TypeError, match="cs"):
+        lstm_kernel.lstm_seq_bwd(f, proj, hb, f, hb, wh, dcT, burn)
+    with pytest.raises(TypeError, match="dout"):
+        lstm_kernel.lstm_seq_bwd(hb, proj, hb, f, f, wh, dcT, burn)
+    with pytest.raises(TypeError, match="proj_t"):
+        lstm_kernel.lstm_bwd(f, proj, hb, f, f, wh, dcT)
+    with pytest.raises(TypeError, match="proj_t"):
+        lstm_kernel.lstm_seq_bwd_fused(f, proj, hb, f, f, wh, dcT, burn)

@@ -224,12 +224,62 @@ def test_column_split_geometry_at_the_atari_batch(H_, kernel):
                                    4 * -(-g.units // 4)) >= 1
 
 
+# the column split of every kernel at PR 5, before row chunks, where it fit:
+# (units, grid, threads, k_tile, pinned, smem_bytes) at 132 SMs, 232,448 B
+_PR5_GEOMETRY = {
+    (64, 512): {k: (4, 128, 256, 128, True, 184320 if k == "lstm_fwd" else 218176)
+                for k in port.SOURCES},
+    (128, 2048): {k: (16, 128, 512, 32, False, 139264 if k == "lstm_fwd" else 156672)
+                  for k in port.SOURCES},
+    (512, 512): {k: (4, 128, 512, 16, True, 229376) if k == "lstm_fwd"
+                 else (4, 128, 512, 8, True, 204864) for k in port.SOURCES},
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_PR5_GEOMETRY), ids=str)
+def test_column_split_geometry_that_fit_before_row_chunks_is_unchanged(shape):
+    """Where the batch fit one block, every kernel keeps one chunk (rows =
+    the batch padded to 4) and the geometry it had: the same code path."""
+    B_, H_ = shape
+    for kernel, want in _PR5_GEOMETRY[shape].items():
+        g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM)
+        assert tuple(g)[:6] == want and g.rows == 4 * -(-B_ // 4) and g.chunks(B_) == 1, kernel
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H_", [512, 1024, 2048])
+def test_column_split_geometry_splits_every_batch(H_, itemsize):
+    """Every kernel has a column split for every batch from 1 to 4096 rows
+    at the widths the model presets train (hidden 512, 1024, 2048), in
+    both operand sizes: whole chunks of 4-row groups that cover the batch,
+    the block within 512 threads and the card's shared memory, a stage of
+    K4's and K5's dWh pass holding a row."""
+    batches = sorted({*range(1, 70), *range(70, 4097, 37), 1024, 2048, 4096})
+    for kernel in port.SOURCES:
+        for B_ in batches:
+            g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, itemsize)
+            groups = g.rows // 4
+            assert g.rows % 4 == 0 and g.chunks(B_) * g.rows >= B_ > (g.chunks(B_) - 1) * g.rows
+            assert g.threads <= 512 and g.threads % (groups * g.units) == 0
+            assert g.smem_bytes <= H100_SMEM and g.grid <= H100_SMS
+            if kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
+                assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows,
+                                           4 * -(-g.units // 4), itemsize) >= 1
+
+
 def test_column_split_geometry_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match="threads"):
-        port.lstm_geometry(256, 2048, "lstm_seq_bwd", H100_SMS, H100_SMEM)
+    """What the card still refuses. A batch wider than a block's threads
+    is no longer among it: (256, 2048), refused at PR 5 for needing 1,024
+    threads, now walks its rows in two chunks of 128."""
+    g = port.lstm_geometry(256, 2048, "lstm_seq_bwd", H100_SMS, H100_SMEM)
+    assert (g.rows, g.chunks(256), g.threads) == (128, 2, 512)
     with pytest.raises(ValueError, match="shared memory"):
         port.lstm_geometry(64, 512, "lstm_bwd", H100_SMS, 1024)
     with pytest.raises(ValueError, match="multiple of 4"):
         port.lstm_geometry(64, 510, "lstm_fwd", H100_SMS, H100_SMEM)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port.lstm_geometry(64, 516, "lstm_fwd", H100_SMS, H100_SMEM, itemsize=2)
+    with pytest.raises(ValueError, match="threads"):
+        port.lstm_geometry(64, 512, "lstm_fwd", H100_SMS, H100_SMEM, max_threads=2)
     with pytest.raises(ValueError, match="column-split"):
         port.lstm_geometry(64, 512, "not_a_kernel", H100_SMS, H100_SMEM)
