@@ -9,6 +9,8 @@ post-step (h, c); block cuts at block_length or at max_episode_steps,
 deferred one step so the bootstrap Q comes from the next batched call; on
 a terminal, finish(None) and a fresh accumulator. The ε coins and random
 actions come from a numpy Generator in the JAX package's stream order.
+The carry is held in the compute dtype (the acting step's own dtype) and
+stored through the config's state dtype.
 """
 
 from __future__ import annotations
@@ -116,7 +118,7 @@ class VectorizedActor:
         self.obs = obs
         self.last_action = np.zeros(E, np.int32)
         self.last_reward = np.zeros(E, np.float32)
-        self.carry = initial_carry(E, cfg.hidden_dim, self.device)
+        self.carry = initial_carry(E, cfg.hidden_dim, self.device, cfg.torch_compute_dtype)
         self.episode_steps = np.zeros(E, np.int64)
         # envs whose accumulator awaits a bootstrap Q from the next call
         self._pending_cut = np.zeros(E, bool)
@@ -143,9 +145,11 @@ class VectorizedActor:
             torch.from_numpy(explore).to(dev),
             torch.from_numpy(random_a.astype(np.int32)).to(dev),
         )
-        # one device -> host copy for q, actions and the new carry
+        # one device -> host copy for q, actions and the new carry (a bf16
+        # carry widens to float32 exactly)
         A, H = q.shape[1], h.shape[1]
-        packed = torch.cat([q, device_actions[:, None].float(), h, c], dim=1).cpu().numpy()
+        packed = torch.cat([q, device_actions[:, None].float(), h.float(), c.float()],
+                           dim=1).cpu().numpy()
         q_np = packed[:, :A]
         actions = packed[:, A].astype(np.int32)
         hidden_np = np.stack([packed[:, A + 1 : A + 1 + H], packed[:, A + 1 + H :]], axis=1)
@@ -198,7 +202,7 @@ class VectorizedActor:
                     self._pending_cut[i] = True
 
         if not keep.all():
-            k = torch.from_numpy(keep).to(dev)[:, None]
+            k = torch.from_numpy(keep).to(dev, h.dtype)[:, None]
             self.carry = (h * k, c * k)
         else:
             self.carry = (h, c)

@@ -101,7 +101,23 @@ class R2D2Config:
     # --- derived ----------------------------------------------------------
     @property
     def resolved_compute_dtype(self) -> str:
+        """The matmul and activation dtype of the model: precision="bf16"
+        forces bfloat16, precision="fp32" defers to compute_dtype (the
+        JAX package's rule)."""
         return "bfloat16" if self.precision == "bf16" else self.compute_dtype
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.resolved_compute_dtype)
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        """The dtype of STORED recurrent carries (the replay hidden store,
+        the actor's accumulators), with the JAX package's meaning: bfloat16
+        under precision="bf16", else float32. numpy has no bfloat16, so the
+        host keeps bf16 carries as their uint16 bit patterns
+        (``replay.block.to_state_host`` / ``state_tensor``)."""
+        return torch.bfloat16 if self.precision == "bf16" else torch.float32
 
     @property
     def seq_len(self) -> int:
@@ -249,17 +265,33 @@ class R2D2Config:
         return dataclasses.replace(self, **kw).validate()
 
 
-def require_ported(cfg: R2D2Config) -> None:
+def require_ported(cfg: R2D2Config, device="cuda") -> None:
     """Refuse configurations whose code path the port does not have yet,
-    naming the roadmap item that queues it (ROADMAP.md Queue 1/2)."""
-    if cfg.resolved_compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 compute (precision='bf16' / compute_dtype='bfloat16') "
-            "is queued (M7); run with --set compute_dtype=float32"
-        )
+    naming the roadmap item that queues it (ROADMAP.md Queue 1/2), and
+    widths the kernels cannot take, naming the limit. `device` is where
+    the model runs: the backward arm is resolved for it."""
     if cfg.encoder == "impala" or cfg.recurrent_core != "lstm":
         raise NotImplementedError(
             "the IMPALA encoder and the LRU core are queued (M8)"
+        )
+    bf16 = cfg.resolved_compute_dtype == "bfloat16"
+    row = 8 if bf16 else 4  # values in one 16-byte copy of a row
+    if cfg.hidden_dim % row:
+        raise NotImplementedError(
+            f"hidden_dim={cfg.hidden_dim}: the LSTM kernels copy rows 16 bytes "
+            f"at a time, so under {cfg.resolved_compute_dtype} the hidden size "
+            f"must be a multiple of {row}"
+        )
+    if bf16 and not cfg.fused_sequence:
+        raise NotImplementedError(
+            "fused_sequence=False under bfloat16 runs the seamless backward "
+            "(K3), whose bf16 form is queued (ROADMAP.md Queue 2)"
+        )
+    if bf16 and cfg.resolve_backward_arm(device=torch.device(device).type)[0] == "fused_dwh":
+        raise NotImplementedError(
+            "the fused_dwh backward arm under bfloat16 runs K4, whose bf16 "
+            "form is queued (ROADMAP.md Queue 2); use backward_arm=default "
+            "or ckpt"
         )
 
 
@@ -278,11 +310,14 @@ def resolve_device(device) -> torch.device:
 
 
 def set_fp32_numerics() -> None:
-    """Full float32 on the card: cuBLAS matmuls are full fp32 by default,
-    but cuDNN convolutions default to TF32 (about three decimal digits),
-    so both switches are set off explicitly."""
+    """Float32 sums on the card, as XLA takes them: cuBLAS matmuls are
+    full fp32 by default, but cuDNN convolutions default to TF32 (about
+    three decimal digits), so both switches are set off explicitly; and a
+    bf16 matmul sums in f32 (XLA's preferred element type for bf16 dots),
+    where cuBLAS may otherwise reduce split-K partials in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 # --------------------------------------------------------------------------
@@ -291,9 +326,9 @@ def set_fp32_numerics() -> None:
 
 
 def default_atari(game: str = "MsPacman") -> R2D2Config:
-    """The reference hyperparameters. Like the JAX preset it names
-    bfloat16 compute, which the port refuses until M7: pass
-    ``--set compute_dtype=float32``."""
+    """The reference hyperparameters, with the JAX preset's bfloat16
+    compute (f32 parameters, carries and loss math); ``--set
+    compute_dtype=float32`` reproduces the reference's float32 numerics."""
     return R2D2Config(env_name=game, compute_dtype="bfloat16").validate()
 
 

@@ -8,6 +8,9 @@ launch through autograd) and the target unroll under ``torch.no_grad()``
 - double-Q target: a* = argmax_a Q_online(s_{t+n}, a) with no gradient,
   evaluated by the target net; y = h(R_n + gamma_n * h^-1(Q_target)).
 - IS-weighted masked MSE over the global count of valid learning steps.
+- the float32 island of the JAX learner (``r2d2_tpu/learner.py:153-173``):
+  the target, value rescaling, TD, priorities, IS weights and the loss are
+  float32 whatever the compute dtype.
 - mixed per-sequence TD priorities, computed on the device.
 - optimizer: a global-norm clip written out by hand — optax's
   ``clip_by_global_norm`` has no epsilon in its denominator, while
@@ -35,6 +38,7 @@ from r2d2_tpu_torch.models.r2d2 import R2D2Network, init_params
 from r2d2_tpu_torch.ops.act_tail import first_argmax
 from r2d2_tpu_torch.ops.priority import mixed_td_priorities
 from r2d2_tpu_torch.ops.value_rescale import inverse_value_rescale, value_rescale
+from r2d2_tpu_torch.replay.block import state_tensor
 
 
 class DeviceBatch(NamedTuple):
@@ -43,7 +47,7 @@ class DeviceBatch(NamedTuple):
     obs: torch.Tensor            # (B, T, *obs_shape) uint8
     last_action: torch.Tensor    # (B, T) int64
     last_reward: torch.Tensor    # (B, T) float32
-    hidden: torch.Tensor         # (B, 2, H) float32
+    hidden: torch.Tensor         # (B, 2, H) in the state dtype (float32 or bfloat16)
     action: torch.Tensor         # (B, L) int64
     n_step_reward: torch.Tensor  # (B, L) float32
     gamma: torch.Tensor          # (B, L) float32
@@ -64,7 +68,8 @@ class DeviceBatch(NamedTuple):
             obs=put(b.obs),
             last_action=put(b.last_action, torch.int64),
             last_reward=put(b.last_reward, torch.float32),
-            hidden=put(b.hidden, torch.float32),
+            # float32, or bf16 bits viewed as bfloat16: the stored carry as is
+            hidden=state_tensor(b.hidden).to(device, non_blocking=True),
             action=put(b.action, torch.int64),
             n_step_reward=put(b.n_step_reward, torch.float32),
             gamma=put(b.gamma, torch.float32),
@@ -133,17 +138,20 @@ def make_loss_fn(cfg: R2D2Config):
         args = (b.obs, b.last_action, b.last_reward, b.hidden,
                 b.burn_in_steps, b.learning_steps, b.forward_steps)
         q_learn, q_boot_online, mask = net(*args)
+        # float32 island: the heads emit float32 (R2D2Network._dueling); the
+        # casts pin the contract, as in the JAX learner
         with torch.no_grad():
             _, q_boot_target, _ = target_net(*args)
             # double-Q: online selects, target evaluates
             a_star = first_argmax(q_boot_online.detach())
-            q_tgt = torch.gather(q_boot_target, -1, a_star[..., None].long())[..., 0]
+            q_tgt = torch.gather(q_boot_target, -1, a_star[..., None].long())[..., 0].float()
             y = value_rescale(
-                b.n_step_reward + b.gamma * inverse_value_rescale(q_tgt, eps), eps
+                b.n_step_reward.float() + b.gamma.float() * inverse_value_rescale(q_tgt, eps),
+                eps,
             )
-        q_taken = torch.gather(q_learn, -1, b.action[..., None])[..., 0]
+        q_taken = torch.gather(q_learn, -1, b.action[..., None])[..., 0].float()
         td = y - q_taken
-        w = b.is_weights[:, None]
+        w = b.is_weights.float()[:, None]
         loss = torch.sum(w * torch.square(td) * mask) / denom
 
         with torch.no_grad():

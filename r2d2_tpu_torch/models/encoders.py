@@ -9,6 +9,10 @@ order (encoders.py:60-63) and converted weights line up.
 - MLPEncoder: flatten -> Dense.
 Both end in the shared latent tail: Dense_0 + relu, then `depth` extra
 Dense(latent) + relu layers. The IMPALA encoder is queued (M8).
+
+`dtype` is the compute dtype, as flax's ``Dense(dtype=...)`` and
+``Conv(dtype=...)`` take it: float32 parameters cast to it where they are
+used, the input cast to it, every layer computed in it.
 """
 
 from __future__ import annotations
@@ -44,24 +48,33 @@ def conv(in_ch: int, out_ch: int, k: int, stride: int, generator) -> nn.Conv2d:
     return layer
 
 
+def linear_in(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer` applied to x in x's dtype (the layer's f32 parameters cast)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
 class _LatentTail(nn.Module):
-    def __init__(self, in_dim: int, latent_dim: int, depth: int, generator):
+    def __init__(self, in_dim: int, latent_dim: int, depth: int, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dense = nn.ModuleList(
             [dense(in_dim, latent_dim, generator)]
             + [dense(latent_dim, latent_dim, generator) for _ in range(depth)]
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         for layer in self.dense:
-            x = F.relu(layer(x))
+            x = F.relu(linear_in(layer, x))
         return x
 
 
 class NatureEncoder(nn.Module):
     def __init__(self, obs_shape: Sequence[int], latent_dim: int = 512,
-                 depth: int = 0, generator=None):
+                 depth: int = 0, generator=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         h, w, c = obs_shape
         self.convs = nn.ModuleList([
             conv(c, 32, 8, 4, generator),
@@ -72,12 +85,13 @@ class NatureEncoder(nn.Module):
             h, w = (h - k) // s + 1, (w - k) // s + 1
         if h < 1 or w < 1:
             raise ValueError(f"obs {tuple(obs_shape)} is too small for the nature trunk")
-        self.tail = _LatentTail(h * w * 64, latent_dim, depth, generator)
+        self.tail = _LatentTail(h * w * 64, latent_dim, depth, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW for the convolutions
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW for the convolutions
         for layer in self.convs:
-            x = F.relu(layer(x))
+            x = F.relu(F.conv2d(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype),
+                                stride=layer.stride))
         # flatten in NHWC order, as the JAX trunk does
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.tail(x)
@@ -85,19 +99,20 @@ class NatureEncoder(nn.Module):
 
 class MLPEncoder(nn.Module):
     def __init__(self, obs_shape: Sequence[int], latent_dim: int = 32,
-                 depth: int = 0, generator=None):
+                 depth: int = 0, generator=None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.tail = _LatentTail(math.prod(obs_shape), latent_dim, depth, generator)
+        self.tail = _LatentTail(math.prod(obs_shape), latent_dim, depth, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tail(x.reshape(x.shape[0], -1))
 
 
-def make_encoder(name: str, obs_shape, latent_dim: int, depth: int = 0, generator=None):
+def make_encoder(name: str, obs_shape, latent_dim: int, depth: int = 0, generator=None,
+                 dtype: torch.dtype = torch.float32):
     if name == "nature":
-        return NatureEncoder(obs_shape, latent_dim, depth, generator)
+        return NatureEncoder(obs_shape, latent_dim, depth, generator, dtype)
     if name == "mlp":
-        return MLPEncoder(obs_shape, latent_dim, depth, generator)
+        return MLPEncoder(obs_shape, latent_dim, depth, generator, dtype)
     if name == "impala":
         raise NotImplementedError("the IMPALA encoder is queued (M8)")
     raise ValueError(f"unknown encoder {name!r}")

@@ -7,6 +7,11 @@ order, all drawn from uniform(-1/sqrt(H), 1/sqrt(H)).
 The input projection x @ wi + b for every step is one large matmul; the
 recurrence then runs through ops/lstm_kernel.py: the hand-written kernels
 on a CUDA device, their plain versions on the CPU.
+
+`dtype` is the compute dtype, as the flax module's: the parameters stay
+float32 and are cast to it where they are used, with the inputs and the
+incoming carry (``r2d2_tpu/models/lstm.py:121-124``); the input projection
+runs in it, and so does the acting step.
 """
 
 from __future__ import annotations
@@ -29,14 +34,16 @@ Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each (B, H)
 
 class LSTM(nn.Module):
     def __init__(self, hidden_dim: int, in_dim: int, generator=None,
-                 backward_arm: Tuple[str, int] = ("default", 0)):
+                 backward_arm: Tuple[str, int] = ("default", 0),
+                 dtype: torch.dtype = torch.float32):
         """`backward_arm` is the resolved (arm, ckpt_stride) of
         ``R2D2Config.resolve_backward_arm``: which backward the unroll with
-        a seam runs."""
+        a seam runs. `dtype` is the compute dtype."""
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
         self.backward_arm = tuple(backward_arm)
+        self.dtype = dtype
         scale = 1.0 / H ** 0.5
 
         def uniform(*shape):
@@ -49,11 +56,9 @@ class LSTM(nn.Module):
         self.wh = uniform(H, 4 * H)
         self.b = uniform(4 * H)
 
-    def _gates(self, proj, h, c):
-        z = proj + h @ self.wh
-        i, f, g, o = _split_gates(z, self.hidden_dim)
-        c_new = f * c + i * g
-        return o * torch.tanh(c_new), c_new
+    def _params(self):
+        """(wi, wh, b) in the compute dtype."""
+        return tuple(p.to(self.dtype) for p in (self.wi, self.wh, self.b))
 
     def forward(
         self, xs: torch.Tensor, carry: Carry, burn_in: Optional[torch.Tensor] = None
@@ -65,13 +70,14 @@ class LSTM(nn.Module):
         with; without it the gradient runs through every step (the seamless
         backward). The op is chosen as the JAX ``LSTM.__call__`` chooses."""
         B, T, D = xs.shape
-        h, c = carry
-        proj = (xs.reshape(B * T, D) @ self.wi + self.b).reshape(B, T, -1)
+        wi, wh, b = self._params()
+        xs = xs.to(self.dtype)
+        h, c = (x.to(self.dtype).contiguous() for x in carry)
+        proj = (xs.reshape(B * T, D) @ wi + b).reshape(B, T, -1)
         proj_t = proj.transpose(0, 1).contiguous()  # (T, B, 4H) time-major
-        h, c = h.contiguous(), c.contiguous()
         arm, stride = self.backward_arm
         if burn_in is None:
-            outs_t, (hT, cT) = lstm_unroll(proj_t, self.wh, h, c)
+            outs_t, (hT, cT) = lstm_unroll(proj_t, wh, h, c)
         else:
             burn_in = burn_in.to(torch.int32)
             if arm == "ckpt":
@@ -80,11 +86,16 @@ class LSTM(nn.Module):
                 unroll = lstm_seq_unroll_fused_dwh
             else:
                 unroll = lstm_seq_unroll
-            outs_t, (hT, cT) = unroll(proj_t, self.wh, h, c, burn_in)
-        return outs_t.transpose(0, 1), (hT, cT)
+            outs_t, (hT, cT) = unroll(proj_t, wh, h, c, burn_in)
+        return outs_t.transpose(0, 1), (hT.to(self.dtype), cT.to(self.dtype))
 
     def step(self, x: torch.Tensor, carry: Carry) -> Tuple[torch.Tensor, Carry]:
-        """Single acting step on (B, D) input."""
-        h, c = carry
-        h_new, c_new = self._gates(x @ self.wi + self.b, h, c)
+        """Single acting step on (B, D) input, all in the compute dtype (the
+        flax module's ``step`` and ``_gates``)."""
+        wi, wh, b = self._params()
+        h, c = (v.to(self.dtype) for v in carry)
+        z = (x.to(self.dtype) @ wi + b) + h @ wh
+        i, f, g, o = _split_gates(z, self.hidden_dim)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
         return h_new, (h_new, c_new)

@@ -1,5 +1,5 @@
 """R2D2Network — recurrent dueling double-DQN trunk (port of
-r2d2_tpu/models/r2d2.py, single-task, float32).
+r2d2_tpu/models/r2d2.py, single-task).
 
 - encoder -> LSTM over concat(latent, one-hot last action, last reward) ->
   dueling heads, Q = V + A - mean(A), in float32.
@@ -12,6 +12,10 @@ r2d2_tpu/models/r2d2.py, single-task, float32).
     bootstrap view  idx(t) = min(burn_in + F + t, burn_in + learning + forward - 1)
 
 Observations enter as uint8 and are normalized once, here.
+
+`compute_dtype` (the config's resolved compute dtype) is the dtype of the
+encoder, the core input and the LSTM; the parameters stay float32, and the
+dueling head is a float32 island, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,17 +45,19 @@ class R2D2Network(nn.Module):
         fused_sequence: bool = True,
         generator: Optional[torch.Generator] = None,
         backward_arm: Tuple[str, int] = ("default", 0),
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = compute_dtype
         self.action_dim = action_dim
         self.hidden_dim = hidden_dim
         self.learning_steps = learning_steps
         self.forward_steps = forward_steps
         self.fused_sequence = fused_sequence
         g = generator
-        self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g)
+        self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g, compute_dtype)
         self.core = LSTM(hidden_dim, hidden_dim + action_dim + 1, generator=g,
-                         backward_arm=backward_arm)
+                         backward_arm=backward_arm, dtype=compute_dtype)
         self.adv_hidden = dense(hidden_dim, hidden_dim, g)
         self.adv_out = dense(hidden_dim, action_dim, g)
         self.val_hidden = dense(hidden_dim, hidden_dim, g)
@@ -62,7 +68,7 @@ class R2D2Network(nn.Module):
         """Build on `device` (the card unless the caller passes "cpu"),
         with the core running the backward arm that
         ``cfg.resolve_backward_arm`` resolves for that device."""
-        require_ported(cfg)
+        require_ported(cfg, device)
         if torch.device(device).type == "cuda" and cfg.lstm_backend == "scan":
             raise ValueError(
                 "lstm_backend='scan' names the plain PyTorch versions, which "
@@ -73,19 +79,22 @@ class R2D2Network(nn.Module):
             cfg.obs_shape, cfg.action_dim, cfg.hidden_dim, cfg.learning_steps,
             cfg.forward_steps, cfg.encoder, cfg.encoder_depth, cfg.fused_sequence,
             generator=generator, backward_arm=cfg.resolve_backward_arm(device=dev.type),
+            compute_dtype=cfg.torch_compute_dtype,
         ).to(dev)
 
     # ----------------------------------------------------------------- util
 
     def _core_input(self, obs, last_action, last_reward):
-        """(N, *obs) uint8, (N,) int, (N,) float -> (N, latent+A+1)."""
-        x = obs.float() / 255.0
+        """(N, *obs) uint8, (N,) int, (N,) float -> (N, latent+A+1), all in
+        the compute dtype."""
+        x = obs.to(self.dtype) / 255.0
         latent = self.enc(x)
-        onehot = F.one_hot(last_action.long(), self.action_dim).float()
-        reward = last_reward.float()[:, None]
+        onehot = F.one_hot(last_action.long(), self.action_dim).to(self.dtype)
+        reward = last_reward.to(self.dtype)[:, None]
         return torch.cat([latent, onehot, reward], dim=-1)
 
     def _dueling(self, h: torch.Tensor) -> torch.Tensor:
+        """Dueling Q in float32 whatever the compute dtype."""
         h = h.float()
         adv = self.adv_out(F.relu(self.adv_hidden(h)))
         val = self.val_out(F.relu(self.val_hidden(h)))
@@ -138,9 +147,10 @@ class R2D2Network(nn.Module):
     forward = unroll
 
 
-def initial_carry(batch: int, hidden_dim: int, device="cuda") -> Carry:
+def initial_carry(batch: int, hidden_dim: int, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> Carry:
     """Zero (h, c) — the episode-start state."""
-    z = torch.zeros((batch, hidden_dim), dtype=torch.float32, device=resolve_device(device))
+    z = torch.zeros((batch, hidden_dim), dtype=dtype, device=resolve_device(device))
     return z, z.clone()
 
 

@@ -20,7 +20,7 @@ from r2d2_tpu_torch.config import R2D2Config
 from r2d2_tpu_torch.ops.priority import mixed_td_priorities_np
 from r2d2_tpu_torch.ops.returns import n_step_gammas, n_step_returns
 from r2d2_tpu_torch.ops.value_rescale import inverse_value_rescale_np, value_rescale_np
-from r2d2_tpu_torch.replay.block import Block
+from r2d2_tpu_torch.replay.block import Block, state_host_dtype, to_state_host
 
 
 class SequenceAccumulator:
@@ -43,7 +43,7 @@ class SequenceAccumulator:
         self.last_action_buf: List[int] = [0]
         self.last_reward_buf: List[float] = [0.0]
         self.hidden_buf: List[np.ndarray] = [
-            np.zeros((2, self.cfg.hidden_dim), dtype=np.float32)
+            np.zeros((2, self.cfg.hidden_dim), dtype=state_host_dtype(self.cfg.state_dtype))
         ]
         self.action_buf: List[int] = []
         self.reward_buf: List[float] = []
@@ -56,10 +56,10 @@ class SequenceAccumulator:
     def add(self, action: int, reward: float, next_obs: np.ndarray,
             q_value: np.ndarray, hidden: np.ndarray) -> None:
         """Append one transition. `hidden` is the (2, H) LSTM state after
-        consuming the pre-step observation."""
+        consuming the pre-step observation, kept in the state dtype."""
         self.action_buf.append(int(action))
         self.reward_buf.append(float(reward))
-        self.hidden_buf.append(np.asarray(hidden, dtype=np.float32))
+        self.hidden_buf.append(to_state_host(hidden, self.cfg.state_dtype))
         self.obs_buf.append(np.array(next_obs))
         self.last_action_buf.append(int(action))
         self.last_reward_buf.append(float(reward))

@@ -1,7 +1,10 @@
 """Block — the unit of replay storage (port of r2d2_tpu/replay/block.py).
 
 `last_action` is a scalar uint8 index (one-hot expansion happens on the
-device); per-sequence step counters are int32.
+device); per-sequence step counters are int32. Stored recurrent carries
+are in the config's ``state_dtype``: float32, or under precision="bf16"
+bfloat16 kept on the host as its uint16 bit patterns (numpy has no
+bfloat16), the bits the JAX package's ml_dtypes store holds.
 """
 
 from __future__ import annotations
@@ -9,6 +12,42 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+
+def state_host_dtype(state_dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype that holds carries of `state_dtype` on the host."""
+    return np.dtype(np.uint16 if state_dtype == torch.bfloat16 else np.float32)
+
+
+def to_state_host(x, state_dtype: torch.dtype) -> np.ndarray:
+    """Carries (a numpy array or a tensor of any float dtype, or uint16 bf16
+    bits) as host storage of `state_dtype`: float32, or the bits of the
+    value rounded to the nearest bfloat16 (ties to even), as the JAX
+    package's float32 -> ml_dtypes.bfloat16 store rounds."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16 and state_dtype == torch.bfloat16:
+            return x.contiguous().view(torch.int16).numpy().view(np.uint16)
+        x = x.float().numpy()
+    x = np.asarray(x)
+    if x.dtype == np.uint16:
+        if state_dtype != torch.bfloat16:
+            raise TypeError("uint16 carries are bf16 bits, but the state dtype is float32")
+        return x
+    if state_dtype != torch.bfloat16:
+        return np.asarray(x, dtype=np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def state_tensor(x: np.ndarray) -> torch.Tensor:
+    """Host carry storage as a tensor: float32 as it is, uint16 bf16 bits
+    viewed as bfloat16 (no copy of the values, no rounding)."""
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.uint16:
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 @dataclasses.dataclass
@@ -21,8 +60,8 @@ class Block:
     action: np.ndarray         # (T,) uint8 action taken at each learning step
     n_step_reward: np.ndarray  # (T,) float32 n-step return
     gamma: np.ndarray          # (T,) float32 bootstrap discount, 0 past a terminal
-    # (num_sequences, 2, hidden_dim) float32 (h, c) at each sequence's TRUE
-    # replay-window start
+    # (num_sequences, 2, hidden_dim) (h, c) at each sequence's TRUE
+    # replay-window start, host storage of the state dtype (state_host_dtype)
     hidden: np.ndarray
     num_sequences: int
     burn_in_steps: np.ndarray  # (num_sequences,) int32

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 
 from r2d2_tpu_torch.config import R2D2Config
-from r2d2_tpu_torch.replay.block import Block
+from r2d2_tpu_torch.replay.block import Block, state_host_dtype, to_state_host
 from r2d2_tpu_torch.replay.control_plane import ReplayControlPlane
 
 
@@ -24,7 +24,7 @@ class SampledBatch:
     obs: np.ndarray            # (B, seq_len, *obs_shape) uint8
     last_action: np.ndarray    # (B, seq_len) uint8
     last_reward: np.ndarray    # (B, seq_len) float32
-    hidden: np.ndarray         # (B, 2, H) float32
+    hidden: np.ndarray         # (B, 2, H) state dtype's host storage (block.py)
     action: np.ndarray         # (B, L) int32
     n_step_reward: np.ndarray  # (B, L) float32
     gamma: np.ndarray          # (B, L) float32
@@ -49,7 +49,9 @@ class ReplayBuffer(ReplayControlPlane):
         self.action_store = np.zeros((nb, cfg.block_length), dtype=np.uint8)
         self.n_step_reward_store = np.zeros((nb, cfg.block_length), dtype=np.float32)
         self.gamma_store = np.zeros((nb, cfg.block_length), dtype=np.float32)
-        self.hidden_store = np.zeros((nb, S, 2, cfg.hidden_dim), dtype=np.float32)
+        # the state dtype: float32, or bf16 bits under precision="bf16"
+        self.hidden_store = np.zeros((nb, S, 2, cfg.hidden_dim),
+                                     dtype=state_host_dtype(cfg.state_dtype))
         self.burn_in_store = np.zeros((nb, S), dtype=np.int32)
         self.learning_store = np.zeros((nb, S), dtype=np.int32)
         self.forward_store = np.zeros((nb, S), dtype=np.int32)
@@ -65,7 +67,7 @@ class ReplayBuffer(ReplayControlPlane):
         self.n_step_reward_store[ptr, :T] = block.n_step_reward
         self.gamma_store[ptr, :T] = block.gamma
         ns = block.num_sequences
-        self.hidden_store[ptr, :ns] = block.hidden
+        self.hidden_store[ptr, :ns] = to_state_host(block.hidden, self.cfg.state_dtype)
         self.burn_in_store[ptr, :S] = 0
         self.learning_store[ptr, :S] = 0
         self.forward_store[ptr, :S] = 0

@@ -12,7 +12,11 @@ weights every `publish_interval` updates, actor pull every
 Threaded mode, checkpoints, metrics files and evaluation are queued (M6).
 
     python -m r2d2_tpu_torch.train --preset atari --env catch --mode inline \
-        --steps 100 --set compute_dtype=float32
+        --steps 100
+
+trains the atari preset in its own bfloat16 compute (``--set
+compute_dtype=float32`` for the reference's float32 numerics; ``--set
+precision=bf16`` also stores the replayed carries in bfloat16).
 
 Every backward arm of the JAX package runs: ``--set backward_arm=fused_dwh``
 or ``--set backward_arm=ckpt`` forces one, ``--set fused_sequence=false``
@@ -68,7 +72,7 @@ class Trainer:
         self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
         if self.vec_env.action_dim != cfg.action_dim:
             cfg = cfg.replace(action_dim=self.vec_env.action_dim)
-        require_ported(cfg)
+        require_ported(cfg, self.device)
         self.cfg = cfg
         self.backward_arm = cfg.resolve_backward_arm(device=self.device.type)
         self.net, self.state = init_train_state(cfg, self.device)
@@ -151,6 +155,7 @@ class Trainer:
             "replay_size": len(self.replay),
             "episodes": episodes,
             "mean_return": reward_sum / episodes if episodes else None,
+            "compute_dtype": self.cfg.resolved_compute_dtype,
             "backward_arm": self.backward_arm[0],
             **({"backward_arm_stride": self.backward_arm[1]}
                if self.backward_arm[0] == "ckpt" else {}),
@@ -178,8 +183,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # init_train_state turns TF32 off (config.set_fp32_numerics)
-        print("fp32: TF32 is off for cuBLAS matmuls and cuDNN convolutions", file=sys.stderr)
+        # init_train_state sets the card's numerics (config.set_fp32_numerics)
+        print("TF32 is off for cuBLAS matmuls and cuDNN convolutions; bf16 matmuls sum "
+              "in f32", file=sys.stderr)
     cfg = PRESETS[args.preset]()
     if args.model_preset:
         cfg = apply_model_preset(cfg, args.model_preset)

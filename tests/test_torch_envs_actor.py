@@ -163,9 +163,21 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 
 
 def test_unported_options_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="M7"):
-        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        train.main(["--preset", "atari", "--env", "catch", "--steps", "1", "--device", "cpu"])
+    """bfloat16 trains (M7 landed); under it the two backward kernels whose
+    bf16 forms are queued (K3: no seam, K4: fused dWh) and hidden sizes the
+    bf16 rows cannot take are refused, before the first update."""
+    with pytest.raises(NotImplementedError, match="K3.*Queue 2"):
+        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
+                                          fused_sequence=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="K4.*Queue 2"):
+        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
+                                          lstm_backend="pallas", backward_arm="fused_dwh"),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16", hidden_dim=36),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="K3.*Queue 2"):
+        train.main(["--preset", "atari", "--env", "catch", "--steps", "1", "--device", "cpu",
+                    "--set", "fused_sequence=false"])
     with pytest.raises(NotImplementedError, match="M8"):
         train.Trainer(tiny_test().replace(env_name="catch", encoder="impala"), device="cpu")

@@ -1,6 +1,8 @@
 """The port stands alone: importing r2d2_tpu_torch and every one of its
 modules (and running chip_smoke.py) loads nothing of JAX, flax, optax or the
-JAX package, and chip_smoke.py fails cleanly where it cannot run."""
+JAX package, nor ml_dtypes (the chip machine's installs do not name it: the
+port keeps bf16 carries on the host as uint16 bits), and chip_smoke.py fails
+cleanly where it cannot run."""
 
 import os
 import re
@@ -13,7 +15,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "r2d2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "r2d2_tpu", "ml_dtypes")
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys

@@ -344,8 +344,7 @@ def test_model_presets_match_jax_and_xl_resolves_to_ckpt():
         got = cfg.resolve_backward_arm(device="cuda")
         assert got == jcfg.replace(lstm_backend="pallas").resolve_backward_arm() == want[name]
         assert cfg.resolve_backward_arm(device="cpu") == ("default", 0)
-    # under bf16 xl resolves to stride 5 (the f32-only port refuses bf16 to
-    # train, but the resolution is the JAX package's)
+    # under bf16 xl resolves to stride 5, as in the JAX package
     xl16 = port_config.apply_model_preset(port_config.default_atari(), "xl")
     assert xl16.resolve_backward_arm(device="cuda") == ("ckpt", 5)
     with pytest.raises(ValueError, match="unknown model_preset"):
