@@ -117,11 +117,6 @@ __device__ __forceinline__ void copy4_ca(float* dst, const float* src) {
 #endif
 }
 
-// one read-only element global -> shared: cp.async for a float; a bf16 (2
-// bytes, below cp.async's least size) is loaded and stored by the thread
-__device__ __forceinline__ void copy_one(float* dst, const float* src) { copy4_ca(dst, src); }
-__device__ __forceinline__ void copy_one(bf16* dst, const bf16* src) { *dst = __ldg(src); }
-
 __device__ __forceinline__ void copies_commit() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.commit_group;\n" ::);
@@ -246,15 +241,48 @@ __device__ __forceinline__ void stage_rows(E* st, int ld, const E* x, int ldx, i
 
 // wc[k][u][g] = wh[k0 + k, g*H + j0 + u] for k < kn, u < n_units: the
 // block's gate columns of wh rows k0 .. k0+kn-1, the four gates of a unit
-// side by side (one 4-wide load)
-template <class E>
-__device__ __forceinline__ void load_cols(E* wc, const E* __restrict__ wh, int H, int j0,
-                                          int n_units, int Hb, int k0, int kn) {
+// side by side (one 4-wide load). Element idx of the tile is wc[dst] =
+// wh[src] with (dst, src) from col_index.
+__device__ __forceinline__ void col_index(int idx, int H, int j0, int n_units, int Hb, int k0,
+                                          int& dst, size_t& src) {
   const int per_k = 4 * n_units;
-  for (int idx = threadIdx.x; idx < kn * per_k; idx += blockDim.x) {
-    const int k = idx / per_k, r = idx - k * per_k;
-    const int g = r / n_units, u = r - g * n_units;
-    copy_one(wc + k * 4 * Hb + u * 4 + g, wh + (size_t)(k0 + k) * 4 * H + g * H + j0 + u);
+  const int k = idx / per_k, r = idx - k * per_k;
+  const int g = r / n_units, u = r - g * n_units;
+  dst = k * 4 * Hb + u * 4 + g;
+  src = (size_t)(k0 + k) * 4 * H + g * H + j0 + u;
+}
+
+// floats: one 4-byte cp.async each
+__device__ __forceinline__ void load_cols(float* wc, const float* __restrict__ wh, int H, int j0,
+                                          int n_units, int Hb, int k0, int kn) {
+  for (int idx = threadIdx.x; idx < kn * 4 * n_units; idx += blockDim.x) {
+    int dst;
+    size_t src;
+    col_index(idx, H, j0, n_units, Hb, k0, dst, src);
+    copy4_ca(wc + dst, wh + src);
+  }
+}
+
+// bf16: 2 bytes, below cp.async's least size, so the thread loads and
+// stores them itself, kBatch loads in flight before the first store
+__device__ __forceinline__ void load_cols(bf16* wc, const bf16* __restrict__ wh, int H, int j0,
+                                          int n_units, int Hb, int k0, int kn) {
+  constexpr int kBatch = 8;
+  const int n = kn * 4 * n_units, step = blockDim.x;
+  for (int base = threadIdx.x; base < n; base += kBatch * step) {
+    bf16 v[kBatch];
+    int dst[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int idx = base + i * step;
+      size_t src = 0;
+      dst[i] = -1;
+      if (idx < n) col_index(idx, H, j0, n_units, Hb, k0, dst[i], src);
+      if (idx < n) v[i] = __ldg(wh + src);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (dst[i] >= 0) wc[dst[i]] = v[i];
   }
 }
 
@@ -330,7 +358,9 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
 // kStages Bc x (kt + kVec) staging tiles (of h or dz); with one chunk the
 // dh carry dh_s[row][unit]; the slices' partials. With more chunks the dh
 // and dc carries are this block's two (chunks*Bc) x Hb slabs of `carry`.
-template <class E>
+// kChunked says which at compile time: with one chunk the walk is the
+// code it was before row chunks, with no chunk loop or carry reloads.
+template <class E, bool kChunked>
 struct Walk {
   const E* wh;
   const int* burn;  // (B,) seams, or null without kSeam
@@ -364,7 +394,7 @@ struct Walk {
     st = wr + wr_elems;
     float* tail = reinterpret_cast<float*>(st + st_elems);
     const int tiles_bytes = (wc_elems + wr_elems + st_elems) * (int)sizeof(E);
-    if (chunks == 1) {
+    if constexpr (!kChunked) {
       dh_s = tail;  // 0 at first: the h_T cotangent is folded into dout[T-1]
       dc_g = nullptr;
       red = dh_s + Bc * Hb;
@@ -379,12 +409,12 @@ struct Walk {
     }
     j = j0 + imin(it.col, n_units - 1);
     unit_ok = it.col < n_units;
-    for (int c = chunks - 1; c >= 0; --c) {  // ends on chunk 0
+    for (int c = n_chunks() - 1; c >= 0; --c) {  // ends on chunk 0
       set_chunk(c);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         dc[r] = __ldg(dcT + (size_t)row[r] * H + j);
-        if (chunks > 1 && it.owner()) dc_g[slot(r)] = dc[r];
+        if (kChunked && it.owner()) dc_g[slot(r)] = dc[r];
       }
     }
     if (pinned) {  // lands with the first tile
@@ -393,20 +423,25 @@ struct Walk {
     }
   }
 
+  // the chunks of the batch: a constant 1 unless kChunked
+  __device__ __forceinline__ int n_chunks() const { return kChunked ? chunks : 1; }
+  // the first row of chunk c (0 unless kChunked)
+  __device__ __forceinline__ int first(int c) const { return kChunked ? c * Bc : 0; }
+
   // the item's rows (and their seams) in chunk c
   __device__ __forceinline__ void set_chunk(int c) {
     q = c;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      row[r] = imin(c * Bc + it.rg + r * nrg, B - 1);
+      row[r] = imin(first(c) + it.rg + r * nrg, B - 1);
       seam[r] = burn ? __ldg(burn + row[r]) : 0;
     }
   }
   // whether the item's row r of the current chunk is a real row
-  __device__ __forceinline__ bool real(int r) const { return q * Bc + it.rg + r * nrg < B; }
+  __device__ __forceinline__ bool real(int r) const { return first(q) + it.rg + r * nrg < B; }
   // the item's row r of the current chunk in the block's carry slabs
   __device__ __forceinline__ int slot(int r) const {
-    return (q * Bc + it.rg + r * nrg) * Hb + it.col;
+    return (first(q) + it.rg + r * nrg) * Hb + it.col;
   }
 
   // Step t's dz columns of this block for chunk c, from h_{t-1} (hprev),
@@ -417,7 +452,7 @@ struct Walk {
   __device__ __forceinline__ void dz_step(int t, int c, const float* dout, const E* proj,
                                           const E* hprev, const float* cprev, const float* ct,
                                           E* x_t, float* f_t) {
-    if (chunks > 1) {
+    if constexpr (kChunked) {
       set_chunk(c);
       if (it.owner()) {
 #pragma unroll
@@ -439,8 +474,8 @@ struct Walk {
       c_prev[r] = load ? __ldcg(cprev + o) : 0.0f;
     }
     float acc[4][4];
-    gate_product(acc, hprev + (size_t)q * Bc * H, wh, wc, st, red, it, imin(Bc, B - q * Bc), Bc,
-                 H, Hb, j0, n_units, kt, pinned);
+    gate_product(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it, imin(Bc, B - first(q)),
+                 Bc, H, Hb, j0, n_units, kt, pinned);
     if (!it.owner()) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -449,7 +484,7 @@ struct Walk {
       const float gg = tanhf(z[r][2] + acc[r][2]);
       const float og = sigmoid_f32(z[r][3] + acc[r][3]);
       const float tc = tanhf(c_t[r]);
-      const float dht = d_out[r] + dh_s[(q * Bc + it.rg + r * nrg) * Hb + it.col];
+      const float dht = d_out[r] + dh_s[(first(q) + it.rg + r * nrg) * Hb + it.col];
       const float d_o = dht * tc;
       const float dct = dht * og * (1.0f - tc * tc) + dc[r];
       const float di = dct * gg;
@@ -469,7 +504,7 @@ struct Walk {
         }
       }
     }
-    if (chunks > 1) {
+    if constexpr (kChunked) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) dc_g[slot(r)] = dc[r];
     }
@@ -482,8 +517,8 @@ struct Walk {
     const int H4 = 4 * H;
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
-    const int n = (H4 + kt - 1) / kt, rows = imin(Bc, B - c * Bc);
-    const E* x = x_t + (size_t)c * Bc * H4;
+    const int n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
+    const E* x = x_t + (size_t)first(c) * H4;
     pipelined_tiles(
         n, blockIdx.x % n,
         [&](int tile, int buf) {
@@ -524,7 +559,7 @@ struct Walk {
     if (!ic.owner()) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int rr = c * Bc + ic.rg + r * nrg;
+      const int rr = first(c) + ic.rg + r * nrg;
       const bool keep = rr < B && (!kSeam || t > __ldg(burn + imin(rr, B - 1)));
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -539,7 +574,7 @@ struct Walk {
     if (!ic.owner()) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int rr = c * Bc + ic.rg + r * nrg;
+      const int rr = first(c) + ic.rg + r * nrg;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int uu = 4 * ic.col + u;
@@ -551,8 +586,8 @@ struct Walk {
   // the dc carry of the real rows and units into x (B, H)
   __device__ __forceinline__ void store_dc(float* x) {
     if (!it.owner() || !unit_ok) return;
-    for (int c = 0; c < chunks; ++c) {
-      if (chunks > 1) {
+    for (int c = 0; c < n_chunks(); ++c) {
+      if constexpr (kChunked) {
         set_chunk(c);
 #pragma unroll
         for (int r = 0; r < 4; ++r) dc[r] = dc_g[slot(r)];

@@ -36,6 +36,7 @@ namespace {
 
 using namespace colsplit;
 
+template <bool kChunked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 const float* __restrict__ proj,   // (T, B, 4H)
@@ -51,19 +52,19 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 int* bar,      // (2,) grid barrier, zeroed
                 int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<float> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<float, kChunked> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    for (int c = 0; c < w.chunks; ++c)
-      w.dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
+    for (int c = 0; c < w.n_chunks(); ++c)
+      w.template dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
                        cs + t * BH, dz_t, nullptr);
     grid_barrier(bar);  // dz[t] complete before anyone reads it
-    for (int c = 0; c < w.chunks; ++c) {
+    for (int c = 0; c < w.n_chunks(); ++c) {
       float a[4][4];
       w.carry_product(a, dz_t, c);
       if (t > 0)
-        w.store_carry<false>(a, t, c);
+        w.template store_carry<false>(a, t, c);
       else
         w.store_dh(a, dh0, c);  // the carry out of step 0: d h0
     }
@@ -79,9 +80,9 @@ extern "C" int lstm_bwd_launch(const float* dout, const float* proj, const float
                                int* bar, int T, int B, int H, int Hb, int grid, int threads,
                                int kt, int pinned, int smem, int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(lstm_bwd_kernel, grid, threads, smem, stream, dout, proj, hprev,
-                                 cprev, cs, wh, dcT, dz, dh0, dc0, carry, bar, T, B, H, Hb, kt,
-                                 pinned, Bc);
+  return (int)launch_cooperative(B > Bc ? lstm_bwd_kernel<true> : lstm_bwd_kernel<false>, grid,
+                                 threads, smem, stream, dout, proj, hprev, cprev, cs, wh, dcT, dz,
+                                 dh0, dc0, carry, bar, T, B, H, Hb, kt, pinned, Bc);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

@@ -42,7 +42,7 @@ namespace {
 
 using namespace colsplit;
 
-template <class E>
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
                 const E* __restrict__ wh,    // (H, 4H)
@@ -55,7 +55,7 @@ lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
   extern __shared__ float smem[];
   const int j0 = blockIdx.x * Hb;
   const int n_units = imin(Hb, H - j0);
-  const int nrg = Bc / 4, chunks = (B + Bc - 1) / Bc;
+  const int nrg = Bc / 4, chunks = kChunked ? (B + Bc - 1) / Bc : 1;
   // the gate columns (pinned: H x 4Hb; streamed: kStages kt x 4Hb tiles),
   // kStages Bc x (kt + kVec) staging tiles of h, and the slices' partials
   const int wc_elems = (pinned ? H : kStages * kt) * 4 * Hb;
@@ -81,8 +81,8 @@ lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
   for (int t = 0; t < T; ++t) {
     const E* h = t == 0 ? h0 : outs + (size_t)(t - 1) * B * H;
     for (int q = 0; q < chunks; ++q) {
-      const int r0 = q * Bc;
-      if (chunks > 1) {  // this chunk's rows, and its c carry from cs[t-1]
+      const int r0 = kChunked ? q * Bc : 0;
+      if constexpr (kChunked) {  // this chunk's rows, and its c carry from cs[t-1]
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           row[r] = imin(r0 + it.rg + r * nrg, B - 1);
@@ -129,8 +129,9 @@ int launch(const E* proj, const E* wh, const E* h0, const E* c0, E* outs, float*
            int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned, int smem,
            int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(lstm_fwd_kernel<E>, grid, threads, smem, stream, proj, wh, h0,
-                                 c0, outs, cs, bar, T, B, H, Hb, kt, pinned, Bc);
+  return (int)launch_cooperative(B > Bc ? lstm_fwd_kernel<E, true> : lstm_fwd_kernel<E, false>,
+                                 grid, threads, smem, stream, proj, wh, h0, c0, outs, cs, bar, T,
+                                 B, H, Hb, kt, pinned, Bc);
 }
 
 }  // namespace

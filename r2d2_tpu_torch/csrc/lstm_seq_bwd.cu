@@ -45,7 +45,7 @@ namespace {
 
 using namespace colsplit;
 
-template <class E>
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     const E* __restrict__ proj,       // (T, B, 4H)
@@ -61,7 +61,7 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     int* bar,       // (2,) grid barrier, zeroed
                     int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<E> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
@@ -70,12 +70,12 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
       x_t = dz_t;
     else
       x_t = xch + (t & 1) * 4 * BH;
-    for (int c = 0; c < w.chunks; ++c)
+    for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
                                cprev + t * BH, cs + t * BH, x_t, dz_t);
     if (t == 0) break;  // the carry out of step 0 is not wanted
     grid_barrier(bar);  // x_t complete before anyone reads it
-    for (int c = 0; c < w.chunks; ++c) {
+    for (int c = 0; c < w.n_chunks(); ++c) {
       float a[4][4];
       w.carry_product(a, x_t, c);
       w.template store_carry<true>(a, t, c);
@@ -89,9 +89,10 @@ int launch(const float* dout, const E* proj, const E* hprev, const float* cprev,
            int* bar, int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned,
            int smem, int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(lstm_seq_bwd_kernel<E>, grid, threads, smem, stream, dout, proj,
-                                 hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H,
-                                 Hb, kt, pinned, Bc);
+  return (int)launch_cooperative(
+      B > Bc ? lstm_seq_bwd_kernel<E, true> : lstm_seq_bwd_kernel<E, false>, grid, threads, smem,
+      stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb, kt,
+      pinned, Bc);
 }
 
 }  // namespace

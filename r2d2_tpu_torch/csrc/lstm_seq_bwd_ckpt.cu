@@ -58,7 +58,7 @@ namespace {
 
 using namespace colsplit;
 
-template <class E>
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
                          const E* __restrict__ proj,        // (T, B, 4H)
@@ -76,7 +76,7 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
                          int* bar,       // (2,) grid barrier, zeroed
                          int T, int B, int H, int S, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<E> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   const int N = T / S;
   for (int seg = N - 1; seg >= 0; --seg) {
@@ -89,9 +89,9 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
     float c[4];
     for (int s = 0; s < S; ++s) {
       const int t = base + s;
-      for (int q = 0; q < w.chunks; ++q) {
-        if (w.chunks > 1) w.set_chunk(q);
-        if (w.chunks > 1 || s == 0) {  // the chunk's c carry
+      for (int q = 0; q < w.n_chunks(); ++q) {
+        if constexpr (kChunked) w.set_chunk(q);
+        if (kChunked || s == 0) {  // the chunk's c carry
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const size_t o = (size_t)w.row[r] * H + w.j;
@@ -106,8 +106,8 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
           for (int g = 0; g < 4; ++g) z[r][g] = w.it.owner() ? to_f32(__ldg(p + g * H)) : 0.0f;
         }
         float acc[4][4];
-        gate_product(acc, hrows(s) + (size_t)q * Bc * H, wh, w.wc, w.st, w.red, w.it,
-                     imin(Bc, B - q * Bc), Bc, H, Hb, w.j0, w.n_units, kt, pinned);
+        gate_product(acc, hrows(s) + (size_t)w.first(q) * H, wh, w.wc, w.st, w.red, w.it,
+                     imin(Bc, B - w.first(q)), Bc, H, Hb, w.j0, w.n_units, kt, pinned);
         if (w.it.owner() && w.unit_ok) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -132,13 +132,13 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
       E* dz_t = dz + t * 4 * BH;
       float* f_t = nullptr;  // the f32 dz that dWh sums
       if constexpr (!kF32<E>) f_t = dz32 + s * 4 * BH;
-      for (int q = 0; q < w.chunks; ++q)
+      for (int q = 0; q < w.n_chunks(); ++q)
         w.template dz_step<true>(t, q, dout + t * BH, proj + t * 4 * BH, hrows(s),
                                  s == 0 ? c_seg : seg_c + s * BH, seg_c + (s + 1) * BH, dz_t,
                                  f_t);
       if (t == 0) break;  // the carry out of step 0 is not wanted
       grid_barrier(bar);  // dz[t] complete before anyone reads it
-      for (int q = 0; q < w.chunks; ++q) {
+      for (int q = 0; q < w.n_chunks(); ++q) {
         float a[4][4];
         w.carry_product(a, dz_t, q);
         w.template store_carry<true>(a, t, q);
@@ -166,9 +166,10 @@ int launch(const float* dout, const E* proj, const E* h_ckpt, const float* c_ckp
            int threads, int kt, int pinned, int smem, int Bc, void* stream) {
   if (S <= 0 || T % S) return (int)cudaErrorInvalidValue;
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(lstm_seq_bwd_ckpt_kernel<E>, grid, threads, smem, stream, dout,
-                                 proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32,
-                                 carry, bar, T, B, H, S, Hb, kt, pinned, Bc);
+  return (int)launch_cooperative(
+      B > Bc ? lstm_seq_bwd_ckpt_kernel<E, true> : lstm_seq_bwd_ckpt_kernel<E, false>, grid,
+      threads, smem, stream, dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32,
+      carry, bar, T, B, H, S, Hb, kt, pinned, Bc);
 }
 
 }  // namespace

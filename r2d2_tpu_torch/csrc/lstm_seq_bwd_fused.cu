@@ -38,6 +38,7 @@ namespace {
 
 using namespace colsplit;
 
+template <bool kChunked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_seq_bwd_fused_kernel(const float* __restrict__ dout,   // (T, B, H)
                           const float* __restrict__ proj,   // (T, B, 4H)
@@ -53,20 +54,20 @@ lstm_seq_bwd_fused_kernel(const float* __restrict__ dout,   // (T, B, H)
                           int* bar,      // (2,) grid barrier, zeroed
                           int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<float> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<float, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   // 1. the seam walk, lstm_seq_bwd.cu's loop
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    for (int c = 0; c < w.chunks; ++c)
-      w.dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
+    for (int c = 0; c < w.n_chunks(); ++c)
+      w.template dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH, cprev + t * BH,
                       cs + t * BH, dz_t, nullptr);
     if (t == 0) break;  // the carry out of step 0 is not wanted
     grid_barrier(bar);  // dz[t] complete before anyone reads it
-    for (int c = 0; c < w.chunks; ++c) {
+    for (int c = 0; c < w.n_chunks(); ++c) {
       float a[4][4];
       w.carry_product(a, dz_t, c);
-      w.store_carry<true>(a, t, c);
+      w.template store_carry<true>(a, t, c);
     }
   }
   // 2. the block's dWh columns over all T steps
@@ -84,9 +85,10 @@ extern "C" int lstm_seq_bwd_fused_launch(const float* dout, const float* proj,
                                          int threads, int kt, int pinned, int smem, int Bc,
                                          void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(lstm_seq_bwd_fused_kernel, grid, threads, smem, stream, dout,
-                                 proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, carry, bar, T, B,
-                                 H, Hb, kt, pinned, Bc);
+  return (int)launch_cooperative(
+      B > Bc ? lstm_seq_bwd_fused_kernel<true> : lstm_seq_bwd_fused_kernel<false>, grid, threads,
+      smem, stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, carry, bar, T, B, H, Hb,
+      kt, pinned, Bc);
 }
 
 extern "C" const char* lstm_seq_bwd_fused_error_string(int code) {

@@ -277,9 +277,10 @@ def _device_of(t: torch.Tensor, op: str) -> torch.device:
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _compute_dtype(proj_t: torch.Tensor, op: str, dtypes=COMPUTE_DTYPES) -> torch.dtype:
-    if proj_t.dtype not in dtypes:
-        raise TypeError(f"{op}: proj_t has dtype {proj_t.dtype}, the kernels take {dtypes}")
+def _compute_dtype(proj_t: torch.Tensor, op: str) -> torch.dtype:
+    if proj_t.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"{op}: proj_t has dtype {proj_t.dtype}, the kernels take "
+                        f"{COMPUTE_DTYPES}")
     return proj_t.dtype
 
 

@@ -38,11 +38,12 @@ is K2's bit for bit.
 
 bf16 forms: both sides sum exact products of bf16 values in float32, in
 other orders, so a value can round to the neighbouring bf16 value where
-the two sums straddle a rounding boundary; that one-ulp step (2^-8
-relative) then feeds the later steps. Forward outs (bf16) are held to
-BF16_ATOL absolute, cs and dz (f32 sums of those inputs) to BF16_ATOL
-absolute too, K5's dz (bf16) likewise, and K5's dWh to BF16_DWH of its
-largest entry. Two launches still give the same bits.
+the two sums straddle a rounding boundary, a step of 2^-8 of it, which
+then feeds the later steps. Forward outs (bf16), cs, and dz (K2's f32,
+K5's bf16) are held to two such steps (BF16_RTOL = 2^-7) plus BF16_ATOL
+absolute; K5's dWh, summed in f32 from the f32 dz, to 1e-4 of its
+largest entry as in float32 (summing the rounded dz instead would be off
+by about 1e-3). Two launches still give the same bits.
 """
 
 import ctypes
@@ -62,8 +63,8 @@ torch.set_num_threads(1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "r2d2_tpu_torch", "csrc")
 BF16 = torch.bfloat16
-BF16_ATOL = 2e-2
-BF16_DWH = 1e-2
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-3
 
 
 def _emulated(name, out_dir):
@@ -171,8 +172,8 @@ def _burns(rng, T, B):
     return [np.zeros(B), np.full(B, T // 2), np.full(B, T - 1), rng.integers(0, T, B)]
 
 
-def _assert_dwh_close(got, want, rel=1e-4):
-    tol = rel * float(want.abs().max())
+def _assert_dwh_close(got, want):
+    tol = 1e-4 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
 
 
@@ -439,8 +440,8 @@ def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
     rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
     outs, cs = _fwd(kernels, proj, wh, h0, c0, mt)
     assert outs.dtype == BF16 and cs.dtype == torch.float32
-    torch.testing.assert_close(outs.float(), p_outs.float(), rtol=0, atol=BF16_ATOL)
-    torch.testing.assert_close(cs, p_cs, rtol=0, atol=BF16_ATOL)
+    torch.testing.assert_close(outs.float(), p_outs.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(cs, p_cs, rtol=BF16_RTOL, atol=BF16_ATOL)
     for a, b in zip((outs, cs), _fwd(kernels, proj, wh, h0, c0, mt)):
         assert torch.equal(a, b)
     # the walks on the plain forward's residuals, so both sides see the
@@ -450,8 +451,8 @@ def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
         burn = torch.from_numpy(burn_np.astype(np.int32))
         dz = _seam(kernels, *walk, burn, mt)
         assert dz.dtype == torch.float32
-        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn), rtol=0,
-                                   atol=BF16_ATOL)
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
         _assert_zero_below_seam(dz, burn_np)
         assert torch.equal(dz, _seam(kernels, *walk, burn, mt))
     for S in _strides(T):
@@ -462,8 +463,8 @@ def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
             p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(
                 dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, S)
             assert dz.dtype == BF16 and dwh.dtype == torch.float32
-            torch.testing.assert_close(dz.float(), p_dz.float(), rtol=0, atol=BF16_ATOL)
-            _assert_dwh_close(dwh, p_dwh, BF16_DWH)
+            torch.testing.assert_close(dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+            _assert_dwh_close(dwh, p_dwh)
             _assert_zero_below_seam(dz, burn_np)
             for a, b in zip((dz, dwh), _ckpt(kernels, *args)[:2]):
                 assert torch.equal(a, b)
