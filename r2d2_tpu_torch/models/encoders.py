@@ -48,11 +48,6 @@ def conv(in_ch: int, out_ch: int, k: int, stride: int, generator) -> nn.Conv2d:
     return layer
 
 
-def linear_in(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """`layer` applied to x in x's dtype (the layer's f32 parameters cast)."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
-
-
 class _LatentTail(nn.Module):
     def __init__(self, in_dim: int, latent_dim: int, depth: int, generator,
                  dtype: torch.dtype = torch.float32):
@@ -66,7 +61,7 @@ class _LatentTail(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for layer in self.dense:
-            x = F.relu(linear_in(layer, x))
+            x = F.relu(F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype)))
         return x
 
 
