@@ -224,7 +224,7 @@ def test_column_split_geometry_at_the_atari_batch(H_, kernel):
                                    4 * -(-g.units // 4)) >= 1
 
 
-# the column split of every kernel at PR 5, before row chunks, where it fit:
+# the column split of every kernel before row chunks, where it fit:
 # (units, grid, threads, k_tile, pinned, smem_bytes) at 132 SMs, 232,448 B
 _PR5_GEOMETRY = {
     (64, 512): {k: (4, 128, 256, 128, True, 184320 if k == "lstm_fwd" else 218176)
@@ -269,8 +269,8 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
 
 def test_column_split_geometry_refuses_what_cannot_fit():
     """What the card still refuses. A batch wider than a block's threads
-    is no longer among it: (256, 2048), refused at PR 5 for needing 1,024
-    threads, now walks its rows in two chunks of 128."""
+    is no longer among it: (256, 2048), which needed 1,024 threads in one
+    chunk, now walks its rows in two chunks of 128."""
     g = port.lstm_geometry(256, 2048, "lstm_seq_bwd", H100_SMS, H100_SMEM)
     assert (g.rows, g.chunks(256), g.threads) == (128, 2, 512)
     with pytest.raises(ValueError, match="shared memory"):
