@@ -49,34 +49,50 @@ its own lines; any failure exits non-zero and prints no result:
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
           and B=256, H=2048 (T=85): against their plain versions, two
-          launches each giving the same bits, and their times.
-10. bf16  the bf16 forms of K1, K2 and K5 against their plain versions at
-          the atari and xl widths, seams 0, mid, T-1 and mixed, K5 at S=5
-          and S=85, two launches each giving the same bits.
+          launches each giving the same bits, and their times; the bf16
+          forms of K3 and K4 likewise, K4-bf16's dz equal to K2-bf16's
+          rounded to bf16.
+10. bf16  the bf16 forms of all five kernels against their plain versions
+          at the atari and xl widths and at the wide model's batch 96
+          (H=1024, B=96), seams 0, mid, T-1 and mixed, K5 at S=5 and
+          S=85, two launches each giving the same bits; K4-bf16's dz
+          equal to K2-bf16's f32 dz rounded to bf16, bit for bit.
 11. train bf16  the atari preset with its own compute dtype (bfloat16) on
           catch: 8 updates, each 2 lstm_fwd_bf16 + 1 lstm_seq_bwd_bf16
           launches, ms per update and peak memory; its xl model, whose
           backward_arm=auto resolves to ("ckpt", 5) in bf16: 2 updates of 2
           lstm_fwd_bf16 + 1 lstm_seq_bwd_ckpt_bf16; precision="bf16"
-          (carries stored in bf16): 4 updates.
+          (carries stored in bf16): 4 updates. Then the two paths of the
+          bf16 forms of K4 and K3: the wide model (hidden 1024) at batch
+          96, whose auto resolves to ("fused_dwh", 0) in bf16 (4 updates
+          of 2 lstm_fwd_bf16 + 1 lstm_seq_bwd_fused_bf16), the same model
+          at backward_arm=default (2 updates, for its peak memory beside
+          the fused arm's), backward_arm=fused_dwh at the atari widths and
+          fused_sequence=False (4 updates each; 2 lstm_fwd_bf16 + 1
+          lstm_bwd_bf16), and one update of the wide model with
+          fused_sequence=False.
 12. agree bf16  one bf16 update on the card against the same update
           through the plain versions on the CPU, and the bf16 update
           against the fp32 update on the card from the same parameters and
           batch (tests/test_precision.py's class: loss within 5%,
-          priorities rtol 0.2 / atol 0.05).
+          priorities rtol 0.2 / atol 0.05): the main path, the wide model
+          at batch 96 (fused_dwh) and fused_sequence=False.
 13. time bf16  each bf16 form, its plain version, its bounds (the bytes,
           and the operations at the fp32 FMA peak and at the bf16 tensor
-          cores' dense peak) and cuDNN's LSTM forward in bf16 where torch
-          takes it, at the atari and xl widths.
+          cores' dense peak) and cuDNN's LSTM forward and backward in bf16
+          where torch takes them, at the atari widths, at the wide model's
+          batch 96 and at xl; beside K4-bf16 the bf16 default arm's pair
+          (K2-bf16 and the hprev^T @ dz matmul).
 
 The next-to-last lines are the kernels as one JSON object and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile N
 
-adds N more updates of the main path (fp32, then bf16) under torch.profiler
-after the last phase and prints where their device time goes, by kernel,
-and the device's busy share.
+adds N more updates of the main path (fp32, then bf16) and of the wide
+model at batch 96 (bf16, fused_dwh) under torch.profiler after the last
+phase and prints where their device time goes, by kernel, and the
+device's busy share.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -130,6 +146,11 @@ ON_CATCH_BF16 = dict(env_name="catch", buffer_capacity=16_000, learning_starts=2
 ON_CATCH = dict(ON_CATCH_BF16, compute_dtype="float32")
 # the row-chunk shapes of phase 9: twice the rows a block holds at once
 CHUNKED = ((85, 1024, 512), (85, 256, 2048))
+# the wide model preset's hidden size, and the batch at which its
+# backward_arm=auto resolves to ("fused_dwh", 0) in bf16 (the default arm's
+# 133.7 MB of f32 dz over the 128 MiB budget, the fused arm's bf16 dz under)
+WIDE_H = 1024
+WIDE_BATCH = 96
 T0 = time.perf_counter()
 
 
@@ -439,6 +460,27 @@ def main():
         if not bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()):
             fail(f"{name} disagrees with its plain version {where}: {e:.3e}")
 
+    def hold_dwh_bf16(name, got, want, where):
+        e, _ = dwh_err(got, want)
+        errs[name] = max(errs[name], e)
+        if e > BF16_DWH_TOL * float(want.abs().max()):
+            fail(f"{name}: dWh off by {e:.3e} {where}, over {BF16_DWH_TOL} x max|dWh|")
+
+    def same_split(B, H):
+        """Whether K2-bf16 and K4-bf16 get one column split at (B, H)."""
+        return (K._geometry(B, H, "lstm_seq_bwd", dev, torch.bfloat16)
+                == K._geometry(B, H, "lstm_seq_bwd_fused", dev, torch.bfloat16))
+
+    def hold_fused_dz(f_dz, seam_dz, same, where):
+        """K4-bf16's dz against K2-bf16's f32 dz at the same inputs: rounded
+        to bf16, bit for bit where the two get one split (`same`), else in
+        the bf16 class."""
+        if not same:
+            hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, seam_dz, f"{where} (vs K2-bf16)")
+        elif not torch.equal(f_dz, seam_dz.to(torch.bfloat16)):
+            fail(f"lstm_seq_bwd_fused_bf16: dz differs from lstm_seq_bwd_bf16's rounded to bf16 "
+                 f"{where} (max |diff| {float((f_dz.float() - seam_dz).abs().max()):.3e})")
+
     def check_chunks(T, B, H, seed):
         """All five kernels with the batch in row chunks (float32): against
         the plain versions, seams 0 and mixed, K5 at S=5; two launches each
@@ -527,11 +569,54 @@ def main():
 
         return proj, wh, h0, c0, (outs, cs), walk, ckpt, mixed
 
-    def check_bf16(T, B, H, seed):
-        """The bf16 forms of K1, K2 and K5 against their plain versions, the
-        walks on the plain forward's residuals; two launches, one result."""
+    def check_chunks_bf16(T, B, H, seed):
+        """The bf16 forms of K3 and K4 with the batch in row chunks: against
+        their plain versions, seams 0 and mixed for K4; two launches each
+        give the same bits, K4-bf16's dz is K2-bf16's rounded; their
+        times."""
         at = f"at T={T} B={B} H={H} bf16"
-        for kernel in ("lstm_fwd", "lstm_seq_bwd", "lstm_seq_bwd_ckpt"):
+        for kernel in ("lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_fused"):
+            geo = K._geometry(B, H, kernel, dev, torch.bfloat16)
+            if geo.chunks(B) < 2:
+                fail(f"{kernel}_bf16 {at}: {geo} takes the batch in one chunk")
+            say("chunks", f"{at}: {kernel}_bf16 column split {geo}, {geo.chunks(B)} row chunks")
+        *_, walk, _, mixed = bf16_operands(T, B, H, seed)
+        got = K.lstm_bwd(*walk)
+        for a, b in zip(got, K.lstm_bwd_plain(*walk)):
+            hold_bf16("lstm_bwd_bf16", a, b, at)
+        if not all(map(torch.equal, got, K.lstm_bwd(*walk))):
+            fail(f"lstm_bwd_bf16: two launches differ {at}")
+        same = same_split(B, H)
+        for label, burn in (("0", torch.zeros_like(mixed)), ("mixed", mixed)):
+            where = f"{at} seam {label}"
+            f_dz, f_dwh = K.lstm_seq_bwd_fused(*walk, burn)
+            p_dz, p_dwh = K.lstm_seq_bwd_fused_plain(*walk, burn)
+            hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, p_dz, where)
+            hold_dwh_bf16("lstm_seq_bwd_fused_bf16", f_dwh, p_dwh, where)
+            zero_below("lstm_seq_bwd_fused_bf16", f_dz, burn, where)
+            hold_fused_dz(f_dz, K.lstm_seq_bwd(*walk, burn), same, where)
+        if not all(map(torch.equal, (f_dz, f_dwh), K.lstm_seq_bwd_fused(*walk, mixed))):
+            fail(f"lstm_seq_bwd_fused_bf16: two launches differ {at}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+        t_ms = {
+            "lstm_bwd_bf16": median_ms(lambda: K.lstm_bwd(*walk), 5, flush),
+            "lstm_seq_bwd_fused_bf16": median_ms(lambda: K.lstm_seq_bwd_fused(*walk, mixed), 5,
+                                                 flush),
+        }
+        say("chunks", f"{at}: lstm_bwd_bf16 and lstm_seq_bwd_fused_bf16 within atol {BF16_ATOL} "
+            f"+ rtol {BF16_RTOL} (dWh within {BF16_DWH_TOL} x max|dWh|), seams 0 and mixed; two "
+            f"launches of each give identical bits; lstm_seq_bwd_fused_bf16's dz "
+            + ("equals lstm_seq_bwd_bf16's rounded to bf16" if same else
+               "(another split than lstm_seq_bwd_bf16's) agrees with lstm_seq_bwd_bf16's")
+            + f"; on {card}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
+            + " (median of 5, seam mixed)")
+
+    def check_bf16(T, B, H, seed):
+        """The bf16 forms of all five kernels against their plain versions,
+        the walks on the plain forward's residuals; two launches, one
+        result; K4-bf16's dz against K2-bf16's."""
+        at = f"at T={T} B={B} H={H} bf16"
+        for kernel in K.SOURCES:
             say("check", f"{at}: {kernel}_bf16 column split "
                 f"{K._geometry(B, H, kernel, dev, torch.bfloat16)}")
         proj, wh, h0, c0, (p_outs, p_cs), walk, ckpt, mixed = bf16_operands(T, B, H, seed)
@@ -542,6 +627,13 @@ def main():
         hold_bf16("lstm_fwd_bf16", cs, p_cs, at)
         if not all(map(torch.equal, (outs, cs), K.lstm_fwd(proj, wh, h0, c0))):
             fail(f"lstm_fwd_bf16: two launches differ {at}")
+        # the seamless backward: dz, dh0 and dc0, all f32
+        got = K.lstm_bwd(*walk)
+        for a, b in zip(got, K.lstm_bwd_plain(*walk)):
+            hold_bf16("lstm_bwd_bf16", a, b, at)
+        if not all(map(torch.equal, got, K.lstm_bwd(*walk))):
+            fail(f"lstm_bwd_bf16: two launches differ {at}")
+        same = same_split(B, H)
         seams = (("0", torch.zeros_like(mixed)), ("mid", torch.full_like(mixed, T // 2)),
                  ("T-1", torch.full_like(mixed, T - 1)), ("mixed", mixed))
         for label, burn in seams:
@@ -549,25 +641,33 @@ def main():
             dz = K.lstm_seq_bwd(*walk, burn)
             hold_bf16("lstm_seq_bwd_bf16", dz, K.lstm_seq_bwd_plain(*walk, burn), where)
             zero_below("lstm_seq_bwd_bf16", dz, burn, where)
+            f_dz, f_dwh = K.lstm_seq_bwd_fused(*walk, burn)
+            p_dz, p_dwh = K.lstm_seq_bwd_fused_plain(*walk, burn)
+            hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, p_dz, where)
+            hold_dwh_bf16("lstm_seq_bwd_fused_bf16", f_dwh, p_dwh, where)
+            zero_below("lstm_seq_bwd_fused_bf16", f_dz, burn, where)
+            hold_fused_dz(f_dz, dz, same, where)
         if not torch.equal(dz, K.lstm_seq_bwd(*walk, mixed)):
             fail(f"lstm_seq_bwd_bf16: two launches differ {at}")
+        if not all(map(torch.equal, (f_dz, f_dwh), K.lstm_seq_bwd_fused(*walk, mixed))):
+            fail(f"lstm_seq_bwd_fused_bf16: two launches differ {at}")
         for S in (5, T):
             for label, burn in seams:
                 where = f"{at} S={S} seam {label}"
                 k_dz, k_dwh = K.lstm_seq_bwd_ckpt(*ckpt(S), burn, S)
                 p_dz, p_dwh = K.lstm_seq_bwd_ckpt_plain(*ckpt(S), burn, S)
                 hold_bf16("lstm_seq_bwd_ckpt_bf16", k_dz, p_dz, where)
-                e, ok = dwh_err(k_dwh, p_dwh)
-                errs["lstm_seq_bwd_ckpt_bf16"] = max(errs["lstm_seq_bwd_ckpt_bf16"], e)
-                if e > BF16_DWH_TOL * float(p_dwh.abs().max()):
-                    fail(f"lstm_seq_bwd_ckpt_bf16: dWh off by {e:.3e} {where}")
+                hold_dwh_bf16("lstm_seq_bwd_ckpt_bf16", k_dwh, p_dwh, where)
                 zero_below("lstm_seq_bwd_ckpt_bf16", k_dz, burn, where)
             if not all(map(torch.equal, (k_dz, k_dwh), K.lstm_seq_bwd_ckpt(*ckpt(S), mixed, S))):
                 fail(f"lstm_seq_bwd_ckpt_bf16: two launches differ {at} S={S}")
         torch.cuda.synchronize()
-        say("check", f"{at}: lstm_fwd_bf16, lstm_seq_bwd_bf16 (seams 0, mid, T-1, mixed) and "
-            f"lstm_seq_bwd_ckpt_bf16 (S=5 and {T}) within atol {BF16_ATOL} + rtol {BF16_RTOL}, "
-            f"dWh within {BF16_DWH_TOL} x max|dWh|; two launches of each give identical bits")
+        say("check", f"{at}: lstm_fwd_bf16, lstm_bwd_bf16, lstm_seq_bwd_bf16 and "
+            f"lstm_seq_bwd_fused_bf16 (seams 0, mid, T-1, mixed) and lstm_seq_bwd_ckpt_bf16 (S=5 "
+            f"and {T}) within atol {BF16_ATOL} + rtol {BF16_RTOL}, dWh within {BF16_DWH_TOL} x "
+            f"max|dWh|; two launches of each give identical bits; lstm_seq_bwd_fused_bf16's dz "
+            + ("equals lstm_seq_bwd_bf16's rounded to bf16, every seam" if same else
+               "(another split than lstm_seq_bwd_bf16's) agrees with lstm_seq_bwd_bf16's"))
 
     def time_bf16(T, B, H, D, burn, kept, carried, flush, label):
         """The bf16 forms' times at (T, B, H) with the main path's seams,
@@ -582,26 +682,35 @@ def main():
                               lambda: K.lstm_fwd_plain(proj, wh, h0, c0)),
             "lstm_seq_bwd_bf16": (lambda: K.lstm_seq_bwd(*walk, burn),
                                   lambda: K.lstm_seq_bwd_plain(*walk, burn)),
+            "lstm_bwd_bf16": (lambda: K.lstm_bwd(*walk), lambda: K.lstm_bwd_plain(*walk)),
+            "lstm_seq_bwd_fused_bf16": (lambda: K.lstm_seq_bwd_fused(*walk, burn),
+                                        lambda: K.lstm_seq_bwd_fused_plain(*walk, burn)),
             "lstm_seq_bwd_ckpt_bf16": (lambda: K.lstm_seq_bwd_ckpt(*ckpt(S), burn, S),
                                        lambda: K.lstm_seq_bwd_ckpt_plain(*ckpt(S), burn, S)),
         }
         mm = 2 * H * 4 * H
         bh, bh4, f4, b2 = B * H, B * 4 * H, 4, 2
         # the matmul FLOPs and the bytes each function must move: bf16
-        # proj, wh and h rows, f32 c rows, cotangents and dWh
+        # proj, wh and h rows (and K4's and K5's dz), f32 c rows,
+        # cotangents, K2's and K3's dz and dWh
+        walk_in = b2 * (T * bh4 + T * bh + H * 4 * H) + f4 * (3 * T * bh + bh)
         work = {
             "lstm_fwd_bf16": (mm * T * B, b2 * (T * bh4 + H * 4 * H + 2 * bh + T * bh)
                               + f4 * T * bh),
-            "lstm_seq_bwd_bf16": (mm * (kept + carried),
-                                  b2 * (T * bh4 + T * bh + H * 4 * H)
-                                  + f4 * (3 * T * bh + bh + B + T * bh4)),
+            "lstm_seq_bwd_bf16": (mm * (kept + carried), walk_in + f4 * (B + T * bh4)),
+            # no seam: both products on every (row, step); dz, dh0, dc0 out
+            "lstm_bwd_bf16": (mm * 2 * T * B, walk_in + f4 * (T * bh4 + 2 * bh)),
+            # plus dWh on every kept (row, step); bf16 dz and f32 dWh out
+            "lstm_seq_bwd_fused_bf16": (mm * (2 * kept + carried),
+                                        walk_in + f4 * (B + H * 4 * H) + b2 * T * bh4),
             "lstm_seq_bwd_ckpt_bf16": (mm * (T * B + 2 * kept + carried),
                                        b2 * (T * bh4 + (T // S) * bh + H * 4 * H + T * bh4)
                                        + f4 * (T * bh + (T // S) * bh + bh + B + H * 4 * H)),
         }
-        # one LSTM layer forward, input projection included, as in phase 8:
-        # the port (a bf16 matmul, then lstm_fwd_bf16), and cuDNN's LSTM in
-        # bf16 where torch takes it, the yardstick of K1's bf16 form
+        # one LSTM layer, input projection included, as in phase 8: the
+        # port's forward (a bf16 matmul, then lstm_fwd_bf16), and cuDNN's
+        # LSTM forward and backward in bf16 where torch takes them, the
+        # yardsticks of K1's and K3's bf16 forms
         lib = {}
         x16 = torch.randn(T, B, D, device=dev).to(torch.bfloat16)
         wi16 = (torch.randn(D, 4 * H, device=dev) * D ** -0.5).to(torch.bfloat16)
@@ -613,12 +722,25 @@ def main():
             with torch.no_grad():
                 lib["lstm_fwd_bf16"] = median_ms(lambda: lstm16(x16, (h0[None], c0[None])),
                                                  reps, flush)
+            xg = x16.clone().requires_grad_(True)
+            h0g, c0g = (v[None].clone().requires_grad_(True) for v in (h0, c0))
+            y, (hT, cT) = lstm16(xg, (h0g, c0g))
+            leaves = [xg, h0g, c0g, *lstm16.parameters()]
+            grads = tuple(v.to(torch.bfloat16) for v in (walk[0], walk[6][None], walk[6][None]))
+            lib["lstm_bwd_bf16"] = median_ms(
+                lambda: torch.autograd.grad((y, hT, cT), leaves, grads, retain_graph=True),
+                reps, flush)
         except Exception as e:  # a yardstick only: the port never calls it
             say("time", f"{label}: cuDNN LSTM in bf16 not taken by torch: {e!r}"[:300])
-        say("time", f"one bf16 LSTM layer forward at {label}, input projection included, T={T} "
-            f"B={B} D={D} H={H}: port (matmul + lstm_fwd_bf16) {layer_ms:.3f} ms, "
-            f"torch.nn.LSTM (cuDNN, bf16) "
-            + (f"{lib['lstm_fwd_bf16']:.3f} ms" if lib else "not taken"))
+        say("time", f"one bf16 LSTM layer at {label}, input projection included, T={T} B={B} "
+            f"D={D} H={H}: forward through the port (matmul + lstm_fwd_bf16) {layer_ms:.3f} ms; "
+            f"torch.nn.LSTM (cuDNN, bf16) " + (
+                f"forward {lib['lstm_fwd_bf16']:.3f} ms, backward (dx, dWi, dWh, db, dh0, dc0) "
+                f"{lib['lstm_bwd_bf16']:.3f} ms" if len(lib) == 2 else "not taken"))
+        # the bf16 default arm's backward, two calls: a yardstick for K4's
+        # bf16 form, not one call for its function
+        pair_ms = median_ms(lambda: K._outer_dwh(walk[2], K.lstm_seq_bwd(*walk, burn), wh),
+                            reps, flush)
         out = {}
         for name, (fn, plain) in runs.items():
             t_ms = median_ms(fn, reps, flush)
@@ -636,6 +758,9 @@ def main():
                 f"cores' {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s ({b_ms / t_ms:.1%}), {fma_ms:.4f} ms "
                 f"at the fp32 FMA peak ({fma_ms / t_ms:.1%}); {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB; cuDNN LSTM bf16 {lib_s}; on {card}")
+        say("time", f"bf16 default arm's pair at {label} (lstm_seq_bwd_bf16 + hprev^T @ dz "
+            f"matmul) {pair_ms:.3f} ms beside lstm_seq_bwd_fused_bf16 "
+            f"{out['lstm_seq_bwd_fused_bf16'][0]:.3f} ms")
         return out
 
     # 4. the main path -------------------------------------------------------
@@ -870,9 +995,10 @@ def main():
     # 9. the batch in row chunks --------------------------------------------
     for i, shape in enumerate(CHUNKED):
         check_chunks(*shape, seed=20 + i)
+        check_chunks_bf16(*shape, seed=25 + i)
 
     # 10. the bf16 forms against their plain versions -----------------------
-    for i, shape in enumerate(((T, B, H), (T, B, 2048))):
+    for i, shape in enumerate(((T, B, H), (T, B, 2048), (T, WIDE_BATCH, WIDE_H))):
         check_bf16(*shape, seed=30 + i)
     say("check", "max |kernel - plain| (dz, dh0/dc0 and dWh alike), every check: " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items()))
@@ -926,33 +1052,119 @@ def main():
         fail(f"precision=bf16: store {store.dtype}, launches {p_launches}")
     del p_tr
 
+    # the paths of K4-bf16 and K3-bf16: the wide model at batch 96, where
+    # auto resolves to the fused arm, beside the same model's default arm;
+    # the fused arm and the seamless backward at the atari widths; one
+    # update of the wide model with no seam
+    wide_cfg = apply_model_preset(PRESETS["atari"](), "wide").replace(
+        batch_size=WIDE_BATCH, **ON_CATCH_BF16)
+    bf16_paths = {}
+    for label, path_cfg, n, arm, kernel in (
+        ("wide B=96 auto", wide_cfg, ARM_UPDATES, ("fused_dwh", 0), "lstm_seq_bwd_fused_bf16"),
+        ("wide B=96 default", wide_cfg.replace(backward_arm="default"), 2, ("default", 0),
+         "lstm_seq_bwd_bf16"),
+        ("fused_dwh", b_cfg.replace(backward_arm="fused_dwh"), ARM_UPDATES, ("fused_dwh", 0),
+         "lstm_seq_bwd_fused_bf16"),
+        ("fused_sequence=False", b_cfg.replace(fused_sequence=False), ARM_UPDATES, ("default", 0),
+         "lstm_bwd_bf16"),
+        ("wide B=96 fused_sequence=False", wide_cfg.replace(fused_sequence=False), 1,
+         ("default", 0), "lstm_bwd_bf16"),
+    ):
+        t = time.perf_counter()
+        a_tr, a_launches, a_m, a_ms, a_peak = drive(path_cfg, n, dev)
+        say("bf16", f"{label}: hidden {a_tr.cfg.hidden_dim}, batch {a_tr.cfg.batch_size}, "
+            f"compute {a_tr.cfg.resolved_compute_dtype}, arm {a_tr.backward_arm}; {n} updates, "
+            f"loss {a_m['loss']:.6f}; ms/update {', '.join(f'{v:.2f}' for v in a_ms)} (host "
+            f"clock) on {card}; update peak device memory {a_peak:.3f} GiB; launches "
+            f"{a_launches} ({time.perf_counter() - t:.1f}s with warmup)")
+        if a_tr.cfg.resolved_compute_dtype != "bfloat16" or a_tr.backward_arm != arm:
+            fail(f"{label}: resolved to {a_tr.cfg.resolved_compute_dtype}, {a_tr.backward_arm}; "
+                 f"expected bfloat16, {arm}")
+        if a_launches != {"lstm_fwd_bf16": 2 * n, kernel: n}:
+            fail(f"{label}: expected {2 * n} lstm_fwd_bf16 and {n} {kernel} launches, got "
+                 f"{a_launches}")
+        path_launches.setdefault(kernel, a_launches[kernel])
+        bf16_paths[label] = (a_tr, a_peak)
+    def core_peak(a_tr, arm):
+        """Peak device memory (GiB) above the start of one forward and
+        backward of a trainer's LSTM core alone under `arm`, on a batch of
+        its width with every row's seam at the burn-in: the residuals the
+        arm choice budgets, without the rest of the update."""
+        c = a_tr.cfg
+        core = copy.deepcopy(a_tr.state.net.core)
+        core.backward_arm = arm
+        g = torch.Generator(device=dev).manual_seed(9)
+        x = torch.randn(c.batch_size, c.seq_len, core.wi.shape[0], device=dev, generator=g)
+        x.requires_grad_(True)
+        carry = (torch.zeros(c.batch_size, c.hidden_dim, device=dev),) * 2
+        burn = torch.full((c.batch_size,), c.burn_in_steps, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        outs, _ = core(x, carry, burn)
+        outs.float().sum().backward()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2**30
+
+    w_tr = bf16_paths["wide B=96 auto"][0]
+    say("bf16", f"wide B=96 update peak device memory: fused_dwh arm "
+        f"{bf16_paths['wide B=96 auto'][1]:.3f} GiB, default arm "
+        f"{bf16_paths['wide B=96 default'][1]:.3f} GiB; the LSTM core alone (forward and "
+        f"backward, seams at {w_tr.cfg.burn_in_steps}): fused_dwh "
+        f"{core_peak(w_tr, ('fused_dwh', 0)):.3f} GiB, default "
+        f"{core_peak(w_tr, ('default', 0)):.3f} GiB")
+    n_tr = bf16_paths["fused_sequence=False"][0]
+    del bf16_paths
+
     # 12. bf16 against the CPU, and against fp32 on the card -----------------
+    def rebuilt(a_tr, dtype):
+        """(cfg, net, target) of a trainer's parameters in compute dtype
+        `dtype`, on the card."""
+        c = a_tr.cfg.replace(compute_dtype=dtype)
+        nets = []
+        for src in (a_tr.state.net, a_tr.state.target_net):
+            n = R2D2Network.from_config(c, device=dev)
+            n.load_state_dict(src.state_dict())
+            nets.append(n)
+        return c, *nets
+
+    def vs_fp32(a_tr, label):
+        """One bf16 update against the fp32 update on the card from the same
+        parameters and batch, in tests/test_precision.py's class."""
+        s = a_tr.replay.sample_batch(a_tr.sample_rng)
+        c16, *nets16 = rebuilt(a_tr, "bfloat16")
+        c32, *nets32 = rebuilt(a_tr, "float32")
+        r16 = one_update(*nets16, c16, s, "cuda")
+        r32 = one_update(*nets32, c32, s, "cuda")
+        l32, l16 = float(r32[0]), float(r16[0])
+        p_diff = float((r16[1] - r32[1]).abs().max())
+        say("agree", f"{label}: bf16 vs fp32 on the card, same parameters and batch: loss "
+            f"{l16:.6f} vs {l32:.6f} (limit 5% of max(|fp32|, 1)), priorities max |diff| "
+            f"{p_diff:.3e} (rtol 0.2 atol 0.05), grad_norm {float(r16[2]):.4f} vs "
+            f"{float(r32[2]):.4f}")
+        if abs(l16 - l32) > 0.05 * max(abs(l32), 1.0) or not torch.allclose(
+                r16[1], r32[1], rtol=0.2, atol=0.05):
+            fail(f"{label}: the bf16 update leaves the fp32 update's drift class")
+
     b_sampled = agree(b_tr, "bf16 main path", **BF16_AGREE)
-    s32 = tr.replay.sample_batch(tr.sample_rng)
-    cfg16 = cfg.replace(compute_dtype="bfloat16")
-    nets16 = []
-    for src in (tr.state.net, tr.state.target_net):
-        n16 = R2D2Network.from_config(cfg16, device=dev)
-        n16.load_state_dict(src.state_dict())
-        nets16.append(n16)
-    r32 = one_update(tr.state.net, tr.state.target_net, cfg, s32, "cuda")
-    r16 = one_update(*nets16, cfg16, s32, "cuda")
-    l32, l16 = float(r32[0]), float(r16[0])
-    p_diff = float((r16[1] - r32[1]).abs().max())
-    say("agree", f"bf16 vs fp32 on the card, same parameters and batch: loss {l16:.6f} vs "
-        f"{l32:.6f} (limit 5% of max(|fp32|, 1)), priorities max |diff| {p_diff:.3e} "
-        f"(rtol 0.2 atol 0.05), grad_norm {float(r16[2]):.4f} vs {float(r32[2]):.4f}")
-    if abs(l16 - l32) > 0.05 * max(abs(l32), 1.0) or not torch.allclose(
-            r16[1], r32[1], rtol=0.2, atol=0.05):
-        fail("the bf16 update leaves the fp32 update's drift class")
-    del nets16
+    vs_fp32(tr, "main path")
+    w_sampled = agree(w_tr, "bf16 wide B=96 fused_dwh", **BF16_AGREE)
+    vs_fp32(w_tr, "wide B=96 fused_dwh")
+    agree(n_tr, "bf16 fused_sequence=False", **BF16_AGREE)
+    vs_fp32(n_tr, "fused_sequence=False")
+    del n_tr
 
     # 13. the bf16 forms' times and bounds -----------------------------------
     burn16 = torch.from_numpy(b_sampled.burn_in_steps).to(dev)
     kept16 = int((T - burn16.long()).sum())
     carried16 = int((T - 1 - burn16.long()).clamp(min=0).sum())
-    for Hh, label in ((H, "atari"), (2048, "xl")):
-        rows = time_bf16(T, B, Hh, D - H + Hh, burn16, kept16, carried16, flush, label)
+    burn_w = torch.from_numpy(w_sampled.burn_in_steps).to(dev)
+    kept_w = int((T - burn_w.long()).sum())
+    carried_w = int((T - 1 - burn_w.long()).clamp(min=0).sum())
+    for Bh, Hh, seams, label in ((B, H, (burn16, kept16, carried16), "atari"),
+                                 (WIDE_BATCH, WIDE_H, (burn_w, kept_w, carried_w), "wide B=96"),
+                                 (B, 2048, (burn16, kept16, carried16), "xl")):
+        rows = time_bf16(T, Bh, Hh, D - H + Hh, *seams, flush, label)
         if label == "atari":
             for name, (t_ms, p_ms, b_ms, b_by, lib_ms) in rows.items():
                 kernels.append({
@@ -967,6 +1179,7 @@ def main():
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")
         profile_updates(b_tr, args.profile, "bf16 main path")
+        profile_updates(w_tr, args.profile, "bf16 wide B=96 (fused_dwh)")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

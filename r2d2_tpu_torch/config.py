@@ -265,11 +265,11 @@ class R2D2Config:
         return dataclasses.replace(self, **kw).validate()
 
 
-def require_ported(cfg: R2D2Config, device="cuda") -> None:
+def require_ported(cfg: R2D2Config) -> None:
     """Refuse configurations whose code path the port does not have yet,
-    naming the roadmap item that queues it (ROADMAP.md Queue 1/2), and
-    widths the kernels cannot take, naming the limit. `device` is where
-    the model runs: the backward arm is resolved for it."""
+    naming the roadmap item that queues it (ROADMAP.md Queue 1), and
+    widths the kernels cannot take, naming the limit. Every backward arm
+    runs in both compute dtypes."""
     if cfg.encoder == "impala" or cfg.recurrent_core != "lstm":
         raise NotImplementedError(
             "the IMPALA encoder and the LRU core are queued (M8)"
@@ -281,17 +281,6 @@ def require_ported(cfg: R2D2Config, device="cuda") -> None:
             f"hidden_dim={cfg.hidden_dim}: the LSTM kernels copy rows 16 bytes "
             f"at a time, so under {cfg.resolved_compute_dtype} the hidden size "
             f"must be a multiple of {row}"
-        )
-    if bf16 and not cfg.fused_sequence:
-        raise NotImplementedError(
-            "fused_sequence=False under bfloat16 runs the seamless backward "
-            "(K3), whose bf16 form is queued (ROADMAP.md Queue 2)"
-        )
-    if bf16 and cfg.resolve_backward_arm(device=torch.device(device).type)[0] == "fused_dwh":
-        raise NotImplementedError(
-            "the fused_dwh backward arm under bfloat16 runs K4, whose bf16 "
-            "form is queued (ROADMAP.md Queue 2); use backward_arm=default "
-            "or ckpt"
         )
 
 

@@ -106,8 +106,8 @@ __device__ __forceinline__ void copy16_cg(void* dst, const void* src) {
 }
 
 // 4 bytes global -> shared (cp.async of 4 bytes may only go through L1):
-// for read-only data (wh), and for dz columns the block itself wrote, in
-// lines no block writes again in the launch (Walk::add_dwh)
+// for read-only data (wh), and for dz columns the block itself wrote
+// (Walk::add_dwh), which only its own threads write again
 __device__ __forceinline__ void copy4_ca(float* dst, const float* src) {
 #if defined(__CUDA_ARCH__)
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

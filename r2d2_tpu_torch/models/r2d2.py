@@ -68,7 +68,7 @@ class R2D2Network(nn.Module):
         """Build on `device` (the card unless the caller passes "cpu"),
         with the core running the backward arm that
         ``cfg.resolve_backward_arm`` resolves for that device."""
-        require_ported(cfg, device)
+        require_ported(cfg)
         if torch.device(device).type == "cuda" and cfg.lstm_backend == "scan":
             raise ValueError(
                 "lstm_backend='scan' names the plain PyTorch versions, which "

@@ -26,14 +26,13 @@ in row chunks inside each step. ``lstm_seq_bwd_fused`` runs
 ``lstm_seq_bwd``'s walk in the same geometry, so its dz is
 ``lstm_seq_bwd``'s bit for bit on the card.
 
-Dtypes. Every kernel takes float32. ``lstm_fwd``, ``lstm_seq_bwd`` and
-``lstm_seq_bwd_ckpt`` also take bfloat16 operands where the Pallas kernels
-do under bf16 compute (proj, wh, and h0/c0, hprev or h_ckpt), each through
-its own bf16 kernel form (``<name>_bf16``, counted under that key), with
-the Pallas kernels' casts: products of bf16 values summed in float32, the
-(h, c) carry and c residuals in float32, outs (and K5's dz) in the proj
-dtype, K2's dz in float32. ``lstm_bwd`` and ``lstm_seq_bwd_fused`` take
-float32 only (their bf16 forms are queued).
+Dtypes. Every kernel takes float32, and also bfloat16 operands where the
+Pallas kernels do under bf16 compute (proj, wh, and h0/c0, hprev or
+h_ckpt), each through its own bf16 kernel form (``<name>_bf16``, counted
+under that key), with the Pallas kernels' casts: products of bf16 values
+summed in float32, the (h, c) carry and c residuals in float32, outs (and
+K4's and K5's dz) in the proj dtype, K2's and K3's dz (and K3's dh0, dc0)
+in float32. K4 and K5 sum dWh from the unrounded float32 dz.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -60,13 +59,13 @@ import torch
 _SOURCE_SIGNATURES = {
     "lstm_fwd": (7, 10),             # ..., barrier, T, B, H, then the Geometry
     "lstm_seq_bwd": (12, 10),
-    "lstm_bwd": (12, 10),
-    "lstm_seq_bwd_fused": (12, 10),
+    "lstm_bwd": (13, 10),
+    "lstm_seq_bwd_fused": (13, 11),  # ..., barrier, T, B, H, W, then the Geometry
     "lstm_seq_bwd_ckpt": (14, 11),   # ..., barrier, T, B, H, S, then the Geometry
 }
 SOURCES = tuple(_SOURCE_SIGNATURES)
 # the bf16 forms: the same source and C arguments, entry point <name>_launch
-BF16_FORMS = ("lstm_fwd_bf16", "lstm_seq_bwd_bf16", "lstm_seq_bwd_ckpt_bf16")
+BF16_FORMS = tuple(f"{n}_bf16" for n in SOURCES)
 _SOURCE = {**{n: n for n in SOURCES}, **{n: n[: -len("_bf16")] for n in BF16_FORMS}}
 _SIGNATURES = {n: _SOURCE_SIGNATURES[src] for n, src in _SOURCE.items()}
 # every kernel form a wrapper launches
@@ -539,48 +538,71 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
 
 def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     """(dz (T,B,4H), dh0 (B,H), dc0 (B,H)), all float32, of the backward
-    with no seam; float32 operands only. Kernel on CUDA, plain version on
-    the CPU."""
+    with no seam. proj_t, hprev and wh in float32 or bfloat16, the rest
+    float32. Kernel on CUDA, plain version on the CPU; the same operand
+    checks on both."""
     dev = _device_of(cs, "lstm_bwd")
     T, B, H = cs.shape
     f32 = torch.float32
-    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, f32)
+    dt = _compute_dtype(proj_t, "lstm_bwd")
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
     if dev.type == "cpu":
         return lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT)
-    geo = _geometry(B, H, "lstm_bwd", dev)
+    geo = _geometry(B, H, "lstm_bwd", dev, dt)
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
-    _launch("lstm_bwd",
-            (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0,
+    # bf16: dz rounded to bf16 is what the blocks exchange, in a 2-step ring
+    xch = None if dt == f32 else torch.empty((2, B, 4 * H), dtype=dt, device=dev)
+    _launch(_form("lstm_bwd", dt),
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch,
              _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dh0, dc0
 
 
+# the steps of f32 dz that lstm_seq_bwd_fused's bf16 form keeps at once for
+# its dWh pass (the window); K5's bf16 form keeps its segment's, S=5 at xl
+DWH_WINDOW = 5
+
+
+def fused_dwh_window(T: int, B: int, H: int, dtype, device):
+    """The f32 dz window of lstm_seq_bwd_fused's bf16 form, (W, B, 4H) with
+    W = min(DWH_WINDOW, T) steps: the unrounded dz that dWh sums, W steps
+    at a time, never a (T, B, 4H) copy. -> (window or None in float32, W)."""
+    if dtype == torch.float32:
+        return None, 0
+    W = min(DWH_WINDOW, T)
+    return torch.empty((W, B, 4 * H), dtype=torch.float32, device=device), W
+
+
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     """(dz (T,B,4H) in proj dtype, dwh (H,4H) float32) of the seam backward
-    with dWh formed in the kernel; float32 operands only. Kernel on CUDA,
-    plain version on the CPU. On the card dz is lstm_seq_bwd's bit for bit
-    (the same walk in the same geometry); dz and dWh differ from the plain
-    version by summation order only."""
+    with dWh formed in the kernel. proj_t, hprev and wh in float32 or
+    bfloat16, the rest float32. Kernel on CUDA, plain version on the CPU;
+    the same operand checks on both. On the card dz is lstm_seq_bwd's bit
+    for bit (the same walk in the same geometry; in bf16 its f32 dz
+    rounded); dz and dWh differ from the plain version by summation order
+    only."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
-    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, torch.float32)
+    dt = _compute_dtype(proj_t, "lstm_seq_bwd_fused")
+    _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
     _check("burn", burn, (B,), torch.int32, dev)
     if dev.type == "cpu":
         return lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
-    geo = _geometry(B, H, "lstm_seq_bwd_fused", dev)
+    geo = _geometry(B, H, "lstm_seq_bwd_fused", dev, dt)
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
-    dz = torch.empty((T, B, 4 * H), dtype=proj_t.dtype, device=dev)
+    dz = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
-    _launch("lstm_seq_bwd_fused",
-            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh,
+    dz32, W = fused_dwh_window(T, B, H, dt, dev)
+    _launch(_form("lstm_seq_bwd_fused", dt),
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz32,
              _carry_workspace(geo, B, dev), _barrier(dev)),
-            (T, B, H, *_geometry_ints(geo)), dev)
+            (T, B, H, W, *_geometry_ints(geo)), dev)
     return dz, dwh
 
 

@@ -21,7 +21,9 @@ precision=bf16`` also stores the replayed carries in bfloat16).
 Every backward arm of the JAX package runs: ``--set backward_arm=fused_dwh``
 or ``--set backward_arm=ckpt`` forces one, ``--set fused_sequence=false``
 trains through the seamless backward, and ``--model-preset xl`` (hidden
-2048) resolves to the checkpointed arm under the default residual budget.
+2048) resolves to the checkpointed arm under the default residual budget;
+in bf16, ``--model-preset wide --set batch_size=96`` resolves to the
+fused-dWh arm. Every arm runs in both compute dtypes.
 
 runs on the CUDA device; ``--device cpu`` runs the plain versions of the
 kernels on the CPU instead.
@@ -72,7 +74,7 @@ class Trainer:
         self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
         if self.vec_env.action_dim != cfg.action_dim:
             cfg = cfg.replace(action_dim=self.vec_env.action_dim)
-        require_ported(cfg, self.device)
+        require_ported(cfg)
         self.cfg = cfg
         self.backward_arm = cfg.resolve_backward_arm(device=self.device.type)
         self.net, self.state = init_train_state(cfg, self.device)

@@ -146,29 +146,89 @@ def test_plain_ckpt_backward_bf16_matches_pallas(S, burn_name):
     np.testing.assert_allclose(p_dwh.numpy(), np.asarray(j_dwh), rtol=1e-3, atol=1e-4)
 
 
+def _walk_operands(seed):
+    """The reverse walks' operands on the Pallas forward's bf16 residuals:
+    (dout, proj, hprev, cprev, cs, wh, dcT) as numpy float32."""
+    (proj, wh, h0, c0, dout, dcT), (outs, cs), _ = _forward(seed)
+    hprev = np.concatenate([h0[None], _f32(outs)[:-1]])
+    cprev = np.concatenate([c0[None], np.asarray(cs)[:-1]])
+    return dout, proj, hprev, cprev, np.asarray(cs), wh, dcT
+
+
+def _jax_walk(dout, proj, hprev, cprev, cs, wh, dcT):
+    return (_j(dout, False), _j(proj), _j(hprev), _j(cprev, False), _j(cs, False), _j(wh),
+            _j(dcT, False))
+
+
+def _port_walk(dout, proj, hprev, cprev, cs, wh, dcT):
+    return (_t(dout, False), _t(proj), _t(hprev), _t(cprev, False), _t(cs, False), _t(wh),
+            _t(dcT, False))
+
+
+def test_plain_seamless_backward_bf16_matches_pallas():
+    """K3 on bf16 proj, hprev, wh: dz, dh0 and dc0 out in f32."""
+    walk = _walk_operands(4)
+    j = ref._lstm_bwd_call(*_jax_walk(*walk), interpret=True)
+    p = port.lstm_bwd(*_port_walk(*walk))
+    for name, a, b in zip(("dz", "dh0", "dc0"), p, j):
+        assert a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("burn_name", sorted(BURNS))
+def test_plain_fused_dwh_backward_bf16_matches_pallas(burn_name):
+    """K4 on bf16 proj, hprev, wh: dz in bf16, exactly zero below each
+    row's seam, and dWh summed in f32 from the unrounded dz."""
+    burn = BURNS[burn_name]
+    walk = _walk_operands(5)
+    j_dz, j_dwh = ref._lstm_seq_bwd_fused_call(
+        *_jax_walk(*walk), jnp.asarray(burn.reshape(B, 1)), interpret=True)
+    p_dz, p_dwh = port.lstm_seq_bwd_fused(*_port_walk(*walk), torch.from_numpy(burn))
+    assert p_dz.dtype == BF16 and p_dwh.dtype == torch.float32
+    np.testing.assert_allclose(_f32(p_dz), _f32(j_dz), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(p_dwh.numpy(), np.asarray(j_dwh), rtol=1e-3, atol=1e-4)
+    for b in range(B):
+        assert not p_dz[: burn[b], b].any()
+
+
+def test_fused_dwh_bf16_window_does_not_grow_with_T():
+    """K4's bf16 form keeps W = min(5, T) steps of f32 dz for its dWh pass,
+    never a (T, B, 4H) float32 copy; its float32 form needs none."""
+    for T_, B_, H_ in ((85, 96, 1024), (850, 96, 1024), (3, 4, 8)):
+        window, W = port.fused_dwh_window(T_, B_, H_, BF16, "cpu")
+        assert W == min(port.DWH_WINDOW, T_) and window.dtype == torch.float32
+        assert tuple(window.shape) == (W, B_, 4 * H_)
+    assert port.fused_dwh_window(85, 96, 1024, BF16, "cpu")[0].nbytes == 5 * 96 * 4096 * 4
+    assert port.fused_dwh_window(85, 96, 1024, torch.float32, "cpu") == (None, 0)
+
+
 def test_wrappers_take_bf16_where_pallas_does_and_refuse_the_rest():
-    """On the CPU too: proj, wh and h0/c0, hprev or h_ckpt in bf16; a bf16
-    operand where the Pallas kernels take f32 raises, and so does any bf16
-    operand of the two kernels whose bf16 forms are queued (K3, K4)."""
+    """On the CPU too: proj, wh and h0/c0, hprev or h_ckpt in bf16, for
+    every kernel; a bf16 operand where the Pallas kernels take f32
+    raises."""
     (proj, wh, h0, c0, dout, dcT), (outs, cs), _ = _forward(3)
     hprev = np.concatenate([h0[None], _f32(outs)[:-1]])
     walk = [_t(dout, False), _t(proj), _t(hprev), _t(hprev, False), _t(cs, False), _t(wh),
             _t(dcT, False)]
     burn = torch.from_numpy(BURNS["mixed"])
     port.lstm_seq_bwd(*walk, burn)
+    port.lstm_bwd(*walk)
+    port.lstm_seq_bwd_fused(*walk, burn)
     for i, name in ((0, "dout"), (3, "cprev"), (4, "cs"), (6, "dcT")):
         bad = list(walk)
         bad[i] = bad[i].to(BF16)
         with pytest.raises(TypeError, match=name):
             port.lstm_seq_bwd(*bad, burn)
+        with pytest.raises(TypeError, match=name):
+            port.lstm_bwd(*bad)
+        with pytest.raises(TypeError, match=name):
+            port.lstm_seq_bwd_fused(*bad, burn)
     with pytest.raises(TypeError, match="wh"):
         port.lstm_fwd(_t(proj), _t(wh, False), _t(h0), _t(c0))
     with pytest.raises(TypeError, match="c0"):
         port.lstm_fwd(_t(proj), _t(wh), _t(h0), _t(c0, False))
-    with pytest.raises(TypeError, match="proj_t"):
-        port.lstm_bwd(*walk)
-    with pytest.raises(TypeError, match="proj_t"):
-        port.lstm_seq_bwd_fused(*walk, burn)
+    with pytest.raises(TypeError, match="hprev"):
+        port.lstm_bwd(walk[0], walk[1], walk[3], *walk[3:])
     with pytest.raises(TypeError, match="float16"):
         port.lstm_fwd(_t(proj).half(), _t(wh).half(), _t(h0).half(), _t(c0).half())
     with pytest.raises(TypeError, match="c_ckpt"):
@@ -181,33 +241,43 @@ def test_wrappers_take_bf16_where_pallas_does_and_refuse_the_rest():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arm", ["default", "ckpt"])
+@pytest.mark.parametrize("arm", ["default", "ckpt", "fused_dwh", "no_seam"])
 def test_bf16_lstm_module_matches_flax(arm):
     """The module casts xs, wi, wh, b and the carry to bf16, projects in
-    bf16 and unrolls through K1 and K2 (or K5 at S=3); values and the f32
-    parameters' gradients against the flax module with backend="pallas"."""
+    bf16 and unrolls through K1 and K2 (K5 at S=3, K4, or with no seam
+    K3); values and the f32 gradients (the parameters', and with no seam
+    the initial carry's) against the flax module with backend="pallas"."""
     Bm, Tm, D, Hm = 8, 6, 24, 32
     kw = dict(hidden_dim=Hm, in_dim=D, dtype=jnp.bfloat16, backend="pallas")
-    jmod = JaxLSTM(**kw, grad_checkpoint=3 if arm == "ckpt" else 0)
+    jmod = JaxLSTM(**kw, grad_checkpoint=3 if arm == "ckpt" else 0,
+                   fused_dwh=arm == "fused_dwh")
     rng = np.random.default_rng(15)
     xs = rng.normal(size=(Bm, Tm, D)).astype(np.float32)
     carry = [(rng.normal(size=(Bm, Hm)) * 0.2).astype(np.float32) for _ in range(2)]
-    burn = np.array([0, 1, 2, 3, 5, 4, 0, 2], np.int32)
+    burn = None if arm == "no_seam" else np.array([0, 1, 2, 3, 5, 4, 0, 2], np.int32)
     params = jmod.init(jax.random.PRNGKey(1), jnp.asarray(xs), tuple(map(jnp.asarray, carry)))
-    pmod = LSTM(Hm, D, backward_arm=("ckpt", 3) if arm == "ckpt" else ("default", 0), dtype=BF16)
+    pmod = LSTM(Hm, D, backward_arm={"ckpt": ("ckpt", 3), "fused_dwh": ("fused_dwh", 0)}.get(
+        arm, ("default", 0)), dtype=BF16)
     pmod.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                           _np_tree(params)["params"].items()})
 
-    def jloss(p):
-        outs, (hT, cT) = jmod.apply(p, jnp.asarray(xs), tuple(map(jnp.asarray, carry)),
-                                    burn_in=jnp.asarray(burn))
+    def jloss(p, carry):
+        outs, (hT, cT) = jmod.apply(p, jnp.asarray(xs), carry,
+                                    burn_in=None if burn is None else jnp.asarray(burn))
         return jnp.sum(jnp.tanh(outs.astype(jnp.float32))), (outs, hT, cT)
 
-    (_, (j_outs, j_hT, j_cT)), j_grads = jax.value_and_grad(jloss, has_aux=True)(params)
-    p_outs, (p_hT, p_cT) = pmod(torch.from_numpy(xs), tuple(map(torch.from_numpy, carry)),
-                                torch.from_numpy(burn))
+    (_, (j_outs, j_hT, j_cT)), (j_grads, j_dcarry) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(params, tuple(map(jnp.asarray, carry)))
+    p_carry = tuple(torch.from_numpy(c).requires_grad_(True) for c in carry)
+    p_outs, (p_hT, p_cT) = pmod(torch.from_numpy(xs), p_carry,
+                                None if burn is None else torch.from_numpy(burn))
     assert p_outs.dtype == p_hT.dtype == p_cT.dtype == BF16
     torch.sum(torch.tanh(p_outs.float())).backward()
+    if arm == "no_seam":  # the gradient runs into the initial carry
+        for name, pc, jc in zip(("d h0", "d c0"), p_carry, j_dcarry):
+            jc = np.asarray(jc)
+            rel = np.linalg.norm(pc.grad.numpy() - jc) / (np.linalg.norm(jc) + 1e-6)
+            assert pc.grad.dtype == torch.float32 and rel < 1e-2, (name, rel)
     np.testing.assert_allclose(_f32(p_outs.detach()), _f32(j_outs), rtol=0, atol=2 * ULP)
     np.testing.assert_allclose(_f32(p_hT.detach()), _f32(j_hT), rtol=0, atol=2 * ULP)
     np.testing.assert_allclose(_f32(p_cT.detach()), _f32(j_cT), rtol=2 * ULP, atol=2 * ULP)
@@ -225,7 +295,7 @@ def test_bf16_lstm_module_matches_flax(arm):
 
 def _cfgs(**kw):
     jcfg = jax_config.tiny_test().replace(lstm_backend="pallas", precision="bf16", **kw)
-    cfg = port_config.tiny_test().replace(precision="bf16", **kw)
+    cfg = port_config.tiny_test().replace(lstm_backend="pallas", precision="bf16", **kw)
     return jcfg, cfg
 
 
@@ -280,13 +350,15 @@ def test_bf16_act_matches_flax():
 
 
 @pytest.mark.parametrize("extra", [{}, {"encoder": "nature", "obs_shape": (36, 36, 1)},
-                                   {"seq_grad_checkpoint": 2}],
-                         ids=["mlp", "nature", "ckpt"])
+                                   {"seq_grad_checkpoint": 2}, {"backward_arm": "fused_dwh"},
+                                   {"fused_sequence": False}],
+                         ids=["mlp", "nature", "ckpt", "fused_dwh", "no_seam"])
 def test_bf16_train_step_matches_jax(extra):
     """One update in bf16 from one converted TrainState on one batch whose
     carries are stored in bf16 (precision="bf16"): loss, priorities and
     every updated parameter."""
     jcfg, cfg = _cfgs(target_net_update_interval=2, **extra)
+    assert cfg.resolve_backward_arm(device="cpu") == jcfg.resolve_backward_arm()
     net, jstate = jax_init_train_state(jcfg, jax.random.PRNGKey(0))
     jstep = jax_make_train_step(jcfg, net, donate=False)
     nets = []
@@ -379,22 +451,27 @@ def test_bf16_hidden_store_bits_match_jax():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,model_preset,want", [
-    ("bfloat16", "base", ("default", 0)), ("bfloat16", "xl", ("ckpt", 5)),
-    ("float32", "base", ("default", 0)), ("float32", "xl", ("ckpt", 85)),
+@pytest.mark.parametrize("dtype,model_preset,batch,want", [
+    ("bfloat16", "base", 64, ("default", 0)), ("bfloat16", "xl", 64, ("ckpt", 5)),
+    ("float32", "base", 64, ("default", 0)), ("float32", "xl", 64, ("ckpt", 85)),
+    ("bfloat16", "wide", 96, ("fused_dwh", 0)), ("bfloat16", "base", 192, ("fused_dwh", 0)),
+    ("float32", "wide", 96, ("ckpt", 85)), ("float32", "base", 192, ("ckpt", 85)),
 ])
-def test_backward_arm_resolves_from_the_compute_dtype(dtype, model_preset, want):
-    """The atari preset and its xl model at the default 128 MiB budget:
-    under bf16 the carries shrink and the dz of the fused arms is bf16, so
-    xl takes the checkpointed arm at stride 5 (13.4 MB of checkpoints + 89
-    MB of dz), not 85; the card resolves as the JAX package on a TPU."""
+def test_backward_arm_resolves_from_the_compute_dtype(dtype, model_preset, batch, want):
+    """The atari preset and its model presets at the default 128 MiB
+    budget: under bf16 the carries shrink and the dz of the fused arms is
+    bf16, so xl takes the checkpointed arm at stride 5 (13.4 MB of
+    checkpoints + 89 MB of dz), not 85, and wide at batch 96 (or the base
+    model at 192) the fused-dWh arm (50.1 MB of carries + 66.8 MB of bf16
+    dz, where the default arm's f32 dz alone is 133.7 MB); the card
+    resolves as the JAX package on a TPU, and the port trains each."""
     cfg = port_config.apply_model_preset(port_config.default_atari(), model_preset).replace(
-        compute_dtype=dtype)
+        compute_dtype=dtype, batch_size=batch)
     jcfg = jax_config.apply_model_preset(jax_config.default_atari(), model_preset).replace(
-        compute_dtype=dtype, lstm_backend="pallas")
+        compute_dtype=dtype, lstm_backend="pallas", batch_size=batch)
     budget = cfg.backward_residual_budget_mb << 20
     assert cfg.resolve_backward_arm(device="cuda") == jcfg.resolve_backward_arm() == want
     assert port.choose_backward_arm(cfg.seq_len, cfg.batch_size, cfg.hidden_dim, dtype,
                                     budget) == ref.choose_backward_arm(
         cfg.seq_len, cfg.batch_size, cfg.hidden_dim, jnp.dtype(dtype), budget) == want
-    port_config.require_ported(cfg, "cuda")  # every one of these trains
+    port_config.require_ported(cfg)  # every one of these trains

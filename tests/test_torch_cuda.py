@@ -19,7 +19,7 @@ geometry.
 Row chunks: batches wider than one block's threads (B=600 at H=512, B=200
 at H=2048) are walked in two chunks per step, held to the same bounds.
 
-bf16 forms (K1, K2, K5): both sides sum exact products of bf16 values in
+bf16 forms (all five): both sides sum exact products of bf16 values in
 float32 in other orders, so a value may round to the neighbouring bf16
 value (2^-8 relative) where the two sums straddle a rounding boundary,
 and that step feeds the later ones: outs, cs and dz are held to
@@ -353,9 +353,49 @@ def test_bf16_kernels_match_plain_versions(cuda, shape):
         lstm_seq_bwd_ckpt_bf16=2 * len(strides))
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(85, 64, 2048), (85, 96, 1024)] + CHUNKED, ids=str)
+def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
+    """K3 (dz, dh0, dc0 in f32) and K4 (seams 0, mid, T-1, mixed; dz in
+    bf16, dWh from the f32 dz) with bf16 operands against their plain
+    versions, on the plain forward's residuals, each launched twice for
+    the same bits; K4's dz is K2's f32 dz rounded to bf16, bit for bit,
+    where the two get the same split, and in the bf16 class elsewhere."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, BF16, T * B + H + 3)
+    p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    walk = (dout, proj, torch.cat([h0[None], p_outs[:-1]]), torch.cat([c0.float()[None],
+            p_cs[:-1]]), p_cs, wh, dcT)
+    lstm_kernel.reset_launch_counts()
+    got = lstm_kernel.lstm_bwd(*walk)
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, got, lstm_kernel.lstm_bwd(*walk)))
+    same_split = (lstm_kernel._geometry(B, H, "lstm_seq_bwd", cuda, BF16)
+                  == lstm_kernel._geometry(B, H, "lstm_seq_bwd_fused", cuda, BF16))
+    for burn in (torch.zeros_like(mixed), torch.full_like(mixed, T // 2),
+                 torch.full_like(mixed, T - 1), mixed):
+        dz, dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)
+        assert dz.dtype == BF16 and dwh.dtype == torch.float32
+        torch.testing.assert_close(dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert float((dwh - p_dwh).abs().max()) <= BF16_DWH * float(p_dwh.abs().max())
+        assert all(map(torch.equal, (dz, dwh), lstm_kernel.lstm_seq_bwd_fused(*walk, burn)))
+        seam = lstm_kernel.lstm_seq_bwd(*walk, burn)
+        if same_split:
+            assert torch.equal(dz, seam.to(BF16))
+        else:
+            torch.testing.assert_close(dz.float(), seam, rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.cuda.synchronize()
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_bwd_bf16=2, lstm_seq_bwd_fused_bf16=8,
+        lstm_seq_bwd_bf16=4)
+
+
 def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):
     """The bf16 forms take bf16 only where the Pallas kernels do (proj, wh,
-    h0/c0, hprev, h_ckpt); K3 and K4 take float32 only."""
+    h0/c0, hprev, h_ckpt), and f32 where they take f32, K3's and K4's
+    forms as the others."""
     T, B, H = 4, 3, 8
     proj = torch.zeros(T, B, 4 * H, device=cuda, dtype=BF16)
     wh = torch.zeros(H, 4 * H, device=cuda, dtype=BF16)
@@ -369,7 +409,7 @@ def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):
         lstm_kernel.lstm_seq_bwd(f, proj, hb, f, hb, wh, dcT, burn)
     with pytest.raises(TypeError, match="dout"):
         lstm_kernel.lstm_seq_bwd(hb, proj, hb, f, f, wh, dcT, burn)
-    with pytest.raises(TypeError, match="proj_t"):
-        lstm_kernel.lstm_bwd(f, proj, hb, f, f, wh, dcT)
-    with pytest.raises(TypeError, match="proj_t"):
-        lstm_kernel.lstm_seq_bwd_fused(f, proj, hb, f, f, wh, dcT, burn)
+    with pytest.raises(TypeError, match="cprev"):
+        lstm_kernel.lstm_bwd(f, proj, hb, hb, f, wh, dcT)
+    with pytest.raises(TypeError, match="wh"):
+        lstm_kernel.lstm_seq_bwd_fused(f, proj, hb, f, f, wh.float(), dcT, burn)

@@ -162,22 +162,23 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                         epsilon_ladder(3, 0.4, 7.0), lambda *a: None)
 
 
-def test_unported_options_are_refused_by_name():
-    """bfloat16 trains (M7 landed); under it the two backward kernels whose
-    bf16 forms are queued (K3: no seam, K4: fused dWh) and hidden sizes the
-    bf16 rows cannot take are refused, before the first update."""
-    with pytest.raises(NotImplementedError, match="K3.*Queue 2"):
-        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
-                                          fused_sequence=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="K4.*Queue 2"):
-        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
-                                          lstm_backend="pallas", backward_arm="fused_dwh"),
-                      device="cpu")
+def test_unported_options_are_refused_by_name(capsys):
+    """bfloat16 trains under every backward arm (the no-seam K3 and the
+    fused-dWh K4 included); hidden sizes the bf16 rows cannot take and the
+    IMPALA encoder (M8) are refused by name, before the first update."""
+    tr = train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
+                                           fused_sequence=False), device="cpu")
+    assert tr.backward_arm == ("default", 0) and not tr.net.fused_sequence
+    tr = train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
+                                           lstm_backend="pallas", backward_arm="fused_dwh"),
+                       device="cpu")
+    assert tr.backward_arm == ("fused_dwh", 0)
     with pytest.raises(NotImplementedError, match="multiple of 8"):
         train.Trainer(tiny_test().replace(env_name="catch", precision="bf16", hidden_dim=36),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="K3.*Queue 2"):
-        train.main(["--preset", "atari", "--env", "catch", "--steps", "1", "--device", "cpu",
-                    "--set", "fused_sequence=false"])
+    train.main(["--preset", "tiny_test", "--env", "catch", "--steps", "1", "--device", "cpu",
+                "--set", "precision=bf16", "--set", "fused_sequence=false"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["compute_dtype"] == "bfloat16" and np.isfinite(out["loss"])
     with pytest.raises(NotImplementedError, match="M8"):
         train.Trainer(tiny_test().replace(env_name="catch", encoder="impala"), device="cpu")

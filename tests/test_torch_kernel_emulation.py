@@ -21,8 +21,8 @@ K5) run here with their hand-written grid barrier, at a geometry cut
 to four blocks; a misplaced exchange or barrier reads another block's
 columns before they are written. Each kernel also runs at a thread
 ceiling cut so far that the batch takes two or more row chunks (the last
-one ragged), and the bf16 forms of K1, K2 and K5 run against their plain
-versions in bf16. A kernel whose body leaves the subset (clusters,
+one ragged), and the bf16 forms of all five run against their plain
+versions in bf16 (K4's with dWh windows that do and do not divide T). A kernel whose body leaves the subset (clusters,
 warp intrinsics, wgmma, TMA) is dropped from this test and is held
 against its plain version by tests/test_torch_cuda.py and chip_smoke.py
 only; the header is not meant to grow into a CUDA emulator.
@@ -39,11 +39,13 @@ is K2's bit for bit.
 bf16 forms: both sides sum exact products of bf16 values in float32, in
 other orders, so a value can round to the neighbouring bf16 value where
 the two sums straddle a rounding boundary, a step of 2^-8 of it, which
-then feeds the later steps. Forward outs (bf16), cs, and dz (K2's f32,
-K5's bf16) are held to two such steps (BF16_RTOL = 2^-7) plus BF16_ATOL
-absolute; K5's dWh, summed in f32 from the f32 dz, to 1e-4 of its
-largest entry as in float32 (summing the rounded dz instead would be off
-by about 1e-3). Two launches still give the same bits.
+then feeds the later steps. Forward outs (bf16), cs, and dz (K2's and
+K3's f32, K4's and K5's bf16), K3's dh0 and dc0 are held to two such
+steps (BF16_RTOL = 2^-7) plus BF16_ATOL absolute; K4's and K5's dWh,
+summed in f32 from the f32 dz, to 1e-4 of its largest entry as in
+float32 (summing the rounded dz instead would be off by about 1e-3). Two
+launches still give the same bits, and K4-bf16's dz is K2-bf16's f32 dz
+rounded to bf16 wherever the two get one split.
 """
 
 import ctypes
@@ -205,16 +207,27 @@ def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
 def _seamless(kernels, dout, proj, hprev, cprev, cs, wh, dcT, mt=512):
     T, B, H = cs.shape
     dz, dh0, dc0 = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
-    _split(kernels, "lstm_bwd", (dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0), T, B, H,
+    if proj.dtype == torch.float32:
+        name, xch = "lstm_bwd", None
+    else:
+        name, xch = "lstm_bwd_bf16", torch.empty(2, B, 4 * H, dtype=proj.dtype)
+    _split(kernels, name, (dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch), T, B, H,
            max_threads=mt)
     return dz, dh0, dc0
 
 
-def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
+def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512, window=None):
+    """K4's (dz, dwh); the bf16 form with the wrapper's f32 dz window, or
+    one of `window` steps."""
     T, B, H = cs.shape
-    dz, dwh = torch.empty(T, B, 4 * H), torch.empty(H, 4 * H)
-    _split(kernels, "lstm_seq_bwd_fused", (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh),
-           T, B, H, max_threads=mt)
+    dt = proj.dtype
+    dz, dwh = torch.empty(T, B, 4 * H, dtype=dt), torch.empty(H, 4 * H)
+    dz32, W = lstm_kernel.fused_dwh_window(T, B, H, dt, "cpu")
+    if window is not None:
+        dz32, W = torch.empty(window, B, 4 * H), window
+    _split(kernels, lstm_kernel._form("lstm_seq_bwd_fused", dt),
+           (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz32), T, B, H, W,
+           max_threads=mt)
     return dz, dwh
 
 
@@ -468,3 +481,68 @@ def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
             _assert_zero_below_seam(dz, burn_np)
             for a, b in zip((dz, dwh), _ckpt(kernels, *args)[:2]):
                 assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms of K3 and K4
+# ---------------------------------------------------------------------------
+
+
+def _check_bf16_fused(kernels, walk, burn_np, mt, window=None):
+    """K4-bf16 against its plain version (dz in bf16, dWh from the f32 dz),
+    zero below the seam, twice for the same bits. -> dz."""
+    burn = torch.from_numpy(burn_np.astype(np.int32))
+    dz, dwh = _fused(kernels, *walk, burn, mt, window)
+    p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)
+    assert dz.dtype == BF16 and dwh.dtype == torch.float32
+    torch.testing.assert_close(dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    _assert_dwh_close(dwh, p_dwh)
+    _assert_zero_below_seam(dz, burn_np)
+    for a, b in zip((dz, dwh), _fused(kernels, *walk, burn, mt, window)):
+        assert torch.equal(a, b)
+    return dz
+
+
+@pytest.mark.parametrize("T,B,H,mt", [(T, B, H, 512) for T, B, H in SHAPES] + BF16_CHUNK_SHAPES)
+def test_emulated_bf16_seamless_and_fused_dwh_match_plain_versions(kernels, T, B, H, mt):
+    """K3-bf16 (dz, dh0, dc0 in f32) and K4-bf16 (seams 0, mid, T-1,
+    mixed; the wrapper's window of min(5, T) steps, ragged at T=7 and 6)
+    with bf16 operands, one chunk and row chunks, against their bf16 plain
+    versions on the plain forward's residuals; each launched twice for the
+    same bits. K4-bf16's dz is K2-bf16's f32 dz rounded to bf16, bit for
+    bit, where lstm_geometry gives the two the same split; elsewhere (the
+    dWh pass's two threads per unit where a block holds one row group) the
+    two are held to each other in the bf16 class."""
+    rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
+    walk = _walk(proj, wh, h0, c0, p_outs, p_cs, dout, dcT)
+    got = _seamless(kernels, *walk, mt=mt)
+    assert all(x.dtype == torch.float32 for x in got)
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
+    for a, b in zip(got, _seamless(kernels, *walk, mt=mt)):
+        assert torch.equal(a, b)
+    geos = {n: lstm_kernel.lstm_geometry(B, H, n, EMULATED_SMS, SMEM_LIMIT, 2, mt)
+            for n in ("lstm_seq_bwd", "lstm_seq_bwd_fused")}
+    # the splits differ only at (3, 2, 600): one row group of 150 units,
+    # where K4-bf16's dWh pass takes two threads per unit
+    same_split = geos["lstm_seq_bwd"] == geos["lstm_seq_bwd_fused"]
+    assert same_split == ((T, B, H) != (3, 2, 600)), geos
+    for burn_np in _burns(rng, T, B):
+        dz = _check_bf16_fused(kernels, walk, burn_np, mt)
+        seam = _seam(kernels, *walk, torch.from_numpy(burn_np.astype(np.int32)), mt)
+        if same_split:
+            assert torch.equal(dz, seam.to(BF16))
+        else:
+            torch.testing.assert_close(dz.float(), seam, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("T,B,H,mt", [(7, 5, 32, 512), (7, 9, 32, 16)])
+def test_emulated_bf16_fused_dwh_window_may_not_divide_T(kernels, T, B, H, mt):
+    """K4-bf16 with windows of 1, 3 (T=7: the newest window one step) and
+    T steps, one chunk and row chunks: dWh the same sum in every case, to
+    1e-4 of its largest entry, and the same dz bits."""
+    rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
+    walk = _walk(proj, wh, h0, c0, p_outs, p_cs, dout, dcT)
+    burn_np = rng.integers(0, T, B)
+    dz = [_check_bf16_fused(kernels, walk, burn_np, mt, window) for window in (1, 3, T)]
+    assert all(torch.equal(d, dz[0]) for d in dz)
