@@ -24,7 +24,8 @@ Each splits the hidden units across the SMs in one cooperative launch
 ``lstm_geometry`` decides the split, and walks a batch wider than a block
 in row chunks inside each step. ``lstm_seq_bwd_fused`` runs
 ``lstm_seq_bwd``'s walk in the same geometry, so its dz is
-``lstm_seq_bwd``'s bit for bit on the card.
+``lstm_seq_bwd``'s bit for bit on the card (in bf16: its float32 dz
+rounded).
 
 Dtypes. Every kernel takes float32, and also bfloat16 operands where the
 Pallas kernels do under bf16 compute (proj, wh, and h0/c0, hprev or

@@ -108,18 +108,33 @@ def test_plain_forward_bf16_matches_pallas():
     np.testing.assert_allclose(p_cs.numpy(), np.asarray(j_cs), rtol=1e-3, atol=1e-4)
 
 
+def _walk_operands(seed):
+    """The reverse walks' operands on the Pallas forward's bf16 residuals:
+    (dout, proj, hprev, cprev, cs, wh, dcT) as numpy float32."""
+    (proj, wh, h0, c0, dout, dcT), (outs, cs), _ = _forward(seed)
+    hprev = np.concatenate([h0[None], _f32(outs)[:-1]])
+    cprev = np.concatenate([c0[None], np.asarray(cs)[:-1]])
+    return dout, proj, hprev, cprev, np.asarray(cs), wh, dcT
+
+
+def _jax_walk(dout, proj, hprev, cprev, cs, wh, dcT):
+    return (_j(dout, False), _j(proj), _j(hprev), _j(cprev, False), _j(cs, False), _j(wh),
+            _j(dcT, False))
+
+
+def _port_walk(dout, proj, hprev, cprev, cs, wh, dcT):
+    return (_t(dout, False), _t(proj), _t(hprev), _t(cprev, False), _t(cs, False), _t(wh),
+            _t(dcT, False))
+
+
 @pytest.mark.parametrize("burn_name", sorted(BURNS))
 def test_plain_seq_backward_bf16_matches_pallas(burn_name):
     """K2 on the same residuals: bf16 proj, hprev, wh; f32 dz out."""
     burn = BURNS[burn_name]
-    (proj, wh, h0, c0, dout, dcT), (outs, cs), _ = _forward(1)
-    hprev = np.concatenate([h0[None], _f32(outs)[:-1]])
-    cprev = np.concatenate([c0[None], np.asarray(cs)[:-1]])
-    j_dz = ref._lstm_seq_bwd_call(
-        _j(dout, False), _j(proj), _j(hprev), _j(cprev, False), _j(cs, False), _j(wh),
-        _j(dcT, False), jnp.asarray(burn.reshape(B, 1)), interpret=True)
-    p_dz = port.lstm_seq_bwd(_t(dout, False), _t(proj), _t(hprev), _t(cprev, False),
-                             _t(cs, False), _t(wh), _t(dcT, False), torch.from_numpy(burn))
+    walk = _walk_operands(1)
+    j_dz = ref._lstm_seq_bwd_call(*_jax_walk(*walk), jnp.asarray(burn.reshape(B, 1)),
+                                  interpret=True)
+    p_dz = port.lstm_seq_bwd(*_port_walk(*walk), torch.from_numpy(burn))
     assert p_dz.dtype == torch.float32
     np.testing.assert_allclose(p_dz.numpy(), np.asarray(j_dz), rtol=1e-3, atol=1e-4)
     for b in range(B):
@@ -144,25 +159,6 @@ def test_plain_ckpt_backward_bf16_matches_pallas(S, burn_name):
     assert p_dz.dtype == BF16 and p_dwh.dtype == torch.float32
     np.testing.assert_allclose(_f32(p_dz), _f32(j_dz), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(p_dwh.numpy(), np.asarray(j_dwh), rtol=1e-3, atol=1e-4)
-
-
-def _walk_operands(seed):
-    """The reverse walks' operands on the Pallas forward's bf16 residuals:
-    (dout, proj, hprev, cprev, cs, wh, dcT) as numpy float32."""
-    (proj, wh, h0, c0, dout, dcT), (outs, cs), _ = _forward(seed)
-    hprev = np.concatenate([h0[None], _f32(outs)[:-1]])
-    cprev = np.concatenate([c0[None], np.asarray(cs)[:-1]])
-    return dout, proj, hprev, cprev, np.asarray(cs), wh, dcT
-
-
-def _jax_walk(dout, proj, hprev, cprev, cs, wh, dcT):
-    return (_j(dout, False), _j(proj), _j(hprev), _j(cprev, False), _j(cs, False), _j(wh),
-            _j(dcT, False))
-
-
-def _port_walk(dout, proj, hprev, cprev, cs, wh, dcT):
-    return (_t(dout, False), _t(proj), _t(hprev), _t(cprev, False), _t(cs, False), _t(wh),
-            _t(dcT, False))
 
 
 def test_plain_seamless_backward_bf16_matches_pallas():
