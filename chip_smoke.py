@@ -1085,6 +1085,7 @@ def main():
                  f"{a_launches}")
         path_launches.setdefault(kernel, a_launches[kernel])
         bf16_paths[label] = (a_tr, a_peak)
+
     def core_peak(a_tr, arm):
         """Peak device memory (GiB) above the start of one forward and
         backward of a trainer's LSTM core alone under `arm`, on a batch of
