@@ -8,7 +8,10 @@ its own lines; any failure exits non-zero and prints no result:
 
 1. card   the card's name, power limit and SM clock (nvidia-smi).
 2. build  the five kernels from r2d2_tpu_torch/csrc with nvcc, in parallel;
-          registers, shared memory and spills as ptxas reports them.
+          registers, shared memory and spills as ptxas reports them; the
+          HMMA (tensor-core) instructions of each form in the built
+          library's SASS (cuobjdump -sass): the bf16 forms of K1 and K3
+          must have some, in every instantiation.
 3. check  each kernel against its plain PyTorch version on the card: at the
           atari widths (T=85, B=64, H=512, fp32), at the xl width (H=2048)
           and at ragged small shapes, with seams at 0, mid, T-1 and mixed
@@ -45,7 +48,8 @@ its own lines; any failure exits non-zero and prints no result:
           the main path sampled; the default arm's backward pair (K2 and
           the hprev^T @ dz matmul) beside K4, as a yardstick; T grid
           barriers alone at the forward's geometry (the column split's
-          floor); the forward and the four backwards also at xl; and the
+          floor); the forward and the four backwards also at xl, with
+          cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
           and B=256, H=2048 (T=85): against their plain versions, two
@@ -84,15 +88,16 @@ its own lines; any failure exits non-zero and prints no result:
           batch 96 and at xl; beside K4-bf16 the bf16 default arm's pair
           (K2-bf16 and the hprev^T @ dz matmul).
 
-The next-to-last lines are the kernels as one JSON object and the card's
+The next-to-last lines are the kernels as one JSON object (each form with
+the unit its products run on: "tensor_cores" or "fma") and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile N
 
-adds N more updates of the main path (fp32, then bf16) and of the wide
-model at batch 96 (bf16, fused_dwh) under torch.profiler after the last
-phase and prints where their device time goes, by kernel, and the
-device's busy share.
+adds N more updates of the main path (fp32, then bf16), of the wide
+model at batch 96 (bf16, fused_dwh) and of bf16 xl (ckpt, 5) under
+torch.profiler after the last phase and prints where their device time
+goes, by kernel, and the device's busy share.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -176,6 +181,28 @@ def smi(query):
 
 def card_line():
     return smi("name,power.limit")
+
+
+def hmma_counts(libraries):
+    """{kernel form: [HMMA instructions of each instantiation]} in the SASS
+    of the built libraries ({source: path}), by cuobjdump."""
+    import re
+
+    from r2d2_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for src, path in libraries.items():
+        out = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                             timeout=120)
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass {path} failed: {out.stderr.strip()[:300]}")
+        for function in out.stdout.split("Function : ")[1:]:
+            name = function.split("\n", 1)[0]
+            for dtype, form in (("I13__nv_bfloat16", f"{src}_bf16"), ("If", src)):
+                if f"{src}_kernel{dtype}" in name:
+                    counts.setdefault(form, []).append(len(re.findall(r"\bHMMA\b", function)))
+    return counts
 
 
 def median_ms(fn, reps=15, flush=None):
@@ -331,13 +358,24 @@ def main():
     # 2. build --------------------------------------------------------------
     t = time.perf_counter()
     names = _build.sources()
-    _build.build(names)
+    libraries = _build.build(names)
     say("build", f"nvcc built {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"{name}: {line.strip()}")
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say("build", f"{name}: {line.strip()[:160]}")
+    hmma = hmma_counts(libraries)
+    say("build", "HMMA instructions per instantiation (one chunk, row chunks): " + ", ".join(
+        f"{k} {v}" for k, v in sorted(hmma.items())))
+    for src in K.TENSOR_CORE:
+        if not hmma.get(f"{src}_bf16") or min(hmma[f"{src}_bf16"]) == 0:
+            fail(f"{src}_bf16 runs no tensor-core instruction: {hmma.get(f'{src}_bf16')}")
+
+    def unit(name):
+        """The unit a kernel form's products run on."""
+        return ("tensor_cores" if K.tensor_cores(K._SOURCE[name], 2 if name in K.BF16_FORMS else 4)
+                else "fma")
 
     # 3. kernels against plain versions ------------------------------------
     errs = dict.fromkeys(K.KERNELS, 0.0)
@@ -936,7 +974,7 @@ def main():
             "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[name]}",
             "launches": path_launches[name], "max_abs_err": errs[name], "ms": t_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library.get(name),
+            "library_ms": library.get(name), "unit": unit(name),
         })
     # the default arm's backward, two calls: the seam walk, then dWh as one
     # matmul outside it; a yardstick for K4, not one call for its function
@@ -985,6 +1023,26 @@ def main():
                        flush=flush)
     say("time", f"default arm's pair at xl (lstm_seq_bwd + hprev^T @ dz matmul): "
         f"{pair_x:.3f} ms (median of 15)")
+    # cuDNN's fp32 LSTM at xl under the port's fp32 numerics (TF32 off): the
+    # yardsticks of fp32 K1 and K3 there
+    Dx = D - H + Hx
+    xx = torch.randn(T, B, Dx, device=dev, generator=gx)
+    cudnn_x = torch.nn.LSTM(Dx, Hx).to(dev)
+    with torch.no_grad():
+        cudnn_x_ms = median_ms(lambda: cudnn_x(xx, (hx, cx)), reps=5, flush=flush)
+    xg = xx.clone().requires_grad_(True)
+    hxg, cxg = hx.clone().requires_grad_(True), cx.clone().requires_grad_(True)
+    y, (hT, cT) = cudnn_x(xg, (hxg, cxg))
+    leaves = [xg, hxg, cxg, *cudnn_x.parameters()]
+    cudnn_x_bwd_ms = median_ms(
+        lambda: torch.autograd.grad((y, hT, cT), leaves, (walkx[0], walkx[6][None],
+                                                          walkx[6][None]), retain_graph=True),
+        reps=5, flush=flush)
+    say("time", f"torch.nn.LSTM (cuDNN, fp32, TF32 "
+        f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}) at xl, T={T} B={B} D={Dx} "
+        f"H={Hx}: forward {cudnn_x_ms:.3f} ms, backward (dx, dWi, dWh, db, dh0, dc0) "
+        f"{cudnn_x_bwd_ms:.3f} ms (median of 5)")
+    del cudnn_x, y, hT, cT, leaves
 
     for _ in range(120):  # about a second of queued forward launches
         K.lstm_fwd(proj, wh, h0, c0)
@@ -1036,7 +1094,8 @@ def main():
         fail(f"bf16 xl: expected {2 * XL_UPDATES} lstm_fwd_bf16 and {XL_UPDATES} "
              f"lstm_seq_bwd_ckpt_bf16 launches, got {bx_launches}")
     path_launches["lstm_seq_bwd_ckpt_bf16"] = bx_launches["lstm_seq_bwd_ckpt_bf16"]
-    del bx_tr
+    if not args.profile:
+        del bx_tr
 
     p_cfg = b_cfg.replace(precision="bf16")
     t = time.perf_counter()
@@ -1174,13 +1233,14 @@ def main():
                     "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
                     "launches": path_launches[name], "max_abs_err": errs[name], "ms": t_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms,
+                    "library_ms": lib_ms, "unit": unit(name),
                 })
 
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")
         profile_updates(b_tr, args.profile, "bf16 main path")
         profile_updates(w_tr, args.profile, "bf16 wide B=96 (fused_dwh)")
+        profile_updates(bx_tr, args.profile, "bf16 xl (ckpt, 5)")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,6 +4,8 @@
 // staged rows and of wh is float or __nv_bfloat16; every product is a
 // float32 multiply-add of values converted where they are used (a product
 // of two bf16 values is exact in float32), and every carry is float32.
+// The bf16 forms of K1 and K3 run their products on the tensor cores
+// instead (bf16 operands summed in f32; "The tensor-core products" below).
 //
 // The layout. A persistent cooperative grid of about one block per SM.
 // Block x owns the hidden units j0 = x*Hb .. j0+n_units-1 and their four
@@ -27,7 +29,7 @@
 // each block starts at its own tile (blockIdx modulo the tile count), so
 // the SMs do not all ask the same L2 lines at once.
 //
-// The products are register-tiled, since shared memory, not the FMA
+// The FMA products are register-tiled, since shared memory, not the FMA
 // units, bounds a thread that loads two values per four FMAs. A chunk's
 // rows are dealt in row groups: group rg holds rows rg, rg + nrg,
 // rg + 2nrg, rg + 3nrg (nrg = Bc / 4), so a quarter-warp's eight groups
@@ -41,8 +43,9 @@
 //
 // The geometry (Hb, grid, threads, k-tile, pinned or streamed, shared
 // bytes, rows per chunk) is decided in Python (lstm_kernel.lstm_geometry)
-// and passed in as ints; threads = nrg * Hb * ks exactly, the same for
-// every chunk (the last one padded). Pinned: the block's wh slice sits in
+// and passed in as ints; threads = nrg * Hb * ks exactly (the tensor-core
+// forms: whole warps, at least nrg * Hb), the same for every chunk (the
+// last one padded). Pinned: the block's wh slice sits in
 // shared memory for the whole launch. Streamed: it is copied in k-tiles
 // beside each tile of rows. H is a multiple of 16 bytes of E (16-byte
 // copies): of 4 for float, of 8 for bf16.
@@ -58,6 +61,9 @@ namespace colsplit {
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxThreads = 512;
+// the tensor-core forms' ceiling: half the threads, so a thread may keep
+// up to 255 registers (fragments, accumulators and the walk's state)
+constexpr int kMaxThreadsTC = 256;
 constexpr int kStages = 4;  // tiles in the copy pipeline
 // elements of E in one 16-byte copy; also the padding of a staged row
 // (16 bytes: keeps rows 16-byte aligned and shifts each row's banks)
@@ -67,7 +73,13 @@ constexpr int kVec = 16 / (int)sizeof(E);
 template <class E>
 constexpr bool kF32 = std::is_same<E, float>::value;
 
+// the thread ceiling (__launch_bounds__) of K1 and K3, whose bf16 forms
+// run on the tensor cores (one template argument: the macro splits commas)
+template <class E>
+constexpr int kTensorCoreFormThreads = kF32<E> ? kMaxThreads : kMaxThreadsTC;
+
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -114,6 +126,17 @@ __device__ __forceinline__ void copy4_ca(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 #else
   *dst = *src;
+#endif
+}
+
+// 8 bytes global -> shared (through L1, as every cp.async under 16 bytes):
+// for read-only data (wh's gate columns in the tensor-core forms)
+__device__ __forceinline__ void copy8_ca(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+#else
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
 #endif
 }
 
@@ -333,6 +356,285 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
   reduce_slices(acc, red, it);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core products of the bf16 forms of K1 (lstm_fwd.cu) and K3
+// (lstm_bwd.cu): mma.sync m16n8k16, bf16 operands summed in f32, fed by
+// ldmatrix from the staged tiles.
+//
+// The block's product is an M x N tile: M = Bc rows (a multiple of 16), N
+// the gate columns 4Hb (Hb a multiple of 4) or the carry's Hbp units (Hb
+// padded to 8). It is cut in warp tiles of 16 rows x 8*kN8 columns (gates:
+// 16, two n8 products per k16 step; carry: 8). A warp owns up to
+// kMaxWarpTiles of them; where the block has more warps than the tiles
+// need, the warps also split K: slice s takes the k16 steps s, s + ks, ...
+// of every staged tile. Each slice writes its f32 sums to its own plane of
+// `red` (red[slice][row][col], rows N + 1 floats apart), and the owner of
+// an Item adds the planes in slice order, so it holds its outputs where
+// the FMA forms' owners do: one summation order, no float atomics, and
+// the rest of the walk unchanged.
+//
+// Layouts. The A operand is a staging tile st[b][k], rows kt + 8 elements
+// apart: 16 (kt/8 + 1) bytes, an odd multiple of 16 for a k-tile that is a
+// multiple of 16, so ldmatrix's eight 16-byte rows fall in distinct banks.
+// The gate product's B operand is the block's gate columns gate-major,
+// wc[k][g*Hb + u] = wh[k, g*H + j0 + u], rows 4Hb + 8 apart (8Hb + 16
+// bytes, again an odd multiple of 16), read with ldmatrix.trans; each
+// (k, g) is Hb values side by side in wh, so the columns come in by
+// cp.async in 16- or 8-byte pieces. The carry's B operand is the block's
+// rows of wh, wr[u][m], already [n][k]. A k-tile that ends off a multiple
+// of 16 is padded to one with zeros in both operands on every staging:
+// the buffers rotate, and what an earlier tile left there would add to
+// the sums.
+//
+// Off the card (the CPU emulation of the tests) each lane computes the
+// same accumulator elements from the same shared positions with scalar
+// loops; the fragments themselves are checked on the card only.
+
+constexpr int kMaxWarpTiles = 2;
+
+// the row of the gate columns wc in the tensor-core layout: 4Hb + 8
+__device__ __forceinline__ int wc_ld_tc(int Hb) { return 4 * Hb + kVec<bf16>; }
+
+// How the block's warps share a product of `tiles` warp tiles: warp w owns
+// tiles group + j*groups (j < nt) in k-slice w / groups, of ks; a warp
+// past the last slice idles
+struct Warps {
+  int tiles, nt, groups, ks, slice, group;
+  __device__ __forceinline__ explicit Warps(int tiles_) : tiles(tiles_) {
+    const int W = blockDim.x / 32, w = threadIdx.x / 32;
+    nt = (tiles + W - 1) / W;
+    groups = (tiles + nt - 1) / nt;
+    ks = W / groups;
+    slice = w / groups;
+    group = w % groups;
+  }
+  __device__ __forceinline__ bool active() const { return slice < ks; }
+  // the warp's j-th tile, or -1
+  __device__ __forceinline__ int tile(int j) const {
+    const int i = group + j * groups;
+    return j < nt && i < tiles ? i : -1;
+  }
+};
+
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// a[0..3] = ldmatrix x4 (.trans where kTrans) at this lane's row address
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(unsigned (&a)[4], unsigned addr) {
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&b)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// c += A (16 x 16, a) B (16 x 8, b0 b1): bf16 products summed in f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+#endif
+
+// The warp's tiles over one staged k-tile of kn columns (a multiple of
+// 16): tile i is rows 16 (i % mt) .., columns 8 kN8 (i / mt) .. of the
+// block's product; A rows lda apart; B as [k][n] rows ldb apart (kKN,
+// the gates: two n8 products a tile, B by ldmatrix.trans) or as [n][k]
+// (the carry: one). On the card the lane's ldmatrix row addresses are
+// set once a tile, and each pair of the slice's k16 steps issues all its
+// ldmatrix before its mma, so their latencies overlap.
+template <int kN8, bool kKN>
+__device__ __forceinline__ void mma_tile(float (&acc)[kMaxWarpTiles][kN8][4], const Warps& w,
+                                         int mt, const bf16* A, int lda, const bf16* B, int ldb,
+                                         int kn) {
+  static_assert(kN8 == (kKN ? 2 : 1), "gates: two n8 tiles by ldmatrix.trans; carry: one");
+  if (!w.active()) return;
+  const int lane = threadIdx.x & 31, step = 16 * w.ks;
+#if defined(__CUDA_ARCH__)
+  // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
+  // B[k][n] transposed: (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
+  // B[n][k]: (n 0-7, k 0-7), (n 0-7, k 8-15). Bytes a k16 step moves them.
+  unsigned pa[kMaxWarpTiles], pb[kMaxWarpTiles];
+  const unsigned da = 2 * step, db = 2 * step * (kKN ? ldb : 1);
+#pragma unroll
+  for (int j = 0; j < kMaxWarpTiles; ++j) {
+    const int i = imax(w.tile(j), 0);
+    const int m0 = 16 * (i % mt), n0 = 8 * kN8 * (i / mt), k0 = 16 * w.slice;
+    pa[j] = smem_addr(A + (m0 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+    pb[j] = kKN ? smem_addr(B + (k0 + (lane & 15)) * ldb + n0 + (lane >> 4) * 8)
+                : smem_addr(B + (n0 + (lane & 7)) * ldb + k0 + ((lane >> 3) & 1) * 8);
+  }
+  for (int k = 16 * w.slice; k < kn; k += 2 * step) {
+    const bool two = k + step < kn;  // the same for the whole warp
+    unsigned a[2][kMaxWarpTiles][4], b[2][kMaxWarpTiles][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int j = 0; j < kMaxWarpTiles; ++j) {
+        if (w.tile(j) < 0 || (s && !two)) continue;
+        ldsm_x4<false>(a[s][j], pa[j] + s * da);
+        if constexpr (kKN) {
+          ldsm_x4<true>(b[s][j], pb[j] + s * db);
+        } else {
+          unsigned b2[2];
+          ldsm_x2(b2, pb[j] + s * db);
+          b[s][j][0] = b2[0];
+          b[s][j][1] = b2[1];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int j = 0; j < kMaxWarpTiles; ++j) {
+        if (w.tile(j) < 0 || (s && !two)) continue;
+#pragma unroll
+        for (int q = 0; q < kN8; ++q)
+          mma_bf16(acc[j][q], a[s][j], b[s][j][2 * q], b[s][j][2 * q + 1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxWarpTiles; ++j) {
+      pa[j] += 2 * da;
+      pb[j] += 2 * db;
+    }
+  }
+#else
+  // element e of n8 tile q: row g + 8(e/2), column 8q + 2t + e%2
+  const int g = lane >> 2, t = lane & 3;
+  for (int k = 16 * w.slice; k < kn; k += step) {
+    for (int j = 0; j < kMaxWarpTiles; ++j) {
+      const int i = w.tile(j);
+      if (i < 0) continue;
+      const int m0 = 16 * (i % mt), n0 = 8 * kN8 * (i / mt);
+      for (int q = 0; q < kN8; ++q) {
+        for (int e = 0; e < 4; ++e) {
+          const int row = m0 + g + 8 * (e >> 1), col = n0 + 8 * q + 2 * t + (e & 1);
+          float sum = 0.0f;
+          for (int kk = k; kk < k + 16; ++kk)
+            sum += to_f32(A[row * lda + kk]) *
+                   to_f32(kKN ? B[(size_t)kk * ldb + col] : B[(size_t)col * ldb + kk]);
+          acc[j][q][e] += sum;
+        }
+      }
+    }
+  }
+#endif
+}
+
+// The warp's sums into its slice's plane of red, rows ldr floats apart
+template <int kN8>
+__device__ __forceinline__ void mma_store(const float (&acc)[kMaxWarpTiles][kN8][4],
+                                          const Warps& w, int mt, float* red, int ldr) {
+  if (!w.active()) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* plane = red + (size_t)w.slice * 16 * mt * ldr;
+#pragma unroll
+  for (int j = 0; j < kMaxWarpTiles; ++j) {
+    const int i = w.tile(j);
+    if (i < 0) continue;
+    const int m0 = 16 * (i % mt), n0 = 8 * kN8 * (i / mt);
+#pragma unroll
+    for (int q = 0; q < kN8; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        plane[(m0 + g + 8 * (e >> 1)) * ldr + n0 + 8 * q + 2 * t + (e & 1)] = acc[j][q][e];
+    }
+  }
+}
+
+// output (row, col) of the block's product: the slices' planes of red
+// (M rows each) added in slice order
+__device__ __forceinline__ float mma_sum(const float* red, const Warps& w, int M, int ldr, int row,
+                                         int col) {
+  float v = red[row * ldr + col];
+  for (int s = 1; s < w.ks; ++s) v += red[(s * M + row) * ldr + col];
+  return v;
+}
+
+// wc[k][g*Hb + u] = wh[k0 + k, g*H + j0 + u] for k < kn, u < n_units, rows
+// ldw apart: each (k, g) is n_units values side by side in wh, copied in
+// 16-byte pieces where Hb is a multiple of 8, else in 8-byte ones (Hb is
+// a multiple of 4, and so are j0 and n_units)
+__device__ __forceinline__ void copy_cols_tc(bf16* wc, int ldw, const bf16* __restrict__ wh, int H,
+                                             int j0, int n_units, int Hb, int k0, int kn) {
+  const int V = Hb % 8 ? 4 : 8, q = n_units / V, per_k = 4 * q;
+  for (int idx = threadIdx.x; idx < kn * per_k; idx += blockDim.x) {
+    const int k = idx / per_k, r = idx - k * per_k, g = r / q, v = V * (r - g * q);
+    bf16* dst = wc + k * ldw + g * Hb + v;
+    const bf16* src = wh + (size_t)(k0 + k) * 4 * H + g * H + j0 + v;
+    if (V == 8)
+      copy16_cg(dst, src);
+    else
+      copy8_ca(dst, src);
+  }
+}
+
+// x[r][c] = 0 for r < nr, c0 <= c < c1, rows ld apart: the k16 padding of
+// a ragged k-tile
+__device__ __forceinline__ void zero_tile(bf16* x, int ld, int nr, int c0, int c1) {
+  const int w = c1 - c0;
+  for (int idx = threadIdx.x; idx < nr * w; idx += blockDim.x)
+    x[(idx / w) * ld + c0 + idx % w] = from_f32<bf16>(0.0f);
+}
+
+// gate_product on the tensor cores: the same acc for the same owners. wc
+// in the tensor-core layout, rows wc_ld_tc(Hb) apart: pinned, all H rows
+// and zero rows up to a multiple of 16; streamed, kStages kt-row buffers.
+// red: the slices' planes, Bc x (4Hb + 1) floats each.
+__device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], const bf16* h,
+                                                const bf16* __restrict__ wh, bf16* wc, bf16* st,
+                                                float* red, const Item& it, int rows, int Bc,
+                                                int H, int Hb, int j0, int n_units, int kt,
+                                                int pinned) {
+  const int ld = kt + kVec<bf16>, ldw = wc_ld_tc(Hb), N = 4 * Hb, ldr = N + 1, mt = Bc / 16;
+  const int n = (H + kt - 1) / kt, nrg = Bc / 4;
+  const Warps w(mt * (N / 16));
+  float a[kMaxWarpTiles][2][4] = {};
+  pipelined_tiles(
+      n, blockIdx.x % n,
+      [&](int c, int buf) {
+        const int k0 = c * kt, kn = imin(kt, H - k0), k16 = (kn + 15) & ~15;
+        bf16* s = st + buf * Bc * ld;
+        stage_rows(s, ld, h, H, rows, k0, kn);
+        zero_tile(s, ld, Bc, kn, k16);
+        if (!pinned) {
+          bf16* wb = wc + buf * kt * ldw;
+          copy_cols_tc(wb, ldw, wh, H, j0, n_units, Hb, k0, kn);
+          zero_tile(wb + kn * ldw, ldw, k16 - kn, 0, N);
+        }
+      },
+      [&](int c, int buf) {
+        const int k0 = c * kt, kn = imin(kt, H - k0);
+        const bf16* b = pinned ? wc + (size_t)k0 * ldw : wc + buf * kt * ldw;
+        mma_tile<2, true>(a, w, mt, st + buf * Bc * ld, ld, b, ldw, (kn + 15) & ~15);
+      });
+  mma_store<2>(a, w, mt, red, ldr);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      acc[r][g] = it.owner() ? mma_sum(red, w, Bc, ldr, it.rg + r * nrg, g * Hb + it.col) : 0.0f;
+  }
+  __syncthreads();  // red is free again
+}
+
 // One block's part of the reverse walk, shared by the backward kernels.
 // The block owns Hb units, their four gate columns of wh (for the gate
 // recompute) and their Hb rows of wh (for the carry), both pinned in
@@ -360,8 +662,13 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
 // and dc carries are this block's two (chunks*Bc) x Hb slabs of `carry`.
 // kChunked says which at compile time: with one chunk the walk is the
 // code it was before row chunks, with no chunk loop or carry reloads.
-template <class E, bool kChunked>
+// kTC (bf16 only) runs both products on the tensor cores, with their
+// layout: the gate columns gate-major in rows of wc_ld_tc(Hb) (pinned:
+// padded with zero rows to a multiple of 16), the rows of wr padded to
+// Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
+template <class E, bool kChunked, bool kTC = false>
 struct Walk {
+  static_assert(!kTC || !kF32<E>, "the tensor-core products take bf16");
   const E* wh;
   const int* burn;  // (B,) seams, or null without kSeam
   int B, H, Hb, kt, pinned, Bc, chunks;
@@ -382,11 +689,15 @@ struct Walk {
                                   float* carry)
       : wh(wh_), burn(burn_), B(B_), H(H_), Hb(Hb_), kt(kt_), pinned(pinned_), Bc(Bc_),
         chunks((B_ + Bc_ - 1) / Bc_), j0(blockIdx.x * Hb_),
-        n_units(imin(Hb_, H_ - (int)blockIdx.x * Hb_)), nrg(Bc_ / 4), Hbp((Hb_ + 3) & ~3),
+        n_units(imin(Hb_, H_ - (int)blockIdx.x * Hb_)), nrg(Bc_ / 4),
+        Hbp(kTC ? (Hb_ + 7) & ~7 : (Hb_ + 3) & ~3),
         ld(kt_ + kVec<E>), wr_ld((pinned_ ? 4 * H_ : kt_) + kVec<E>), it(Bc_ / 4, Hb_),
         ic(Bc_ / 4, ((Hb_ + 3) & ~3) / 4) {
     const int H4 = 4 * H;
-    wc_elems = (pinned ? H : kStages * kt) * 4 * Hb;
+    if constexpr (kTC)
+      wc_elems = (pinned ? (H + 15) & ~15 : kStages * kt) * wc_ld_tc(Hb);
+    else
+      wc_elems = (pinned ? H : kStages * kt) * 4 * Hb;
     wr_elems = (pinned ? 1 : kStages) * Hbp * wr_ld;
     st_elems = kStages * Bc * ld;
     wc = reinterpret_cast<E*>(smem);
@@ -418,7 +729,10 @@ struct Walk {
       }
     }
     if (pinned) {  // lands with the first tile
-      load_cols(wc, wh, H, j0, n_units, Hb, 0, H);
+      if constexpr (kTC)
+        copy_cols_tc(wc, wc_ld_tc(Hb), wh, H, j0, n_units, Hb, 0, H);
+      else
+        load_cols(wc, wh, H, j0, n_units, Hb, 0, H);
       stage_rows(wr, wr_ld, wh + (size_t)j0 * H4, H4, n_units, 0, H4);
     }
   }
@@ -474,8 +788,12 @@ struct Walk {
       c_prev[r] = load ? __ldcg(cprev + o) : 0.0f;
     }
     float acc[4][4];
-    gate_product(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it, imin(Bc, B - first(q)),
-                 Bc, H, Hb, j0, n_units, kt, pinned);
+    if constexpr (kTC)
+      gate_product_tc(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it,
+                      imin(Bc, B - first(q)), Bc, H, Hb, j0, n_units, kt, pinned);
+    else
+      gate_product(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it, imin(Bc, B - first(q)),
+                   Bc, H, Hb, j0, n_units, kt, pinned);
     if (!it.owner()) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -514,6 +832,10 @@ struct Walk {
   // the owner of carry item (rg, col), over the 4H columns m in tiles;
   // x_t complete (after the grid barrier)
   __device__ __forceinline__ void carry_product(float (&a)[4][4], const E* x_t, int c) {
+    if constexpr (kTC) {
+      carry_product_tc(a, x_t, c);
+      return;
+    }
     const int H4 = 4 * H;
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
@@ -551,6 +873,40 @@ struct Walk {
           }
         });
     reduce_slices(a, red, ic);
+  }
+
+  // carry_product on the tensor cores: wr's Hbp rows (the padding rows stay
+  // zero) are the B operand, [n][k] already; every tile of 4H is a multiple
+  // of 16 wide (4H is a multiple of 32, kt of 16). red: the slices' planes,
+  // Bc x (Hbp + 1) floats each.
+  __device__ __forceinline__ void carry_product_tc(float (&a)[4][4], const E* x_t, int c) {
+    const int H4 = 4 * H, n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
+    const int mt = Bc / 16, ldr = Hbp + 1;
+    const E* x = x_t + (size_t)first(c) * H4;
+    const Warps w(mt * (Hbp / 8));
+    float acc[kMaxWarpTiles][1][4] = {};
+    pipelined_tiles(
+        n, blockIdx.x % n,
+        [&](int tile, int buf) {
+          const int m0 = tile * kt, mn = imin(kt, H4 - m0);
+          stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
+          if (!pinned)
+            stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
+        },
+        [&](int tile, int buf) {
+          const int m0 = tile * kt, mn = imin(kt, H4 - m0);
+          const E* b = pinned ? wr + m0 : wr + buf * Hbp * wr_ld;
+          mma_tile<1, false>(acc, w, mt, st + buf * Bc * ld, ld, b, wr_ld, mn);
+        });
+    mma_store<1>(acc, w, mt, red, ldr);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        a[r][u] = ic.owner() ? mma_sum(red, w, Bc, ldr, ic.rg + r * nrg, 4 * ic.col + u) : 0.0f;
+    }
+    __syncthreads();  // red is free again
   }
 
   // the carry product's dh of chunk c, kept for step t-1 (masked with kSeam)

@@ -43,7 +43,7 @@ namespace {
 using namespace colsplit;
 
 template <class E, bool kChunked>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kTensorCoreFormThreads<E>)
 lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
                 const E* __restrict__ wh,    // (H, 4H)
                 const E* __restrict__ h0,    // (B, H)
@@ -56,9 +56,12 @@ lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
   const int j0 = blockIdx.x * Hb;
   const int n_units = imin(Hb, H - j0);
   const int nrg = Bc / 4, chunks = kChunked ? (B + Bc - 1) / Bc : 1;
-  // the gate columns (pinned: H x 4Hb; streamed: kStages kt x 4Hb tiles),
-  // kStages Bc x (kt + kVec) staging tiles of h, and the slices' partials
-  const int wc_elems = (pinned ? H : kStages * kt) * 4 * Hb;
+  // the gate columns (pinned: H x 4Hb; streamed: kStages kt x 4Hb tiles;
+  // bf16: in the tensor-core layout, rows of wc_ld_tc(Hb), pinned padded
+  // with zero rows to a multiple of 16), kStages Bc x (kt + kVec) staging
+  // tiles of h, and the slices' partials (bf16: their planes of sums)
+  const int wc_elems = kF32<E> ? (pinned ? H : kStages * kt) * 4 * Hb
+                               : (pinned ? (H + 15) & ~15 : kStages * kt) * wc_ld_tc(Hb);
   const int st_elems = kStages * Bc * (kt + kVec<E>);
   E* wc = reinterpret_cast<E*>(smem);
   E* st = wc + wc_elems;
@@ -76,7 +79,12 @@ lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
     row[r] = imin(it.rg + r * nrg, B - 1);
     c[r] = to_f32(__ldg(c0 + (size_t)row[r] * H + j));
   }
-  if (pinned) load_cols(wc, wh, H, j0, n_units, Hb, 0, H);  // lands with the first tile
+  if (pinned) {  // lands with the first tile
+    if constexpr (kF32<E>)
+      load_cols(wc, wh, H, j0, n_units, Hb, 0, H);
+    else
+      copy_cols_tc(wc, wc_ld_tc(Hb), wh, H, j0, n_units, Hb, 0, H);
+  }
 
   for (int t = 0; t < T; ++t) {
     const E* h = t == 0 ? h0 : outs + (size_t)(t - 1) * B * H;
@@ -99,8 +107,12 @@ lstm_fwd_kernel(const E* __restrict__ proj,  // (T, B, 4H)
         for (int g = 0; g < 4; ++g) z[r][g] = it.owner() ? to_f32(__ldg(p + g * H)) : 0.0f;
       }
       float acc[4][4];
-      gate_product(acc, h + (size_t)r0 * H, wh, wc, st, red, it, imin(Bc, B - r0), Bc, H, Hb, j0,
-                   n_units, kt, pinned);
+      if constexpr (kF32<E>)
+        gate_product(acc, h + (size_t)r0 * H, wh, wc, st, red, it, imin(Bc, B - r0), Bc, H, Hb,
+                     j0, n_units, kt, pinned);
+      else  // on the tensor cores
+        gate_product_tc(acc, h + (size_t)r0 * H, wh, wc, st, red, it, imin(Bc, B - r0), Bc, H,
+                        Hb, j0, n_units, kt, pinned);
       if (it.owner() && unit_ok) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {

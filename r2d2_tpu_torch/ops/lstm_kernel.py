@@ -33,7 +33,9 @@ h_ckpt), each through its own bf16 kernel form (``<name>_bf16``, counted
 under that key), with the Pallas kernels' casts: products of bf16 values
 summed in float32, the (h, c) carry and c residuals in float32, outs (and
 K4's and K5's dz) in the proj dtype, K2's and K3's dz (and K3's dh0, dc0)
-in float32. K4 and K5 sum dWh from the unrounded float32 dz.
+in float32. K4 and K5 sum dWh from the unrounded float32 dz. The bf16
+forms of ``lstm_fwd`` and ``lstm_bwd`` run their products on the tensor
+cores (``mma.sync``, ``TENSOR_CORE``), every other form on the FMA units.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -320,6 +322,32 @@ _MAX_K_TILE = 128
 _ROW_PAD_BYTES = 16
 _STAGES = 4
 
+# the sources whose bf16 forms run their products on the tensor cores
+# (column_split.cuh: mma.sync m16n8k16, rows of 16, warp tiles of 16 x 16
+# gate columns and 16 x 8 carry units, at most _MAX_WARP_TILES a warp)
+TENSOR_CORE = ("lstm_fwd", "lstm_bwd")
+_MMA_ROWS = 16
+_MAX_WARP_TILES = 2
+# their thread ceiling (column_split.cuh kMaxThreadsTC): a thread may keep
+# up to 255 registers; and their widest k-tile (fewer, longer pipeline
+# tiles per step)
+_MAX_THREADS_TC = 256
+_MAX_K_TILE_TC = 256
+
+
+def tensor_cores(kernel: str, itemsize: int) -> bool:
+    """Whether the form of `kernel` for operands of `itemsize` bytes runs
+    its products on the tensor cores (the bf16 forms of K1 and K3)."""
+    return kernel in TENSOR_CORE and itemsize == 2
+
+
+def tensor_core_layout(units: int) -> Tuple[int, int]:
+    """(gate columns, carry units) of a tensor-core form's block product at
+    `units` hidden units per block (a multiple of 4): the 4 x units gate
+    columns, a multiple of 16, and the units padded to 8 for the carry's
+    n8 tiles."""
+    return 4 * units, 8 * -(-units // 8)
+
 
 class Geometry(NamedTuple):
     """How a column-split kernel cuts its work, passed to it as ints."""
@@ -354,9 +382,82 @@ def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bc: 
     return ((region // _STAGES) & ~15) // row
 
 
+def _warp_slices(tiles: int, warps: int) -> int:
+    """The k-slices of a product of `tiles` warp tiles over `warps` warps
+    (column_split.cuh, ``Warps``)."""
+    per_warp = -(-tiles // warps)
+    return warps // -(-tiles // per_warp)
+
+
+def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int,
+                          max_threads: int, max_rows) -> Geometry:
+    """lstm_geometry of a tensor-core form (K1-bf16, K3-bf16). Hb is
+    ceil(H / SMs) rounded up to 4, so each gate's Hb columns of a wh row
+    come in whole 8- or 16-byte copies; chunks are whole m16 tiles of rows;
+    the k-tile a multiple of 16, the widest that fits (wh streamed before
+    a narrower tile); the threads whole warps, at most _MAX_THREADS_TC, at
+    least one per row group and unit (the epilogue's owners) and enough
+    that no warp holds more than _MAX_WARP_TILES tiles, widened to one warp
+    per tile where the ceiling allows. Shared memory: the staging tiles;
+    the gate columns in rows of 4Hb + 8 (pinned: H padded to 16 rows); for
+    the walk also wh's Hbp rows and, with one chunk, the dh carry; and the
+    slices' planes of f32 sums, rows of N + 1, for the larger of the two
+    products."""
+    per_sm = -(-H // num_sms)
+    units = 4 * -(-per_sm // 4)
+    grid = -(-H // units)
+    N, Hbp = tensor_core_layout(units)
+    max_threads = min(max_threads, _MAX_THREADS_TC)
+    if 4 * units > max_threads or max_threads < 32:
+        raise ValueError(f"{units} units per block in rows of {_MMA_ROWS} need more than "
+                         f"{max_threads} threads")
+    k16 = 16 * -(-H // 16)
+    widest = min(k16, _MAX_K_TILE_TC)
+    tiles = [widest] + [k for k in (128, 64, 32, 16) if k < widest]
+    m_all = -(-B // _MMA_ROWS)
+    tried = set()
+    for n in range(1, m_all + 1):
+        mt = -(-m_all // n)  # m16 tiles per chunk
+        rows = _MMA_ROWS * mt
+        if mt in tried or (max_rows is not None and rows > max_rows):
+            continue
+        tried.add(mt)
+        gate_tiles, carry_tiles = mt * N // 16, mt * Hbp // 8
+        most = max(gate_tiles, carry_tiles if backward else 0)
+        need = max(rows // 4 * units, 32 * -(-most // _MAX_WARP_TILES))
+        # a warp per tile where the ceiling allows (no k-slices beyond it)
+        threads = max(32 * -(-need // 32), min(32 * most, max_threads // 32 * 32))
+        if threads > max_threads:
+            continue
+        warps = threads // 32
+        red = _warp_slices(gate_tiles, warps) * rows * (N + 1)
+        if backward:
+            red = max(red, _warp_slices(carry_tiles, warps) * rows * (Hbp + 1))
+        one_chunk = rows >= B
+        # the widest k-tile first, pinned where it fits: the pipeline's
+        # tiles per step, not the bytes it streams, cost the most
+        for kt in tiles:
+            for pinned in (True, False):
+                nbytes = _STAGES * rows * (kt * 2 + _ROW_PAD_BYTES) + 4 * red
+                if backward and one_chunk:
+                    nbytes += 4 * rows * units
+                if pinned:
+                    nbytes += k16 * (N * 2 + _ROW_PAD_BYTES)
+                    if backward:
+                        nbytes += Hbp * (4 * H * 2 + _ROW_PAD_BYTES)
+                else:
+                    nbytes += _STAGES * kt * (N * 2 + _ROW_PAD_BYTES)
+                    if backward:
+                        nbytes += _STAGES * Hbp * (kt * 2 + _ROW_PAD_BYTES)
+                if nbytes <= smem_limit:
+                    return Geometry(units, grid, threads, kt, pinned, nbytes, rows)
+    raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
+
+
 @functools.lru_cache(maxsize=None)
 def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
-                  itemsize: int = 4, max_threads: int = _MAX_THREADS) -> Geometry:
+                  itemsize: int = 4, max_threads: int = _MAX_THREADS,
+                  max_rows=None) -> Geometry:
     """The column split of `kernel` (one of COLUMN_SPLIT) on a card with
     `num_sms` SMs and `smem_limit` bytes of shared memory per block, for
     operands of `itemsize` bytes (4: float32, 2: bf16).
@@ -373,6 +474,12 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     K5, until a stage of their dWh pass holds a row). Where one chunk holds
     the batch the walk's dh carry sits in shared memory; with more, both
     carries go to a global workspace.
+    `max_rows`, where given, caps the rows per chunk.
+
+    The tensor-core forms (``tensor_cores``: the bf16 forms of K1 and K3)
+    take their own layout (``_tensor_core_geometry``): units a multiple of
+    4, chunks of whole 16-row tiles, k-tiles a multiple of 16, threads in
+    whole warps.
     Raises ValueError where no tile fits even a chunk of 4 rows, or H is
     not a multiple of 16 bytes of the operands (the kernels copy 16-byte
     rows)."""
@@ -385,6 +492,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
         raise ValueError(f"hidden size {H} is not a multiple of {vec} (16-byte rows of "
                          f"{itemsize}-byte values)")
     backward = kernel != "lstm_fwd"
+    if tensor_cores(kernel, itemsize):
+        return _tensor_core_geometry(B, H, backward, num_sms, smem_limit, max_threads, max_rows)
     units = -(-H // num_sms)
     grid = -(-H // units)
     if units > max_threads:
@@ -397,7 +506,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     for n in range(1, row_groups + 1):
         groups = -(-row_groups // n)  # row groups per chunk
         items = groups * units
-        if groups in tried or items > max_threads:
+        if groups in tried or items > max_threads or (max_rows is not None
+                                                        and 4 * groups > max_rows):
             continue
         tried.add(groups)
         rows = 4 * groups
@@ -487,6 +597,8 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
         return lstm_fwd_plain(proj_t, wh, h0, c0)
     geo = _geometry(B, H, "lstm_fwd", dev, dt)
     _check_aligned("h0", h0)
+    if tensor_cores("lstm_fwd", dt.itemsize):
+        _check_aligned("wh", wh)  # its gate columns come in 8- and 16-byte copies
     outs = torch.empty((T, B, H), dtype=dt, device=dev)
     cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     _launch(_form("lstm_fwd", dt), (proj_t, wh, h0, c0, outs, cs, _barrier(dev)),

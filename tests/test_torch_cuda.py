@@ -24,7 +24,9 @@ float32 in other orders, so a value may round to the neighbouring bf16
 value (2^-8 relative) where the two sums straddle a rounding boundary,
 and that step feeds the later ones: outs, cs and dz are held to
 BF16_ATOL absolute plus BF16_RTOL relative, dWh to BF16_DWH of its
-largest entry. Two launches still give the same bits.
+largest entry. Two launches still give the same bits. The bf16 forms of
+K1 and K3 sum their products on the tensor cores (mma.sync), whose f32
+sums take yet another order: the same class holds them.
 """
 
 import copy
@@ -390,6 +392,45 @@ def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
     assert lstm_kernel.launch_counts == dict(
         dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_bwd_bf16=2, lstm_seq_bwd_fused_bf16=8,
         lstm_seq_bwd_bf16=4)
+
+
+# the tensor-core forms (K1-bf16, K3-bf16): ragged batches (B=5, 37: one
+# m16 tile part empty), H whose last k-tile ends off a multiple of 16 (40,
+# 600) and units per block not a multiple of 8 (H=40, 600: 4 and 8 of 132
+# SMs' ceil rounded to 4), the atari, wide B=96 and xl shapes, and batches
+# in row chunks (3 and 4 at the forms' 256 threads)
+TC_SHAPES = [(7, 5, 40), (9, 37, 600), (11, 37, 40), (6, 5, 600), (85, 64, 512),
+             (85, 96, 1024), (85, 64, 2048)] + CHUNKED
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+def test_tensor_core_forms_match_plain_versions(cuda, shape):
+    """K1-bf16 (outs, cs) and K3-bf16 (dz, dh0, dc0), whose products run on
+    the tensor cores, against their plain versions in the bf16 class, each
+    launched twice for the same bits and counted under its own key."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, _ = _operands(cuda, T, B, H, BF16, T * B + H + 4)
+    geo = {n: lstm_kernel._geometry(B, H, n, cuda, BF16) for n in lstm_kernel.TENSOR_CORE}
+    for g in geo.values():
+        assert g.rows % 16 == 0 and g.units % 4 == 0 and g.threads % 32 == 0
+        assert (g.chunks(B) >= 2) == (shape in CHUNKED)
+    lstm_kernel.reset_launch_counts()
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    assert outs.dtype == BF16 and cs.dtype == torch.float32
+    torch.testing.assert_close(outs.float(), p_outs.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(cs, p_cs, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, (outs, cs), lstm_kernel.lstm_fwd(proj, wh, h0, c0)))
+    walk = (dout, proj, torch.cat([h0[None], p_outs[:-1]]), torch.cat([c0.float()[None],
+            p_cs[:-1]]), p_cs, wh, dcT)
+    got = lstm_kernel.lstm_bwd(*walk)
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, got, lstm_kernel.lstm_bwd(*walk)))
+    torch.cuda.synchronize()
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd_bf16=2, lstm_bwd_bf16=2)
 
 
 def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):

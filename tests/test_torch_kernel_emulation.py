@@ -74,7 +74,7 @@ def _emulated(name, out_dir):
     g++: {kernel form: its entry point}, with the port's C signatures."""
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
-    src = re.sub(r"__launch_bounds__\(\w+\)", "", src)  # a register budget: no CPU meaning
+    src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)  # a register budget: no CPU meaning
     # every kernel is a cooperative launch (column_split.cuh)
     assert "launch_cooperative(" in src, f"{name}.cu: launches?"
     cpp = os.path.join(out_dir, f"{name}.cpp")
@@ -120,14 +120,35 @@ EMULATED_SMS = 4
 SMEM_LIMIT = 232_448
 
 
+# a tensor-core form's thread ceiling below 512: cut into chunks by rows
+# instead (a warp is its least block), one m16 tile a chunk
+TC_CHUNK_ROWS = 16
+
+
+def _emulated_geometry(name, B, H, max_threads=512):
+    """The emulated geometry of kernel form `name`. A tensor-core form (the
+    bf16 forms of K1 and K3) owns at most 64 units a block (one thread per
+    4 rows and unit, 16 rows, 256 threads), so it takes more blocks where H
+    needs them;
+    and where the case cuts threads to force row chunks, it takes a row
+    ceiling of TC_CHUNK_ROWS instead."""
+    src = lstm_kernel._SOURCE[name]
+    itemsize = 2 if name.endswith("_bf16") else 4
+    if not lstm_kernel.tensor_cores(src, itemsize):
+        return lstm_kernel.lstm_geometry(B, H, src, EMULATED_SMS, SMEM_LIMIT, itemsize,
+                                         max_threads)
+    rows = TC_CHUNK_ROWS if max_threads < 512 else None
+    return lstm_kernel.lstm_geometry(B, H, src, max(EMULATED_SMS, -(-H // 64)), SMEM_LIMIT,
+                                     itemsize, 512, rows)
+
+
 def _split(kernels, name, tensors, T, B, H, *ints, max_threads=512):
     """Launch the column-split kernel form `name` at the emulated geometry
     (its dtype's, within `max_threads`), with the walk's carry workspace
     where the batch takes more than one chunk and a zeroed grid barrier;
     `ints` (K5's S) come between H and the geometry. -> the geometry."""
     src = lstm_kernel._SOURCE[name]
-    itemsize = 2 if name.endswith("_bf16") else 4
-    g = lstm_kernel.lstm_geometry(B, H, src, EMULATED_SMS, SMEM_LIMIT, itemsize, max_threads)
+    g = _emulated_geometry(name, B, H, max_threads)
     if src != "lstm_fwd":
         tensors = (*tensors, lstm_kernel._carry_workspace(g, B, "cpu"))
     _call(kernels[name], (*tensors, torch.zeros(2, dtype=torch.int32)), T, B, H, *ints,
@@ -446,10 +467,13 @@ BF16_CHUNK_SHAPES = [(7, 9, 32, 16), (4, 21, 40, 20)]
 def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
     """K1, K2 (seams 0, mid, T-1, mixed) and K5 (two strides, seams on and
     inside segments) with bf16 operands, one chunk and row chunks, against
-    their bf16 plain versions; each launched twice for the same bits."""
+    their bf16 plain versions; each launched twice for the same bits. K1's
+    bf16 form runs its host tile product (the tensor-core form's), in row
+    chunks where the batch is wider than TC_CHUNK_ROWS."""
     for name in lstm_kernel.SOURCES:
-        g = lstm_kernel.lstm_geometry(B, H, name, EMULATED_SMS, SMEM_LIMIT, 2, mt)
-        assert g.chunks(B) >= 2 or mt == 512, (name, g)
+        g = _emulated_geometry(f"{name}_bf16", B, H, mt)
+        tc = lstm_kernel.tensor_cores(name, 2)
+        assert g.chunks(B) >= 2 or mt == 512 or (tc and B <= TC_CHUNK_ROWS), (name, g)
     rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
     outs, cs = _fwd(kernels, proj, wh, h0, c0, mt)
     assert outs.dtype == BF16 and cs.dtype == torch.float32
@@ -546,3 +570,35 @@ def test_emulated_bf16_fused_dwh_window_may_not_divide_T(kernels, T, B, H, mt):
     burn_np = rng.integers(0, T, B)
     dz = [_check_bf16_fused(kernels, walk, burn_np, mt, window) for window in (1, 3, T)]
     assert all(torch.equal(d, dz[0]) for d in dz)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core forms (K1-bf16, K3-bf16) in row chunks
+# ---------------------------------------------------------------------------
+
+
+# batches that the tensor-core forms walk in chunks of TC_CHUNK_ROWS (3 and
+# 2, the last one ragged), with H's last k-tile ending off a multiple of 16
+# (40 of 48; 600 = 18 x 32 + 24): their host tile products read the zero
+# padding of both operands, restaged every step and chunk
+TC_CHUNK_SHAPES = [(4, 37, 40, 20), (3, 21, 600, 300)]
+
+
+@pytest.mark.parametrize("T,B,H,mt", TC_CHUNK_SHAPES)
+def test_emulated_tensor_core_forms_in_row_chunks_match_plain_versions(kernels, T, B, H, mt):
+    """K1-bf16 (outs, cs) and K3-bf16 (dz, dh0, dc0) in two or more row
+    chunks against their bf16 plain versions, each launched twice for the
+    same bits."""
+    for name in ("lstm_fwd_bf16", "lstm_bwd_bf16"):
+        g = _emulated_geometry(name, B, H, mt)
+        assert g.rows == TC_CHUNK_ROWS and g.chunks(B) >= 2 and B % g.rows, (name, g)
+    _, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
+    got = _fwd(kernels, proj, wh, h0, c0, mt)
+    for a, b in zip(got, (p_outs, p_cs)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, got, _fwd(kernels, proj, wh, h0, c0, mt)))
+    walk = _walk(proj, wh, h0, c0, p_outs, p_cs, dout, dcT)
+    got = _seamless(kernels, *walk, mt=mt)
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(map(torch.equal, got, _seamless(kernels, *walk, mt=mt)))

@@ -246,21 +246,58 @@ def test_column_split_geometry_that_fit_before_row_chunks_is_unchanged(shape):
         assert tuple(g)[:6] == want and g.rows == 4 * -(-B_ // 4) and g.chunks(B_) == 1, kernel
 
 
+# the bf16 column split of the forms that keep their products on the FMA
+# units (K2, K4, K5), as it was before K1-bf16 and K3-bf16 moved to the
+# tensor cores: (units, grid, threads, k_tile, pinned, smem_bytes, rows)
+_FMA_BF16_GEOMETRY = {
+    (64, 512): (4, 128, 256, 128, True, 119872, 64),
+    (96, 1024): (8, 128, 192, 64, True, 201856, 96),
+    (64, 2048): (16, 128, 256, 128, False, 173056, 64),
+    (600, 512): (4, 128, 300, 64, True, 224832, 300),
+    (200, 2048): (16, 128, 400, 128, False, 217344, 100),
+    (1024, 512): (4, 128, 512, 32, True, 229440, 512),
+    (256, 2048): (16, 128, 512, 64, False, 148480, 128),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_FMA_BF16_GEOMETRY), ids=str)
+def test_column_split_geometry_of_the_fma_bf16_forms_is_unchanged(shape):
+    """K2-, K4- and K5-bf16 keep the split they had: the same code path at
+    the atari, wide B=96 and xl shapes and in row chunks."""
+    B_, H_ = shape
+    for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
+        assert not port.tensor_cores(kernel, 2)
+        g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, 2)
+        assert tuple(g) == _FMA_BF16_GEOMETRY[shape], kernel
+
+
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("H_", [512, 1024, 2048])
 def test_column_split_geometry_splits_every_batch(H_, itemsize):
     """Every kernel has a column split for every batch from 1 to 4096 rows
     at the widths the model presets train (hidden 512, 1024, 2048), in
-    both operand sizes: whole chunks of 4-row groups that cover the batch,
-    the block within 512 threads and the card's shared memory, a stage of
-    K4's and K5's dWh pass holding a row."""
+    both operand sizes: whole chunks that cover the batch, the block within
+    512 threads and the card's shared memory, a stage of K4's and K5's dWh
+    pass holding a row. The FMA forms take chunks of 4-row groups and a
+    whole number of k-slices of their items; the tensor-core forms (K1- and
+    K3-bf16) chunks of 16-row tiles, units a multiple of 4 (the carry's
+    padded to 8), k-tiles a multiple of 16, and whole warps, at least one
+    thread per 4 rows and unit (the epilogue's owners), and no more than
+    256 (a thread may keep 255 registers)."""
     batches = sorted({*range(1, 70), *range(70, 4097, 37), 1024, 2048, 4096})
     for kernel in port.SOURCES:
         for B_ in batches:
             g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, itemsize)
             groups = g.rows // 4
             assert g.rows % 4 == 0 and g.chunks(B_) * g.rows >= B_ > (g.chunks(B_) - 1) * g.rows
-            assert g.threads <= 512 and g.threads % (groups * g.units) == 0
+            assert g.threads <= 512
+            if port.tensor_cores(kernel, itemsize):
+                gates, carry_units = port.tensor_core_layout(g.units)
+                assert g.rows % 16 == 0 and g.units % 4 == 0 and g.k_tile % 16 == 0
+                assert gates % 16 == 0 and carry_units % 8 == 0 and carry_units >= g.units
+                assert g.threads % 32 == 0 and groups * g.units <= g.threads <= 256
+            else:
+                assert g.threads % (groups * g.units) == 0
             assert g.smem_bytes <= H100_SMEM and g.grid <= H100_SMS
             if kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
                 assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows,
@@ -283,3 +320,9 @@ def test_column_split_geometry_refuses_what_cannot_fit():
         port.lstm_geometry(64, 512, "lstm_fwd", H100_SMS, H100_SMEM, max_threads=2)
     with pytest.raises(ValueError, match="column-split"):
         port.lstm_geometry(64, 512, "not_a_kernel", H100_SMS, H100_SMEM)
+    # a tensor-core form: 16 rows of 132 units need 528 threads, over its
+    # ceiling of 256, and no warp fits 16
+    with pytest.raises(ValueError, match="threads"):
+        port.lstm_geometry(64, 132 * 132, "lstm_bwd", H100_SMS, H100_SMEM, itemsize=2)
+    with pytest.raises(ValueError, match="threads"):
+        port.lstm_geometry(64, 512, "lstm_fwd", H100_SMS, H100_SMEM, itemsize=2, max_threads=16)
