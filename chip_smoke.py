@@ -10,7 +10,7 @@ its own lines; any failure exits non-zero and prints no result:
 2. build  the five kernels from r2d2_tpu_torch/csrc with nvcc, in parallel;
           registers, shared memory and spills as ptxas reports them; the
           HMMA (tensor-core) instructions of each form in the built
-          library's SASS (cuobjdump -sass): the bf16 forms of K1 and K3
+          library's SASS (cuobjdump -sass): the bf16 forms of K1, K3 and K5
           must have some, in every instantiation.
 3. check  each kernel against its plain PyTorch version on the card: at the
           atari widths (T=85, B=64, H=512, fp32), at the xl width (H=2048)
@@ -54,7 +54,7 @@ its own lines; any failure exits non-zero and prints no result:
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
           and B=256, H=2048 (T=85): against their plain versions, two
           launches each giving the same bits, and their times; the bf16
-          forms of K3 and K4 likewise, K4-bf16's dz equal to K2-bf16's
+          forms of K3, K4 and K5 likewise, K4-bf16's dz equal to K2-bf16's
           rounded to bf16.
 10. bf16  the bf16 forms of all five kernels against their plain versions
           at the atari and xl widths and at the wide model's batch 96
@@ -73,14 +73,17 @@ its own lines; any failure exits non-zero and prints no result:
           at backward_arm=default (2 updates, for its peak memory beside
           the fused arm's), backward_arm=fused_dwh at the atari widths and
           fused_sequence=False (4 updates each; 2 lstm_fwd_bf16 + 1
-          lstm_bwd_bf16), and one update of the wide model with
-          fused_sequence=False.
+          lstm_bwd_bf16), one update of the wide model with
+          fused_sequence=False, and backward_arm=ckpt at the atari widths
+          (stride 5; 4 updates of 2 lstm_fwd_bf16 + 1
+          lstm_seq_bwd_ckpt_bf16), the second path of K5's bf16 form.
 12. agree bf16  one bf16 update on the card against the same update
           through the plain versions on the CPU, and the bf16 update
           against the fp32 update on the card from the same parameters and
           batch (tests/test_precision.py's class: loss within 5%,
           priorities rtol 0.2 / atol 0.05): the main path, the wide model
-          at batch 96 (fused_dwh) and fused_sequence=False.
+          at batch 96 (fused_dwh), fused_sequence=False, and both paths of
+          K5's bf16 form, ckpt at the atari widths and xl.
 13. time bf16  each bf16 form, its plain version, its bounds (the bytes,
           and the operations at the fp32 FMA peak and at the bf16 tensor
           cores' dense peak) and cuDNN's LSTM forward and backward in bf16
@@ -608,17 +611,18 @@ def main():
         return proj, wh, h0, c0, (outs, cs), walk, ckpt, mixed
 
     def check_chunks_bf16(T, B, H, seed):
-        """The bf16 forms of K3 and K4 with the batch in row chunks: against
-        their plain versions, seams 0 and mixed for K4; two launches each
-        give the same bits, K4-bf16's dz is K2-bf16's rounded; their
-        times."""
+        """The bf16 forms of K3, K4 and K5 with the batch in row chunks:
+        against their plain versions, seams 0 and mixed for K4 and K5 (S=5);
+        two launches each give the same bits, K4-bf16's dz is K2-bf16's
+        rounded; their times."""
         at = f"at T={T} B={B} H={H} bf16"
-        for kernel in ("lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_fused"):
+        for kernel in ("lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
             geo = K._geometry(B, H, kernel, dev, torch.bfloat16)
             if geo.chunks(B) < 2:
                 fail(f"{kernel}_bf16 {at}: {geo} takes the batch in one chunk")
             say("chunks", f"{at}: {kernel}_bf16 column split {geo}, {geo.chunks(B)} row chunks")
-        *_, walk, _, mixed = bf16_operands(T, B, H, seed)
+        *_, walk, ckpt, mixed = bf16_operands(T, B, H, seed)
+        S = 5
         got = K.lstm_bwd(*walk)
         for a, b in zip(got, K.lstm_bwd_plain(*walk)):
             hold_bf16("lstm_bwd_bf16", a, b, at)
@@ -633,17 +637,27 @@ def main():
             hold_dwh_bf16("lstm_seq_bwd_fused_bf16", f_dwh, p_dwh, where)
             zero_below("lstm_seq_bwd_fused_bf16", f_dz, burn, where)
             hold_fused_dz(f_dz, K.lstm_seq_bwd(*walk, burn), same, where)
+            k_dz, k_dwh = K.lstm_seq_bwd_ckpt(*ckpt(S), burn, S)
+            p_dz, p_dwh = K.lstm_seq_bwd_ckpt_plain(*ckpt(S), burn, S)
+            hold_bf16("lstm_seq_bwd_ckpt_bf16", k_dz, p_dz, f"{where} S={S}")
+            hold_dwh_bf16("lstm_seq_bwd_ckpt_bf16", k_dwh, p_dwh, f"{where} S={S}")
+            zero_below("lstm_seq_bwd_ckpt_bf16", k_dz, burn, where)
         if not all(map(torch.equal, (f_dz, f_dwh), K.lstm_seq_bwd_fused(*walk, mixed))):
             fail(f"lstm_seq_bwd_fused_bf16: two launches differ {at}")
+        if not all(map(torch.equal, (k_dz, k_dwh), K.lstm_seq_bwd_ckpt(*ckpt(S), mixed, S))):
+            fail(f"lstm_seq_bwd_ckpt_bf16: two launches differ {at}")
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
         t_ms = {
             "lstm_bwd_bf16": median_ms(lambda: K.lstm_bwd(*walk), 5, flush),
             "lstm_seq_bwd_fused_bf16": median_ms(lambda: K.lstm_seq_bwd_fused(*walk, mixed), 5,
                                                  flush),
+            "lstm_seq_bwd_ckpt_bf16": median_ms(lambda: K.lstm_seq_bwd_ckpt(*ckpt(S), mixed, S),
+                                                5, flush),
         }
-        say("chunks", f"{at}: lstm_bwd_bf16 and lstm_seq_bwd_fused_bf16 within atol {BF16_ATOL} "
-            f"+ rtol {BF16_RTOL} (dWh within {BF16_DWH_TOL} x max|dWh|), seams 0 and mixed; two "
-            f"launches of each give identical bits; lstm_seq_bwd_fused_bf16's dz "
+        say("chunks", f"{at}: lstm_bwd_bf16, lstm_seq_bwd_fused_bf16 and lstm_seq_bwd_ckpt_bf16 "
+            f"(S={S}) within atol {BF16_ATOL} + rtol {BF16_RTOL} (dWh within {BF16_DWH_TOL} x "
+            f"max|dWh|), seams 0 and mixed; two launches of each give identical bits; "
+            f"lstm_seq_bwd_fused_bf16's dz "
             + ("equals lstm_seq_bwd_bf16's rounded to bf16" if same else
                "(another split than lstm_seq_bwd_bf16's) agrees with lstm_seq_bwd_bf16's")
             + f"; on {card}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
@@ -1094,8 +1108,6 @@ def main():
         fail(f"bf16 xl: expected {2 * XL_UPDATES} lstm_fwd_bf16 and {XL_UPDATES} "
              f"lstm_seq_bwd_ckpt_bf16 launches, got {bx_launches}")
     path_launches["lstm_seq_bwd_ckpt_bf16"] = bx_launches["lstm_seq_bwd_ckpt_bf16"]
-    if not args.profile:
-        del bx_tr
 
     p_cfg = b_cfg.replace(precision="bf16")
     t = time.perf_counter()
@@ -1128,6 +1140,8 @@ def main():
          "lstm_bwd_bf16"),
         ("wide B=96 fused_sequence=False", wide_cfg.replace(fused_sequence=False), 1,
          ("default", 0), "lstm_bwd_bf16"),
+        ("ckpt", b_cfg.replace(backward_arm="ckpt"), ARM_UPDATES, ("ckpt", 5),
+         "lstm_seq_bwd_ckpt_bf16"),
     ):
         t = time.perf_counter()
         a_tr, a_launches, a_m, a_ms, a_peak = drive(path_cfg, n, dev)
@@ -1174,6 +1188,7 @@ def main():
         f"{core_peak(w_tr, ('fused_dwh', 0)):.3f} GiB, default "
         f"{core_peak(w_tr, ('default', 0)):.3f} GiB")
     n_tr = bf16_paths["fused_sequence=False"][0]
+    c_tr = bf16_paths["ckpt"][0]
     del bf16_paths
 
     # 12. bf16 against the CPU, and against fp32 on the card -----------------
@@ -1213,6 +1228,14 @@ def main():
     agree(n_tr, "bf16 fused_sequence=False", **BF16_AGREE)
     vs_fp32(n_tr, "fused_sequence=False")
     del n_tr
+    # K5's bf16 form, on the tensor cores, on both its paths
+    agree(c_tr, "bf16 ckpt", **BF16_AGREE)
+    vs_fp32(c_tr, "ckpt")
+    del c_tr
+    agree(bx_tr, "bf16 xl (ckpt, 5)", **BF16_AGREE)
+    vs_fp32(bx_tr, "xl")
+    if not args.profile:
+        del bx_tr
 
     # 13. the bf16 forms' times and bounds -----------------------------------
     burn16 = torch.from_numpy(b_sampled.burn_in_steps).to(dev)

@@ -4,7 +4,7 @@
 // staged rows and of wh is float or __nv_bfloat16; every product is a
 // float32 multiply-add of values converted where they are used (a product
 // of two bf16 values is exact in float32), and every carry is float32.
-// The bf16 forms of K1 and K3 run their products on the tensor cores
+// The bf16 forms of K1, K3 and K5 run their products on the tensor cores
 // instead (bf16 operands summed in f32; "The tensor-core products" below).
 //
 // The layout. A persistent cooperative grid of about one block per SM.
@@ -73,8 +73,9 @@ constexpr int kVec = 16 / (int)sizeof(E);
 template <class E>
 constexpr bool kF32 = std::is_same<E, float>::value;
 
-// the thread ceiling (__launch_bounds__) of K1 and K3, whose bf16 forms
-// run on the tensor cores (one template argument: the macro splits commas)
+// the thread ceiling (__launch_bounds__) of K1, K3 and K5, whose bf16
+// forms run on the tensor cores (one template argument: the macro splits
+// commas)
 template <class E>
 constexpr int kTensorCoreFormThreads = kF32<E> ? kMaxThreads : kMaxThreadsTC;
 
@@ -357,9 +358,10 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core products of the bf16 forms of K1 (lstm_fwd.cu) and K3
-// (lstm_bwd.cu): mma.sync m16n8k16, bf16 operands summed in f32, fed by
-// ldmatrix from the staged tiles.
+// The tensor-core products of the bf16 forms of K1 (lstm_fwd.cu), K3
+// (lstm_bwd.cu) and K5 (lstm_seq_bwd_ckpt.cu: its recompute and walk, and
+// its dWh pass, mma_tile_at below): mma.sync m16n8k16, bf16 operands summed
+// in f32, fed by ldmatrix from the staged tiles.
 //
 // The block's product is an M x N tile: M = Bc rows (a multiple of 16), N
 // the gate columns 4Hb (Hb a multiple of 4) or the carry's Hbp units (Hb
@@ -635,6 +637,86 @@ __device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], const bf16* 
   __syncthreads();  // red is free again
 }
 
+// The dWh tile product of K5's bf16 form: out[k][n] += sum_m h[m][k] *
+// (hi[m][n] + lo[m][n]), the f32 dz carried in two bf16 planes (hi its
+// rounding, lo the rounding of the rest). M = dWh rows k, N = the block's
+// gate columns, K = the segment's (step, row) pairs m. A = h^T, staged as
+// h rows hs[m][k] (ldh apart) and read by ldmatrix.trans; B = the planes
+// [m][n] (ldd apart), by ldmatrix.trans as the gate columns are. A warp
+// owns kDwhTiles 16 x 16 output tiles, kDwhTiles / kNW k16 rows of tiles by
+// kNW n16 columns of them (kNW divides the block's n16 columns, so a warp
+// tile is never ragged in n): its k columns k0 .. of hs, kt16 of its k16
+// rows real (the last k pass may end early), its columns n0 .. of the
+// planes. Each m16 step loads its A fragments and the hi plane's, runs the
+// hi products, then loads the lo plane's and runs the lo products: per
+// output, m in order, hi before lo.
+constexpr int kDwhTiles = 8;
+
+template <int kNW>
+__device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2][4], int kt16,
+                                            const bf16* hs, int ldh, const bf16* hi,
+                                            const bf16* lo, int ldd, int k0, int n0, int m16) {
+  constexpr int kKW = kDwhTiles / kNW;
+  const int lane = threadIdx.x & 31;
+#if defined(__CUDA_ARCH__)
+  // A^T: matrices (m 0-7, k 0-7), (m 0-7, k 8-15), (m 8-15, k 0-7),
+  // (m 8-15, k 8-15), each transposed into a0..a3 of the k x m tile; the
+  // planes as the gate columns: (m 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15),
+  // (8-15, 8-15), two n8 products each
+  const unsigned pa = smem_addr(hs + ((lane & 7) + ((lane >> 4) << 3)) * ldh + k0 +
+                                ((lane >> 3) & 1) * 8);
+  const int off_b = (lane & 15) * ldd + n0 + (lane >> 4) * 8;
+  const unsigned ph = smem_addr(hi + off_b), pl = smem_addr(lo + off_b);
+  for (int m = 0; m < m16; m += 16) {
+    unsigned a[kKW][4], b[kNW][4];
+#pragma unroll
+    for (int jk = 0; jk < kKW; ++jk)
+      if (jk < kt16) ldsm_x4<true>(a[jk], pa + 2 * (m * ldh + 16 * jk));
+    // the hi plane's products, then the lo plane's in the same registers
+    // (the kernel keeps the walk's state beside them)
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+#pragma unroll
+      for (int jn = 0; jn < kNW; ++jn)
+        ldsm_x4<true>(b[jn], (plane ? pl : ph) + 2 * (m * ldd + 16 * jn));
+#pragma unroll
+      for (int jk = 0; jk < kKW; ++jk) {
+        if (jk >= kt16) continue;
+#pragma unroll
+        for (int jn = 0; jn < kNW; ++jn) {
+          mma_bf16(acc[jk][jn][0], a[jk], b[jn][0], b[jn][1]);
+          mma_bf16(acc[jk][jn][1], a[jk], b[jn][2], b[jn][3]);
+        }
+      }
+    }
+  }
+#else
+  // element e of n8 half q of tile (jk, jn): row k0 + 16jk + g + 8(e/2),
+  // column n0 + 16jn + 8q + 2t + e%2; A read transposed, hs[m][k]
+  const int g = lane >> 2, t = lane & 3;
+  for (int m = 0; m < m16; m += 16) {
+    for (int jk = 0; jk < kKW && jk < kt16; ++jk) {
+      for (int jn = 0; jn < kNW; ++jn) {
+        for (int q = 0; q < 2; ++q) {
+          for (int e = 0; e < 4; ++e) {
+            const int row = k0 + 16 * jk + g + 8 * (e >> 1);
+            const int col = n0 + 16 * jn + 8 * q + 2 * t + (e & 1);
+            float sh = 0.0f, sl = 0.0f;
+            for (int mm = m; mm < m + 16; ++mm) {
+              const float x = to_f32(hs[mm * ldh + row]);
+              sh += x * to_f32(hi[mm * ldd + col]);
+              sl += x * to_f32(lo[mm * ldd + col]);
+            }
+            acc[jk][jn][q][e] += sh;
+            acc[jk][jn][q][e] += sl;
+          }
+        }
+      }
+    }
+  }
+#endif
+}
+
 // One block's part of the reverse walk, shared by the backward kernels.
 // The block owns Hb units, their four gate columns of wh (for the gate
 // recompute) and their Hb rows of wh (for the carry), both pinned in
@@ -760,12 +842,13 @@ struct Walk {
 
   // Step t's dz columns of this block for chunk c, from h_{t-1} (hprev),
   // c_{t-1} (cprev) and c_t (ct), each (B, H), dout (B, H) and proj
-  // (B, 4H), written into x_t (B, 4H) and, where given, f_t; the dc carry
-  // moves on to step t-1.
-  template <bool kSeam>
+  // (B, 4H), written into x_t (B, 4H) and, where given (bf16 only), f_t:
+  // the f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, K5's
+  // dWh pass); the dc carry moves on to step t-1.
+  template <bool kSeam, class F>
   __device__ __forceinline__ void dz_step(int t, int c, const float* dout, const E* proj,
                                           const E* hprev, const float* cprev, const float* ct,
-                                          E* x_t, float* f_t) {
+                                          E* x_t, F* f_t) {
     if constexpr (kChunked) {
       set_chunk(c);
       if (it.owner()) {
@@ -813,12 +896,18 @@ struct Walk {
       const float v[4] = {di * ig * (1.0f - ig), df * fg * (1.0f - fg), dg * (1.0f - gg * gg),
                           d_o * og * (1.0f - og)};
       const size_t o = (size_t)row[r] * 4 * H + j;
+      E x[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) x_t[o + g * H] = from_f32<E>(v[g]);
+      for (int g = 0; g < 4; ++g) x_t[o + g * H] = x[g] = from_f32<E>(v[g]);
       if constexpr (!kF32<E>) {
         if (f_t) {
 #pragma unroll
-          for (int g = 0; g < 4; ++g) f_t[o + g * H] = v[g];
+          for (int g = 0; g < 4; ++g) {
+            if constexpr (kF32<F>)
+              f_t[o + g * H] = v[g];
+            else  // v - x is exact in f32
+              f_t[o + g * H] = from_f32<bf16>(v[g] - to_f32(x[g]));
+          }
         }
       }
     }
@@ -1033,6 +1122,151 @@ struct Walk {
         for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
           for (int g = 0; g < 4; ++g) out[kk * H4 + g * H] = acc[kk][g];
+        }
+      }
+    }
+  }
+
+  // add_dwh on the tensor cores (K5's bf16 form, kTC): the same sum, in
+  // the same order (m = s*B + b in order, per output), from dz as two bf16
+  // planes, hi (the rounded dz the walk wrote, rows m of `hi`) and lo
+  // (bf16(dz - hi), rows m of `lo`), both (steps*B, 4H), so dz enters with
+  // about 16 bits of mantissa; h is exact in bf16. mma_tile_at's warp
+  // tiles cut the block's H x 4Hb columns: a k pass holds the warps' k16
+  // rows of tiles (kc rows of dWh, all of H at the atari widths, 256 of
+  // 2048 at xl) over one n pass of the warps' n groups (more only where a
+  // block has more n groups than warps); per pass the segment's rows of h
+  // (kc wide) and both planes are staged through the copy pipeline in
+  // tiles of mt rows, a multiple of 16, the m padding of the last tile and
+  // the k padding of a ragged pass zeroed in both operands at every
+  // staging. The f32 sums are loaded from dwh (accumulate) and stored back
+  // once per pass. lstm_geometry makes sure a tile holds 16 rows.
+  template <class HRows>
+  __device__ __forceinline__ void add_dwh_tc(float* dwh, HRows hrows, const bf16* hi,
+                                             const bf16* lo, int steps, bool accumulate) {
+    static_assert(kTC, "the tensor-core layout");
+    const int nb = Hb / 4;  // the block's n16 columns of tiles
+    if (nb % 4 == 0)
+      dwh_tc_passes<4>(dwh, hrows, hi, lo, steps, accumulate);
+    else if (nb % 2 == 0)
+      dwh_tc_passes<2>(dwh, hrows, hi, lo, steps, accumulate);
+    else
+      dwh_tc_passes<1>(dwh, hrows, hi, lo, steps, accumulate);
+  }
+
+  template <int kNW, class HRows>
+  __device__ __forceinline__ void dwh_tc_passes(float* dwh, HRows hrows, const bf16* hi,
+                                                const bf16* lo, int steps, bool accumulate) {
+    constexpr int kKW = kDwhTiles / kNW;
+    const int H4 = 4 * H, N = 4 * Hb, lane = threadIdx.x & 31;
+    // a pass: ngp of the NG n groups (kNW n16 columns each) by kgp k groups
+    // (kKW k16 rows each), one group pair a warp
+    const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+    const int NG = Hb / 4 / kNW, ngp = imin(NG, warps), kgp = warps / ngp;
+    const int kc = imin(kgp * kKW * 16, (H + 15) & ~15);
+    const int h_ld = kc + kVec<bf16>, d_ld = wc_ld_tc(Hb);
+    char* tiles = reinterpret_cast<char*>(pinned ? st : wc);
+    const int region = (pinned ? st_elems : wc_elems + wr_elems + st_elems) * (int)sizeof(E);
+    const int stage = (region / kStages) & ~15;
+    const int mt = stage / ((h_ld + 2 * d_ld) * (int)sizeof(E)) / 16 * 16;
+    const int M = steps * B, n = (M + mt - 1) / mt;
+    const int kl = warp / ngp * kKW * 16;  // the warp's first k column of a pass
+    const int g = lane >> 2, tq = lane & 3;
+    for (int k0 = 0; k0 < H; k0 += kc) {
+      const int kn = imin(kc, H - k0), kn16 = (kn + 15) & ~15;
+      const int kt16 = imin(kKW, (kn16 - kl) / 16);  // the warp's real k16 rows
+      for (int ng0 = 0; ng0 < NG; ng0 += ngp) {
+        const int ng = ng0 + warp % ngp, nl = ng * kNW * 16;
+        const bool active = warp < kgp * ngp && ng < NG && kt16 > 0;
+        // dwh[k][gate*H + j0 + u] of accumulator element (jk, jn, q, e),
+        // or null for a padding row or unit
+        auto out = [&](int jk, int jn, int q, int e) -> float* {
+          const int k = k0 + kl + 16 * jk + g + 8 * (e >> 1);
+          const int col = nl + 16 * jn + 8 * q + 2 * tq + (e & 1), gate = col / Hb;
+          const int u = col - gate * Hb;
+          return k < H && u < n_units ? dwh + (size_t)k * H4 + gate * H + j0 + u : nullptr;
+        };
+        float acc[kKW][kNW][2][4];
+#pragma unroll
+        for (int jk = 0; jk < kKW; ++jk) {
+#pragma unroll
+          for (int jn = 0; jn < kNW; ++jn) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float* p = active && accumulate && jk < kt16 ? out(jk, jn, q, e) : nullptr;
+                acc[jk][jn][q][e] = p ? *p : 0.0f;
+              }
+            }
+          }
+        }
+        pipelined_tiles(
+            n, 0,
+            [&](int c, int buf) {
+              const int m0 = c * mt, mn = imin(mt, M - m0), m16 = (mn + 15) & ~15;
+              bf16* hs = reinterpret_cast<bf16*>(tiles + buf * stage);
+              bf16* ph = hs + mt * h_ld;
+              bf16* pl = ph + mt * d_ld;
+              // the pass's kn columns of h rows m0 .., in 16-byte pieces:
+              // thread t takes piece t % q of every (blockDim / q)-th row
+              // (q is at most half the threads), no division per copy
+              const int q = kn / kVec<bf16>, hstep = blockDim.x / q;
+              if ((int)threadIdx.x < hstep * q) {
+                const int v = kVec<bf16> * (threadIdx.x % q);
+                int m = threadIdx.x / q, s = (m0 + m) / B, b = m0 + m - s * B;
+                for (; m < mn; m += hstep) {
+                  copy16_cg(hs + m * h_ld + v, hrows(s) + (size_t)b * H + k0 + v);
+                  for (b += hstep; b >= B; b -= B) ++s;
+                }
+              }
+              zero_tile(hs, h_ld, mn, kn, kn16);
+              zero_tile(hs + mn * h_ld, h_ld, m16 - mn, 0, kn16);
+              // the block's gate columns of both planes, gate-major, in
+              // 16- or 8-byte pieces as copy_cols_tc takes wh's (per, the
+              // pieces of a row, is at most a quarter of the threads)
+              const int V = Hb % 8 ? 4 : 8, qu = n_units / V, per = 4 * qu;
+              const int pstep = blockDim.x / per;
+              if ((int)threadIdx.x < pstep * per) {
+                const int r = threadIdx.x % per, gate = r / qu, v = V * (r - gate * qu);
+                const int col = gate * Hb + v;
+                const size_t src0 = (size_t)m0 * H4 + gate * H + j0 + v;
+                for (int m = threadIdx.x / per; m < mn; m += pstep) {
+                  const size_t src = src0 + (size_t)m * H4;
+                  if (V == 8) {
+                    copy16_cg(ph + m * d_ld + col, hi + src);
+                    copy16_cg(pl + m * d_ld + col, lo + src);
+                  } else {
+                    copy8_ca(ph + m * d_ld + col, hi + src);
+                    copy8_ca(pl + m * d_ld + col, lo + src);
+                  }
+                }
+              }
+              zero_tile(ph + mn * d_ld, d_ld, m16 - mn, 0, N);
+              zero_tile(pl + mn * d_ld, d_ld, m16 - mn, 0, N);
+            },
+            [&](int c, int buf) {
+              if (!active) return;
+              const int mn = imin(mt, M - c * mt);
+              const bf16* hs = reinterpret_cast<const bf16*>(tiles + buf * stage);
+              const bf16* ph = hs + mt * h_ld;
+              mma_tile_at<kNW>(acc, kt16, hs, h_ld, ph, ph + mt * d_ld, d_ld, kl, nl,
+                               (mn + 15) & ~15);
+            });
+        if (!active) continue;
+#pragma unroll
+        for (int jk = 0; jk < kKW; ++jk) {
+#pragma unroll
+          for (int jn = 0; jn < kNW; ++jn) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float* p = jk < kt16 ? out(jk, jn, q, e) : nullptr;
+                if (p) *p = acc[jk][jn][q][e];
+              }
+            }
+          }
         }
       }
     }

@@ -18,15 +18,29 @@
 // in bf16 (c_ckpt, dout and dcT stay f32) and writes dz in bf16, as the
 // Pallas kernel does: the recompute keeps h in f32 but every use of it
 // rounds it through bf16 (the gates, the dWh product), so the segment's h
-// is kept rounded; dz is summed into dWh in f32, before it is rounded,
-// from an f32 copy of the segment's dz columns (dz32, (S, B, 4H)).
+// is kept rounded; dz is summed into dWh in f32, before it is rounded. It
+// runs all its products on the tensor cores (column_split.cuh, mma.sync
+// m16n8k16, bf16 operands summed in f32): the recompute and the walk's
+// gate recompute and carry as K1's and K3's bf16 forms do, and the dWh
+// pass as a two-plane product (Walk::add_dwh_tc): the f32 dz is split into
+// hi = bf16(dz), the dz it writes, and lo = bf16(dz - hi), which the walk
+// writes into dz_lo (S, B, 4H) beside it (a bf16 plane, half the f32 copy
+// the FMA form kept), and dWh += h^T hi + h^T lo, so dz enters dWh with
+// about 16 bits of mantissa (|dz - hi - lo| <= 2^-17 |dz|).
 //
 // What bounds it on this card. Per (row, step) the forward recompute, the
 // gate recompute and the carry are three H x 4H products, and dWh adds a
-// fourth: at the atari widths about 45 GFLOP of fp32 work against about
-// 100 MB that the function must move, so the least time is set by the fp32
-// rate. The sequential floor is about 2T grid barriers, one per step of
-// the recompute and one per step of the walk.
+// fourth (two in bf16: the planes): at the atari widths about 45 GFLOP
+// against about 100 MB that the function must move (65 MB in bf16), so
+// the least time is set by the fp32 rate in float32 and, in bf16, by the
+// tensor cores' rate (0.03 ms at the atari widths, 0.48 at xl). The
+// sequential floor is about 2T grid barriers, one
+// per step of the recompute and one per step of the walk, each step a
+// block's read of the exchanged rows (h or bf16(dz)) through L2. On an
+// H100 the bf16 form runs at about 2% of its bound at xl: its steps are
+// bound by those reads, as K3's bf16 form is, and its dWh pass by every
+// block reading the segment's whole h (a block owns all k rows of its
+// dWh columns), about a quarter of its time.
 //
 // What the design does about it: one cooperative launch with the column
 // split of the forward and seam backward (column_split.cuh). Block x owns
@@ -42,7 +56,9 @@
 //      segment boundaries.
 //   3. The block owns dWh[:, its 4Hb gate columns] (H x 4Hb) outright and
 //      adds seg_h[0..S-1]^T @ dz[base..base+S-1][:, :, its columns] into
-//      dwh (Walk::add_dwh): no per-block partials, no atomics, one order
+//      dwh (Walk::add_dwh; bf16: add_dwh_tc, in k passes of up to 256 dWh
+//      rows a pass at xl where the FMA form took 64, the planes copied in
+//      16-byte pieces): no per-block partials, no atomics, one order
 //      (segments newest first, then (s, b)), the same bits every launch.
 //   4. A grid barrier before the next segment's recompute writes seg_h,
 //      which other blocks may still be reading in their dWh pass.
@@ -59,7 +75,7 @@ namespace {
 using namespace colsplit;
 
 template <class E, bool kChunked>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kTensorCoreFormThreads<E>)
 lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
                          const E* __restrict__ proj,        // (T, B, 4H)
                          const E* __restrict__ h_ckpt,      // (N, B, H)
@@ -71,12 +87,14 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
                          float* dwh,     // (H, 4H)
                          E* seg_h,       // (S+1, B, H) scratch, read back by other blocks
                          float* seg_c,   // (S+1, B, H) scratch
-                         float* dz32,    // bf16: (S, B, 4H) f32 scratch; float: unused
+                         E* dz_lo,       // bf16: (S, B, 4H) low plane of dz; float: unused
                          float* carry,   // more than one chunk: (2, grid, chunks*Bc, Hb)
                          int* bar,       // (2,) grid barrier, zeroed
                          int T, int B, int H, int S, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  // bf16: every product on the tensor cores
+  constexpr bool kTC = !kF32<E>;
+  Walk<E, kChunked, kTC> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   const int N = T / S;
   for (int seg = N - 1; seg >= 0; --seg) {
@@ -106,8 +124,14 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
           for (int g = 0; g < 4; ++g) z[r][g] = w.it.owner() ? to_f32(__ldg(p + g * H)) : 0.0f;
         }
         float acc[4][4];
-        gate_product(acc, hrows(s) + (size_t)w.first(q) * H, wh, w.wc, w.st, w.red, w.it,
-                     imin(Bc, B - w.first(q)), Bc, H, Hb, w.j0, w.n_units, kt, pinned);
+        const E* h = hrows(s) + (size_t)w.first(q) * H;
+        const int rows = imin(Bc, B - w.first(q));
+        if constexpr (kTC)
+          gate_product_tc(acc, h, wh, w.wc, w.st, w.red, w.it, rows, Bc, H, Hb, w.j0, w.n_units,
+                          kt, pinned);
+        else
+          gate_product(acc, h, wh, w.wc, w.st, w.red, w.it, rows, Bc, H, Hb, w.j0, w.n_units, kt,
+                       pinned);
         if (w.it.owner() && w.unit_ok) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -130,12 +154,12 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
     for (int s = S - 1; s >= 0; --s) {
       const int t = base + s;
       E* dz_t = dz + t * 4 * BH;
-      float* f_t = nullptr;  // the f32 dz that dWh sums
-      if constexpr (!kF32<E>) f_t = dz32 + s * 4 * BH;
+      E* lo_t = nullptr;  // bf16: the low plane of the dz that dWh sums
+      if constexpr (kTC) lo_t = dz_lo + s * 4 * BH;
       for (int q = 0; q < w.n_chunks(); ++q)
         w.template dz_step<true>(t, q, dout + t * BH, proj + t * 4 * BH, hrows(s),
                                  s == 0 ? c_seg : seg_c + s * BH, seg_c + (s + 1) * BH, dz_t,
-                                 f_t);
+                                 lo_t);
       if (t == 0) break;  // the carry out of step 0 is not wanted
       grid_barrier(bar);  // dz[t] complete before anyone reads it
       for (int q = 0; q < w.n_chunks(); ++q) {
@@ -146,13 +170,12 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
     }
 
     // 3. this segment's part of the block's dWh columns, from the f32 dz
+    // (bf16: its two planes)
     __syncthreads();  // the block's dz columns of step base are written
-    const float* dz_f32;
-    if constexpr (kF32<E>)
-      dz_f32 = dz + base * 4 * BH;
+    if constexpr (kTC)
+      w.add_dwh_tc(dwh, hrows, dz + base * 4 * BH, dz_lo, S, seg < N - 1);
     else
-      dz_f32 = dz32;
-    w.add_dwh(dwh, hrows, dz_f32, S, seg < N - 1);
+      w.add_dwh(dwh, hrows, dz + base * 4 * BH, S, seg < N - 1);
 
     // 4. everyone is done reading seg_h before it is written again
     if (seg > 0) grid_barrier(bar);
@@ -162,13 +185,13 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
 template <class E>
 int launch(const float* dout, const E* proj, const E* h_ckpt, const float* c_ckpt, const E* wh,
            const float* dcT, const int* burn, E* dz, float* dwh, E* seg_h, float* seg_c,
-           float* dz32, float* carry, int* bar, int T, int B, int H, int S, int Hb, int grid,
+           E* dz_lo, float* carry, int* bar, int T, int B, int H, int S, int Hb, int grid,
            int threads, int kt, int pinned, int smem, int Bc, void* stream) {
   if (S <= 0 || T % S) return (int)cudaErrorInvalidValue;
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   return (int)launch_cooperative(
       B > Bc ? lstm_seq_bwd_ckpt_kernel<E, true> : lstm_seq_bwd_ckpt_kernel<E, false>, grid,
-      threads, smem, stream, dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32,
+      threads, smem, stream, dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo,
       carry, bar, T, B, H, S, Hb, kt, pinned, Bc);
 }
 
@@ -178,10 +201,10 @@ extern "C" int lstm_seq_bwd_ckpt_launch(const float* dout, const float* proj,
                                         const float* h_ckpt, const float* c_ckpt,
                                         const float* wh, const float* dcT, const int* burn,
                                         float* dz, float* dwh, float* seg_h, float* seg_c,
-                                        float* dz32, float* carry, int* bar, int T, int B, int H,
-                                        int S, int Hb, int grid, int threads, int kt, int pinned,
-                                        int smem, int Bc, void* stream) {
-  return launch(dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32, carry,
+                                        float* dz_lo, float* carry, int* bar, int T, int B,
+                                        int H, int S, int Hb, int grid, int threads, int kt,
+                                        int pinned, int smem, int Bc, void* stream) {
+  return launch(dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo, carry,
                 bar, T, B, H, S, Hb, grid, threads, kt, pinned, smem, Bc, stream);
 }
 
@@ -189,10 +212,10 @@ extern "C" int lstm_seq_bwd_ckpt_bf16_launch(const float* dout, const bf16* proj
                                              const bf16* h_ckpt, const float* c_ckpt,
                                              const bf16* wh, const float* dcT, const int* burn,
                                              bf16* dz, float* dwh, bf16* seg_h, float* seg_c,
-                                             float* dz32, float* carry, int* bar, int T, int B,
+                                             bf16* dz_lo, float* carry, int* bar, int T, int B,
                                              int H, int S, int Hb, int grid, int threads, int kt,
                                              int pinned, int smem, int Bc, void* stream) {
-  return launch(dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32, carry,
+  return launch(dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo, carry,
                 bar, T, B, H, S, Hb, grid, threads, kt, pinned, smem, Bc, stream);
 }
 

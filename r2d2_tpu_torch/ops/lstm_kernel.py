@@ -33,9 +33,11 @@ h_ckpt), each through its own bf16 kernel form (``<name>_bf16``, counted
 under that key), with the Pallas kernels' casts: products of bf16 values
 summed in float32, the (h, c) carry and c residuals in float32, outs (and
 K4's and K5's dz) in the proj dtype, K2's and K3's dz (and K3's dh0, dc0)
-in float32. K4 and K5 sum dWh from the unrounded float32 dz. The bf16
-forms of ``lstm_fwd`` and ``lstm_bwd`` run their products on the tensor
-cores (``mma.sync``, ``TENSOR_CORE``), every other form on the FMA units.
+in float32. K4 and K5 sum dWh from the unrounded float32 dz (K5's bf16
+form from its two bf16 planes, ``bf16(dz)`` and ``bf16(dz - bf16(dz))``).
+The bf16 forms of ``lstm_fwd``, ``lstm_bwd`` and ``lstm_seq_bwd_ckpt`` run
+their products on the tensor cores (``mma.sync``, ``TENSOR_CORE``), every
+other form on the FMA units.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -324,10 +326,12 @@ _STAGES = 4
 
 # the sources whose bf16 forms run their products on the tensor cores
 # (column_split.cuh: mma.sync m16n8k16, rows of 16, warp tiles of 16 x 16
-# gate columns and 16 x 8 carry units, at most _MAX_WARP_TILES a warp)
-TENSOR_CORE = ("lstm_fwd", "lstm_bwd")
+# gate columns and 16 x 8 carry units, at most _MAX_WARP_TILES a warp; K5's
+# dWh pass _DWH_TILES tiles of 16 dWh rows x 16 gate columns a warp)
+TENSOR_CORE = ("lstm_fwd", "lstm_bwd", "lstm_seq_bwd_ckpt")
 _MMA_ROWS = 16
 _MAX_WARP_TILES = 2
+_DWH_TILES = 8
 # their thread ceiling (column_split.cuh kMaxThreadsTC): a thread may keep
 # up to 255 registers; and their widest k-tile (fewer, longer pipeline
 # tiles per step)
@@ -337,7 +341,7 @@ _MAX_K_TILE_TC = 256
 
 def tensor_cores(kernel: str, itemsize: int) -> bool:
     """Whether the form of `kernel` for operands of `itemsize` bytes runs
-    its products on the tensor cores (the bf16 forms of K1 and K3)."""
+    its products on the tensor cores (the bf16 forms of K1, K3 and K5)."""
     return kernel in TENSOR_CORE and itemsize == 2
 
 
@@ -367,10 +371,11 @@ class Geometry(NamedTuple):
 
 def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bc: int,
                    Hbp: int, itemsize: int = 4) -> int:
-    """Rows of (h, dz) that one stage of K4's and K5's dWh pass holds
-    (column_split.cuh, ``Walk::add_dwh``): the staging tiles, and when wh
-    is streamed also its tile buffers, cut in _STAGES; a row is kc h values
-    of `itemsize` bytes and the unit-major f32 dz columns, each padded."""
+    """Rows of (h, dz) that one stage of the FMA dWh pass (K4's, and
+    float32 K5's) holds (column_split.cuh, ``Walk::add_dwh``): the staging
+    tiles, and when wh is streamed also its tile buffers, cut in _STAGES; a
+    row is kc h values of `itemsize` bytes and the unit-major f32 dz
+    columns, each padded."""
     vec = _ROW_PAD_BYTES // itemsize
     k_chunk = min(H, 4 * (threads // units) // vec * vec)
     if k_chunk == 0:  # fewer k rows per pass than one 16-byte copy holds
@@ -389,9 +394,33 @@ def _warp_slices(tiles: int, warps: int) -> int:
     return warps // -(-tiles // per_warp)
 
 
+def _dwh_tc_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool,
+                      rows: int) -> int:
+    """Rows m of (h, hi, lo) that one stage of K5's bf16 dWh pass holds
+    (``Walk::add_dwh_tc``), a multiple of 16: a warp's _DWH_TILES tiles are
+    16/kNW k16 rows by kNW n16 columns (kNW = 4, 2 or 1, the most that
+    divides the block's n16 columns); a pass's k columns are the warps' k
+    groups (over its n groups) x their k16 rows, at most H padded to 16; a
+    row is that many h values and both planes' 4 units + 8 columns, bf16.
+    The stages share the walk's tile buffers: its staging tiles where wh
+    is pinned (its slice stays), else also its gate-column and row tiles."""
+    nb = units // 4
+    nw = 4 if nb % 4 == 0 else 2 if nb % 2 == 0 else 1
+    warps = threads // 32
+    kgp = warps // min(nb // nw, warps)
+    kc = min(kgp * _DWH_TILES // nw * 16, 16 * -(-H // 16))
+    row = 2 * (kc + 8 + 2 * (4 * units + 8))
+    pad = _ROW_PAD_BYTES // 2
+    region = _STAGES * rows * (kt + pad)
+    if not pinned:
+        region += _STAGES * (kt * (4 * units + pad) + tensor_core_layout(units)[1] * (kt + pad))
+    stage = (2 * region // _STAGES) & ~15
+    return stage // row // 16 * 16
+
+
 def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int,
-                          max_threads: int, max_rows) -> Geometry:
-    """lstm_geometry of a tensor-core form (K1-bf16, K3-bf16). Hb is
+                          max_threads: int, max_rows, dwh: bool) -> Geometry:
+    """lstm_geometry of a tensor-core form (K1-, K3- and K5-bf16). Hb is
     ceil(H / SMs) rounded up to 4, so each gate's Hb columns of a wh row
     come in whole 8- or 16-byte copies; chunks are whole m16 tiles of rows;
     the k-tile a multiple of 16, the widest that fits (wh streamed before
@@ -402,7 +431,10 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
     the gate columns in rows of 4Hb + 8 (pinned: H padded to 16 rows); for
     the walk also wh's Hbp rows and, with one chunk, the dh carry; and the
     slices' planes of f32 sums, rows of N + 1, for the larger of the two
-    products."""
+    products. With `dwh` (K5's form) a stage of its dWh pass, in the tile
+    buffers, must also hold a 16-row tile (``_dwh_tc_tile_rows``), with
+    k-tiles wider than H tried last for that; K5's recompute takes the
+    walk's gate product, so nothing else is added."""
     per_sm = -(-H // num_sms)
     units = 4 * -(-per_sm // 4)
     grid = -(-H // units)
@@ -414,6 +446,8 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
     k16 = 16 * -(-H // 16)
     widest = min(k16, _MAX_K_TILE_TC)
     tiles = [widest] + [k for k in (128, 64, 32, 16) if k < widest]
+    if dwh:  # last, tiles wider than H: room for the dWh stage where H is a few units
+        tiles += [k for k in (32, 64, 128, _MAX_K_TILE_TC) if k > widest]
     m_all = -(-B // _MMA_ROWS)
     tried = set()
     for n in range(1, m_all + 1):
@@ -449,8 +483,11 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
                     nbytes += _STAGES * kt * (N * 2 + _ROW_PAD_BYTES)
                     if backward:
                         nbytes += _STAGES * Hbp * (kt * 2 + _ROW_PAD_BYTES)
-                if nbytes <= smem_limit:
-                    return Geometry(units, grid, threads, kt, pinned, nbytes, rows)
+                if nbytes > smem_limit:
+                    continue
+                if dwh and _dwh_tc_tile_rows(H, units, threads, kt, pinned, rows) < _MMA_ROWS:
+                    continue
+                return Geometry(units, grid, threads, kt, pinned, nbytes, rows)
     raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
 
 
@@ -476,8 +513,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     carries go to a global workspace.
     `max_rows`, where given, caps the rows per chunk.
 
-    The tensor-core forms (``tensor_cores``: the bf16 forms of K1 and K3)
-    take their own layout (``_tensor_core_geometry``): units a multiple of
+    The tensor-core forms (``tensor_cores``: the bf16 forms of K1, K3 and
+    K5) take their own layout (``_tensor_core_geometry``): units a multiple of
     4, chunks of whole 16-row tiles, k-tiles a multiple of 16, threads in
     whole warps.
     Raises ValueError where no tile fits even a chunk of 4 rows, or H is
@@ -493,7 +530,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
                          f"{itemsize}-byte values)")
     backward = kernel != "lstm_fwd"
     if tensor_cores(kernel, itemsize):
-        return _tensor_core_geometry(B, H, backward, num_sms, smem_limit, max_threads, max_rows)
+        return _tensor_core_geometry(B, H, backward, num_sms, smem_limit, max_threads, max_rows,
+                                     kernel in _DWH_PASS)
     units = -(-H // num_sms)
     grid = -(-H // units)
     if units > max_threads:
@@ -677,7 +715,8 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
 
 
 # the steps of f32 dz that lstm_seq_bwd_fused's bf16 form keeps at once for
-# its dWh pass (the window); K5's bf16 form keeps its segment's, S=5 at xl
+# its dWh pass (the window); K5's bf16 form keeps its segment's low plane
+# in bf16, S=5 at xl
 DWH_WINDOW = 5
 
 
@@ -742,18 +781,23 @@ def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
     if dev.type == "cpu":
         return lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S)
     geo = _geometry(B, H, "lstm_seq_bwd_ckpt", dev, dt)
-    _check_aligned("h_ckpt", h_ckpt)
-    _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
     # the recomputed segment's h (every block reads it whole; proj dtype)
     # and c (each block touches only its own units), (S+1, B, H) each
     seg_h = torch.empty((S + 1, B, H), dtype=dt, device=dev)
     seg_c = torch.empty((S + 1, B, H), dtype=f32, device=dev)
-    # bf16: the segment's f32 dz, which dWh sums before dz is rounded
-    dz32 = None if dt == f32 else torch.empty((S, B, 4 * H), dtype=f32, device=dev)
+    # bf16: the segment's low plane of dz, bf16(dz - bf16(dz)): with dz
+    # itself, the f32 dz that dWh sums before dz is rounded
+    dz_lo = None if dt == f32 else torch.empty((S, B, 4 * H), dtype=dt, device=dev)
+    # rows copied 16 bytes at a time (bf16: wh's gate columns and both dz
+    # planes 8 or 16)
+    for name, t in (("h_ckpt", h_ckpt), ("wh", wh), ("seg_h", seg_h), ("dz", dz),
+                    ("dz_lo", dz_lo)):
+        if t is not None:
+            _check_aligned(name, t)
     _launch(_form("lstm_seq_bwd_ckpt", dt),
-            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz32,
+            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo,
              _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, S, *_geometry_ints(geo)), dev)
     return dz, dwh

@@ -25,8 +25,9 @@ value (2^-8 relative) where the two sums straddle a rounding boundary,
 and that step feeds the later ones: outs, cs and dz are held to
 BF16_ATOL absolute plus BF16_RTOL relative, dWh to BF16_DWH of its
 largest entry. Two launches still give the same bits. The bf16 forms of
-K1 and K3 sum their products on the tensor cores (mma.sync), whose f32
-sums take yet another order: the same class holds them.
+K1, K3 and K5 sum their products on the tensor cores (mma.sync), whose
+f32 sums take yet another order (K5's dWh from dz in two bf16 planes,
+about 16 bits of it): the same class holds them.
 """
 
 import copy
@@ -394,22 +395,25 @@ def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
         lstm_seq_bwd_bf16=4)
 
 
-# the tensor-core forms (K1-bf16, K3-bf16): ragged batches (B=5, 37: one
-# m16 tile part empty), H whose last k-tile ends off a multiple of 16 (40,
-# 600) and units per block not a multiple of 8 (H=40, 600: 4 and 8 of 132
-# SMs' ceil rounded to 4), the atari, wide B=96 and xl shapes, and batches
-# in row chunks (3 and 4 at the forms' 256 threads)
+# the tensor-core forms (K1-, K3- and K5-bf16): ragged batches (B=5, 37:
+# one m16 tile part empty; K5's S*B rows of dWh off a multiple of 16 too),
+# H whose last k-tile ends off a multiple of 16 (40, 600; K5's dWh rows
+# likewise) and units per block not a multiple of 8 (H=40, 600: 4 and 8 of
+# 132 SMs' ceil rounded to 4), the atari, wide B=96 and xl shapes, and
+# batches in row chunks (3 and 4 at the forms' 256 threads)
 TC_SHAPES = [(7, 5, 40), (9, 37, 600), (11, 37, 40), (6, 5, 600), (85, 64, 512),
              (85, 96, 1024), (85, 64, 2048)] + CHUNKED
 
 
 @pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
 def test_tensor_core_forms_match_plain_versions(cuda, shape):
-    """K1-bf16 (outs, cs) and K3-bf16 (dz, dh0, dc0), whose products run on
-    the tensor cores, against their plain versions in the bf16 class, each
-    launched twice for the same bits and counted under its own key."""
+    """K1-bf16 (outs, cs), K3-bf16 (dz, dh0, dc0) and K5-bf16 (dz, dWh at S
+    = 1, 5 where it divides T, and T, seams mixed per row), whose products
+    run on the tensor cores, against their plain versions in the bf16
+    class, K5's dz zero below each seam, each launched twice for the same
+    bits and counted under its own key."""
     T, B, H = shape
-    proj, wh, h0, c0, dout, dcT, _ = _operands(cuda, T, B, H, BF16, T * B + H + 4)
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, BF16, T * B + H + 4)
     geo = {n: lstm_kernel._geometry(B, H, n, cuda, BF16) for n in lstm_kernel.TENSOR_CORE}
     for g in geo.values():
         assert g.rows % 16 == 0 and g.units % 4 == 0 and g.threads % 32 == 0
@@ -428,9 +432,21 @@ def test_tensor_core_forms_match_plain_versions(cuda, shape):
         assert a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
     assert all(map(torch.equal, got, lstm_kernel.lstm_bwd(*walk)))
+    strides = sorted({1, T} | ({5} if T % 5 == 0 else set()))
+    for S in strides:
+        args = _ckpt_args(dout, proj, p_outs, p_cs, h0, c0, wh, dcT, mixed, S)
+        k_dz, k_dwh = lstm_kernel.lstm_seq_bwd_ckpt(*args)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(*args)
+        assert k_dz.dtype == BF16 and k_dwh.dtype == torch.float32
+        torch.testing.assert_close(k_dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert float((k_dwh - p_dwh).abs().max()) <= BF16_DWH * float(p_dwh.abs().max())
+        below = torch.arange(T, device=cuda)[:, None] < mixed[None, :].long()
+        assert not k_dz[below].any()
+        assert all(map(torch.equal, (k_dz, k_dwh), lstm_kernel.lstm_seq_bwd_ckpt(*args)))
     torch.cuda.synchronize()
     assert lstm_kernel.launch_counts == dict(
-        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd_bf16=2, lstm_bwd_bf16=2)
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd_bf16=2, lstm_bwd_bf16=2,
+        lstm_seq_bwd_ckpt_bf16=2 * len(strides))
 
 
 def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):

@@ -42,8 +42,9 @@ the two sums straddle a rounding boundary, a step of 2^-8 of it, which
 then feeds the later steps. Forward outs (bf16), cs, and dz (K2's and
 K3's f32, K4's and K5's bf16), K3's dh0 and dc0 are held to two such
 steps (BF16_RTOL = 2^-7) plus BF16_ATOL absolute; K4's and K5's dWh,
-summed in f32 from the f32 dz, to 1e-4 of its largest entry as in
-float32 (summing the rounded dz instead would be off by about 1e-3). Two
+summed in f32 from the f32 dz (K5: from its two bf16 planes, dz to about
+16 bits), to 1e-4 of its largest entry as in float32 (summing the
+rounded dz instead would be off by about 1e-3). Two
 launches still give the same bits, and K4-bf16's dz is K2-bf16's f32 dz
 rounded to bf16 wherever the two get one split.
 """
@@ -127,7 +128,7 @@ TC_CHUNK_ROWS = 16
 
 def _emulated_geometry(name, B, H, max_threads=512):
     """The emulated geometry of kernel form `name`. A tensor-core form (the
-    bf16 forms of K1 and K3) owns at most 64 units a block (one thread per
+    bf16 forms of K1, K3 and K5) owns at most 64 units a block (one thread per
     4 rows and unit, 16 rows, 256 threads), so it takes more blocks where H
     needs them;
     and where the case cuts threads to force row chunks, it takes a row
@@ -261,10 +262,10 @@ def _ckpt(kernels, dout, proj, outs, cs, h0, c0, wh, dcT, burn, S, mt=512):
     dz, dwh = torch.empty(T, B, 4 * H, dtype=dt), torch.empty(H, 4 * H)
     seg = torch.empty(S + 1, B, H, dtype=dt), torch.empty(S + 1, B, H)
     if dt == torch.float32:
-        name, dz32 = "lstm_seq_bwd_ckpt", None
-    else:
-        name, dz32 = "lstm_seq_bwd_ckpt_bf16", torch.empty(S, B, 4 * H)
-    _split(kernels, name, (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, *seg, dz32),
+        name, dz_lo = "lstm_seq_bwd_ckpt", None
+    else:  # the low plane of dz that the bf16 form's dWh pass sums
+        name, dz_lo = "lstm_seq_bwd_ckpt_bf16", torch.empty(S, B, 4 * H, dtype=dt)
+    _split(kernels, name, (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, *seg, dz_lo),
            T, B, H, S, max_threads=mt)
     return dz, dwh, h_ckpt, c_ckpt
 
@@ -457,19 +458,26 @@ def test_emulated_kernels_in_row_chunks_give_the_same_bits_every_launch(kernels,
 # ---------------------------------------------------------------------------
 
 
-# bf16 row chunks: K5's dWh pass stages 8 bf16 h values per copy, so it
+# a bf16 shape whose tensor-core K5 blocks own 24 units: six n16 columns of
+# dWh tiles, in three groups of two a warp (one group a warp elsewhere)
+BF16_N_GROUP_SHAPE = (5, 7, 96, 512)
+# bf16 row chunks: K4's dWh pass stages 8 bf16 h values per copy, so it
 # needs two threads per unit, two row groups at these ceilings (2 and 3
-# chunks)
+# chunks); the tensor-core forms (K1-, K3- and K5-bf16) take a row ceiling
+# of TC_CHUNK_ROWS instead (one chunk and two)
 BF16_CHUNK_SHAPES = [(7, 9, 32, 16), (4, 21, 40, 20)]
 
 
-@pytest.mark.parametrize("T,B,H,mt", [(T, B, H, 512) for T, B, H in SHAPES] + BF16_CHUNK_SHAPES)
+@pytest.mark.parametrize("T,B,H,mt", [(T, B, H, 512) for T, B, H in SHAPES] + BF16_CHUNK_SHAPES
+                         + [BF16_N_GROUP_SHAPE])
 def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
     """K1, K2 (seams 0, mid, T-1, mixed) and K5 (two strides, seams on and
     inside segments) with bf16 operands, one chunk and row chunks, against
     their bf16 plain versions; each launched twice for the same bits. K1's
-    bf16 form runs its host tile product (the tensor-core form's), in row
-    chunks where the batch is wider than TC_CHUNK_ROWS."""
+    and K5's bf16 forms run their host tile products (the tensor-core
+    forms'; K5's dWh pass the transposed-A product of both dz planes, at
+    S*B and H off multiples of 16), in row chunks where the batch is wider
+    than TC_CHUNK_ROWS."""
     for name in lstm_kernel.SOURCES:
         g = _emulated_geometry(f"{name}_bf16", B, H, mt)
         tc = lstm_kernel.tensor_cores(name, 2)

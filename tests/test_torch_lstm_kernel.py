@@ -247,7 +247,7 @@ def test_column_split_geometry_that_fit_before_row_chunks_is_unchanged(shape):
 
 
 # the bf16 column split of the forms that keep their products on the FMA
-# units (K2, K4, K5), as it was before K1-bf16 and K3-bf16 moved to the
+# units (K2, K4), as it was before K1-, K3- and K5-bf16 moved to the
 # tensor cores: (units, grid, threads, k_tile, pinned, smem_bytes, rows)
 _FMA_BF16_GEOMETRY = {
     (64, 512): (4, 128, 256, 128, True, 119872, 64),
@@ -262,10 +262,10 @@ _FMA_BF16_GEOMETRY = {
 
 @pytest.mark.parametrize("shape", sorted(_FMA_BF16_GEOMETRY), ids=str)
 def test_column_split_geometry_of_the_fma_bf16_forms_is_unchanged(shape):
-    """K2-, K4- and K5-bf16 keep the split they had: the same code path at
-    the atari, wide B=96 and xl shapes and in row chunks."""
+    """K2- and K4-bf16 keep the split they had: the same code path at the
+    atari, wide B=96 and xl shapes and in row chunks."""
     B_, H_ = shape
-    for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
+    for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused"):
         assert not port.tensor_cores(kernel, 2)
         g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, 2)
         assert tuple(g) == _FMA_BF16_GEOMETRY[shape], kernel
@@ -279,11 +279,13 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
     both operand sizes: whole chunks that cover the batch, the block within
     512 threads and the card's shared memory, a stage of K4's and K5's dWh
     pass holding a row. The FMA forms take chunks of 4-row groups and a
-    whole number of k-slices of their items; the tensor-core forms (K1- and
-    K3-bf16) chunks of 16-row tiles, units a multiple of 4 (the carry's
-    padded to 8), k-tiles a multiple of 16, and whole warps, at least one
-    thread per 4 rows and unit (the epilogue's owners), and no more than
-    256 (a thread may keep 255 registers)."""
+    whole number of k-slices of their items; the tensor-core forms (K1-,
+    K3- and K5-bf16) chunks of 16-row tiles, units a multiple of 4 (the
+    carry's padded to 8), k-tiles a multiple of 16, and whole warps, at
+    least one thread per 4 rows and unit (the epilogue's owners), and no
+    more than 256 (a thread may keep 255 registers). K5-bf16's dWh pass
+    stages 16-row tiles of h and both dz planes, and it takes K3-bf16's
+    split wherever such a tile fits that split's buffers."""
     batches = sorted({*range(1, 70), *range(70, 4097, 37), 1024, 2048, 4096})
     for kernel in port.SOURCES:
         for B_ in batches:
@@ -299,7 +301,13 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
             else:
                 assert g.threads % (groups * g.units) == 0
             assert g.smem_bytes <= H100_SMEM and g.grid <= H100_SMS
-            if kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
+            if kernel == "lstm_seq_bwd_ckpt" and port.tensor_cores(kernel, itemsize):
+                rows = port._dwh_tc_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows)
+                assert rows >= 16 and rows % 16 == 0
+                k3 = port.lstm_geometry(B_, H_, "lstm_bwd", H100_SMS, H100_SMEM, itemsize)
+                assert g == k3 or port._dwh_tc_tile_rows(
+                    H_, k3.units, k3.threads, k3.k_tile, k3.pinned, k3.rows) < 16
+            elif kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
                 assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows,
                                            4 * -(-g.units // 4), itemsize) >= 1
 
