@@ -10,8 +10,8 @@ its own lines; any failure exits non-zero and prints no result:
 2. build  the five kernels from r2d2_tpu_torch/csrc with nvcc, in parallel;
           registers, shared memory and spills as ptxas reports them; the
           HMMA (tensor-core) instructions of each form in the built
-          library's SASS (cuobjdump -sass): the bf16 forms of K1, K3 and K5
-          must have some, in every instantiation.
+          library's SASS (cuobjdump -sass): every bf16 form (K1, K2, K3, K4
+          and K5) must have some, in every instantiation.
 3. check  each kernel against its plain PyTorch version on the card: at the
           atari widths (T=85, B=64, H=512, fp32), at the xl width (H=2048)
           and at ragged small shapes, with seams at 0, mid, T-1 and mixed
@@ -54,8 +54,8 @@ its own lines; any failure exits non-zero and prints no result:
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
           and B=256, H=2048 (T=85): against their plain versions, two
           launches each giving the same bits, and their times; the bf16
-          forms of K3, K4 and K5 likewise, K4-bf16's dz equal to K2-bf16's
-          rounded to bf16.
+          forms of K2, K3, K4 and K5 likewise, K4-bf16's dz equal to
+          K2-bf16's rounded to bf16.
 10. bf16  the bf16 forms of all five kernels against their plain versions
           at the atari and xl widths and at the wide model's batch 96
           (H=1024, B=96), seams 0, mid, T-1 and mixed, K5 at S=5 and
@@ -89,7 +89,8 @@ its own lines; any failure exits non-zero and prints no result:
           cores' dense peak) and cuDNN's LSTM forward and backward in bf16
           where torch takes them, at the atari widths, at the wide model's
           batch 96 and at xl; beside K4-bf16 the bf16 default arm's pair
-          (K2-bf16 and the hprev^T @ dz matmul).
+          (K2-bf16 and the hprev^T @ dz matmul). Every bf16 form runs its
+          products on the tensor cores.
 
 The next-to-last lines are the kernels as one JSON object (each form with
 the unit its products run on: "tensor_cores" or "fma") and the card's
@@ -507,18 +508,17 @@ def main():
         if e > BF16_DWH_TOL * float(want.abs().max()):
             fail(f"{name}: dWh off by {e:.3e} {where}, over {BF16_DWH_TOL} x max|dWh|")
 
-    def same_split(B, H):
-        """Whether K2-bf16 and K4-bf16 get one column split at (B, H)."""
-        return (K._geometry(B, H, "lstm_seq_bwd", dev, torch.bfloat16)
-                == K._geometry(B, H, "lstm_seq_bwd_fused", dev, torch.bfloat16))
+    def one_split(B, H, at):
+        """K2-bf16 and K4-bf16 take one column split at (B, H)."""
+        geos = [K._geometry(B, H, n, dev, torch.bfloat16)
+                for n in ("lstm_seq_bwd", "lstm_seq_bwd_fused")]
+        if geos[0] != geos[1]:
+            fail(f"lstm_seq_bwd_bf16 and lstm_seq_bwd_fused_bf16 split {at} differently: {geos}")
 
-    def hold_fused_dz(f_dz, seam_dz, same, where):
+    def hold_fused_dz(f_dz, seam_dz, where):
         """K4-bf16's dz against K2-bf16's f32 dz at the same inputs: rounded
-        to bf16, bit for bit where the two get one split (`same`), else in
-        the bf16 class."""
-        if not same:
-            hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, seam_dz, f"{where} (vs K2-bf16)")
-        elif not torch.equal(f_dz, seam_dz.to(torch.bfloat16)):
+        to bf16, bit for bit (the two walk in one split)."""
+        if not torch.equal(f_dz, seam_dz.to(torch.bfloat16)):
             fail(f"lstm_seq_bwd_fused_bf16: dz differs from lstm_seq_bwd_bf16's rounded to bf16 "
                  f"{where} (max |diff| {float((f_dz.float() - seam_dz).abs().max()):.3e})")
 
@@ -611,10 +611,10 @@ def main():
         return proj, wh, h0, c0, (outs, cs), walk, ckpt, mixed
 
     def check_chunks_bf16(T, B, H, seed):
-        """The bf16 forms of K3, K4 and K5 with the batch in row chunks:
-        against their plain versions, seams 0 and mixed for K4 and K5 (S=5);
-        two launches each give the same bits, K4-bf16's dz is K2-bf16's
-        rounded; their times."""
+        """The bf16 forms of K2, K3, K4 and K5 with the batch in row chunks:
+        against their plain versions, seams 0 and mixed for K2, K4 and K5
+        (S=5); two launches each give the same bits, K4-bf16's dz is
+        K2-bf16's rounded; their times."""
         at = f"at T={T} B={B} H={H} bf16"
         for kernel in ("lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
             geo = K._geometry(B, H, kernel, dev, torch.bfloat16)
@@ -628,39 +628,43 @@ def main():
             hold_bf16("lstm_bwd_bf16", a, b, at)
         if not all(map(torch.equal, got, K.lstm_bwd(*walk))):
             fail(f"lstm_bwd_bf16: two launches differ {at}")
-        same = same_split(B, H)
+        one_split(B, H, at)
         for label, burn in (("0", torch.zeros_like(mixed)), ("mixed", mixed)):
             where = f"{at} seam {label}"
+            dz = K.lstm_seq_bwd(*walk, burn)
+            hold_bf16("lstm_seq_bwd_bf16", dz, K.lstm_seq_bwd_plain(*walk, burn), where)
+            zero_below("lstm_seq_bwd_bf16", dz, burn, where)
             f_dz, f_dwh = K.lstm_seq_bwd_fused(*walk, burn)
             p_dz, p_dwh = K.lstm_seq_bwd_fused_plain(*walk, burn)
             hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, p_dz, where)
             hold_dwh_bf16("lstm_seq_bwd_fused_bf16", f_dwh, p_dwh, where)
             zero_below("lstm_seq_bwd_fused_bf16", f_dz, burn, where)
-            hold_fused_dz(f_dz, K.lstm_seq_bwd(*walk, burn), same, where)
+            hold_fused_dz(f_dz, dz, where)
             k_dz, k_dwh = K.lstm_seq_bwd_ckpt(*ckpt(S), burn, S)
             p_dz, p_dwh = K.lstm_seq_bwd_ckpt_plain(*ckpt(S), burn, S)
             hold_bf16("lstm_seq_bwd_ckpt_bf16", k_dz, p_dz, f"{where} S={S}")
             hold_dwh_bf16("lstm_seq_bwd_ckpt_bf16", k_dwh, p_dwh, f"{where} S={S}")
             zero_below("lstm_seq_bwd_ckpt_bf16", k_dz, burn, where)
+        if not torch.equal(dz, K.lstm_seq_bwd(*walk, mixed)):
+            fail(f"lstm_seq_bwd_bf16: two launches differ {at}")
         if not all(map(torch.equal, (f_dz, f_dwh), K.lstm_seq_bwd_fused(*walk, mixed))):
             fail(f"lstm_seq_bwd_fused_bf16: two launches differ {at}")
         if not all(map(torch.equal, (k_dz, k_dwh), K.lstm_seq_bwd_ckpt(*ckpt(S), mixed, S))):
             fail(f"lstm_seq_bwd_ckpt_bf16: two launches differ {at}")
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
         t_ms = {
+            "lstm_seq_bwd_bf16": median_ms(lambda: K.lstm_seq_bwd(*walk, mixed), 5, flush),
             "lstm_bwd_bf16": median_ms(lambda: K.lstm_bwd(*walk), 5, flush),
             "lstm_seq_bwd_fused_bf16": median_ms(lambda: K.lstm_seq_bwd_fused(*walk, mixed), 5,
                                                  flush),
             "lstm_seq_bwd_ckpt_bf16": median_ms(lambda: K.lstm_seq_bwd_ckpt(*ckpt(S), mixed, S),
                                                 5, flush),
         }
-        say("chunks", f"{at}: lstm_bwd_bf16, lstm_seq_bwd_fused_bf16 and lstm_seq_bwd_ckpt_bf16 "
-            f"(S={S}) within atol {BF16_ATOL} + rtol {BF16_RTOL} (dWh within {BF16_DWH_TOL} x "
-            f"max|dWh|), seams 0 and mixed; two launches of each give identical bits; "
-            f"lstm_seq_bwd_fused_bf16's dz "
-            + ("equals lstm_seq_bwd_bf16's rounded to bf16" if same else
-               "(another split than lstm_seq_bwd_bf16's) agrees with lstm_seq_bwd_bf16's")
-            + f"; on {card}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
+        say("chunks", f"{at}: lstm_seq_bwd_bf16, lstm_bwd_bf16, lstm_seq_bwd_fused_bf16 and "
+            f"lstm_seq_bwd_ckpt_bf16 (S={S}) within atol {BF16_ATOL} + rtol {BF16_RTOL} (dWh "
+            f"within {BF16_DWH_TOL} x max|dWh|), seams 0 and mixed; two launches of each give "
+            f"identical bits; lstm_seq_bwd_fused_bf16's dz equals lstm_seq_bwd_bf16's rounded to "
+            f"bf16; on {card}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
             + " (median of 5, seam mixed)")
 
     def check_bf16(T, B, H, seed):
@@ -685,7 +689,7 @@ def main():
             hold_bf16("lstm_bwd_bf16", a, b, at)
         if not all(map(torch.equal, got, K.lstm_bwd(*walk))):
             fail(f"lstm_bwd_bf16: two launches differ {at}")
-        same = same_split(B, H)
+        one_split(B, H, at)
         seams = (("0", torch.zeros_like(mixed)), ("mid", torch.full_like(mixed, T // 2)),
                  ("T-1", torch.full_like(mixed, T - 1)), ("mixed", mixed))
         for label, burn in seams:
@@ -698,7 +702,7 @@ def main():
             hold_bf16("lstm_seq_bwd_fused_bf16", f_dz, p_dz, where)
             hold_dwh_bf16("lstm_seq_bwd_fused_bf16", f_dwh, p_dwh, where)
             zero_below("lstm_seq_bwd_fused_bf16", f_dz, burn, where)
-            hold_fused_dz(f_dz, dz, same, where)
+            hold_fused_dz(f_dz, dz, where)
         if not torch.equal(dz, K.lstm_seq_bwd(*walk, mixed)):
             fail(f"lstm_seq_bwd_bf16: two launches differ {at}")
         if not all(map(torch.equal, (f_dz, f_dwh), K.lstm_seq_bwd_fused(*walk, mixed))):
@@ -718,8 +722,7 @@ def main():
             f"lstm_seq_bwd_fused_bf16 (seams 0, mid, T-1, mixed) and lstm_seq_bwd_ckpt_bf16 (S=5 "
             f"and {T}) within atol {BF16_ATOL} + rtol {BF16_RTOL}, dWh within {BF16_DWH_TOL} x "
             f"max|dWh|; two launches of each give identical bits; lstm_seq_bwd_fused_bf16's dz "
-            + ("equals lstm_seq_bwd_bf16's rounded to bf16, every seam" if same else
-               "(another split than lstm_seq_bwd_bf16's) agrees with lstm_seq_bwd_bf16's"))
+            f"equals lstm_seq_bwd_bf16's rounded to bf16, every seam")
 
     def time_bf16(T, B, H, D, burn, kept, carried, flush, label):
         """The bf16 forms' times at (T, B, H) with the main path's seams,

@@ -1,11 +1,10 @@
 // Shared pieces of the column-split LSTM kernels (lstm_fwd.cu, and the
 // reverse walk of lstm_seq_bwd.cu, lstm_bwd.cu, lstm_seq_bwd_fused.cu and
 // lstm_seq_bwd_ckpt.cu), for Hopper (sm_90a). The element type E of the
-// staged rows and of wh is float or __nv_bfloat16; every product is a
-// float32 multiply-add of values converted where they are used (a product
-// of two bf16 values is exact in float32), and every carry is float32.
-// The bf16 forms of K1, K3 and K5 run their products on the tensor cores
-// instead (bf16 operands summed in f32; "The tensor-core products" below).
+// staged rows and of wh is float or __nv_bfloat16. The float32 forms run
+// their products as float32 multiply-adds on the FMA units; the bf16 forms
+// run theirs on the tensor cores (bf16 operands summed in f32; "The
+// tensor-core products" below). Every carry is float32.
 //
 // The layout. A persistent cooperative grid of about one block per SM.
 // Block x owns the hidden units j0 = x*Hb .. j0+n_units-1 and their four
@@ -29,9 +28,9 @@
 // each block starts at its own tile (blockIdx modulo the tile count), so
 // the SMs do not all ask the same L2 lines at once.
 //
-// The FMA products are register-tiled, since shared memory, not the FMA
-// units, bounds a thread that loads two values per four FMAs. A chunk's
-// rows are dealt in row groups: group rg holds rows rg, rg + nrg,
+// The FMA products (float32) are register-tiled, since shared memory, not
+// the FMA units, bounds a thread that loads two values per four FMAs. A
+// chunk's rows are dealt in row groups: group rg holds rows rg, rg + nrg,
 // rg + 2nrg, rg + 3nrg (nrg = Bc / 4), so a quarter-warp's eight groups
 // read eight neighbouring rows (distinct banks, kPadBytes). A thread owns
 // one item, 4 rows x 4 outputs (the gate product: one unit's four gates;
@@ -73,7 +72,7 @@ constexpr int kVec = 16 / (int)sizeof(E);
 template <class E>
 constexpr bool kF32 = std::is_same<E, float>::value;
 
-// the thread ceiling (__launch_bounds__) of K1, K3 and K5, whose bf16
+// the thread ceiling (__launch_bounds__) of the five kernels, whose bf16
 // forms run on the tensor cores (one template argument: the macro splits
 // commas)
 template <class E>
@@ -98,14 +97,9 @@ __device__ __forceinline__ E from_f32(float x) {
     return __float2bfloat16_rn(x);
 }
 
-// four consecutive values as float32 (16 bytes of float, 8 of bf16)
+// four consecutive floats
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // 16 bytes global -> shared through L2 only: for rows other blocks wrote
@@ -276,7 +270,7 @@ __device__ __forceinline__ void col_index(int idx, int H, int j0, int n_units, i
   src = (size_t)(k0 + k) * 4 * H + g * H + j0 + u;
 }
 
-// floats: one 4-byte cp.async each
+// one 4-byte cp.async each
 __device__ __forceinline__ void load_cols(float* wc, const float* __restrict__ wh, int H, int j0,
                                           int n_units, int Hb, int k0, int kn) {
   for (int idx = threadIdx.x; idx < kn * 4 * n_units; idx += blockDim.x) {
@@ -284,29 +278,6 @@ __device__ __forceinline__ void load_cols(float* wc, const float* __restrict__ w
     size_t src;
     col_index(idx, H, j0, n_units, Hb, k0, dst, src);
     copy4_ca(wc + dst, wh + src);
-  }
-}
-
-// bf16: 2 bytes, below cp.async's least size, so the thread loads and
-// stores them itself, kBatch loads in flight before the first store
-__device__ __forceinline__ void load_cols(bf16* wc, const bf16* __restrict__ wh, int H, int j0,
-                                          int n_units, int Hb, int k0, int kn) {
-  constexpr int kBatch = 8;
-  const int n = kn * 4 * n_units, step = blockDim.x;
-  for (int base = threadIdx.x; base < n; base += kBatch * step) {
-    bf16 v[kBatch];
-    int dst[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int idx = base + i * step;
-      size_t src = 0;
-      dst[i] = -1;
-      if (idx < n) col_index(idx, H, j0, n_units, Hb, k0, dst[i], src);
-      if (idx < n) v[i] = __ldg(wh + src);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i)
-      if (dst[i] >= 0) wc[dst[i]] = v[i];
   }
 }
 
@@ -358,10 +329,11 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core products of the bf16 forms of K1 (lstm_fwd.cu), K3
-// (lstm_bwd.cu) and K5 (lstm_seq_bwd_ckpt.cu: its recompute and walk, and
-// its dWh pass, mma_tile_at below): mma.sync m16n8k16, bf16 operands summed
-// in f32, fed by ldmatrix from the staged tiles.
+// The tensor-core products of all five bf16 forms: K1 (lstm_fwd.cu), the
+// walk of K2, K3, K4 and K5 (lstm_seq_bwd.cu, lstm_bwd.cu,
+// lstm_seq_bwd_fused.cu, lstm_seq_bwd_ckpt.cu), K5's recompute, and the
+// dWh pass of K4 and K5 (mma_tile_at below): mma.sync m16n8k16, bf16
+// operands summed in f32, fed by ldmatrix from the staged tiles.
 //
 // The block's product is an M x N tile: M = Bc rows (a multiple of 16), N
 // the gate columns 4Hb (Hb a multiple of 4) or the carry's Hbp units (Hb
@@ -637,19 +609,20 @@ __device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], const bf16* 
   __syncthreads();  // red is free again
 }
 
-// The dWh tile product of K5's bf16 form: out[k][n] += sum_m h[m][k] *
-// (hi[m][n] + lo[m][n]), the f32 dz carried in two bf16 planes (hi its
-// rounding, lo the rounding of the rest). M = dWh rows k, N = the block's
-// gate columns, K = the segment's (step, row) pairs m. A = h^T, staged as
-// h rows hs[m][k] (ldh apart) and read by ldmatrix.trans; B = the planes
-// [m][n] (ldd apart), by ldmatrix.trans as the gate columns are. A warp
-// owns kDwhTiles 16 x 16 output tiles, kDwhTiles / kNW k16 rows of tiles by
-// kNW n16 columns of them (kNW divides the block's n16 columns, so a warp
-// tile is never ragged in n): its k columns k0 .. of hs, kt16 of its k16
-// rows real (the last k pass may end early), its columns n0 .. of the
-// planes. Each m16 step loads its A fragments and the hi plane's, runs the
-// hi products, then loads the lo plane's and runs the lo products: per
-// output, m in order, hi before lo.
+// The dWh tile product of K4's and K5's bf16 forms: out[k][n] +=
+// sum_m h[m][k] * (hi[m][n] + lo[m][n]), the f32 dz carried in two bf16
+// planes (hi its rounding, lo the rounding of the rest). M = dWh rows k,
+// N = the block's gate columns, K = the window's or segment's (step, row)
+// pairs m. A = h^T, staged as h rows hs[m][k] (ldh apart) and read by
+// ldmatrix.trans; B = the planes [m][n] (ldd apart), by ldmatrix.trans as
+// the gate columns are. A warp owns kDwhTiles 16 x 16 output tiles,
+// kDwhTiles / kNW k16 rows of tiles by kNW n16 columns of them (kNW
+// divides the block's n16 columns, so a warp tile is never ragged in n):
+// its k columns k0 .. of hs, kt16 of its k16 rows real (the last k pass
+// may end early), its columns n0 .. of the planes. Each m16 step loads
+// its A fragments and the hi plane's, runs the hi products, then loads the
+// lo plane's and runs the lo products: per output, m in order, hi before
+// lo.
 constexpr int kDwhTiles = 8;
 
 template <int kNW>
@@ -744,13 +717,13 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // and dc carries are this block's two (chunks*Bc) x Hb slabs of `carry`.
 // kChunked says which at compile time: with one chunk the walk is the
 // code it was before row chunks, with no chunk loop or carry reloads.
-// kTC (bf16 only) runs both products on the tensor cores, with their
+// In bf16 (kTC) both products run on the tensor cores, with their
 // layout: the gate columns gate-major in rows of wc_ld_tc(Hb) (pinned:
 // padded with zero rows to a multiple of 16), the rows of wr padded to
 // Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
-template <class E, bool kChunked, bool kTC = false>
+template <class E, bool kChunked>
 struct Walk {
-  static_assert(!kTC || !kF32<E>, "the tensor-core products take bf16");
+  static constexpr bool kTC = !kF32<E>;
   const E* wh;
   const int* burn;  // (B,) seams, or null without kSeam
   int B, H, Hb, kt, pinned, Bc, chunks;
@@ -843,8 +816,8 @@ struct Walk {
   // Step t's dz columns of this block for chunk c, from h_{t-1} (hprev),
   // c_{t-1} (cprev) and c_t (ct), each (B, H), dout (B, H) and proj
   // (B, 4H), written into x_t (B, 4H) and, where given (bf16 only), f_t:
-  // the f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, K5's
-  // dWh pass); the dc carry moves on to step t-1.
+  // the f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, the dWh
+  // pass of K4 and K5); the dc carry moves on to step t-1.
   template <bool kSeam, class F>
   __device__ __forceinline__ void dz_step(int t, int c, const float* dout, const E* proj,
                                           const E* hprev, const float* cprev, const float* ct,
@@ -923,45 +896,45 @@ struct Walk {
   __device__ __forceinline__ void carry_product(float (&a)[4][4], const E* x_t, int c) {
     if constexpr (kTC) {
       carry_product_tc(a, x_t, c);
-      return;
-    }
-    const int H4 = 4 * H;
+    } else {
+      const int H4 = 4 * H;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
-    const int n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
-    const E* x = x_t + (size_t)first(c) * H4;
-    pipelined_tiles(
-        n, blockIdx.x % n,
-        [&](int tile, int buf) {
-          const int m0 = tile * kt, mn = imin(kt, H4 - m0);
-          stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
-          if (!pinned)
-            stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
-        },
-        [&](int tile, int buf) {
-          if (ic.slice >= ic.ks) return;
-          const int m0 = tile * kt, mn = imin(kt, H4 - m0);
-          const E* s = st + buf * Bc * ld + ic.rg * ld;
-          const E* w = (pinned ? wr + m0 : wr + buf * Hbp * wr_ld) + 4 * ic.col * wr_ld;
-          for (int m = 4 * ic.slice; m < mn; m += 4 * ic.ks) {
-            float4 d[4], w4[4];
+      for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
+      const int n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
+      const E* x = x_t + (size_t)first(c) * H4;
+      pipelined_tiles(
+          n, blockIdx.x % n,
+          [&](int tile, int buf) {
+            const int m0 = tile * kt, mn = imin(kt, H4 - m0);
+            stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
+            if (!pinned)
+              stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
+          },
+          [&](int tile, int buf) {
+            if (ic.slice >= ic.ks) return;
+            const int m0 = tile * kt, mn = imin(kt, H4 - m0);
+            const E* s = st + buf * Bc * ld + ic.rg * ld;
+            const E* w = (pinned ? wr + m0 : wr + buf * Hbp * wr_ld) + 4 * ic.col * wr_ld;
+            for (int m = 4 * ic.slice; m < mn; m += 4 * ic.ks) {
+              float4 d[4], w4[4];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) d[r] = load4(s + r * nrg * ld + m);
+              for (int r = 0; r < 4; ++r) d[r] = load4(s + r * nrg * ld + m);
 #pragma unroll
-            for (int u = 0; u < 4; ++u) w4[u] = load4(w + u * wr_ld + m);
+              for (int u = 0; u < 4; ++u) w4[u] = load4(w + u * wr_ld + m);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
+              for (int r = 0; r < 4; ++r) {
 #pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                a[r][u] = fmaf(d[r].x, w4[u].x, a[r][u]);
-                a[r][u] = fmaf(d[r].y, w4[u].y, a[r][u]);
-                a[r][u] = fmaf(d[r].z, w4[u].z, a[r][u]);
-                a[r][u] = fmaf(d[r].w, w4[u].w, a[r][u]);
+                for (int u = 0; u < 4; ++u) {
+                  a[r][u] = fmaf(d[r].x, w4[u].x, a[r][u]);
+                  a[r][u] = fmaf(d[r].y, w4[u].y, a[r][u]);
+                  a[r][u] = fmaf(d[r].z, w4[u].z, a[r][u]);
+                  a[r][u] = fmaf(d[r].w, w4[u].w, a[r][u]);
+                }
               }
             }
-          }
-        });
-    reduce_slices(a, red, ic);
+          });
+      reduce_slices(a, red, ic);
+    }
   }
 
   // carry_product on the tensor cores: wr's Hbp rows (the padding rows stay
@@ -1043,18 +1016,19 @@ struct Walk {
     }
   }
 
-  // The block's columns of dWh: dwh[k, g*H + j0 + u] for every k < H and
-  // the block's units u, set (or, with accumulate, added to) the sum over
-  // m = s*B + b, in that order, of h_s[b, k] * dz[m, g*H + j0 + u], where
-  // hrows(s) is the (B, H) h entering step s (E) and dz the steps' (B, 4H)
-  // float32 rows, `steps` of them. The columns belong to this block alone:
-  // no partials, no atomics, one summation order. Thread (kg, ug) owns
-  // rows k0 + 4kg .. +3 of a kc-row chunk and unit ug's four gates; the
-  // rows of h and dz are staged in tiles of mt through the copy pipeline,
-  // in the staging tiles (pinned) or in all the walk's tile buffers
-  // (streamed). lstm_geometry makes sure a tile holds a row. The caller
-  // orders dz's writes before this (a barrier); the steps' dz rows are
-  // written no more before this pass is done.
+  // The block's columns of dWh (the float32 forms of K4 and K5):
+  // dwh[k, g*H + j0 + u] for every k < H and the block's units u, set (or,
+  // with accumulate, added to) the sum over m = s*B + b, in that order, of
+  // h_s[b, k] * dz[m, g*H + j0 + u], where hrows(s) is the (B, H) h
+  // entering step s (E) and dz the steps' (B, 4H) float32 rows, `steps` of
+  // them. The columns belong to this block alone: no partials, no atomics,
+  // one summation order. Thread (kg, ug) owns rows k0 + 4kg .. +3 of a
+  // kc-row chunk and unit ug's four gates; the rows of h and dz are staged
+  // in tiles of mt through the copy pipeline, in the staging tiles
+  // (pinned) or in all the walk's tile buffers (streamed). lstm_geometry
+  // makes sure a tile holds a row. The caller orders dz's writes before
+  // this (a barrier); the steps' dz rows are written no more before this
+  // pass is done.
   template <class HRows>
   __device__ __forceinline__ void add_dwh(float* dwh, HRows hrows, const float* dz, int steps,
                                           bool accumulate) {
@@ -1127,15 +1101,15 @@ struct Walk {
     }
   }
 
-  // add_dwh on the tensor cores (K5's bf16 form, kTC): the same sum, in
-  // the same order (m = s*B + b in order, per output), from dz as two bf16
-  // planes, hi (the rounded dz the walk wrote, rows m of `hi`) and lo
-  // (bf16(dz - hi), rows m of `lo`), both (steps*B, 4H), so dz enters with
-  // about 16 bits of mantissa; h is exact in bf16. mma_tile_at's warp
+  // add_dwh on the tensor cores (K4's and K5's bf16 forms, kTC): the same
+  // sum, in the same order (m = s*B + b in order, per output), from dz as
+  // two bf16 planes, hi (the rounded dz the walk wrote, rows m of `hi`) and
+  // lo (bf16(dz - hi), rows m of `lo`), both (steps*B, 4H), so dz enters
+  // with about 16 bits of mantissa; h is exact in bf16. mma_tile_at's warp
   // tiles cut the block's H x 4Hb columns: a k pass holds the warps' k16
   // rows of tiles (kc rows of dWh, all of H at the atari widths, 256 of
   // 2048 at xl) over one n pass of the warps' n groups (more only where a
-  // block has more n groups than warps); per pass the segment's rows of h
+  // block has more n groups than warps); per pass the steps' rows of h
   // (kc wide) and both planes are staged through the copy pipeline in
   // tiles of mt rows, a multiple of 16, the m padding of the last tile and
   // the k padding of a ragged pass zeroed in both operands at every

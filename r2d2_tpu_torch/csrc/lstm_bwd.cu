@@ -67,8 +67,8 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 int* bar,      // (2,) grid barrier, zeroed
                 int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  // bf16: both products on the tensor cores
-  Walk<E, kChunked, !kF32<E>> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
+  // bf16: both products on the tensor cores (Walk::kTC)
+  Walk<E, kChunked> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;

@@ -18,24 +18,31 @@
 // Pallas kernel does: the gates are recomputed from the bf16 hprev, and
 // the carry product is bf16(dz) @ wh^T summed in f32. dz_t rounded to
 // bf16 is what the blocks exchange (a two-step ring, xch, since a block
-// may still read step t's while another writes step t-1's).
+// may still read step t's while another writes step t-1's). It runs both
+// products on the tensor cores (column_split.cuh, mma.sync m16n8k16, bf16
+// operands summed in f32), as the bf16 forms of K1, K3, K4 and K5 do.
 //
 // What bounds it on this card. Each (row, step) does two H x 4H products:
 // the gate recompute and the carry. At the atari widths that is about
-// 22.8 GFLOP against about 140 MB of device-memory traffic, so the least
-// time is set by the fp32 rate; the sequential floor is T steps of one
-// exchange of dz_t and one grid barrier.
+// 22.8 GFLOP against about 140 MB of device-memory traffic (about 110 MB
+// in bf16), so the least time is set by the fp32 rate in float32 and, in
+// bf16, by the bytes (at the tensor cores' rate the products take about
+// 0.023 ms, the bytes 0.032); the sequential floor is T steps of one
+// exchange of dz_t and one grid barrier, each a block's read of the
+// whole exchanged dz_t through L2.
 //
 // What the design does about it: the column split's reverse walk
 // (column_split.cuh, Walk), one grid barrier per step. Block x owns Hb
 // hidden units, their four gate columns of wh (for the recompute) and their
 // Hb rows of wh (for the carry), pinned in shared memory where they fit
 // (32 KB each at H=512) or streamed in k-tiles (H=2048), and all B rows;
-// dz[t] is both the output and the exchange buffer, read whole by every
-// block after the barrier. The (dh, dc) carry of the block's units never
-// leaves the SM. No wh^T copy is needed: the carry reads wh's rows. A
-// batch wider than one chunk of rows is walked in chunks inside each
-// step, the carry then kept in the block's slabs of `carry`.
+// dz[t] is both the output and the exchange buffer (bf16: the ring), read
+// whole by every block after the barrier. The (dh, dc) carry of the
+// block's units never leaves the SM. No wh^T copy is needed: the carry
+// reads wh's rows. A batch wider than one chunk of rows is walked in
+// chunks inside each step, the carry then kept in the block's slabs of
+// `carry`. The bf16 form takes K4's bf16 split (lstm_kernel.lstm_geometry),
+// so that K4's bf16 dz is this form's f32 dz rounded, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -46,7 +53,7 @@ namespace {
 using namespace colsplit;
 
 template <class E, bool kChunked>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kTensorCoreFormThreads<E>)
 lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     const E* __restrict__ proj,       // (T, B, 4H)
                     const E* __restrict__ hprev,      // (T, B, H)
@@ -61,6 +68,7 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     int* bar,       // (2,) grid barrier, zeroed
                     int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
+  // bf16: both products on the tensor cores (Walk::kTC)
   Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {

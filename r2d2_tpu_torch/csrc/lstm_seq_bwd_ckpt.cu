@@ -94,7 +94,7 @@ lstm_seq_bwd_ckpt_kernel(const float* __restrict__ dout,    // (T, B, H)
   extern __shared__ float smem[];
   // bf16: every product on the tensor cores
   constexpr bool kTC = !kF32<E>;
-  Walk<E, kChunked, kTC> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
   const size_t BH = (size_t)B * H;
   const int N = T / S;
   for (int seg = N - 1; seg >= 0; --seg) {

@@ -25,7 +25,7 @@ Each splits the hidden units across the SMs in one cooperative launch
 in row chunks inside each step. ``lstm_seq_bwd_fused`` runs
 ``lstm_seq_bwd``'s walk in the same geometry, so its dz is
 ``lstm_seq_bwd``'s bit for bit on the card (in bf16: its float32 dz
-rounded).
+rounded; ``lstm_geometry`` gives the two bf16 forms one split).
 
 Dtypes. Every kernel takes float32, and also bfloat16 operands where the
 Pallas kernels do under bf16 compute (proj, wh, and h0/c0, hprev or
@@ -33,11 +33,10 @@ h_ckpt), each through its own bf16 kernel form (``<name>_bf16``, counted
 under that key), with the Pallas kernels' casts: products of bf16 values
 summed in float32, the (h, c) carry and c residuals in float32, outs (and
 K4's and K5's dz) in the proj dtype, K2's and K3's dz (and K3's dh0, dc0)
-in float32. K4 and K5 sum dWh from the unrounded float32 dz (K5's bf16
-form from its two bf16 planes, ``bf16(dz)`` and ``bf16(dz - bf16(dz))``).
-The bf16 forms of ``lstm_fwd``, ``lstm_bwd`` and ``lstm_seq_bwd_ckpt`` run
-their products on the tensor cores (``mma.sync``, ``TENSOR_CORE``), every
-other form on the FMA units.
+in float32. K4 and K5 sum dWh from the unrounded float32 dz (their bf16
+forms from its two bf16 planes, ``bf16(dz)`` and ``bf16(dz - bf16(dz))``).
+All five bf16 forms run their products on the tensor cores (``mma.sync``,
+``TENSOR_CORE``), every float32 form on the FMA units.
 
 The autograd Functions carry the contracts of the JAX custom-VJP ops:
 ``lstm_unroll`` (no seam, real d h0 / d c0), ``lstm_seq_unroll`` (default
@@ -311,8 +310,12 @@ def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt) -> None:
 # reverse walk's K2, K3, K4 and K5 (K4 and K5 also stage their dWh tiles
 # in the walk's buffers)
 COLUMN_SPLIT = SOURCES
-# the kernels with Walk::add_dwh's dWh pass
+# the kernels with a dWh pass (Walk::add_dwh; in bf16 Walk::add_dwh_tc)
 _DWH_PASS = ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
+# the tensor-core forms whose split leaves room for that pass's stage: K4
+# and K5, and K2, so that K4-bf16 walks in K2-bf16's split (its dz is
+# K2-bf16's f32 dz rounded, bit for bit)
+_DWH_STAGE = ("lstm_seq_bwd",) + _DWH_PASS
 
 # at most this many threads per block (and the most the slices of a block's
 # items are widened to), the widest tile of h (or dz) columns staged in
@@ -324,11 +327,13 @@ _MAX_K_TILE = 128
 _ROW_PAD_BYTES = 16
 _STAGES = 4
 
-# the sources whose bf16 forms run their products on the tensor cores
-# (column_split.cuh: mma.sync m16n8k16, rows of 16, warp tiles of 16 x 16
-# gate columns and 16 x 8 carry units, at most _MAX_WARP_TILES a warp; K5's
-# dWh pass _DWH_TILES tiles of 16 dWh rows x 16 gate columns a warp)
-TENSOR_CORE = ("lstm_fwd", "lstm_bwd", "lstm_seq_bwd_ckpt")
+# the sources whose bf16 forms run their products on the tensor cores: all
+# five (column_split.cuh: mma.sync m16n8k16, rows of 16, warp tiles of 16 x
+# 16 gate columns and 16 x 8 carry units, at most _MAX_WARP_TILES a warp;
+# the dWh pass of K4 and K5 _DWH_TILES tiles of 16 dWh rows x 16 gate
+# columns a warp)
+TENSOR_CORE = ("lstm_fwd", "lstm_seq_bwd", "lstm_bwd", "lstm_seq_bwd_fused",
+               "lstm_seq_bwd_ckpt")
 _MMA_ROWS = 16
 _MAX_WARP_TILES = 2
 _DWH_TILES = 8
@@ -341,7 +346,7 @@ _MAX_K_TILE_TC = 256
 
 def tensor_cores(kernel: str, itemsize: int) -> bool:
     """Whether the form of `kernel` for operands of `itemsize` bytes runs
-    its products on the tensor cores (the bf16 forms of K1, K3 and K5)."""
+    its products on the tensor cores (all five bf16 forms)."""
     return kernel in TENSOR_CORE and itemsize == 2
 
 
@@ -371,11 +376,11 @@ class Geometry(NamedTuple):
 
 def _dwh_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool, Bc: int,
                    Hbp: int, itemsize: int = 4) -> int:
-    """Rows of (h, dz) that one stage of the FMA dWh pass (K4's, and
-    float32 K5's) holds (column_split.cuh, ``Walk::add_dwh``): the staging
-    tiles, and when wh is streamed also its tile buffers, cut in _STAGES; a
-    row is kc h values of `itemsize` bytes and the unit-major f32 dz
-    columns, each padded."""
+    """Rows of (h, dz) that one stage of the FMA dWh pass (the float32
+    forms of K4 and K5) holds (column_split.cuh, ``Walk::add_dwh``): the
+    staging tiles, and when wh is streamed also its tile buffers, cut in
+    _STAGES; a row is kc h values of `itemsize` bytes and the unit-major
+    f32 dz columns, each padded."""
     vec = _ROW_PAD_BYTES // itemsize
     k_chunk = min(H, 4 * (threads // units) // vec * vec)
     if k_chunk == 0:  # fewer k rows per pass than one 16-byte copy holds
@@ -396,12 +401,13 @@ def _warp_slices(tiles: int, warps: int) -> int:
 
 def _dwh_tc_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool,
                       rows: int) -> int:
-    """Rows m of (h, hi, lo) that one stage of K5's bf16 dWh pass holds
-    (``Walk::add_dwh_tc``), a multiple of 16: a warp's _DWH_TILES tiles are
-    16/kNW k16 rows by kNW n16 columns (kNW = 4, 2 or 1, the most that
-    divides the block's n16 columns); a pass's k columns are the warps' k
-    groups (over its n groups) x their k16 rows, at most H padded to 16; a
-    row is that many h values and both planes' 4 units + 8 columns, bf16.
+    """Rows m of (h, hi, lo) that one stage of the bf16 dWh pass of K4 and
+    K5 holds (``Walk::add_dwh_tc``), a multiple of 16: a warp's _DWH_TILES
+    tiles are 16/kNW k16 rows by kNW n16 columns (kNW = 4, 2 or 1, the
+    most that divides the block's n16 columns); a pass's k columns are the
+    warps' k groups (over its n groups) x their k16 rows, at most H padded
+    to 16; a row is that many h values and both planes' 4 units + 8
+    columns, bf16.
     The stages share the walk's tile buffers: its staging tiles where wh
     is pinned (its slice stays), else also its gate-column and row tiles."""
     nb = units // 4
@@ -420,7 +426,7 @@ def _dwh_tc_tile_rows(H: int, units: int, threads: int, kt: int, pinned: bool,
 
 def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_limit: int,
                           max_threads: int, max_rows, dwh: bool) -> Geometry:
-    """lstm_geometry of a tensor-core form (K1-, K3- and K5-bf16). Hb is
+    """lstm_geometry of a tensor-core form (a bf16 form). Hb is
     ceil(H / SMs) rounded up to 4, so each gate's Hb columns of a wh row
     come in whole 8- or 16-byte copies; chunks are whole m16 tiles of rows;
     the k-tile a multiple of 16, the widest that fits (wh streamed before
@@ -431,10 +437,11 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
     the gate columns in rows of 4Hb + 8 (pinned: H padded to 16 rows); for
     the walk also wh's Hbp rows and, with one chunk, the dh carry; and the
     slices' planes of f32 sums, rows of N + 1, for the larger of the two
-    products. With `dwh` (K5's form) a stage of its dWh pass, in the tile
-    buffers, must also hold a 16-row tile (``_dwh_tc_tile_rows``), with
-    k-tiles wider than H tried last for that; K5's recompute takes the
-    walk's gate product, so nothing else is added."""
+    products. With `dwh` (K4's and K5's forms, and K2's, so that it gets
+    K4's split) a stage of the dWh pass, in the tile buffers, must also
+    hold a 16-row tile (``_dwh_tc_tile_rows``), with k-tiles wider than H
+    tried last for that; K5's recompute takes the walk's gate product, so
+    nothing else is added."""
     per_sm = -(-H // num_sms)
     units = 4 * -(-per_sm // 4)
     grid = -(-H // units)
@@ -513,10 +520,10 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     carries go to a global workspace.
     `max_rows`, where given, caps the rows per chunk.
 
-    The tensor-core forms (``tensor_cores``: the bf16 forms of K1, K3 and
-    K5) take their own layout (``_tensor_core_geometry``): units a multiple of
-    4, chunks of whole 16-row tiles, k-tiles a multiple of 16, threads in
-    whole warps.
+    The tensor-core forms (``tensor_cores``: every bf16 form) take their
+    own layout (``_tensor_core_geometry``): units a multiple of 4, chunks
+    of whole 16-row tiles, k-tiles a multiple of 16, threads in whole
+    warps.
     Raises ValueError where no tile fits even a chunk of 4 rows, or H is
     not a multiple of 16 bytes of the operands (the kernels copy 16-byte
     rows)."""
@@ -531,7 +538,7 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     backward = kernel != "lstm_fwd"
     if tensor_cores(kernel, itemsize):
         return _tensor_core_geometry(B, H, backward, num_sms, smem_limit, max_threads, max_rows,
-                                     kernel in _DWH_PASS)
+                                     kernel in _DWH_STAGE)
     units = -(-H // num_sms)
     grid = -(-H // units)
     if units > max_threads:
@@ -552,11 +559,6 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
         one_chunk = rows >= B
         slices = 1
         while items * slices * 2 <= min(_SLICED_THREADS, max_threads):
-            slices *= 2
-        # the dWh pass gives each thread 4 k rows of a unit, and stages its
-        # h rows in 16-byte copies: in bf16 that needs 2 threads per unit
-        while (kernel in _DWH_PASS and 4 * groups * slices < vec
-               and items * slices * 2 <= max_threads):
             slices *= 2
         threads = items * slices
         for pinned in (True, False):
@@ -714,20 +716,20 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     return dz, dh0, dc0
 
 
-# the steps of f32 dz that lstm_seq_bwd_fused's bf16 form keeps at once for
-# its dWh pass (the window); K5's bf16 form keeps its segment's low plane
-# in bf16, S=5 at xl
+# the steps of dz that lstm_seq_bwd_fused's bf16 form adds into dWh at once
+# (the window), as K5's bf16 form does its segment's, S=5 at xl
 DWH_WINDOW = 5
 
 
 def fused_dwh_window(T: int, B: int, H: int, dtype, device):
-    """The f32 dz window of lstm_seq_bwd_fused's bf16 form, (W, B, 4H) with
-    W = min(DWH_WINDOW, T) steps: the unrounded dz that dWh sums, W steps
-    at a time, never a (T, B, 4H) copy. -> (window or None in float32, W)."""
+    """The window of lstm_seq_bwd_fused's bf16 form: the low plane
+    bf16(dz - bf16(dz)) of W = min(DWH_WINDOW, T) steps, (W, B, 4H) bf16.
+    With the dz output it is the unrounded dz that dWh sums, W steps at a
+    time, never a (T, B, 4H) f32 copy. -> (window or None in float32, W)."""
     if dtype == torch.float32:
         return None, 0
     W = min(DWH_WINDOW, T)
-    return torch.empty((W, B, 4 * H), dtype=torch.float32, device=device), W
+    return torch.empty((W, B, 4 * H), dtype=dtype, device=device), W
 
 
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
@@ -737,7 +739,8 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     the same operand checks on both. On the card dz is lstm_seq_bwd's bit
     for bit (the same walk in the same geometry; in bf16 its f32 dz
     rounded); dz and dWh differ from the plain version by summation order
-    only."""
+    only, except that the bf16 form sums dz into dWh to about 16 bits (two
+    bf16 planes)."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
     dt = _compute_dtype(proj_t, "lstm_seq_bwd_fused")
@@ -750,9 +753,12 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
-    dz32, W = fused_dwh_window(T, B, H, dt, dev)
+    dz_lo, W = fused_dwh_window(T, B, H, dt, dev)
+    if dz_lo is not None:  # bf16: both dz planes copied 8 or 16 bytes at a time
+        _check_aligned("dz", dz)
+        _check_aligned("dz_lo", dz_lo)
     _launch(_form("lstm_seq_bwd_fused", dt),
-            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz32,
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz_lo,
              _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, W, *_geometry_ints(geo)), dev)
     return dz, dwh

@@ -188,13 +188,14 @@ def test_plain_fused_dwh_backward_bf16_matches_pallas(burn_name):
 
 
 def test_fused_dwh_bf16_window_does_not_grow_with_T():
-    """K4's bf16 form keeps W = min(5, T) steps of f32 dz for its dWh pass,
-    never a (T, B, 4H) float32 copy; its float32 form needs none."""
+    """K4's bf16 form keeps W = min(5, T) steps of dz's bf16 low plane for
+    its dWh pass (the dz output is the high plane), never a (T, B, 4H)
+    float32 copy; its float32 form needs none."""
     for T_, B_, H_ in ((85, 96, 1024), (850, 96, 1024), (3, 4, 8)):
         window, W = port.fused_dwh_window(T_, B_, H_, BF16, "cpu")
-        assert W == min(port.DWH_WINDOW, T_) and window.dtype == torch.float32
+        assert W == min(port.DWH_WINDOW, T_) and window.dtype == BF16
         assert tuple(window.shape) == (W, B_, 4 * H_)
-    assert port.fused_dwh_window(85, 96, 1024, BF16, "cpu")[0].nbytes == 5 * 96 * 4096 * 4
+    assert port.fused_dwh_window(85, 96, 1024, BF16, "cpu")[0].nbytes == 5 * 96 * 4096 * 2
     assert port.fused_dwh_window(85, 96, 1024, torch.float32, "cpu") == (None, 0)
 
 

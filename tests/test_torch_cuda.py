@@ -24,9 +24,9 @@ float32 in other orders, so a value may round to the neighbouring bf16
 value (2^-8 relative) where the two sums straddle a rounding boundary,
 and that step feeds the later ones: outs, cs and dz are held to
 BF16_ATOL absolute plus BF16_RTOL relative, dWh to BF16_DWH of its
-largest entry. Two launches still give the same bits. The bf16 forms of
-K1, K3 and K5 sum their products on the tensor cores (mma.sync), whose
-f32 sums take yet another order (K5's dWh from dz in two bf16 planes,
+largest entry. Two launches still give the same bits. All five bf16
+forms sum their products on the tensor cores (mma.sync), whose f32 sums
+take yet another order (K4's and K5's dWh from dz in two bf16 planes,
 about 16 bits of it): the same class holds them.
 """
 
@@ -359,10 +359,10 @@ def test_bf16_kernels_match_plain_versions(cuda, shape):
 @pytest.mark.parametrize("shape", SHAPES + [(85, 64, 2048), (85, 96, 1024)] + CHUNKED, ids=str)
 def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
     """K3 (dz, dh0, dc0 in f32) and K4 (seams 0, mid, T-1, mixed; dz in
-    bf16, dWh from the f32 dz) with bf16 operands against their plain
-    versions, on the plain forward's residuals, each launched twice for
-    the same bits; K4's dz is K2's f32 dz rounded to bf16, bit for bit,
-    where the two get the same split, and in the bf16 class elsewhere."""
+    bf16, dWh from the f32 dz in two bf16 planes) with bf16 operands
+    against their plain versions, on the plain forward's residuals, each
+    launched twice for the same bits; K4's dz is K2's f32 dz rounded to
+    bf16, bit for bit (the two get one split)."""
     T, B, H = shape
     proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, BF16, T * B + H + 3)
     p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
@@ -374,8 +374,8 @@ def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
         assert a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
     assert all(map(torch.equal, got, lstm_kernel.lstm_bwd(*walk)))
-    same_split = (lstm_kernel._geometry(B, H, "lstm_seq_bwd", cuda, BF16)
-                  == lstm_kernel._geometry(B, H, "lstm_seq_bwd_fused", cuda, BF16))
+    assert (lstm_kernel._geometry(B, H, "lstm_seq_bwd", cuda, BF16)
+            == lstm_kernel._geometry(B, H, "lstm_seq_bwd_fused", cuda, BF16))
     for burn in (torch.zeros_like(mixed), torch.full_like(mixed, T // 2),
                  torch.full_like(mixed, T - 1), mixed):
         dz, dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
@@ -384,18 +384,14 @@ def test_bf16_seamless_and_fused_dwh_match_plain_versions(cuda, shape):
         torch.testing.assert_close(dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
         assert float((dwh - p_dwh).abs().max()) <= BF16_DWH * float(p_dwh.abs().max())
         assert all(map(torch.equal, (dz, dwh), lstm_kernel.lstm_seq_bwd_fused(*walk, burn)))
-        seam = lstm_kernel.lstm_seq_bwd(*walk, burn)
-        if same_split:
-            assert torch.equal(dz, seam.to(BF16))
-        else:
-            torch.testing.assert_close(dz.float(), seam, rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert torch.equal(dz, lstm_kernel.lstm_seq_bwd(*walk, burn).to(BF16))
     torch.cuda.synchronize()
     assert lstm_kernel.launch_counts == dict(
         dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_bwd_bf16=2, lstm_seq_bwd_fused_bf16=8,
         lstm_seq_bwd_bf16=4)
 
 
-# the tensor-core forms (K1-, K3- and K5-bf16): ragged batches (B=5, 37:
+# the tensor-core forms (every bf16 form): ragged batches (B=5, 37:
 # one m16 tile part empty; K5's S*B rows of dWh off a multiple of 16 too),
 # H whose last k-tile ends off a multiple of 16 (40, 600; K5's dWh rows
 # likewise) and units per block not a multiple of 8 (H=40, 600: 4 and 8 of
@@ -447,6 +443,47 @@ def test_tensor_core_forms_match_plain_versions(cuda, shape):
     assert lstm_kernel.launch_counts == dict(
         dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd_bf16=2, lstm_bwd_bf16=2,
         lstm_seq_bwd_ckpt_bf16=2 * len(strides))
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+def test_tensor_core_seam_forms_match_plain_versions(cuda, shape):
+    """K2-bf16 (dz, f32) and K4-bf16 (dz in bf16, dWh from its two bf16
+    planes), on the tensor cores, with seams mixed per row, at T-1 and at
+    0, against their plain versions in the bf16 class: dz zero below each
+    seam, the same bits on two launches, K4-bf16's dz K2-bf16's f32 dz
+    rounded to bf16, bit for bit (the two get one split), and each
+    counted under its own key."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, BF16, T * B + H + 5)
+    geo = {n: lstm_kernel._geometry(B, H, n, cuda, BF16)
+           for n in ("lstm_seq_bwd", "lstm_seq_bwd_fused")}
+    assert geo["lstm_seq_bwd"] == geo["lstm_seq_bwd_fused"]
+    assert all(lstm_kernel.tensor_cores(n, 2) for n in geo)
+    p_outs, p_cs = lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)
+    walk = (dout, proj, torch.cat([h0[None], p_outs[:-1]]), torch.cat([c0.float()[None],
+            p_cs[:-1]]), p_cs, wh, dcT)
+    seams = (mixed, torch.full_like(mixed, T - 1), torch.zeros_like(mixed))
+    lstm_kernel.reset_launch_counts()
+    for burn in seams:
+        below = torch.arange(T, device=cuda)[:, None] < burn[None, :].long()
+        dz = lstm_kernel.lstm_seq_bwd(*walk, burn)
+        assert dz.dtype == torch.float32
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert not dz[below].any()
+        assert torch.equal(dz, lstm_kernel.lstm_seq_bwd(*walk, burn))
+        f_dz, f_dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)
+        assert f_dz.dtype == BF16 and f_dwh.dtype == torch.float32
+        torch.testing.assert_close(f_dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert float((f_dwh - p_dwh).abs().max()) <= BF16_DWH * float(p_dwh.abs().max())
+        assert not f_dz[below].any()
+        assert all(map(torch.equal, (f_dz, f_dwh), lstm_kernel.lstm_seq_bwd_fused(*walk, burn)))
+        assert torch.equal(f_dz, dz.to(BF16))
+    torch.cuda.synchronize()
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_seq_bwd_bf16=2 * len(seams),
+        lstm_seq_bwd_fused_bf16=2 * len(seams))
 
 
 def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):

@@ -42,11 +42,11 @@ the two sums straddle a rounding boundary, a step of 2^-8 of it, which
 then feeds the later steps. Forward outs (bf16), cs, and dz (K2's and
 K3's f32, K4's and K5's bf16), K3's dh0 and dc0 are held to two such
 steps (BF16_RTOL = 2^-7) plus BF16_ATOL absolute; K4's and K5's dWh,
-summed in f32 from the f32 dz (K5: from its two bf16 planes, dz to about
-16 bits), to 1e-4 of its largest entry as in float32 (summing the
-rounded dz instead would be off by about 1e-3). Two
-launches still give the same bits, and K4-bf16's dz is K2-bf16's f32 dz
-rounded to bf16 wherever the two get one split.
+summed in f32 from the f32 dz carried in two bf16 planes (dz to about 16
+bits), to 1e-4 of its largest entry as in float32 (summing the rounded
+dz instead would be off by about 1e-3). Two launches still give the same
+bits, and K4-bf16's dz is K2-bf16's f32 dz rounded to bf16 everywhere:
+the two get one split.
 """
 
 import ctypes
@@ -127,10 +127,10 @@ TC_CHUNK_ROWS = 16
 
 
 def _emulated_geometry(name, B, H, max_threads=512):
-    """The emulated geometry of kernel form `name`. A tensor-core form (the
-    bf16 forms of K1, K3 and K5) owns at most 64 units a block (one thread per
-    4 rows and unit, 16 rows, 256 threads), so it takes more blocks where H
-    needs them;
+    """The emulated geometry of kernel form `name`. A tensor-core form
+    (every bf16 form) owns at most 64 units a block (one thread per 4 rows
+    and unit, 16 rows, 256 threads), so it takes more blocks where H needs
+    them;
     and where the case cuts threads to force row chunks, it takes a row
     ceiling of TC_CHUNK_ROWS instead."""
     src = lstm_kernel._SOURCE[name]
@@ -239,16 +239,16 @@ def _seamless(kernels, dout, proj, hprev, cprev, cs, wh, dcT, mt=512):
 
 
 def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512, window=None):
-    """K4's (dz, dwh); the bf16 form with the wrapper's f32 dz window, or
-    one of `window` steps."""
+    """K4's (dz, dwh); the bf16 form with the wrapper's window of dz's low
+    plane, or one of `window` steps."""
     T, B, H = cs.shape
     dt = proj.dtype
     dz, dwh = torch.empty(T, B, 4 * H, dtype=dt), torch.empty(H, 4 * H)
-    dz32, W = lstm_kernel.fused_dwh_window(T, B, H, dt, "cpu")
+    dz_lo, W = lstm_kernel.fused_dwh_window(T, B, H, dt, "cpu")
     if window is not None:
-        dz32, W = torch.empty(window, B, 4 * H), window
+        dz_lo, W = torch.empty(window, B, 4 * H, dtype=dt), window
     _split(kernels, lstm_kernel._form("lstm_seq_bwd_fused", dt),
-           (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz32), T, B, H, W,
+           (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz_lo), T, B, H, W,
            max_threads=mt)
     return dz, dwh
 
@@ -458,13 +458,13 @@ def test_emulated_kernels_in_row_chunks_give_the_same_bits_every_launch(kernels,
 # ---------------------------------------------------------------------------
 
 
-# a bf16 shape whose tensor-core K5 blocks own 24 units: six n16 columns of
-# dWh tiles, in three groups of two a warp (one group a warp elsewhere)
+# a bf16 shape whose tensor-core K4 and K5 blocks own 24 units: six n16
+# columns of dWh tiles, in three groups of two a warp (one group a warp
+# elsewhere)
 BF16_N_GROUP_SHAPE = (5, 7, 96, 512)
-# bf16 row chunks: K4's dWh pass stages 8 bf16 h values per copy, so it
-# needs two threads per unit, two row groups at these ceilings (2 and 3
-# chunks); the tensor-core forms (K1-, K3- and K5-bf16) take a row ceiling
-# of TC_CHUNK_ROWS instead (one chunk and two)
+# bf16 shapes cut by a thread ceiling under 512: the bf16 forms (all on the
+# tensor cores) take a row ceiling of TC_CHUNK_ROWS instead (one chunk and
+# two)
 BF16_CHUNK_SHAPES = [(7, 9, 32, 16), (4, 21, 40, 20)]
 
 
@@ -473,11 +473,11 @@ BF16_CHUNK_SHAPES = [(7, 9, 32, 16), (4, 21, 40, 20)]
 def test_emulated_bf16_kernels_match_plain_versions(kernels, T, B, H, mt):
     """K1, K2 (seams 0, mid, T-1, mixed) and K5 (two strides, seams on and
     inside segments) with bf16 operands, one chunk and row chunks, against
-    their bf16 plain versions; each launched twice for the same bits. K1's
-    and K5's bf16 forms run their host tile products (the tensor-core
-    forms'; K5's dWh pass the transposed-A product of both dz planes, at
-    S*B and H off multiples of 16), in row chunks where the batch is wider
-    than TC_CHUNK_ROWS."""
+    their bf16 plain versions; each launched twice for the same bits. The
+    bf16 forms run their host tile products (the tensor-core forms'; K5's
+    dWh pass the transposed-A product of both dz planes, at S*B and H off
+    multiples of 16), in row chunks where the batch is wider than
+    TC_CHUNK_ROWS."""
     for name in lstm_kernel.SOURCES:
         g = _emulated_geometry(f"{name}_bf16", B, H, mt)
         tc = lstm_kernel.tensor_cores(name, 2)
@@ -535,16 +535,17 @@ def _check_bf16_fused(kernels, walk, burn_np, mt, window=None):
     return dz
 
 
-@pytest.mark.parametrize("T,B,H,mt", [(T, B, H, 512) for T, B, H in SHAPES] + BF16_CHUNK_SHAPES)
+@pytest.mark.parametrize("T,B,H,mt", [(T, B, H, 512) for T, B, H in SHAPES] + BF16_CHUNK_SHAPES
+                         + [BF16_N_GROUP_SHAPE])
 def test_emulated_bf16_seamless_and_fused_dwh_match_plain_versions(kernels, T, B, H, mt):
     """K3-bf16 (dz, dh0, dc0 in f32) and K4-bf16 (seams 0, mid, T-1,
-    mixed; the wrapper's window of min(5, T) steps, ragged at T=7 and 6)
-    with bf16 operands, one chunk and row chunks, against their bf16 plain
-    versions on the plain forward's residuals; each launched twice for the
-    same bits. K4-bf16's dz is K2-bf16's f32 dz rounded to bf16, bit for
-    bit, where lstm_geometry gives the two the same split; elsewhere (the
-    dWh pass's two threads per unit where a block holds one row group) the
-    two are held to each other in the bf16 class."""
+    mixed; the wrapper's window of min(5, T) steps, ragged at T=7 and 6;
+    its dWh pass the transposed-A product of both dz planes) with bf16
+    operands, one chunk and row chunks, against their bf16 plain versions
+    on the plain forward's residuals; each launched twice for the same
+    bits. lstm_geometry gives K2-bf16 and K4-bf16 one split at every
+    shape, so K4-bf16's dz is K2-bf16's f32 dz rounded to bf16, bit for
+    bit."""
     rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
     walk = _walk(proj, wh, h0, c0, p_outs, p_cs, dout, dcT)
     got = _seamless(kernels, *walk, mt=mt)
@@ -553,19 +554,13 @@ def test_emulated_bf16_seamless_and_fused_dwh_match_plain_versions(kernels, T, B
         torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
     for a, b in zip(got, _seamless(kernels, *walk, mt=mt)):
         assert torch.equal(a, b)
-    geos = {n: lstm_kernel.lstm_geometry(B, H, n, EMULATED_SMS, SMEM_LIMIT, 2, mt)
-            for n in ("lstm_seq_bwd", "lstm_seq_bwd_fused")}
-    # the splits differ only at (3, 2, 600): one row group of 150 units,
-    # where K4-bf16's dWh pass takes two threads per unit
-    same_split = geos["lstm_seq_bwd"] == geos["lstm_seq_bwd_fused"]
-    assert same_split == ((T, B, H) != (3, 2, 600)), geos
+    geos = [_emulated_geometry(n, B, H, mt) for n in ("lstm_seq_bwd_bf16",
+                                                      "lstm_seq_bwd_fused_bf16")]
+    assert geos[0] == geos[1], geos
     for burn_np in _burns(rng, T, B):
         dz = _check_bf16_fused(kernels, walk, burn_np, mt)
         seam = _seam(kernels, *walk, torch.from_numpy(burn_np.astype(np.int32)), mt)
-        if same_split:
-            assert torch.equal(dz, seam.to(BF16))
-        else:
-            torch.testing.assert_close(dz.float(), seam, rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert torch.equal(dz, seam.to(BF16))
 
 
 @pytest.mark.parametrize("T,B,H,mt", [(7, 5, 32, 512), (7, 9, 32, 16)])
@@ -581,7 +576,7 @@ def test_emulated_bf16_fused_dwh_window_may_not_divide_T(kernels, T, B, H, mt):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core forms (K1-bf16, K3-bf16) in row chunks
+# the tensor-core forms (K1-, K2-, K3- and K4-bf16) in row chunks
 # ---------------------------------------------------------------------------
 
 
@@ -594,13 +589,15 @@ TC_CHUNK_SHAPES = [(4, 37, 40, 20), (3, 21, 600, 300)]
 
 @pytest.mark.parametrize("T,B,H,mt", TC_CHUNK_SHAPES)
 def test_emulated_tensor_core_forms_in_row_chunks_match_plain_versions(kernels, T, B, H, mt):
-    """K1-bf16 (outs, cs) and K3-bf16 (dz, dh0, dc0) in two or more row
-    chunks against their bf16 plain versions, each launched twice for the
-    same bits."""
-    for name in ("lstm_fwd_bf16", "lstm_bwd_bf16"):
+    """K1-bf16 (outs, cs), K3-bf16 (dz, dh0, dc0), K2-bf16 (dz) and K4-bf16
+    (dz, dWh; seams 0 and mixed) in two or more row chunks against their
+    bf16 plain versions, each launched twice for the same bits, dz zero
+    below each seam, and K4-bf16's dz K2-bf16's rounded."""
+    for name in ("lstm_fwd_bf16", "lstm_bwd_bf16", "lstm_seq_bwd_bf16",
+                 "lstm_seq_bwd_fused_bf16"):
         g = _emulated_geometry(name, B, H, mt)
         assert g.rows == TC_CHUNK_ROWS and g.chunks(B) >= 2 and B % g.rows, (name, g)
-    _, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
+    rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
     got = _fwd(kernels, proj, wh, h0, c0, mt)
     for a, b in zip(got, (p_outs, p_cs)):
         torch.testing.assert_close(a.float(), b.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
@@ -610,3 +607,11 @@ def test_emulated_tensor_core_forms_in_row_chunks_match_plain_versions(kernels, 
     for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
         torch.testing.assert_close(a, b, rtol=BF16_RTOL, atol=BF16_ATOL)
     assert all(map(torch.equal, got, _seamless(kernels, *walk, mt=mt)))
+    for burn_np in _burns(rng, T, B)[::3]:  # seams 0 and mixed
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        dz = _seam(kernels, *walk, burn, mt)
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+        _assert_zero_below_seam(dz, burn_np)
+        assert torch.equal(dz, _seam(kernels, *walk, burn, mt))
+        assert torch.equal(_check_bf16_fused(kernels, walk, burn_np, mt), dz.to(BF16))

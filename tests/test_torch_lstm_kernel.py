@@ -246,29 +246,31 @@ def test_column_split_geometry_that_fit_before_row_chunks_is_unchanged(shape):
         assert tuple(g)[:6] == want and g.rows == 4 * -(-B_ // 4) and g.chunks(B_) == 1, kernel
 
 
-# the bf16 column split of the forms that keep their products on the FMA
-# units (K2, K4), as it was before K1-, K3- and K5-bf16 moved to the
-# tensor cores: (units, grid, threads, k_tile, pinned, smem_bytes, rows)
-_FMA_BF16_GEOMETRY = {
-    (64, 512): (4, 128, 256, 128, True, 119872, 64),
-    (96, 1024): (8, 128, 192, 64, True, 201856, 96),
-    (64, 2048): (16, 128, 256, 128, False, 173056, 64),
-    (600, 512): (4, 128, 300, 64, True, 224832, 300),
-    (200, 2048): (16, 128, 400, 128, False, 217344, 100),
-    (1024, 512): (4, 128, 512, 32, True, 229440, 512),
-    (256, 2048): (16, 128, 512, 64, False, 148480, 128),
+# the bf16 column split of the seam backward and the fused-dWh backward (K2,
+# K4), on the tensor cores: (units, grid, threads, k_tile, pinned,
+# smem_bytes, rows) at the atari, wide B=96, xl and atari B=192 shapes and
+# in row chunks
+_SEAM_BF16_GEOMETRY = {
+    (64, 512): (4, 128, 128, 256, True, 198016, 64),
+    (96, 1024): (8, 128, 256, 128, False, 169856, 96),
+    (64, 2048): (16, 128, 256, 128, False, 181504, 64),
+    (192, 512): (4, 128, 256, 64, True, 184192, 192),
+    (600, 512): (4, 128, 256, 64, True, 191424, 208),
+    (200, 2048): (16, 128, 256, 128, False, 177408, 64),
+    (1024, 512): (4, 128, 256, 64, True, 222336, 256),
+    (256, 2048): (16, 128, 256, 128, False, 177408, 64),
 }
 
 
-@pytest.mark.parametrize("shape", sorted(_FMA_BF16_GEOMETRY), ids=str)
-def test_column_split_geometry_of_the_fma_bf16_forms_is_unchanged(shape):
-    """K2- and K4-bf16 keep the split they had: the same code path at the
-    atari, wide B=96 and xl shapes and in row chunks."""
+@pytest.mark.parametrize("shape", sorted(_SEAM_BF16_GEOMETRY), ids=str)
+def test_column_split_geometry_of_the_seam_bf16_forms_is_one_split(shape):
+    """K2- and K4-bf16 run on the tensor cores in one split (so K4-bf16's
+    dz is K2-bf16's f32 dz rounded, bit for bit), the one K5-bf16 takes."""
     B_, H_ = shape
-    for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused"):
-        assert not port.tensor_cores(kernel, 2)
+    for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
+        assert port.tensor_cores(kernel, 2)
         g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, 2)
-        assert tuple(g) == _FMA_BF16_GEOMETRY[shape], kernel
+        assert tuple(g) == _SEAM_BF16_GEOMETRY[shape], kernel
 
 
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
@@ -278,14 +280,14 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
     at the widths the model presets train (hidden 512, 1024, 2048), in
     both operand sizes: whole chunks that cover the batch, the block within
     512 threads and the card's shared memory, a stage of K4's and K5's dWh
-    pass holding a row. The FMA forms take chunks of 4-row groups and a
-    whole number of k-slices of their items; the tensor-core forms (K1-,
-    K3- and K5-bf16) chunks of 16-row tiles, units a multiple of 4 (the
-    carry's padded to 8), k-tiles a multiple of 16, and whole warps, at
-    least one thread per 4 rows and unit (the epilogue's owners), and no
-    more than 256 (a thread may keep 255 registers). K5-bf16's dWh pass
-    stages 16-row tiles of h and both dz planes, and it takes K3-bf16's
-    split wherever such a tile fits that split's buffers."""
+    pass holding a row. The FMA forms (float32) take chunks of 4-row groups
+    and a whole number of k-slices of their items; the tensor-core forms
+    (bf16) chunks of 16-row tiles, units a multiple of 4 (the carry's
+    padded to 8), k-tiles a multiple of 16, and whole warps, at least one
+    thread per 4 rows and unit (the epilogue's owners), and no more than
+    256 (a thread may keep 255 registers). The bf16 dWh pass of K4 and K5
+    stages 16-row tiles of h and both dz planes; K2-, K4- and K5-bf16 take
+    one split, K3-bf16's wherever such a tile fits that split's buffers."""
     batches = sorted({*range(1, 70), *range(70, 4097, 37), 1024, 2048, 4096})
     for kernel in port.SOURCES:
         for B_ in batches:
@@ -301,9 +303,12 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
             else:
                 assert g.threads % (groups * g.units) == 0
             assert g.smem_bytes <= H100_SMEM and g.grid <= H100_SMS
-            if kernel == "lstm_seq_bwd_ckpt" and port.tensor_cores(kernel, itemsize):
+            seam = kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
+            if seam and port.tensor_cores(kernel, itemsize):
                 rows = port._dwh_tc_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows)
                 assert rows >= 16 and rows % 16 == 0
+                assert g == port.lstm_geometry(B_, H_, "lstm_seq_bwd_ckpt", H100_SMS, H100_SMEM,
+                                               itemsize)
                 k3 = port.lstm_geometry(B_, H_, "lstm_bwd", H100_SMS, H100_SMEM, itemsize)
                 assert g == k3 or port._dwh_tc_tile_rows(
                     H_, k3.units, k3.threads, k3.k_tile, k3.pinned, k3.rows) < 16
