@@ -29,9 +29,10 @@ its own lines; any failure exits non-zero and prints no result:
           replay sizes cut. The launch counters are zeroed just before it
           and read just after: every update launches the forward kernel
           twice (online and target unroll) and the seam backward once.
-5. agree  one update's loss, priorities and gradient norm on a sampled
-          batch at those widths, through the kernels on the card, against
-          the same update through the plain versions on the CPU.
+5. agree  one update's loss, priorities, gradient norm and each
+          parameter's gradient norm on a sampled batch at those widths,
+          through the kernels on the card, against the same update through
+          the plain versions on the CPU.
 6. arms   the same path under each other backward: backward_arm=fused_dwh,
           backward_arm=ckpt (stride 5) and fused_sequence=False, each with
           its counters zeroed just before and read just after (2 forward
@@ -92,7 +93,34 @@ its own lines; any failure exits non-zero and prints no result:
           (K2-bf16 and the hprev^T @ dz matmul). Every bf16 form runs its
           products on the tensor cores.
 
-The next-to-last lines are the kernels as one JSON object (each form with
+14. e2e   the main path through the entry points a user calls, with
+          checkpoints and a metrics file (log_interval 0): the atari preset
+          in its own bf16 through Trainer.run_threaded (actor and sampler
+          threads, batches staged through pinned memory), 12 updates of 2
+          lstm_fwd_bf16 + 1 lstm_seq_bwd_bf16 (counts zeroed just before
+          and read just after), checkpoints [6, 12], 12 finite metrics
+          records; Trainer(resume=True) restores step, networks and Adam
+          state bit for bit; evaluate_series over both checkpoints on 8
+          catch envs, its rows printed. Then fp32 through run_inline: 8
+          updates, checkpoints [4, 8].
+15. modes ms per learner update over the wall (acting and sampling
+          included) of run_inline and run_threaded on the bf16 and the
+          fp32 main path (threaded also with samples_per_insert set so
+          that it acts as much per update as inline; each threaded run
+          with its batches staged through the pinned ring, and again with
+          the sampler copying them from pageable memory through
+          DeviceBatch.from_sampled, as inline does), env steps per update, the updates' peak device
+          memory, and in threaded mode TransferTimer's overlap fraction,
+          h2d and wait seconds; with --profile, as many updates again under
+          torch.profiler: the device's busy share and the host time under
+          the spans replay/sample and learner_update, the rest of the wall
+          beside them. Printed, not held to a limit.
+16. odd    hidden 510 (a multiple of neither 4 nor 8) in fp32 and bf16: one
+          update of 2 forward + 1 seam backward launches at 512 units (the
+          model pads zero units), against the CPU as in phases 5 and 12.
+
+The script's wall time is printed last among the phases. The
+next-to-last lines are the kernels as one JSON object (each form with
 the unit its products run on: "tensor_cores" or "fma") and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 
@@ -153,6 +181,13 @@ PRECISION_UPDATES = 4
 # the preset's own bfloat16
 ON_CATCH_BF16 = dict(env_name="catch", buffer_capacity=16_000, learning_starts=2_000)
 ON_CATCH = dict(ON_CATCH_BF16, compute_dtype="float32")
+# phase 14: (updates, save_interval) of the end-to-end runs through the
+# entry points, bf16 threaded and fp32 inline
+E2E = {"bf16": (12, 6), "fp32": (8, 4)}
+# phase 15: learner updates timed per mode, after 2 that warm the path
+MODE_UPDATES = 24
+# phase 16: a hidden size that is a multiple of neither 4 nor 8
+ODD_HIDDEN = 510
 # the row-chunk shapes of phase 9: twice the rows a block holds at once
 CHUNKED = ((85, 1024, 512), (85, 256, 2048))
 # the wide model preset's hidden size, and the batch at which its
@@ -269,8 +304,9 @@ def drive(cfg, updates, dev):
 
 
 def one_update(net, target, cfg, sampled, where):
-    """(loss, priorities, gradient norm) of one update of `net` on a sampled
-    batch, on `where`, without stepping the optimizer."""
+    """(loss, priorities, gradient norm, each parameter's gradient norm) of
+    one update of `net` on a sampled batch, on `where`, without stepping
+    the optimizer."""
     import torch
     from r2d2_tpu_torch.learner import DeviceBatch, make_loss_fn
 
@@ -281,8 +317,8 @@ def one_update(net, target, cfg, sampled, where):
     denom = torch.clamp(b.learning_steps.sum().float(), min=1.0)
     loss, (prio, _) = make_loss_fn(cfg)(net, target, b, denom)
     loss.backward()
-    gnorm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2) for p in net.parameters()))
-    return [x.detach().cpu() for x in (loss, prio, gnorm)]
+    norms = torch.stack([p.grad.float().norm() for p in net.parameters()])
+    return [x.detach().cpu() for x in (loss, prio, norms.norm(), norms)]
 
 
 def agree(tr, label, rtol=1e-4, atol=1e-5):
@@ -294,7 +330,8 @@ def agree(tr, label, rtol=1e-4, atol=1e-5):
     t = time.perf_counter()
     results = {where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled, where)
                for where in ("cuda", "cpu")}
-    for name, a, b in zip(("loss", "priorities", "grad_norm"), results["cuda"], results["cpu"]):
+    for name, a, b in zip(("loss", "priorities", "grad_norm", "grad_norm per parameter"),
+                          results["cuda"], results["cpu"]):
         diff = float((a - b).abs().max())
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
             fail(f"{label}: {name} through the kernels differs from the CPU's plain "
@@ -303,6 +340,33 @@ def agree(tr, label, rtol=1e-4, atol=1e-5):
             f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e}, rtol {rtol} atol {atol})")
     say("agree", f"{label}: {len(sampled.idxes)} rows, {time.perf_counter() - t:.1f}s")
     return sampled
+
+
+# the trainer's host spans (utils/profiling.py); the profiler also shows
+# each as a device-side annotation over the kernels it launched
+SPANS = ("replay/sample", "learner_update")
+
+
+def device_us(e):
+    """A profiler event's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_events(events):
+    """The device's own events (kernels, copies, memsets) of key_averages():
+    not the span annotations, whose time is their kernels' again."""
+    return [e for e in events if str(e.device_type).endswith("CUDA") and e.key not in SPANS
+            and device_us(e) > 0]
+
+
+def span_ms(events):
+    """{span: (host ms, device ms)} summed over key_averages()."""
+    out = {k: [0.0, 0.0] for k in SPANS}
+    for e in events:
+        if e.key in SPANS:
+            cuda = str(e.device_type).endswith("CUDA")
+            out[e.key][cuda] += (device_us(e) if cuda else e.cpu_time_total) / 1e3
+    return out
 
 
 def profile_updates(tr, n, label):
@@ -319,19 +383,166 @@ def profile_updates(tr, n, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # device-side events only (kernels, copies, memsets): the operators that
     # launch them report the same time again as their own
-    rows = sorted(((device_us(e), e.count, e.key) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and device_us(e) > 0), reverse=True)
+    events = prof.key_averages()
+    rows = sorted(((device_us(e), e.count, e.key) for e in device_events(events)), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     say("prof", f"{label}: {n} updates (actor steps included) in {wall_ms:.1f} ms wall; device busy "
-        f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}")
+        f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}; per "
+        "update, host and device ms under each span: " + ", ".join(
+            f"{k} {h / n:.2f} / {d / n:.2f}" for k, (h, d) in span_ms(events).items()))
     for us, count, key in rows[:16]:
         say("prof", f"{us / 1e3 / n:9.3f} ms/update {us / 1e3 / busy_ms:6.1%} x{count // n:<4d} "
             f"{key[:90]}")
+
+
+def states_equal(a, b):
+    """Whether two TrainStates hold the same step and every tensor of their
+    networks and optimizer state bit for bit."""
+    import torch
+
+    if a.step != b.step:
+        return False
+    for x, y in ((a.net, b.net), (a.target_net, b.target_net)):
+        sx, sy = x.state_dict(), y.state_dict()
+        if list(sx) != list(sy) or not all(torch.equal(sx[k], sy[k]) for k in sx):
+            return False
+    ox, oy = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    return bool(ox) and set(ox) == set(oy) and all(
+        torch.equal(v, oy[i][k]) for i in ox for k, v in ox[i].items())
+
+
+def e2e(label, cfg, mode, dev, tmp):
+    """The main path through the entry points a user calls: train with
+    checkpoints and a metrics file (run_threaded or run_inline), resume
+    from the last checkpoint, evaluate the checkpoint series. The launch
+    counts are zeroed just before the run and read just after."""
+    import torch
+    from r2d2_tpu_torch.envs.catch import CatchVecEnv
+    from r2d2_tpu_torch.evaluate import evaluate_series
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.checkpoint import list_checkpoint_steps
+
+    updates, every = E2E[label]
+    cfg = cfg.replace(training_steps=updates, save_interval=every, log_interval=0.0,
+                      checkpoint_dir=os.path.join(tmp, f"{label}_ckpt"),
+                      metrics_path=os.path.join(tmp, f"{label}.jsonl"))
+    t = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    tr.warmup()
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    (tr.run_threaded if mode == "threaded" else tr.run_inline)()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {k: v for k, v in K.launch_counts.items() if v}
+    tr.metrics_logger.close()
+    sfx = "_bf16" if cfg.resolved_compute_dtype == "bfloat16" else ""
+    if launches != {f"lstm_fwd{sfx}": 2 * updates, f"lstm_seq_bwd{sfx}": updates}:
+        fail(f"e2e {label} {mode}: expected {2 * updates} lstm_fwd{sfx} and {updates} "
+             f"lstm_seq_bwd{sfx} launches, got {launches}")
+    steps = list_checkpoint_steps(cfg.checkpoint_dir)
+    if steps != list(range(every, updates + 1, every)):
+        fail(f"e2e {label} {mode}: checkpoints {steps}")
+    recs = [json.loads(line) for line in open(cfg.metrics_path)]
+    recs = [r for r in recs if "loss" in r]
+    if [r["step"] for r in recs] != list(range(1, updates + 1)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["q_mean"]) for r in recs):
+        fail(f"e2e {label} {mode}: the metrics file holds {len(recs)} update records, "
+             f"expected {updates} finite ones")
+    say("e2e", f"{label} {mode}: {updates} updates in {t_run:.2f}s after warmup "
+        f"({time.perf_counter() - t:.1f}s with it), launches {launches}, checkpoints "
+        f"{steps}, {len(recs)} metrics records, last {json.dumps(recs[-1])}")
+    resumed = Trainer(cfg, device=dev, resume=True)
+    if not states_equal(resumed.state, tr.state):
+        fail(f"e2e {label}: the resumed TrainState differs from the trained one")
+    say("e2e", f"{label}: Trainer(resume=True) restored step {resumed.state.step}, online and "
+        f"target nets and the Adam state bit for bit on the card; env steps carried "
+        f"{resumed.env_steps_offset}")
+    del resumed
+    t = time.perf_counter()
+    rows = evaluate_series(tr.cfg, CatchVecEnv(8, cfg.obs_shape[0], cfg.obs_shape[1], seed=123),
+                           device=dev)
+    if [r["step"] for r in rows] != steps or not all(math.isfinite(r["mean_reward"])
+                                                       for r in rows):
+        fail(f"e2e {label}: evaluation rows {rows}")
+    say("e2e", f"{label}: evaluate_series over {steps} on 8 catch envs in "
+        f"{time.perf_counter() - t:.1f}s")
+    return tr
+
+
+def modes(label, cfg, dev, profile):
+    """ms per learner update over the wall, acting and sampling included,
+    of run_inline and run_threaded (free-running actors, and throttled by
+    samples_per_insert to inline's env steps per update; each with the
+    batches staged through the pinned ring, and "pageable": the sampler's
+    batches copied by DeviceBatch.from_sampled on its thread) on one path: after
+    2 updates that warm it, MODE_UPDATES more, timed from the end of the
+    first to the end of the last (the steady state; run_ms_per_update is
+    the whole run's wall, the threads' start and stop included); TransferTimer's overlap, h2d and wait seconds;
+    the updates' peak device memory above what was allocated before them
+    (in threaded mode with the queued batches). With `profile`, as many
+    again under torch.profiler: the device's busy share and the host time
+    under each span."""
+    import torch
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.profiling import start_trace
+
+    out = {}
+    # the samples_per_insert at which threaded mode acts as much per update
+    # as inline mode (one actor step of num_actors env steps per update)
+    matched = cfg.batch_size * cfg.learning_steps / cfg.num_actors
+    for mode, spi in (("inline", 0.0), ("threaded", 0.0), ("threaded pageable", 0.0),
+                      ("threaded", matched), ("threaded pageable", matched)):
+        tr = Trainer(cfg.replace(training_steps=2, samples_per_insert=spi), device=dev)
+        if mode == "threaded pageable":
+            tr._sample_staged = tr.sample  # the sampler copies as inline mode does
+        run = tr.run_inline if mode == "inline" else tr.run_threaded
+        run()
+        if spi:
+            mode = f"{mode} spi={spi:g}"
+        row = {"path": label, "mode": mode}
+        for phase in ("timed", "profiled") if profile else ("timed",):
+            tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + MODE_UPDATES)
+            tr.xfer.reset()
+            acted = tr.actor.total_steps
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            prof = start_trace() if phase == "profiled" else None
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if prof is None:
+                ends = tr.update_ends[-MODE_UPDATES:]
+                row.update(ms_per_update=(ends[-1] - ends[0]) * 1e3 / (MODE_UPDATES - 1),
+                           run_ms_per_update=wall_ms / MODE_UPDATES,
+                           env_steps_per_update=(tr.actor.total_steps - acted) / MODE_UPDATES,
+                           peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30,
+                           **(tr.xfer.stats() if mode != "inline" else {}))
+                continue
+            prof.__exit__(None, None, None)
+            events = prof.key_averages()
+            busy = sum(device_us(e) for e in device_events(events)) / 1e3
+            row.update(profiled_ms_per_update=wall_ms / MODE_UPDATES, device_busy=busy / wall_ms)
+            for k, (host, device) in span_ms(events).items():
+                row[f"{k}_host_ms_per_update"] = host / MODE_UPDATES
+                row[f"{k}_device_ms_per_update"] = device / MODE_UPDATES
+            # inline: the actor's share; threaded: the spans overlap on
+            # their threads, and this is what the main thread's span leaves
+            row["rest_ms_per_update"] = row["profiled_ms_per_update"] - sum(
+                row[f"{k}_host_ms_per_update"] for k in SPANS)
+        say("modes", json.dumps(row))
+        out[mode] = row
+        del tr
+    say("modes", f"{label}: ms per update over the wall of {MODE_UPDATES} updates, acting "
+        "included (env steps per update): " + ", ".join(
+            f"{m} {r['ms_per_update']:.2f} ({r['env_steps_per_update']:.1f})"
+            for m, r in out.items()))
+    return out
 
 
 def main():
@@ -1262,12 +1473,42 @@ def main():
                     "library_ms": lib_ms, "unit": unit(name),
                 })
 
+    # 14. the main path end to end: checkpoints, metrics, resume, evaluation
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        e2e("bf16", b_cfg, "threaded", dev, tmp)
+        e2e("fp32", cfg, "inline", dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 15. threaded against inline on both main paths --------------------------
+    for label, m_cfg in (("bf16", b_cfg), ("fp32", cfg)):
+        modes(label, m_cfg, dev, args.profile)
+
+    # 16. a hidden size off the kernels' row, padded on the card ---------------
+    for label, o_extra, tol in (("fp32", ON_CATCH, {}), ("bf16", ON_CATCH_BF16, BF16_AGREE)):
+        o_cfg = PRESETS["atari"]().replace(hidden_dim=ODD_HIDDEN, **o_extra)
+        o_tr, o_launches, o_m, o_ms, _ = drive(o_cfg, 1, dev)
+        sfx = "_bf16" if label == "bf16" else ""
+        padded = o_tr.state.net.core.padded_units(dev)
+        say("odd", f"{label} hidden {ODD_HIDDEN}: the kernels run at {padded} units (zero "
+            f"units padded in the model); 1 update, loss {o_m['loss']:.6f}, {o_ms[0]:.1f} ms; "
+            f"launches {o_launches}")
+        if o_launches != {f"lstm_fwd{sfx}": 2, f"lstm_seq_bwd{sfx}": 1} or padded == ODD_HIDDEN:
+            fail(f"hidden {ODD_HIDDEN} {label}: launches {o_launches}, {padded} units")
+        agree(o_tr, f"{label} hidden {ODD_HIDDEN}", **tol)
+        del o_tr
+
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")
         profile_updates(b_tr, args.profile, "bf16 main path")
         profile_updates(w_tr, args.profile, "bf16 wide B=96 (fused_dwh)")
         profile_updates(bx_tr, args.profile, "bf16 xl (ckpt, 5)")
 
+    say("done", f"every phase passed; wall {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -213,6 +213,15 @@ class VectorizedActor:
             self._steps_since_refresh = 0
             self._maybe_refresh_params()
 
+    def resync(self) -> None:
+        """Recover to a consistent state after a mid-step fault (the
+        supervisor's restart hook). step() is not re-entrant once env.step
+        has run: a crash between env.step and the accumulator writes leaves
+        self.obs and the carry describing the pre-step world while the env
+        has advanced. Instead: discard every in-flight accumulator window
+        and start fresh episodes in all slots."""
+        self._reset_state(np.array(self.env.reset_all()))
+
     def _maybe_refresh_params(self) -> None:
         params, version = self.param_store.latest()
         if version != self.param_version:

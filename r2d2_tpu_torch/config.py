@@ -60,13 +60,22 @@ class R2D2Config:
     # --- schedule / cadences ---------------------------------------------
     training_steps: int = 100_000
     target_net_update_interval: int = 2000
+    save_interval: int = 500
+    # learner publishes weights to actors every N updates
     publish_interval: int = 4
     actor_update_interval: int = 400
+    # seconds between metrics records (0.0: one record per update)
+    log_interval: float = 10.0
 
     # --- actor fleet ------------------------------------------------------
     num_actors: int = 8
+    # threaded mode: target ratio of learner-consumed to collected
+    # transitions; below it the actor thread yields to the learner (0 =
+    # free-running actors)
+    samples_per_insert: float = 0.0
     base_eps: float = 0.4
     eps_alpha: float = 7.0
+    test_epsilon: float = 0.001
 
     # --- network ----------------------------------------------------------
     hidden_dim: int = 512
@@ -96,7 +105,16 @@ class R2D2Config:
     lstm_backend: str = "auto"
     recurrent_core: str = "lstm"
 
+    # --- infra ------------------------------------------------------------
     seed: int = 0
+    # supervision (utils/supervision.py): restart budget per worker thread,
+    # seconds of silent heartbeat before a stall is reported, and seconds
+    # of stall that fail the run (0 disables)
+    worker_max_restarts: int = 3
+    heartbeat_timeout: float = 120.0
+    stall_fatal_timeout: float = 900.0
+    checkpoint_dir: str = "checkpoints"
+    metrics_path: Optional[str] = None  # jsonl metrics file
 
     # --- derived ----------------------------------------------------------
     @property
@@ -267,20 +285,13 @@ class R2D2Config:
 
 def require_ported(cfg: R2D2Config) -> None:
     """Refuse configurations whose code path the port does not have yet,
-    naming the roadmap item that queues it (ROADMAP.md Queue 1), and
-    widths the kernels cannot take, naming the limit. Every backward arm
-    runs in both compute dtypes."""
+    naming the roadmap item that queues it (ROADMAP.md Queue 1). Every
+    backward arm runs in both compute dtypes and at every hidden size (the
+    model pads H to the kernels' row multiple on the card,
+    ``models/lstm.py``)."""
     if cfg.encoder == "impala" or cfg.recurrent_core != "lstm":
         raise NotImplementedError(
             "the IMPALA encoder and the LRU core are queued (M8)"
-        )
-    bf16 = cfg.resolved_compute_dtype == "bfloat16"
-    row = 8 if bf16 else 4  # values in one 16-byte copy of a row
-    if cfg.hidden_dim % row:
-        raise NotImplementedError(
-            f"hidden_dim={cfg.hidden_dim}: the LSTM kernels copy rows 16 bytes "
-            f"at a time, so under {cfg.resolved_compute_dtype} the hidden size "
-            f"must be a multiple of {row}"
         )
 
 
@@ -337,8 +348,11 @@ def tiny_test() -> R2D2Config:
         num_actors=2,
         training_steps=50,
         target_net_update_interval=10,
+        save_interval=25,
         max_episode_steps=100,
         encoder="mlp",
+        # 0.0 = one metrics record per update
+        log_interval=0.0,
     ).validate()
 
 

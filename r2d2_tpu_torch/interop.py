@@ -7,12 +7,19 @@ or the inner dict), so nothing here imports JAX. Conversions:
 - Conv kernel HWIO        <->  Conv2d weight OIHW
 - the LSTM's wi / wh / b keep their layout.
 
-Both directions copy, and the round trip flax -> torch -> flax is bitwise.
+Optimizer state: optax's Adam (``ScaleByAdamState``: ``mu`` and ``nu``,
+parameter-shaped trees, and ``count``) <-> torch Adam's state_dict
+(``exp_avg``, ``exp_avg_sq`` and ``step`` per parameter index). Both count
+the updates applied, and both use the count after the increment in the bias
+correction, so the next update is the same function of either.
+
+Both directions copy, and the round trips flax -> torch -> flax are bitwise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import copy
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +84,26 @@ def params_to_flax(params) -> dict:
             "bias": np.array(sd[f"{head}.bias"]),
         }
     return {"params": out}
+
+
+def adam_state_from_optax(template: Mapping, names: Sequence[str], mu: Mapping, nu: Mapping,
+                          count) -> dict:
+    """optax Adam's (mu, nu, count) -> a torch Adam state_dict. `template`
+    is the target optimizer's own state_dict (its param_groups are kept);
+    `names` are the parameter names in the optimizer's order
+    (``[n for n, _ in net.named_parameters()]``)."""
+    mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    state = {i: {"step": step.clone(), "exp_avg": mu_sd[n], "exp_avg_sq": nu_sd[n]}
+             for i, n in enumerate(names)}
+    return {"state": state, "param_groups": copy.deepcopy(list(template["param_groups"]))}
+
+
+def adam_state_to_optax(state_dict: Mapping, names: Sequence[str]) -> Tuple[dict, dict, np.ndarray]:
+    """A torch Adam state_dict -> optax Adam's (mu, nu, count) as
+    ``{"params": {...}}`` trees of numpy and an int32 count."""
+    state = state_dict["state"]
+    mu = params_to_flax({n: state[i]["exp_avg"] for i, n in enumerate(names)})
+    nu = params_to_flax({n: state[i]["exp_avg_sq"] for i, n in enumerate(names)})
+    count = np.asarray(int(state[0]["step"]), np.int32)
+    return mu, nu, count

@@ -41,6 +41,17 @@ from r2d2_tpu_torch.ops.value_rescale import inverse_value_rescale, value_rescal
 from r2d2_tpu_torch.replay.block import state_tensor
 
 
+# the device dtype of each DeviceBatch field made from a SampledBatch; None
+# keeps the stored one (obs uint8; the carry float32, or bf16 bits viewed as
+# bfloat16: replay.block.state_tensor)
+_FIELD_DTYPES = {
+    "obs": None, "last_action": torch.int64, "last_reward": torch.float32, "hidden": None,
+    "action": torch.int64, "n_step_reward": torch.float32, "gamma": torch.float32,
+    "burn_in_steps": torch.int32, "learning_steps": torch.int32,
+    "forward_steps": torch.int32, "is_weights": torch.float32,
+}
+
+
 class DeviceBatch(NamedTuple):
     """The device-side view of a replay SampledBatch."""
 
@@ -58,26 +69,73 @@ class DeviceBatch(NamedTuple):
 
     @classmethod
     def from_sampled(cls, b, device) -> "DeviceBatch":
-        def put(x, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(x))
+        """Copied from pageable host memory (the copy waits for the host)."""
+        out = []
+        for name, dtype in _FIELD_DTYPES.items():
+            t = state_tensor(getattr(b, name))
             if dtype is not None:
                 t = t.to(dtype)
-            return t.to(device, non_blocking=True)
+            out.append(t.to(device, non_blocking=True))
+        return cls(*out)
 
-        return cls(
-            obs=put(b.obs),
-            last_action=put(b.last_action, torch.int64),
-            last_reward=put(b.last_reward, torch.float32),
-            # float32, or bf16 bits viewed as bfloat16: the stored carry as is
-            hidden=state_tensor(b.hidden).to(device, non_blocking=True),
-            action=put(b.action, torch.int64),
-            n_step_reward=put(b.n_step_reward, torch.float32),
-            gamma=put(b.gamma, torch.float32),
-            burn_in_steps=put(b.burn_in_steps, torch.int32),
-            learning_steps=put(b.learning_steps, torch.int32),
-            forward_steps=put(b.forward_steps, torch.int32),
-            is_weights=put(b.is_weights, torch.float32),
-        )
+
+class PinnedStager:
+    """Host->device staging of sampled batches through a ring of pinned host
+    buffers and a side CUDA stream, so the copies overlap the updates.
+
+    `stage(b)` (the sampler's thread) casts each field of a SampledBatch
+    into the next slot's pinned buffers, in its device dtype, issues the
+    copies on the side stream and records an event: -> (DeviceBatch,
+    event). A slot is rewritten only after its last copy's event has
+    completed, so a ring of `slots` holds the batch queue's items plus
+    those in flight. `consume(batch, event)` (the learner's thread) makes
+    the current stream wait for the event on the device (no host sync) and
+    records the batch's tensors on it, so the caching allocator keeps them
+    until the update that reads them is done. The staging is timed by
+    `timer.h2d` (gather and copy issue)."""
+
+    def __init__(self, device, slots: int, timer):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.timer = timer
+        self._buffers: list = [None] * slots
+        self._events: list = [None] * slots
+        self._next = 0
+
+    def _slot(self, specs):
+        """(index, pinned buffers) of the next slot, for [(shape, dtype)]."""
+        i = self._next
+        self._next = (i + 1) % len(self._buffers)
+        if self._events[i] is not None:
+            self._events[i].synchronize()  # its last copy has left the buffers
+        bufs = self._buffers[i]
+        if bufs is None or [(p.shape, p.dtype) for p in bufs] != specs:
+            bufs = self._buffers[i] = [torch.empty(shape, dtype=dt, pin_memory=True)
+                                       for shape, dt in specs]
+        return i, bufs
+
+    def stage(self, b):
+        srcs = [state_tensor(getattr(b, name)) for name in _FIELD_DTYPES]
+        dtypes = [dt or t.dtype for dt, t in zip(_FIELD_DTYPES.values(), srcs)]
+        nbytes = sum(t.numel() * dt.itemsize for t, dt in zip(srcs, dtypes))
+        with self.timer.h2d(nbytes):
+            i, bufs = self._slot([(t.shape, dt) for t, dt in zip(srcs, dtypes)])
+            for buf, src in zip(bufs, srcs):
+                buf.copy_(src)
+            with torch.cuda.stream(self.stream):
+                dev = [buf.to(self.device, non_blocking=True) for buf in bufs]
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            self._events[i] = event
+        return DeviceBatch(*dev), event
+
+    @staticmethod
+    def consume(batch: "DeviceBatch", event) -> "DeviceBatch":
+        stream = torch.cuda.current_stream(batch.obs.device)
+        stream.wait_event(event)
+        for t in batch:
+            t.record_stream(stream)
+        return batch
 
 
 @dataclasses.dataclass

@@ -26,6 +26,10 @@ class ReplayControlPlane:
         self.ptr_advances = 0
         self.size = 0
         self.env_steps = 0
+        # since the last pop_episode_stats (the metrics stream) and over
+        # the run
+        self.num_episodes = 0
+        self.episode_reward_sum = 0.0
         self.total_episodes = 0
         self.total_reward_sum = 0.0
         self.learning_sum = np.zeros(cfg.num_blocks, np.int64)
@@ -58,6 +62,8 @@ class ReplayControlPlane:
         self.size += learning_total
         self.env_steps += learning_total
         if episode_reward is not None:
+            self.num_episodes += 1
+            self.episode_reward_sum += episode_reward
             self.total_episodes += 1
             self.total_reward_sum += episode_reward
         self.block_ptr = (ptr + 1) % self.cfg.num_blocks
@@ -99,6 +105,16 @@ class ReplayControlPlane:
                 mask = np.ones_like(idxes, dtype=bool)
             self.tree.update(idxes[mask], td_errors[mask])
 
+    def pop_episode_stats(self):
+        """(episodes, reward sum) since the last call, and reset them."""
+        with self.lock:
+            n, r = self.num_episodes, self.episode_reward_sum
+            self.num_episodes = 0
+            self.episode_reward_sum = 0.0
+        return n, r
+
     def episode_totals(self):
+        """Run-lifetime (episodes, reward sum), unaffected by
+        pop_episode_stats."""
         with self.lock:
             return self.total_episodes, self.total_reward_sum

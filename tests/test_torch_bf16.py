@@ -348,8 +348,8 @@ def test_bf16_act_matches_flax():
 
 @pytest.mark.parametrize("extra", [{}, {"encoder": "nature", "obs_shape": (36, 36, 1)},
                                    {"seq_grad_checkpoint": 2}, {"backward_arm": "fused_dwh"},
-                                   {"fused_sequence": False}],
-                         ids=["mlp", "nature", "ckpt", "fused_dwh", "no_seam"])
+                                   {"fused_sequence": False}, {"hidden_dim": 36}],
+                         ids=["mlp", "nature", "ckpt", "fused_dwh", "no_seam", "hidden36"])
 def test_bf16_train_step_matches_jax(extra):
     """One update in bf16 from one converted TrainState on one batch whose
     carries are stored in bf16 (precision="bf16"): loss, priorities and

@@ -37,7 +37,13 @@ import pytest
 import torch
 
 from r2d2_tpu_torch.config import tiny_test
-from r2d2_tpu_torch.learner import DeviceBatch, TrainState, make_optimizer, make_train_step
+from r2d2_tpu_torch.learner import (
+    DeviceBatch,
+    PinnedStager,
+    TrainState,
+    make_optimizer,
+    make_train_step,
+)
 from r2d2_tpu_torch.models.r2d2 import init_params
 from r2d2_tpu_torch.ops import lstm_kernel
 
@@ -226,7 +232,18 @@ def test_train_step_per_arm_on_the_card_matches_the_cpu(cuda, arm):
         dict.fromkeys(lstm_kernel.KERNELS, 0), lstm_fwd=2, **{kernel: 1})
 
 
-def _card_vs_cpu(cfg, steps):
+def _card_vs_cpu(cfg, steps, bf16=False):
+    """`steps` updates through the kernels on the card against the same
+    updates through the plain versions on the CPU: loss and priorities to
+    rtol 1e-4 / atol 1e-5, each parameter's gradient entry by entry to
+    rtol 1e-4 plus 1e-4 of its largest entry (the bound of dWh), and the
+    parameters after the updates to rtol 1e-4 / atol 1e-5. With `bf16` the
+    bf16 class: loss and priorities to rtol 1e-2 / atol 1e-3, gradients to
+    rtol 1e-2 plus BF16_DWH of each one's largest entry; the parameters are
+    not compared, since Adam's first step moves each by about lr in the
+    direction of its gradient's sign, which a gradient near zero may flip
+    (its gradient is held instead)."""
+    rtol, atol, grad_tol = (1e-2, 1e-3, BF16_DWH) if bf16 else (1e-4, 1e-5, 1e-4)
     net = init_params(cfg, seed=1, device="cpu")
     states = {}
     for dev in ("cpu", "cuda"):
@@ -255,8 +272,14 @@ def _card_vs_cpu(cfg, steps):
         b.is_weights = rng.uniform(0.3, 1.0, size=Bn).astype(np.float32)
         out = {dev: step(states[dev], DeviceBatch.from_sampled(b, dev)) for dev in states}
         torch.testing.assert_close(out["cuda"][1]["loss"].cpu(), out["cpu"][1]["loss"],
-                                   rtol=1e-4, atol=1e-5)
-        torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-4, atol=1e-5)
+                                   rtol=rtol, atol=atol)
+        torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=rtol, atol=atol)
+        for (name, a), b in zip(states["cuda"].net.named_parameters(),
+                                states["cpu"].net.parameters()):
+            torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=grad_tol,
+                                       atol=grad_tol * float(b.grad.abs().max()), msg=name)
+    if bf16:
+        return
     for (name, a), b in zip(states["cuda"].net.state_dict().items(),
                             states["cpu"].net.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5, msg=name)
@@ -507,3 +530,72 @@ def test_bf16_wrappers_refuse_f32_operands_where_jax_has_f32(cuda):
         lstm_kernel.lstm_bwd(f, proj, hb, hb, f, wh, dcT)
     with pytest.raises(TypeError, match="wh"):
         lstm_kernel.lstm_seq_bwd_fused(f, proj, hb, f, f, wh.float(), dcT, burn)
+
+
+# --------------------------------------------------------------------------
+# the training path's host plane on the card: pinned staging, checkpoints,
+# and hidden sizes padded to the kernels' row
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_pinned_staging_equals_from_sampled(cuda, precision):
+    """Batches staged through the pinned ring and the side stream equal the
+    pageable copies bit for bit, in every field's dtype (the bf16 carry
+    too), also once the ring has wrapped around."""
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.profiling import TransferTimer
+
+    tr = Trainer(tiny_test().replace(env_name="catch", precision=precision), device=cuda)
+    tr.warmup()
+    timer = TransferTimer()
+    stager = PinnedStager(cuda, slots=3, timer=timer)
+    for i in range(7):
+        b = tr.replay.sample_batch(tr.sample_rng)
+        staged, event = stager.stage(b)
+        got = PinnedStager.consume(staged, event)
+        want = DeviceBatch.from_sampled(b, cuda)
+        for name, g, w in zip(DeviceBatch._fields, got, want):
+            assert g.device == w.device and g.dtype == w.dtype, name
+            assert torch.equal(g, w), (i, name)
+    assert want.hidden.dtype == (BF16 if precision == "bf16" else torch.float32)
+    assert timer.stats()["h2d_chunks"] == 7 and timer.bytes_staged > 0
+
+
+def test_checkpoint_restores_onto_the_card_bitwise(cuda, tmp_path):
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.checkpoint import list_checkpoint_steps
+
+    cfg = tiny_test().replace(env_name="catch", training_steps=4, save_interval=2,
+                              checkpoint_dir=str(tmp_path / "ckpt"))
+    tr = Trainer(cfg, device=cuda)
+    tr.run_inline()
+    assert list_checkpoint_steps(cfg.checkpoint_dir) == [2, 4]
+    resumed = Trainer(cfg, device=cuda, resume=True)
+    assert resumed.state.step == 4
+    for a, b in ((tr.state.net, resumed.state.net), (tr.state.target_net,
+                                                      resumed.state.target_net)):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert y.device.type == "cuda" and torch.equal(x, y), k
+    oa, ob = tr.state.optimizer.state_dict()["state"], resumed.state.optimizer.state_dict()["state"]
+    assert set(oa) == set(ob) and oa
+    for i in oa:
+        for k, v in oa[i].items():
+            assert torch.equal(v, ob[i][k]), (i, k)
+            if k != "step":
+                assert ob[i][k].device.type == "cuda"
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_hidden_510_through_padded_kernels_matches_plain_versions(cuda, precision):
+    """Hidden 510, a multiple of neither 4 nor 8: the model pads it to 512
+    (two zero units, in fp32 and bf16 alike) on the card, so the kernels run, and
+    one update, its gradients included, matches the unpadded plain
+    versions on the CPU (_card_vs_cpu: fp32, and bf16 in the bf16 class)."""
+    cfg = tiny_test().replace(hidden_dim=510, precision=precision, target_net_update_interval=2)
+    lstm_kernel.reset_launch_counts()
+    _card_vs_cpu(cfg, steps=1, bf16=precision == "bf16")
+    suffix = "_bf16" if precision == "bf16" else ""
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0),
+        **{f"lstm_fwd{suffix}": 2, f"lstm_seq_bwd{suffix}": 1})

@@ -164,8 +164,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 
 def test_unported_options_are_refused_by_name(capsys):
     """bfloat16 trains under every backward arm (the no-seam K3 and the
-    fused-dWh K4 included); hidden sizes the bf16 rows cannot take and the
-    IMPALA encoder (M8) are refused by name, before the first update."""
+    fused-dWh K4 included), at any hidden size; the IMPALA encoder (M8) is
+    refused by name, before the first update."""
     tr = train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
                                            fused_sequence=False), device="cpu")
     assert tr.backward_arm == ("default", 0) and not tr.net.fused_sequence
@@ -173,12 +173,30 @@ def test_unported_options_are_refused_by_name(capsys):
                                            lstm_backend="pallas", backward_arm="fused_dwh"),
                        device="cpu")
     assert tr.backward_arm == ("fused_dwh", 0)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        train.Trainer(tiny_test().replace(env_name="catch", precision="bf16", hidden_dim=36),
-                      device="cpu")
+    tr = train.Trainer(tiny_test().replace(env_name="catch", precision="bf16", hidden_dim=36),
+                       device="cpu")
+    assert tr.state.net.core.padded_units("cpu") == 36
     train.main(["--preset", "tiny_test", "--env", "catch", "--steps", "1", "--device", "cpu",
                 "--set", "precision=bf16", "--set", "fused_sequence=false"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["compute_dtype"] == "bfloat16" and np.isfinite(out["loss"])
     with pytest.raises(NotImplementedError, match="M8"):
         train.Trainer(tiny_test().replace(env_name="catch", encoder="impala"), device="cpu")
+
+
+@pytest.mark.parametrize("precision,hidden", [("bf16", 36), ("fp32", 30)])
+def test_odd_hidden_sizes_train_on_the_cpu(precision, hidden):
+    """Hidden sizes that are not a multiple of the kernels' 16-byte row (8
+    bf16 values, 4 float32 ones) train on the CPU through the plain
+    versions, unpadded; on the card the model pads them (models/lstm.py)."""
+    cfg = tiny_test().replace(env_name="catch", precision=precision, hidden_dim=hidden,
+                              training_steps=3)
+    tr = train.Trainer(cfg, device="cpu")
+    tr.run_inline()
+    m = tr.metrics()
+    assert m["step"] == 3 and np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+    assert tr.state.net.core.wh.shape == (hidden, 4 * hidden)
+    assert tr.replay.hidden_store.shape[-1] == hidden
+    row = 8 if precision == "bf16" else 4
+    assert tr.state.net.core.padded_units("cpu") == hidden
+    assert tr.state.net.core.padded_units("cuda") == -(-hidden // row) * row

@@ -46,7 +46,8 @@ summed in f32 from the f32 dz carried in two bf16 planes (dz to about 16
 bits), to 1e-4 of its largest entry as in float32 (summing the rounded
 dz instead would be off by about 1e-3). Two launches still give the same
 bits, and K4-bf16's dz is K2-bf16's f32 dz rounded to bf16 everywhere:
-the two get one split.
+the two get one split. One case adds a slack derived from K5-bf16's own
+recompute: its dWh in row chunks at H=600 (see _recompute_dwh_slack).
 """
 
 import ctypes
@@ -587,14 +588,55 @@ def test_emulated_bf16_fused_dwh_window_may_not_divide_T(kernels, T, B, H, mt):
 TC_CHUNK_SHAPES = [(4, 37, 40, 20), (3, 21, 600, 300)]
 
 
+# the one case whose K5-bf16 dWh takes _recompute_dwh_slack: (T, B, H, S)
+RECOMPUTE_SLACK_CASE = (3, 21, 600, 3)
+
+
+def _recompute_dwh_slack(walk, burn, S):
+    """The part of K5-bf16's dWh error that comes from its recompute, for
+    RECOMPUTE_SLACK_CASE only.
+
+    K5 recomputes h inside each segment (steps t with t % S != 0) in its
+    own summation order; the plain version recomputes it in another. Each
+    side rounds its f32 h to bf16 with an error of at most half a bf16
+    step, so the two h may differ by one whole step where their f32 values
+    straddle a rounding boundary. A bf16 step is 2^-7 to 2^-8 of |h| (8
+    significant bits), so one step is at most 2^-7 |h|. An entry
+    dWh[k, j] = sum over the T*B terms (t, b) of h[t, b, k] * dz[t, b, j]
+    then moves by at most
+    2^-7 * sum_(t, b recomputed) |h[t, b, k]| * |dz[t, b, j]|, entry by
+    entry, with dz the f32 dz of the plain walk.
+
+    In that case 4 of the 25,200 recomputed h differ: three by one step
+    (|h| 1.0e-4 to 1.9e-2) and one, |h| = 2.1e-6, by three steps of its own
+    size, 4.5e-8 in all, which the one-step term of the other terms of its
+    sums covers many times over. The kernel's dWh is 2.74e-4 off the plain
+    one, against 1e-4 of its largest entry, 2.63e-4 to 3.67e-4. Every other
+    case holds to the 1e-4 bound alone. At S = 1 no h is recomputed and
+    the slack is zero."""
+    hprev, T = walk[2].float(), walk[2].shape[0]
+    rec = torch.tensor([t % S != 0 for t in range(T)])
+    if not rec.any():
+        return 0.0
+    dz = lstm_kernel.lstm_seq_bwd_plain(*walk, burn)
+    return 2.0 ** -7 * torch.einsum("tbk,tbj->kj", hprev[rec].abs(), dz[rec].abs())
+
+
 @pytest.mark.parametrize("T,B,H,mt", TC_CHUNK_SHAPES)
 def test_emulated_tensor_core_forms_in_row_chunks_match_plain_versions(kernels, T, B, H, mt):
-    """K1-bf16 (outs, cs), K3-bf16 (dz, dh0, dc0), K2-bf16 (dz) and K4-bf16
-    (dz, dWh; seams 0 and mixed) in two or more row chunks against their
-    bf16 plain versions, each launched twice for the same bits, dz zero
-    below each seam, and K4-bf16's dz K2-bf16's rounded."""
+    """K1-bf16 (outs, cs), K3-bf16 (dz, dh0, dc0), K2-bf16 (dz), K4-bf16
+    (dz, dWh; seams 0 and mixed) and K5-bf16 (dz, dWh at S = 1 and the
+    other strides) in two or more row chunks against their bf16 plain
+    versions, each launched twice for the same bits, dz zero below each
+    seam, and K4-bf16's dz K2-bf16's rounded.
+
+    K5-bf16's dWh is held to 1e-4 of its largest entry, as in the other
+    cases, save at RECOMPUTE_SLACK_CASE, which adds the slack of its
+    recompute (_recompute_dwh_slack). Where one segment holds the whole
+    unroll (S = T), the kernel's own recomputed h is in its scratch, and
+    the plain dWh summed from that h must meet the 1e-4 bound alone."""
     for name in ("lstm_fwd_bf16", "lstm_bwd_bf16", "lstm_seq_bwd_bf16",
-                 "lstm_seq_bwd_fused_bf16"):
+                 "lstm_seq_bwd_fused_bf16", "lstm_seq_bwd_ckpt_bf16"):
         g = _emulated_geometry(name, B, H, mt)
         assert g.rows == TC_CHUNK_ROWS and g.chunks(B) >= 2 and B % g.rows, (name, g)
     rng, proj, wh, h0, c0, p_outs, p_cs, dout, dcT = _operands(T, B, H, BF16)
@@ -615,3 +657,40 @@ def test_emulated_tensor_core_forms_in_row_chunks_match_plain_versions(kernels, 
         _assert_zero_below_seam(dz, burn_np)
         assert torch.equal(dz, _seam(kernels, *walk, burn, mt))
         assert torch.equal(_check_bf16_fused(kernels, walk, burn_np, mt), dz.to(BF16))
+    for S in sorted({1, *_strides(T)}):
+        for burn_np in _seams_for(rng, T, B, S)[:2]:
+            burn = torch.from_numpy(burn_np.astype(np.int32))
+            args = (dout, proj, p_outs, p_cs, h0, c0, wh, dcT, burn, S, mt)
+            dz, dwh, h_ckpt, c_ckpt = _ckpt(kernels, *args)
+            p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(
+                dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, S)
+            torch.testing.assert_close(dz.float(), p_dz.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+            tol = 1e-4 * float(p_dwh.abs().max())
+            if (T, B, H, S) == RECOMPUTE_SLACK_CASE:
+                tol = tol + _recompute_dwh_slack(walk, burn, S)
+            assert ((dwh - p_dwh).abs() <= tol).all(), (S, float((dwh - p_dwh).abs().max()))
+            _assert_zero_below_seam(dz, burn_np)
+            assert all(map(torch.equal, (dz, dwh), _ckpt(kernels, *args)[:2]))
+            if S == T:
+                _check_dwh_from_recomputed_h(kernels, walk, args, dwh)
+
+
+def _check_dwh_from_recomputed_h(kernels, walk, args, dwh):
+    """K5-bf16 at S = T, one segment: the plain walk run on the h that the
+    kernel recomputed (left in its seg_h scratch: seg_h[s] is the h entering
+    step s, s >= 1) gives the kernel's dWh to 1e-4 of its largest entry, the
+    bound of every other case."""
+    dout, proj, _, _, h0, c0, wh, dcT, burn, S, mt = args
+    T, B, H = dout.shape
+    h_ckpt, c_ckpt = h0[None].contiguous(), c0.float()[None].contiguous()
+    dz, dwh2 = torch.empty(T, B, 4 * H, dtype=BF16), torch.empty(H, 4 * H)
+    seg_h, seg_c = torch.empty(S + 1, B, H, dtype=BF16), torch.empty(S + 1, B, H)
+    _split(kernels, "lstm_seq_bwd_ckpt_bf16",
+           (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh2, seg_h, seg_c,
+            torch.empty(S, B, 4 * H, dtype=BF16)), T, B, H, S, max_threads=mt)
+    assert torch.equal(dwh2, dwh)
+    hprev = torch.cat([h0[None], seg_h[1:S]])
+    own = (dout, proj, hprev, *walk[3:])
+    dz32 = lstm_kernel.lstm_seq_bwd_plain(*own, burn)
+    own_dwh = hprev.float().reshape(T * B, H).T @ dz32.reshape(T * B, 4 * H)
+    _assert_dwh_close(dwh, own_dwh)

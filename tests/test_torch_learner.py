@@ -103,8 +103,9 @@ def _assert_trees_close(port_tree, jax_tree, what):
         (3, 1.0, {}),
         (3, 1.0, {"lr_schedule": "cosine", "training_steps": 4}),
         (3, 300.0, {"grad_norm": 1.0}),  # gradient norm above grad_norm: the clip runs
+        (3, 1.0, {"hidden_dim": 30}),  # H off the kernels' row of 4 float32 values
     ],
-    ids=["1step", "3steps", "3steps-cosine", "3steps-clipped"],
+    ids=["1step", "3steps", "3steps-cosine", "3steps-clipped", "3steps-hidden30"],
 )
 def test_train_steps_match_jax(steps, reward_scale, extra):
     kw = {**OVERRIDES, **extra}

@@ -211,3 +211,33 @@ def test_port_init_draws_flax_shapes_from_a_seed():
     _, _, params, _ = _build("nature36")
     shapes = jax.tree.map(np.shape, _np_tree(params))
     assert jax.tree.map(np.shape, params_to_flax(a)) == shapes
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 30), (torch.bfloat16, 36)])
+@pytest.mark.parametrize("arm", [("default", 0), ("fused_dwh", 0), ("ckpt", 2), None])
+def test_zero_padded_unroll_matches_the_unpadded_one(dtype, H, arm, monkeypatch):
+    """The core padded with zero units (what the card runs at an H off the
+    kernels' row multiple, here forced on the CPU) gives the unpadded
+    unroll's outputs, final carry and parameter gradients to 1e-6: a zero
+    unit stays zero and adds only zero products. `arm` None is the unroll
+    with no seam."""
+    from r2d2_tpu_torch.models.lstm import LSTM
+
+    core = LSTM(H, 11, generator=torch.Generator().manual_seed(1),
+                backward_arm=arm or ("default", 0), dtype=dtype)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 6, 11, generator=g)
+    carry = (torch.randn(3, H, generator=g) * 0.3, torch.randn(3, H, generator=g) * 0.3)
+    burn = None if arm is None else torch.tensor([0, 2, 5])
+    assert core.padded_units("cpu") == H
+    runs = []
+    for Hp in (H, -(-H // 8) * 8):
+        monkeypatch.setattr(LSTM, "padded_units", lambda self, device, Hp=Hp: Hp)
+        core.zero_grad()
+        outs, (hT, cT) = core(x, carry, burn)
+        assert outs.shape == (3, 6, H) and hT.shape == cT.shape == (3, H)
+        (outs.float().square().mean() + hT.float().mean() + cT.float().mean()).backward()
+        runs.append([outs.detach(), hT.detach(), cT.detach(),
+                     *(p.grad.clone() for p in (core.wi, core.wh, core.b))])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-6, atol=1e-6)
