@@ -109,12 +109,15 @@ its own lines; any failure exits non-zero and prints no result:
           that it acts as much per update as inline; each threaded run
           with its batches staged through the pinned ring, and again with
           the sampler copying them from pageable memory through
-          DeviceBatch.from_sampled, as inline does), env steps per update, the updates' peak device
+          DeviceBatch.from_sampled, as inline does; inline and threaded
+          also with use_native_replay=False, the numpy gathers, beside the
+          native core's), env steps per update, the updates' peak device
           memory, and in threaded mode TransferTimer's overlap fraction,
-          h2d and wait seconds; with --profile, as many updates again under
-          torch.profiler: the device's busy share and the host time under
-          the spans replay/sample and learner_update, the rest of the wall
-          beside them. Printed, not held to a limit.
+          h2d and wait seconds; then 6 more updates under
+          torch.profiler (inline and threaded, native and numpy, always;
+          the other rows with --profile): the device's busy share and the
+          host time under the spans replay/sample and learner_update, the
+          rest of the wall beside them. Printed, not held to a limit.
 16. odd    hidden 510 (a multiple of neither 4 nor 8) in fp32 and bf16: one
           update of 2 forward + 1 seam backward launches at 512 units (the
           model pads zero units), against the CPU as in phases 5 and 12.
@@ -136,6 +139,7 @@ Imports nothing of JAX or of the JAX package.
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -183,11 +187,25 @@ ON_CATCH_BF16 = dict(env_name="catch", buffer_capacity=16_000, learning_starts=2
 ON_CATCH = dict(ON_CATCH_BF16, compute_dtype="float32")
 # phase 14: (updates, save_interval) of the end-to-end runs through the
 # entry points, bf16 threaded and fp32 inline
-E2E = {"bf16": (12, 6), "fp32": (8, 4)}
-# phase 15: learner updates timed per mode, after 2 that warm the path
+E2E = {"bf16": (12, 6), "fp32": (8, 4), "long_context bf16": (4, 2),
+       "long_context fp32": (4, 2)}
+# phase 15: learner updates timed per mode, after 2 that warm the path, and
+# the updates profiled after them (processing the trace of each costs time)
 MODE_UPDATES = 24
+PROFILED_UPDATES = 6
 # phase 16: a hidden size that is a multiple of neither 4 nor 8
 ODD_HIDDEN = 510
+# phase 17: batches compared bit for bit, and timed, native against numpy
+NATIVE_COMPARES = 5
+NATIVE_TIMED = 20
+# phase 18: the long_context preset with only the host replay sizes cut
+# (2,048,000 -> 16 blocks of 1024; 50,000 -> 6,144 transitions, eight
+# 768-step episodes); inline updates, updates held against the CPU one by
+# one (fp32), and the chunk of the chunked LRU form
+LONG_CONTEXT_CUT = dict(buffer_capacity=16_384, learning_starts=6_144)
+LC_UPDATES = 4
+LC_AGREE = 2
+LC_CHUNK = 128
 # the row-chunk shapes of phase 9: twice the rows a block holds at once
 CHUNKED = ((85, 1024, 512), (85, 256, 2048))
 # the wide model preset's hidden size, and the batch at which its
@@ -413,13 +431,15 @@ def states_equal(a, b):
         torch.equal(v, oy[i][k]) for i in ox for k, v in ox[i].items())
 
 
-def e2e(label, cfg, mode, dev, tmp):
-    """The main path through the entry points a user calls: train with
+def e2e(label, cfg, mode, dev, tmp, expect=None):
+    """A path through the entry points a user calls: train with
     checkpoints and a metrics file (run_threaded or run_inline), resume
     from the last checkpoint, evaluate the checkpoint series. The launch
-    counts are zeroed just before the run and read just after."""
+    counts are zeroed just before the run and read just after: by default
+    2 forward and 1 seam backward launches an update; `expect(updates)`
+    gives another path's."""
     import torch
-    from r2d2_tpu_torch.envs.catch import CatchVecEnv
+    from r2d2_tpu_torch.envs.catch import CatchVecEnv, catch_params
     from r2d2_tpu_torch.evaluate import evaluate_series
     from r2d2_tpu_torch.ops import lstm_kernel as K
     from r2d2_tpu_torch.train import Trainer
@@ -440,9 +460,10 @@ def e2e(label, cfg, mode, dev, tmp):
     launches = {k: v for k, v in K.launch_counts.items() if v}
     tr.metrics_logger.close()
     sfx = "_bf16" if cfg.resolved_compute_dtype == "bfloat16" else ""
-    if launches != {f"lstm_fwd{sfx}": 2 * updates, f"lstm_seq_bwd{sfx}": updates}:
-        fail(f"e2e {label} {mode}: expected {2 * updates} lstm_fwd{sfx} and {updates} "
-             f"lstm_seq_bwd{sfx} launches, got {launches}")
+    want = expect(updates) if expect else {f"lstm_fwd{sfx}": 2 * updates,
+                                           f"lstm_seq_bwd{sfx}": updates}
+    if launches != want:
+        fail(f"e2e {label} {mode}: expected the launches {want}, got {launches}")
     steps = list_checkpoint_steps(cfg.checkpoint_dir)
     if steps != list(range(every, updates + 1, every)):
         fail(f"e2e {label} {mode}: checkpoints {steps}")
@@ -463,8 +484,8 @@ def e2e(label, cfg, mode, dev, tmp):
         f"{resumed.env_steps_offset}")
     del resumed
     t = time.perf_counter()
-    rows = evaluate_series(tr.cfg, CatchVecEnv(8, cfg.obs_shape[0], cfg.obs_shape[1], seed=123),
-                           device=dev)
+    rows = evaluate_series(tr.cfg, CatchVecEnv(8, cfg.obs_shape[0], cfg.obs_shape[1], seed=123,
+                                               **catch_params(cfg.env_name)), device=dev)
     if [r["step"] for r in rows] != steps or not all(math.isfinite(r["mean_reward"])
                                                        for r in rows):
         fail(f"e2e {label}: evaluation rows {rows}")
@@ -478,14 +499,17 @@ def modes(label, cfg, dev, profile):
     of run_inline and run_threaded (free-running actors, and throttled by
     samples_per_insert to inline's env steps per update; each with the
     batches staged through the pinned ring, and "pageable": the sampler's
-    batches copied by DeviceBatch.from_sampled on its thread) on one path: after
+    batches copied by DeviceBatch.from_sampled on its thread; inline and
+    threaded also with the numpy replay gathers, use_native_replay=False,
+    beside the native core's) on one path: after
     2 updates that warm it, MODE_UPDATES more, timed from the end of the
     first to the end of the last (the steady state; run_ms_per_update is
     the whole run's wall, the threads' start and stop included); TransferTimer's overlap, h2d and wait seconds;
     the updates' peak device memory above what was allocated before them
-    (in threaded mode with the queued batches). With `profile`, as many
-    again under torch.profiler: the device's busy share and the host time
-    under each span."""
+    (in threaded mode with the queued batches). Then PROFILED_UPDATES more
+    under torch.profiler (for inline and threaded mode always, native and
+    numpy; for the other rows with `profile`): the device's busy share and
+    the host time under each span."""
     import torch
     from r2d2_tpu_torch.train import Trainer
     from r2d2_tpu_torch.utils.profiling import start_trace
@@ -494,18 +518,28 @@ def modes(label, cfg, dev, profile):
     # the samples_per_insert at which threaded mode acts as much per update
     # as inline mode (one actor step of num_actors env steps per update)
     matched = cfg.batch_size * cfg.learning_steps / cfg.num_actors
-    for mode, spi in (("inline", 0.0), ("threaded", 0.0), ("threaded pageable", 0.0),
-                      ("threaded", matched), ("threaded pageable", matched)):
-        tr = Trainer(cfg.replace(training_steps=2, samples_per_insert=spi), device=dev)
+    for mode, spi, native in (
+            ("inline", 0.0, True), ("threaded", 0.0, True), ("threaded pageable", 0.0, True),
+            ("threaded", matched, True), ("threaded pageable", matched, True),
+            ("inline", 0.0, False), ("threaded", 0.0, False)):
+        tr = Trainer(cfg.replace(training_steps=2, samples_per_insert=spi,
+                                 use_native_replay=native), device=dev)
         if mode == "threaded pageable":
             tr._sample_staged = tr.sample  # the sampler copies as inline mode does
         run = tr.run_inline if mode == "inline" else tr.run_threaded
         run()
+        # inline and threaded mode, with the native core and with numpy, are
+        # always profiled too: the host time under replay/sample and the
+        # device's busy share
+        profiled = profile or (not spi and mode in ("inline", "threaded"))
         if spi:
             mode = f"{mode} spi={spi:g}"
+        if not native:
+            mode = f"{mode} numpy"
         row = {"path": label, "mode": mode}
-        for phase in ("timed", "profiled") if profile else ("timed",):
-            tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + MODE_UPDATES)
+        for phase in ("timed", "profiled") if profiled else ("timed",):
+            n = MODE_UPDATES if phase == "timed" else PROFILED_UPDATES
+            tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + n)
             tr.xfer.reset()
             acted = tr.actor.total_steps
             torch.cuda.synchronize()
@@ -522,15 +556,15 @@ def modes(label, cfg, dev, profile):
                            run_ms_per_update=wall_ms / MODE_UPDATES,
                            env_steps_per_update=(tr.actor.total_steps - acted) / MODE_UPDATES,
                            peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30,
-                           **(tr.xfer.stats() if mode != "inline" else {}))
+                           **(tr.xfer.stats() if run == tr.run_threaded else {}))
                 continue
             prof.__exit__(None, None, None)
             events = prof.key_averages()
             busy = sum(device_us(e) for e in device_events(events)) / 1e3
-            row.update(profiled_ms_per_update=wall_ms / MODE_UPDATES, device_busy=busy / wall_ms)
+            row.update(profiled_ms_per_update=wall_ms / n, device_busy=busy / wall_ms)
             for k, (host, device) in span_ms(events).items():
-                row[f"{k}_host_ms_per_update"] = host / MODE_UPDATES
-                row[f"{k}_device_ms_per_update"] = device / MODE_UPDATES
+                row[f"{k}_host_ms_per_update"] = host / n
+                row[f"{k}_device_ms_per_update"] = device / n
             # inline: the actor's share; threaded: the spans overlap on
             # their threads, and this is what the main thread's span leaves
             row["rest_ms_per_update"] = row["profiled_ms_per_update"] - sum(
@@ -542,7 +576,194 @@ def modes(label, cfg, dev, profile):
         "included (env steps per update): " + ", ".join(
             f"{m} {r['ms_per_update']:.2f} ({r['env_steps_per_update']:.1f})"
             for m, r in out.items()))
+    say("modes", f"{label}: replay/sample host ms per update and the device's busy share, "
+        "profiled: " + ", ".join(
+            f"{m} {r['replay/sample_host_ms_per_update']:.2f} ms, {r['device_busy']:.1%}"
+            for m, r in out.items() if "device_busy" in r))
     return out
+
+
+def openmp_runtimes():
+    """The OpenMP runtime libraries (GNU, LLVM or Intel) mapped into this
+    process."""
+    import re
+
+    with open("/proc/self/maps") as f:
+        paths = {line.split()[-1] for line in f if line.strip()}
+    return sorted(p for p in paths if re.match(r"lib(g|i|)omp", os.path.basename(p)))
+
+
+def native_phase(tr):
+    """The native replay core at the main path's shapes: a numpy ReplayBuffer
+    given the trainer's replay contents (every store, the sum tree and the
+    ring's counters) and both sampled with equal Generator streams must give
+    the same batches bit for bit; then both sample_batch host times, the
+    gather's OpenMP threads and the OpenMP runtimes in the process (torch's
+    and the core's)."""
+    import numpy as np
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+
+    native = tr.replay
+    if native.native is None:
+        fail("native: the main path's replay does not run the native core")
+    numpy_rb = ReplayBuffer(tr.cfg.replace(use_native_replay=False))
+    for k, v in vars(native).items():
+        if isinstance(v, np.ndarray):
+            setattr(numpy_rb, k, v.copy())
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            setattr(numpy_rb, k, v)
+    numpy_rb.tree.tree[:] = native.tree.tree
+    for seed in range(NATIVE_COMPARES):
+        a = native.sample_batch(np.random.default_rng(seed))
+        b = numpy_rb.sample_batch(np.random.default_rng(seed))
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            same = (np.array_equal(x, y) and np.asarray(x).dtype == np.asarray(y).dtype
+                    if isinstance(x, np.ndarray) else x == y)
+            if not same:
+                fail(f"native: sample_batch's {f.name} differs from the numpy path's (seed {seed})")
+    times = {}
+    for label, rb in (("native", native), ("numpy", numpy_rb)):
+        rng = np.random.default_rng(0)
+        ts = []
+        for _ in range(NATIVE_TIMED):
+            t = time.perf_counter()
+            rb.sample_batch(rng)
+            ts.append((time.perf_counter() - t) * 1e3)
+        times[label] = statistics.median(ts)
+    c = tr.cfg
+    say("native", f"{NATIVE_COMPARES} batches at B={c.batch_size} T={c.seq_len} obs "
+        f"{c.obs_shape} ({c.batch_size * c.seq_len * math.prod(c.obs_shape) / 1e6:.1f} MB of "
+        f"frames) equal the numpy path's bit for bit; sample_batch host ms, median of "
+        f"{NATIVE_TIMED}: native {times['native']:.2f}, numpy {times['numpy']:.2f}; the gather "
+        f"runs {native.native.gather_threads()} OpenMP threads; OpenMP runtimes in the "
+        f"process: {openmp_runtimes()}")
+
+
+def long_context_phase(dev, tmp):
+    """The long_context preset at full width (memory_catch:10:8:4 at 26x26,
+    IMPALA (8, 16), LRU hidden 128, T=581, B=64) as it ships (bf16) and in
+    float32: LC_UPDATES inline updates (no LSTM kernel may launch), ms per
+    update, the update's peak memory and the LRU core's own, the wall per
+    update over acting and sampling; agreement with the CPU (float32: the
+    same LC_AGREE updates stepped on both, update for update; bf16: one
+    update); lru_chunk=128: one update that agrees with the scan form on the
+    same batch; then e2e (checkpoints, bitwise resume, evaluate_series).
+    Only the host replay sizes are cut."""
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.learner import DeviceBatch, make_optimizer, make_train_step
+    from r2d2_tpu_torch.models.r2d2 import R2D2Network
+
+    for label, extra, tol in (("bf16", {}, BF16_AGREE),
+                              ("fp32", {"compute_dtype": "float32"}, {})):
+        cfg = PRESETS["long_context"]().replace(**LONG_CONTEXT_CUT, **extra)
+        t = time.perf_counter()
+        tr, launches, m, ms, peak = drive(cfg, LC_UPDATES, dev)
+        ends = tr.update_ends
+        wall = (ends[-1] - ends[0]) * 1e3 / (len(ends) - 1)
+        c = tr.cfg
+        say("long", f"{label}: {c.env_name} obs {c.obs_shape}, {c.encoder} "
+            f"{c.impala_channels}, {c.recurrent_core} hidden {c.hidden_dim}, T={c.seq_len} "
+            f"({c.burn_in_steps}/{c.learning_steps}/{c.forward_steps}), batch {c.batch_size}, "
+            f"{c.resolved_compute_dtype}, cosine lr, arm {tr.backward_arm}; cut: "
+            f"buffer_capacity {c.buffer_capacity} (preset 2048000), learning_starts "
+            f"{c.learning_starts} (preset 50000); {LC_UPDATES} updates, loss {m['loss']:.6f}; "
+            f"ms/update {', '.join(f'{v:.1f}' for v in ms)} (host clock); wall per update "
+            f"over acting and sampling {wall:.1f} ms; update peak device memory {peak:.3f} GiB; "
+            f"LSTM kernel launches {launches} ({time.perf_counter() - t:.1f}s with warmup)")
+        if launches:
+            fail(f"long_context {label}: the LRU path launched LSTM kernels: {launches}")
+        if c.resolved_compute_dtype != ("bfloat16" if label == "bf16" else "float32"):
+            fail(f"long_context {label}: compute dtype {c.resolved_compute_dtype}")
+        say("long", f"{label}: the LRU core alone (forward and backward, B={c.batch_size} "
+            f"T={c.seq_len}): peak {lru_core_peak(tr, dev):.3f} GiB above its inputs")
+
+        # the CPU, update for update (bf16: one update)
+        if label == "fp32":
+            states = {}
+            for where in ("cuda", "cpu"):
+                s_ = copy.deepcopy(tr.state)
+                for net in (s_.net, s_.target_net):
+                    net.to(where)
+                s_.optimizer = make_optimizer(c, s_.net.parameters())
+                s_.optimizer.load_state_dict(tr.state.optimizer.state_dict())
+                states[where] = s_
+            step = make_train_step(c)
+            for i in range(LC_AGREE):
+                sampled = tr.replay.sample_batch(tr.sample_rng)
+                res = {w: step(states[w], DeviceBatch.from_sampled(sampled, w))
+                       for w in states}
+                for name, a, b in (("loss", res["cuda"][1]["loss"], res["cpu"][1]["loss"]),
+                                   ("priorities", res["cuda"][2], res["cpu"][2])):
+                    a, b = a.detach().cpu(), b.detach()
+                    diff = float((a - b).abs().max())
+                    if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                        fail(f"long_context fp32 update {i + 1}: {name} on the card differs "
+                             f"from the CPU's: {diff:.3e}")
+                    say("agree", f"long_context fp32 update {i + 1} {name}: max |card - cpu| "
+                        f"{diff:.3e} (rtol 1e-4 atol 1e-5)")
+            for (name, a), b in zip(states["cuda"].net.state_dict().items(),
+                                    states["cpu"].net.state_dict().values()):
+                if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5):
+                    fail(f"long_context fp32: parameter {name} after {LC_AGREE} updates "
+                         f"differs: {float((a.cpu() - b).abs().max()):.3e}")
+            say("agree", f"long_context fp32: every parameter after {LC_AGREE} updates within "
+                "rtol 1e-4 atol 1e-5 of the CPU's")
+            del states
+        else:
+            agree(tr, "long_context bf16", **tol)
+
+        # lru_chunk=128: one update on the card against the scan form
+        k_cfg = c.replace(lru_chunk=LC_CHUNK, training_steps=1)
+        k_tr, k_launches, k_m, k_ms, k_peak = drive(k_cfg, 1, dev)
+        if k_launches:
+            fail(f"long_context {label} lru_chunk: LSTM kernel launches {k_launches}")
+        sampled = tr.replay.sample_batch(tr.sample_rng)
+        res = {}
+        for form, f_cfg in (("scan", c), ("chunk", k_cfg)):
+            nets = []
+            for src in (tr.state.net, tr.state.target_net):
+                n = R2D2Network.from_config(f_cfg, device=dev)
+                n.load_state_dict(src.state_dict())
+                nets.append(n)
+            res[form] = one_update(*nets, f_cfg, sampled, "cuda")
+        rt = tol.get("rtol", 1e-4)
+        at = tol.get("atol", 1e-5)
+        for name, a, b in zip(("loss", "priorities", "grad_norm", "grad_norm per parameter"),
+                              res["chunk"], res["scan"]):
+            diff = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=rt, atol=at):
+                fail(f"long_context {label}: lru_chunk={LC_CHUNK}'s {name} differs from the "
+                     f"scan form's: {diff:.3e}")
+        say("long", f"{label} lru_chunk={LC_CHUNK}: 1 update {k_ms[0]:.1f} ms, peak "
+            f"{k_peak:.3f} GiB; one update on a sampled batch agrees with the scan form "
+            f"(loss {float(res['chunk'][0]):.6f} vs {float(res['scan'][0]):.6f}; rtol {rt} "
+            f"atol {at})")
+        del k_tr
+
+        e2e(f"long_context {label}", cfg, "inline", dev, tmp, expect=lambda n: {})
+        del tr
+
+
+def lru_core_peak(tr, dev):
+    """Peak device memory (GiB) of one forward and backward of a trainer's
+    LRU core alone, on a batch of its width and length, above its inputs."""
+    import torch
+
+    c = tr.cfg
+    core = copy.deepcopy(tr.state.net.core)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(c.batch_size, c.seq_len, core.in_dim, device=dev, generator=g)
+    x = x.to(c.torch_compute_dtype).requires_grad_(True)
+    carry = (torch.zeros(c.batch_size, c.hidden_dim, device=dev),) * 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    outs, _ = core(x, carry)
+    outs.float().sum().backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**30
 
 
 def main():
@@ -1501,6 +1722,16 @@ def main():
             fail(f"hidden {ODD_HIDDEN} {label}: launches {o_launches}, {padded} units")
         agree(o_tr, f"{label} hidden {ODD_HIDDEN}", **tol)
         del o_tr
+
+    # 17. the native replay core against the numpy gathers ------------------
+    native_phase(tr)
+
+    # 18. the long_context preset at full width -------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        long_context_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")

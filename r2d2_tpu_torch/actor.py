@@ -3,14 +3,16 @@ r2d2_tpu/actor.py: ParamStore, HostEnvPool, VectorizedActor).
 
 One actor steps E environments with one batched policy call per env step
 (`R2D2Network.act_select` on the port's device). Per env, as in the JAX
-package: ε-greedy on the dueling Q, the LSTM carry held on the device,
+package: ε-greedy on the dueling Q, the recurrent carry held on the device,
 every transition into that env's SequenceAccumulator with its Q row and
-post-step (h, c); block cuts at block_length or at max_episode_steps,
-deferred one step so the bootstrap Q comes from the next batched call; on
+post-step carry ((h, c), or the LRU's (Re h, Im h)); block cuts at
+block_length or at max_episode_steps, deferred one step so the bootstrap Q
+comes from the next batched call; on
 a terminal, finish(None) and a fresh accumulator. The ε coins and random
 actions come from a numpy Generator in the JAX package's stream order.
-The carry is held in the compute dtype (the acting step's own dtype) and
-stored through the config's state dtype.
+The carry is held in the acting step's own dtype (``cfg.carry_dtype``: the
+LSTM's compute dtype, the LRU's float32), in the same (h, c)-shaped pair
+for both cores, and stored through the config's state dtype.
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ class VectorizedActor:
         self.obs = obs
         self.last_action = np.zeros(E, np.int32)
         self.last_reward = np.zeros(E, np.float32)
-        self.carry = initial_carry(E, cfg.hidden_dim, self.device, cfg.torch_compute_dtype)
+        self.carry = initial_carry(E, cfg.hidden_dim, self.device, cfg.carry_dtype)
         self.episode_steps = np.zeros(E, np.int64)
         # envs whose accumulator awaits a bootstrap Q from the next call
         self._pending_cut = np.zeros(E, bool)

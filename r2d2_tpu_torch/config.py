@@ -5,10 +5,10 @@ training loop reads, with the same names, defaults and ``validate()``
 rules. The port keeps its own copy because importing the JAX package
 loads JAX.
 
-Parts of the JAX configuration surface that the port does not run yet are
-refused by :func:`require_ported` at the entry points (model, trainer),
-each with the roadmap item that queues it, instead of silently running
-something else.
+The port carries only the fields it reads. One documented difference:
+the ``long_context`` preset leaves out the JAX preset's ``scan_chunk=64``,
+the remat chunk of the JAX LSTM's scan backend, which the LRU core that
+preset trains never reads.
 """
 
 from __future__ import annotations
@@ -80,6 +80,8 @@ class R2D2Config:
     # --- network ----------------------------------------------------------
     hidden_dim: int = 512
     encoder: str = "nature"  # "nature" | "impala" | "mlp"
+    # the impala encoder's channel stack, one residual stage per entry
+    impala_channels: Tuple[int, ...] = (16, 32, 32)
     # extra Dense(latent)+relu layers after the latent projection
     encoder_depth: int = 0
     # named model-size preset (MODEL_PRESETS): "base" keeps the run
@@ -103,7 +105,20 @@ class R2D2Config:
     # PyTorch versions on the CPU; "pallas" names the kernels, "scan" the
     # plain versions (refused on a CUDA device)
     lstm_backend: str = "auto"
-    recurrent_core: str = "lstm"
+    recurrent_core: str = "lstm"  # "lstm" | "lru"
+    # lru only: > 0 unrolls through per-chunk causal triangular matmuls of
+    # this many steps and a T/chunk carry scan instead of one associative
+    # scan (the same recurrence summed in another order; models/lru.py)
+    lru_chunk: int = 0
+    # lru only: the eigenvalue ring |lambda| ~ U(r_min, r_max) at init
+    lru_r_min: float = 0.9
+    lru_r_max: float = 0.999
+
+    # --- replay -----------------------------------------------------------
+    # the C++ replay core (r2d2_tpu_torch/_native: sum tree and window
+    # gathers, built with g++ at first use); a failed build raises. False
+    # takes the numpy path
+    use_native_replay: bool = True
 
     # --- infra ------------------------------------------------------------
     seed: int = 0
@@ -127,6 +142,13 @@ class R2D2Config:
     @property
     def torch_compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.resolved_compute_dtype)
+
+    @property
+    def carry_dtype(self) -> torch.dtype:
+        """The dtype of the acting carry on the device: the LSTM's step runs
+        in the compute dtype, the LRU's recurrence in float32 (its carry
+        (Re h, Im h) is float32 whatever the compute dtype)."""
+        return torch.float32 if self.recurrent_core == "lru" else self.torch_compute_dtype
 
     @property
     def state_dtype(self) -> torch.dtype:
@@ -214,6 +236,19 @@ class R2D2Config:
             raise ValueError(f"unknown lstm_backend {self.lstm_backend!r}")
         if self.recurrent_core not in ("lstm", "lru"):
             raise ValueError(f"unknown recurrent_core {self.recurrent_core!r}")
+        if self.lru_chunk < 0:
+            raise ValueError("lru_chunk must be >= 0")
+        if self.lru_chunk > 0 and self.recurrent_core != "lru":
+            raise ValueError(
+                "lru_chunk is the LRU core's unroll formulation; set "
+                "recurrent_core='lru' (or leave lru_chunk=0)"
+            )
+        if not 0.0 < self.lru_r_min <= self.lru_r_max < 1.0:
+            raise ValueError(
+                "lru eigenvalue ring needs 0 < lru_r_min <= lru_r_max < 1 "
+                f"(|lambda| < 1 is the stability guarantee), got "
+                f"[{self.lru_r_min}, {self.lru_r_max}]"
+            )
         if self.lr_schedule not in ("constant", "cosine"):
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
         if not 0.0 <= self.lr_final_frac <= 1.0:
@@ -283,18 +318,6 @@ class R2D2Config:
         return dataclasses.replace(self, **kw).validate()
 
 
-def require_ported(cfg: R2D2Config) -> None:
-    """Refuse configurations whose code path the port does not have yet,
-    naming the roadmap item that queues it (ROADMAP.md Queue 1). Every
-    backward arm runs in both compute dtypes and at every hidden size (the
-    model pads H to the kernels' row multiple on the card,
-    ``models/lstm.py``)."""
-    if cfg.encoder == "impala" or cfg.recurrent_core != "lstm":
-        raise NotImplementedError(
-            "the IMPALA encoder and the LRU core are queued (M8)"
-        )
-
-
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. A CUDA device that is not there
     raises: the port never carries on on the CPU unless asked to."""
@@ -321,7 +344,7 @@ def set_fp32_numerics() -> None:
 
 
 # --------------------------------------------------------------------------
-# Presets (the JAX package's `atari` and `tiny_test`)
+# Presets (the JAX package's `atari`, `long_context` and `tiny_test`)
 # --------------------------------------------------------------------------
 
 
@@ -330,6 +353,46 @@ def default_atari(game: str = "MsPacman") -> R2D2Config:
     compute (f32 parameters, carries and loss math); ``--set
     compute_dtype=float32`` reproduces the reference's float32 numerics."""
     return R2D2Config(env_name=game, compute_dtype="bfloat16").validate()
+
+
+def long_context(
+    game: str = "memory_catch:10:8:4",
+    obs_shape: tuple = (26, 26, 1),
+) -> R2D2Config:
+    """The seq_len=581 stored-state burn-in stretch (the JAX package's
+    ``long_context``, BASELINE.json config 5): multi-ball slow-fall
+    flashing-cue catch at 26x26 (768-step episodes of four balls), the
+    IMPALA encoder with channels (8, 16), the LRU core at hidden 128,
+    burn-in / learning / forward 64/512/5 in blocks of 1024, cosine lr,
+    bf16 compute. For a catch-family name the episode cap is the catch
+    geometry's: (rows - 2) x fall interval x balls. The JAX preset's
+    ``scan_chunk=64`` is left out: it is the JAX LSTM scan backend's remat
+    chunk, which the LRU core never reads."""
+    from r2d2_tpu_torch.envs.catch import catch_params, is_catch_name
+
+    kw = {}
+    if is_catch_name(game):
+        p = catch_params(game)
+        kw = dict(
+            action_dim=3,
+            max_episode_steps=(obs_shape[0] - 2) * p.get("fall_every", 1) * p.get("balls", 1),
+        )
+    return R2D2Config(
+        env_name=game,
+        obs_shape=obs_shape,
+        encoder="impala",
+        impala_channels=(8, 16),
+        hidden_dim=128,
+        recurrent_core="lru",
+        lr_schedule="cosine",
+        burn_in_steps=64,
+        learning_steps=512,
+        forward_steps=5,
+        block_length=1024,  # 2 learning windows per block
+        buffer_capacity=2_048_000,  # 2000 blocks of 1024
+        compute_dtype="bfloat16",
+        **kw,
+    ).validate()
 
 
 def tiny_test() -> R2D2Config:
@@ -358,6 +421,7 @@ def tiny_test() -> R2D2Config:
 
 PRESETS = {
     "atari": default_atari,
+    "long_context": long_context,
     "tiny_test": tiny_test,
 }
 

@@ -9,9 +9,14 @@ Step and render are the same functions of the state as the JAX package's
 `CatchEnv`. Resets cannot match it: the JAX package draws them from
 `jax.random`, and this port draws them from a numpy Generator.
 
-The memory variants ("memory_catch[:K[:F]]": ball visible only for the
-first K rows, paddle frozen meanwhile, ball falling one row every F steps)
-are ported; the multi-ball variant (a fourth name field) is not.
+The memory variants ("memory_catch[:K[:F[:N]]]"): the ball is visible only
+for the first K rows, the paddle frozen meanwhile, and the ball falls one
+row every F steps. With N > 1 balls an episode runs N landings: each pays
+out, and before the last a fresh ball respawns at the top (t rewinds to 0,
+the paddle stays where it is) in a column drawn uniformly from the interval
+the current paddle can reach in the new ball's blind phase. That draw comes
+from the env's numpy Generator (the JAX package draws it from
+`jax.random`), so `step` takes the Generator for the multi-ball variant.
 """
 
 from __future__ import annotations
@@ -86,22 +91,28 @@ class CatchEnv:
         if fall_every < 1:
             raise ValueError(f"fall_every must be >= 1, got {fall_every}")
         self.fall = fall_every
-        if balls != 1:
-            raise NotImplementedError("the multi-ball catch variant is not ported")
+        if balls < 1:
+            raise ValueError(f"balls must be >= 1, got {balls}")
+        self.balls = balls
+
+    def _within_reach(self, rng: np.random.Generator, anchor: np.ndarray) -> np.ndarray:
+        """Columns drawn uniformly from the interval that the paddle can
+        cover from (or to) `anchor` in a ball's blind phase, as the JAX
+        core's spawn cap."""
+        reach = max(2 * (self.h - 2 - self.cue) * self.fall - 4, 1)
+        lo = np.maximum(anchor - reach, 0)
+        hi = np.minimum(anchor + reach, self.w - 1)
+        return rng.integers(lo, hi + 1)
 
     def reset(self, rng: np.random.Generator, n: int) -> CatchState:
         ball_x = rng.integers(0, self.w, size=n)
         if self.cue is None:
             paddle_x = rng.integers(0, self.w, size=n)
         else:
-            # spawn within blind-phase reach, as the JAX core does
-            reach = max(2 * (self.h - 2 - self.cue) * self.fall - 4, 1)
-            lo = np.maximum(ball_x - reach, 0)
-            hi = np.minimum(ball_x + reach, self.w - 1)
-            paddle_x = rng.integers(lo, hi + 1)
+            paddle_x = self._within_reach(rng, ball_x)
         zero = np.zeros(n, np.int32)
         return CatchState(ball_x.astype(np.int32), zero, paddle_x.astype(np.int32),
-                          zero.copy(), np.ones(n, np.int32))
+                          zero.copy(), np.full(n, self.balls, np.int32))
 
     def render(self, s: CatchState) -> np.ndarray:
         """(E, H, W, 1) uint8 frames: ball block + paddle strip at 255."""
@@ -114,8 +125,10 @@ class CatchEnv:
         paddle = (ys >= self.h - 2) & (np.abs(xs - px) <= self.pw // 2)
         return np.where(ball | paddle, 255, 0).astype(np.uint8)[..., None]
 
-    def step(self, s: CatchState, action: np.ndarray):
-        """(state', reward (E,) float32, done (E,) bool)."""
+    def step(self, s: CatchState, action: np.ndarray,
+             rng: Optional[np.random.Generator] = None):
+        """(state', reward (E,) float32, done (E,) bool). The multi-ball
+        variant draws its respawn columns from `rng`."""
         action = np.asarray(action)
         dx = np.where(action == 1, -1, np.where(action == 2, 1, 0))
         if self.cue is not None:
@@ -130,7 +143,24 @@ class CatchEnv:
         landed = ball_y >= self.h - 2
         caught = np.abs(s.ball_x - paddle_x) <= self.pw // 2
         reward = np.where(landed, np.where(caught, 1.0, -1.0), 0.0).astype(np.float32)
-        return CatchState(s.ball_x, ball_y, paddle_x, t.astype(np.int32), s.balls_left), reward, landed
+        t = t.astype(np.int32)
+        if self.balls == 1:
+            return CatchState(s.ball_x, ball_y, paddle_x, t, s.balls_left), reward, landed
+        if rng is None:
+            raise ValueError("the multi-ball catch variant draws its respawns: pass rng")
+        balls_left = (s.balls_left - landed).astype(np.int32)
+        done = landed & (balls_left <= 0)
+        respawn = landed & ~done
+        ball_x = s.ball_x.copy()
+        if respawn.any():
+            if self.cue is None:
+                new_x = rng.integers(0, self.w, size=int(respawn.sum()))
+            else:
+                new_x = self._within_reach(rng, paddle_x[respawn])
+            ball_x[respawn] = new_x
+        return (CatchState(ball_x, np.where(respawn, 0, ball_y).astype(np.int32), paddle_x,
+                           np.where(respawn, 0, t).astype(np.int32), balls_left),
+                reward, done)
 
 
 class CatchHostEnv:
@@ -148,7 +178,7 @@ class CatchHostEnv:
         return self.env.render(self._state)[0]
 
     def step(self, action: int):
-        self._state, reward, done = self.env.step(self._state, np.asarray([action]))
+        self._state, reward, done = self.env.step(self._state, np.asarray([action]), self.rng)
         return self.env.render(self._state)[0], float(reward[0]), bool(done[0]), {}
 
 
@@ -171,7 +201,7 @@ class CatchVecEnv:
         return self.env.render(self._state)
 
     def step(self, actions: np.ndarray):
-        s2, reward, done = self.env.step(self._state, actions)
+        s2, reward, done = self.env.step(self._state, actions, self.rng)
         term_obs = self.env.render(s2)
         nxt = s2
         if done.any():

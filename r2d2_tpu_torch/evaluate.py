@@ -71,7 +71,7 @@ def evaluate_params(
     obs = vec_env.reset_all()
     last_action = np.zeros(E, np.int32)
     last_reward = np.zeros(E, np.float32)
-    carry = initial_carry(E, cfg.hidden_dim, dev, cfg.torch_compute_dtype)
+    carry = initial_carry(E, cfg.hidden_dim, dev, cfg.carry_dtype)
     cur_reward = np.zeros(E)
     completed = np.zeros(E, np.int64)
     finished_returns: list = []

@@ -5,7 +5,11 @@ or the inner dict), so nothing here imports JAX. Conversions:
 
 - Dense kernel (in, out)  <->  Linear weight (out, in)
 - Conv kernel HWIO        <->  Conv2d weight OIHW
-- the LSTM's wi / wh / b keep their layout.
+- the encoder's flax names in creation order: ``Conv_i`` -> ``enc.convs.i``,
+  ``Dense_i`` -> ``enc.tail.dense.i``, and the IMPALA encoder's
+  ``ResidualBlock_j/Conv_k`` -> ``enc.blocks.j.convs.k``;
+- the core's parameters keep their names and layouts: the LSTM's wi / wh /
+  b, the LRU's nu_log, theta_log, in_re, in_im, out_re, out_im, skip.
 
 Optimizer state: optax's Adam (``ScaleByAdamState``: ``mu`` and ``nu``,
 parameter-shaped trees, and ``count``) <-> torch Adam's state_dict
@@ -28,39 +32,85 @@ from torch import nn
 _HEADS = ("adv_hidden", "adv_out", "val_hidden", "val_out")
 
 
-def _enc_names(enc_tree_or_sd, from_flax: bool):
-    """(flax module name, port prefix, kind) for every encoder layer."""
-    if from_flax:
-        names = list(enc_tree_or_sd)
-    else:
-        names = []
-        for k in enc_tree_or_sd:
-            if k.startswith("enc.convs.") and k.endswith(".weight"):
-                names.append(f"Conv_{k.split('.')[2]}")
-            if k.startswith("enc.tail.dense.") and k.endswith(".weight"):
-                names.append(f"Dense_{k.split('.')[3]}")
-    out = []
-    for name in names:
-        kind, idx = name.split("_")
-        prefix = f"enc.convs.{idx}" if kind == "Conv" else f"enc.tail.dense.{idx}"
-        out.append((name, prefix, kind))
-    return out
+def _prefix(path) -> str:
+    """The port's prefix of the encoder layer at flax path `path` (under
+    "enc")."""
+    idx = [name.split("_")[1] for name in path]
+    if path[0].startswith("ResidualBlock_"):
+        return f"enc.blocks.{idx[0]}.convs.{idx[1]}"
+    return f"enc.convs.{idx[0]}" if path[0].startswith("Conv_") else f"enc.tail.dense.{idx[0]}"
+
+
+def _flax_path(key: str):
+    """The flax path (under "enc") of the port's encoder weight `key`; None
+    for any other key."""
+    parts = key.split(".")
+    if parts[0] != "enc" or parts[-1] != "weight":
+        return None
+    if parts[1] == "convs":
+        return (f"Conv_{parts[2]}",)
+    if parts[1] == "blocks":
+        return (f"ResidualBlock_{parts[2]}", f"Conv_{parts[4]}")
+    return (f"Dense_{parts[3]}",)
+
+
+def _is_conv(path) -> bool:
+    return path[-1].startswith("Conv_")
+
+
+def _flax_layers(enc: Mapping):
+    """The paths of the layers (dicts holding a kernel) in a flax encoder tree."""
+    for name, sub in enc.items():
+        if "kernel" in sub:
+            yield (name,)
+        else:
+            yield from ((name, inner) for inner in sub)
+
+
+def _at(tree: Mapping, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def _to_torch(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax encoder tree (the network's "enc") -> the port's encoder
+    entries, keyed as in the network's state_dict ("enc.")."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path in _flax_layers(enc):
+        layer, prefix = _at(enc, path), _prefix(path)
+        k = np.asarray(layer["kernel"])
+        w = k.transpose(3, 2, 0, 1) if _is_conv(path) else k.T
+        sd[f"{prefix}.weight"] = _to_torch(w)
+        sd[f"{prefix}.bias"] = _to_torch(layer["bias"])
+    return sd
+
+
+def encoder_to_flax(sd: Mapping) -> dict:
+    """The port's "enc." state_dict entries (CPU tensors or numpy) -> the
+    flax encoder tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    enc: dict = {}
+    for path in filter(None, map(_flax_path, sd)):
+        prefix = _prefix(path)
+        w = sd[f"{prefix}.weight"]
+        k = w.transpose(2, 3, 1, 0) if _is_conv(path) else w.T
+        parent = enc
+        for key in path[:-1]:
+            parent = parent.setdefault(key, {})
+        parent[path[-1]] = {"kernel": np.array(k), "bias": np.array(sd[f"{prefix}.bias"])}
+    return enc
+
+
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax parameter tree -> the port's state_dict (CPU tensors)."""
     p = tree.get("params", tree)
-    sd: Dict[str, torch.Tensor] = {}
-    for name, prefix, kind in _enc_names(p["enc"], from_flax=True):
-        k = np.asarray(p["enc"][name]["kernel"])
-        w = k.transpose(3, 2, 0, 1) if kind == "Conv" else k.T
-        sd[f"{prefix}.weight"] = _to_torch(w)
-        sd[f"{prefix}.bias"] = _to_torch(p["enc"][name]["bias"])
-    for n in ("wi", "wh", "b"):
+    sd = encoder_from_flax(p["enc"])
+    for n in p["core"]:
         sd[f"core.{n}"] = _to_torch(p["core"][n])
     for head in _HEADS:
         sd[f"{head}.weight"] = _to_torch(np.asarray(p[head]["kernel"]).T)
@@ -72,12 +122,9 @@ def params_to_flax(params) -> dict:
     """The port's state_dict (or module) -> ``{"params": {...}}`` of numpy."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
-    enc = {}
-    for name, prefix, kind in _enc_names(sd, from_flax=False):
-        w = sd[f"{prefix}.weight"]
-        k = w.transpose(2, 3, 1, 0) if kind == "Conv" else w.T
-        enc[name] = {"kernel": np.array(k), "bias": np.array(sd[f"{prefix}.bias"])}
-    out = {"enc": enc, "core": {n: np.array(sd[f"core.{n}"]) for n in ("wi", "wh", "b")}}
+    enc = encoder_to_flax(sd)
+    core = {k[len("core."):]: np.array(v) for k, v in sd.items() if k.startswith("core.")}
+    out = {"enc": enc, "core": core}
     for head in _HEADS:
         out[head] = {
             "kernel": np.array(sd[f"{head}.weight"].T),

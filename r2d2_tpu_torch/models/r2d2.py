@@ -1,12 +1,15 @@
 """R2D2Network — recurrent dueling double-DQN trunk (port of
 r2d2_tpu/models/r2d2.py, single-task).
 
-- encoder -> LSTM over concat(latent, one-hot last action, last reward) ->
-  dueling heads, Q = V + A - mean(A), in float32.
+- encoder -> recurrent core (the LSTM, or the LRU with
+  recurrent_core="lru") over concat(latent, one-hot last action, last
+  reward) -> dueling heads, Q = V + A - mean(A), in float32.
 - `act` / `act_select`: the batched single-step acting forward, through
-  `LSTM.step` (plain PyTorch: acting runs no kernel).
-- `unroll`: one LSTM pass over the padded burn_in+learning+forward window
-  (through the fused sequence kernels), then two clamped gathers:
+  the core's `step` (plain PyTorch: acting runs no kernel).
+- `unroll`: one core pass over the padded burn_in+learning+forward window
+  (the LSTM through the fused sequence kernels, with the burn-in seam when
+  fused_sequence is set; the LRU through its scan, with the gradient
+  through every step, as in the JAX package), then two clamped gathers:
 
     learning view   idx(t) = burn_in + t
     bootstrap view  idx(t) = min(burn_in + F + t, burn_in + learning + forward - 1)
@@ -26,8 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from r2d2_tpu_torch.config import R2D2Config, require_ported, resolve_device
+from r2d2_tpu_torch.config import R2D2Config, resolve_device, set_fp32_numerics
 from r2d2_tpu_torch.models.encoders import dense, make_encoder
+from r2d2_tpu_torch.models.lru import LRU
 from r2d2_tpu_torch.models.lstm import LSTM, Carry
 from r2d2_tpu_torch.ops.act_tail import epsilon_greedy_actions
 
@@ -46,6 +50,11 @@ class R2D2Network(nn.Module):
         generator: Optional[torch.Generator] = None,
         backward_arm: Tuple[str, int] = ("default", 0),
         compute_dtype: torch.dtype = torch.float32,
+        impala_channels: Tuple[int, ...] = (16, 32, 32),
+        recurrent_core: str = "lstm",
+        lru_chunk: int = 0,
+        lru_r_min: float = 0.9,
+        lru_r_max: float = 0.999,
     ):
         super().__init__()
         self.dtype = compute_dtype
@@ -54,10 +63,17 @@ class R2D2Network(nn.Module):
         self.learning_steps = learning_steps
         self.forward_steps = forward_steps
         self.fused_sequence = fused_sequence
+        self.recurrent_core = recurrent_core
         g = generator
-        self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g, compute_dtype)
-        self.core = LSTM(hidden_dim, hidden_dim + action_dim + 1, generator=g,
-                         backward_arm=backward_arm, dtype=compute_dtype)
+        self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g, compute_dtype,
+                                impala_channels)
+        core_in = hidden_dim + action_dim + 1
+        if recurrent_core == "lru":
+            self.core = LRU(hidden_dim, core_in, dtype=compute_dtype, r_min=lru_r_min,
+                            r_max=lru_r_max, chunk=lru_chunk, generator=g)
+        else:
+            self.core = LSTM(hidden_dim, core_in, generator=g, backward_arm=backward_arm,
+                             dtype=compute_dtype)
         self.adv_hidden = dense(hidden_dim, hidden_dim, g)
         self.adv_out = dense(hidden_dim, action_dim, g)
         self.val_hidden = dense(hidden_dim, hidden_dim, g)
@@ -67,19 +83,25 @@ class R2D2Network(nn.Module):
     def from_config(cls, cfg: R2D2Config, generator=None, device="cuda") -> "R2D2Network":
         """Build on `device` (the card unless the caller passes "cpu"),
         with the core running the backward arm that
-        ``cfg.resolve_backward_arm`` resolves for that device."""
-        require_ported(cfg)
-        if torch.device(device).type == "cuda" and cfg.lstm_backend == "scan":
+        ``cfg.resolve_backward_arm`` resolves for that device. On the card
+        this sets the float32 numerics (``config.set_fp32_numerics``: TF32
+        off, which the LRU's chunk products need even in a bf16 run)."""
+        if (torch.device(device).type == "cuda" and cfg.lstm_backend == "scan"
+                and cfg.recurrent_core == "lstm"):
             raise ValueError(
                 "lstm_backend='scan' names the plain PyTorch versions, which "
                 "the port runs only on the CPU; use 'auto' or 'pallas'"
             )
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            set_fp32_numerics()
         return cls(
             cfg.obs_shape, cfg.action_dim, cfg.hidden_dim, cfg.learning_steps,
             cfg.forward_steps, cfg.encoder, cfg.encoder_depth, cfg.fused_sequence,
             generator=generator, backward_arm=cfg.resolve_backward_arm(device=dev.type),
-            compute_dtype=cfg.torch_compute_dtype,
+            compute_dtype=cfg.torch_compute_dtype, impala_channels=cfg.impala_channels,
+            recurrent_core=cfg.recurrent_core, lru_chunk=cfg.lru_chunk,
+            lru_r_min=cfg.lru_r_min, lru_r_max=cfg.lru_r_max,
         ).to(dev)
 
     # ----------------------------------------------------------------- util
@@ -127,7 +149,7 @@ class R2D2Network(nn.Module):
             last_reward.reshape(B * T),
         ).reshape(B, T, -1)
         carry = (hidden[:, 0], hidden[:, 1])
-        if self.fused_sequence:
+        if self.recurrent_core == "lstm" and self.fused_sequence:
             outs, _ = self.core(x, carry, burn_in=burn_in)
         else:
             outs, _ = self.core(x, carry)
@@ -149,7 +171,8 @@ class R2D2Network(nn.Module):
 
 def initial_carry(batch: int, hidden_dim: int, device="cuda",
                   dtype: torch.dtype = torch.float32) -> Carry:
-    """Zero (h, c) — the episode-start state."""
+    """Zero carry — the episode-start state ((h, c) of the LSTM, (Re h,
+    Im h) of the LRU)."""
     z = torch.zeros((batch, hidden_dim), dtype=dtype, device=resolve_device(device))
     return z, z.clone()
 

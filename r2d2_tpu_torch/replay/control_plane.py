@@ -2,7 +2,9 @@
 the part the host plane runs): sum-tree priorities, the circular block
 pointer, eviction and size accounting, clamped stratified sampling of
 sequence coordinates, and the stale-priority pointer-window rejection
-(with full-lap detection).
+(with full-lap detection). With ``cfg.use_native_replay`` (the default)
+the sum tree runs in the native core (``r2d2_tpu_torch._native``), which is
+built at first use; a failed build raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ from r2d2_tpu_torch.replay.sum_tree import SumTree
 class ReplayControlPlane:
     def __init__(self, cfg: R2D2Config):
         self.cfg = cfg
-        self.tree = SumTree(cfg.num_sequences, cfg.prio_exponent, cfg.is_exponent)
+        self.native = None
+        if cfg.use_native_replay:
+            from r2d2_tpu_torch._native import load_native
+
+            self.native = load_native()
+        self.tree = SumTree(cfg.num_sequences, cfg.prio_exponent, cfg.is_exponent,
+                            native=self.native)
         self.block_ptr = 0
         # monotone count of ring-pointer advances: a full lap between draw
         # and write-back leaves the wrapped pointer where it was

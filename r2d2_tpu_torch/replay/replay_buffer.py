@@ -1,8 +1,12 @@
 """Central sequence-prioritized replay, host data plane (port of
-r2d2_tpu/replay/replay_buffer.py, numpy gathers).
+r2d2_tpu/replay/replay_buffer.py).
 
 Every block field lives in one preallocated numpy array; a batch is one
-fancy-index gather per field, giving fixed-shape (batch, seq_len) windows.
+gather per field, giving fixed-shape (batch, seq_len) windows with clamped
+rows: by default the native core's memcpy gather
+(``_native/replay_core.cpp`` ``gather_windows``, OpenMP over the windows,
+the interpreter lock released), else (``use_native_replay=False``) a numpy
+fancy index. Both give the same bytes.
 """
 
 from __future__ import annotations
@@ -100,22 +104,39 @@ class ReplayBuffer(ReplayControlPlane):
             start = first_burn + s * L  # buffer coords of learning start
             win_start = start - burn
 
-            t = np.arange(cfg.seq_len)
-            rows = win_start[:, None] + t[None, :]
-            np.clip(rows, 0, cfg.block_slot_len - 1, out=rows)
-            bcol = b[:, None]
-            tl = np.arange(L)
-            lrows = s[:, None] * L + tl[None, :]
-            np.clip(lrows, 0, cfg.block_length - 1, out=lrows)
+            if self.native is not None:
+                g = self.native.gather_windows
+                T = cfg.seq_len
+                obs = g(self.obs_store, b, win_start, T)
+                last_action = g(self.last_action_store, b, win_start, T)
+                last_reward = g(self.last_reward_store, b, win_start, T)
+                lstart = s * L
+                action = g(self.action_store, b, lstart, L)
+                n_step_reward = g(self.n_step_reward_store, b, lstart, L)
+                gamma = g(self.gamma_store, b, lstart, L)
+            else:
+                t = np.arange(cfg.seq_len)
+                rows = win_start[:, None] + t[None, :]
+                np.clip(rows, 0, cfg.block_slot_len - 1, out=rows)
+                bcol = b[:, None]
+                tl = np.arange(L)
+                lrows = s[:, None] * L + tl[None, :]
+                np.clip(lrows, 0, cfg.block_length - 1, out=lrows)
+                obs = self.obs_store[bcol, rows]
+                last_action = self.last_action_store[bcol, rows]
+                last_reward = self.last_reward_store[bcol, rows]
+                action = self.action_store[bcol, lrows]
+                n_step_reward = self.n_step_reward_store[bcol, lrows]
+                gamma = self.gamma_store[bcol, lrows]
 
             return SampledBatch(
-                obs=self.obs_store[bcol, rows],
-                last_action=self.last_action_store[bcol, rows],
-                last_reward=self.last_reward_store[bcol, rows],
+                obs=obs,
+                last_action=last_action,
+                last_reward=last_reward,
                 hidden=self.hidden_store[b, s],
-                action=self.action_store[bcol, lrows].astype(np.int32),
-                n_step_reward=self.n_step_reward_store[bcol, lrows],
-                gamma=self.gamma_store[bcol, lrows],
+                action=action.astype(np.int32),
+                n_step_reward=n_step_reward,
+                gamma=gamma,
                 burn_in_steps=burn.astype(np.int32),
                 learning_steps=learn.astype(np.int32),
                 forward_steps=fwd.astype(np.int32),

@@ -2,7 +2,8 @@
 
 The main path: catch env -> VectorizedActor (acting through the fused
 ε-greedy act tail) -> SequenceAccumulator -> host ReplayBuffer with
-sum-tree PER -> the learner step -> checkpoint -> evaluate
+sum-tree PER (the native C++ core by default) -> the learner step ->
+checkpoint -> evaluate
 (``r2d2_tpu_torch.evaluate``). Two run modes:
 
 - ``run_inline``: strict actor/learner alternation, k env steps then one
@@ -38,6 +39,12 @@ trains through the seamless backward, and ``--model-preset xl`` (hidden
 in bf16, ``--model-preset wide --set batch_size=96`` resolves to the
 fused-dWh arm. Every arm runs in both compute dtypes, at any hidden size.
 
+The long-context path: ``--preset long_context`` trains the multi-ball
+memory catch (``memory_catch:10:8:4``, 26x26) through the IMPALA encoder
+and the LRU core at seq_len 581 (64/512/5), in bf16 (``--set
+compute_dtype=float32`` for float32; ``--set lru_chunk=128`` unrolls the
+LRU by chunked matmuls). The LRU launches none of the LSTM kernels.
+
 runs on the CUDA device; ``--device cpu`` runs the plain versions of the
 kernels on the CPU instead.
 """
@@ -61,7 +68,6 @@ from r2d2_tpu_torch.config import (
     R2D2Config,
     apply_model_preset,
     parse_overrides,
-    require_ported,
     resolve_device,
 )
 from r2d2_tpu_torch.envs import make_env
@@ -114,7 +120,6 @@ class Trainer:
         self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
         if self.vec_env.action_dim != cfg.action_dim:
             cfg = cfg.replace(action_dim=self.vec_env.action_dim)
-        require_ported(cfg)
         self.cfg = cfg
         # trace the `profile_steps` updates after the first (the first builds
         # the kernels)

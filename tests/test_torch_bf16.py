@@ -471,4 +471,3 @@ def test_backward_arm_resolves_from_the_compute_dtype(dtype, model_preset, batch
     assert port.choose_backward_arm(cfg.seq_len, cfg.batch_size, cfg.hidden_dim, dtype,
                                     budget) == ref.choose_backward_arm(
         cfg.seq_len, cfg.batch_size, cfg.hidden_dim, jnp.dtype(dtype), budget) == want
-    port_config.require_ported(cfg)  # every one of these trains

@@ -599,3 +599,38 @@ def test_hidden_510_through_padded_kernels_matches_plain_versions(cuda, precisio
     assert lstm_kernel.launch_counts == dict(
         dict.fromkeys(lstm_kernel.KERNELS, 0),
         **{f"lstm_fwd{suffix}": 2, f"lstm_seq_bwd{suffix}": 1})
+
+
+@pytest.mark.parametrize("precision,chunk", [("fp32", 0), ("fp32", 5), ("bf16", 0)],
+                         ids=["fp32_scan", "fp32_chunk5", "bf16_scan"])
+def test_impala_lru_train_steps_on_the_card_match_the_cpu(cuda, precision, chunk):
+    """The long-context model (IMPALA (8, 16) at 26x26, the LRU core) on
+    the card against the CPU (_card_vs_cpu): two updates in fp32; one in
+    bf16, in the bf16 class, as the hidden-510 bf16 case (a second bf16
+    update starts from parameters that Adam's first step moved apart by
+    about lr wherever a near-zero gradient's sign differs). The LRU
+    launches none of the LSTM kernels."""
+    cfg = tiny_test().replace(encoder="impala", obs_shape=(26, 26, 1), impala_channels=(8, 16),
+                              recurrent_core="lru", lru_chunk=chunk, precision=precision,
+                              target_net_update_interval=2)
+    lstm_kernel.reset_launch_counts()
+    bf16 = precision == "bf16"
+    _card_vs_cpu(cfg, steps=1 if bf16 else 2, bf16=bf16)
+    assert not any(lstm_kernel.launch_counts.values())
+
+
+def test_native_gather_matches_numpy_beside_the_card(cuda):
+    """The native replay core in a process that holds a CUDA context (and
+    torch's own OpenMP runtime): its window gathers equal a numpy fancy
+    index bit for bit, at the atari main path's shapes."""
+    from r2d2_tpu_torch._native import load_native
+
+    torch.zeros(1, device=cuda)
+    core = load_native()
+    assert core.gather_threads() >= 1
+    rng = np.random.default_rng(0)
+    store = rng.integers(0, 255, size=(12, 441, 84, 84, 1), dtype=np.uint8)
+    b = rng.integers(0, 12, size=64)
+    start = rng.integers(-40, 441 - 40, size=64)
+    rows = np.clip(start[:, None] + np.arange(85)[None, :], 0, 440)
+    np.testing.assert_array_equal(core.gather_windows(store, b, start, 85), store[b[:, None], rows])

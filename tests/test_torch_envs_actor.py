@@ -164,8 +164,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 
 def test_unported_options_are_refused_by_name(capsys):
     """bfloat16 trains under every backward arm (the no-seam K3 and the
-    fused-dWh K4 included), at any hidden size; the IMPALA encoder (M8) is
-    refused by name, before the first update."""
+    fused-dWh K4 included), at any hidden size; nothing the config accepts
+    is refused any more: the IMPALA encoder and the LRU core build too."""
     tr = train.Trainer(tiny_test().replace(env_name="catch", precision="bf16",
                                            fused_sequence=False), device="cpu")
     assert tr.backward_arm == ("default", 0) and not tr.net.fused_sequence
@@ -180,8 +180,9 @@ def test_unported_options_are_refused_by_name(capsys):
                 "--set", "precision=bf16", "--set", "fused_sequence=false"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["compute_dtype"] == "bfloat16" and np.isfinite(out["loss"])
-    with pytest.raises(NotImplementedError, match="M8"):
-        train.Trainer(tiny_test().replace(env_name="catch", encoder="impala"), device="cpu")
+    tr = train.Trainer(tiny_test().replace(env_name="catch", encoder="impala",
+                                           recurrent_core="lru"), device="cpu")
+    assert tr.backward_arm == ("default", 0) and len(tr.state.net.enc.blocks) == 6
 
 
 @pytest.mark.parametrize("precision,hidden", [("bf16", 36), ("fp32", 30)])

@@ -75,7 +75,8 @@ def _assert_same(a, b, what):
 @pytest.fixture(scope="module")
 def cfgs():
     ref = jax_tiny_test().replace(use_native_replay=False, batch_size=16)
-    port = tiny_test().replace(batch_size=16)
+    # the numpy paths of both (the native core: test_torch_native.py)
+    port = tiny_test().replace(use_native_replay=False, batch_size=16)
     shared = {f.name for f in dataclasses.fields(port)}
     for name in shared:
         assert getattr(port, name) == getattr(ref, name), name
