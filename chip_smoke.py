@@ -121,6 +121,38 @@ its own lines; any failure exits non-zero and prints no result:
 16. odd    hidden 510 (a multiple of neither 4 nor 8) in fp32 and bf16: one
           update of 2 forward + 1 seam backward launches at 512 units (the
           model pads zero units), against the CPU as in phases 5 and 12.
+17. native a numpy ReplayBuffer given the fp32 main path's replay samples
+          the same batches as the native core bit for bit; both times.
+18. long   the long_context preset at full width, bf16 and fp32: no LSTM
+          kernel launches, the CPU update by update, lru_chunk=128, e2e.
+19. preempt the preemption protocol on the bf16 main path through the CLI:
+          an uninterrupted run of 6 updates, a run cut by
+          R2D2_FAULTS="trainer.update@3=sigterm" (exit 85, the replay
+          snapshot with its mid-run carry and a finalized checkpoint at
+          step 3) and its --resume (exit 0 at step 6). The first resumed
+          update's loss and priorities, and the final networks, Adam state
+          and replay, must equal the uninterrupted run's bit for bit; if
+          the final state does not, a second uninterrupted run decides: if
+          it differs from the first, the card does not reproduce its update
+          across processes (the tensors are named and held to rtol 1e-4 /
+          atol 1e-5), else the resume is at fault and the phase fails. Then
+          an fp32 cut in-process: request_preempt during run_threaded at
+          step 4 of 8, the resume bitwise, both runs' launches counted.
+20. tiered the tiered replay plane at the paper's 2,000,000 transitions
+          (learning_starts cut to 2,000), bf16 and fp32, K=1 and K=4 updates
+          per dispatch, beside the host plane at the same capacity in the
+          same call: ms per update over the wall (24 updates inline, acting
+          included), launches per dispatch (2K forward + K backward,
+          counted from 0 just before), the update peak and the two slabs'
+          size, TransferTimer's overlap, the process's resident memory with
+          the store allocated, and under the profiler the span
+          replay/staged_chunk (replay/sample for the host plane), the
+          learner_update span and the device's busy share. Then with
+          deterministic_staging a chunk copied back from the card equals K
+          host-plane draws bit for bit and its write-backs reach the tree;
+          then the disk tier (2 host and 24 disk blocks, delta-zlib): draws
+          of disk-resident rows equal the rows written, and a write-back
+          whose slot was overwritten since its draw is dropped.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -206,6 +238,24 @@ LONG_CONTEXT_CUT = dict(buffer_capacity=16_384, learning_starts=6_144)
 LC_UPDATES = 4
 LC_AGREE = 2
 LC_CHUNK = 128
+# phase 19: the preemption drill through the CLI on the bf16 main path (the
+# replay cut as the other atari phases): PREEMPT_UPDATES updates
+# uninterrupted, a SIGTERM at update PREEMPT_AT, the resume to the end; then
+# an fp32 cut in-process through request_preempt during run_threaded
+PREEMPT_UPDATES = 6
+PREEMPT_AT = 3
+THREADED_CUT = (8, 4)
+# phase 20: the tiered plane at the paper's replay capacity, K updates per
+# dispatch; TIERED_UPDATES timed after 2 dispatches that warm the path, and
+# TIERED_PROFILED more under the profiler
+TIERED_CAPACITY = 2_000_000
+TIERED_KS = (1, 4)
+TIERED_UPDATES = 24
+TIERED_PROFILED = 8
+# the disk-tier check: 2 host blocks and 24 disk blocks under them (an
+# 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
+# reach learning_starts=2,000 and the disk ring wraps soon after)
+DISK_CHECK = dict(buffer_capacity=800, replay_disk_capacity=9_600, learning_starts=2_000)
 # the row-chunk shapes of phase 9: twice the rows a block holds at once
 CHUNKED = ((85, 1024, 512), (85, 256, 2048))
 # the wide model preset's hidden size, and the batch at which its
@@ -362,7 +412,7 @@ def agree(tr, label, rtol=1e-4, atol=1e-5):
 
 # the trainer's host spans (utils/profiling.py); the profiler also shows
 # each as a device-side annotation over the kernels it launched
-SPANS = ("replay/sample", "learner_update")
+SPANS = ("replay/sample", "replay/staged_chunk", "learner_update")
 
 
 def device_us(e):
@@ -764,6 +814,462 @@ def lru_core_peak(tr, dev):
     outs.float().sum().backward()
     torch.cuda.synchronize()
     return (torch.cuda.max_memory_allocated() - before) / 2**30
+
+
+# the trainer CLI as `python -m r2d2_tpu_torch.train`, with every priority
+# write-back recorded in order ((idxes, priorities) per update) into the npz
+# named by PRIOS_OUT at exit (the preemption's exit code included)
+_RECORDED_CLI = """
+import atexit, os, runpy, sys
+import numpy as np
+from r2d2_tpu_torch.replay.control_plane import ReplayControlPlane
+calls = []
+update = ReplayControlPlane.update_priorities
+def record(self, idxes, td, *a, **kw):
+    calls.append((np.array(idxes), np.array(td)))
+    return update(self, idxes, td, *a, **kw)
+ReplayControlPlane.update_priorities = record
+atexit.register(lambda: np.savez(os.environ["PRIOS_OUT"], *[x for c in calls for x in c]))
+sys.argv = ["r2d2_tpu_torch.train"] + sys.argv[1:]
+runpy.run_module("r2d2_tpu_torch.train", run_name="__main__", alter_sys=True)
+"""
+
+
+def run_cli(tmp, tag, ckpt, args, faults=None):
+    """One trainer CLI run of the preemption drill (bf16 atari preset on
+    catch, replay cut). -> (exit code, last JSON line or None, per-update
+    losses {step: loss}, per-update (idxes, priorities), stderr tail)."""
+    metrics = os.path.join(tmp, f"{tag}.jsonl")
+    prios = os.path.join(tmp, f"{tag}_prios.npz")
+    cmd = [sys.executable, "-c", _RECORDED_CLI, "--preset", "atari", "--env", "catch",
+           "--mode", "inline", "--steps", str(PREEMPT_UPDATES), "--snapshot-replay",
+           "--metrics", metrics,
+           "--set", f"buffer_capacity={ON_CATCH_BF16['buffer_capacity']}",
+           "--set", f"learning_starts={ON_CATCH_BF16['learning_starts']}",
+           "--set", f"checkpoint_dir={ckpt}", "--set", f"save_interval={PREEMPT_UPDATES}",
+           "--set", "log_interval=0", *args]
+    env = {**os.environ, "PYTHONPATH": HERE, "PRIOS_OUT": prios}
+    env.pop("R2D2_FAULTS", None)
+    if faults:
+        env["R2D2_FAULTS"] = faults
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    last = None
+    for line in reversed(out.stdout.strip().splitlines()):
+        if line.startswith("{"):
+            last = json.loads(line)
+            break
+    losses = {}
+    if os.path.exists(metrics):
+        for line in open(metrics):
+            r = json.loads(line)
+            if "loss" in r:
+                losses[r["step"]] = r["loss"]
+    calls = []
+    if os.path.exists(prios):
+        import numpy as np
+
+        with np.load(prios) as d:
+            arrs = [d[f"arr_{i}"] for i in range(len(d.files))]
+        calls = list(zip(arrs[0::2], arrs[1::2]))
+    say("preempt", f"{tag}: exit {out.returncode} in {time.perf_counter() - t:.1f}s"
+        + (f" ({faults})" if faults else "") + f"; {len(calls)} updates recorded; "
+        f"last line {json.dumps(last)}")
+    return out.returncode, last, losses, calls, out.stderr[-3000:]
+
+
+def load_checkpoint_tensors(ckpt, step):
+    """{name: tensor} of every network and Adam tensor of a checkpoint."""
+    import torch
+
+    p = torch.load(os.path.join(ckpt, f"step_{step}", "state.pt"), map_location="cpu",
+                   weights_only=True)
+    out = {f"net.{k}": v for k, v in p["net"].items()}
+    out.update({f"target_net.{k}": v for k, v in p["target_net"].items()})
+    for i, st in p["optimizer"]["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def preempt_phase(dev, tmp):
+    """Phase 19: the preemption protocol on the card. Three CLI runs of the
+    bf16 main path: uninterrupted for PREEMPT_UPDATES updates, cut by
+    R2D2_FAULTS="trainer.update@PREEMPT_AT=sigterm" (exit 85, the replay
+    snapshot with its carry and a finalized checkpoint at the cut), then
+    --resume (exit 0). The first resumed update's loss and priorities must
+    equal the uninterrupted run's at that step bit for bit, and so must the
+    final networks, Adam state and replay; if the final state differs, a
+    second uninterrupted run tells a card that does not reproduce its
+    backward from process to process (the state then held to the fp32-update
+    limit and the differing tensors named) from a resume at fault (which
+    fails). Then an fp32 cut in-process: request_preempt during
+    run_threaded, the resume bitwise, and its launches."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.checkpoint import latest_checkpoint_step
+
+    n, k = PREEMPT_UPDATES, PREEMPT_AT
+    t0 = time.perf_counter()
+    a_dir, bc_dir = os.path.join(tmp, "a"), os.path.join(tmp, "bc")
+    rc_a, last_a, loss_a, prio_a, err_a = run_cli(tmp, "uninterrupted", a_dir, [])
+    if rc_a != 0 or len(prio_a) != n:
+        fail(f"preempt: the uninterrupted run exited {rc_a}: {err_a}")
+    rc_b, last_b, loss_b, prio_b, err_b = run_cli(tmp, "cut", bc_dir, [],
+                                                  faults=f"trainer.update@{k}=sigterm")
+    snap = os.path.join(bc_dir, "replay_snapshot.npz")
+    if rc_b != 85 or not (last_b or {}).get("preempted"):
+        fail(f"preempt: the SIGTERM run exited {rc_b}, not 85: {err_b}")
+    if latest_checkpoint_step(bc_dir) != k or not os.path.exists(snap):
+        fail(f"preempt: after the cut the checkpoints end at {latest_checkpoint_step(bc_dir)} "
+             f"(want {k}), snapshot present: {os.path.exists(snap)}")
+    with np.load(snap) as d:
+        carry_step = int(d["x_carry_step"])
+        carried = sorted({key.split("_")[1] for key in d.files if key.startswith("x_")})
+    if carry_step != k:
+        fail(f"preempt: the snapshot's carry is at step {carry_step}, not {k}")
+    say("preempt", f"cut at step {k}: exit 85, checkpoint step_{k}, replay_snapshot.npz "
+        f"{os.path.getsize(snap) / 1e6:.1f} MB with the carry ({', '.join(carried)})")
+    rc_c, last_c, loss_c, prio_c, err_c = run_cli(tmp, "resumed", bc_dir, ["--resume"])
+    if rc_c != 0 or (last_c or {}).get("resumed_from") != k or last_c.get("step") != n:
+        fail(f"preempt: the resumed run exited {rc_c} ({last_c}): {err_c}")
+
+    def same_update(la, pa, lb, pb):
+        return la == lb and np.array_equal(pa[0], pb[0]) and np.array_equal(pa[1], pb[1])
+
+    first_ok = same_update(loss_a.get(k + 1), prio_a[k], loss_c.get(k + 1), prio_c[0])
+    prefix_ok = all(same_update(loss_a.get(i + 1), prio_a[i], loss_b.get(i + 1), prio_b[i])
+                    for i in range(k))
+    say("preempt", f"update {k + 1}, the first resumed: loss {loss_c.get(k + 1)!r} vs the "
+        f"uninterrupted run's {loss_a.get(k + 1)!r}; priorities max |diff| "
+        f"{float(np.abs(prio_c[0][1] - prio_a[k][1]).max()):.3e}, idxes equal "
+        f"{np.array_equal(prio_c[0][0], prio_a[k][0])}: "
+        f"{'bit for bit' if first_ok else 'DIFFERENT'}; updates 1-{k} of the cut run against "
+        f"the uninterrupted run's: {'bit for bit' if prefix_ok else 'DIFFERENT'}")
+    ta, tc = load_checkpoint_tensors(a_dir, n), load_checkpoint_tensors(bc_dir, n)
+    differ = [name for name in ta if not torch.equal(ta[name], tc[name])]
+    with np.load(os.path.join(a_dir, "replay_snapshot.npz")) as da, \
+            np.load(os.path.join(bc_dir, "replay_snapshot.npz")) as dc:
+        replay_differ = [key for key in da.files
+                         if key not in dc.files or not np.array_equal(da[key], dc[key])]
+    if first_ok and not differ and not replay_differ:
+        say("preempt", f"step {n}: networks, Adam state ({len(ta)} tensors) and the whole "
+            f"replay ({len(replay_differ) or 'every'} array of the snapshot) equal the "
+            "uninterrupted run's bit for bit; updates "
+            f"{k + 1}-{n} losses equal: {all(loss_a[i] == loss_c[i] for i in range(k + 1, n + 1))}"
+            f" ({time.perf_counter() - t0:.1f}s)")
+    else:
+        # a second uninterrupted run: does the card reproduce its own run?
+        a2_dir = os.path.join(tmp, "a2")
+        rc_2, _, loss_2, prio_2, err_2 = run_cli(tmp, "uninterrupted again", a2_dir, [])
+        if rc_2 != 0:
+            fail(f"preempt: the second uninterrupted run exited {rc_2}: {err_2}")
+        t2 = load_checkpoint_tensors(a2_dir, n)
+        repro = [name for name in ta if not torch.equal(ta[name], t2[name])]
+        steps_2 = [i + 1 for i in range(n)
+                   if not same_update(loss_a.get(i + 1), prio_a[i], loss_2.get(i + 1), prio_2[i])]
+        if not repro and not steps_2:
+            fail(f"preempt: two uninterrupted runs agree bit for bit but the resumed one does "
+                 f"not: the resume path is at fault (first update equal {first_ok}; tensors "
+                 f"{differ[:8]}; replay arrays {replay_differ[:8]})")
+        say("preempt", f"two uninterrupted runs differ from process to process: updates "
+            f"{steps_2} differ, final tensors {len(repro)} of {len(ta)} differ, first "
+            f"{repro[:6]}; the card does not reproduce its update across processes")
+        worst = 0.0
+        for name in ta:
+            a_, c_ = ta[name].float(), tc[name].float()
+            worst = max(worst, float((a_ - c_).abs().max()))
+            if not torch.allclose(c_, a_, rtol=1e-4, atol=1e-5):
+                fail(f"preempt: {name} after the resume differs from the uninterrupted run's "
+                     f"beyond rtol 1e-4 atol 1e-5: {float((a_ - c_).abs().max()):.3e}")
+        la, lc = loss_a[k + 1], loss_c[k + 1]
+        if abs(la - lc) > 1e-5 + 1e-4 * abs(la) or not np.allclose(
+                prio_c[0][1], prio_a[k][1], rtol=1e-4, atol=1e-5):
+            fail(f"preempt: the first resumed update leaves the fp32-update limit: loss "
+                 f"{lc!r} vs {la!r}")
+        say("preempt", f"held at the fp32-update limit instead (rtol 1e-4 atol 1e-5): the "
+            f"first resumed update and every final tensor (max |diff| {worst:.3e}); differing "
+            f"replay arrays {replay_differ[:8]}")
+
+    # the threaded cut, fp32, in-process ----------------------------------
+    updates, cut = THREADED_CUT
+    cfg = PRESETS["atari"]().replace(**ON_CATCH, training_steps=updates, snapshot_replay=True,
+                                     save_interval=1000,
+                                     checkpoint_dir=os.path.join(tmp, "threaded"))
+    tr = Trainer(cfg, device=dev)
+    tr.warmup()
+    one = tr._one_update
+
+    def update_then_cut(item):
+        out = one(item)
+        if tr._step == cut:
+            tr.request_preempt()
+        return out
+
+    tr._one_update = update_then_cut
+    K.reset_launch_counts()
+    tr.run_threaded()
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if not tr.preempted or tr._step != cut or latest_checkpoint_step(cfg.checkpoint_dir) != cut:
+        fail(f"preempt: the threaded cut stopped at step {tr._step} (preempted "
+             f"{tr.preempted}), checkpoint {latest_checkpoint_step(cfg.checkpoint_dir)}")
+    if launches != {"lstm_fwd": 2 * cut, "lstm_seq_bwd": cut}:
+        fail(f"preempt: the threaded run's launches {launches}")
+    resumed = Trainer(cfg, device=dev, resume=True)
+    if not states_equal(resumed.state, tr.state) or resumed.replay.env_steps != \
+            tr.replay.env_steps or resumed.actor.total_steps != tr.actor.total_steps:
+        fail("preempt: the threaded cut's resume differs from the cut state")
+    K.reset_launch_counts()
+    resumed.run_threaded()
+    torch.cuda.synchronize()
+    r_launches = {key: v for key, v in K.launch_counts.items() if v}
+    if resumed._step != updates or r_launches != {"lstm_fwd": 2 * (updates - cut),
+                                                  "lstm_seq_bwd": updates - cut}:
+        fail(f"preempt: the threaded resume reached step {resumed._step}, launches "
+             f"{r_launches}")
+    say("preempt", f"fp32 run_threaded cut by request_preempt at step {cut}: launches "
+        f"{launches}, checkpoint and snapshot at the cut; Trainer(resume=True) restored "
+        f"the networks, Adam state, replay ({resumed.replay.env_steps} env steps) and the "
+        f"actor's streams; the resumed run_threaded reached step {updates} with launches "
+        f"{r_launches} ({time.perf_counter() - t0:.1f}s in the phase)")
+
+
+def rss_gib():
+    """This process's resident memory, GiB (/proc/self/status VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def tiered_rows(label, base, dev):
+    """Phase 20's rows of one compute dtype: the host plane (native core)
+    and the tiered plane at K in TIERED_KS, all at TIERED_CAPACITY, inline:
+    2 dispatches that warm the path, TIERED_UPDATES updates timed (ms per
+    update over the wall, acting included; launches, counted from 0 just
+    before; the update peak; TransferTimer), then TIERED_PROFILED more under
+    the profiler (the spans' host ms per update, the device's busy share).
+    -> {row: dict}, and the last tiered trainer."""
+    import torch
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils.profiling import start_trace
+
+    sfx = "_bf16" if base.resolved_compute_dtype == "bfloat16" else ""
+    out, last = {}, None
+    for plane, k in [("host", 1)] + [("tiered", k) for k in TIERED_KS]:
+        row = {"path": label, "plane": plane, "K": k}
+        rss0 = rss_gib()
+        cfg = base.replace(replay_plane=plane, updates_per_dispatch=k, training_steps=2 * k)
+        tr = Trainer(cfg, device=dev)
+        tr.run_inline()
+        row["rss_gib"], row["rss_added_gib"] = rss_gib(), rss_gib() - rss0
+        row["obs_store_virtual_gb"] = tr.replay.obs_store.nbytes / 1e9
+        for phase in ("timed", "profiled"):
+            n = TIERED_UPDATES if phase == "timed" else TIERED_PROFILED
+            tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + n)
+            tr.xfer.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            K.reset_launch_counts()
+            prof = start_trace() if phase == "profiled" else None
+            t0 = time.perf_counter()
+            tr.run_inline()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {key: v for key, v in K.launch_counts.items() if v}
+            if launches != {f"lstm_fwd{sfx}": 2 * n, f"lstm_seq_bwd{sfx}": n}:
+                fail(f"tiered {label} {plane} K={k}: {n} updates launched {launches}")
+            if prof is None:
+                ends = tr.update_ends[-(n // k):]
+                row.update(ms_per_update=(ends[-1] - ends[0]) * 1e3 / ((len(ends) - 1) * k),
+                           launches_per_dispatch={key: v * k // n for key, v in launches.items()},
+                           peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30,
+                           allocated_gib=before / 2**30, **tr.xfer.stats())
+                if plane == "tiered":
+                    row["slab_mb"] = tr.plane.ring.nbytes() / 1e6
+                    row["pinned_mb"] = 2 * tr.plane.ring.nbytes() / 1e6
+                continue
+            prof.__exit__(None, None, None)
+            events = prof.key_averages()
+            busy = sum(device_us(e) for e in device_events(events)) / 1e3
+            row.update(profiled_ms_per_update=wall_ms / n, device_busy=busy / wall_ms)
+            for key, (host, device) in span_ms(events).items():
+                row[f"{key}_host_ms_per_update"] = host / n
+        if not math.isfinite(tr.metrics()["loss"]):
+            fail(f"tiered {label} {plane} K={k}: loss {tr.metrics()['loss']}")
+        say("tiered", json.dumps(row))
+        out[f"{plane} K={k}"] = row
+        if plane == "tiered":
+            del last
+            last = tr
+        else:
+            del tr
+    return out, last
+
+
+def tiered_phase(dev, tmp):
+    """Phase 20: the tiered plane at the paper's 2,000,000-transition
+    replay (the atari preset on catch, learning_starts cut to 2,000), bf16
+    and fp32, K=1 and 4, beside the host plane in the same call (rows:
+    tiered_rows); then, with deterministic_staging, a chunk copied back from
+    the card equals K host-plane draws from the same Generator state and
+    contents bit for bit, its priority write-backs reach the tree; then the
+    disk tier (2 host blocks, 24 disk blocks, delta-zlib): draws of
+    disk-resident rows equal the rows written, and a write-back whose slot
+    was overwritten is dropped."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.replay.sum_tree import SumTree
+    from r2d2_tpu_torch.replay.tiered_store import stage_chunk
+    from r2d2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    rows = {}
+    b_cfg = PRESETS["atari"]().replace(env_name="catch", buffer_capacity=TIERED_CAPACITY,
+                                       learning_starts=ON_CATCH["learning_starts"])
+    for label, extra in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
+        r, tr = tiered_rows(label, b_cfg.replace(**extra), dev)
+        rows[label] = r
+        if label == "bf16":
+            keep = tr
+        else:
+            del tr
+    say("tiered", f"[{card}] ms per update over the wall (acting included), "
+        f"{TIERED_UPDATES} updates, replay {TIERED_CAPACITY}: " + "; ".join(
+            f"{label} " + ", ".join(f"{name} {r['ms_per_update']:.2f}" for name, r in rs.items())
+            for label, rs in rows.items()))
+    def sampling_ms(r):
+        return (r["replay/sample_host_ms_per_update"]
+                + r["replay/staged_chunk_host_ms_per_update"])
+
+    say("tiered", "busy share, span host ms per update (replay/sample or replay/staged_chunk, "
+        "learner_update), h2d overlap: " + "; ".join(
+            f"{label} {name} {r['device_busy']:.1%}, {sampling_ms(r):.2f}, "
+            f"{r['learner_update_host_ms_per_update']:.2f}, {r['h2d_overlap_fraction']:.3f}"
+            for label, rs in rows.items() for name, r in rs.items()))
+
+    # deterministic staging: a chunk on the card equals K host draws
+    tr, k = keep, TIERED_KS[-1]
+    rp = tr.replay
+    state = tr.sample_rng.bit_generator.state
+    chunk = stage_chunk(rp, tr.sample_rng, k, tr.plane.ring)
+    torch.cuda.current_stream().wait_event(chunk.event)
+    got = {name: t.cpu().numpy() for name, t in chunk.batch.items()}
+    got["hidden"] = got["hidden"].view(np.uint16) if got["hidden"].dtype == np.int16 else \
+        got["hidden"]
+    spec = np.random.default_rng()
+    spec.bit_generator.state = state
+    for j in range(k):
+        b = ReplayBuffer.sample_batch(rp, spec)
+        for name, v in got.items():
+            if not np.array_equal(v[j], getattr(b, name)):
+                fail(f"tiered: staged batch {j}'s {name} differs from the host plane's draw")
+        if not np.array_equal(chunk.idxes[j], b.idxes):
+            fail(f"tiered: staged batch {j}'s idxes differ from the host plane's")
+    if spec.bit_generator.state != tr.sample_rng.bit_generator.state:
+        fail("tiered: the stage consumed the Generator differently from K host draws")
+    written = []
+    apply = rp.update_priorities
+
+    def recording(idx, td, *a):
+        written.append((np.array(idx), np.array(td)))
+        return apply(idx, td, *a)
+
+    rp.update_priorities = recording
+    tr.state, _ = tr.plane.update(tr.state, chunk)
+    tr.plane.drain_pending()
+    rp.update_priorities = apply
+    ref = SumTree(rp.tree.capacity, rp.tree.prio_exponent, rp.tree.is_exponent, native=rp.native)
+    for idx, td in written:
+        ref.update(idx, td)
+    idx_all = np.concatenate([w[0] for w in written])
+    if len(written) != k or not np.array_equal(rp.tree.priorities_of(idx_all),
+                                               ref.priorities_of(idx_all)):
+        fail(f"tiered: the dispatch's {len(written)} write-backs did not reach the tree")
+    say("tiered", f"deterministic staging at K={k}: the chunk copied back from the card equals "
+        f"{k} host-plane draws from the same Generator state bit for bit (every field); "
+        f"its {k} write-backs reached the tree ({len(idx_all)} leaves)")
+    del keep, tr
+
+    # the disk tier below the host slab ------------------------------------
+    d_cfg = PRESETS["atari"]().replace(
+        env_name="catch", replay_plane="tiered", updates_per_dispatch=2,
+        deterministic_staging=True, block_codec="delta-zlib", training_steps=2,
+        replay_disk_dir=os.path.join(tmp, "disk"), **DISK_CHECK)
+    tr = Trainer(d_cfg, device=dev)
+    rp = tr.replay
+    blocks = []
+    push = tr.actor.push_block
+
+    def keep_block(block, prios, ep):
+        blocks.append((block.obs.copy(), block.action.copy(), block.burn_in_steps.copy()))
+        return push(block, prios, ep)
+
+    tr.actor.push_block = keep_block
+    tr.warmup()
+    nb, S, L = d_cfg.num_blocks, d_cfg.seqs_per_block, d_cfg.learning_steps
+    chunk = tr.sample()
+    torch.cuda.current_stream().wait_event(chunk.event)
+    obs = chunk.batch["obs"].cpu().numpy()
+    act = chunk.batch["action"].cpu().numpy()
+    checked = 0
+    for j in range(2):
+        for i, idx in enumerate(chunk.idxes[j]):
+            blk, s = divmod(int(idx), S)
+            if blk < nb:
+                continue
+            rec = rp._disk_record(blk - nb)
+            match = [w for w in blocks if np.array_equal(rec["obs"][: len(w[0])], w[0])]
+            if not match:
+                fail(f"tiered: disk slot {blk - nb} holds no block that was written")
+            w_obs, w_act, w_burn = match[0]
+            start = int(w_burn[0]) + s * L - int(w_burn[s])
+            rows_ = np.clip(start + np.arange(d_cfg.seq_len), 0, d_cfg.block_slot_len - 1)
+            slab = np.zeros((d_cfg.block_slot_len, *d_cfg.obs_shape), np.uint8)
+            slab[: len(w_obs)] = w_obs
+            lrows = np.clip(s * L + np.arange(L), 0, d_cfg.block_length - 1)
+            if not (np.array_equal(obs[j, i], slab[rows_]) and np.array_equal(
+                    act[j, i], np.pad(w_act, (0, d_cfg.block_length - len(w_act)))[lrows])):
+                fail(f"tiered: a disk-resident draw (slot {blk - nb}) differs from the rows "
+                     "written")
+            checked += 1
+    if not checked:
+        fail("tiered: no draw landed on a disk-resident block")
+    stats = rp.disk_stats()
+    tr.state, _ = tr.plane.update(tr.state, chunk)  # pending, not yet applied
+    prios, pend = tr.plane._pending
+    tr.plane._pending = None
+    old = pend.old_advances
+    steps = 0
+    while not (rp.slot_stamp[pend.idxes // S] > old).any() and steps < 2000:
+        tr.actor.step()
+        steps += 1
+    mutated = rp.slot_stamp[pend.idxes // S] > old
+    before = rp.tree.priorities_of(pend.idxes.ravel()).reshape(pend.idxes.shape)
+    tr.plane.drain_pending((np.full(pend.idxes.shape, 7.0, np.float32), pend))
+    after = rp.tree.priorities_of(pend.idxes.ravel()).reshape(pend.idxes.shape)
+    live = ~mutated & ~np.isin(pend.idxes, pend.idxes[mutated])
+    if not mutated.any() or not np.array_equal(after[mutated], before[mutated]) or not \
+            np.allclose(after[live], 7.0 ** d_cfg.prio_exponent, rtol=1e-12):
+        fail(f"tiered: the stale write-back was not dropped ({int(mutated.sum())} rows in "
+             "mutated slots)")
+    say("tiered", f"disk tier ({d_cfg.buffer_capacity} host + {d_cfg.replay_disk_capacity} "
+        f"disk transitions, delta-zlib): {checked} draws of disk-resident rows copied back "
+        f"from the card equal the rows written; {stats}; after {steps} more actor steps "
+        f"{int(mutated.sum())} of {mutated.size} rows sat in mutated slots and their "
+        f"write-back was dropped, the other {int(live.sum())} applied "
+        f"({time.perf_counter() - t0:.1f}s in the phase)")
+    del tr
+    return rows
 
 
 def main():
@@ -1730,6 +2236,20 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         long_context_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 19. preemption: the cut, the snapshot and the bitwise resume -----------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        preempt_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 20. the tiered plane at the paper's replay capacity ----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        tiered_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -147,21 +147,32 @@ class NativeReplayCore:
         return out
 
     def gather_windows_multi(self, stores, b: np.ndarray, win_start: np.ndarray,
-                             T: int) -> List[np.ndarray]:
+                             T: int, outs=None) -> List[np.ndarray]:
         """The same (b, win_start) windows from several stores that share
         the slot axis, in one native call; one (B, T, *row_shape) array per
-        store, with gather_windows' clamp."""
+        store, with gather_windows' clamp. `outs` (C-contiguous arrays of
+        those shapes and the stores' dtypes, such as pinned staging
+        buffers) receives the windows instead of fresh arrays."""
         b = np.ascontiguousarray(b, np.int64)
         win_start = np.ascontiguousarray(win_start, np.int64)
         slot = stores[0].shape[1]
-        outs, row_bytes = [], np.empty(len(stores), np.int64)
+        given, outs, row_bytes = outs, [], np.empty(len(stores), np.int64)
         store_ptrs = (ctypes.c_void_p * len(stores))()
         out_ptrs = (ctypes.c_void_p * len(stores))()
         for f, store in enumerate(stores):
             if not store.flags["C_CONTIGUOUS"] or store.shape[1] != slot:
                 raise ValueError("gather_windows_multi needs C-contiguous stores of one slot")
             row_bytes[f] = int(np.prod(store.shape[2:], dtype=np.int64)) * store.itemsize
-            out = np.empty((len(b), T, *store.shape[2:]), store.dtype)
+            shape = (len(b), T, *store.shape[2:])
+            if given is None:
+                out = np.empty(shape, store.dtype)
+            else:
+                out = given[f]
+                if (out.shape != shape or out.dtype != store.dtype
+                        or not out.flags["C_CONTIGUOUS"] or not out.flags["WRITEABLE"]):
+                    raise ValueError(
+                        f"gather_windows_multi output {f}: {out.shape}/{out.dtype} is not "
+                        f"a writable C-contiguous {shape}/{store.dtype}")
             outs.append(out)
             store_ptrs[f] = store.ctypes.data
             out_ptrs[f] = out.ctypes.data

@@ -17,6 +17,7 @@ for both cores, and stored through the config's state dtype.
 
 from __future__ import annotations
 
+import json
 import threading
 from typing import Callable, Dict, List, Sequence
 
@@ -26,6 +27,8 @@ import torch
 from r2d2_tpu_torch.config import R2D2Config, resolve_device
 from r2d2_tpu_torch.models.r2d2 import R2D2Network, initial_carry
 from r2d2_tpu_torch.replay.accumulator import SequenceAccumulator
+from r2d2_tpu_torch.replay.block import state_tensor
+from r2d2_tpu_torch.utils.faults import fault_point
 
 
 class ParamStore:
@@ -132,6 +135,7 @@ class VectorizedActor:
 
     @torch.no_grad()
     def step(self) -> None:
+        fault_point("actor.step")
         cfg = self.cfg
         E = self.env.num_envs
         dev = self.device
@@ -224,8 +228,68 @@ class VectorizedActor:
         and start fresh episodes in all slots."""
         self._reset_state(np.array(self.env.reset_all()))
 
+    def carry_state(self) -> dict:
+        """Every mutable field step() reads, for the preemption carry:
+        restored on a fresh actor of the same config, the next step() is
+        bit-identical to the one an uninterrupted run takes (resync, by
+        contrast, starts fresh episodes). The recurrent carry (the LSTM's
+        (h, c) or the LRU's (Re h, Im h), in the acting dtype) and the
+        policy's parameters stay tensors, moved to the host."""
+        h, c = self.carry
+        d = {
+            "rng": np.asarray(json.dumps(self.rng.bit_generator.state)),
+            "obs": np.array(self.obs),
+            "last_action": self.last_action.copy(),
+            "last_reward": self.last_reward.copy(),
+            "carry_h": h.detach().cpu(),
+            "carry_c": c.detach().cpu(),
+            "episode_steps": self.episode_steps.copy(),
+            "pending_cut": self._pending_cut.copy(),
+            "pending_truncate": self._pending_truncate.copy(),
+            "counters": np.asarray(
+                [self.total_steps, self._steps_since_refresh, self.param_version], np.int64),
+        }
+        for j, v in enumerate(self.policy.state_dict().values()):
+            d[f"params_{j}"] = v.detach().cpu()
+        for i, acc in enumerate(self.accs):
+            for k, v in acc.carry_state().items():
+                d[f"acc{i}_{k}"] = v
+        return d
+
+    def restore_carry(self, d: dict) -> None:
+        """Inverse of carry_state; tensors may also come back as numpy
+        arrays (a snapshot's), bfloat16 as its uint16 bits."""
+        self.rng.bit_generator.state = json.loads(str(np.asarray(d["rng"])[()]))
+        self.obs = np.array(d["obs"])
+        self.last_action = np.asarray(d["last_action"], np.int32)
+        self.last_reward = np.asarray(d["last_reward"], np.float32)
+        self.carry = tuple(_tensor(d[k], self.carry[0].dtype).to(self.device)
+                           for k in ("carry_h", "carry_c"))
+        self.episode_steps = np.asarray(d["episode_steps"], np.int64)
+        self._pending_cut = np.asarray(d["pending_cut"], bool)
+        self._pending_truncate = np.asarray(d["pending_truncate"], bool)
+        counters = np.asarray(d["counters"])
+        self.total_steps = int(counters[0])
+        self._steps_since_refresh = int(counters[1])
+        self.param_version = int(counters[2])
+        sd = self.policy.state_dict()
+        self.policy.load_state_dict({
+            k: _tensor(d[f"params_{j}"], v.dtype) for j, (k, v) in enumerate(sd.items())})
+        for i, acc in enumerate(self.accs):
+            prefix = f"acc{i}_"
+            acc.restore_carry({k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)})
+
     def _maybe_refresh_params(self) -> None:
         params, version = self.param_store.latest()
         if version != self.param_version:
             self.policy.load_state_dict(params)
             self.param_version = version
+
+
+def _tensor(x, dtype: torch.dtype) -> torch.Tensor:
+    """A carried value as a CPU tensor of `dtype`: a tensor as it is, a
+    numpy array (bfloat16 as uint16 bits) viewed without rounding."""
+    t = x if isinstance(x, torch.Tensor) else state_tensor(np.asarray(x))
+    if t.dtype != dtype:
+        raise TypeError(f"carried {t.dtype} where the actor holds {dtype}")
+    return t

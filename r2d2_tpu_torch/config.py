@@ -119,6 +119,27 @@ class R2D2Config:
     # gathers, built with g++ at first use); a failed build raises. False
     # takes the numpy path
     use_native_replay: bool = True
+    # replay data plane: "host" (numpy store, one batch shipped per update)
+    # or "tiered" (the full-capacity host store with K batches gathered into
+    # a pinned ring and copied on a side stream into one of two device
+    # slabs while the learner's K-update dispatch consumes the other;
+    # replay/tiered_store.py)
+    replay_plane: str = "host"
+    # learner updates per dispatch (tiered plane only): K staged batches
+    # through learner.make_stacked_batch_train_step
+    updates_per_dispatch: int = 1
+    # tiered plane only: stage chunks synchronously on the consumer thread
+    # instead of the prefetch pipeline; no staging-thread RNG race with the
+    # priority write-backs, so the sampling stream is bit-reproducible
+    # (the resume contract), at the cost of the pipeline's overlap
+    deterministic_staging: bool = False
+    # the disk tier below the tiered plane's host slab (replay/disk_tier.py):
+    # capacity in transitions (0 = off, a multiple of block_length), its
+    # segment files' directory, and the block codec of its records
+    # ("none" or "delta-zlib", replay/codec.py)
+    replay_disk_dir: str = ""
+    replay_disk_capacity: int = 0
+    block_codec: str = "none"
 
     # --- infra ------------------------------------------------------------
     seed: int = 0
@@ -129,6 +150,13 @@ class R2D2Config:
     heartbeat_timeout: float = 120.0
     stall_fatal_timeout: float = 900.0
     checkpoint_dir: str = "checkpoints"
+    # persist the replay contents (replay/snapshot.py) at the end of a run
+    # and restore them on --resume; a preempted run also stores its mid-run
+    # carry in the snapshot, so the resumed run continues bit for bit
+    snapshot_replay: bool = False
+    # > 0: also snapshot every N learner updates, on a background thread
+    # (requires snapshot_replay)
+    snapshot_every: int = 0
     metrics_path: Optional[str] = None  # jsonl metrics file
 
     # --- derived ----------------------------------------------------------
@@ -293,6 +321,54 @@ class R2D2Config:
             raise ValueError(
                 f"unknown model_preset {self.model_preset!r}; one of "
                 f"{sorted(MODEL_PRESETS)} (config.MODEL_PRESETS)"
+            )
+        if self.block_codec not in ("none", "delta-zlib"):
+            raise ValueError(f"unknown block_codec {self.block_codec!r}")
+        if self.replay_disk_capacity < 0:
+            raise ValueError("replay_disk_capacity must be >= 0")
+        if self.replay_disk_capacity > 0:
+            if not self.replay_disk_dir:
+                raise ValueError(
+                    "replay_disk_capacity needs replay_disk_dir: the disk "
+                    "tier's segment files must live somewhere"
+                )
+            if self.replay_disk_capacity % self.block_length != 0:
+                raise ValueError(
+                    "replay_disk_capacity must be a multiple of "
+                    "block_length (the disk tier holds whole blocks)"
+                )
+            if self.replay_plane != "tiered":
+                raise ValueError(
+                    "the replay disk tier hangs below the tiered plane's "
+                    "host slab (its staging thread is where demoted rows "
+                    "are paged in + decoded); set replay_plane='tiered' "
+                    "or replay_disk_capacity=0"
+                )
+        if self.replay_plane not in ("host", "tiered"):
+            raise ValueError(f"unknown replay_plane {self.replay_plane!r}")
+        if self.snapshot_every < 0:
+            raise ValueError("snapshot_every must be >= 0")
+        if self.snapshot_every > 0 and not self.snapshot_replay:
+            raise ValueError(
+                "snapshot_every > 0 schedules periodic replay snapshots; "
+                "it requires snapshot_replay=True"
+            )
+        if self.deterministic_staging and self.replay_plane != "tiered":
+            raise ValueError(
+                "deterministic_staging is the tiered plane's synchronous "
+                "staging mode; set replay_plane='tiered' (or leave it False)"
+            )
+        if self.updates_per_dispatch < 1:
+            raise ValueError("updates_per_dispatch must be >= 1")
+        if self.updates_per_dispatch > 1 and self.replay_plane != "tiered":
+            raise ValueError(
+                "updates_per_dispatch > 1 is implemented for the tiered "
+                "replay plane (staged K-batch chunks)"
+            )
+        if self.training_steps % self.updates_per_dispatch != 0:
+            raise ValueError(
+                "training_steps must be a multiple of updates_per_dispatch "
+                "(each dispatch advances the step counter by that amount)"
             )
         if self.env_name:
             self._validate_env_geometry(self.env_name, self.obs_shape)

@@ -21,6 +21,7 @@ from the env's numpy Generator (the JAX package draws it from
 
 from __future__ import annotations
 
+import json
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -211,3 +212,19 @@ class CatchVecEnv:
                 field[done] = new
         self._state = nxt
         return term_obs, reward.astype(np.float64), done, self.env.render(nxt)
+
+    def get_state(self) -> dict:
+        """The whole env state as host arrays (npz-safe), for the
+        preemption carry: set_state on a fresh instance of the same geometry
+        resumes the exact episodes. The port's resets and respawns come
+        from the numpy Generator, so its state is part of this (the JAX
+        package carries its key schedule instead)."""
+        d = {"s_" + name: np.asarray(v).copy() for name, v in zip(CatchState._fields, self._state)}
+        d["rng"] = np.asarray(json.dumps(self.rng.bit_generator.state))
+        return d
+
+    def set_state(self, d: dict) -> None:
+        self._state = CatchState(*(
+            np.asarray(d["s_" + name], np.int32).copy() for name in CatchState._fields
+        ))
+        self.rng.bit_generator.state = json.loads(str(np.asarray(d["rng"])[()]))

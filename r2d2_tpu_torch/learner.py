@@ -78,6 +78,20 @@ class DeviceBatch(NamedTuple):
             out.append(t.to(device, non_blocking=True))
         return cls(*out)
 
+    @classmethod
+    def from_staged(cls, fields: dict) -> "DeviceBatch":
+        """A staged chunk's tensors ((K, B, ...) in the host store's dtypes,
+        on their device; bf16 carries as int16 bits) as a stacked
+        DeviceBatch: the index fields widened, the carry bits viewed as
+        bfloat16, on the device and the current stream."""
+        out = []
+        for name, dtype in _FIELD_DTYPES.items():
+            t = fields[name]
+            if t.dtype == torch.int16:
+                t = t.view(torch.bfloat16)
+            out.append(t if dtype is None or t.dtype == dtype else t.to(dtype))
+        return cls(*out)
+
 
 class PinnedStager:
     """Host->device staging of sampled batches through a ring of pinned host
@@ -253,3 +267,25 @@ def make_train_step(cfg: R2D2Config):
         return state, metrics, priorities
 
     return train_step
+
+
+def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int):
+    """K train steps in one dispatch over a staged stacked batch (the
+    tiered plane's consumer; r2d2_tpu/learner.py's function of the same
+    name): (state, DeviceBatch with (K, B, ...) leaves) -> (state, the
+    last step's metrics, priorities (K, B)). Step k trains on the k-th
+    slice of every leaf, exactly as K make_train_step calls would."""
+    step = make_train_step(cfg)
+
+    def multi(state: TrainState, stacked: DeviceBatch):
+        if stacked.obs.shape[0] != num_steps:
+            raise ValueError(
+                f"staged batch has {stacked.obs.shape[0]} steps, expected {num_steps}"
+            )
+        prios = []
+        for k in range(num_steps):
+            state, metrics, p = step(state, DeviceBatch(*(x[k] for x in stacked)))
+            prios.append(p)
+        return state, metrics, torch.stack(prios)
+
+    return multi

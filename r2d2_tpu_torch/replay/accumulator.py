@@ -53,6 +53,42 @@ class SequenceAccumulator:
         self.sum_reward = 0.0
         self.done = False
 
+    def carry_state(self) -> dict:
+        """The accumulator's whole mutable state as flat numpy arrays (the
+        preemption carry in the replay snapshot, npz-safe). Ragged lists
+        are stacked; the counts recover the split. Carries keep the state
+        dtype's host form."""
+        d = {
+            "obs": np.stack(self.obs_buf),
+            "last_action": np.asarray(self.last_action_buf, np.int64),
+            "last_reward": np.asarray(self.last_reward_buf, np.float64),
+            "hidden": np.stack(self.hidden_buf),
+            "action": np.asarray(self.action_buf, np.int64),
+            "reward": np.asarray(self.reward_buf, np.float64),
+            "meta": np.asarray([self.curr_burn_in, self.size, int(self.done)], np.int64),
+            "sum_reward": np.asarray(self.sum_reward, np.float64),
+        }
+        if self.qval_buf:
+            d["qval"] = np.stack(self.qval_buf)
+        else:
+            d["qval"] = np.zeros((0, self.cfg.action_dim), np.float32)
+        return d
+
+    def restore_carry(self, d: dict) -> None:
+        hidden_dtype = state_host_dtype(self.cfg.state_dtype)
+        self.obs_buf = list(np.asarray(d["obs"]))
+        self.last_action_buf = [int(a) for a in d["last_action"]]
+        self.last_reward_buf = [float(r) for r in d["last_reward"]]
+        self.hidden_buf = [np.asarray(h, hidden_dtype) for h in d["hidden"]]
+        self.action_buf = [int(a) for a in d["action"]]
+        self.reward_buf = [float(r) for r in d["reward"]]
+        self.qval_buf = [np.asarray(q, np.float32) for q in d["qval"]]
+        meta = np.asarray(d["meta"])
+        self.curr_burn_in = int(meta[0])
+        self.size = int(meta[1])
+        self.done = bool(meta[2])
+        self.sum_reward = float(np.asarray(d["sum_reward"])[()])
+
     def add(self, action: int, reward: float, next_obs: np.ndarray,
             q_value: np.ndarray, hidden: np.ndarray) -> None:
         """Append one transition. `hidden` is the (2, H) LSTM state after

@@ -71,3 +71,28 @@ class Block:
     @property
     def stored_steps(self) -> int:
         return len(self.obs)
+
+
+# The per-step fields a demoted block carries in its disk-segment record, in
+# record order (replay/disk_tier.py sizes and parses its fixed-geometry slots
+# by them). The per-sequence metadata (carries, spans) stays in memory for
+# disk slots: the control plane samples demoted sequences without touching
+# a segment.
+DISK_FIELDS = (
+    "obs", "last_action", "last_reward", "action", "n_step_reward", "gamma",
+)
+
+
+def disk_field_specs(cfg):
+    """Per-slot (shape, dtype) of every disk-segment record field, in
+    DISK_FIELDS order: the host slab's dtypes (uint8 actions), so a spilled
+    row round-trips bit for bit."""
+    slot, bl = cfg.block_slot_len, cfg.block_length
+    return {
+        "obs": ((slot, *cfg.obs_shape), np.uint8),
+        "last_action": ((slot,), np.uint8),
+        "last_reward": ((slot,), np.float32),
+        "action": ((bl,), np.uint8),
+        "n_step_reward": ((bl,), np.float32),
+        "gamma": ((bl,), np.float32),
+    }

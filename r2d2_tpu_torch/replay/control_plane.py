@@ -1,10 +1,12 @@
 """Host replay control plane (port of r2d2_tpu/replay/control_plane.py,
 the part the host plane runs): sum-tree priorities, the circular block
 pointer, eviction and size accounting, clamped stratified sampling of
-sequence coordinates, and the stale-priority pointer-window rejection
-(with full-lap detection). With ``cfg.use_native_replay`` (the default)
-the sum tree runs in the native core (``r2d2_tpu_torch._native``), which is
-built at first use; a failed build raises.
+sequence coordinates, the stale-priority pointer-window rejection (with
+full-lap detection), and the per-slot stamp clock that replaces that
+window under the tiered plane's disk tier. With ``cfg.use_native_replay``
+(the default) the sum tree runs in the native core
+(``r2d2_tpu_torch._native``), which is built at first use; a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -43,6 +45,12 @@ class ReplayControlPlane:
         self.learning_sum = np.zeros(cfg.num_blocks, np.int64)
         self.occupied = np.zeros(cfg.num_blocks, bool)
         self.num_seq_store = np.zeros(cfg.num_blocks, np.int32)
+        # disk-tier mode only (the tiered store allocates it over the host
+        # and disk blocks): each slot's last mutation in ptr_advances clock
+        # units. Demotion moves blocks between arbitrary slots, so there
+        # update_priorities compares stamps instead of the pointer window;
+        # None everywhere else, and the window mask is untouched
+        self.slot_stamp = None
         self.lock = threading.Lock()
 
     def __len__(self) -> int:
@@ -76,7 +84,27 @@ class ReplayControlPlane:
             self.total_reward_sum += episode_reward
         self.block_ptr = (ptr + 1) % self.cfg.num_blocks
         self.ptr_advances += 1
+        if self.slot_stamp is not None:
+            self.slot_stamp[ptr] = self.ptr_advances
         return ptr
+
+    def _retire_slots(self, slots: np.ndarray) -> None:
+        """Evict the blocks at `slots` from the tree and the size
+        accounting (priorities zeroed). Caller holds the lock."""
+        occ = slots[self.occupied[slots]]
+        if occ.size:
+            S = self.cfg.seqs_per_block
+            idxes = (occ[:, None] * S + np.arange(S)[None, :]).ravel()
+            self.tree.update(idxes, np.zeros(idxes.size, np.float32))
+            self.size -= int(self.learning_sum[occ].sum())
+            self.learning_sum[occ] = 0
+            self.occupied[occ] = False
+            self.num_seq_store[occ] = 0
+        if self.slot_stamp is not None and slots.size:
+            # disk mode: a retirement is a mutation like any other, so
+            # in-flight write-backs to these slots are dropped
+            self.ptr_advances += 1
+            self.slot_stamp[slots] = self.ptr_advances
 
     def _draw(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Stratified draw of batch_size sequence coordinates, with the
@@ -99,6 +127,13 @@ class ReplayControlPlane:
         rejects the whole batch."""
         S = self.cfg.seqs_per_block
         with self.lock:
+            if self.slot_stamp is not None and old_advances is not None:
+                # disk mode: keep an index iff its slot has not mutated
+                # since the draw (the window and the full-lap check assume
+                # ring-order overwrites, which demotion breaks)
+                mask = self.slot_stamp[idxes // S] <= old_advances
+                self.tree.update(idxes[mask], td_errors[mask])
+                return
             if (
                 old_advances is not None
                 and self.ptr_advances - old_advances >= self.cfg.num_blocks

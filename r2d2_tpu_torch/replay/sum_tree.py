@@ -74,3 +74,36 @@ class SumTree:
         min_p = positive.min() if positive.size else 1.0
         is_weights = np.power(np.maximum(priorities, min_p) / min_p, -self.is_exponent)
         return (nodes - self.leaf_offset).astype(np.int64), is_weights.astype(np.float32)
+
+    def priorities_of(self, idxes: np.ndarray) -> np.ndarray:
+        return self.tree[np.asarray(idxes, dtype=np.int64) + self.leaf_offset]
+
+    def set_raw(self, idxes: np.ndarray, raw: np.ndarray) -> None:
+        """Set leaves to already-exponentiated priorities (as priorities_of
+        and leaves read them) and resum their ancestors: the disk tier
+        moves leaves between slots with it, where update() would apply
+        the exponent again. Writes self.tree in place, which the native
+        core shares."""
+        idxes = np.asarray(idxes, dtype=np.int64)
+        if len(idxes) == 0:
+            return
+        nodes = idxes + self.leaf_offset
+        self.tree[nodes] = np.asarray(raw, dtype=np.float64)
+        for _ in range(self.num_layers - 1):
+            nodes = np.unique((nodes - 1) // 2)
+            self.tree[nodes] = self.tree[2 * nodes + 1] + self.tree[2 * nodes + 2]
+
+    def leaves(self) -> np.ndarray:
+        """Raw leaf priorities (already ^alpha), for replay snapshots."""
+        return self.tree[self.leaf_offset : self.leaf_offset + self.capacity].copy()
+
+    def load_leaves(self, values: np.ndarray) -> None:
+        """Restore raw leaf priorities (as leaves() returns them) and
+        rebuild every internal sum bottom-up."""
+        if len(values) != self.capacity:
+            raise ValueError(f"expected {self.capacity} leaves, got {len(values)}")
+        self.tree[:] = 0.0
+        self.tree[self.leaf_offset : self.leaf_offset + self.capacity] = values
+        for k in range(self.num_layers - 1, 0, -1):
+            p = np.arange(2 ** (k - 1) - 1, 2**k - 1)
+            self.tree[p] = self.tree[2 * p + 1] + self.tree[2 * p + 2]

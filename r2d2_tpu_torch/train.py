@@ -22,8 +22,28 @@ every `actor_update_interval` env steps, target sync every
 the latest), a metrics record every `log_interval` seconds (0: every
 update) into `metrics_path`, stop at `training_steps`, sampling gated on
 `learning_starts`. ``--profile-dir`` traces the updates after the first
-(``utils/profiling.py``; the spans ``replay/sample`` and
-``learner_update``).
+(``utils/profiling.py``; the spans ``replay/sample`` (host plane),
+``replay/staged_chunk`` (tiered plane) and ``learner_update``).
+
+Replay planes (``--replay``): ``host`` ships one batch per update; ``tiered``
+(``replay/tiered_store.py``) holds the full-capacity store and stages K
+batches at a time (``--updates-per-dispatch K``) through a pinned ring into
+two device slabs on a side stream, the K updates of one dispatch running on
+one slab while the next is copied (``--set deterministic_staging=true``
+stages on the consumer's thread instead, for a reproducible draw stream;
+``--set replay_disk_capacity=N --set replay_disk_dir=D`` adds the disk tier
+below the host slab, ``--set block_codec=delta-zlib`` compresses its
+records).
+
+Preemption: a SIGTERM (delivered by the scheduler, or by ``R2D2_FAULTS=
+"trainer.update@5=sigterm"``, utils/faults.py) cuts the run at the next
+loop boundary. With ``--snapshot-replay`` the run then writes the replay
+snapshot with its mid-run carry (the sampling Generator, the published
+parameters, the actor's and envs' episode streams, the deferred priority
+write-back), then a finalized checkpoint at the cut step, and the CLI
+exits with 85 (utils/supervision.PREEMPT_EXIT_CODE). ``--resume`` then
+continues bit for bit: every later update, draw and replay write equals an
+uninterrupted run's.
 
     python -m r2d2_tpu_torch.train --preset atari --env catch --mode threaded \\
         --steps 100 --set checkpoint_dir=runs/ckpt --metrics runs/m.jsonl
@@ -52,10 +72,14 @@ kernels on the CPU instead.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import os
 import queue
+import signal
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -76,14 +100,30 @@ from r2d2_tpu_torch.learner import (
     DeviceBatch,
     PinnedStager,
     init_train_state,
+    make_stacked_batch_train_step,
     make_train_step,
 )
 from r2d2_tpu_torch.ops.epsilon import epsilon_ladder
+from r2d2_tpu_torch.replay.block import state_tensor
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.replay.tiered_store import (
+    StagedChunk,
+    StagingRing,
+    TieredPrefetchPipeline,
+    TieredReplayBuffer,
+    stage_chunk,
+    staged_specs,
+)
 from r2d2_tpu_torch.utils.checkpoint import (
     latest_checkpoint_step,
     restore_checkpoint,
     save_checkpoint,
+)
+from r2d2_tpu_torch.utils.faults import (
+    fault_point,
+    install_from_env,
+    total_retries,
+    with_retries,
 )
 from r2d2_tpu_torch.utils.metrics import MetricsLogger
 from r2d2_tpu_torch.utils.profiling import (
@@ -93,7 +133,7 @@ from r2d2_tpu_torch.utils.profiling import (
     step_span,
     stop_trace,
 )
-from r2d2_tpu_torch.utils.supervision import Supervisor, WorkerStalledError
+from r2d2_tpu_torch.utils.supervision import PREEMPT_EXIT_CODE, Supervisor, WorkerStalledError
 
 # threaded mode's batch queue, and the pinned slots beyond it: the
 # sampler's pending batch and the one whose copy is being issued
@@ -110,6 +150,177 @@ def build_vec_env(cfg: R2D2Config, seed: int = 0):
             seed=seed, **catch_params(name),
         )
     return HostEnvPool([make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)])
+
+
+class _HostPlane:
+    """Host numpy replay: one batch drawn, gathered and shipped to the
+    device per update (pageable copies inline; the pinned ring and the side
+    stream of `learner.PinnedStager` in threaded mode on the card). The
+    batch is copied out of the store at sample time, so a queued item never
+    goes stale."""
+
+    steps_per_update = 1
+
+    def __init__(self, tr: "Trainer"):
+        self.tr = tr
+        self.replay = ReplayBuffer(tr.cfg)
+        self.stager: Optional[PinnedStager] = None
+
+    def _draw_and_lift(self, lift_fn):
+        with span("replay/sample"):
+            b = self.replay.sample_batch(self.tr.sample_rng)
+
+            def lift():
+                fault_point("host_plane.h2d")
+                return lift_fn(b)
+
+            # a failed copy lifts the already-drawn batch again: a retry
+            # never touches the sampling Generator
+            return b, with_retries(lift, "host_plane.h2d")
+
+    def sample(self):
+        """One batch, on the device, from pageable host memory."""
+        b, dev = self._draw_and_lift(lambda b: DeviceBatch.from_sampled(b, self.tr.device))
+        return dev, None, b.idxes, (b.old_ptr, b.old_advances)
+
+    def sample_staged(self):
+        """One batch through the pinned ring and the side stream; the
+        learner waits for its copy's event."""
+        b, (dev, event) = self._draw_and_lift(self.stager.stage)
+        return dev, event, b.idxes, (b.old_ptr, b.old_advances)
+
+    def update(self, state, item):
+        dev, event, idxes, (old_ptr, old_adv) = item
+        if event is not None:
+            with self.tr.xfer.wait():
+                dev = PinnedStager.consume(dev, event)
+        state, m, priorities = self.tr.step_fn(state, dev)
+        self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
+        return state, m
+
+
+class _TieredPlane:
+    """The full-capacity host store with K batches staged per dispatch
+    (replay/tiered_store.py): a staging thread (or, with
+    deterministic_staging, the consumer's own thread) draws K batches under
+    one lock hold, gathers their windows into a pinned ring slot and copies
+    them on a side stream into a device slab, while the learner's K updates
+    (learner.make_stacked_batch_train_step) run on the other slab. The
+    priority read-back is deferred one dispatch: its copy lands while the
+    next dispatch runs."""
+
+    def __init__(self, tr: "Trainer"):
+        self.tr = tr
+        self.replay = TieredReplayBuffer(tr.cfg)
+        self.K = self.steps_per_update = tr.cfg.updates_per_dispatch
+        self.multi_fn = make_stacked_batch_train_step(tr.cfg, self.K)
+        self._ring: Optional[StagingRing] = None
+        self._pipe: Optional[TieredPrefetchPipeline] = None
+        self._pending = None  # the deferred (priorities, chunk) pair
+
+    @property
+    def ring(self) -> StagingRing:
+        if self._ring is None:
+            self._ring = StagingRing(staged_specs(self.tr.cfg, self.K), self.tr.device)
+        return self._ring
+
+    def _ensure_pipeline(self) -> TieredPrefetchPipeline:
+        # started at the first sample (after warmup opened the sampling
+        # gate), and again after a drain stopped it
+        if self._pipe is None:
+            self._pipe = TieredPrefetchPipeline(self.replay, self.tr.sample_rng, self.K,
+                                                self.ring, timer=self.tr.xfer)
+        return self._pipe
+
+    def sample(self):
+        with span("replay/staged_chunk"):
+            if self.tr.cfg.deterministic_staging:
+                # staged on this thread: no staging thread races the
+                # write-backs for the Generator, so the stream reproduces
+                return stage_chunk(self.replay, self.tr.sample_rng, self.K, self.ring,
+                                   self.tr.xfer)
+            return self._ensure_pipeline().get()
+
+    def update(self, state, chunk: StagedChunk):
+        if chunk.event is not None:
+            torch.cuda.current_stream(self.tr.device).wait_event(chunk.event)
+        state, m, priorities = self.multi_fn(state, DeviceBatch.from_staged(chunk.batch))
+        self.ring.release(chunk.slot)
+        prev, self._pending = self._pending, (self._read_back(priorities), chunk)
+        if prev is not None:
+            self.drain_pending(prev)
+        return state, m
+
+    def _read_back(self, priorities):
+        """Start the (K, B) priorities' copy to the host: (pinned tensor,
+        event) on the card, the array itself on the CPU."""
+        if priorities.device.type != "cuda":
+            return priorities.numpy()
+        host = torch.empty(priorities.shape, dtype=priorities.dtype, pin_memory=True)
+        host.copy_(priorities, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _host_priorities(prios) -> np.ndarray:
+        if isinstance(prios, tuple):
+            host, event = prios
+            event.synchronize()
+            return host.numpy()
+        return np.asarray(prios)
+
+    def drain_pending(self, pending=None) -> None:
+        """Apply a deferred (priorities, chunk) pair: the previous one at
+        each update; with no argument (a run mode's exit) the one left, and
+        the staging thread stops (a staged chunk not consumed is dropped:
+        its bytes were copied out, no tree write waits on it)."""
+        if pending is None:
+            if self._pipe is not None:
+                self._pipe.stop()
+                self._pipe = None
+            pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        prios, chunk = pending
+        for row, idx in zip(self._host_priorities(prios), chunk.idxes):
+            self.replay.update_priorities(idx, row, chunk.old_ptr, chunk.old_advances)
+
+    def capture_pending(self) -> Optional[dict]:
+        """The preemption's capture: the deferred write-back serialized,
+        not applied. In an uninterrupted run the next draw comes before it
+        lands, so applying it here would give the resumed draw a tree the
+        uninterrupted run never had; restore_pending queues it again. Also
+        stops the staging thread with a rewind of the Generator: the chunks
+        not consumed are drawn again after the resume."""
+        if self._pipe is not None:
+            self._pipe.stop(rewind=True)
+            self._pipe = None
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return None
+        prios, chunk = pending
+        return {
+            "prios": self._host_priorities(prios),
+            "idxes": np.asarray(chunk.idxes),
+            "old_ptr": np.asarray(chunk.old_ptr, np.int64),
+            "old_advances": np.asarray(chunk.old_advances, np.int64),
+        }
+
+    def restore_pending(self, d: dict) -> None:
+        chunk = StagedChunk(
+            batch=None,  # consumed before the cut; only the stamps remain
+            idxes=np.asarray(d["idxes"]),
+            old_ptr=int(np.asarray(d["old_ptr"])[()]),
+            old_advances=int(np.asarray(d["old_advances"])[()]),
+        )
+        self._pending = (np.asarray(d["prios"]), chunk)
+
+    def log_extras(self) -> dict:
+        return {**self.tr.xfer.stats(), **self.replay.disk_stats()}
+
+
+_PLANES = {"host": _HostPlane, "tiered": _TieredPlane}
 
 
 class Trainer:
@@ -136,10 +347,28 @@ class Trainer:
                 cfg.checkpoint_dir, self.state, map_location=self.device)
             self.resumed = True
         self._initial_step = self._step = self.state.step
+        if self._initial_step % cfg.updates_per_dispatch != 0:
+            raise ValueError(
+                f"resumed step {self._initial_step} is not a multiple of "
+                f"updates_per_dispatch={cfg.updates_per_dispatch}; resume with the K "
+                "the checkpoint was trained with (or K=1)"
+            )
         self.sample_rng = np.random.default_rng(cfg.seed + 2)
-        # host numpy replay; each update ships its batch host -> device
-        self.replay = ReplayBuffer(cfg)
         self.step_fn = make_train_step(cfg)
+        self.xfer = TransferTimer()
+        # the preemption protocol: request_preempt (SIGTERM, inside a run
+        # mode) sets the event; the run loop honours it at its next
+        # iteration, snapshots replay and the mid-run carry, and writes a
+        # finalized checkpoint; the CLI then exits with PREEMPT_EXIT_CODE
+        self.preempted = False
+        self._preempt = threading.Event()
+        self._snap_thread: Optional[threading.Thread] = None
+        self._resume_carry: dict = {}
+        self.plane = _PLANES[cfg.replay_plane](self)
+        self.replay = self.plane.replay
+        if self.resumed and cfg.snapshot_replay and self._restore_replay_snapshot():
+            # the restored env steps are in the checkpoint's count already
+            self.env_steps_offset -= self.replay.env_steps
         self.param_store = ParamStore(self.state.net)
         self.actor = VectorizedActor(
             cfg,
@@ -155,63 +384,226 @@ class Trainer:
         # the latest un-emitted (metrics, step, extra); see _log
         self._pending_log = None
         self._last_log_emit = 0.0
-        self.xfer = TransferTimer()
-        self._stager: Optional[PinnedStager] = None
         self._sup: Optional[Supervisor] = None
         self.last_metrics: Optional[dict] = None
-        # host clock around each learner update, and at its end (for rates
-        # over the wall); an update ends in the device -> host copy of its
-        # priorities, so it includes device time
+        # host clock around each dispatch of learner updates, and at its end
+        # (for rates over the wall); a dispatch ends in the device -> host
+        # copy of its priorities (on the tiered plane the copy is deferred)
         self.update_seconds: List[float] = []
         self.update_ends: List[float] = []
         self.reset_clock()
+        if self.resumed:
+            self._maybe_restore_carry()
+
+    # ------------------------------------------------------ preemption, carry
+
+    def request_preempt(self, signum=None, frame=None) -> None:
+        """Ask the run loop to cut at its next iteration boundary. Safe in a
+        signal handler: it sets an event and returns, touching no device,
+        so an update in flight finishes and the cut lands between steps."""
+        self._preempt.set()
+
+    def _preempt_now(self) -> bool:
+        """Checked once per run-loop iteration."""
+        if self._preempt.is_set():
+            self.preempted = True
+        return self.preempted
+
+    @contextlib.contextmanager
+    def _sigterm_to_preempt(self):
+        """Route SIGTERM into the preemption protocol for the enclosed run.
+        Only on the main thread (signal.signal raises elsewhere: a caller
+        driving a Trainer from another thread keeps its own handler and
+        calls request_preempt itself); the previous handler comes back on
+        exit."""
+        try:
+            prev = signal.signal(signal.SIGTERM, lambda s, f: self.request_preempt(s, f))
+        except ValueError:
+            prev = None
+        try:
+            yield
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+
+    def _carry_payload(self) -> dict:
+        """What the next iteration reads outside the replay tree and the
+        learner state: the cut step, the sampling Generator, the published
+        parameters, the deferred priority write-back, the actor's and the
+        envs' episode streams. With the replay snapshot it rides in and the
+        finalized checkpoint, --resume restores the exact program point."""
+        carry = {
+            "carry_step": np.asarray(self._step, np.int64),
+            "sample_rng": np.asarray(json.dumps(self.sample_rng.bit_generator.state)),
+        }
+        params, version = self.param_store.latest()
+        carry["pub_version"] = np.asarray(version, np.int64)
+        for j, v in enumerate(params.values()):
+            carry[f"pub_{j}"] = v.detach().cpu()
+        capture = getattr(self.plane, "capture_pending", None)
+        if capture is not None:
+            pend = capture()
+            for k, v in (pend or {}).items():
+                carry[f"pend_{k}"] = v
+        if hasattr(self.vec_env, "get_state"):
+            # the actor's carry is of use only if the envs resume exactly
+            # too; pools without get_state start fresh episodes
+            for k, v in self.actor.carry_state().items():
+                carry[f"actor_{k}"] = v
+            for k, v in self.vec_env.get_state().items():
+                carry[f"env_{k}"] = v
+        return carry
+
+    def _capture_carry_safe(self) -> Optional[dict]:
+        """The preemption's carry, for the run modes' cleanup: a failure to
+        capture degrades to a snapshot without one (still a valid resume of
+        the data), never masking the unwind. Runs before finish_updates,
+        which would apply the deferred write-back capture_pending keeps."""
+        if not (self.preempted and self.cfg.snapshot_replay):
+            return None
+        try:
+            return self._carry_payload()
+        except Exception:  # noqa: BLE001 — degrade, don't mask
+            import traceback
+
+            traceback.print_exc()
+            return None
+
+    def _maybe_restore_carry(self) -> None:
+        """Rehydrate the mid-run carry of a preemption snapshot. A carry is
+        valid only at the step it was cut at: a snapshot behind the
+        checkpoint is restored as data (above), its carry discarded, and the
+        run starts fresh episode streams."""
+        carry = self._resume_carry
+        if "carry_step" not in carry:
+            return
+        carry_step = int(np.asarray(carry["carry_step"])[()])
+        if carry_step != self._initial_step:
+            print(f"[resume] discarding mid-run carry cut at step {carry_step} (checkpoint "
+                  f"is at step {self._initial_step}); resuming with fresh episode streams",
+                  file=sys.stderr)
+            return
+        self.sample_rng.bit_generator.state = json.loads(str(np.asarray(carry["sample_rng"])[()]))
+        with self.param_store._lock:
+            current = self.param_store._params
+            self.param_store._params = {
+                k: _carried(carry[f"pub_{j}"], v) for j, (k, v) in enumerate(current.items())}
+            self.param_store.version = int(np.asarray(carry["pub_version"])[()])
+        pend = {k[len("pend_"):]: v for k, v in carry.items() if k.startswith("pend_")}
+        restore_pending = getattr(self.plane, "restore_pending", None)
+        if pend and restore_pending is not None:
+            restore_pending(pend)
+        act = {k[len("actor_"):]: v for k, v in carry.items() if k.startswith("actor_")}
+        if act:
+            self.actor.restore_carry(act)
+        envd = {k[len("env_"):]: v for k, v in carry.items() if k.startswith("env_")}
+        if envd and hasattr(self.vec_env, "set_state"):
+            self.vec_env.set_state(envd)
+
+    def _finalize_preempt(self) -> None:
+        """The preemption's commit: a finalized checkpoint at the cut step,
+        written after the replay snapshot and its carry. A resume keys off
+        the latest finalized checkpoint, so a crash between the two leaves
+        the previous pair in force."""
+        if latest_checkpoint_step(self.cfg.checkpoint_dir) == self._step:
+            return  # the cadence already checkpointed this step
+        save_checkpoint(self.cfg.checkpoint_dir, self.state, self.env_steps,
+                        self.wall_minutes_offset + (time.time() - self._start_time) / 60.0)
+
+    # -------------------------------------------------------- replay snapshot
+
+    def _replay_snapshot_path(self) -> str:
+        return os.path.join(self.cfg.checkpoint_dir, "replay_snapshot.npz")
+
+    def _restore_replay_snapshot(self) -> bool:
+        """Restore this run's replay snapshot, if there is one; its extras
+        are the mid-run carry. -> whether replay was restored."""
+        from r2d2_tpu_torch.replay.snapshot import restore_replay
+
+        snap = self._replay_snapshot_path()
+        if not os.path.exists(snap):
+            return False  # no snapshot: refill from scratch
+        self._resume_carry = restore_replay(self.replay, snap)
+        return True
+
+    def save_replay_snapshot(self, extra: Optional[dict] = None) -> str:
+        """Write the whole replay (replay/snapshot.py), with `extra` (the
+        preemption carry) in the same atomic write. -> its path."""
+        from r2d2_tpu_torch.replay.snapshot import save_replay
+
+        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+        path = self._replay_snapshot_path()
+        save_replay(self.replay, path, extra=extra)
+        return path
+
+    def _snapshot_async(self) -> None:
+        """A periodic (snapshot_every) snapshot on a background thread; if
+        the previous one is still being written this crossing is skipped.
+        The atomic write keeps the previous file valid until the new one
+        lands."""
+        if self._snap_thread is not None and self._snap_thread.is_alive():
+            return
+        t = threading.Thread(target=self._snapshot_on_exit, name="replay-snapshot",
+                             daemon=True)
+        self._snap_thread = t
+        t.start()
+
+    def _snapshot_on_exit(self, extra: Optional[dict] = None) -> None:
+        """A snapshot whose failure (a full disk) is printed, not raised: it
+        must not replace the run's own exception or outcome."""
+        t = self._snap_thread
+        if t is not None and t is not threading.current_thread() and t.is_alive():
+            t.join(timeout=60.0)  # a periodic write would race ours on the path
+        try:
+            self.save_replay_snapshot(extra=extra)
+        except Exception as e:  # noqa: BLE001 — log and go on
+            import traceback
+
+            print(f"replay snapshot failed: {e!r}", file=sys.stderr)
+            traceback.print_exc()
 
     # ------------------------------------------------------------- updates
 
     def sample(self):
-        """One batch, copied out of the store at sample time, on the device
-        (from pageable host memory)."""
-        with span("replay/sample"):
-            b = self.replay.sample_batch(self.sample_rng)
-            dev = DeviceBatch.from_sampled(b, self.device)
-        return dev, None, b.idxes, (b.old_ptr, b.old_advances)
+        """One item of the replay plane: a batch on the device (host plane;
+        from pageable memory) or a staged chunk (tiered plane)."""
+        return self.plane.sample()
 
     def _sample_staged(self):
-        """One batch through the pinned ring and the side stream (threaded
-        mode on the card); the learner waits for its copy's event."""
-        with span("replay/sample"):
-            b = self.replay.sample_batch(self.sample_rng)
-            dev, event = self._stager.stage(b)
-        return dev, event, b.idxes, (b.old_ptr, b.old_advances)
+        """One host-plane batch through the pinned ring and the side stream
+        (threaded mode on the card)."""
+        return self.plane.sample_staged()
 
     def _one_update(self, item):
-        dev, event, idxes, (old_ptr, old_adv) = item
+        fault_point("trainer.update")
         self._profile_gate()
         prev = self._step
         t0 = time.perf_counter()
         with step_span("learner_update", prev):
-            if event is not None:
-                with self.xfer.wait():
-                    dev = PinnedStager.consume(dev, event)
-            self.state, m, priorities = self.step_fn(self.state, dev)
-            self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
+            self.state, m = self.plane.update(self.state, item)
         t1 = time.perf_counter()
         self.update_seconds.append(t1 - t0)
         self.update_ends.append(t1)
-        self._step += 1
+        n = self.plane.steps_per_update
+        self._step += n
         self.last_metrics = m
-        self._profile_tick()
+        self._profile_tick(n)
         self._cadences(prev, self._step)
         return m, self._step
 
     def _cadences(self, prev: int, step: int) -> None:
-        """Publish and checkpoint on interval CROSSINGS."""
+        """Publish, checkpoint and snapshot on interval CROSSINGS (a
+        K-update dispatch may jump past the multiple)."""
         cfg = self.cfg
         if step // cfg.publish_interval > prev // cfg.publish_interval:
             self.param_store.publish(self.state.net)
         if step // cfg.save_interval > prev // cfg.save_interval:
             save_checkpoint(cfg.checkpoint_dir, self.state, self.env_steps,
                             self.wall_minutes_offset + (time.time() - self._start_time) / 60.0)
+        if cfg.snapshot_every > 0 and step // cfg.snapshot_every > prev // cfg.snapshot_every:
+            # the record before a snapshot lands in the metrics file first
+            self._flush_log()
+            self._snapshot_async()
 
     @property
     def env_steps(self) -> int:
@@ -219,8 +611,12 @@ class Trainer:
         return self.replay.env_steps + self.env_steps_offset
 
     def finish_updates(self) -> None:
-        """Emit the deferred metrics record; every loop that drives updates
-        calls this once when it stops."""
+        """Apply the plane's deferred work (the tiered plane's last
+        priority write-back) and emit the deferred metrics record; every
+        loop that drives updates calls this once when it stops."""
+        drain = getattr(self.plane, "drain_pending", None)
+        if drain is not None:
+            drain()
         self._flush_log()
 
     # ------------------------------------------------------------- logging
@@ -241,6 +637,12 @@ class Trainer:
             return
         m, step, extra = pend
         self._last_log_emit = time.time()
+        log_extras = getattr(self.plane, "log_extras", None)
+        if log_extras is not None:
+            extra = {**(extra or {}), **log_extras()}
+        retries = total_retries()
+        if retries:
+            extra = {**(extra or {}), "io_retries": retries}
         n_ep, r_sum = self.replay.pop_episode_stats()
         arm, stride = self.backward_arm
         self.metrics_logger.log({
@@ -265,9 +667,9 @@ class Trainer:
                 self._step >= self._initial_step + 1):
             self._prof = start_trace()
 
-    def _profile_tick(self) -> None:
+    def _profile_tick(self, n: int = 1) -> None:
         if self._prof is not None:
-            self._profile_remaining -= 1
+            self._profile_remaining -= n
             if self._profile_remaining <= 0:
                 self._stop_profile()
 
@@ -298,11 +700,15 @@ class Trainer:
         """Collect until sampling opens (replay holds learning_starts).
         `beat` (Supervisor.main_beat) is stamped between collection steps.
         Raises once twice the ring's capacity has been recorded without
-        sampling opening: learning_starts is then out of the ring's reach."""
+        sampling opening: learning_starts is then out of the ring's reach.
+        A preemption request ends it early (the run loop then cuts)."""
         steps = 0
         inserted0 = self.replay.env_steps
         saturation = 2 * self.cfg.buffer_capacity + self.cfg.learning_starts
         while not self.replay.can_sample():
+            if self._preempt.is_set():
+                self.preempted = True
+                return
             self.actor.step()
             if beat is not None:
                 beat()
@@ -317,17 +723,20 @@ class Trainer:
                 )
 
     def run_inline(self, env_steps_per_update: Optional[int] = None) -> None:
-        """Strict alternation: k env steps, one update."""
+        """Strict alternation: k env steps, one dispatch (of K updates on
+        the tiered plane, after k*K env steps)."""
         cfg = self.cfg
         self.reset_clock()
-        k = env_steps_per_update or max(cfg.num_actors, 1)
+        k = (env_steps_per_update or max(cfg.num_actors, 1)) * self.plane.steps_per_update
         # one thread: the main-thread watchdog is the only stall protection
         sup = self._sup = self._make_supervisor()
-        with sup.armed_watchdog():
+        with self._sigterm_to_preempt(), sup.armed_watchdog():
             self.warmup(beat=sup.main_beat)
             try:
                 while self._step < cfg.training_steps:
                     sup.main_beat()
+                    if self._preempt_now():
+                        break
                     for _ in range(max(k // self.actor.steps_per_call, 1)):
                         self.actor.step()
                     m, step = self._one_update(self.sample())
@@ -335,7 +744,14 @@ class Trainer:
             finally:
                 sup.stop.set()  # the drain below is not a stall
                 self._stop_profile()
+                # the carry before finish_updates: capture_pending keeps the
+                # deferred write-back the drain would apply
+                carry = self._capture_carry_safe()
                 self.finish_updates()
+                if cfg.snapshot_replay:
+                    self._snapshot_on_exit(extra=carry)
+        if self.preempted:
+            self._finalize_preempt()
 
     def run_threaded(self) -> None:
         """Actor thread + sampler thread + learner loop, the workers under a
@@ -345,15 +761,18 @@ class Trainer:
         self.reset_clock()
         batch_q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
         sup = self._sup = self._make_supervisor()
-        with sup.armed_watchdog():
+        with self._sigterm_to_preempt(), sup.armed_watchdog():
             self._run_threaded_body(sup, batch_q)
+        if self.preempted:
+            self._finalize_preempt()
 
     def _run_threaded_body(self, sup: Supervisor, batch_q: "queue.Queue") -> None:
         cfg = self.cfg
         self.warmup(beat=sup.main_beat)
-        staged = self.device.type == "cuda"
-        if staged and self._stager is None:
-            self._stager = PinnedStager(self.device, _STAGING_SLOTS, self.xfer)
+        # host plane on the card: batches through the pinned ring
+        staged = self.device.type == "cuda" and isinstance(self.plane, _HostPlane)
+        if staged and self.plane.stager is None:
+            self.plane.stager = PinnedStager(self.device, _STAGING_SLOTS, self.xfer)
         sample = self._sample_staged if staged else self.sample
 
         spi = cfg.samples_per_insert
@@ -395,16 +814,23 @@ class Trainer:
         last_health: Optional[dict] = None
 
         def cleanup():
-            # shutdown first: it stops the watchdog and joins the workers
+            # shutdown first: it stops the watchdog and joins the workers, so
+            # the carry below sees quiescent accumulators and a still replay
             sup.shutdown()
             self._stop_profile()
+            carry = self._capture_carry_safe()
             self.finish_updates()
+            if cfg.snapshot_replay:
+                self._snapshot_on_exit(extra=carry)
 
         try:
             while self._step < cfg.training_steps:
                 sup.main_beat()
+                if self._preempt_now():
+                    break
                 try:
-                    with self.xfer.wait():
+                    # the tiered plane's pipeline times its own waits
+                    with self.xfer.wait() if staged else contextlib.nullcontext():
                         item = batch_q.get(timeout=2.0)
                 except queue.Empty:
                     # raises WorkerFatalError on a dead worker; health
@@ -441,11 +867,22 @@ class Trainer:
             "episodes": episodes,
             "mean_return": reward_sum / episodes if episodes else None,
             "compute_dtype": self.cfg.resolved_compute_dtype,
+            "replay_plane": self.cfg.replay_plane,
             "backward_arm": self.backward_arm[0],
             **({"backward_arm_stride": self.backward_arm[1]}
                if self.backward_arm[0] == "ckpt" else {}),
             **m,
         }
+
+
+def _carried(x, like: torch.Tensor) -> torch.Tensor:
+    """A carried published parameter (a tensor, or a snapshot's numpy array
+    with bfloat16 as uint16 bits) on `like`'s device, in its dtype."""
+    t = x if isinstance(x, torch.Tensor) else state_tensor(np.asarray(x))
+    if t.dtype != like.dtype or t.shape != like.shape:
+        raise ValueError(f"carried parameter {tuple(t.shape)}/{t.dtype} != "
+                         f"{tuple(like.shape)}/{like.dtype}")
+    return t.to(like.device)
 
 
 def main(argv=None):
@@ -457,12 +894,22 @@ def main(argv=None):
                    help="inline: strict actor/learner alternation; threaded: actor and "
                         "sampler threads under a supervisor, batches staged through "
                         "pinned memory on the card")
+    p.add_argument("--replay", default=None, choices=["host", "tiered"],
+                   help="replay data plane (default: the preset's replay_plane): host "
+                        "ships one batch per update; tiered stages K batches per dispatch "
+                        "through pinned memory (replay/tiered_store.py)")
+    p.add_argument("--updates-per-dispatch", type=int, default=None,
+                   help="K learner updates per dispatch (tiered plane)")
     p.add_argument("--model-preset", default=None,
                    help="named model-size preset (config.MODEL_PRESETS: wide/xl "
                         "widen the LSTM, deep/deep_wide add encoder layers) applied "
                         "over the run preset; --set still wins on single fields")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in checkpoint_dir")
+    p.add_argument("--snapshot-replay", action="store_true",
+                   help="save the whole replay at the end of the run (and, when "
+                        "preempted, the mid-run carry with it) and restore it on "
+                        "--resume (replay/snapshot.py)")
     p.add_argument("--metrics", default=None, help="jsonl metrics file (metrics_path)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any R2D2Config field (repeatable)")
@@ -491,10 +938,19 @@ def main(argv=None):
         overrides["seed"] = args.seed
     if args.metrics:
         overrides["metrics_path"] = args.metrics
+    if args.replay:
+        overrides["replay_plane"] = args.replay
+    if args.updates_per_dispatch is not None:
+        overrides["updates_per_dispatch"] = args.updates_per_dispatch
+    if args.snapshot_replay:
+        overrides["snapshot_replay"] = True
     overrides.update(parse_overrides(args.set))
     if overrides:
         cfg = cfg.replace(**overrides)
 
+    # deterministic fault injection for drills (R2D2_FAULTS; utils/faults.py),
+    # a no-op when the variable is unset
+    install_from_env()
     trainer = Trainer(cfg, device=device, resume=args.resume, profile_dir=args.profile_dir,
                       profile_steps=args.profile_steps)
     t0 = time.perf_counter()
@@ -516,8 +972,13 @@ def main(argv=None):
     out["seconds"] = time.perf_counter() - t0
     out["mode"] = args.mode
     out["resumed_from"] = trainer._initial_step if trainer.resumed else None
+    out["preempted"] = trainer.preempted
     out["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(json.dumps(out))
+    if trainer.preempted:
+        # the SIGTERM became a clean cut: replay snapshot, carry and a
+        # finalized checkpoint are on disk; rerun with --resume
+        sys.exit(PREEMPT_EXIT_CODE)
 
 
 if __name__ == "__main__":

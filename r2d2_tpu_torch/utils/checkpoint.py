@@ -5,12 +5,15 @@ A checkpoint carries the complete TrainState (online and target networks,
 the optimizer's state_dict, the update count) plus env_steps and
 wall_minutes, and `restore_checkpoint` rebuilds the learner exactly: every
 tensor bit for bit. Collection state (replay contents, the actor's and the
-sampler's random streams) is not saved: a resumed run continues from the
-same learner state and refills replay with fresh experience.
+sampler's random streams) is not in a checkpoint: the trainer's replay
+snapshot carries it (``replay/snapshot.py``, ``--snapshot-replay``).
 
 Layout: {dir}/step_{N}/state.pt (torch.save) and a finalize marker written
 last. A save is written into {dir}/.tmp_step_{N} and renamed into place, so
-a reader lists either the complete checkpoint or nothing.
+a reader lists either the complete checkpoint or nothing. The write and the
+read are the fault sites ``checkpoint.save`` and ``checkpoint.restore``,
+each retried on transient errors (``utils/faults.with_retries``); a retried
+save rewrites the same temp dir.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import shutil
 from typing import List, Optional
 
 import torch
+
+from r2d2_tpu_torch.utils.faults import fault_point, with_retries
 
 # written last inside a completed save: a step dir without it (a crashed
 # save) is invisible to readers
@@ -47,13 +52,18 @@ def save_checkpoint(ckpt_dir: str, state, env_steps: int, wall_minutes: float) -
     final = os.path.join(base, f"step_{step}")
     tmp = os.path.join(base, f".tmp_step_{step}")
     os.makedirs(base, exist_ok=True)
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)  # leftover from a crashed save
-    os.makedirs(tmp)
-    torch.save(_payload(state, env_steps, wall_minutes), os.path.join(tmp, _PAYLOAD))
-    with open(os.path.join(tmp, _FINALIZED_MARKER), "w") as f:
-        json.dump({"step": step, "env_steps": int(env_steps),
-                   "wall_minutes": float(wall_minutes)}, f)
+
+    def write():
+        fault_point("checkpoint.save")
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)  # leftover from a crashed or retried save
+        os.makedirs(tmp)
+        torch.save(_payload(state, env_steps, wall_minutes), os.path.join(tmp, _PAYLOAD))
+        with open(os.path.join(tmp, _FINALIZED_MARKER), "w") as f:
+            json.dump({"step": step, "env_steps": int(env_steps),
+                       "wall_minutes": float(wall_minutes)}, f)
+
+    with_retries(write, "checkpoint.save")
     if os.path.isdir(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
@@ -94,7 +104,12 @@ def restore_checkpoint(ckpt_dir: str, template_state, step: Optional[int] = None
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}", _PAYLOAD)
-    p = torch.load(path, map_location=map_location, weights_only=True)
+
+    def read():
+        fault_point("checkpoint.restore")
+        return torch.load(path, map_location=map_location, weights_only=True)
+
+    p = with_retries(read, "checkpoint.restore")
     opt = p["optimizer"]
     if not any(g.get("capturable") or g.get("fused") for g in opt["param_groups"]):
         # torch's Adam keeps its step counts on the host unless capturable or

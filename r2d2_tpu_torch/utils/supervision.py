@@ -21,7 +21,9 @@ Every host-side worker loop of threaded training runs under a Supervisor:
 Bodies should do a bounded amount of work per call (one actor step, one
 queue-put attempt) so heartbeats stay fresh while blocked resources (a
 full queue, a learner building its kernels) are retried across calls.
-The preemption exit (SIGTERM, a checkpoint at the cut) is queued with M9.
+A SIGTERM is not a fault of a worker: the trainer turns it into a clean cut
+(``train.Trainer.request_preempt``: replay snapshot, mid-run carry and a
+checkpoint at the cut step) and the CLI exits with PREEMPT_EXIT_CODE.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ from typing import Callable, Dict, List, Optional
 # and signals (>128), so an external supervisor can map it to "wedged
 # runtime: restart with --resume"
 STALL_EXIT_CODE = 86
+
+# process exit code of a clean preemption (SIGTERM absorbed at a step
+# boundary; replay snapshot, carry and a finalized checkpoint written):
+# "reschedule with --resume, the state is current", where a stall's state
+# may be stale
+PREEMPT_EXIT_CODE = 85
 
 
 class SupervisedWorker:

@@ -1,0 +1,303 @@
+"""Kill-and-resume drills of the port's trainer under deterministic fault
+injection (r2d2_tpu_torch/utils/faults.py), the port against itself, as
+tests/test_chaos.py drills the JAX package.
+
+An injected SIGTERM cuts a run at a step boundary; the run captures its
+deferred priority write-back, snapshots replay with the mid-run carry
+(sampling Generator, published parameters, the actor's and envs' episode
+streams), writes a finalized checkpoint at the cut and reports preempted;
+a resumed run then continues bit-identically to one never interrupted:
+the same learner state, replay tree and sampling stream. The tiered plane
+runs its synchronous deterministic_staging mode, K=2, so a deferred
+write-back is pending at every cut.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from r2d2_tpu_torch.config import tiny_test
+from r2d2_tpu_torch.replay.snapshot import save_replay
+from r2d2_tpu_torch.train import Trainer
+from r2d2_tpu_torch.utils import faults
+from r2d2_tpu_torch.utils.checkpoint import latest_checkpoint_step
+from r2d2_tpu_torch.utils.faults import FaultPlane
+from r2d2_tpu_torch.utils.supervision import PREEMPT_EXIT_CODE, STALL_EXIT_CODE
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 12
+
+_PLANE_CFG = {
+    "host": {},
+    "tiered": dict(replay_plane="tiered", deterministic_staging=True, updates_per_dispatch=2),
+}
+
+
+@pytest.fixture(autouse=True)
+def _clean_plane():
+    faults.uninstall()
+    faults.reset_retry_stats()
+    yield
+    faults.uninstall()
+    faults.reset_retry_stats()
+
+
+def _cfg(tmp_path, tag, plane="host", **overrides):
+    (tmp_path / tag).mkdir(exist_ok=True)
+    base = dict(
+        env_name="catch",
+        checkpoint_dir=str(tmp_path / tag / "ckpt"),
+        metrics_path=str(tmp_path / tag / "metrics.jsonl"),
+        snapshot_replay=True,
+        training_steps=STEPS,
+        save_interval=1000,  # only the preemption's checkpoint exists
+        learning_starts=48,
+        **_PLANE_CFG[plane],
+    )
+    base.update(overrides)
+    return tiny_test().replace(**base)
+
+
+def _fingerprint(trainer, tmp_path, tag):
+    """What the resume contract promises, comparable: every tensor of the
+    learner state, the step, the sampling Generator, and the whole replay
+    through its own snapshot writer."""
+    path = str(tmp_path / f"fp_{tag}.npz")
+    save_replay(trainer.replay, path)
+    with np.load(path, allow_pickle=False) as d:
+        replay = {k: np.asarray(d[k]) for k in d.files}
+    st = trainer.state
+    tensors = [*st.net.state_dict().values(), *st.target_net.state_dict().values()]
+    for s in st.optimizer.state_dict()["state"].values():
+        tensors += list(s.values())
+    return ([t.clone() for t in tensors], st.step, trainer.sample_rng.bit_generator.state,
+            replay)
+
+
+def _assert_identical(a, b):
+    ta, step_a, rng_a, replay_a = a
+    tb, step_b, rng_b, replay_b = b
+    assert step_a == step_b and rng_a == rng_b
+    assert len(ta) == len(tb)
+    for x, y in zip(ta, tb):
+        assert torch.equal(x, y)
+    assert sorted(replay_a) == sorted(replay_b)
+    for k in replay_a:
+        np.testing.assert_array_equal(replay_a[k], replay_b[k], err_msg=k)
+
+
+def _next_draw_idxes(trainer):
+    """One more draw through the plane's own sampling path."""
+    item = trainer.sample()
+    return np.asarray(item.idxes if hasattr(item, "idxes") else item[2])
+
+
+def _run_clean(cfg):
+    t = Trainer(cfg, device="cpu")
+    t.run_inline(env_steps_per_update=4)
+    assert not t.preempted and t._step == cfg.training_steps
+    return t
+
+
+def _kill(cfg, site, call):
+    faults.install(FaultPlane(schedule={site: {call: "sigterm"}}))
+    try:
+        t = Trainer(cfg, device="cpu", resume=True)
+        t.run_inline(env_steps_per_update=4)
+    finally:
+        faults.uninstall()
+    assert t.preempted, f"sigterm at {site}@{call} did not preempt"
+    assert t._step < cfg.training_steps
+    # the commit point: a finalized checkpoint at the cut, the snapshot too
+    assert latest_checkpoint_step(cfg.checkpoint_dir) == t._step
+    assert os.path.exists(os.path.join(cfg.checkpoint_dir, "replay_snapshot.npz"))
+    return t
+
+
+def _resume(cfg, cut):
+    t = Trainer(cfg, device="cpu", resume=True)
+    assert t._initial_step == cut
+    t.run_inline(env_steps_per_update=4)
+    assert not t.preempted and t._step == cfg.training_steps
+    return t
+
+
+@pytest.mark.parametrize("plane,site,call", [
+    ("host", "trainer.update", 4),
+    ("host", "host_plane.h2d", 3),  # delivered mid-sample
+    ("host", "actor.step", 5),  # delivered in warmup: the cut is at step 0
+    ("tiered", "trainer.update", 3),
+    ("tiered", "tiered.stage_h2d", 2),  # delivered mid-stage
+])
+def test_sigterm_resume_is_bit_identical(tmp_path, plane, site, call):
+    clean = _run_clean(_cfg(tmp_path, "clean", plane))
+    cfg = _cfg(tmp_path, "killed", plane)
+    cut = _kill(cfg, site, call)._step
+    resumed = _resume(cfg, cut)
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(resumed, tmp_path, "killed"))
+    np.testing.assert_array_equal(_next_draw_idxes(clean), _next_draw_idxes(resumed))
+
+
+def test_lru_core_carry_resumes_bit_identically(tmp_path):
+    """The actor's carry is the LRU's (Re h, Im h) on that core: cut and
+    resumed, the run is the uninterrupted one's bit for bit."""
+    over = dict(recurrent_core="lru")
+    clean = _run_clean(_cfg(tmp_path, "clean", **over))
+    cfg = _cfg(tmp_path, "killed", **over)
+    resumed = _resume(cfg, _kill(cfg, "trainer.update", 4)._step)
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(resumed, tmp_path, "killed"))
+
+
+@pytest.mark.parametrize("site,call", [("disk.write", 2), ("disk.promote", 1)])
+def test_disk_tier_sigterm_resume_is_bit_identical(tmp_path, site, call):
+    """A SIGTERM before a demotion's bytes land, or mid page-in, resumes
+    bit-identically: the snapshot is the commit point, and the segment
+    files are rewritten from it on restore."""
+    over = dict(buffer_capacity=64, replay_disk_capacity=320, block_codec="delta-zlib")
+    clean = _run_clean(_cfg(tmp_path, "clean", "tiered",
+                            replay_disk_dir=str(tmp_path / "clean" / "disk"), **over))
+    assert clean.replay.disk_stats()["disk_demotions"] > 0
+    cfg = _cfg(tmp_path, "killed", "tiered", replay_disk_dir=str(tmp_path / "killed" / "disk"),
+               **over)
+    resumed = _resume(cfg, _kill(cfg, site, call)._step)
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(resumed, tmp_path, "killed"))
+    np.testing.assert_array_equal(_next_draw_idxes(clean), _next_draw_idxes(resumed))
+
+
+def test_double_preemption_resumes_twice(tmp_path):
+    clean = _run_clean(_cfg(tmp_path, "clean"))
+    cfg = _cfg(tmp_path, "killed")
+    assert _kill(cfg, "trainer.update", 3)._step == 3
+    assert _kill(cfg, "trainer.update", 4)._step == 7
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(_resume(cfg, 7), tmp_path, "killed"))
+
+
+@pytest.mark.parametrize("plane,site", [("host", "host_plane.h2d"),
+                                        ("tiered", "tiered.stage_h2d")])
+def test_transient_h2d_fault_is_absorbed_without_moving_the_stream(tmp_path, plane, site):
+    clean = _run_clean(_cfg(tmp_path, "clean", plane))
+    faults.reset_retry_stats()
+    faults.install(FaultPlane(schedule={site: {2: "error"}}))
+    try:
+        flaky = _run_clean(_cfg(tmp_path, "flaky", plane))
+    finally:
+        faults.uninstall()
+    assert faults.retry_stats().get(site) == 1
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(flaky, tmp_path, "flaky"))
+    with open(flaky.cfg.metrics_path) as f:
+        assert '"io_retries"' in f.read()
+
+
+def test_checkpoint_save_and_restore_faults_are_absorbed(tmp_path):
+    cfg = _cfg(tmp_path, "ckpt", save_interval=8)
+    faults.install(FaultPlane(schedule={"checkpoint.save": {1: "error"}}))
+    try:
+        t = _run_clean(cfg)
+    finally:
+        faults.uninstall()
+    assert latest_checkpoint_step(cfg.checkpoint_dir) == 8
+    assert faults.retry_stats().get("checkpoint.save") == 1
+    faults.install(FaultPlane(schedule={"checkpoint.restore": {1: "error"}}))
+    try:
+        resumed = Trainer(cfg, device="cpu", resume=True)
+    finally:
+        faults.uninstall()
+    assert resumed._initial_step == 8 and resumed.state.step == 8
+    assert faults.retry_stats().get("checkpoint.restore") == 1
+    assert t._step == STEPS
+
+
+def test_snapshot_write_failure_does_not_mask_the_run(tmp_path):
+    cfg = _cfg(tmp_path, "snapfail")
+    faults.install(FaultPlane(schedule={"snapshot.write": {1: "error"}}))
+    try:
+        t = _run_clean(cfg)  # the failed snapshot does not raise
+    finally:
+        faults.uninstall()
+    assert t._step == STEPS
+    assert not os.path.exists(os.path.join(cfg.checkpoint_dir, "replay_snapshot.npz"))
+
+
+def test_snapshot_every_cadence(tmp_path):
+    cfg = _cfg(tmp_path, "periodic", snapshot_every=4)
+    t = Trainer(cfg, device="cpu")
+    calls = []
+    orig = t.save_replay_snapshot
+
+    def counting(extra=None):
+        calls.append(t._step)
+        return orig(extra=extra)
+
+    t.save_replay_snapshot = counting
+    t.run_inline(env_steps_per_update=4)
+    # crossings at 4, 8 and 12 (one may be skipped while the previous write
+    # runs) and the exit snapshot, which lands last
+    assert len(calls) >= 2 and calls[-1] == STEPS
+    assert os.path.exists(os.path.join(cfg.checkpoint_dir, "replay_snapshot.npz"))
+
+
+def test_threaded_cut_snapshots_and_resumes(tmp_path):
+    """request_preempt from another thread during run_threaded: the cut
+    lands at a step boundary with the snapshot and the checkpoint, and the
+    resumed run goes on to its target (threaded mode's interleaving is not
+    reproducible, so this drill holds the protocol, not the bits)."""
+    cfg = _cfg(tmp_path, "threaded")
+    t = Trainer(cfg, device="cpu")
+    orig = t._one_update
+
+    def update_then_cut(item):
+        out = orig(item)
+        if t._step == 5:
+            t.request_preempt()
+        return out
+
+    t._one_update = update_then_cut
+    t.run_threaded()
+    assert t.preempted and t._step == 5
+    assert latest_checkpoint_step(cfg.checkpoint_dir) == 5
+    with np.load(os.path.join(cfg.checkpoint_dir, "replay_snapshot.npz")) as d:
+        assert int(d["x_carry_step"]) == 5
+    r = Trainer(cfg, device="cpu", resume=True)
+    assert r._initial_step == 5 and r.replay.env_steps == t.replay.env_steps
+    r.run_threaded()
+    assert r._step == STEPS and not r.preempted
+
+
+def test_cli_preempt_exit_code_and_resume(tmp_path):
+    """The operator's loop as subprocesses: R2D2_FAULTS delivers a real
+    SIGTERM, the CLI exits with PREEMPT_EXIT_CODE, and --resume finishes."""
+    assert PREEMPT_EXIT_CODE == 85 and PREEMPT_EXIT_CODE != STALL_EXIT_CODE
+    ckpt = str(tmp_path / "ckpt")
+    args = [
+        sys.executable, "-m", "r2d2_tpu_torch.train", "--device", "cpu",
+        "--preset", "tiny_test", "--env", "catch", "--mode", "inline",
+        "--steps", str(STEPS), "--snapshot-replay",
+        "--set", f"checkpoint_dir={ckpt}", "--set", "save_interval=1000",
+        "--set", "learning_starts=48",
+    ]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    p1 = subprocess.run(args, env={**env, "R2D2_FAULTS": "trainer.update@3=sigterm"},
+                        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert p1.returncode == PREEMPT_EXIT_CODE, p1.stderr
+    out1 = json.loads(p1.stdout.strip().splitlines()[-1])
+    assert out1["preempted"] and out1["step"] == 3
+    assert latest_checkpoint_step(ckpt) == 3
+    p2 = subprocess.run(args + ["--resume"], env=env, cwd=ROOT, capture_output=True,
+                        text=True, timeout=300)
+    assert p2.returncode == 0, p2.stderr
+    out2 = json.loads(p2.stdout.strip().splitlines()[-1])
+    assert out2["resumed_from"] == 3 and out2["step"] == STEPS and not out2["preempted"]
+    assert latest_checkpoint_step(ckpt) == 3  # no save_interval crossing after it

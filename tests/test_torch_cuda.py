@@ -634,3 +634,93 @@ def test_native_gather_matches_numpy_beside_the_card(cuda):
     start = rng.integers(-40, 441 - 40, size=64)
     rows = np.clip(start[:, None] + np.arange(85)[None, :], 0, 440)
     np.testing.assert_array_equal(core.gather_windows(store, b, start, 85), store[b[:, None], rows])
+
+
+@pytest.mark.parametrize("precision,k", [("fp32", 1), ("fp32", 3), ("bf16", 2)])
+def test_tiered_ring_staging_equals_host_draws(cuda, precision, k):
+    """Chunks gathered into the tiered plane's pinned ring and copied on its
+    side stream into the two device slabs equal K host-plane draws from the
+    same Generator state and contents, bit for bit, also after the ring has
+    wrapped (each slot refilled only after the consumer's event)."""
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.replay.snapshot import restore_replay, save_replay
+    from r2d2_tpu_torch.replay.tiered_store import (
+        StagingRing, TieredReplayBuffer, stage_chunk, staged_specs)
+    from r2d2_tpu_torch.train import Trainer
+
+    cfg = tiny_test().replace(env_name="catch", precision=precision, replay_plane="tiered",
+                              updates_per_dispatch=k, training_steps=12)
+    tr = Trainer(cfg, device=cuda)
+    tr.warmup()
+    assert isinstance(tr.replay, TieredReplayBuffer)
+    host = ReplayBuffer(cfg.replace(replay_plane="host", updates_per_dispatch=1))
+    path = str(__import__("tempfile").mkdtemp()) + "/s.npz"
+    save_replay(tr.replay, path)
+    restore_replay(host, path)
+    ring = StagingRing(staged_specs(cfg, k), cuda)
+    assert all(t.is_pinned() for t in ring.host[0].values())
+    rng_t, rng_h = np.random.default_rng(3), np.random.default_rng(3)
+    for i in range(5):
+        chunk = stage_chunk(tr.replay, rng_t, k, ring)
+        torch.cuda.current_stream().wait_event(chunk.event)
+        got = DeviceBatch.from_staged(chunk.batch)
+        for j in range(k):
+            want = DeviceBatch.from_sampled(host.sample_batch(rng_h), cuda)
+            for name, g, w in zip(DeviceBatch._fields, got, want):
+                assert g.device.type == "cuda" and g.dtype == w.dtype, name
+                assert torch.equal(g[j], w), (i, j, name)
+        ring.release(chunk.slot)
+
+
+def test_tiered_dispatch_launches_and_preempt_resume_on_the_card(cuda, tmp_path):
+    """The tiered plane on the card: each dispatch of K=2 launches 2K
+    forward and K seam-backward kernels; a SIGTERM delivered at
+    trainer.update cuts the run with a snapshot and a checkpoint, and the
+    resumed run equals an uninterrupted one in this process bit for bit:
+    replay, Generator, step, networks and Adam state (tiny_test's mlp
+    encoder: no convolution whose backward the library may sum in another
+    order)."""
+    from r2d2_tpu_torch.replay.snapshot import save_replay
+    from r2d2_tpu_torch.train import Trainer
+    from r2d2_tpu_torch.utils import faults
+
+    def cfg(tag):
+        return tiny_test().replace(
+            env_name="catch", replay_plane="tiered", updates_per_dispatch=2,
+            deterministic_staging=True, training_steps=8, save_interval=1000,
+            learning_starts=48, snapshot_replay=True,
+            checkpoint_dir=str(tmp_path / tag))
+
+    lstm_kernel.reset_launch_counts()
+    clean = Trainer(cfg("clean"), device=cuda)
+    clean.warmup()
+    lstm_kernel.reset_launch_counts()
+    clean.run_inline(env_steps_per_update=4)
+    assert {k: v for k, v in lstm_kernel.launch_counts.items() if v} == {
+        "lstm_fwd": 16, "lstm_seq_bwd": 8}
+    faults.install(faults.FaultPlane(schedule={"trainer.update": {2: "sigterm"}}))
+    try:
+        cut = Trainer(cfg("killed"), device=cuda)
+        cut.run_inline(env_steps_per_update=4)
+    finally:
+        faults.uninstall()
+    assert cut.preempted and cut._step == 4
+    resumed = Trainer(cfg("killed"), device=cuda, resume=True)
+    assert resumed._initial_step == 4
+    resumed.run_inline(env_steps_per_update=4)
+    assert resumed._step == 8 and resumed.sample_rng.bit_generator.state == \
+        clean.sample_rng.bit_generator.state
+    files = []
+    for tag, t in (("a", clean), ("b", resumed)):
+        save_replay(t.replay, str(tmp_path / f"{tag}.npz"))
+        files.append(np.load(str(tmp_path / f"{tag}.npz")))
+    assert sorted(files[0].files) == sorted(files[1].files)
+    for key in files[0].files:
+        np.testing.assert_array_equal(files[0][key], files[1][key], err_msg=key)
+    for a, b in ((clean.state.net, resumed.state.net),
+                 (clean.state.target_net, resumed.state.target_net)):
+        for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x, y), name
+    oa = clean.state.optimizer.state_dict()["state"]
+    ob = resumed.state.optimizer.state_dict()["state"]
+    assert all(torch.equal(v, ob[i][n]) for i in oa for n, v in oa[i].items())
