@@ -153,6 +153,35 @@ its own lines; any failure exits non-zero and prints no result:
           then the disk tier (2 host and 24 disk blocks, delta-zlib): draws
           of disk-resident rows equal the rows written, and a write-back
           whose slot was overwritten since its draw is dropped.
+21. device the device replay plane (the store on the card, the update
+          gathering its windows from it) at the paper's 2,000,000
+          transitions, fp32: from the same contents and Generator state the
+          in-step gather equals the host plane's batch bit for bit; one
+          fused update equals make_train_step on that batch (rtol 1e-4 /
+          atol 1e-5); a K=4 dispatch equals 4 single fused steps on the
+          same coordinates and launches 2K forward + K backward kernels;
+          the device tree's leaves stay within the three-way bound of the
+          host float64 tree (rtol 1e-5 / atol 1e-6) after ingestion and
+          write-backs; a superstep of N=2 equals two of N=1 and launches
+          2NK + NK; a device snapshot round trip at 16,000 transitions.
+          Then, bf16 and fp32 in the same call, ms per update over the wall
+          (24 updates inline, acting included) of the host plane (16,000,
+          native core), the tiered plane at K=4, the device plane at K=1
+          and K=4 and the device priority plane at K=4, N=2 (all at
+          2,000,000), each with its launches, update peak, store bytes on
+          the card and, under the profiler, the device's busy share.
+22. fused --mode fused (collector and replay on the card) at the same
+          widths, max_episode_steps cut to the 400-step chunk: on the card
+          a collector chunk's blocks equal the host actor's
+          SequenceAccumulator blocks on the same trajectories (16 envs, the
+          host actor's ε draws handed in); a megastep equals its parts (the
+          chunk with the entry parameters, K=4 fused updates, the slab
+          write) at 16,000 transitions; the device evaluator's scores and
+          truncated count; then Trainer.run_fused at 2,000,000, bf16 and
+          fp32: ms per dispatch, updates per second, the chunk's env steps
+          per second (and in bf16 its kernel launches, by the profiler),
+          launches 2K + K per dispatch; and the CLI's --mode fused once in
+          a subprocess.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -252,6 +281,19 @@ TIERED_CAPACITY = 2_000_000
 TIERED_KS = (1, 4)
 TIERED_UPDATES = 24
 TIERED_PROFILED = 8
+# phases 21 and 22: the device planes at the paper's capacity; the rows of
+# phase 21 as (plane, K, N, capacity), timed as phase 20's
+DEVICE_ROWS = (("host", 1, 1, 16_000), ("tiered", 4, 1, TIERED_CAPACITY),
+               ("device", 1, 1, TIERED_CAPACITY), ("device", 4, 1, TIERED_CAPACITY),
+               ("device", 4, 2, TIERED_CAPACITY))
+DEVICE_K = 4
+SNAPSHOT_CAPACITY = 16_000
+# phase 22: dispatches timed after 2 that warm the path; the envs of the
+# block check; the store of the megastep check (40 blocks: the preset's 8
+# envs' chunk written and the next one reserved)
+FUSED_DISPATCHES = 6
+BLOCK_CHECK_ENVS = 16
+MEGA_CAPACITY = 16_000
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -412,7 +454,7 @@ def agree(tr, label, rtol=1e-4, atol=1e-5):
 
 # the trainer's host spans (utils/profiling.py); the profiler also shows
 # each as a device-side annotation over the kernels it launched
-SPANS = ("replay/sample", "replay/staged_chunk", "learner_update")
+SPANS = ("replay/sample", "replay/staged_chunk", "learner_update", "fused_megastep")
 
 
 def device_us(e):
@@ -1046,29 +1088,44 @@ def rss_gib():
     return float("nan")
 
 
-def tiered_rows(label, base, dev):
-    """Phase 20's rows of one compute dtype: the host plane (native core)
-    and the tiered plane at K in TIERED_KS, all at TIERED_CAPACITY, inline:
+def tiered_rows(label, base, dev, specs=None):
+    """Phase 20's rows of one compute dtype (and phase 21's, given `specs`,
+    (plane, K, N, capacity) each): the host plane (native core) and the
+    tiered plane at K in TIERED_KS, all at TIERED_CAPACITY, inline:
     2 dispatches that warm the path, TIERED_UPDATES updates timed (ms per
     update over the wall, acting included; launches, counted from 0 just
     before; the update peak; TransferTimer), then TIERED_PROFILED more under
     the profiler (the spans' host ms per update, the device's busy share).
     -> {row: dict}, and the last tiered trainer."""
+    import gc
+
     import torch
     from r2d2_tpu_torch.ops import lstm_kernel as K
     from r2d2_tpu_torch.train import Trainer
     from r2d2_tpu_torch.utils.profiling import start_trace
 
     sfx = "_bf16" if base.resolved_compute_dtype == "bfloat16" else ""
+    if specs is None:
+        specs = [("host", 1, 1, base.buffer_capacity)] + [
+            ("tiered", k, 1, base.buffer_capacity) for k in TIERED_KS]
     out, last = {}, None
-    for plane, k in [("host", 1)] + [("tiered", k) for k in TIERED_KS]:
-        row = {"path": label, "plane": plane, "K": k}
+    for plane, k, n_super, capacity in specs:
+        row = {"path": label, "plane": plane, "K": k, "capacity": capacity}
+        q = k * n_super  # updates per dispatch (per superstep on the device tree)
+        extra = {}
+        if n_super > 1:
+            row["N"] = n_super
+            extra = dict(priority_plane="device", superstep_dispatches=n_super)
         rss0 = rss_gib()
-        cfg = base.replace(replay_plane=plane, updates_per_dispatch=k, training_steps=2 * k)
+        cfg = base.replace(replay_plane=plane, updates_per_dispatch=k, training_steps=2 * q,
+                           buffer_capacity=capacity, **extra)
         tr = Trainer(cfg, device=dev)
         tr.run_inline()
         row["rss_gib"], row["rss_added_gib"] = rss_gib(), rss_gib() - rss0
-        row["obs_store_virtual_gb"] = tr.replay.obs_store.nbytes / 1e9
+        if plane == "device":
+            row["store_gb_on_card"] = tr.replay.nbytes() / 1e9
+        else:
+            row["obs_store_virtual_gb"] = tr.replay.obs_store.nbytes / 1e9
         for phase in ("timed", "profiled"):
             n = TIERED_UPDATES if phase == "timed" else TIERED_PROFILED
             tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + n)
@@ -1086,9 +1143,9 @@ def tiered_rows(label, base, dev):
             if launches != {f"lstm_fwd{sfx}": 2 * n, f"lstm_seq_bwd{sfx}": n}:
                 fail(f"tiered {label} {plane} K={k}: {n} updates launched {launches}")
             if prof is None:
-                ends = tr.update_ends[-(n // k):]
-                row.update(ms_per_update=(ends[-1] - ends[0]) * 1e3 / ((len(ends) - 1) * k),
-                           launches_per_dispatch={key: v * k // n for key, v in launches.items()},
+                ends = tr.update_ends[-(n // q):]
+                row.update(ms_per_update=(ends[-1] - ends[0]) * 1e3 / ((len(ends) - 1) * q),
+                           launches_per_dispatch={key: v * q // n for key, v in launches.items()},
                            peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30,
                            allocated_gib=before / 2**30, **tr.xfer.stats())
                 if plane == "tiered":
@@ -1103,13 +1160,15 @@ def tiered_rows(label, base, dev):
                 row[f"{key}_host_ms_per_update"] = host / n
         if not math.isfinite(tr.metrics()["loss"]):
             fail(f"tiered {label} {plane} K={k}: loss {tr.metrics()['loss']}")
-        say("tiered", json.dumps(row))
-        out[f"{plane} K={k}"] = row
+        say("tiered" if plane != "device" else "device", json.dumps(row))
+        out[f"{plane} K={k}" + (f" N={n_super}" if n_super > 1 else "")] = row
         if plane == "tiered":
             del last
             last = tr
         else:
             del tr
+        gc.collect()
+        torch.cuda.empty_cache()
     return out, last
 
 
@@ -1269,6 +1328,457 @@ def tiered_phase(dev, tmp):
         f"write-back was dropped, the other {int(live.sum())} applied "
         f"({time.perf_counter() - t0:.1f}s in the phase)")
     del tr
+    return rows
+
+
+def _close(a, b, rtol=1e-4, atol=1e-5):
+    """(max |a - b|, within rtol / atol, bit for bit) of two tensors."""
+    import torch
+
+    a, b = a.detach().float(), b.detach().float()
+    return (float((a - b).abs().max()), bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+            bool(torch.equal(a, b)))
+
+
+def _states_close(a, b, label):
+    """Hold two TrainStates' networks to rtol 1e-4 / atol 1e-5; -> (max
+    |diff|, bit for bit)."""
+    worst, same = 0.0, True
+    for x, y in zip(list(a.net.parameters()) + list(a.target_net.parameters()),
+                    list(b.net.parameters()) + list(b.target_net.parameters())):
+        d, ok, eq = _close(x, y)
+        if not ok:
+            fail(f"{label}: parameters differ by {d:.3e}")
+        worst, same = max(worst, d), same and eq
+    if a.step != b.step:
+        fail(f"{label}: steps {a.step} != {b.step}")
+    return worst, same
+
+
+def device_phase(dev, tmp):
+    """Phase 21: the device replay plane at the paper's 2,000,000
+    transitions (the atari preset on catch, learning_starts cut to 2,000):
+    the fp32 checks (the in-step gather against the host plane's batch, a
+    fused update against make_train_step, a K=4 dispatch against 4 single
+    steps, the device tree against the host tree, a superstep of N=2
+    against two of N=1, a device snapshot round trip at a small capacity),
+    then the planes' rows in bf16 and fp32 (tiered_rows over
+    DEVICE_ROWS)."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.learner import (
+        DeviceBatch,
+        make_fused_multi_train_step,
+        make_fused_train_step,
+        make_store_gather,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.megastep import (
+        make_priority_superstep,
+        superstep_generators,
+        superstep_uniforms,
+    )
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.replay.snapshot import restore_replay, save_replay
+    from r2d2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    b_cfg = PRESETS["atari"]().replace(env_name="catch", buffer_capacity=TIERED_CAPACITY,
+                                       learning_starts=ON_CATCH["learning_starts"])
+    k = DEVICE_K
+    cfg = b_cfg.replace(compute_dtype="float32", replay_plane="device", priority_plane="device",
+                        updates_per_dispatch=k, superstep_dispatches=2, training_steps=2 * k)
+    tr = Trainer(cfg, device=dev)
+    host = ReplayBuffer(cfg.replace(replay_plane="host", priority_plane="host",
+                                    updates_per_dispatch=1, superstep_dispatches=1))
+    push = tr.actor.push_block
+
+    def both(block, prios, ep):
+        host.add_block(block, prios, ep)
+        return push(block, prios, ep)
+
+    tr.actor.push_block = both
+    tr.warmup()
+    rp = tr.replay
+    say("device", f"[{card}] fp32 device plane, {TIERED_CAPACITY} transitions: store "
+        f"{rp.nbytes() / 1e9:.2f} GB on the card ({torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated), {len(rp)} transitions ingested")
+
+    # the in-step gather against the host plane's batch, bit for bit
+    gens = [np.random.default_rng() for _ in range(2)]
+    for g in gens:
+        g.bit_generator.state = tr.sample_rng.bit_generator.state
+    hb = host.sample_batch(gens[0])
+    si = rp.sample_indices(gens[1])
+    if not np.array_equal(hb.idxes, si.idxes):
+        fail("device: the device plane drew other coordinates than the host plane")
+    coords = tuple(torch.from_numpy(x).to(dev) for x in (si.b, si.s, si.is_weights))
+    got = make_store_gather(cfg)(rp.stores, *coords)
+    want = DeviceBatch.from_sampled(hb, dev)
+    for name in DeviceBatch._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"device: the in-step gather's {name} differs from the host plane's batch")
+    say("device", f"the in-step gather of {len(si.idxes)} windows equals the host plane's batch "
+        "bit for bit (every field)")
+
+    # one fused update against make_train_step on the host batch
+    sa, sb = copy.deepcopy(tr.state), copy.deepcopy(tr.state)
+    sa, ma, pa = make_fused_train_step(cfg)(sa, rp.stores, *coords)
+    sb, mb, pb = make_train_step(cfg)(sb, want)
+    d_loss, ok_l, eq_l = _close(ma["loss"], mb["loss"])
+    d_prio, ok_p, eq_p = _close(pa, pb)
+    if not (ok_l and ok_p):
+        fail(f"device: the fused update differs from make_train_step (loss {d_loss:.3e}, "
+             f"priorities {d_prio:.3e})")
+    d_par, eq_par = _states_close(sa, sb, "device fused update")
+    say("device", f"one fused update vs make_train_step on the host batch: loss {d_loss:.3e}, "
+        f"priorities {d_prio:.3e}, parameters {d_par:.3e} (rtol 1e-4 / atol 1e-5; bit for bit: "
+        f"{eq_l and eq_p and eq_par})")
+
+    # a K-update dispatch against K single fused steps, and its launches
+    draws = [rp.sample_indices(tr.sample_rng) for _ in range(k)]
+    stack = [torch.from_numpy(np.stack([getattr(d, f) for d in draws])).to(dev)
+             for f in ("b", "s", "is_weights")]
+    sa, sb = copy.deepcopy(tr.state), copy.deepcopy(tr.state)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    sa, ma, pa = make_fused_multi_train_step(cfg, k)(sa, rp.stores, *stack)
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != {"lstm_fwd": 2 * k, "lstm_seq_bwd": k}:
+        fail(f"device: a K={k} dispatch launched {launches}")
+    one = make_fused_train_step(cfg)
+    prios = []
+    for j in range(k):
+        sb, mb, p = one(sb, rp.stores, *(x[j] for x in stack))
+        prios.append(p)
+    d_prio, ok_p, eq_p = _close(pa, torch.stack(prios))
+    if not ok_p:
+        fail(f"device: the K={k} dispatch's priorities differ from {k} single steps: {d_prio:.3e}")
+    d_par, eq_par = _states_close(sa, sb, "device K dispatch")
+    say("device", f"a K={k} dispatch vs {k} single fused steps: priorities {d_prio:.3e}, "
+        f"parameters {d_par:.3e} (bit for bit: {eq_p and eq_par}); launches {launches}")
+
+    # the device tree against the host tree, after ingestion and write-backs
+    def tree_bound(when):
+        d, h = rp.dtree.leaves().astype(np.float64), rp.tree.leaves()
+        if not np.allclose(d, h, rtol=1e-5, atol=1e-6):
+            fail(f"device: the device tree's leaves left the host tree's bound {when}")
+        tot = abs(rp.dtree.total - float(rp.tree.tree[0])) / max(float(rp.tree.tree[0]), 1e-30)
+        return float(np.abs(d - h).max()), tot
+
+    lb, tb = tree_bound("after ingestion")
+    for d, row in zip(draws, pa.cpu().numpy()):
+        rp.update_priorities(d.idxes, row, d.old_ptr, d.old_advances)
+    la, ta = tree_bound("after write-backs")
+    say("device", f"device tree vs host float64 tree ({rp.tree.capacity} leaves): max |leaf "
+        f"diff| {lb:.3e} after ingestion, {la:.3e} after {k} write-backs; total rel. diff "
+        f"{tb:.2e}, {ta:.2e} (bound rtol 1e-5 / atol 1e-6)")
+
+    # a superstep of N=2 against two of N=1, and its launches
+    nss = torch.from_numpy(rp.num_seq_store).to(dev)
+    u = superstep_uniforms(superstep_generators(cfg.seed + 4, 0, 2, dev), k, cfg.batch_size, dev)
+    sa, sb = copy.deepcopy(tr.state), copy.deepcopy(tr.state)
+    tree0 = rp.dtree.tree
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    sa, ta_, _ = make_priority_superstep(cfg, 2, k)(sa, rp.stores, tree0, nss, u)
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != {"lstm_fwd": 4 * k, "lstm_seq_bwd": 2 * k}:
+        fail(f"device: a superstep of N=2, K={k} launched {launches}")
+    ss1 = make_priority_superstep(cfg, 1, k)
+    sb, tb_, _ = ss1(sb, rp.stores, tree0, nss, u[0:1])
+    sb, tb_, _ = ss1(sb, rp.stores, tb_, nss, u[1:2])
+    d_tree, ok_t, eq_t = _close(ta_, tb_)
+    if not ok_t:
+        fail(f"device: superstep N=2 vs 2 x N=1 trees differ by {d_tree:.3e}")
+    d_par, eq_par = _states_close(sa, sb, "device superstep")
+    say("device", f"superstep N=2, K={k} vs 2 superstep-1 calls: tree {d_tree:.3e}, parameters "
+        f"{d_par:.3e} (bit for bit: {eq_t and eq_par}); launches {launches}")
+    del tr, host, sa, sb, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a device snapshot round trip at a small capacity
+    s_cfg = cfg.replace(buffer_capacity=SNAPSHOT_CAPACITY)
+    tr = Trainer(s_cfg, device=dev)
+    tr.warmup()
+    path = os.path.join(tmp, "device_snapshot.npz")
+    save_replay(tr.replay, path)
+    fresh = DeviceReplayBuffer(s_cfg, dev)
+    restore_replay(fresh, path)
+    for key, t in tr.replay.stores.items():
+        if not torch.equal(t, fresh.stores[key]):
+            fail(f"device: the snapshot round trip changed store {key}")
+    if not (torch.equal(tr.replay.dtree.tree, fresh.dtree.tree)
+            and fresh.block_ptr == tr.replay.block_ptr and len(fresh) == len(tr.replay)):
+        fail("device: the snapshot round trip changed the tree or the counters")
+    say("device", f"device snapshot at {SNAPSHOT_CAPACITY} transitions: {os.path.getsize(path) / 1e6:.1f} "
+        "MB, restored bit for bit (stores, device tree, counters)")
+    del tr, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the planes' rows, bf16 and fp32, in this call
+    rows = {}
+    for label, extra in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
+        rows[label], last = tiered_rows(label, b_cfg.replace(**extra), dev, specs=DEVICE_ROWS)
+        del last
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("device", f"[{card}] ms per update over the wall (acting included), {TIERED_UPDATES} "
+        "updates inline: " + "; ".join(
+            f"{label} " + ", ".join(f"{name} {r['ms_per_update']:.2f}" for name, r in rs.items())
+            for label, rs in rows.items()))
+    say("device", "busy share, update peak GiB, store GB on the card: " + "; ".join(
+        f"{label} {name} {r['device_busy']:.1%}, {r['peak_gib']:.2f}, "
+        f"{r.get('store_gb_on_card', 0.0):.2f}"
+        for label, rs in rows.items() for name, r in rs.items()))
+    say("device", f"phase done ({time.perf_counter() - t0:.1f}s in the phase)")
+    return rows
+
+
+def fused_phase(dev, tmp):
+    """Phase 22: --mode fused at the atari widths on catch, max_episode_steps
+    cut to the 400-step chunk: the collector's blocks against the host
+    accumulator's on the card, a megastep against its parts, the device
+    evaluator, Trainer.run_fused at 2,000,000 in bf16 and fp32 (ms per
+    dispatch, updates per second, the chunk's env steps per second and
+    kernel launches), and the CLI's --mode fused once in a subprocess."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r2d2_tpu_torch.actor import ParamStore, VectorizedActor
+    from r2d2_tpu_torch.collect import (
+        CollectDraws,
+        DeviceCollector,
+        GivenDraws,
+        make_collect_fn,
+    )
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.envs.catch import CatchState, CatchVecEnv, TensorCatchEnv
+    from r2d2_tpu_torch.evaluate import evaluate_params_device
+    from r2d2_tpu_torch.learner import init_train_state, make_fused_multi_train_step
+    from r2d2_tpu_torch.megastep import make_megastep
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.replay.block import to_state_host
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+    from r2d2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    k = DEVICE_K
+    base = PRESETS["atari"]().replace(
+        env_name="catch", buffer_capacity=TIERED_CAPACITY,
+        learning_starts=ON_CATCH["learning_starts"], max_episode_steps=400, collector="device",
+        replay_plane="device", updates_per_dispatch=k)
+    chunk = min(base.block_length, base.max_episode_steps)
+    H, W = base.obs_shape[:2]
+
+    # the collector's blocks against the host accumulator's, same trajectories
+    for label, extra in (("fp32", {"compute_dtype": "float32"}), ("bf16", {})):
+        E = BLOCK_CHECK_ENVS
+        cfg = base.replace(num_actors=E, buffer_capacity=MEGA_CAPACITY, action_dim=3, **extra)
+        _, st = init_train_state(cfg, dev)
+        net = st.net
+        eps = np.linspace(0.0, 1.0, E).astype(np.float32)
+        vec = CatchVecEnv(E, H, W, seed=4)
+        pushed = []
+        actor = VectorizedActor(cfg, copy.deepcopy(net), ParamStore(net), vec, eps,
+                                lambda b, p, r: pushed.append((b, p, r)), seed=11, device=dev)
+        start = CatchState(*(torch.from_numpy(v.copy()).to(dev) for v in vec._state))
+        while len(pushed) < E:
+            actor.step()
+        rng = np.random.default_rng(11)
+        u, a = [], []
+        for _ in range(chunk):
+            u.append(rng.random(E).astype(np.float32))
+            a.append(rng.integers(0, 3, size=E))
+        fields, prios, num_seq, sizes, dones, _, _ = make_collect_fn(
+            cfg, TensorCatchEnv(H, W), E, chunk)(net, start, torch.from_numpy(eps).to(dev),
+                                                  GivenDraws(np.stack(u), np.stack(a),
+                                                             resets=start))
+        worst = {"hidden": 0.0, "priorities": 0.0}
+        for i, (block, host_prios, _) in enumerate(pushed):
+            size, ns = int(sizes[i]), int(num_seq[i])
+            exact = {
+                "obs": (fields["obs"][i, : size + 1].cpu().numpy(), block.obs),
+                "last_action": (fields["last_action"][i, : size + 1].cpu().numpy(),
+                                block.last_action.astype(np.int32)),
+                "last_reward": (fields["last_reward"][i, : size + 1].cpu().numpy(),
+                                block.last_reward),
+                "action": (fields["action"][i, :size].cpu().numpy(),
+                           block.action.astype(np.int32)),
+                "n_step_reward": (fields["n_step_reward"][i, :size].cpu().numpy(),
+                                  block.n_step_reward),
+                "gamma": (fields["gamma"][i, :size].cpu().numpy(), block.gamma),
+                "burn_in": (fields["burn_in"][i, :ns].cpu().numpy(), block.burn_in_steps),
+                "learning": (fields["learning"][i, :ns].cpu().numpy(), block.learning_steps),
+                "forward": (fields["forward"][i, :ns].cpu().numpy(), block.forward_steps),
+            }
+            if size != len(block.action) or not bool(dones[i]):
+                fail(f"fused: slot {i} recorded {size} steps, the host actor {len(block.action)}")
+            for name, (got, want) in exact.items():
+                if not np.array_equal(got, want):
+                    fail(f"fused {label}: slot {i}'s {name} differs from the host accumulator's")
+            hid = to_state_host(fields["hidden"][i, :ns], cfg.state_dtype)
+            hid_f = torch.from_numpy(hid.view(np.int16)).view(torch.bfloat16).float().numpy() \
+                if hid.dtype == np.uint16 else hid
+            want_f = torch.from_numpy(block.hidden.view(np.int16)).view(torch.bfloat16).float() \
+                .numpy() if block.hidden.dtype == np.uint16 else block.hidden
+            worst["hidden"] = max(worst["hidden"], float(np.abs(hid_f - want_f).max()))
+            worst["priorities"] = max(worst["priorities"], float(np.abs(
+                prios[i].cpu().numpy() - host_prios).max()))
+            if not (np.allclose(hid_f, want_f, rtol=1e-5, atol=1e-6)
+                    and np.allclose(prios[i].cpu().numpy(), host_prios, rtol=1e-5, atol=1e-6)):
+                fail(f"fused {label}: slot {i}'s carries or priorities differ from the host's "
+                     f"({worst})")
+        say("fused", f"{label}: a {chunk}-step chunk over {E} catch envs at {H}x{W} equals the host "
+            f"actor's blocks (frames, actions, rewards, returns, discounts, counters bit for "
+            f"bit; max |diff| carries {worst['hidden']:.3e}, priorities "
+            f"{worst['priorities']:.3e}, held to rtol 1e-5 / atol 1e-6)")
+        del net, st, actor, fields
+
+    # a megastep against its parts, at a store that holds a chunk
+    cfg = base.replace(buffer_capacity=MEGA_CAPACITY, compute_dtype="float32", action_dim=3)
+    fn_env = TensorCatchEnv(H, W)
+    _, state = init_train_state(cfg, dev)
+    replay = DeviceReplayBuffer(cfg, dev)
+    col = DeviceCollector(cfg, copy.deepcopy(state.net), ParamStore(state.net), fn_env, replay,
+                          seed=7, device=dev)
+    col.step()
+    E = cfg.num_actors
+    rng = np.random.default_rng(3)
+    with replay.lock:
+        ptr0 = replay._reserve_advance(E)
+        draws = [replay._draw_sample_idx(rng) for _ in range(k)]
+    b, s, w = (torch.from_numpy(np.stack([getattr(d, f) for d in draws])).to(dev)
+               for f in ("b", "s", "is_weights"))
+    stores_b = {key: t.clone() for key, t in replay.stores.items()}
+    state_b = copy.deepcopy(state)
+    gen_b = torch.Generator(device=dev)
+    gen_b.set_state(col.draws.generator.get_state())
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    state_a, ma, pa, chunk_a, _ = make_megastep(cfg, fn_env, E, chunk, k)(
+        state, replay.stores, col.env_state, col.epsilons, col.draws, b, s, w, ptr0)
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != {"lstm_fwd": 2 * k, "lstm_seq_bwd": k}:
+        fail(f"fused: a megastep of K={k} launched {launches}")
+    fields, cp, ns, sz, dn, er, _ = make_collect_fn(cfg, fn_env, E, chunk)(
+        copy.deepcopy(state_b.net), col.env_state, col.epsilons, CollectDraws(gen_b))
+    state_b, mb, pb = make_fused_multi_train_step(cfg, k)(state_b, stores_b, b, s, w)
+    for key, t in stores_b.items():
+        t[ptr0:ptr0 + E].copy_(fields[key])
+    d_prio, ok_p, eq_p = _close(pa, pb)
+    d_par, eq_par = _states_close(state_a, state_b, "fused megastep")
+    same_stores = all(torch.equal(replay.stores[key], stores_b[key]) for key in stores_b)
+    same_chunk = all(_close(x, y, 1e-5, 1e-6)[1] for x, y in zip(chunk_a, (cp, ns, sz, dn, er)))
+    if not (ok_p and same_stores and same_chunk):
+        fail(f"fused: the megastep differs from its parts (priorities {d_prio:.3e}, stores "
+             f"equal {same_stores}, chunk bookkeeping close {same_chunk})")
+    say("fused", f"a megastep (K={k}, {E} envs x {chunk} steps, {MEGA_CAPACITY} transitions) equals "
+        f"its parts: priorities {d_prio:.3e}, parameters {d_par:.3e} (bit for bit: "
+        f"{eq_p and eq_par}), the store after the slab write bit for bit; launches {launches}")
+
+    # the device evaluator
+    mean, truncated = evaluate_params_device(cfg, state_a.net, fn_env, num_envs=16, seed=123,
+                                             return_stats=True)
+    if not math.isfinite(mean):
+        fail(f"fused: the device evaluator returned {mean}")
+    say("fused", f"device evaluator: 16 episodes, mean reward {mean:+.4f}, {truncated} truncated")
+    del state, state_a, state_b, replay, col, stores_b, fields
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Trainer.run_fused at the paper's capacity, bf16 and fp32
+    rows = {}
+    for label, extra in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
+        sfx = "_bf16" if label == "bf16" else ""
+        tr = Trainer(base.replace(training_steps=2 * k, **extra), device=dev)
+        tr.run_fused()
+        # the chunk alone: its time and its kernel launches
+        collect = make_collect_fn(tr.cfg, tr.fn_env, E, chunk)
+        draws = CollectDraws(torch.Generator(device=dev).manual_seed(1))
+        env0 = draws.reset(tr.fn_env, E, dev)
+        collect(tr.state.net, env0, tr.actor.epsilons, draws)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        out = collect(tr.state.net, env0, tr.actor.epsilons, draws)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - c0
+        recorded = int(out[3].sum())
+        kernels = None
+        if label == "bf16":
+            # the device's events only: a chunk's tens of thousands of
+            # launches make the host side of a trace slow to process
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                collect(tr.state.net, env0, tr.actor.epsilons, draws)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in device_events(prof.key_averages()))
+        n = FUSED_DISPATCHES
+        tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + n * k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        tr.run_fused()
+        torch.cuda.synchronize()
+        launches = {key: v for key, v in K.launch_counts.items() if v}
+        if launches != {f"lstm_fwd{sfx}": 2 * k * n, f"lstm_seq_bwd{sfx}": k * n}:
+            fail(f"fused {label}: {n} dispatches launched {launches}")
+        ends = tr.update_ends[-n:]
+        ms = (ends[-1] - ends[0]) * 1e3 / (n - 1)
+        m = tr.metrics()
+        if not math.isfinite(m["loss"]):
+            fail(f"fused {label}: loss {m['loss']}")
+        row = {"path": label, "K": k, "envs": E, "chunk": chunk, "ms_per_dispatch": ms,
+               "updates_per_s": k * 1e3 / ms, "chunk_ms": chunk_s * 1e3,
+               "chunk_env_steps_per_s": E * chunk / chunk_s,
+               "chunk_recorded_steps_per_s": recorded / chunk_s,
+               "chunk_kernel_launches": kernels,
+               "launches_per_dispatch": {key: v // n for key, v in launches.items()},
+               "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "store_gb_on_card": tr.replay.nbytes() / 1e9, "loss": m["loss"]}
+        say("fused", json.dumps(row))
+        rows[label] = row
+        del tr, collect, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("fused", f"[{card}] ms per dispatch (K={k} updates + a {chunk}-step chunk of {E} envs): "
+        + ", ".join(f"{label} {r['ms_per_dispatch']:.1f} ({r['updates_per_s']:.1f} updates/s, "
+                    f"chunk {r['chunk_ms']:.1f} ms, {r['chunk_env_steps_per_s']:.0f} env steps/s)"
+                    for label, r in rows.items())
+        + f"; the bf16 chunk launched {rows['bf16']['chunk_kernel_launches']} kernels")
+
+    # the CLI's --mode fused, once, in a subprocess
+    args = ["--preset", "atari", "--env", "catch", "--mode", "fused", "--updates-per-dispatch",
+            str(k), "--steps", str(2 * k), "--set",
+            f"learning_starts={ON_CATCH['learning_starts']}", "--set", "max_episode_steps=400"]
+    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.train", *args], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"fused: the CLI's --mode fused exited {out.returncode}: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res["mode"] != "fused" or res["step"] != 2 * k or not math.isfinite(res["loss"]):
+        fail(f"fused: the CLI's --mode fused gave {res}")
+    say("fused", f"CLI --mode fused (bf16, {TIERED_CAPACITY} transitions): step {res['step']}, "
+        f"loss {res['loss']:.6f}, {res['env_steps']} env steps, {res['seconds']:.1f}s "
+        f"({time.perf_counter() - t0:.1f}s in the phase)")
     return rows
 
 
@@ -2250,6 +2760,20 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         tiered_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 21. the device planes at the paper's replay capacity ---------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        device_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 22. collection fused on the card (--mode fused) ---------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fused_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

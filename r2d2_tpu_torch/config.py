@@ -119,15 +119,32 @@ class R2D2Config:
     # gathers, built with g++ at first use); a failed build raises. False
     # takes the numpy path
     use_native_replay: bool = True
-    # replay data plane: "host" (numpy store, one batch shipped per update)
-    # or "tiered" (the full-capacity host store with K batches gathered into
+    # replay data plane: "host" (numpy store, one batch shipped per update),
+    # "tiered" (the full-capacity host store with K batches gathered into
     # a pinned ring and copied on a side stream into one of two device
     # slabs while the learner's K-update dispatch consumes the other;
-    # replay/tiered_store.py)
+    # replay/tiered_store.py) or "device" (the store on the card, an update
+    # shipping only its sample coordinates and gathering its windows in the
+    # step; replay/device_store.py)
     replay_plane: str = "host"
-    # learner updates per dispatch (tiered plane only): K staged batches
-    # through learner.make_stacked_batch_train_step
+    # experience collection: "host" (VectorizedActor, env stepped on the
+    # host) or "device" (collect.DeviceCollector: policy, env dynamics and
+    # block packing on the card; needs a tensor env core and the device
+    # replay plane)
+    collector: str = "host"
+    # learner updates per dispatch (tiered and device planes): K staged
+    # batches (learner.make_stacked_batch_train_step) or K coordinate sets
+    # gathered from the device store (learner.make_fused_multi_train_step)
     updates_per_dispatch: int = 1
+    # where the prioritized sum tree lives: "host" (the float64 tree, draws
+    # and write-backs on the host) or "device" (the float32 tree on the
+    # card, replay/device_sum_tree.py: sampling, IS weights and write-back
+    # inside the learner's dispatch; device replay plane only)
+    priority_plane: str = "host"
+    # priority_plane="device" only: N dispatches of K updates in one
+    # superstep (megastep.make_priority_superstep); the host re-enters
+    # every N*K updates
+    superstep_dispatches: int = 1
     # tiered plane only: stage chunks synchronously on the consumer thread
     # instead of the prefetch pipeline; no staging-thread RNG race with the
     # priority write-backs, so the sampling stream is bit-reproducible
@@ -344,7 +361,7 @@ class R2D2Config:
                     "are paged in + decoded); set replay_plane='tiered' "
                     "or replay_disk_capacity=0"
                 )
-        if self.replay_plane not in ("host", "tiered"):
+        if self.replay_plane not in ("host", "tiered", "device"):
             raise ValueError(f"unknown replay_plane {self.replay_plane!r}")
         if self.snapshot_every < 0:
             raise ValueError("snapshot_every must be >= 0")
@@ -358,17 +375,46 @@ class R2D2Config:
                 "deterministic_staging is the tiered plane's synchronous "
                 "staging mode; set replay_plane='tiered' (or leave it False)"
             )
+        if self.collector not in ("host", "device"):
+            raise ValueError(f"unknown collector {self.collector!r}")
         if self.updates_per_dispatch < 1:
             raise ValueError("updates_per_dispatch must be >= 1")
-        if self.updates_per_dispatch > 1 and self.replay_plane != "tiered":
+        if self.updates_per_dispatch > 1 and self.replay_plane not in ("tiered", "device"):
             raise ValueError(
-                "updates_per_dispatch > 1 is implemented for the tiered "
-                "replay plane (staged K-batch chunks)"
+                "updates_per_dispatch > 1 is implemented for the tiered and "
+                "device replay planes (staged K-batch chunks / fused in-step "
+                "gathers)"
             )
         if self.training_steps % self.updates_per_dispatch != 0:
             raise ValueError(
                 "training_steps must be a multiple of updates_per_dispatch "
                 "(each dispatch advances the step counter by that amount)"
+            )
+        if self.priority_plane not in ("host", "device"):
+            raise ValueError(f"unknown priority_plane {self.priority_plane!r}")
+        if self.priority_plane == "device" and self.replay_plane != "device":
+            raise ValueError(
+                "priority_plane='device' keeps the sum tree on the card next to "
+                "the store; it requires replay_plane='device'"
+            )
+        if self.superstep_dispatches < 1:
+            raise ValueError("superstep_dispatches must be >= 1")
+        if self.superstep_dispatches > 1 and self.priority_plane != "device":
+            raise ValueError(
+                "superstep_dispatches > 1 chains N fused dispatches with "
+                "in-jit sampling/write-back between them; it requires "
+                "priority_plane='device'"
+            )
+        if self.training_steps % (self.updates_per_dispatch * self.superstep_dispatches) != 0:
+            raise ValueError(
+                "training_steps must be a multiple of updates_per_dispatch "
+                "* superstep_dispatches (each superstep advances the step "
+                "counter by that amount)"
+            )
+        if self.collector == "device" and self.replay_plane != "device":
+            raise ValueError(
+                "collector='device' writes packed blocks straight into the "
+                "device store; it requires replay_plane='device'"
             )
         if self.env_name:
             self._validate_env_geometry(self.env_name, self.obs_shape)

@@ -1,8 +1,10 @@
 """Environment layer (port of r2d2_tpu/envs, the host envs): the catch
 family on host numpy (multi-ball included), the scripted env of the exact
 tests, and the Atari wrappers, import-gated (gymnasium with ALE and cv2 are
-needed only when an Atari env is built). The pure-JAX families wait for
-later slices."""
+needed only when an Atari env is built); the tensor cores of the on-device
+collector (catch.TensorCatchEnv, fake.ScriptedFnEnv) and their host-protocol
+adapters (functional.py). The JAX package's other functional families wait
+for their slice."""
 
 from r2d2_tpu_torch.envs.catch import (
     CatchEnv,

@@ -17,14 +17,21 @@ the paddle stays where it is) in a column drawn uniformly from the interval
 the current paddle can reach in the new ball's blind phase. That draw comes
 from the env's numpy Generator (the JAX package draws it from
 `jax.random`), so `step` takes the Generator for the multi-ball variant.
+
+`TensorCatchEnv` is the same core over batched (E,) int32 state tensors on
+any device, for the on-device collector (collect.py): step and render are
+the numpy core's and JAX's functions of the state bit for bit; its reset
+columns and multi-ball respawn columns come from an explicit
+``torch.Generator``, or are handed in (the tests hand in JAX's draws).
 """
 
 from __future__ import annotations
 
 import json
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 MEMORY_CATCH_DEFAULT_CUE = 8
 
@@ -228,3 +235,97 @@ class CatchVecEnv:
             np.asarray(d["s_" + name], np.int32).copy() for name in CatchState._fields
         ))
         self.rng.bit_generator.state = json.loads(str(np.asarray(d["rng"])[()]))
+
+
+class TensorCatchEnv:
+    """Catch over batched (E,) int32 state tensors (a CatchState of
+    tensors) on any device: reset / step / render with no host read-back.
+    The geometry and variants are CatchEnv's."""
+
+    NUM_ACTIONS = 3
+
+    def __init__(self, height: int = 84, width: int = 84, paddle_width: int = 7,
+                 ball_size: int = 3, cue_steps: Optional[int] = None,
+                 fall_every: int = 1, balls: int = 1):
+        # the numpy core validates the variant and holds the geometry
+        self.core = CatchEnv(height, width, paddle_width, ball_size, cue_steps, fall_every,
+                             balls)
+        self.h, self.w, self.pw, self.bs = height, width, paddle_width, ball_size
+        self.cue, self.fall, self.balls = cue_steps, fall_every, balls
+        self.obs_shape = (height, width, 1)
+
+    def _reach_bounds(self, anchor: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[lo, hi] of the columns reachable from `anchor` in a ball's blind
+        phase (the memory variants' spawn cap), or the whole row."""
+        if self.cue is None:
+            return torch.zeros_like(anchor), torch.full_like(anchor, self.w - 1)
+        reach = max(2 * (self.h - 2 - self.cue) * self.fall - 4, 1)
+        return (torch.clamp(anchor - reach, min=0), torch.clamp(anchor + reach, max=self.w - 1))
+
+    @staticmethod
+    def _uniform_int(lo: torch.Tensor, hi: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One integer uniform in [lo, hi] per element, from `generator`."""
+        u = torch.rand(lo.shape, generator=generator, device=lo.device, dtype=torch.float64)
+        return (lo + torch.floor(u * (hi - lo + 1).double()).long()).clamp(max=hi).to(torch.int32)
+
+    def reset(self, n: int, generator: Optional[torch.Generator] = None, device="cpu",
+              draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> CatchState:
+        """n fresh episodes. `draws` = (ball_x, paddle_x) columns hands the
+        draws in; else ball_x is uniform over the row and paddle_x uniform
+        over its allowed interval, from `generator`."""
+        if draws is not None:
+            ball_x, paddle_x = (torch.as_tensor(d, device=device).to(torch.int32) for d in draws)
+        else:
+            zero = torch.zeros(n, dtype=torch.int32, device=device)
+            ball_x = self._uniform_int(zero, zero + self.w - 1, generator)
+            paddle_x = self._uniform_int(*self._reach_bounds(ball_x), generator)
+        zero = torch.zeros(n, dtype=torch.int32, device=ball_x.device)
+        return CatchState(ball_x, zero, paddle_x, zero.clone(),
+                          torch.full_like(zero, self.balls))
+
+    def render(self, s: CatchState) -> torch.Tensor:
+        """(E, H, W, 1) uint8 frames: ball block + paddle strip at 255."""
+        dev = s.ball_x.device
+        ys = torch.arange(self.h, device=dev)[None, :, None]
+        xs = torch.arange(self.w, device=dev)[None, None, :]
+        by, bx, px = (v[:, None, None] for v in (s.ball_y, s.ball_x, s.paddle_x))
+        ball = (torch.abs(ys - by) < self.bs) & (torch.abs(xs - bx) < self.bs)
+        if self.cue is not None:
+            ball = ball & (by < self.cue)
+        paddle = (ys >= self.h - 2) & (torch.abs(xs - px) <= self.pw // 2)
+        return ((ball | paddle).to(torch.uint8) * 255)[..., None]
+
+    def step(self, s: CatchState, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             respawn: Optional[torch.Tensor] = None):
+        """(state', reward (E,) float32, done (E,) bool). The multi-ball
+        variant's respawn columns are `respawn` (E,) where given, else drawn
+        from `generator` (one per env; used where a ball respawns)."""
+        action = action.to(s.ball_x.device)
+        dx = torch.where(action == 1, -1, torch.where(action == 2, 1, 0))
+        if self.cue is not None:
+            dx = torch.where(s.ball_y < self.cue, 0, dx)
+        paddle_x = torch.clamp(s.paddle_x + dx * 2, 0, self.w - 1).to(torch.int32)
+        t = (s.t + 1).to(torch.int32)
+        if self.fall == 1:
+            ball_y = s.ball_y + 1
+        else:
+            ball_y = s.ball_y + (t % self.fall == 0).to(torch.int32)
+        ball_y = ball_y.to(torch.int32)
+        landed = ball_y >= self.h - 2
+        caught = torch.abs(s.ball_x - paddle_x) <= self.pw // 2
+        one = torch.ones_like(ball_y, dtype=torch.float32)
+        reward = torch.where(landed, torch.where(caught, one, -one), torch.zeros_like(one))
+        if self.balls == 1:
+            return CatchState(s.ball_x, ball_y, paddle_x, t, s.balls_left), reward, landed
+        balls_left = (s.balls_left - landed.to(torch.int32)).to(torch.int32)
+        done = landed & (balls_left <= 0)
+        respawn_now = landed & ~done
+        new_x = (respawn.to(s.ball_x.device, torch.int32) if respawn is not None
+                 else self._uniform_int(*self._reach_bounds(paddle_x), generator))
+        zero = torch.zeros_like(ball_y)
+        return (CatchState(torch.where(respawn_now, new_x, s.ball_x),
+                           torch.where(respawn_now, zero, ball_y), paddle_x,
+                           torch.where(respawn_now, zero, t), balls_left),
+                reward, done)

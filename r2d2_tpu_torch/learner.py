@@ -152,6 +152,29 @@ class PinnedStager:
         return batch
 
 
+def start_read_back(t: torch.Tensor):
+    """Start a tensor's copy to the host without waiting for it: (pinned
+    tensor, event) on the card, the array itself on the CPU. A dispatch's
+    priorities are read back this way and collected (finish_read_back) a
+    dispatch later, while the next one runs."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def finish_read_back(started) -> np.ndarray:
+    """The host array of a start_read_back (or an array as it is)."""
+    if isinstance(started, tuple):
+        host, event = started
+        event.synchronize()
+        return host.numpy()
+    return np.asarray(started)
+
+
 @dataclasses.dataclass
 class TrainState:
     net: R2D2Network          # online network (trained)
@@ -289,3 +312,91 @@ def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int):
         return state, metrics, torch.stack(prios)
 
     return multi
+
+
+def make_store_gather(cfg: R2D2Config):
+    """(stores, b, s, is_weights) -> DeviceBatch: the clamped-window gather
+    straight out of the device stores (replay/device_store.py), by advanced
+    indexing with int64 indices: rows clip(win + t, 0, slot-1), learning
+    rows clip(s*L + l, 0, bl-1). The index fields widen to the DeviceBatch
+    dtypes; the bytes are the host plane's gather of the same contents."""
+    L, T = cfg.learning_steps, cfg.seq_len
+    slot, bl = cfg.block_slot_len, cfg.block_length
+
+    def gather_batch(stores, b, s, is_weights) -> DeviceBatch:
+        dev = stores["obs"].device
+        b = b.to(dev, torch.int64)
+        s = s.to(dev, torch.int64)
+        burn = stores["burn_in"][b, s]
+        first_burn = stores["burn_in"][b, 0]
+        win = (first_burn + s * L - burn).long()
+        rows = torch.clamp(win[:, None] + torch.arange(T, device=dev)[None, :], 0, slot - 1)
+        bcol = b[:, None]
+        lrow = torch.clamp(s[:, None] * L + torch.arange(L, device=dev)[None, :], 0, bl - 1)
+        return DeviceBatch(
+            obs=stores["obs"][bcol, rows],
+            last_action=stores["last_action"][bcol, rows].long(),
+            last_reward=stores["last_reward"][bcol, rows],
+            hidden=stores["hidden"][b, s],
+            action=stores["action"][bcol, lrow].long(),
+            n_step_reward=stores["n_step_reward"][bcol, lrow],
+            gamma=stores["gamma"][bcol, lrow],
+            burn_in_steps=burn,
+            learning_steps=stores["learning"][b, s],
+            forward_steps=stores["forward"][b, s],
+            is_weights=is_weights.to(dev, torch.float32),
+        )
+
+    return gather_batch
+
+
+def make_fused_train_step(cfg: R2D2Config):
+    """(state, stores, b, s, is_weights) -> (state, metrics, priorities):
+    the update over the device store, its windows gathered inside the step,
+    so only the (B,) coordinates cross to the card. The same numbers as
+    make_train_step on the same batch assembled on the host."""
+    step = make_train_step(cfg)
+    gather = make_store_gather(cfg)
+
+    def fused(state: TrainState, stores, b, s, is_weights):
+        return step(state, gather(stores, b, s, is_weights))
+
+    return fused
+
+
+def make_multi_update_core(cfg: R2D2Config, num_steps: int):
+    """K updates over (K, B) coordinate stacks, each gathering its batch
+    from the store: (state, stores, b, s, w) -> (state, the last step's
+    metrics, priorities (K, B)). The same as the K single fused steps on the
+    same coordinates; nothing in it reads back to the host."""
+    step = make_fused_train_step(cfg)
+
+    def multi(state: TrainState, stores, b, s, w):
+        if b.shape[0] != num_steps:
+            raise ValueError(f"coordinate stack has {b.shape[0]} steps, expected {num_steps}")
+        prios = []
+        for k in range(num_steps):
+            state, metrics, p = step(state, stores, b[k], s[k], w[k])
+            prios.append(p)
+        return state, metrics, torch.stack(prios)
+
+    return multi
+
+
+def make_fused_multi_train_step(cfg: R2D2Config, num_steps: int):
+    """K train steps in one dispatch over the device store (the device
+    plane's K > 1 consumer); see make_multi_update_core."""
+    return make_multi_update_core(cfg, num_steps)
+
+
+def make_gather_step(cfg: R2D2Config):
+    """(stores, b, s, is_weights) -> DeviceBatch materialized at sample time
+    (threaded mode): a queued item then holds a copy, which a later block
+    write cannot change."""
+    return make_store_gather(cfg)
+
+
+def make_batch_train_step(cfg: R2D2Config):
+    """(state, DeviceBatch) -> (state, metrics, priorities) over a batch
+    gathered at sample time (make_gather_step)."""
+    return make_train_step(cfg)

@@ -96,3 +96,24 @@ def disk_field_specs(cfg):
         "n_step_reward": ((bl,), np.float32),
         "gamma": ((bl,), np.float32),
     }
+
+
+def store_field_specs(cfg):
+    """Per-slot (shape, torch dtype) of every device-store field, without
+    the leading block axis (r2d2_tpu/replay/block.py's function of the same
+    name): the dtypes of the JAX package's device store, so a device
+    snapshot is one file for both packages."""
+    S, slot, bl = cfg.seqs_per_block, cfg.block_slot_len, cfg.block_length
+    return {
+        "obs": ((slot, *cfg.obs_shape), torch.uint8),
+        "last_action": ((slot,), torch.int32),
+        "last_reward": ((slot,), torch.float32),
+        "action": ((bl,), torch.int32),
+        "n_step_reward": ((bl,), torch.float32),
+        "gamma": ((bl,), torch.float32),
+        # the config's state dtype: float32, or bfloat16 under precision="bf16"
+        "hidden": ((S, 2, cfg.hidden_dim), cfg.state_dtype),
+        "burn_in": ((S,), torch.int32),
+        "learning": ((S,), torch.int32),
+        "forward": ((S,), torch.int32),
+    }

@@ -3,7 +3,11 @@ the part the host plane runs): sum-tree priorities, the circular block
 pointer, eviction and size accounting, clamped stratified sampling of
 sequence coordinates, the stale-priority pointer-window rejection (with
 full-lap detection), and the per-slot stamp clock that replaces that
-window under the tiered plane's disk tier. With ``cfg.use_native_replay``
+window under the tiered plane's disk tier; the device planes' hooks: a
+device sum tree kept in step with every host tree write (``dtree``,
+``priority_plane="device"``) and the contiguous ring reservations of a
+batched block writer (``_reserve_contiguous``, ``_reserve_advance``). With
+``cfg.use_native_replay``
 (the default) the sum tree runs in the native core
 (``r2d2_tpu_torch._native``), which is built at first use; a failed build
 raises.
@@ -51,7 +55,25 @@ class ReplayControlPlane:
         # update_priorities compares stamps instead of the pointer window;
         # None everywhere else, and the window mask is untouched
         self.slot_stamp = None
+        # priority_plane="device": the float32 device tree
+        # (replay/device_sum_tree.DeviceSumTree) attached by the data plane.
+        # Every host tree write goes through _tree_write, under self.lock,
+        # the lock the data plane holds while it dispatches a superstep and
+        # installs its output tree: ingestion issued after a superstep lands
+        # on top of its write-backs in stream order, the verdict the host
+        # pointer-window mask reaches for overwritten slots
+        self.dtree = None
         self.lock = threading.Lock()
+
+    def attach_device_tree(self, dtree) -> None:
+        self.dtree = dtree
+
+    def _tree_write(self, idxes: np.ndarray, td_errors: np.ndarray) -> None:
+        """The one funnel of host-initiated tree writes (ingestion,
+        retirement, drained priorities). Caller holds the lock."""
+        self.tree.update(idxes, td_errors)
+        if self.dtree is not None:
+            self.dtree.update(idxes, td_errors)
 
     def __len__(self) -> int:
         return self.size
@@ -61,20 +83,19 @@ class ReplayControlPlane:
 
     # --- accounting (call with self.lock held) ----------------------------
 
-    def _account_add(
-        self, num_sequences: int, learning_total: int, priorities: np.ndarray,
-        episode_reward: Optional[float],
-    ) -> int:
-        """Tree + counters for a block landing at block_ptr; returns the
-        slot written. Caller holds the lock and writes the data plane."""
-        ptr = self.block_ptr
+    def _account_block_at(
+        self, slot: int, num_sequences: int, learning_total: int,
+        priorities: np.ndarray, episode_reward: Optional[float],
+    ) -> None:
+        """Tree + counters for a block at an explicit slot; does not move
+        the ring pointer (the caller owns that). Caller holds the lock."""
         S = self.cfg.seqs_per_block
-        self.tree.update(np.arange(ptr * S, (ptr + 1) * S, dtype=np.int64), priorities)
-        if self.occupied[ptr]:
-            self.size -= int(self.learning_sum[ptr])
-        self.learning_sum[ptr] = learning_total
-        self.occupied[ptr] = True
-        self.num_seq_store[ptr] = num_sequences
+        self._tree_write(np.arange(slot * S, (slot + 1) * S, dtype=np.int64), priorities)
+        if self.occupied[slot]:
+            self.size -= int(self.learning_sum[slot])
+        self.learning_sum[slot] = learning_total
+        self.occupied[slot] = True
+        self.num_seq_store[slot] = num_sequences
         self.size += learning_total
         self.env_steps += learning_total
         if episode_reward is not None:
@@ -82,11 +103,30 @@ class ReplayControlPlane:
             self.episode_reward_sum += episode_reward
             self.total_episodes += 1
             self.total_reward_sum += episode_reward
+
+    def _account_add(
+        self, num_sequences: int, learning_total: int, priorities: np.ndarray,
+        episode_reward: Optional[float],
+    ) -> int:
+        """Tree + counters for a block landing at block_ptr; returns the
+        slot written. Caller holds the lock and writes the data plane."""
+        ptr = self.block_ptr
+        self._account_block_at(ptr, num_sequences, learning_total, priorities, episode_reward)
         self.block_ptr = (ptr + 1) % self.cfg.num_blocks
         self.ptr_advances += 1
         if self.slot_stamp is not None:
             self.slot_stamp[ptr] = self.ptr_advances
         return ptr
+
+    def _account_blocks(self, num_seq: np.ndarray, learning_totals: np.ndarray,
+                        priorities: np.ndarray, episode_rewards: np.ndarray,
+                        dones: np.ndarray) -> None:
+        """Account a batch of blocks written at consecutive ring slots; a
+        truncated chunk (dones False) is not a finished episode. Caller
+        holds the lock and has written the data plane."""
+        for i in range(len(num_seq)):
+            self._account_add(int(num_seq[i]), int(learning_totals[i]), priorities[i],
+                              float(episode_rewards[i]) if dones[i] else None)
 
     def _retire_slots(self, slots: np.ndarray) -> None:
         """Evict the blocks at `slots` from the tree and the size
@@ -95,7 +135,7 @@ class ReplayControlPlane:
         if occ.size:
             S = self.cfg.seqs_per_block
             idxes = (occ[:, None] * S + np.arange(S)[None, :]).ravel()
-            self.tree.update(idxes, np.zeros(idxes.size, np.float32))
+            self._tree_write(idxes, np.zeros(idxes.size, np.float32))
             self.size -= int(self.learning_sum[occ].sum())
             self.learning_sum[occ] = 0
             self.occupied[occ] = False
@@ -105,6 +145,45 @@ class ReplayControlPlane:
             # in-flight write-backs to these slots are dropped
             self.ptr_advances += 1
             self.slot_stamp[slots] = self.ptr_advances
+
+    def _reserve_contiguous(self, n: int) -> int:
+        """Wrap the ring pointer to 0 when fewer than n slots remain before
+        the end, and return it: the caller writes slots [ptr, ptr+n) as one
+        contiguous slab. The skipped tail slots are retired (leaves zeroed,
+        transitions out of the size), so a steady n-batch writer holds
+        floor(num_blocks/n)*n blocks; the pointer-window mask treats the
+        tail as overwritten (over-rejection, never wrong). Caller holds the
+        lock."""
+        nb = self.cfg.num_blocks
+        if self.block_ptr + n > nb:
+            self._retire_slots(np.arange(self.block_ptr, nb))
+            # the jump crosses the tail: it counts toward lap detection
+            self.ptr_advances += nb - self.block_ptr
+            self.block_ptr = 0
+        return self.block_ptr
+
+    def _reserve_advance(self, n: int) -> int:
+        """Reserve n contiguous slots and advance the pointer past them,
+        retiring their blocks now, for a writer whose accounting lands later
+        (the fused runner's one-dispatch-late read-back): no draw can target
+        the reserved slots, and the window mask already rejects stale rows
+        aimed at them. Caller holds the lock."""
+        ptr0 = self._reserve_contiguous(n)
+        self._retire_slots(np.arange(ptr0, ptr0 + n))
+        self.block_ptr = (ptr0 + n) % self.cfg.num_blocks
+        self.ptr_advances += n
+        return ptr0
+
+    def _account_blocks_at(self, ptr0: int, num_seq: np.ndarray, learning_totals: np.ndarray,
+                           priorities: np.ndarray, episode_rewards: np.ndarray,
+                           dones: np.ndarray) -> None:
+        """The late accounting of blocks written at [ptr0, ptr0+E), reserved
+        by _reserve_advance (the pointer is past them already). Caller
+        holds the lock."""
+        for i in range(len(num_seq)):
+            self._account_block_at(ptr0 + i, int(num_seq[i]), int(learning_totals[i]),
+                                   priorities[i],
+                                   float(episode_rewards[i]) if dones[i] else None)
 
     def _draw(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Stratified draw of batch_size sequence coordinates, with the
@@ -132,7 +211,7 @@ class ReplayControlPlane:
                 # since the draw (the window and the full-lap check assume
                 # ring-order overwrites, which demotion breaks)
                 mask = self.slot_stamp[idxes // S] <= old_advances
-                self.tree.update(idxes[mask], td_errors[mask])
+                self._tree_write(idxes[mask], td_errors[mask])
                 return
             if (
                 old_advances is not None
@@ -146,7 +225,7 @@ class ReplayControlPlane:
                 mask = (idxes < old_ptr * S) & (idxes >= ptr * S)
             else:
                 mask = np.ones_like(idxes, dtype=bool)
-            self.tree.update(idxes[mask], td_errors[mask])
+            self._tree_write(idxes[mask], td_errors[mask])
 
     def pop_episode_stats(self):
         """(episodes, reward sum) since the last call, and reset them."""

@@ -1,6 +1,10 @@
 """Replay snapshots: the whole replay state on disk, for a true resume (port
-of r2d2_tpu/replay/snapshot.py, the host kind; the tiered store is a
-ReplayBuffer and snapshots as one, its disk tier's manifest included).
+of r2d2_tpu/replay/snapshot.py, the host and device kinds; the tiered store
+is a ReplayBuffer and snapshots as one, its disk tier's manifest included).
+The device kind copies the card's stores to the host (at the paper's 2M
+transitions that is 15.6 GB of frames) and, under priority_plane="device",
+the device tree's float32 leaves (`dtree_leaves`), which are what sampling
+reads there.
 
 A snapshot holds the control plane (the sum tree's leaves, the ring
 pointer, the size, env-step and episode counters, per-slot sequence counts,
@@ -21,11 +25,13 @@ it touches the buffer, so a failed restore leaves it as constructed.
 from __future__ import annotations
 
 import os
+import types
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
 from r2d2_tpu_torch.utils.faults import fault_point
 
@@ -73,16 +79,23 @@ class TopologyMismatch(ValueError):
         super().__init__(msg)
 
 
+def _kind(replay) -> str:
+    if isinstance(replay, DeviceReplayBuffer):
+        return "device"
+    if isinstance(replay, ReplayBuffer):
+        return "host"
+    raise TypeError(f"unknown replay type {type(replay).__name__}")
+
+
 def snapshot_topology(replay, tp: int = 1) -> Dict[str, np.ndarray]:
     """The topology manifest a snapshot embeds, for the one-process host
-    plane: one logical shard holding every block."""
-    if not isinstance(replay, ReplayBuffer):
-        raise TypeError(f"unknown replay type {type(replay).__name__}")
+    and device planes: one logical shard holding every block."""
+    plane = _kind(replay)
     cfg = replay.cfg
     nb = cfg.num_blocks
     disk = getattr(replay, "disk", None)
     return {
-        "plane": np.asarray("host"),
+        "plane": np.asarray(plane),
         "dp": np.asarray(1, np.int64),
         "tp": np.asarray(tp, np.int64),
         "process_count": np.asarray(1, np.int64),
@@ -129,6 +142,11 @@ def read_manifest(path: str) -> Optional[Dict]:
 
 def _plane_state(plane) -> Dict[str, np.ndarray]:
     d = {"tree_leaves": plane.tree.leaves()}
+    if plane.dtree is not None:
+        # priority_plane="device": the float32 device tree is what sampling
+        # reads and what the learner writes back to (the host tree only
+        # sees ingestion there)
+        d["dtree_leaves"] = np.asarray(plane.dtree.leaves(), np.float32)
     for k in _COUNTERS:
         d[k] = np.asarray(getattr(plane, k))
     d["learning_sum"] = plane.learning_sum.copy()
@@ -139,6 +157,11 @@ def _plane_state(plane) -> Dict[str, np.ndarray]:
 
 def _restore_plane(plane, d) -> None:
     plane.tree.load_leaves(d["tree_leaves"])
+    if plane.dtree is not None:
+        # a snapshot written without a device tree seeds it from the host
+        # leaves (float64 -> float32)
+        key = "dtree_leaves" if "dtree_leaves" in d.files else "tree_leaves"
+        plane.dtree.load_leaves(np.asarray(d[key], np.float32))
     for k in _COUNTERS:
         if k not in d.files:
             setattr(plane, k, 0)
@@ -165,6 +188,14 @@ def _validated_stores(d, current: Dict[str, np.ndarray],
             )
         out[k] = val
     return out
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype a device store field is saved in (bfloat16 as
+    uint16 bits)."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
 
 
 def _host_array(v):
@@ -214,15 +245,24 @@ def save_replay(
     extra: Optional[Dict] = None,
     topology: Optional[Dict[str, np.ndarray]] = None,
 ) -> None:
-    """Snapshot a host (or tiered) replay to `path`.
+    """Snapshot a host, tiered or device replay to `path`.
 
     The payload (control state and a copy of every store) is captured under
     the buffer lock; the npz is written after release. `extra` (arrays or
     tensors) rides under the `x_` prefix and restore_replay hands it back.
     `topology` defaults to snapshot_topology(replay)."""
-    if not isinstance(replay, ReplayBuffer):
-        raise TypeError(f"unknown replay type {type(replay).__name__}")
     bf16 = set()
+    if _kind(replay) == "device":
+        with replay.lock:
+            payload = {"kind": np.asarray("device")}
+            payload.update(_plane_state(replay))
+            for k in STORE_FIELDS:
+                arr, is_bf16 = _host_array(replay.stores[k])
+                payload["store_" + k] = arr
+                if is_bf16:
+                    bf16.add("store_" + k)
+        _finish_payload(replay, path, payload, bf16, extra, topology)
+        return
     with replay.lock:
         payload: Dict[str, np.ndarray] = {"kind": np.asarray("host")}
         payload.update(_plane_state(replay))
@@ -243,6 +283,11 @@ def save_replay(
             payload["disk_occupied_slots"] = occ.astype(np.int64)
             for i in occ:
                 payload[f"disk_rec_{int(i)}"] = disk.record_bytes(int(i))
+    _finish_payload(replay, path, payload, bf16, extra, topology)
+
+
+def _finish_payload(replay, path, payload, bf16, extra, topology) -> None:
+    """Add the caller's extras and the manifest, and write atomically."""
     for k, v in (extra or {}).items():
         arr, is_bf16 = _host_array(v)
         payload[_EXTRA_PREFIX + k] = arr
@@ -261,22 +306,40 @@ def restore_replay(replay, path: str) -> Dict[str, np.ndarray]:
     raises TopologyMismatch, another capacity, observation shape, hidden
     size or disk tier a ValueError. Returns the `extra` dict the snapshot
     was saved with (bfloat16 values as their uint16 bits)."""
-    if not isinstance(replay, ReplayBuffer):
-        raise TypeError(f"unknown replay type {type(replay).__name__}")
+    want = _kind(replay)
     with np.load(path, allow_pickle=False) as npz:
         d = _Bf16NpzView(npz)
         kind = str(d["kind"])
         saved_topo = _topology_from(d)
-        if kind != "host":
+        if kind != want:
             raise TopologyMismatch(
                 saved_topo or {"plane": kind}, _plain(snapshot_topology(replay)),
-                f"snapshot kind {kind!r} != replay plane 'host'",
+                f"snapshot kind {kind!r} != replay plane {want!r}",
             )
         extras = {
             k[len(_EXTRA_PREFIX):]: np.asarray(d[k])
             for k in d.files
             if k.startswith(_EXTRA_PREFIX)
         }
+        if want == "device":
+            with replay.lock:
+                # the live stores' numpy shapes and dtypes (bfloat16 as its
+                # uint16 bits), checked before anything is touched
+                specs = {k: types.SimpleNamespace(shape=tuple(t.shape), dtype=_host_dtype(t))
+                         for k, t in replay.stores.items()}
+                vals = _validated_stores(d, specs)
+                if len(d["tree_leaves"]) != replay.tree.capacity:
+                    raise ValueError("tree size mismatch")
+                _restore_plane(replay, d)
+                for k in STORE_FIELDS:
+                    t = replay.stores[k]
+                    v = np.ascontiguousarray(vals[k])
+                    if t.dtype == torch.bfloat16:
+                        src = torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+                    else:
+                        src = torch.from_numpy(v)
+                    t.copy_(src)
+            return extras
         with replay.lock:
             current = {k: getattr(replay, k + "_store") for k in STORE_FIELDS}
             vals = _validated_stores(d, current)

@@ -22,8 +22,9 @@ every `actor_update_interval` env steps, target sync every
 the latest), a metrics record every `log_interval` seconds (0: every
 update) into `metrics_path`, stop at `training_steps`, sampling gated on
 `learning_starts`. ``--profile-dir`` traces the updates after the first
-(``utils/profiling.py``; the spans ``replay/sample`` (host plane),
-``replay/staged_chunk`` (tiered plane) and ``learner_update``).
+(``utils/profiling.py``; the spans ``replay/sample`` (host and device
+planes), ``replay/staged_chunk`` (tiered plane), ``learner_update`` and
+``fused_megastep`` (fused mode)).
 
 Replay planes (``--replay``): ``host`` ships one batch per update; ``tiered``
 (``replay/tiered_store.py``) holds the full-capacity store and stages K
@@ -33,7 +34,18 @@ one slab while the next is copied (``--set deterministic_staging=true``
 stages on the consumer's thread instead, for a reproducible draw stream;
 ``--set replay_disk_capacity=N --set replay_disk_dir=D`` adds the disk tier
 below the host slab, ``--set block_codec=delta-zlib`` compresses its
-records).
+records); ``device`` (``replay/device_store.py``) holds the store on the
+card, each update gathering its windows there from its sample coordinates
+(``--updates-per-dispatch K`` per dispatch); with ``--set
+priority_plane=device`` the sum tree is on the card too and ``--set
+superstep_dispatches=N`` runs N x K updates per host re-entry
+(``megastep.make_priority_superstep``).
+
+Collection on the card: ``--collector device`` (``collect.DeviceCollector``:
+policy, env dynamics and block packing over a tensor env core, one chunk
+per call) in either mode above, and ``--mode fused`` (``run_fused``,
+``megastep.FusedSystemRunner``): one dispatch runs K updates and a
+collection chunk, whose blocks land in the store as one slab.
 
 Preemption: a SIGTERM (delivered by the scheduler, or by ``R2D2_FAULTS=
 "trainer.update@5=sigterm"``, utils/faults.py) cuts the run at the next
@@ -81,12 +93,14 @@ import signal
 import sys
 import threading
 import time
+import types
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from r2d2_tpu_torch.actor import HostEnvPool, ParamStore, VectorizedActor
+from r2d2_tpu_torch.collect import DeviceCollector
 from r2d2_tpu_torch.config import (
     PRESETS,
     R2D2Config,
@@ -95,16 +109,30 @@ from r2d2_tpu_torch.config import (
     resolve_device,
 )
 from r2d2_tpu_torch.envs import make_env
-from r2d2_tpu_torch.envs.catch import CatchVecEnv, catch_params, is_catch_name
+from r2d2_tpu_torch.envs.catch import CatchVecEnv, TensorCatchEnv, catch_params, is_catch_name
+from r2d2_tpu_torch.envs.fake import ScriptedFnEnv
 from r2d2_tpu_torch.learner import (
     DeviceBatch,
     PinnedStager,
+    finish_read_back,
     init_train_state,
+    make_batch_train_step,
+    make_fused_multi_train_step,
+    make_fused_train_step,
+    make_gather_step,
     make_stacked_batch_train_step,
     make_train_step,
+    start_read_back,
+)
+from r2d2_tpu_torch.megastep import (
+    FusedSystemRunner,
+    make_priority_superstep,
+    superstep_generators,
+    superstep_uniforms,
 )
 from r2d2_tpu_torch.ops.epsilon import epsilon_ladder
 from r2d2_tpu_torch.replay.block import state_tensor
+from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
 from r2d2_tpu_torch.replay.tiered_store import (
     StagedChunk,
@@ -152,6 +180,24 @@ def build_vec_env(cfg: R2D2Config, seed: int = 0):
     return HostEnvPool([make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)])
 
 
+def build_fn_env(cfg: R2D2Config):
+    """The tensor env core of the on-device collector (catch family and
+    "scripted[:A]"; the JAX package's other functional families wait for
+    their module)."""
+    name = cfg.env_name.lower()
+    if is_catch_name(name):
+        return TensorCatchEnv(height=cfg.obs_shape[0], width=cfg.obs_shape[1],
+                              **catch_params(name))
+    if name == "scripted" or name.startswith("scripted:"):
+        # "scripted:A" pins the action count (the make_env rule)
+        adim = int(name.split(":", 1)[1]) if ":" in name else cfg.action_dim
+        return ScriptedFnEnv(obs_shape=cfg.obs_shape, action_dim=adim)
+    raise ValueError(
+        f"env {cfg.env_name!r} has no tensor core; use collector='host' for "
+        "emulator/host-protocol envs"
+    )
+
+
 class _HostPlane:
     """Host numpy replay: one batch drawn, gathered and shipped to the
     device per update (pageable copies inline; the pinned ring and the side
@@ -178,8 +224,9 @@ class _HostPlane:
             # never touches the sampling Generator
             return b, with_retries(lift, "host_plane.h2d")
 
-    def sample(self):
-        """One batch, on the device, from pageable host memory."""
+    def sample(self, pipelined: bool = False):
+        """One batch, on the device, from pageable host memory (copied out
+        of the store at sample time, so pipelined or not is the same)."""
         b, dev = self._draw_and_lift(lambda b: DeviceBatch.from_sampled(b, self.tr.device))
         return dev, None, b.idxes, (b.old_ptr, b.old_advances)
 
@@ -232,7 +279,7 @@ class _TieredPlane:
                                                 self.ring, timer=self.tr.xfer)
         return self._pipe
 
-    def sample(self):
+    def sample(self, pipelined: bool = False):
         with span("replay/staged_chunk"):
             if self.tr.cfg.deterministic_staging:
                 # staged on this thread: no staging thread races the
@@ -246,29 +293,10 @@ class _TieredPlane:
             torch.cuda.current_stream(self.tr.device).wait_event(chunk.event)
         state, m, priorities = self.multi_fn(state, DeviceBatch.from_staged(chunk.batch))
         self.ring.release(chunk.slot)
-        prev, self._pending = self._pending, (self._read_back(priorities), chunk)
+        prev, self._pending = self._pending, (start_read_back(priorities), chunk)
         if prev is not None:
             self.drain_pending(prev)
         return state, m
-
-    def _read_back(self, priorities):
-        """Start the (K, B) priorities' copy to the host: (pinned tensor,
-        event) on the card, the array itself on the CPU."""
-        if priorities.device.type != "cuda":
-            return priorities.numpy()
-        host = torch.empty(priorities.shape, dtype=priorities.dtype, pin_memory=True)
-        host.copy_(priorities, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
-    @staticmethod
-    def _host_priorities(prios) -> np.ndarray:
-        if isinstance(prios, tuple):
-            host, event = prios
-            event.synchronize()
-            return host.numpy()
-        return np.asarray(prios)
 
     def drain_pending(self, pending=None) -> None:
         """Apply a deferred (priorities, chunk) pair: the previous one at
@@ -283,7 +311,7 @@ class _TieredPlane:
         if pending is None:
             return
         prios, chunk = pending
-        for row, idx in zip(self._host_priorities(prios), chunk.idxes):
+        for row, idx in zip(finish_read_back(prios), chunk.idxes):
             self.replay.update_priorities(idx, row, chunk.old_ptr, chunk.old_advances)
 
     def capture_pending(self) -> Optional[dict]:
@@ -301,7 +329,7 @@ class _TieredPlane:
             return None
         prios, chunk = pending
         return {
-            "prios": self._host_priorities(prios),
+            "prios": finish_read_back(prios),
             "idxes": np.asarray(chunk.idxes),
             "old_ptr": np.asarray(chunk.old_ptr, np.int64),
             "old_advances": np.asarray(chunk.old_advances, np.int64),
@@ -320,17 +348,144 @@ class _TieredPlane:
         return {**self.tr.xfer.stats(), **self.replay.disk_stats()}
 
 
-_PLANES = {"host": _HostPlane, "tiered": _TieredPlane}
+class _DevicePlane:
+    """The replay store on the card (replay/device_store.py). K=1: the
+    sampled coordinates go to the card and the fused step gathers at update
+    time (threaded mode gathers at sample time instead, so a queued batch
+    is a copy no block write can change). K>1: K draws and the K-update
+    dispatch under one lock hold, the priorities read back one dispatch
+    late. priority_plane="device": N x K updates per superstep, sampling
+    and write-back on the card, nothing drawn or drained on the host."""
+
+    def __init__(self, tr: "Trainer"):
+        self.tr = tr
+        cfg = tr.cfg
+        self.replay = DeviceReplayBuffer(cfg, tr.device)
+        self.K = self.steps_per_update = cfg.updates_per_dispatch
+        self._pending = None  # the deferred (priorities, draws) pair
+        self.device_priority = cfg.priority_plane == "device"
+        if self.device_priority:
+            self.N = cfg.superstep_dispatches
+            self.steps_per_update = self.N * self.K
+            self.superstep_fn = make_priority_superstep(cfg, self.N, self.K)
+        elif self.K > 1:
+            self.multi_fn = make_fused_multi_train_step(cfg, self.K)
+        self.step_fn = make_fused_train_step(cfg)
+        self.gather_fn = make_gather_step(cfg)
+        self.batch_step_fn = make_batch_train_step(cfg)
+
+    def _superstep_update(self, state):
+        """One superstep (megastep.make_priority_superstep). Its draws come
+        from generators derived from the step counter, so a resume at this
+        step draws them again."""
+        cfg, dev = self.tr.cfg, self.replay.device
+        gens = superstep_generators(cfg.seed + 4, self.tr._step // self.steps_per_update,
+                                    self.N, dev)
+        u = superstep_uniforms(gens, self.K, cfg.batch_size, dev)
+
+        def dispatch(stores, tree, nss):
+            new_state, tree_out, m = self.superstep_fn(state, stores, tree, nss, u)
+            return tree_out, (new_state, m)
+
+        return self.replay.superstep_run(dispatch)
+
+    def sample(self, pipelined: bool = False):
+        if self.device_priority:
+            # drawn on the card at update time, from the live tree
+            return ("superstep", None, None, None)
+        if self.K > 1:
+            # drawn at update time, under the dispatch's lock hold: queued
+            # coordinates could be retargeted by the adds meanwhile
+            return ("multi", None, None, None)
+        with span("replay/sample"):
+            si = self.replay.sample_indices(self.tr.sample_rng)
+            dev = self.replay.device
+            coords = tuple(torch.from_numpy(x).to(dev) for x in (si.b, si.s, si.is_weights))
+            stamp = (si.old_ptr, si.old_advances)
+            if pipelined:
+                batch = self.replay.run_with_stores(lambda stores: self.gather_fn(stores, *coords))
+                return "batch", batch, si.idxes, stamp
+            return "coords", coords, si.idxes, stamp
+
+    def _multi_update(self, state):
+        dev = self.replay.device
+
+        def dispatch(stores, draws):
+            b, s, w = (torch.from_numpy(np.stack([getattr(d, f) for d in draws])).to(dev)
+                       for f in ("b", "s", "is_weights"))
+            return self.multi_fn(state, stores, b, s, w)
+
+        draws, (new_state, m, priorities) = self.replay.sample_and_run(
+            self.tr.sample_rng, self.K, dispatch)
+        prev, self._pending = self._pending, (start_read_back(priorities), draws)
+        if prev is not None:
+            self.drain_pending(prev)
+        return new_state, m
+
+    def drain_pending(self, pending=None) -> None:
+        """Apply a deferred (priorities, draws) pair: the previous one at
+        each K-update dispatch; with no argument (a run mode's exit) the one
+        left."""
+        if pending is None:
+            pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        prios, draws = pending
+        for row, d in zip(finish_read_back(prios), draws):
+            self.replay.update_priorities(d.idxes, row, d.old_ptr, d.old_advances)
+
+    def capture_pending(self) -> Optional[dict]:
+        """The preemption's capture of the deferred write-back (as
+        _TieredPlane.capture_pending)."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return None
+        prios, draws = pending
+        return {
+            "prios": finish_read_back(prios),
+            "idxes": np.stack([np.asarray(d.idxes) for d in draws]),
+            "old_ptr": np.asarray([d.old_ptr for d in draws], np.int64),
+            "old_advances": np.asarray([d.old_advances for d in draws], np.int64),
+        }
+
+    def restore_pending(self, d: dict) -> None:
+        draws = [types.SimpleNamespace(idxes=np.asarray(idx), old_ptr=int(p), old_advances=int(a))
+                 for idx, p, a in zip(d["idxes"], d["old_ptr"], d["old_advances"])]
+        self._pending = (np.asarray(d["prios"]), draws)
+
+    def update(self, state, item):
+        kind, payload, idxes, stamp = item
+        if kind == "superstep":
+            return self._superstep_update(state)
+        if kind == "multi":
+            return self._multi_update(state)
+        if kind == "batch":
+            state, m, priorities = self.batch_step_fn(state, payload)
+        else:
+            state, m, priorities = self.replay.run_with_stores(
+                lambda stores: self.step_fn(state, stores, *payload))
+        old_ptr, old_adv = stamp
+        self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
+        return state, m
+
+
+_PLANES = {"host": _HostPlane, "tiered": _TieredPlane, "device": _DevicePlane}
 
 
 class Trainer:
     def __init__(self, cfg: R2D2Config, vec_env=None, device="cuda", resume: bool = False,
                  metrics: Optional[MetricsLogger] = None, profile_dir: Optional[str] = None,
-                 profile_steps: int = 20):
+                 profile_steps: int = 20, fn_env=None):
         self.device = resolve_device(device)
-        self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
-        if self.vec_env.action_dim != cfg.action_dim:
-            cfg = cfg.replace(action_dim=self.vec_env.action_dim)
+        self.vec_env = self.fn_env = None
+        if cfg.collector == "device":
+            self.fn_env = fn_env if fn_env is not None else build_fn_env(cfg)
+            env_action_dim = self.fn_env.NUM_ACTIONS
+        else:
+            self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
+            env_action_dim = self.vec_env.action_dim
+        if env_action_dim != cfg.action_dim:
+            cfg = cfg.replace(action_dim=env_action_dim)
         self.cfg = cfg
         # trace the `profile_steps` updates after the first (the first builds
         # the kernels)
@@ -347,11 +502,12 @@ class Trainer:
                 cfg.checkpoint_dir, self.state, map_location=self.device)
             self.resumed = True
         self._initial_step = self._step = self.state.step
-        if self._initial_step % cfg.updates_per_dispatch != 0:
+        quantum = cfg.updates_per_dispatch * cfg.superstep_dispatches
+        if self._initial_step % quantum != 0:
             raise ValueError(
                 f"resumed step {self._initial_step} is not a multiple of "
-                f"updates_per_dispatch={cfg.updates_per_dispatch}; resume with the K "
-                "the checkpoint was trained with (or K=1)"
+                f"updates_per_dispatch*superstep_dispatches={quantum}; resume with the "
+                "N and K the checkpoint was trained with (or N=K=1)"
             )
         self.sample_rng = np.random.default_rng(cfg.seed + 2)
         self.step_fn = make_train_step(cfg)
@@ -370,16 +526,21 @@ class Trainer:
             # the restored env steps are in the checkpoint's count already
             self.env_steps_offset -= self.replay.env_steps
         self.param_store = ParamStore(self.state.net)
-        self.actor = VectorizedActor(
-            cfg,
-            copy.deepcopy(self.state.net),
-            self.param_store,
-            self.vec_env,
-            epsilon_ladder(cfg.num_actors, cfg.base_eps, cfg.eps_alpha),
-            self.replay.add_block,
-            seed=cfg.seed + 1,
-            device=self.device,
-        )
+        if cfg.collector == "device":
+            self.actor = DeviceCollector(cfg, copy.deepcopy(self.state.net), self.param_store,
+                                         self.fn_env, self.replay, seed=cfg.seed + 1,
+                                         device=self.device)
+        else:
+            self.actor = VectorizedActor(
+                cfg,
+                copy.deepcopy(self.state.net),
+                self.param_store,
+                self.vec_env,
+                epsilon_ladder(cfg.num_actors, cfg.base_eps, cfg.eps_alpha),
+                self.replay.add_block,
+                seed=cfg.seed + 1,
+                device=self.device,
+            )
         self.metrics_logger = metrics or MetricsLogger(cfg.metrics_path, cfg.log_interval)
         # the latest un-emitted (metrics, step, extra); see _log
         self._pending_log = None
@@ -445,7 +606,11 @@ class Trainer:
             pend = capture()
             for k, v in (pend or {}).items():
                 carry[f"pend_{k}"] = v
-        if hasattr(self.vec_env, "get_state"):
+        if self.cfg.collector == "device":
+            # the collector's carry holds its env states and generator
+            for k, v in self.actor.carry_state().items():
+                carry[f"actor_{k}"] = v
+        elif hasattr(self.vec_env, "get_state"):
             # the actor's carry is of use only if the envs resume exactly
             # too; pools without get_state start fresh episodes
             for k, v in self.actor.carry_state().items():
@@ -564,10 +729,12 @@ class Trainer:
 
     # ------------------------------------------------------------- updates
 
-    def sample(self):
+    def sample(self, pipelined: bool = False):
         """One item of the replay plane: a batch on the device (host plane;
-        from pageable memory) or a staged chunk (tiered plane)."""
-        return self.plane.sample()
+        from pageable memory), a staged chunk (tiered plane), or coordinates
+        or a batch gathered on the card (device plane; `pipelined`: gathered
+        now, for a queue)."""
+        return self.plane.sample(pipelined)
 
     def _sample_staged(self):
         """One host-plane batch through the pinned ring and the side stream
@@ -703,7 +870,8 @@ class Trainer:
         sampling opening: learning_starts is then out of the ring's reach.
         A preemption request ends it early (the run loop then cuts)."""
         steps = 0
-        inserted0 = self.replay.env_steps
+        inserted0 = last_inserted = self.replay.env_steps
+        progress_mark = 0  # attempted steps at the last recorded insertion
         saturation = 2 * self.cfg.buffer_capacity + self.cfg.learning_starts
         while not self.replay.can_sample():
             if self._preempt.is_set():
@@ -715,11 +883,23 @@ class Trainer:
             steps += self.actor.steps_per_call
             if max_steps is not None and steps >= max_steps:
                 raise RuntimeError("warmup exceeded max_steps without filling replay")
+            if self.replay.env_steps != last_inserted:
+                last_inserted = self.replay.env_steps
+                progress_mark = steps
             if self.replay.env_steps - inserted0 >= saturation:
                 raise RuntimeError(
                     f"replay saturated at {len(self.replay)} transitions, below "
                     f"learning_starts={self.cfg.learning_starts}: lower "
                     "learning_starts or grow buffer_capacity"
+                )
+            if steps - progress_mark >= saturation:
+                # recording has stalled (e.g. episodes that never end within
+                # the collector's chunks): the guard above would never fire
+                raise RuntimeError(
+                    f"warmup recorded no insertions over {saturation} attempted env steps "
+                    f"(replay stuck at {len(self.replay)} transitions): episodes may never "
+                    "complete within the collector's chunks — check max_episode_steps vs "
+                    "chunk/block length"
                 )
 
     def run_inline(self, env_steps_per_update: Optional[int] = None) -> None:
@@ -773,7 +953,7 @@ class Trainer:
         staged = self.device.type == "cuda" and isinstance(self.plane, _HostPlane)
         if staged and self.plane.stager is None:
             self.plane.stager = PinnedStager(self.device, _STAGING_SLOTS, self.xfer)
-        sample = self._sample_staged if staged else self.sample
+        sample = self._sample_staged if staged else (lambda: self.sample(pipelined=True))
 
         spi = cfg.samples_per_insert
         consumed_per_update = cfg.batch_size * cfg.learning_steps
@@ -854,6 +1034,74 @@ class Trainer:
         else:
             cleanup()
 
+    def run_fused(self, collect_every: Optional[int] = None) -> None:
+        """One dispatch per iteration: K updates and, every collect_every-th
+        dispatch, a collection chunk and its slab write (megastep.py), with
+        no worker threads. collect_every=None paces collection from
+        cfg.samples_per_insert on the actual counters (0: every dispatch)."""
+        cfg = self.cfg
+        if cfg.collector != "device" or cfg.replay_plane != "device":
+            raise ValueError(
+                "run_fused needs collector='device' and replay_plane='device' "
+                f"(got {cfg.collector!r}, {cfg.replay_plane!r})"
+            )
+        self.reset_clock()
+        # the main-thread watchdog, armed before the warmup: a wedged
+        # read-back would otherwise hang this loop silently
+        sup = self._sup = self._make_supervisor()
+        with self._sigterm_to_preempt(), sup.armed_watchdog():
+            self._run_fused_body(sup, collect_every)
+        if self.preempted:
+            self._finalize_preempt()
+
+    def _run_fused_body(self, sup: Supervisor, collect_every: Optional[int]) -> None:
+        cfg = self.cfg
+        self.warmup(beat=sup.main_beat)
+        runner = FusedSystemRunner(
+            cfg, self.device, self.fn_env, self.replay, self.actor.epsilons,
+            self.actor.env_state, self.actor.draws,
+            collect_every=1 if collect_every is None else collect_every,
+            chunk_len=self.actor.chunk, sample_rng=self.sample_rng,
+            samples_per_insert=cfg.samples_per_insert if collect_every is None else 0.0,
+        )
+        self.fused_runner = runner
+        pending_log = None
+        try:
+            # the log lags one dispatch: reading a dispatch's loss at once
+            # would wait for it, the wait the deferred read-backs avoid
+            while self._step < cfg.training_steps:
+                sup.main_beat()
+                if self._preempt_now():
+                    break
+                self._profile_gate()
+                prev = self._step
+                t0 = time.perf_counter()
+                with step_span("fused_megastep", prev):
+                    self.state, m, recorded = runner.step(self.state)
+                t1 = time.perf_counter()
+                self.update_seconds.append(t1 - t0)
+                self.update_ends.append(t1)
+                self._step += cfg.updates_per_dispatch
+                self.last_metrics = m
+                self._profile_tick(cfg.updates_per_dispatch)
+                self._cadences(prev, self._step)
+                if recorded and pending_log is not None:
+                    self._log(*pending_log)
+                pending_log = (m, self._step)
+        finally:
+            sup.stop.set()  # the drain below is not a stall
+            self._stop_profile()
+            runner.finish()
+            if pending_log is not None:
+                self._log(*pending_log)
+            self._flush_log()
+            # the collector continues from the runner's episodes and draws
+            self.actor.env_state = runner.env_state
+            self.actor.total_steps += runner.total_env_steps
+            if cfg.snapshot_replay:
+                # the carry after the hand-back, so it holds the runner's state
+                self._snapshot_on_exit(extra=self._capture_carry_safe())
+
     # ------------------------------------------------------------- summary
 
     def metrics(self) -> dict:
@@ -890,16 +1138,22 @@ def main(argv=None):
     p.add_argument("--preset", default="atari", choices=sorted(PRESETS))
     p.add_argument("--env", default=None, help="override env name (e.g. catch)")
     p.add_argument("--steps", type=int, default=None)
-    p.add_argument("--mode", default="inline", choices=["inline", "threaded"],
+    p.add_argument("--mode", default="inline", choices=["inline", "threaded", "fused"],
                    help="inline: strict actor/learner alternation; threaded: actor and "
                         "sampler threads under a supervisor, batches staged through "
-                        "pinned memory on the card")
-    p.add_argument("--replay", default=None, choices=["host", "tiered"],
+                        "pinned memory on the card; fused: one dispatch = K updates + a "
+                        "collection chunk on the card (collector and replay 'device')")
+    p.add_argument("--collector", default=None, choices=["host", "device"],
+                   help="experience collection: the host actor, or whole chunks on the "
+                        "card (collect.py; tensor env cores only)")
+    p.add_argument("--replay", default=None, choices=["host", "tiered", "device"],
                    help="replay data plane (default: the preset's replay_plane): host "
                         "ships one batch per update; tiered stages K batches per dispatch "
-                        "through pinned memory (replay/tiered_store.py)")
+                        "through pinned memory (replay/tiered_store.py); device holds the "
+                        "store on the card and gathers in the step (replay/device_store.py)")
     p.add_argument("--updates-per-dispatch", type=int, default=None,
-                   help="K learner updates per dispatch (tiered plane)")
+                   help="K learner updates per dispatch (tiered and device planes; alone, "
+                        "it moves the host plane to the device plane)")
     p.add_argument("--model-preset", default=None,
                    help="named model-size preset (config.MODEL_PRESETS: wide/xl "
                         "widen the LSTM, deep/deep_wide add encoder layers) applied "
@@ -940,8 +1194,19 @@ def main(argv=None):
         overrides["metrics_path"] = args.metrics
     if args.replay:
         overrides["replay_plane"] = args.replay
+    if args.mode == "fused" and args.collector is None:
+        args.collector = "device"  # the only collector run_fused takes
+    if args.collector:
+        overrides["collector"] = args.collector
+        if args.collector == "device" and args.replay is None:
+            overrides["replay_plane"] = "device"
     if args.updates_per_dispatch is not None:
         overrides["updates_per_dispatch"] = args.updates_per_dispatch
+        # the JAX CLI's convenience for the single-card default: K > 1 on
+        # the host plane takes the device plane; an explicit plane stays
+        if (args.updates_per_dispatch > 1 and args.replay is None
+                and args.collector != "device" and cfg.replay_plane == "host"):
+            overrides["replay_plane"] = "device"
     if args.snapshot_replay:
         overrides["snapshot_replay"] = True
     overrides.update(parse_overrides(args.set))
@@ -957,6 +1222,8 @@ def main(argv=None):
     try:
         if args.mode == "threaded":
             trainer.run_threaded()
+        elif args.mode == "fused":
+            trainer.run_fused()
         else:
             trainer.run_inline()
     except WorkerStalledError as e:

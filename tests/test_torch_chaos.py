@@ -37,6 +37,16 @@ STEPS = 12
 _PLANE_CFG = {
     "host": {},
     "tiered": dict(replay_plane="tiered", deterministic_staging=True, updates_per_dispatch=2),
+    # the device planes: K=2 with the deferred write-back pending at every
+    # cut, and the device priority plane's N x K superstep (N=2), whose
+    # draws derive from the step counter
+    "device": dict(replay_plane="device", updates_per_dispatch=2),
+    "device_priority": dict(replay_plane="device", priority_plane="device",
+                            updates_per_dispatch=2, superstep_dispatches=2),
+    # collection on the card: the collector's generator and its episodes
+    # carried across chunks (tiny_test's episodes outlive a 16-step chunk)
+    "device_collector": dict(replay_plane="device", collector="device",
+                             updates_per_dispatch=2),
 }
 
 
@@ -144,6 +154,31 @@ def test_sigterm_resume_is_bit_identical(tmp_path, plane, site, call):
     _assert_identical(_fingerprint(clean, tmp_path, "clean"),
                       _fingerprint(resumed, tmp_path, "killed"))
     np.testing.assert_array_equal(_next_draw_idxes(clean), _next_draw_idxes(resumed))
+
+
+@pytest.mark.parametrize("plane,call", [("device", 3), ("device_priority", 1),
+                                        ("device_collector", 2)])
+def test_device_planes_sigterm_resume_is_bit_identical(tmp_path, plane, call):
+    """R2D2_FAULTS="trainer.update@N=sigterm" on the device planes: the
+    resumed run's first update's loss, and every state at the end (the
+    device tree's leaves among the replay's), equal an uninterrupted run's."""
+    clean = _run_clean(_cfg(tmp_path, "clean", plane))
+    cfg = _cfg(tmp_path, "killed", plane)
+    cut = _kill(cfg, "trainer.update", call)._step
+    assert cut > 0
+    resumed = _resume(cfg, cut)
+    _assert_identical(_fingerprint(clean, tmp_path, "clean"),
+                      _fingerprint(resumed, tmp_path, "killed"))
+
+    def loss_after(tag, step):
+        with open(tmp_path / tag / "metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        return [r["loss"] for r in recs if r.get("step") == step]
+
+    first = cut + resumed.plane.steps_per_update
+    assert loss_after("killed", first) == loss_after("clean", first) != []
+    if plane == "device_priority":
+        assert torch.equal(clean.replay.dtree.tree, resumed.replay.dtree.tree)
 
 
 def test_lru_core_carry_resumes_bit_identically(tmp_path):

@@ -724,3 +724,142 @@ def test_tiered_dispatch_launches_and_preempt_resume_on_the_card(cuda, tmp_path)
     oa = clean.state.optimizer.state_dict()["state"]
     ob = resumed.state.optimizer.state_dict()["state"]
     assert all(torch.equal(v, ob[i][n]) for i in oa for n, v in oa[i].items())
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_device_store_gather_on_the_card_equals_the_cpu(cuda, precision):
+    """The device plane's store on the card and on the CPU, filled with the
+    same blocks: the same coordinates gather the same batch bit for bit."""
+    from r2d2_tpu_torch.learner import make_store_gather
+    from r2d2_tpu_torch.replay.accumulator import SequenceAccumulator
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+
+    cfg = tiny_test().replace(replay_plane="device", precision=precision)
+    bufs = {d: DeviceReplayBuffer(cfg, d) for d in ("cpu", cuda)}
+    for i in range(12):
+        rng = np.random.default_rng(i)
+        acc = SequenceAccumulator(cfg)
+        acc.reset(rng.integers(0, 256, cfg.obs_shape, dtype=np.uint8))
+        for _ in range([16, 9, 16, 5][i % 4]):
+            acc.add(action=int(rng.integers(cfg.action_dim)), reward=float(rng.normal()),
+                    next_obs=rng.integers(0, 256, cfg.obs_shape, dtype=np.uint8),
+                    q_value=rng.normal(size=cfg.action_dim).astype(np.float32),
+                    hidden=rng.normal(size=(2, cfg.hidden_dim)).astype(np.float32))
+        block = acc.finish(last_qval=None if i % 2 else
+                           rng.normal(size=cfg.action_dim).astype(np.float32))
+        for buf in bufs.values():
+            buf.add_block(*block)
+    si = bufs["cpu"].sample_indices(np.random.default_rng(0))
+    gather = make_store_gather(cfg)
+    out = {d: gather(buf.stores, *(torch.from_numpy(x).to(d) for x in (si.b, si.s,
+                                                                        si.is_weights)))
+           for d, buf in bufs.items()}
+    for name, a, b in zip(DeviceBatch._fields, out[cuda], out["cpu"]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b), name
+
+
+def test_device_sum_tree_on_the_card_equals_the_cpu(cuda):
+    """Updates with duplicates and masks, descents and IS weights of the
+    device tree on the card: the CPU's within 1e-6 relative (the sums are
+    the same additions; td**alpha may round by an ulp), the descents of the
+    same uniforms equal, and deterministic under
+    torch.use_deterministic_algorithms."""
+    from r2d2_tpu_torch.replay import device_sum_tree as dst
+
+    cap = 5000
+    L = dst.tree_layers(cap)
+    rng = np.random.default_rng(1)
+    trees = {d: dst.tree_init(cap, d) for d in ("cpu", cuda)}
+    for _ in range(20):
+        idx = torch.from_numpy(rng.integers(0, cap, 256))
+        td = torch.from_numpy(rng.uniform(0, 4, 256).astype(np.float32))
+        mask = torch.from_numpy(rng.random(256) < 0.9)
+        for d in trees:
+            trees[d] = dst.tree_update(trees[d], L, idx.to(d), td.to(d), 0.9, mask.to(d))
+    torch.testing.assert_close(trees[cuda].cpu(), trees["cpu"], rtol=1e-6, atol=1e-6)
+    same = dst.tree_from_leaves(trees["cpu"][dst.leaf_offset(L):][:cap].numpy(), cap, cuda)
+    u = torch.rand(64, generator=torch.Generator().manual_seed(2))
+    leaf = dst.tree_descend(same, L, u.to(cuda))
+    assert torch.equal(leaf.cpu(), dst.tree_descend(same.cpu(), L, u))
+    torch.testing.assert_close(dst.is_weights(same, L, leaf, 0.6).cpu(),
+                               dst.is_weights(same.cpu(), L, leaf.cpu(), 0.6),
+                               rtol=1e-6, atol=0)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = dst.tree_update(same, L, idx.to(cuda), td.to(cuda), 0.9)
+        b = dst.tree_update(same, L, idx.to(cuda), td.to(cuda), 0.9)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(a, b)
+
+
+def test_megastep_and_superstep_on_the_card_match_the_cpu(cuda):
+    """One fused megastep (K=2: the chunk with the entry parameters, the
+    updates, the slab write) and one N=2 superstep on the card, from the
+    CPU's parameters, stores, tree and draws: the chunk's integer fields
+    and frames equal, the updates' loss and priorities within rtol 1e-4 /
+    atol 1e-5 (tiny_test's mlp encoder), and each launches 2K + K
+    kernels per dispatch."""
+    from r2d2_tpu_torch.actor import ParamStore
+    from r2d2_tpu_torch.collect import DeviceCollector, GivenDraws
+    from r2d2_tpu_torch.envs.catch import TensorCatchEnv
+    from r2d2_tpu_torch.learner import init_train_state
+    from r2d2_tpu_torch.megastep import make_megastep, make_priority_superstep
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+
+    k = 2
+    cfg = tiny_test().replace(env_name="catch", action_dim=3, num_actors=4,
+                              max_episode_steps=16, replay_plane="device",
+                              priority_plane="device", updates_per_dispatch=k,
+                              training_steps=4, target_net_update_interval=2)
+    fn_env = TensorCatchEnv(12, 12)
+    _, state = init_train_state(cfg, "cpu")
+    replay = DeviceReplayBuffer(cfg, "cpu")
+    col = DeviceCollector(cfg, copy.deepcopy(state.net), ParamStore(state.net), fn_env, replay,
+                          seed=3, device="cpu")
+    while not replay.can_sample():
+        col.step()
+    with replay.lock:
+        ptr0 = replay._reserve_advance(4)
+        draws = [replay._draw_sample_idx(np.random.default_rng(5)) for _ in range(k)]
+    coords = [torch.from_numpy(np.stack([getattr(d, f) for d in draws]))
+              for f in ("b", "s", "is_weights")]
+    rng = np.random.default_rng(6)
+    u, a = rng.random((16, 4)).astype(np.float32), rng.integers(0, 3, (16, 4))
+    fresh = fn_env.reset(4, torch.Generator().manual_seed(1))
+    results = {}
+    for d in ("cpu", cuda):
+        st = copy.deepcopy(state)
+        for net in (st.net, st.target_net):
+            net.to(d)
+        st.optimizer = make_optimizer(cfg, st.net.parameters())
+        stores = {key: t.to(d, copy=True) for key, t in replay.stores.items()}
+        env = type(col.env_state)(*(t.to(d) for t in col.env_state))
+        lstm_kernel.reset_launch_counts()
+        st, m, p, chunk, _ = make_megastep(cfg, fn_env, 4, 16, k)(
+            st, stores, env, col.epsilons.to(d), GivenDraws(u, a, resets=fresh), *(
+                x.to(d) for x in coords), ptr0)
+        mega_launches = dict(lstm_kernel.launch_counts)
+        lstm_kernel.reset_launch_counts()
+        uu = torch.from_numpy(rng.random((2, k, cfg.batch_size)).astype(np.float32)) \
+            if d == "cpu" else results["cpu"]["u"]
+        st, tree, m2 = make_priority_superstep(cfg, 2, k)(
+            st, stores, replay.dtree.tree.to(d), torch.from_numpy(replay.num_seq_store).to(d),
+            uu.to(d))
+        results[d] = dict(m=m, p=p, chunk=chunk, stores=stores, tree=tree, m2=m2, u=uu,
+                          mega=mega_launches, sup=dict(lstm_kernel.launch_counts))
+    got, want = results[cuda], results["cpu"]
+    for key in ("obs", "last_action", "action", "burn_in", "learning", "forward"):
+        assert torch.equal(got["stores"][key].cpu(), want["stores"][key]), key
+    for x, y in zip(got["chunk"][1:4], want["chunk"][1:4]):
+        assert torch.equal(x.cpu(), y)
+    torch.testing.assert_close(got["p"].cpu(), want["p"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["m"]["loss"].cpu(), want["m"]["loss"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["m2"]["loss"].cpu(), want["m2"]["loss"], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(got["tree"].cpu(), want["tree"], rtol=1e-4, atol=1e-5)
+    assert {key: v for key, v in got["mega"].items() if v} == {"lstm_fwd": 2 * k,
+                                                              "lstm_seq_bwd": k}
+    assert {key: v for key, v in got["sup"].items() if v} == {"lstm_fwd": 4 * k,
+                                                             "lstm_seq_bwd": 2 * k}
