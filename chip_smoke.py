@@ -141,7 +141,7 @@ its own lines; any failure exits non-zero and prints no result:
 20. tiered the tiered replay plane at the paper's 2,000,000 transitions
           (learning_starts cut to 2,000), bf16 and fp32, K=1 and K=4 updates
           per dispatch, beside the host plane at the same capacity in the
-          same call: ms per update over the wall (24 updates inline, acting
+          same call: ms per update over the wall (16 updates inline, acting
           included), launches per dispatch (2K forward + K backward,
           counted from 0 just before), the update peak and the two slabs'
           size, TransferTimer's overlap, the process's resident memory with
@@ -165,7 +165,7 @@ its own lines; any failure exits non-zero and prints no result:
           write-backs; a superstep of N=2 equals two of N=1 and launches
           2NK + NK; a device snapshot round trip at 16,000 transitions.
           Then, bf16 and fp32 in the same call, ms per update over the wall
-          (24 updates inline, acting included) of the host plane (16,000,
+          (16 updates inline, acting included) of the host plane (16,000,
           native core), the tiered plane at K=4, the device plane at K=1
           and K=4 and the device priority plane at K=4, N=2 (all at
           2,000,000), each with its launches, update peak, store bytes on
@@ -182,6 +182,30 @@ its own lines; any failure exits non-zero and prints no result:
           per second (and in bf16 its kernel launches, by the profiler),
           launches 2K + K per dispatch; and the CLI's --mode fused once in
           a subprocess.
+23. procgen the procgen_impala preset (procmaze 64x64x3 -> IMPALA (16, 32,
+          32) -> LSTM 512, T=85, B=64), replay cut to 16,000 transitions
+          (learning_starts 2,000): the procmaze core on the card equals the
+          CPU's bit for bit from the same draws (64 envs, 100 steps); a
+          96-step collector chunk over 16 envs equals the host actor's
+          SequenceAccumulator blocks (as phase 22, compare_blocks), fp32
+          and bf16; 8 inline updates in bf16 and fp32, each 2 K1 + 1 K2 of
+          its dtype, ms per update alone and over the wall, the update
+          peak; one update held against the CPU (fp32 1e-4 / 1e-5; bf16
+          1e-2 / 1e-3 on the loss and gradients, and on the whole update
+          with the card's encoder outputs handed to both, the priorities of
+          the whole bf16 update printed); run_fused with the device
+          collector (K=2, launches 2K + K); the CLI once. 4 more updates
+          of each dtype under torch.profiler: device time by kernel, busy
+          share.
+24. multitask MultiTaskTrainer over keydoor, drift, banditgrid and catch at
+          the atari preset's widths (84x84x1, nature, LSTM 512, T=85, B=64
+          in four task shares of 16, 8 actors, union action_dim 5),
+          learning_starts cut to 2,000, bf16 and fp32: warmup, the acting
+          step's invalid Q at -1e9, one stratified update against the CPU
+          (1e-4 / 1e-5; bf16 1e-2 / 1e-3), 8 updates through train() of 2
+          K1 + 1 K2 each, every stored action below its task's count, ms
+          per update alone and over the wall, the update peak, per-task env
+          steps, per-task evaluation rows; the sweep CLI's --multitask once.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -252,7 +276,7 @@ E2E = {"bf16": (12, 6), "fp32": (8, 4), "long_context bf16": (4, 2),
        "long_context fp32": (4, 2)}
 # phase 15: learner updates timed per mode, after 2 that warm the path, and
 # the updates profiled after them (processing the trace of each costs time)
-MODE_UPDATES = 24
+MODE_UPDATES = 16
 PROFILED_UPDATES = 6
 # phase 16: a hidden size that is a multiple of neither 4 nor 8
 ODD_HIDDEN = 510
@@ -279,7 +303,7 @@ THREADED_CUT = (8, 4)
 # TIERED_PROFILED more under the profiler
 TIERED_CAPACITY = 2_000_000
 TIERED_KS = (1, 4)
-TIERED_UPDATES = 24
+TIERED_UPDATES = 16
 TIERED_PROFILED = 8
 # phases 21 and 22: the device planes at the paper's capacity; the rows of
 # phase 21 as (plane, K, N, capacity), timed as phase 20's
@@ -294,6 +318,25 @@ SNAPSHOT_CAPACITY = 16_000
 FUSED_DISPATCHES = 6
 BLOCK_CHECK_ENVS = 16
 MEGA_CAPACITY = 16_000
+# phase 23: the procgen_impala preset with its replay cut as the other phases
+# cut theirs; updates per dtype; the procmaze core's card-vs-CPU check (envs,
+# steps); fused dispatches of K updates on procmaze
+PROCGEN_CUT = dict(buffer_capacity=16_000, learning_starts=2_000)
+PROCGEN_UPDATES = 8
+PROCMAZE_CHECK = (64, 100)
+PROCGEN_FUSED_K = 2
+PROCGEN_PROFILED = 4
+# phase 24: the multi-task family (the sweep's default maze,drift,bandit and
+# its catch anchor) at the atari preset's widths, its replay cut likewise
+MULTITASK_TASKS = ("keydoor", "drift", "banditgrid", "catch")
+# learning_starts cut as the other phases cut it; the capacity stays the
+# preset's: each task's ring holds one episode per 400-step block slot, and
+# keydoor's and banditgrid's episodes last at most 28 and 16 steps, so a
+# 16,000-transition store (10 slots a task) never reaches a task's 500
+MULTITASK_CUT = dict(learning_starts=2_000)
+MULTITASK_WARMUP_CAP = 20_000
+MULTITASK_UPDATES = 8
+MULTITASK_EVAL = dict(episodes=8, horizon=100)
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -413,42 +456,83 @@ def drive(cfg, updates, dev):
     return tr, launches, m, [s * 1e3 for s in tr.update_seconds], peak
 
 
-def one_update(net, target, cfg, sampled, where):
+def one_update(net, target, cfg, sampled, where, latents=None):
     """(loss, priorities, gradient norm, each parameter's gradient norm) of
     one update of `net` on a sampled batch, on `where`, without stepping
-    the optimizer."""
+    the optimizer. `latents` = (online, target) encoder outputs for the
+    batch's frames hands both networks those latents in place of their
+    encoders (whose parameters then take no gradient)."""
     import torch
     from r2d2_tpu_torch.learner import DeviceBatch, make_loss_fn
 
     net = copy.deepcopy(net).to(where)
     net.zero_grad(set_to_none=True)
     target = copy.deepcopy(target).to(where)
+    if latents is not None:
+        net.enc, target.enc = (_Given(x.to(where)) for x in latents)
     b = DeviceBatch.from_sampled(sampled, where)
     denom = torch.clamp(b.learning_steps.sum().float(), min=1.0)
     loss, (prio, _) = make_loss_fn(cfg)(net, target, b, denom)
     loss.backward()
-    norms = torch.stack([p.grad.float().norm() for p in net.parameters()])
+    norms = torch.stack([p.grad.float().norm() for p in net.parameters() if p.grad is not None])
     return [x.detach().cpu() for x in (loss, prio, norms.norm(), norms)]
 
 
-def agree(tr, label, rtol=1e-4, atol=1e-5):
-    """One update on a sampled batch through the kernels on the card against
-    the same update through the plain versions on the CPU; -> the batch."""
+def _Given(latent):
+    """A module standing in for an encoder: returns `latent` whatever its
+    input."""
     import torch
 
-    sampled = tr.replay.sample_batch(tr.sample_rng)
+    class Given(torch.nn.Module):
+        def forward(self, x):
+            return latent
+
+    return Given()
+
+
+def encoder_latents(tr, sampled):
+    """The online and target encoders' outputs on the card for a sampled
+    batch's frames, as the networks' _core_input computes them."""
+    import torch
+    from r2d2_tpu_torch.learner import DeviceBatch
+
+    obs = DeviceBatch.from_sampled(sampled, "cuda").obs
+    x = obs.reshape(-1, *obs.shape[2:]).to(tr.state.net.dtype) / 255.0
+    with torch.no_grad():
+        return tr.state.net.enc(x), tr.state.target_net.enc(x)
+
+
+AGREE_NAMES = ("loss", "priorities", "grad_norm", "grad_norm per parameter")
+
+
+def agree(tr, label, rtol=1e-4, atol=1e-5, sampled=None, latents=None, held=AGREE_NAMES):
+    """One update on a sampled batch (drawn from the trainer's replay unless
+    given) through the kernels on the card against the same update through
+    the plain versions on the CPU (with `latents`, both given the card's
+    encoder outputs: encoder_latents); prints every comparison, then fails
+    if one of those named in `held` is outside rtol / atol; -> the batch."""
+    import torch
+
+    if sampled is None:
+        sampled = tr.replay.sample_batch(tr.sample_rng)
     t = time.perf_counter()
-    results = {where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled, where)
+    results = {where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled, where,
+                                 latents)
                for where in ("cuda", "cpu")}
-    for name, a, b in zip(("loss", "priorities", "grad_norm", "grad_norm per parameter"),
-                          results["cuda"], results["cpu"]):
+    bad = []
+    for name, a, b in zip(AGREE_NAMES, results["cuda"], results["cpu"]):
         diff = float((a - b).abs().max())
-        if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            fail(f"{label}: {name} through the kernels differs from the CPU's plain "
-                 f"versions: {diff:.3e}")
+        excess = float(((a - b).abs() - (atol + rtol * b.abs())).max())
+        if name in held and not torch.allclose(a, b, rtol=rtol, atol=atol):
+            bad.append(f"{name} {diff:.3e}")
         say("agree", f"{label} {name}: card {a.flatten()[0].item():.6f} vs cpu "
-            f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e}, rtol {rtol} atol {atol})")
+            f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e}, largest |cpu| "
+            f"{float(b.abs().max()):.3e}, excess over rtol {rtol} atol {atol}: {excess:+.3e}"
+            f"{'' if name in held else ', printed, not held'})")
     say("agree", f"{label}: {len(sampled.idxes)} rows, {time.perf_counter() - t:.1f}s")
+    if bad:
+        fail(f"{label}: through the kernels differs from the CPU's plain versions: "
+             + ", ".join(bad))
     return sampled
 
 
@@ -1547,6 +1631,57 @@ def device_phase(dev, tmp):
     return rows
 
 
+def compare_blocks(label, cfg, out, pushed):
+    """A collector chunk's packed blocks (make_collect_fn's result `out`)
+    against the host actor's SequenceAccumulator blocks on the same
+    trajectories, `pushed[i]` = (block, priorities, episode reward) of slot
+    i: frames, actions, rewards, returns, discounts and counters bit for
+    bit, the slot's terminal flag, carries and priorities to rtol 1e-5 /
+    atol 1e-6. Fails on a difference; -> the largest carry and priority
+    differences."""
+    import numpy as np
+    import torch
+
+    from r2d2_tpu_torch.replay.block import to_state_host
+
+    fields, prios, num_seq, sizes, dones = out[:5]
+    worst = {"hidden": 0.0, "priorities": 0.0}
+    for i, (block, host_prios, ep_reward) in enumerate(pushed):
+        size, ns = int(sizes[i]), int(num_seq[i])
+        exact = {
+            "obs": (fields["obs"][i, : size + 1].cpu().numpy(), block.obs),
+            "last_action": (fields["last_action"][i, : size + 1].cpu().numpy(),
+                            block.last_action.astype(np.int32)),
+            "last_reward": (fields["last_reward"][i, : size + 1].cpu().numpy(),
+                            block.last_reward),
+            "action": (fields["action"][i, :size].cpu().numpy(), block.action.astype(np.int32)),
+            "n_step_reward": (fields["n_step_reward"][i, :size].cpu().numpy(),
+                              block.n_step_reward),
+            "gamma": (fields["gamma"][i, :size].cpu().numpy(), block.gamma),
+            "burn_in": (fields["burn_in"][i, :ns].cpu().numpy(), block.burn_in_steps),
+            "learning": (fields["learning"][i, :ns].cpu().numpy(), block.learning_steps),
+            "forward": (fields["forward"][i, :ns].cpu().numpy(), block.forward_steps),
+        }
+        if size != len(block.action) or bool(dones[i]) != (ep_reward is not None):
+            fail(f"{label}: slot {i} recorded {size} steps (done {bool(dones[i])}), the host "
+                 f"actor {len(block.action)} (done {ep_reward is not None})")
+        for name, (got, want) in exact.items():
+            if not np.array_equal(got, want):
+                fail(f"{label}: slot {i}'s {name} differs from the host accumulator's")
+        hid = to_state_host(fields["hidden"][i, :ns], cfg.state_dtype)
+        hid_f = torch.from_numpy(hid.view(np.int16)).view(torch.bfloat16).float().numpy() \
+            if hid.dtype == np.uint16 else hid
+        want_f = torch.from_numpy(block.hidden.view(np.int16)).view(torch.bfloat16).float() \
+            .numpy() if block.hidden.dtype == np.uint16 else block.hidden
+        worst["hidden"] = max(worst["hidden"], float(np.abs(hid_f - want_f).max()))
+        worst["priorities"] = max(worst["priorities"], float(np.abs(
+            prios[i].cpu().numpy() - host_prios).max()))
+        if not (np.allclose(hid_f, want_f, rtol=1e-5, atol=1e-6)
+                and np.allclose(prios[i].cpu().numpy(), host_prios, rtol=1e-5, atol=1e-6)):
+            fail(f"{label}: slot {i}'s carries or priorities differ from the host's ({worst})")
+    return worst
+
+
 def fused_phase(dev, tmp):
     """Phase 22: --mode fused at the atari widths on catch, max_episode_steps
     cut to the 400-step chunk: the collector's blocks against the host
@@ -1574,7 +1709,6 @@ def fused_phase(dev, tmp):
     from r2d2_tpu_torch.learner import init_train_state, make_fused_multi_train_step
     from r2d2_tpu_torch.megastep import make_megastep
     from r2d2_tpu_torch.ops import lstm_kernel as K
-    from r2d2_tpu_torch.replay.block import to_state_host
     from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
     from r2d2_tpu_torch.train import Trainer
 
@@ -1607,45 +1741,11 @@ def fused_phase(dev, tmp):
         for _ in range(chunk):
             u.append(rng.random(E).astype(np.float32))
             a.append(rng.integers(0, 3, size=E))
-        fields, prios, num_seq, sizes, dones, _, _ = make_collect_fn(
-            cfg, TensorCatchEnv(H, W), E, chunk)(net, start, torch.from_numpy(eps).to(dev),
-                                                  GivenDraws(np.stack(u), np.stack(a),
-                                                             resets=start))
-        worst = {"hidden": 0.0, "priorities": 0.0}
-        for i, (block, host_prios, _) in enumerate(pushed):
-            size, ns = int(sizes[i]), int(num_seq[i])
-            exact = {
-                "obs": (fields["obs"][i, : size + 1].cpu().numpy(), block.obs),
-                "last_action": (fields["last_action"][i, : size + 1].cpu().numpy(),
-                                block.last_action.astype(np.int32)),
-                "last_reward": (fields["last_reward"][i, : size + 1].cpu().numpy(),
-                                block.last_reward),
-                "action": (fields["action"][i, :size].cpu().numpy(),
-                           block.action.astype(np.int32)),
-                "n_step_reward": (fields["n_step_reward"][i, :size].cpu().numpy(),
-                                  block.n_step_reward),
-                "gamma": (fields["gamma"][i, :size].cpu().numpy(), block.gamma),
-                "burn_in": (fields["burn_in"][i, :ns].cpu().numpy(), block.burn_in_steps),
-                "learning": (fields["learning"][i, :ns].cpu().numpy(), block.learning_steps),
-                "forward": (fields["forward"][i, :ns].cpu().numpy(), block.forward_steps),
-            }
-            if size != len(block.action) or not bool(dones[i]):
-                fail(f"fused: slot {i} recorded {size} steps, the host actor {len(block.action)}")
-            for name, (got, want) in exact.items():
-                if not np.array_equal(got, want):
-                    fail(f"fused {label}: slot {i}'s {name} differs from the host accumulator's")
-            hid = to_state_host(fields["hidden"][i, :ns], cfg.state_dtype)
-            hid_f = torch.from_numpy(hid.view(np.int16)).view(torch.bfloat16).float().numpy() \
-                if hid.dtype == np.uint16 else hid
-            want_f = torch.from_numpy(block.hidden.view(np.int16)).view(torch.bfloat16).float() \
-                .numpy() if block.hidden.dtype == np.uint16 else block.hidden
-            worst["hidden"] = max(worst["hidden"], float(np.abs(hid_f - want_f).max()))
-            worst["priorities"] = max(worst["priorities"], float(np.abs(
-                prios[i].cpu().numpy() - host_prios).max()))
-            if not (np.allclose(hid_f, want_f, rtol=1e-5, atol=1e-6)
-                    and np.allclose(prios[i].cpu().numpy(), host_prios, rtol=1e-5, atol=1e-6)):
-                fail(f"fused {label}: slot {i}'s carries or priorities differ from the host's "
-                     f"({worst})")
+        out = make_collect_fn(cfg, TensorCatchEnv(H, W), E, chunk)(
+            net, start, torch.from_numpy(eps).to(dev),
+            GivenDraws(np.stack(u), np.stack(a), resets=start))
+        fields = out[0]
+        worst = compare_blocks(f"fused {label}", cfg, out, pushed)
         say("fused", f"{label}: a {chunk}-step chunk over {E} catch envs at {H}x{W} equals the host "
             f"actor's blocks (frames, actions, rewards, returns, discounts, counters bit for "
             f"bit; max |diff| carries {worst['hidden']:.3e}, priorities "
@@ -1779,6 +1879,274 @@ def fused_phase(dev, tmp):
     say("fused", f"CLI --mode fused (bf16, {TIERED_CAPACITY} transitions): step {res['step']}, "
         f"loss {res['loss']:.6f}, {res['env_steps']} env steps, {res['seconds']:.1f}s "
         f"({time.perf_counter() - t0:.1f}s in the phase)")
+    return rows
+
+
+def procgen_phase(dev, tmp):
+    """Phase 23: the procgen_impala path (procmaze -> IMPALA (16, 32, 32) ->
+    LSTM 512, 64x64x3, T=85, B=64) at full width on the card, replay cut to
+    16,000 transitions (learning_starts 2,000): the procmaze core on the
+    card against the CPU bit for bit; the device collector's blocks against
+    the host accumulator's; the preset in bf16 and fp32 through
+    Trainer.run_inline (2 K1 + 1 K2 launches of the dtype per update, ms
+    per update alone and over the wall, the update peak) with one update
+    held against the CPU; run_fused with the device collector; the CLI."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from r2d2_tpu_torch.actor import ParamStore, VectorizedActor
+    from r2d2_tpu_torch.collect import GivenDraws, make_collect_fn
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.envs.procmaze import ProcMazeState
+    from r2d2_tpu_torch.learner import init_train_state
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.train import Trainer, build_fn_env, build_vec_env
+
+    t0 = time.perf_counter()
+    card = card_line()
+    base = PRESETS["procgen_impala"]().replace(**PROCGEN_CUT)
+    H, W, C = base.obs_shape
+
+    # the core on the card against the CPU, from the same draws
+    env = build_fn_env(base)
+    E, steps = PROCMAZE_CHECK
+    draws = env.level_draws(E, torch.Generator().manual_seed(0), "cpu")
+    states = {d: env.reset(E, device=d, draws=tuple(x.to(d) for x in draws)) for d in ("cpu", dev)}
+    rng = np.random.default_rng(0)
+    ends = 0
+    for t in range(steps):
+        a = torch.from_numpy(rng.integers(0, env.NUM_ACTIONS, E).astype(np.int32))
+        if not torch.equal(env.render(states[dev]).cpu(), env.render(states["cpu"])):
+            fail(f"procgen: the procmaze frames on the card differ from the CPU's at step {t}")
+        out = {d: env.step(st, a.to(d)) for d, st in states.items()}
+        states = {d: o[0] for d, o in out.items()}
+        got, want = [*out[dev][1:], *states[dev]], [*out["cpu"][1:], *states["cpu"]]
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+            fail(f"procgen: the procmaze step on the card differs from the CPU's at step {t}")
+        ends += int(out["cpu"][2].sum())
+    say("procgen", f"procmaze core ({env.g}x{env.g} cells of {env.cell} px, {H}x{W}x{C}): {E} "
+        f"envs x {steps} steps on the card equal the CPU's bit for bit (frames, rewards, "
+        f"dones, states; {ends} episode ends)")
+
+    # the device collector's blocks against the host accumulator's
+    chunk = base.max_episode_steps
+    for label, extra in (("fp32", {"compute_dtype": "float32"}), ("bf16", {})):
+        E = BLOCK_CHECK_ENVS
+        cfg = base.replace(num_actors=E, **extra)
+        _, st = init_train_state(cfg, dev)
+        net = st.net
+        eps = np.linspace(0.0, 1.0, E).astype(np.float32)
+        vec = build_vec_env(cfg, seed=4, device=dev)
+        pushed, slots = [], []
+        actor = VectorizedActor(cfg, copy.deepcopy(net), ParamStore(net), vec, eps,
+                                lambda b, p, r: pushed.append((b, p, r)), seed=11, device=dev)
+        start = ProcMazeState(*(x.clone() for x in vec._state))
+        for i, acc in enumerate(actor.accs):  # the slot of every pushed block
+            acc.finish = (lambda f, i: lambda *a, **k: (slots.append(i), f(*a, **k))[1])(
+                acc.finish, i)
+        for _ in range(chunk + 1):  # a truncation is pushed one step later
+            actor.step()
+        first = {}
+        for i, item in zip(slots, pushed):
+            first.setdefault(i, item)
+        if sorted(first) != list(range(E)):
+            fail(f"procgen: the host actor pushed blocks for slots {sorted(first)} only")
+        rng = np.random.default_rng(11)  # the host actor's draws, step by step
+        u, a = map(np.stack, zip(*((rng.random(E).astype(np.float32),
+                                    rng.integers(0, cfg.action_dim, size=E))
+                                   for _ in range(chunk))))
+        out = make_collect_fn(cfg, vec.env, E, chunk)(
+            net, start, torch.from_numpy(eps).to(dev), GivenDraws(u, a, resets=start))
+        worst = compare_blocks(f"procgen {label}", cfg, out, [first[i] for i in range(E)])
+        say("procgen", f"{label}: a {chunk}-step collector chunk over {E} procmaze envs equals the "
+            f"host actor's blocks ({int(out[4].sum())} terminal, the rest truncated; frames, "
+            f"actions, rewards, returns, discounts, counters bit for bit; max |diff| carries "
+            f"{worst['hidden']:.3e}, priorities {worst['priorities']:.3e})")
+        del net, st, actor, vec, out
+
+    # the preset through Trainer.run_inline, bf16 and fp32
+    rows = {}
+    n = PROCGEN_UPDATES
+    for label, extra, tol in (("bf16", {}, BF16_AGREE), ("fp32", {"compute_dtype": "float32"},
+                                                         {})):
+        sfx = "_bf16" if label == "bf16" else ""
+        tr, launches, m, ms, peak = drive(base.replace(**extra), n, dev)
+        if launches != {f"lstm_fwd{sfx}": 2 * n, f"lstm_seq_bwd{sfx}": n}:
+            fail(f"procgen {label}: {n} updates launched {launches}")
+        ends = tr.update_ends[-n:]
+        row = {"path": label, "updates": n, "ms_per_update": statistics.median(ms[1:]),
+               "ms_per_update_wall": (ends[-1] - ends[0]) * 1e3 / (n - 1),
+               "update_peak_gib": peak, "launches_per_update": {k: v // n for k, v in
+                                                                launches.items()},
+               "env_steps": m["env_steps"], "loss": m["loss"]}
+        say("procgen", json.dumps(row))
+        if label == "bf16":
+            # the IMPALA stack's 15 bf16 convolutions round in other orders
+            # in cuDNN and on the CPU (on an H100: the whole update's
+            # priorities 2.4e-3 apart, 1.9e-4 with the card's encoder
+            # outputs handed to both): the update behind the encoder is
+            # held whole, the whole update's priorities are printed
+            sampled = agree(tr, f"procgen {label}", held=("loss", "grad_norm",
+                                                         "grad_norm per parameter"), **tol)
+            agree(tr, f"procgen {label}, the card's encoder outputs handed to both", **tol,
+                  sampled=sampled, latents=encoder_latents(tr, sampled))
+        else:
+            agree(tr, f"procgen {label}", **tol)
+        profile_updates(tr, PROCGEN_PROFILED, f"procgen {label}")
+        rows[label] = row
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the device collector through Trainer.run_fused
+    k = PROCGEN_FUSED_K
+    tr = Trainer(base.replace(collector="device", replay_plane="device",
+                              updates_per_dispatch=k, training_steps=k), device=dev)
+    tr.run_fused()
+    tr.cfg = tr.cfg.replace(training_steps=3 * k)
+    K.reset_launch_counts()
+    tr.run_fused()
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != {"lstm_fwd_bf16": 4 * k, "lstm_seq_bwd_bf16": 2 * k}:
+        fail(f"procgen fused: 2 dispatches of K={k} launched {launches}")
+    m = tr.metrics()
+    say("procgen", f"bf16 --mode fused (device collector, {tr.cfg.num_actors} envs x {chunk}-step "
+        f"chunks, K={k}): step {m['step']}, loss {m['loss']:.6f}, {m['env_steps']} env steps, "
+        f"launches {launches}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI, once
+    args = ["--preset", "procgen_impala", "--steps", str(n), "--set",
+            f"learning_starts={PROCGEN_CUT['learning_starts']}", "--set",
+            f"buffer_capacity={PROCGEN_CUT['buffer_capacity']}", "--set",
+            f"checkpoint_dir={os.path.join(tmp, 'procgen_ckpt')}"]
+    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.train", *args], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"procgen: the CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res["step"] != n or not math.isfinite(res["loss"]):
+        fail(f"procgen: the CLI gave {res}")
+    say("procgen", f"CLI --preset procgen_impala --steps {n}: step {res['step']}, loss "
+        f"{res['loss']:.6f}, {res['env_steps']} env steps, {res['seconds']:.1f}s")
+    say("procgen", f"[{card}] ms per update (alone / over the wall, acting included): "
+        + ", ".join(f"{lb} {r['ms_per_update']:.2f} / {r['ms_per_update_wall']:.2f}, update "
+                    f"peak {r['update_peak_gib']:.2f} GiB" for lb, r in rows.items())
+        + f"; phase {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def multitask_phase(dev, tmp):
+    """Phase 24: MultiTaskTrainer over keydoor, drift, banditgrid and catch
+    at the atari preset's widths (84x84x1, nature, LSTM 512, T=85, B=64 in
+    four task shares of 16, 8 actors: 2 per task, the union action_dim 5),
+    replay cut to 16,000 transitions (learning_starts 2,000), bf16 and
+    fp32: warmup, one stratified update held against the CPU, the acting
+    step's masked Q, 8 updates through train() (2 K1 + 1 K2 per update, ms
+    per update alone and over the wall, the update peak, per-task env
+    steps), every stored action inside its task's native range, per-task
+    evaluation rows; then the sweep CLI's --multitask once."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.multitask import MultiTaskTrainer
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+
+    t0 = time.perf_counter()
+    card = card_line()
+    base = PRESETS["atari"]().replace(**MULTITASK_CUT)
+    n = MULTITASK_UPDATES
+    rows = {}
+    for label, extra, tol in (("bf16", {}, BF16_AGREE), ("fp32", {"compute_dtype": "float32"},
+                                                         {})):
+        sfx = "_bf16" if label == "bf16" else ""
+        tr = MultiTaskTrainer(base.replace(**extra), MULTITASK_TASKS, device=dev)
+        c = tr.cfg
+        if (c.action_dim, tr.batch_split, [a.env.num_envs for a in tr.actors]) != (
+                5, [16] * 4, [2] * 4):
+            fail(f"multitask: geometry {c.action_dim}, {tr.batch_split}")
+        w = time.perf_counter()
+        tr.warmup(max_steps_per_task=MULTITASK_WARMUP_CAP)
+        warm_s = time.perf_counter() - w
+        # the acting step: a 3-action task's tail is floored at -1e9
+        actor = tr.actors[MULTITASK_TASKS.index("catch")]
+        with torch.no_grad():
+            q, _ = actor.policy.act(torch.from_numpy(actor.obs).to(dev),
+                                    torch.from_numpy(actor.last_action).to(dev),
+                                    torch.from_numpy(actor.last_reward).to(dev), actor.carry,
+                                    actor.task_vec)
+        if not (q[:, 3:] == -1e9).all() or not (q[:, :3] > -1e8).all():
+            fail(f"multitask {label}: the catch actor's Q rows are {q.tolist()}")
+        sampled, _ = tr.draw_stratified()
+        agree(tr, f"multitask {label}", sampled=sampled, **tol)
+        ms = []
+        update = tr.update
+
+        def timed(update=update, ms=ms):
+            u = time.perf_counter()
+            m = update()  # ends in the priorities' copy to the host
+            ms.append((time.perf_counter() - u) * 1e3)
+            return m
+
+        tr.update = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        w = time.perf_counter()
+        m = tr.train(n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w) * 1e3 / n
+        launches = {key: v for key, v in K.launch_counts.items() if v}
+        if launches != {f"lstm_fwd{sfx}": 2 * n, f"lstm_seq_bwd{sfx}": n}:
+            fail(f"multitask {label}: {n} updates launched {launches}")
+        if not math.isfinite(float(m["loss"])):
+            fail(f"multitask {label}: loss {float(m['loss'])}")
+        for spec, replay in zip(tr.specs, tr.replays):
+            if int(replay.action_store.max()) >= spec.action_dim:
+                fail(f"multitask {label}: task {spec.task_id} ({spec.env_name}) stored action "
+                     f"{int(replay.action_store.max())} of {spec.action_dim}")
+        row = {"path": label, "updates": n, "ms_per_update": statistics.median(ms),
+               "ms_per_update_wall": wall_ms,
+               "update_peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "warmup_s": warm_s, "launches_per_update": {k: v // n for k, v in
+                                                           launches.items()},
+               "task_env_steps": {s.env_name: r.env_steps for s, r in zip(tr.specs,
+                                                                         tr.replays)},
+               "loss": float(m["loss"])}
+        say("multitask", json.dumps(row))
+        for ev in tr.evaluate(**MULTITASK_EVAL):
+            say("multitask", f"{label} evaluate: {json.dumps(ev)}")
+        rows[label] = row
+        del tr, actor
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the sweep CLI's --multitask (the atari preset maps to tiny_test there)
+    root = os.path.join(tmp, "sweep")
+    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.sweep", "--multitask",
+                          "--preset", "tiny_test", "--steps", "4", "--root", root], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"multitask: the sweep CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    srows = [json.loads(line) for line in out.stdout.strip().splitlines()[-4:]]
+    if [r["env"] for r in srows] != ["keydoor", "drift", "banditgrid", "catch"]:
+        fail(f"multitask: the sweep CLI printed {srows}")
+    say("multitask", "sweep --multitask --preset tiny_test --steps 4: one row per task: "
+        + ", ".join(f"{r['env']} {r['mean_return']:+.3f}" for r in srows))
+    say("multitask", f"[{card}] ms per update (alone / over the wall, acting included): "
+        + ", ".join(f"{lb} {r['ms_per_update']:.2f} / {r['ms_per_update_wall']:.2f}, update "
+                    f"peak {r['update_peak_gib']:.2f} GiB" for lb, r in rows.items())
+        + f"; phase {time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -2774,6 +3142,20 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         fused_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 23. the procgen_impala path (procmaze -> IMPALA -> LSTM) ------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        procgen_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 24. the multi-task plane: one learner over four task fleets -------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        multitask_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

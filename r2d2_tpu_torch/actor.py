@@ -13,13 +13,18 @@ actions come from a numpy Generator in the JAX package's stream order.
 The carry is held in the acting step's own dtype (``cfg.carry_dtype``: the
 LSTM's compute dtype, the LRU's float32), in the same (h, c)-shaped pair
 for both cores, and stored through the config's state dtype.
+
+On the multi-task plane an actor serves one task: `task_id` conditions the
+policy's head and is stamped into every block, random actions are drawn in
+the task's native range `action_dim` (the head's mask keeps the greedy
+picks there), and `gamma` is the task's discount in its accumulators.
 """
 
 from __future__ import annotations
 
 import json
 import threading
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,6 +100,9 @@ class VectorizedActor:
         push_block: Callable,  # (block, priorities, episode_reward) -> None
         seed: int = 0,
         device="cuda",
+        task_id: int = 0,
+        action_dim: Optional[int] = None,  # the task's native action count
+        gamma: Optional[float] = None,     # the task's discount
     ):
         E = env.num_envs
         if len(epsilons) != E:
@@ -107,7 +115,12 @@ class VectorizedActor:
         self.epsilons = np.asarray(epsilons, np.float32)
         self.push_block = push_block
         self.rng = np.random.default_rng(seed)
-        self.action_dim = cfg.action_dim
+        self.action_dim = cfg.action_dim if action_dim is None else int(action_dim)
+        self.task_id = int(task_id)
+        self.gamma = gamma
+        # the (E,) task vector of the policy's head; None on single-task
+        self.task_vec = (torch.full((E,), self.task_id, dtype=torch.int32, device=self.device)
+                         if cfg.num_tasks > 1 else None)
         params, self.param_version = param_store.latest()
         self.policy.load_state_dict(params)
         self._reset_state(np.array(env.reset_all()))
@@ -117,7 +130,8 @@ class VectorizedActor:
     def _reset_state(self, obs: np.ndarray) -> None:
         cfg = self.cfg
         E = self.env.num_envs
-        self.accs: List[SequenceAccumulator] = [SequenceAccumulator(cfg) for _ in range(E)]
+        self.accs: List[SequenceAccumulator] = [
+            SequenceAccumulator(cfg, task_id=self.task_id, gamma=self.gamma) for _ in range(E)]
         for i in range(E):
             self.accs[i].reset(obs[i])
         self.obs = obs
@@ -150,6 +164,7 @@ class VectorizedActor:
             self.carry,
             torch.from_numpy(explore).to(dev),
             torch.from_numpy(random_a.astype(np.int32)).to(dev),
+            self.task_vec,
         )
         # one device -> host copy for q, actions and the new carry (a bf16
         # carry widens to float32 exactly)

@@ -31,9 +31,17 @@ block stores the continuation; the seam window replays from the carried
 stored state with no burn-in (the host accumulator also copies burn-in
 rows across the seam, so blocks equal the host's only for aligned chunks).
 
-The random draws of a chunk (ε coins, random actions, reset columns, the
-multi-ball respawns) come from a CollectDraws source: a torch.Generator on
-the device by default, or given arrays (the tests hand in JAX's draws).
+The random draws of a chunk (ε coins, random actions, reset draws, the
+env core's per-step draws: catch's multi-ball respawns, drift's moves,
+banditgrid's payout noise) come from a CollectDraws source: a
+torch.Generator on the device by default, or given arrays (the tests hand
+in JAX's draws).
+
+Multi-task plane: `task_id` conditions the policy and stamps every packed
+block's per-sequence task field (present only when cfg.num_tasks > 1),
+`action_dim` narrows the random exploration draws to the task's native
+action count (the head's mask keeps the greedy picks there), and `gamma`
+replaces cfg.gamma in the task's n-step returns and stored discounts.
 """
 
 from __future__ import annotations
@@ -60,8 +68,8 @@ def default_chunk_len(cfg: R2D2Config) -> int:
 class CollectDraws:
     """The draws of collection chunks, from one torch.Generator on the
     collector's device: per step E ε-coin uniforms and E random actions
-    (the env core draws its multi-ball respawns from the same generator),
-    and the reset columns of the fresh episodes at a chunk's end."""
+    (the env core draws its own per-step draws from the same generator),
+    and the reset draws of the fresh episodes at a chunk's end."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -81,8 +89,9 @@ class CollectDraws:
 
 class GivenDraws(CollectDraws):
     """Draws handed in: `explore` (T, E) uniforms, `actions` (T, E) random
-    actions, `resets` the fresh state a chunk ends with, `respawns` (T, E)
-    multi-ball respawn columns (or None)."""
+    actions, `resets` the fresh state a chunk ends with, `respawns` (T, ...)
+    the env core's per-step draws (catch's multi-ball respawn columns,
+    drift's moves, banditgrid's normals), or None."""
 
     def __init__(self, explore, actions, resets=None, respawns=None):
         super().__init__(None)
@@ -128,13 +137,16 @@ def initial_collect_carry(cfg: R2D2Config, fn_env, num_envs: int, draws: Collect
 
 
 def make_collect_fn(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
-                    carry_episodes: bool = False):
+                    carry_episodes: bool = False, task_id: int = 0,
+                    action_dim: Optional[int] = None, gamma: Optional[float] = None):
     """The chunk collector (see make_collect_core)."""
-    return make_collect_core(cfg, fn_env, num_envs, chunk_len, carry_episodes)
+    return make_collect_core(cfg, fn_env, num_envs, chunk_len, carry_episodes,
+                             task_id=task_id, action_dim=action_dim, gamma=gamma)
 
 
 def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
-                      carry_episodes: bool = False):
+                      carry_episodes: bool = False, task_id: int = 0,
+                      action_dim: Optional[int] = None, gamma: Optional[float] = None):
     """Build collect(policy, env_state, epsilons, draws) ->
       (fields, priorities (E, S), num_seq (E,), sizes (E,), dones (E,),
        ep_rewards (E,), next_env_state)
@@ -143,12 +155,16 @@ def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
     (E, ...) tensors keyed and typed as the device store's fields. With
     carry_episodes the env_state argument and the last result are a
     CollectCarry; ep_rewards are then whole-episode returns where dones is
-    set (a capped episode counts as done)."""
+    set (a capped episode counts as done). task_id, action_dim and gamma:
+    the multi-task plane (module docstring)."""
     E, T = num_envs, chunk_len
     L, Bn, n = cfg.learning_steps, cfg.burn_in_steps, cfg.forward_steps
     S, bl, slot = cfg.seqs_per_block, cfg.block_length, cfg.block_slot_len
+    # A is the union width of the Q rows; A_task the range of random actions
     H, A = cfg.hidden_dim, cfg.action_dim
-    gamma, eps_h = cfg.gamma, cfg.value_rescale_eps
+    A_task = A if action_dim is None else int(action_dim)
+    gamma = cfg.gamma if gamma is None else float(gamma)
+    eps_h = cfg.value_rescale_eps
     if not 0 < T <= bl:
         raise ValueError(f"chunk_len {T} must be in (0, block_length={bl}]")
     # gamma**j rounded to float32, as the accumulator's n_step_gammas rounds
@@ -243,11 +259,15 @@ def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
             "learning": learn.to(torch.int32),
             "forward": fwd.to(torch.int32),
         }
+        if cfg.num_tasks > 1:
+            fields["task"] = torch.full((E, S), int(task_id), dtype=torch.int32, device=dev)
         return fields, prios, num_seq[:, 0].to(torch.int32)
 
     @torch.no_grad()
     def collect(policy: R2D2Network, env_state, epsilons: torch.Tensor, draws: CollectDraws):
         dev = epsilons.device
+        task = (torch.full((E,), int(task_id), dtype=torch.int32, device=dev)
+                if cfg.num_tasks > 1 else None)
         if carry_episodes:
             carry0: CollectCarry = env_state
             env_state = carry0.env_state
@@ -270,10 +290,11 @@ def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
         for t in range(T):
             obs = fn_env.render(env_state)
             obs_buf[:, t] = obs
-            u, rand_a = draws.step(t, E, A, dev)
-            q, act, (h, c) = policy.act_select(obs, la, lr, (h, c), u < epsilons, rand_a)
-            new_env, reward, done = fn_env.step(env_state, act, generator=draws.generator,
-                                                respawn=draws.respawn(t))
+            u, rand_a = draws.step(t, E, A_task, dev)
+            q, act, (h, c) = policy.act_select(obs, la, lr, (h, c), u < epsilons, rand_a, task)
+            # the core's per-step draws (catch calls them respawn)
+            new_env, reward, done = fn_env.step(env_state, act, draws.generator,
+                                                draws.respawn(t))
             # slots whose episode ended stay frozen: their remaining steps
             # are padding, and step `size` renders the terminal frame
             env_state = select_rows(active, new_env, env_state)
@@ -292,7 +313,7 @@ def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
             active = active & ~done
         final_obs = fn_env.render(env_state)
         obs_buf[:, T] = final_obs
-        q_final, _ = policy.act(final_obs, la, lr, (h, c))
+        q_final, _ = policy.act(final_obs, la, lr, (h, c), task)
         sizes = applied.sum(1).to(torch.int32)
         dones = ended.any(1)
         ep_rewards = rewards.sum(1)
@@ -347,7 +368,8 @@ class DeviceCollector:
 
     def __init__(self, cfg: R2D2Config, policy: R2D2Network, param_store, fn_env, replay,
                  epsilons: Optional[np.ndarray] = None, seed: int = 0,
-                 chunk_len: Optional[int] = None, device="cuda"):
+                 chunk_len: Optional[int] = None, device="cuda", task_id: int = 0,
+                 action_dim: Optional[int] = None, gamma: Optional[float] = None):
         E = cfg.num_actors
         self.cfg, self.E = cfg, E
         self.device = torch.device(device)
@@ -366,7 +388,8 @@ class DeviceCollector:
         if len(eps) != E:
             raise ValueError(f"{len(eps)} epsilons for {E} envs")
         self.epsilons = torch.from_numpy(np.asarray(eps, np.float32)).to(self.device)
-        self._collect = make_collect_fn(cfg, fn_env, E, self.chunk, self.carry_episodes)
+        self._collect = make_collect_fn(cfg, fn_env, E, self.chunk, self.carry_episodes,
+                                        task_id=task_id, action_dim=action_dim, gamma=gamma)
         self.draws = CollectDraws(torch.Generator(device=self.device).manual_seed(seed))
         self.env_state = self._fresh()
         self.total_steps = 0

@@ -41,6 +41,22 @@ class R2D2Config:
     gamma: float = 0.997
     value_rescale_eps: float = 1e-3
 
+    # --- multi-task plane (multitask/) ------------------------------------
+    # num_tasks = 1 is the single-task path: no task field in replay, no
+    # task input to the network, no head widening. > 1 widens the dueling
+    # head by a one-hot task embedding, stamps each block's task through
+    # replay and passes it through the train step.
+    num_tasks: int = 1
+    # env name per task id (the registry order); empty outside multi-task
+    multitask_envs: Tuple[str, ...] = ()
+    # native action count per task; action_dim is the union width, and a
+    # task's invalid tail is masked out of the dueling head. Empty = every
+    # task uses the full union.
+    task_action_dims: Tuple[int, ...] = ()
+    # per-task discounts (the gamma ladder), read only by collection: they
+    # travel through the stored per-step gamma. Empty = cfg.gamma for all.
+    task_gammas: Tuple[float, ...] = ()
+
     # --- prioritized replay ----------------------------------------------
     prio_exponent: float = 0.9
     is_exponent: float = 0.6
@@ -418,12 +434,51 @@ class R2D2Config:
             )
         if self.env_name:
             self._validate_env_geometry(self.env_name, self.obs_shape)
+        for i, task_env in enumerate(self.multitask_envs):
+            # every task renders into the shared obs canvas
+            try:
+                self._validate_env_geometry(task_env, self.obs_shape)
+            except ValueError as e:
+                raise ValueError(f"multitask_envs[{i}]: {e}") from e
+        if self.num_tasks < 1:
+            raise ValueError("num_tasks must be >= 1")
+        if self.multitask_envs and len(self.multitask_envs) != self.num_tasks:
+            raise ValueError(
+                f"multitask_envs names {len(self.multitask_envs)} envs for "
+                f"num_tasks={self.num_tasks}; one env name per task id"
+            )
+        if self.task_action_dims:
+            if len(self.task_action_dims) != self.num_tasks:
+                raise ValueError(
+                    f"task_action_dims has {len(self.task_action_dims)} "
+                    f"entries for num_tasks={self.num_tasks}"
+                )
+            for i, a in enumerate(self.task_action_dims):
+                if not 1 <= a <= self.action_dim:
+                    raise ValueError(
+                        f"task_action_dims[{i}]={a} outside [1, action_dim="
+                        f"{self.action_dim}] — action_dim is the union width"
+                    )
+        if self.task_gammas:
+            if len(self.task_gammas) != self.num_tasks:
+                raise ValueError(
+                    f"task_gammas has {len(self.task_gammas)} entries for "
+                    f"num_tasks={self.num_tasks}"
+                )
+            for i, g in enumerate(self.task_gammas):
+                if not 0.0 < g < 1.0:
+                    raise ValueError(f"task_gammas[{i}]={g} outside (0, 1)")
         return self
 
     def _validate_env_geometry(self, env_name: str, obs_shape) -> None:
-        """Episode cap vs catch geometry (the JAX package's rule for the
-        catch family); other names pass through."""
+        """Episode cap and obs shape against the name-parameterized
+        families (catch, keydoor, drift, banditgrid), the JAX package's
+        rules; other names (procmaze validates in its own geometry
+        builder) pass through."""
+        from r2d2_tpu_torch.envs.banditgrid import banditgrid_params, is_banditgrid_name
         from r2d2_tpu_torch.envs.catch import catch_params, is_catch_name
+        from r2d2_tpu_torch.envs.drift import drift_params, is_drift_name
+        from r2d2_tpu_torch.envs.keydoor import is_keydoor_name, keydoor_params
 
         if is_catch_name(env_name):
             p = catch_params(env_name)
@@ -434,6 +489,41 @@ class R2D2Config:
                     f"{env_name!r} at obs {obs_shape} before the last ball "
                     f"lands (needs >= {need}): every episode would end "
                     "reward-free"
+                )
+        elif is_keydoor_name(env_name):
+            p = keydoor_params(env_name)
+            if self.max_episode_steps < p["length"]:
+                raise ValueError(
+                    f"max_episode_steps={self.max_episode_steps} ends "
+                    f"{env_name!r} before the door (corridor length "
+                    f"{p['length']}) is reachable: every episode would "
+                    "end reward-free"
+                )
+            if obs_shape[0] < 3 or obs_shape[1] < max(p["length"], p["num_colors"]):
+                raise ValueError(
+                    f"obs {obs_shape} cannot render {env_name!r}: needs "
+                    f"height >= 3 and width >= "
+                    f"{max(p['length'], p['num_colors'])} (corridor + cue row)"
+                )
+        elif is_drift_name(env_name):
+            drift_params(env_name)  # raises on a bad :EVERY suffix
+            if obs_shape[0] < 2 or obs_shape[1] < 3:
+                raise ValueError(
+                    f"obs {obs_shape} cannot render {env_name!r}: needs "
+                    "height >= 2 (target + agent rows) and width >= 3"
+                )
+        elif is_banditgrid_name(env_name):
+            p = banditgrid_params(env_name)
+            if obs_shape[0] < p["grid"] or obs_shape[1] < p["grid"]:
+                raise ValueError(
+                    f"obs {obs_shape} cannot render {env_name!r}: the "
+                    f"{p['grid']}x{p['grid']} arm grid needs height and "
+                    "width >= grid"
+                )
+            if self.max_episode_steps < 2:
+                raise ValueError(
+                    f"max_episode_steps={self.max_episode_steps} gives "
+                    f"{env_name!r} no post-move payout step"
                 )
 
     def replace(self, **kw) -> "R2D2Config":
@@ -466,7 +556,8 @@ def set_fp32_numerics() -> None:
 
 
 # --------------------------------------------------------------------------
-# Presets (the JAX package's `atari`, `long_context` and `tiny_test`)
+# Presets (the JAX package's `atari`, `procgen_impala`, `long_context` and
+# `tiny_test`)
 # --------------------------------------------------------------------------
 
 
@@ -475,6 +566,24 @@ def default_atari(game: str = "MsPacman") -> R2D2Config:
     compute (f32 parameters, carries and loss math); ``--set
     compute_dtype=float32`` reproduces the reference's float32 numerics."""
     return R2D2Config(env_name=game, compute_dtype="bfloat16").validate()
+
+
+def procgen_impala(game: str = "procmaze") -> R2D2Config:
+    """The IMPALA-ResNet encoder preset (BASELINE.json config 4): 64x64x3
+    frames through the IMPALA encoder (16, 32, 32) into the LSTM 512, in
+    bf16. The default env is the procedurally generated maze
+    (envs/procmaze.py), a new level every episode; on a procmaze name the
+    action count and episode cap are the maze's (5, 96)."""
+    from r2d2_tpu_torch.envs.procmaze import is_procmaze_name
+
+    kw = dict(action_dim=5, max_episode_steps=96) if is_procmaze_name(game) else {}
+    return R2D2Config(
+        env_name=game,
+        obs_shape=(64, 64, 3),
+        encoder="impala",
+        compute_dtype="bfloat16",
+        **kw,
+    ).validate()
 
 
 def long_context(
@@ -543,6 +652,7 @@ def tiny_test() -> R2D2Config:
 
 PRESETS = {
     "atari": default_atari,
+    "procgen_impala": procgen_impala,
     "long_context": long_context,
     "tiny_test": tiny_test,
 }

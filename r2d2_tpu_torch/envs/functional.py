@@ -1,13 +1,18 @@
 """Host-protocol adapters over a tensor env core (port of
 r2d2_tpu/envs/functional.py).
 
-A tensor core (envs/catch.TensorCatchEnv, envs/fake.ScriptedFnEnv) steps E
-envs as (E,) state tensors: reset(n, generator, device) -> state,
-step(state, action, generator) -> (state', reward, done), render(state) ->
-(E, *obs) uint8, plus NUM_ACTIONS. The on-device collector (collect.py)
-drives the core directly; these adapters lift it into the two host
-protocols the rest of the port speaks (HostEnvPool's single env and the
-vectorized env of the actor), with auto-reset on the core's device.
+A tensor core (envs/catch.TensorCatchEnv, envs/fake.ScriptedFnEnv,
+envs/procmaze.ProcMazeEnv, the multi-task family's keydoor, drift and
+banditgrid) steps E envs as (E, ...) state tensors: reset(n, generator,
+device, draws=None) -> state, step(state, action, generator, draws=None)
+-> (state', reward, done), render(state) -> (E, *obs) uint8, plus
+NUM_ACTIONS. A core draws its randomness from the generator, or takes it
+as `draws` in its own documented form (the tests hand in the JAX
+package's; catch's step calls its draws `respawn`). The on-device
+collector (collect.py) drives the core directly; these adapters lift it
+into the two host protocols the rest of the port speaks (HostEnvPool's
+single env and the vectorized env of the actor), with auto-reset on the
+core's device.
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ class FnHostEnv:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._state = None
-        self.obs_shape = tuple(self.env.render(self.env.reset(1, self.generator,
-                                                              self.device)).shape[1:])
+        # the frame shape, from a throwaway generator: the env's own draws
+        # start at its first reset()
+        probe = torch.Generator(device=self.device).manual_seed(0)
+        self.obs_shape = tuple(self.env.render(self.env.reset(1, probe, self.device)).shape[1:])
 
     def reset(self) -> np.ndarray:
         self._state = self.env.reset(1, self.generator, self.device)
@@ -69,11 +76,14 @@ class FnVecEnv:
         self._state = self.env.reset(self.num_envs, self.generator, self.device)
         return self.env.render(self._state).cpu().numpy()
 
-    def step(self, actions: np.ndarray):
+    def step(self, actions: np.ndarray, draws=None):
+        """`draws` = (the step's draws, the fresh episodes' reset draws) of
+        the core, handed in; None draws both from the generator."""
+        step_draws, reset_draws = draws if draws is not None else (None, None)
         a = torch.as_tensor(np.asarray(actions), device=self.device).to(torch.int32)
-        s2, reward, done = self.env.step(self._state, a, self.generator)
+        s2, reward, done = self.env.step(self._state, a, self.generator, step_draws)
         term_obs = self.env.render(s2)
-        fresh = self.env.reset(self.num_envs, self.generator, self.device)
+        fresh = self.env.reset(self.num_envs, self.generator, self.device, draws=reset_draws)
         self._state = select_rows(done, fresh, s2)
         return (term_obs.cpu().numpy(), reward.double().cpu().numpy(), done.cpu().numpy(),
                 self.env.render(self._state).cpu().numpy())

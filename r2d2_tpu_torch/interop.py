@@ -9,7 +9,11 @@ or the inner dict), so nothing here imports JAX. Conversions:
   ``Dense_i`` -> ``enc.tail.dense.i``, and the IMPALA encoder's
   ``ResidualBlock_j/Conv_k`` -> ``enc.blocks.j.convs.k``;
 - the core's parameters keep their names and layouts: the LSTM's wi / wh /
-  b, the LRU's nu_log, theta_log, in_re, in_im, out_re, out_im, skip.
+  b, the LRU's nu_log, theta_log, in_re, in_im, out_re, out_im, skip;
+- the dueling head's four Dense layers, at whatever input width they have:
+  a multi-task head's adv_hidden and val_hidden take hidden_dim + num_tasks
+  inputs (the one-hot task after the core's output), and convert as any
+  Dense.
 
 Optimizer state: optax's Adam (``ScaleByAdamState``: ``mu`` and ``nu``,
 parameter-shaped trees, and ``count``) <-> torch Adam's state_dict

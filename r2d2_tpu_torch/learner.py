@@ -28,7 +28,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +52,8 @@ _FIELD_DTYPES = {
 }
 
 
-class DeviceBatch(NamedTuple):
-    """The device-side view of a replay SampledBatch."""
+class _BatchFields(NamedTuple):
+    """The tensor fields of a DeviceBatch, in their order."""
 
     obs: torch.Tensor            # (B, T, *obs_shape) uint8
     last_action: torch.Tensor    # (B, T) int64
@@ -67,6 +67,25 @@ class DeviceBatch(NamedTuple):
     forward_steps: torch.Tensor  # (B,) int32
     is_weights: torch.Tensor     # (B,) float32
 
+
+class DeviceBatch(_BatchFields):
+    """The device-side view of a replay SampledBatch: the eleven fields of
+    the single-task path as a NamedTuple, plus `task`, the multi-task
+    plane's (B,) int32 per-sequence task id (None on single-task configs),
+    as an attribute outside the tuple, so a single-task batch iterates,
+    unpacks and names its fields as before (``DeviceBatch(*fields)``)."""
+
+    task: Optional[torch.Tensor] = None
+
+    def __new__(cls, *fields, task: Optional[torch.Tensor] = None, **named):
+        self = super().__new__(cls, *fields, **named)
+        self.task = task
+        return self
+
+    def _replace(self, **kw) -> "DeviceBatch":
+        task = kw.pop("task", self.task)
+        return DeviceBatch(*super()._replace(**kw), task=task)
+
     @classmethod
     def from_sampled(cls, b, device) -> "DeviceBatch":
         """Copied from pageable host memory (the copy waits for the host)."""
@@ -76,7 +95,19 @@ class DeviceBatch(NamedTuple):
             if dtype is not None:
                 t = t.to(dtype)
             out.append(t.to(device, non_blocking=True))
-        return cls(*out)
+        task = getattr(b, "task", None)
+        if task is not None:
+            task = torch.from_numpy(np.asarray(task, np.int32)).to(device, non_blocking=True)
+        return cls(*out, task=task)
+
+    def tensors(self):
+        """The batch's tensors, the task's where there is one."""
+        return [*self] + ([] if self.task is None else [self.task])
+
+    def at(self, k: int) -> "DeviceBatch":
+        """Slice k of a stacked (K, B, ...) batch."""
+        return DeviceBatch(*(x[k] for x in self),
+                           task=None if self.task is None else self.task[k])
 
     @classmethod
     def from_staged(cls, fields: dict) -> "DeviceBatch":
@@ -90,7 +121,7 @@ class DeviceBatch(NamedTuple):
             if t.dtype == torch.int16:
                 t = t.view(torch.bfloat16)
             out.append(t if dtype is None or t.dtype == dtype else t.to(dtype))
-        return cls(*out)
+        return cls(*out, task=fields.get("task"))
 
 
 class PinnedStager:
@@ -131,6 +162,10 @@ class PinnedStager:
     def stage(self, b):
         srcs = [state_tensor(getattr(b, name)) for name in _FIELD_DTYPES]
         dtypes = [dt or t.dtype for dt, t in zip(_FIELD_DTYPES.values(), srcs)]
+        task = getattr(b, "task", None)
+        if task is not None:
+            srcs.append(torch.from_numpy(np.asarray(task, np.int32)))
+            dtypes.append(torch.int32)
         nbytes = sum(t.numel() * dt.itemsize for t, dt in zip(srcs, dtypes))
         with self.timer.h2d(nbytes):
             i, bufs = self._slot([(t.shape, dt) for t, dt in zip(srcs, dtypes)])
@@ -141,13 +176,14 @@ class PinnedStager:
                 event = torch.cuda.Event()
                 event.record(self.stream)
             self._events[i] = event
-        return DeviceBatch(*dev), event
+        return DeviceBatch(*dev[:len(_FIELD_DTYPES)],
+                           task=dev[-1] if task is not None else None), event
 
     @staticmethod
     def consume(batch: "DeviceBatch", event) -> "DeviceBatch":
         stream = torch.cuda.current_stream(batch.obs.device)
         stream.wait_event(event)
-        for t in batch:
+        for t in batch.tensors():
             t.record_stream(stream)
         return batch
 
@@ -230,8 +266,10 @@ def make_loss_fn(cfg: R2D2Config):
     eps = cfg.value_rescale_eps
 
     def loss_fn(net, target_net, b: DeviceBatch, denom):
+        # b.task is None on single-task configs; a multi-task batch
+        # conditions both networks' heads per sequence
         args = (b.obs, b.last_action, b.last_reward, b.hidden,
-                b.burn_in_steps, b.learning_steps, b.forward_steps)
+                b.burn_in_steps, b.learning_steps, b.forward_steps, b.task)
         q_learn, q_boot_online, mask = net(*args)
         # float32 island: the heads emit float32 (R2D2Network._dueling); the
         # casts pin the contract, as in the JAX learner
@@ -307,7 +345,7 @@ def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int):
             )
         prios = []
         for k in range(num_steps):
-            state, metrics, p = step(state, DeviceBatch(*(x[k] for x in stacked)))
+            state, metrics, p = step(state, stacked.at(k))
             prios.append(p)
         return state, metrics, torch.stack(prios)
 
@@ -345,6 +383,8 @@ def make_store_gather(cfg: R2D2Config):
             learning_steps=stores["learning"][b, s],
             forward_steps=stores["forward"][b, s],
             is_weights=is_weights.to(dev, torch.float32),
+            # the task store exists only on multi-task configs
+            task=stores["task"][b, s] if "task" in stores else None,
         )
 
     return gather_batch

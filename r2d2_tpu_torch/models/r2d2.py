@@ -1,5 +1,5 @@
 """R2D2Network — recurrent dueling double-DQN trunk (port of
-r2d2_tpu/models/r2d2.py, single-task).
+r2d2_tpu/models/r2d2.py).
 
 - encoder -> recurrent core (the LSTM, or the LRU with
   recurrent_core="lru") over concat(latent, one-hot last action, last
@@ -15,6 +15,15 @@ r2d2_tpu/models/r2d2.py, single-task).
     bootstrap view  idx(t) = min(burn_in + F + t, burn_in + learning + forward - 1)
 
 Observations enter as uint8 and are normalized once, here.
+
+Multi-task (num_tasks > 1, a (B,) int task per row through `act`,
+`act_select` and `unroll`): the head's input is widened by the one-hot
+task after the core's output (trimmed back to hidden_dim where the card
+pads the LSTM's units), broadcast over L in `unroll`; with
+task_action_dims the advantage mean runs over each task's valid actions
+and the invalid ones are floored at -1e9, so neither the acting argmax nor
+the learner's bootstrap max can pick them. num_tasks = 1 keeps the
+single-task head, its weights' shapes included.
 
 `compute_dtype` (the config's resolved compute dtype) is the dtype of the
 encoder, the core input and the LSTM; the parameters stay float32, and the
@@ -55,6 +64,8 @@ class R2D2Network(nn.Module):
         lru_chunk: int = 0,
         lru_r_min: float = 0.9,
         lru_r_max: float = 0.999,
+        num_tasks: int = 1,
+        task_action_dims: Tuple[int, ...] = (),
     ):
         super().__init__()
         self.dtype = compute_dtype
@@ -64,6 +75,9 @@ class R2D2Network(nn.Module):
         self.forward_steps = forward_steps
         self.fused_sequence = fused_sequence
         self.recurrent_core = recurrent_core
+        self.num_tasks = num_tasks
+        self.task_action_dims = tuple(task_action_dims)
+        self._dims_on = {}  # the task_action_dims tensor per device
         g = generator
         self.enc = make_encoder(encoder, obs_shape, hidden_dim, encoder_depth, g, compute_dtype,
                                 impala_channels)
@@ -74,9 +88,10 @@ class R2D2Network(nn.Module):
         else:
             self.core = LSTM(hidden_dim, core_in, generator=g, backward_arm=backward_arm,
                              dtype=compute_dtype)
-        self.adv_hidden = dense(hidden_dim, hidden_dim, g)
+        head_in = hidden_dim + (num_tasks if num_tasks > 1 else 0)
+        self.adv_hidden = dense(head_in, hidden_dim, g)
         self.adv_out = dense(hidden_dim, action_dim, g)
-        self.val_hidden = dense(hidden_dim, hidden_dim, g)
+        self.val_hidden = dense(head_in, hidden_dim, g)
         self.val_out = dense(hidden_dim, 1, g)
 
     @classmethod
@@ -101,7 +116,8 @@ class R2D2Network(nn.Module):
             generator=generator, backward_arm=cfg.resolve_backward_arm(device=dev.type),
             compute_dtype=cfg.torch_compute_dtype, impala_channels=cfg.impala_channels,
             recurrent_core=cfg.recurrent_core, lru_chunk=cfg.lru_chunk,
-            lru_r_min=cfg.lru_r_min, lru_r_max=cfg.lru_r_max,
+            lru_r_min=cfg.lru_r_min, lru_r_max=cfg.lru_r_max, num_tasks=cfg.num_tasks,
+            task_action_dims=tuple(cfg.task_action_dims),
         ).to(dev)
 
     # ----------------------------------------------------------------- util
@@ -115,32 +131,62 @@ class R2D2Network(nn.Module):
         reward = last_reward.to(self.dtype)[:, None]
         return torch.cat([latent, onehot, reward], dim=-1)
 
-    def _dueling(self, h: torch.Tensor) -> torch.Tensor:
-        """Dueling Q in float32 whatever the compute dtype."""
+    def _task_mask(self, task: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """(B, A) bool valid-action mask of each row's task, or None when
+        every task spans the whole union action space."""
+        if task is None or self.num_tasks <= 1 or not self.task_action_dims:
+            return None
+        dims = self._dims_on.get(task.device)
+        if dims is None:
+            dims = self._dims_on[task.device] = torch.tensor(
+                self.task_action_dims, dtype=torch.long, device=task.device)
+        actions = torch.arange(self.action_dim, device=task.device)
+        return actions[None, :] < dims[task.long()][:, None]
+
+    def _dueling(self, h: torch.Tensor, task: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Dueling Q in float32 whatever the compute dtype: Q = V + A -
+        mean_a A; multi-task as in the module docstring."""
         h = h.float()
+        mask = self._task_mask(task)
+        if task is not None and self.num_tasks > 1:
+            onehot = F.one_hot(task.long(), self.num_tasks).float()
+            if h.dim() == 3:  # (B, L, H): one task per sequence
+                onehot = onehot[:, None, :].expand(*h.shape[:2], self.num_tasks)
+            h = torch.cat([h, onehot], dim=-1)
         adv = self.adv_out(F.relu(self.adv_hidden(h)))
         val = self.val_out(F.relu(self.val_hidden(h)))
-        return val + adv - adv.mean(dim=-1, keepdim=True)
+        if mask is None:
+            return val + adv - adv.mean(dim=-1, keepdim=True)
+        if adv.dim() == 3:
+            mask = mask[:, None, :]
+        valid = mask.float()
+        adv_mean = (adv * valid).sum(-1, keepdim=True) / valid.sum(-1, keepdim=True)
+        q = val + adv - adv_mean
+        return torch.where(mask, q, torch.full_like(q, -1e9))
 
     # ------------------------------------------------------------------ act
 
-    def act(self, obs, last_action, last_reward, carry: Carry) -> Tuple[torch.Tensor, Carry]:
+    def act(self, obs, last_action, last_reward, carry: Carry,
+            task: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Carry]:
         x = self._core_input(obs, last_action, last_reward)
         h, carry = self.core.step(x, carry)
-        return self._dueling(h), carry
+        return self._dueling(h, task), carry
 
-    def act_select(self, obs, last_action, last_reward, carry: Carry, explore, random_actions):
+    def act_select(self, obs, last_action, last_reward, carry: Carry, explore, random_actions,
+                   task: Optional[torch.Tensor] = None):
         """Core step + dueling + ε-greedy select: (q (B,A) f32, action (B,)
         int32, carry). The ε coin and random draws are inputs (host numpy
-        stream, see ops/act_tail.py)."""
-        q, carry = self.act(obs, last_action, last_reward, carry)
+        stream, see ops/act_tail.py); multi-task callers draw the random
+        actions within each row's native action count."""
+        q, carry = self.act(obs, last_action, last_reward, carry, task)
         return q, epsilon_greedy_actions(q, explore, random_actions), carry
 
     # --------------------------------------------------------------- unroll
 
-    def unroll(self, obs, last_action, last_reward, hidden, burn_in, learning, forward):
-        """(B,T,*obs) uint8, (B,T), (B,T), (B,2,H), (B,) x3 ->
-        (q_learn (B,L,A), q_boot (B,L,A), mask (B,L) f32)."""
+    def unroll(self, obs, last_action, last_reward, hidden, burn_in, learning, forward,
+               task: Optional[torch.Tensor] = None):
+        """(B,T,*obs) uint8, (B,T), (B,T), (B,2,H), (B,) x3, task (B,) or
+        None -> (q_learn (B,L,A), q_boot (B,L,A), mask (B,L) f32)."""
         B, T = obs.shape[:2]
         L, Fw = self.learning_steps, self.forward_steps
         x = self._core_input(
@@ -164,7 +210,7 @@ class R2D2Network(nn.Module):
         learn_h = torch.gather(outs, 1, learn_idx[:, :, None].expand(B, L, H))
         boot_h = torch.gather(outs, 1, boot_idx[:, :, None].expand(B, L, H))
         mask = (t[None, :] < learning[:, None]).float()
-        return self._dueling(learn_h), self._dueling(boot_h), mask
+        return self._dueling(learn_h, task), self._dueling(boot_h, task), mask
 
     forward = unroll
 

@@ -6,7 +6,10 @@ episode end, packs a Block: n-step returns, the terminal-as-gamma-0
 encoding, per-sequence step counts, the stored recurrent state at each
 sequence's true replay-window start, actor-side initial priorities in the
 learner's rescaled space, and a burn-in tail carried across block
-boundaries. Deterministic: no RNG.
+boundaries. Deterministic: no RNG. On the multi-task plane an accumulator
+stamps its task id into every Block and discounts with its task's gamma
+(the n-step returns and the stored bootstrap discounts), so the learner
+needs no per-task discount.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ from r2d2_tpu_torch.replay.block import Block, state_host_dtype, to_state_host
 
 
 class SequenceAccumulator:
-    def __init__(self, cfg: R2D2Config):
+    def __init__(self, cfg: R2D2Config, task_id: int = 0, gamma: Optional[float] = None):
         self.cfg = cfg
         self.L = cfg.learning_steps
         self.B = cfg.burn_in_steps
         self.n = cfg.forward_steps
-        self.gamma = cfg.gamma
+        self.gamma = cfg.gamma if gamma is None else float(gamma)
+        self.task_id = int(task_id)
         self.curr_burn_in = 0
         self.size = 0
 
@@ -164,7 +168,7 @@ class SequenceAccumulator:
             obs=obs, last_action=last_action, last_reward=last_reward,
             action=actions, n_step_reward=n_step_reward, gamma=gamma_n,
             hidden=hiddens, num_sequences=num_seq, burn_in_steps=burn_in,
-            learning_steps=learning, forward_steps=forward,
+            learning_steps=learning, forward_steps=forward, task=self.task_id,
         )
         episode_reward = self.sum_reward if self.done else None
 

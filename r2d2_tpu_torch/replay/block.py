@@ -67,6 +67,9 @@ class Block:
     burn_in_steps: np.ndarray  # (num_sequences,) int32
     learning_steps: np.ndarray
     forward_steps: np.ndarray
+    # the task id of the actor that collected the block (multi-task plane);
+    # one per block, broadcast per sequence by the stores; 0 on single-task
+    task: int = 0
 
     @property
     def stored_steps(self) -> int:
@@ -116,4 +119,8 @@ def store_field_specs(cfg):
         "burn_in": ((S,), torch.int32),
         "learning": ((S,), torch.int32),
         "forward": ((S,), torch.int32),
-    }
+    } | (
+        # per-sequence task ids, only on multi-task configs: the
+        # single-task layout (and its snapshots) stays as it was
+        {"task": ((S,), torch.int32)} if cfg.num_tasks > 1 else {}
+    )

@@ -86,7 +86,7 @@ class DeviceReplayBuffer(ReplayControlPlane):
             out[: len(a)] = a
             return out
 
-        return {
+        out = {
             "obs": pad(block.obs, slot, np.uint8),
             "last_action": pad(block.last_action.astype(np.int32), slot, np.int32),
             "last_reward": pad(block.last_reward, slot, np.float32),
@@ -99,6 +99,11 @@ class DeviceReplayBuffer(ReplayControlPlane):
             "learning": pad(block.learning_steps, S, np.int32),
             "forward": pad(block.forward_steps, S, np.int32),
         }
+        if cfg.num_tasks > 1:
+            # the block's task broadcast per sequence (store_field_specs'
+            # multi-task field)
+            out["task"] = np.full((S,), block.task, np.int32)
+        return out
 
     def add_block(self, block: Block, priorities: np.ndarray,
                   episode_reward: Optional[float]) -> None:

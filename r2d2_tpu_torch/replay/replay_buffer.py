@@ -40,6 +40,9 @@ class SampledBatch:
     old_ptr: int               # block pointer at sample time (staleness check)
     env_steps: int
     old_advances: Optional[int] = None
+    # (B,) int32 per-sequence task ids, set on multi-task configs only: an
+    # attribute, not a field, so a single-task batch keeps its fields
+    task = None
 
 
 class ReplayBuffer(ReplayControlPlane):
@@ -59,6 +62,9 @@ class ReplayBuffer(ReplayControlPlane):
         self.burn_in_store = np.zeros((nb, S), dtype=np.int32)
         self.learning_store = np.zeros((nb, S), dtype=np.int32)
         self.forward_store = np.zeros((nb, S), dtype=np.int32)
+        # one task id per block (one actor collects one task), beside the
+        # native core's stores; read by sampling only on multi-task configs
+        self.task_store = np.zeros((nb,), dtype=np.int32)
 
     def _write_block_locked(self, block: Block, ptr: int) -> None:
         S = self.cfg.seqs_per_block
@@ -78,6 +84,7 @@ class ReplayBuffer(ReplayControlPlane):
         self.burn_in_store[ptr, :ns] = block.burn_in_steps
         self.learning_store[ptr, :ns] = block.learning_steps
         self.forward_store[ptr, :ns] = block.forward_steps
+        self.task_store[ptr] = block.task
 
     def add_block(
         self, block: Block, priorities: np.ndarray, episode_reward: Optional[float]
@@ -129,7 +136,7 @@ class ReplayBuffer(ReplayControlPlane):
                 n_step_reward = self.n_step_reward_store[bcol, lrows]
                 gamma = self.gamma_store[bcol, lrows]
 
-            return SampledBatch(
+            out = SampledBatch(
                 obs=obs,
                 last_action=last_action,
                 last_reward=last_reward,
@@ -146,3 +153,6 @@ class ReplayBuffer(ReplayControlPlane):
                 env_steps=self.env_steps,
                 old_advances=self.ptr_advances,
             )
+            if cfg.num_tasks > 1:
+                out.task = self.task_store[b]
+            return out

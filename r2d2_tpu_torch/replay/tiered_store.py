@@ -255,6 +255,7 @@ class TieredReplayBuffer(ReplayBuffer):
         self.burn_in_store = np.zeros((total, S), dtype=np.int32)
         self.learning_store = np.zeros((total, S), dtype=np.int32)
         self.forward_store = np.zeros((total, S), dtype=np.int32)
+        self.task_store = np.zeros((total,), dtype=np.int32)
 
     # ------------------------------------------------------- disk-tier spill
 
@@ -308,13 +309,14 @@ class TieredReplayBuffer(ReplayBuffer):
         self.burn_in_store[dl] = self.burn_in_store[victim]
         self.learning_store[dl] = self.learning_store[victim]
         self.forward_store[dl] = self.forward_store[victim]
+        self.task_store[dl] = self.task_store[victim]
         if victim != ptr:
             # the pointer's occupant moves into the victim's freed slab
             # slot, so the incoming block lands at the pointer as every
             # writer assumes
             for name in ("obs", "last_action", "last_reward", "action",
                          "n_step_reward", "gamma", "hidden", "burn_in",
-                         "learning", "forward"):
+                         "learning", "forward", "task"):
                 store = getattr(self, name + "_store")
                 store[victim] = store[ptr]
             pidx = np.arange(ptr * S, (ptr + 1) * S, dtype=np.int64)
@@ -374,7 +376,7 @@ class TieredReplayBuffer(ReplayBuffer):
         # a one-batch stack: the same Generator consumption, clamps and
         # stamps as the inherited path, plus the disk rows
         sw = self.sample_window_stack(rng, 1)
-        return SampledBatch(
+        out = SampledBatch(
             obs=sw.obs[0], last_action=sw.last_action[0], last_reward=sw.last_reward[0],
             hidden=sw.hidden[0], action=sw.action[0], n_step_reward=sw.n_step_reward[0],
             gamma=sw.gamma[0], burn_in_steps=sw.burn_in_steps[0],
@@ -382,6 +384,10 @@ class TieredReplayBuffer(ReplayBuffer):
             is_weights=sw.is_weights[0], idxes=sw.idxes[0], old_ptr=sw.old_ptr,
             env_steps=sw.env_steps, old_advances=sw.old_advances,
         )
+        if self.cfg.num_tasks > 1:
+            # the draws' blocks (a demoted block keeps its task at its disk slot)
+            out.task = self.task_store[sw.idxes[0] // self.cfg.seqs_per_block]
+        return out
 
     def disk_stats(self) -> dict:
         """The disk tier's counters ({} when it is off)."""

@@ -77,6 +77,14 @@ and the LRU core at seq_len 581 (64/512/5), in bf16 (``--set
 compute_dtype=float32`` for float32; ``--set lru_chunk=128`` unrolls the
 LRU by chunked matmuls). The LRU launches none of the LSTM kernels.
 
+The procgen path: ``--preset procgen_impala`` trains the procedurally
+generated maze (``procmaze``, 64x64x3) through the IMPALA encoder
+(16, 32, 32) and the LSTM 512 in bf16, the maze a tensor core on the
+Trainer's device (``FnVecEnv`` for the host collector, the core itself for
+``--collector device`` / ``--mode fused``); the multi-task family's cores
+(``keydoor``, ``drift``, ``banditgrid``) train the same way, and
+``r2d2_tpu_torch.sweep --multitask`` trains one learner over them.
+
 runs on the CUDA device; ``--device cpu`` runs the plain versions of the
 kernels on the CPU instead.
 """
@@ -108,9 +116,10 @@ from r2d2_tpu_torch.config import (
     parse_overrides,
     resolve_device,
 )
-from r2d2_tpu_torch.envs import make_env
+from r2d2_tpu_torch.envs import family_factory, make_env
 from r2d2_tpu_torch.envs.catch import CatchVecEnv, TensorCatchEnv, catch_params, is_catch_name
 from r2d2_tpu_torch.envs.fake import ScriptedFnEnv
+from r2d2_tpu_torch.envs.functional import FnVecEnv
 from r2d2_tpu_torch.learner import (
     DeviceBatch,
     PinnedStager,
@@ -169,25 +178,38 @@ QUEUE_DEPTH = 8
 _STAGING_SLOTS = QUEUE_DEPTH + 2
 
 
-def build_vec_env(cfg: R2D2Config, seed: int = 0):
-    """One vectorized env spanning cfg.num_actors slots."""
+def _build_family_env(cfg: R2D2Config, name: str):
+    """The tensor core of a procmaze or multi-task family name, or None."""
+    build = family_factory(name)
+    return None if build is None else build(cfg.obs_shape, cfg.max_episode_steps, name)
+
+
+def build_vec_env(cfg: R2D2Config, seed: int = 0, device="cpu"):
+    """One vectorized env spanning cfg.num_actors slots: catch on host
+    numpy, the tensor cores of procmaze and the multi-task family through
+    FnVecEnv on `device`, any other name as a pool of host envs."""
     name = cfg.env_name.lower()
     if is_catch_name(name):
         return CatchVecEnv(
             num_envs=cfg.num_actors, height=cfg.obs_shape[0], width=cfg.obs_shape[1],
             seed=seed, **catch_params(name),
         )
+    family_env = _build_family_env(cfg, name)
+    if family_env is not None:
+        return FnVecEnv(family_env, num_envs=cfg.num_actors, seed=seed, device=device)
     return HostEnvPool([make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)])
 
 
 def build_fn_env(cfg: R2D2Config):
-    """The tensor env core of the on-device collector (catch family and
-    "scripted[:A]"; the JAX package's other functional families wait for
-    their module)."""
+    """The tensor env core of the on-device collector: the catch family,
+    procmaze, the multi-task family and "scripted[:A]"."""
     name = cfg.env_name.lower()
     if is_catch_name(name):
         return TensorCatchEnv(height=cfg.obs_shape[0], width=cfg.obs_shape[1],
                               **catch_params(name))
+    family_env = _build_family_env(cfg, name)
+    if family_env is not None:
+        return family_env
     if name == "scripted" or name.startswith("scripted:"):
         # "scripted:A" pins the action count (the make_env rule)
         adim = int(name.split(":", 1)[1]) if ":" in name else cfg.action_dim
@@ -482,7 +504,8 @@ class Trainer:
             self.fn_env = fn_env if fn_env is not None else build_fn_env(cfg)
             env_action_dim = self.fn_env.NUM_ACTIONS
         else:
-            self.vec_env = vec_env if vec_env is not None else build_vec_env(cfg, seed=cfg.seed)
+            self.vec_env = vec_env if vec_env is not None else build_vec_env(
+                cfg, seed=cfg.seed, device=self.device)
             env_action_dim = self.vec_env.action_dim
         if env_action_dim != cfg.action_dim:
             cfg = cfg.replace(action_dim=env_action_dim)

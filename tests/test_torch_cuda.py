@@ -270,6 +270,8 @@ def _card_vs_cpu(cfg, steps, bf16=False):
         b.learning_steps = np.full(Bn, L, np.int32)
         b.forward_steps = np.full(Bn, cfg.forward_steps, np.int32)
         b.is_weights = rng.uniform(0.3, 1.0, size=Bn).astype(np.float32)
+        if cfg.num_tasks > 1:  # a multi-task batch: one task per sequence
+            b.task = rng.integers(0, cfg.num_tasks, size=Bn).astype(np.int32)
         out = {dev: step(states[dev], DeviceBatch.from_sampled(b, dev)) for dev in states}
         torch.testing.assert_close(out["cuda"][1]["loss"].cpu(), out["cpu"][1]["loss"],
                                    rtol=rtol, atol=atol)
@@ -863,3 +865,102 @@ def test_megastep_and_superstep_on_the_card_match_the_cpu(cuda):
                                                               "lstm_seq_bwd": k}
     assert {key: v for key, v in got["sup"].items() if v} == {"lstm_fwd": 4 * k,
                                                              "lstm_seq_bwd": 2 * k}
+
+
+# --------------------------------------------------------------------------
+# the multi-task plane and procmaze on the card
+# --------------------------------------------------------------------------
+
+
+MULTITASK_FAMILY = ["keydoor:4:2", "drift", "banditgrid", "catch"]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_task_head_train_steps_on_the_card_match_the_cpu(cuda, precision):
+    """The task-conditioned head (one-hot task after the core's output, the
+    masked advantage mean, the -1e9 floor) through the kernels on the card
+    against the CPU (_card_vs_cpu; fp32 two updates, bf16 one in the bf16
+    class), 2 forward + 1 seam backward launches per update."""
+    from r2d2_tpu_torch.multitask import build_registry
+
+    cfg, _ = build_registry(tiny_test().replace(precision=precision,
+                                                target_net_update_interval=2),
+                            MULTITASK_FAMILY)
+    lstm_kernel.reset_launch_counts()
+    bf16 = precision == "bf16"
+    steps = 1 if bf16 else 2
+    _card_vs_cpu(cfg, steps=steps, bf16=bf16)
+    suffix = "_bf16" if bf16 else ""
+    assert lstm_kernel.launch_counts == dict(
+        dict.fromkeys(lstm_kernel.KERNELS, 0),
+        **{f"lstm_fwd{suffix}": 2 * steps, f"lstm_seq_bwd{suffix}": steps})
+    net = init_params(cfg, seed=1, device=cuda)
+    B = 16
+    task = torch.arange(B, device=cuda, dtype=torch.int32) % cfg.num_tasks
+    obs = torch.randint(0, 256, (B, *cfg.obs_shape), dtype=torch.uint8, device=cuda)
+    zeros = torch.zeros(B, dtype=torch.int32, device=cuda)
+    carry = tuple(torch.zeros(B, cfg.hidden_dim, device=cuda) for _ in range(2))
+    with torch.no_grad():
+        q, a, _ = net.act_select(obs, zeros, zeros.float(), carry,
+                                 torch.zeros(B, dtype=torch.bool, device=cuda), zeros, task)
+    dims = torch.tensor(cfg.task_action_dims, device=cuda)[task.long()]
+    invalid = torch.arange(cfg.action_dim, device=cuda)[None] >= dims[:, None]
+    assert (q[invalid] == -1e9).all() and (a.long() < dims).all()
+
+
+def test_task_gather_on_the_card_equals_the_cpu(cuda):
+    """A multi-task device store on the card and on the CPU, the same
+    blocks of three tasks: the same coordinates gather the same batch, the
+    task column included, bit for bit."""
+    from r2d2_tpu_torch.learner import make_store_gather
+    from r2d2_tpu_torch.multitask import build_registry
+    from r2d2_tpu_torch.replay.accumulator import SequenceAccumulator
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+
+    cfg, _ = build_registry(tiny_test().replace(replay_plane="device"), MULTITASK_FAMILY[:3])
+    bufs = {d: DeviceReplayBuffer(cfg, d) for d in ("cpu", cuda)}
+    for i in range(12):
+        rng = np.random.default_rng(i)
+        acc = SequenceAccumulator(cfg, task_id=i % 3, gamma=cfg.task_gammas[i % 3])
+        acc.reset(rng.integers(0, 256, cfg.obs_shape, dtype=np.uint8))
+        for _ in range(16):
+            acc.add(action=int(rng.integers(cfg.action_dim)), reward=float(rng.normal()),
+                    next_obs=rng.integers(0, 256, cfg.obs_shape, dtype=np.uint8),
+                    q_value=rng.normal(size=cfg.action_dim).astype(np.float32),
+                    hidden=rng.normal(size=(2, cfg.hidden_dim)).astype(np.float32))
+        block = acc.finish(last_qval=None)
+        for buf in bufs.values():
+            buf.add_block(*block)
+    si = bufs["cpu"].sample_indices(np.random.default_rng(0))
+    gather = make_store_gather(cfg)
+    out = {d: gather(buf.stores, *(torch.from_numpy(x).to(d) for x in (si.b, si.s,
+                                                                        si.is_weights)))
+           for d, buf in bufs.items()}
+    for a, b in zip(out[cuda].tensors(), out["cpu"].tensors()):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert torch.equal(out[cuda].task.cpu(), torch.from_numpy(si.b % 3).int())
+
+
+def test_procmaze_core_on_the_card_equals_the_cpu(cuda):
+    """The procmaze core at the procgen_impala geometry (64x64x3) on the
+    card and on the CPU from the same draws: states, frames, rewards and
+    dones bit for bit over 100 steps; the card's own generator draws
+    valid levels."""
+    from r2d2_tpu_torch.envs.procmaze import ProcMazeEnv
+
+    env, E = ProcMazeEnv(16, 4, 96, shaping_coef=0.02), 64
+    draws = env.level_draws(E, torch.Generator().manual_seed(0), "cpu")
+    s = {d: env.reset(E, device=d, draws=tuple(x.to(d) for x in draws)) for d in ("cpu", cuda)}
+    rng = np.random.default_rng(0)
+    for t in range(100):
+        a = torch.from_numpy(rng.integers(0, 5, E).astype(np.int32))
+        frames = {d: env.render(st) for d, st in s.items()}
+        assert torch.equal(frames[cuda].cpu(), frames["cpu"])
+        out = {d: env.step(st, a.to(d)) for d, st in s.items()}
+        s = {d: o[0] for d, o in out.items()}
+        for x, y in zip(out[cuda][1:], out["cpu"][1:]):
+            assert torch.equal(x.cpu(), y), t
+        for x, y in zip(s[cuda], s["cpu"]):
+            assert torch.equal(x.cpu(), y), t
+    own = env.reset(256, torch.Generator(device=cuda).manual_seed(1), cuda)
+    assert own.walls.is_cuda and not (own.agent == own.goal).all(-1).any()
