@@ -191,12 +191,13 @@ its own lines; any failure exits non-zero and prints no result:
           and bf16; 8 inline updates in bf16 and fp32, each 2 K1 + 1 K2 of
           its dtype, ms per update alone and over the wall, the update
           peak; one update held against the CPU (fp32 1e-4 / 1e-5; bf16
-          1e-2 / 1e-3 on the loss and gradients, and on the whole update
-          with the card's encoder outputs handed to both, the priorities of
-          the whole bf16 update printed); run_fused with the device
-          collector (K=2, launches 2K + K); the CLI once. 4 more updates
-          of each dtype under torch.profiler: device time by kernel, busy
-          share.
+          1e-2 / 1e-3 on the whole update, priorities included, and on the
+          update with the card's encoder outputs handed to both; the
+          priorities' distance printed beside the IMPALA encoder's derived
+          rounding bound carried to them, encoder_bound_priorities);
+          run_fused with the device collector (K=2, launches 2K + K); the
+          CLI once. 4 more updates of each dtype under torch.profiler:
+          device time by kernel, busy share.
 24. multitask MultiTaskTrainer over keydoor, drift, banditgrid and catch at
           the atari preset's widths (84x84x1, nature, LSTM 512, T=85, B=64
           in four task shares of 16, 8 actors, union action_dim 5),
@@ -206,6 +207,28 @@ its own lines; any failure exits non-zero and prints no result:
           K1 + 1 K2 each, every stored action below its task's count, ms
           per update alone and over the wall, the update peak, per-task env
           steps, per-task evaluation rows; the sweep CLI's --multitask once.
+
+25. serve the serving plane (r2d2_tpu_torch/serve) at the atari preset's
+          widths on catch (84x84x1, nature encoder, LSTM 512, 3 actions):
+          every bucket 2-32, fp32 and precision=bf16, serial and pipelined
+          two deep, four requests a session submitted to the running
+          server (start(): the serve loop, and when pipelined the
+          completion worker behind the depth-2 semaphore, two batches in
+          flight): q, actions and the cache's carries equal reference_act
+          at each answer's bucket and row bit for bit, 5 step shapes; one
+          bucket-32 batch on the card against the CPU (1e-4 / 1e-5; bf16
+          1e-2 / 1e-3); the int8 arm bit for bit its dequantized
+          reference, its Q drift against fp32 under 5% of max |Q|;
+          open-loop Poisson load at 500, 2,000 and 8,000 requests/s, 3 s a
+          rate, per arm (fp32, bf16, int8 on bf16) over 256 sessions (cache
+          32, spill slab 512, a hot reload half way, the first 20%
+          discarded): one JSON line a rate and arm with requests/s,
+          p50/p95/p99, SLO attainment at 50 ms, occupancy, spills, promotes,
+          rejects, failed and unanswered requests and worker restarts and
+          stalls (each of these four fails the phase); the carry bytes per
+          session and a
+          cache of 1,000,000 sessions, a batch on its last rows bit for bit;
+          no LSTM kernel launched across the phase.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -337,6 +360,26 @@ MULTITASK_CUT = dict(learning_starts=2_000)
 MULTITASK_WARMUP_CAP = 20_000
 MULTITASK_UPDATES = 8
 MULTITASK_EVAL = dict(episodes=8, horizon=100)
+# phase 25: serving at the atari widths. Buckets, the open-loop load (bench.py's
+# _serve_load shape: sessions = 8 x the cache, the spill slab at twice the
+# sessions), the arrival rates (requests/s) and seconds a rate, the SLO, and
+# the sessions of the one large cache
+SERVE_BUCKETS = (2, 4, 8, 16, 32)
+SERVE_SESSIONS = 256
+SERVE_CACHE = 32
+SERVE_SPILL = 512
+SERVE_RATES = (500, 2000, 8000)
+SERVE_SECONDS = 3.0
+SERVE_SLO_MS = 50.0
+SERVE_STEPS = 4
+# the parity check's hold on each pipelined completion (ms): the serve loop
+# runs ahead to the depth bound, and a staging set is reused while its
+# previous batch is still being completed
+SERVE_HOLD_MS = 5.0
+SESSIONS_PER_CARD = 1_000_000
+# the int8 arm's Q drift against the float arm, as a fraction of the largest
+# |Q| (tests/test_serve.py TestServeInt8)
+INT8_DRIFT = 0.05
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -505,30 +548,95 @@ def encoder_latents(tr, sampled):
 AGREE_NAMES = ("loss", "priorities", "grad_norm", "grad_norm per parameter")
 
 
-def agree(tr, label, rtol=1e-4, atol=1e-5, sampled=None, latents=None, held=AGREE_NAMES):
+def encoder_bound_priorities(tr, label, sampled, results, rtol, atol, dev="cuda"):
+    """Print the whole bf16 update's priorities' distance, card against CPU
+    (`results` from agree, which holds them at rtol / atol), beside the
+    IMPALA encoder's derived rounding bound carried to them, plus rtol /
+    atol: how much of the bound the distance takes.
+
+    rounding_bound.impala_rounding_bound gives, latent by latent, how far two
+    implementations that round at the same points can be apart (the card's
+    cuDNN and the CPU's oneDNN, each summing in float32 in its own order;
+    tests/test_torch_impala_bf16.py holds the same bound against flax). A
+    sequence's priority depends on its own frames' latents only, so one
+    backward of the summed priorities, with the online and the target
+    latents as inputs, gives each sequence's sensitivities; to first order
+    |dp_b| <= sum_j |dp_b / dz_j| E_j over both networks' latents of row b.
+    The bound is that plus atol + rtol |p_cpu|; it is looser than rtol /
+    atol alone, so it is printed, not held."""
+    import torch
+    from r2d2_tpu_torch.learner import DeviceBatch
+    from r2d2_tpu_torch.models.rounding_bound import impala_rounding_bound
+    from r2d2_tpu_torch.ops.act_tail import first_argmax
+    from r2d2_tpu_torch.ops.priority import mixed_td_priorities
+    from r2d2_tpu_torch.ops.value_rescale import inverse_value_rescale, value_rescale
+
+    t0 = time.perf_counter()
+    cfg, net, target = tr.cfg, tr.state.net, tr.state.target_net
+    b = DeviceBatch.from_sampled(sampled, dev)
+    x = b.obs.reshape(-1, *b.obs.shape[2:]).to(net.dtype) / 255.0
+    zs, es = [], []
+    for n in (net, target):
+        z, e = impala_rounding_bound(n.enc, x)
+        zs.append(z.to(net.dtype).requires_grad_(True))
+        es.append(e)
+    on, tg = copy.deepcopy(net), copy.deepcopy(target)
+    on.enc, tg.enc = _Given(zs[0]), _Given(zs[1])
+    args = (b.obs, b.last_action, b.last_reward, b.hidden, b.burn_in_steps,
+            b.learning_steps, b.forward_steps, b.task)
+    q_learn, q_boot, mask = on(*args)
+    _, q_boot_tg, _ = tg(*args)
+    a_star = first_argmax(q_boot.detach())
+    q_tgt = torch.gather(q_boot_tg, -1, a_star[..., None].long())[..., 0].float()
+    eps = cfg.value_rescale_eps
+    y = value_rescale(b.n_step_reward.float() + b.gamma.float() * inverse_value_rescale(q_tgt, eps),
+                      eps)
+    q_taken = torch.gather(q_learn, -1, b.action[..., None])[..., 0].float()
+    prio = mixed_td_priorities(torch.abs(y - q_taken) * mask, mask, cfg.td_mix_eta)
+    grads = torch.autograd.grad(prio.sum(), zs)
+    B = b.obs.shape[0]
+    sens = sum((g.float().abs() * e).reshape(B, -1).sum(1) for g, e in zip(grads, es)).cpu()
+    card, cpu = results["cuda"][1], results["cpu"][1]
+    diff = (card - cpu).abs()
+    bound = sens + atol + rtol * cpu.abs()
+    e_rel = max(float(e.max()) / float(z.detach().float().abs().max()) for z, e in zip(zs, es))
+    say("agree", f"{label} priorities against the encoder's derived bound: max |diff| "
+        f"{float(diff.max()):.3e}, the encoder's latent bound up to {e_rel:.3e} of the largest "
+        f"latent, carried to the priorities {float(sens.min()):.3e}..{float(sens.max()):.3e} "
+        f"(median {float(sens.median()):.3e}); worst |diff| / bound "
+        f"{float((diff / bound).max()):.3f}; within rtol {rtol} atol {atol} alone: "
+        f"{bool((diff <= atol + rtol * cpu.abs()).all())}; {time.perf_counter() - t0:.1f}s")
+    del on, tg, zs, es, grads
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def agree(tr, label, rtol=1e-4, atol=1e-5, sampled=None, latents=None, results=None):
     """One update on a sampled batch (drawn from the trainer's replay unless
     given) through the kernels on the card against the same update through
     the plain versions on the CPU (with `latents`, both given the card's
     encoder outputs: encoder_latents); prints every comparison, then fails
-    if one of those named in `held` is outside rtol / atol; -> the batch."""
+    if one is outside rtol / atol; -> the batch.
+    `results`, a dict, receives both sides' (loss, priorities, gradient
+    norm, per-parameter norms) under "cuda" and "cpu"."""
     import torch
 
     if sampled is None:
         sampled = tr.replay.sample_batch(tr.sample_rng)
     t = time.perf_counter()
-    results = {where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled, where,
-                                 latents)
-               for where in ("cuda", "cpu")}
+    results = {} if results is None else results
+    results.update({where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled,
+                                      where, latents)
+                    for where in ("cuda", "cpu")})
     bad = []
     for name, a, b in zip(AGREE_NAMES, results["cuda"], results["cpu"]):
         diff = float((a - b).abs().max())
         excess = float(((a - b).abs() - (atol + rtol * b.abs())).max())
-        if name in held and not torch.allclose(a, b, rtol=rtol, atol=atol):
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
             bad.append(f"{name} {diff:.3e}")
         say("agree", f"{label} {name}: card {a.flatten()[0].item():.6f} vs cpu "
             f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e}, largest |cpu| "
-            f"{float(b.abs().max()):.3e}, excess over rtol {rtol} atol {atol}: {excess:+.3e}"
-            f"{'' if name in held else ', printed, not held'})")
+            f"{float(b.abs().max()):.3e}, excess over rtol {rtol} atol {atol}: {excess:+.3e})")
     say("agree", f"{label}: {len(sampled.idxes)} rows, {time.perf_counter() - t:.1f}s")
     if bad:
         fail(f"{label}: through the kernels differs from the CPU's plain versions: "
@@ -1984,15 +2092,14 @@ def procgen_phase(dev, tmp):
                "env_steps": m["env_steps"], "loss": m["loss"]}
         say("procgen", json.dumps(row))
         if label == "bf16":
-            # the IMPALA stack's 15 bf16 convolutions round in other orders
-            # in cuDNN and on the CPU (on an H100: the whole update's
-            # priorities 2.4e-3 apart, 1.9e-4 with the card's encoder
-            # outputs handed to both): the update behind the encoder is
-            # held whole, the whole update's priorities are printed
-            sampled = agree(tr, f"procgen {label}", held=("loss", "grad_norm",
-                                                         "grad_norm per parameter"), **tol)
+            # the whole bf16 update held at the bf16 tolerances, the update
+            # behind the encoder too; the encoder's derived rounding bound
+            # carried to the priorities is printed beside their distance
+            results = {}
+            sampled = agree(tr, f"procgen {label}", **tol, results=results)
             agree(tr, f"procgen {label}, the card's encoder outputs handed to both", **tol,
                   sampled=sampled, latents=encoder_latents(tr, sampled))
+            encoder_bound_priorities(tr, f"procgen {label}", sampled, results, **tol)
         else:
             agree(tr, f"procgen {label}", **tol)
         profile_updates(tr, PROCGEN_PROFILED, f"procgen {label}")
@@ -2147,6 +2254,344 @@ def multitask_phase(dev, tmp):
         + ", ".join(f"{lb} {r['ms_per_update']:.2f} / {r['ms_per_update_wall']:.2f}, update "
                     f"peak {r['update_peak_gib']:.2f} GiB" for lb, r in rows.items())
         + f"; phase {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def _serve_through_loop(srv, groups, hold_ms=0.0):
+    """Serve each group through the server's own loop: the group's requests
+    (a list of steps, each a list of (sid, obs, reward, reset) rows, one row
+    a session) are all queued, then start() runs the serve loop (and, with
+    serve_pipeline, the completion worker behind the depth-2 semaphore)
+    until every future resolves, then stop(). With the queue full before
+    the loop starts, the batcher forms one batch a step (a session's later
+    requests are deferred), back to back. `hold_ms` delays each completion,
+    so the serve loop runs ahead to the depth bound. Fails on a worker
+    restart or stall, or a request left in flight. -> (each group's results,
+    step by step, row by row; the most batches dispatched and not yet
+    completed at once)."""
+    import threading
+
+    stage, complete = srv._stage_and_dispatch, srv._complete
+    lock, depth = threading.Lock(), [0, 0]
+
+    def staged(batch):
+        rec = stage(batch)
+        with lock:
+            depth[0] += 1
+            depth[1] = max(depth)
+        return rec
+
+    def completed(rec):
+        time.sleep(hold_ms / 1e3)
+        with lock:
+            depth[0] -= 1
+        complete(rec)
+
+    srv._stage_and_dispatch, srv._complete = staged, completed
+    out = []
+    try:
+        for steps in groups:
+            futures = [[srv.submit(sid, obs, reward=r, reset=reset)
+                        for sid, obs, r, reset in rows] for rows in steps]
+            srv.start(watch_checkpoints=False)
+            try:
+                out.append([[f.result(timeout=30.0) for f in fs] for fs in futures])
+                counts = srv.check()
+            finally:
+                srv.stop()
+            if any(counts.values()) or srv._inflight:
+                fail(f"serve: {counts}, {len(srv._inflight)} requests left in flight")
+    finally:
+        del srv._stage_and_dispatch, srv._complete
+    return out, depth[1]
+
+
+def serve_parity(cfg, label, pipelined, dev):
+    """Every bucket's sessions, SERVE_STEPS requests each, served through
+    the running server (_serve_through_loop; pipelined, each completion
+    held SERVE_HOLD_MS so two batches are in flight), each answer against
+    reference_act at the bucket and row it reports, the session's carry and
+    last action carried on: q, actions and the carries written in the
+    cache, bit for bit; -> the server."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.ops.act_tail import first_argmax
+    from r2d2_tpu_torch.serve import PolicyServer, ServeConfig, reference_act
+
+    srv = PolicyServer(cfg.replace(serve_pipeline=pipelined),
+                       ServeConfig(buckets=SERVE_BUCKETS, max_wait_ms=0.0, cache_capacity=128),
+                       device=dev)
+    srv.warmup()
+    params = srv.served_params()
+    rng = np.random.default_rng(0)
+    groups = []
+    for b in SERVE_BUCKETS:
+        steps = []
+        for step in range(SERVE_STEPS):
+            obs = rng.integers(0, 255, (b, *cfg.obs_shape), dtype=np.uint8)
+            rew = rng.normal(size=b).astype(np.float32) * (step > 0)
+            steps.append([(f"{label}-{b}-{i}", obs[i], float(rew[i]), step == 0)
+                          for i in range(b)])
+        groups.append(steps)
+    results, depth = _serve_through_loop(srv, groups, SERVE_HOLD_MS if pipelined else 0.0)
+    zero = torch.zeros((1, cfg.hidden_dim), dtype=cfg.state_dtype, device=dev)
+    carries, batches = {}, 0
+    for steps, res in zip(groups, results):
+        for rows, answers in zip(steps, res):
+            batches += 1
+            for (sid, obs, r, _), got in zip(rows, answers):
+                h, c, last = carries.get(sid, (zero, zero, 0))
+                q, (h, c) = reference_act(srv.net, params, obs[None], np.array([last]),
+                                          np.array([r], np.float32), (h, c),
+                                          min_batch=got.bucket, row=got.row)
+                want = q[0].cpu().numpy()
+                last = int(first_argmax(q)[0])
+                carries[sid] = (h.to(cfg.state_dtype), c.to(cfg.state_dtype), last)
+                if not (np.array_equal(got.q, want) and got.action == last
+                        and got.bucket == len(rows)):
+                    fail(f"serve {label}: {sid} at bucket {got.bucket} row {got.row} (a "
+                         f"{len(rows)}-row step) differs from reference_act (max |dq| "
+                         f"{float(np.abs(got.q - want).max()):.3e})")
+    # the carries after each session's last step, read from the cache's rows
+    for sid, (h, c, _) in carries.items():
+        slot = srv.cache._slots[sid]
+        if not (torch.equal(srv.cache.h[slot], h[0]) and torch.equal(srv.cache.c[slot], c[0])):
+            fail(f"serve {label}: the cache's carry of {sid} differs from reference_act's")
+    if depth != (2 if pipelined else 1):
+        fail(f"serve {label}: at most {depth} batches were in flight at once")
+    say("serve", f"{label}: {batches} batches through the serve loop over buckets "
+        f"{SERVE_BUCKETS} ({SERVE_STEPS} a bucket, carries carried on; up to {depth} in "
+        f"flight): q, actions and cached carries equal reference_act at the reported bucket "
+        f"and row bit for bit; step shapes {srv.trace_count}")
+    if srv.trace_count != len(SERVE_BUCKETS):
+        fail(f"serve {label}: {srv.trace_count} step shapes for {len(SERVE_BUCKETS)} buckets")
+    return srv
+
+
+def serve_load(cfg, label, dev, tmp, card):
+    """Open-loop Poisson arrivals over SERVE_SESSIONS sessions (cache
+    SERVE_CACHE, spill slab SERVE_SPILL), buckets 2-32, a hot reload half
+    way through each rate's window, the first 20% of a window discarded;
+    one JSON line a rate. A rate fails on a request that fails (other than
+    a rejection by the full queue) or is never answered, and on a restart
+    or stall of a serve worker."""
+    import threading
+    from concurrent.futures import wait
+
+    import numpy as np
+    from r2d2_tpu_torch.learner import init_train_state
+    from r2d2_tpu_torch.serve import PolicyServer, QueueFullError, ServeConfig
+    from r2d2_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ckpt = os.path.join(tmp, f"serve_{label}")
+    srv = PolicyServer(cfg.replace(serve_spill=SERVE_SPILL),
+                       ServeConfig(buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                                   cache_capacity=SERVE_CACHE, poll_interval_s=0.2),
+                       checkpoint_dir=ckpt, device=dev)
+    _, state = init_train_state(cfg, dev, seed=srv.serve_cfg.seed)
+    save_checkpoint(ckpt, state, 0, 0.0)
+    srv.warmup()
+    srv.start()
+    obs = np.random.default_rng(1).integers(0, 255, (SERVE_SESSIONS, *cfg.obs_shape),
+                                            dtype=np.uint8)
+    rows = []
+    try:
+        for k, rate in enumerate(SERVE_RATES):
+            records, futures, stop = [], [], threading.Event()
+            b0, st0 = (srv.batcher.batches, srv.batcher.occupancy_sum), srv.cache.stats()
+            rej0, reloads0, workers0 = srv.batcher.rejected, srv.reloads, srv.check()
+            t0 = time.perf_counter()
+
+            def arrivals():
+                rng = np.random.default_rng(1234 + k)
+                seen, next_t = set(), time.perf_counter()
+                while not stop.is_set():
+                    next_t += rng.exponential(1.0 / rate)
+                    delay = next_t - time.perf_counter()
+                    if delay > 0 and stop.wait(delay):
+                        break
+                    i = int(rng.integers(0, SERVE_SESSIONS))
+                    sid = f"load-{i}"
+                    t_sub = time.perf_counter()
+                    fut = srv.submit(sid, obs[i], reward=0.0, reset=sid not in seen)
+                    futures.append(fut)
+                    seen.add(sid)
+
+                    def done(f, t_sub=t_sub):
+                        e = f.exception()
+                        records.append((t_sub - t0, time.perf_counter() - t_sub if e is None
+                                        else None, None if e is None else
+                                        ("rejected" if isinstance(e, QueueFullError)
+                                         else "error")))
+
+                    fut.add_done_callback(done)
+
+            th = threading.Thread(target=arrivals, daemon=True)
+            th.start()
+            time.sleep(SERVE_SECONDS / 2)
+            state.step = 100 * (k + 1)  # the hot reload, half way through
+            save_checkpoint(ckpt, state, 0, 0.0)
+            time.sleep(SERVE_SECONDS / 2)
+            stop.set()
+            elapsed = time.perf_counter() - t0  # the arrival window
+            th.join(timeout=10.0)
+            wait(futures, timeout=30.0)  # the last futures resolve
+            time.sleep(0.1)  # and their callbacks run
+            workers = {n: v - workers0[n] for n, v in srv.check().items()}
+            warm = 0.2 * SERVE_SECONDS
+            measured = [r for r in records if r[0] >= warm]
+            ok = np.sort([lat for _, lat, _ in measured if lat is not None])
+            p50, p95, p99 = (float(np.percentile(ok, q) * 1e3) if ok.size else float("nan")
+                             for q in (50, 95, 99))
+            st = srv.cache.stats()
+            batches = srv.batcher.batches - b0[0]
+            row = {"arm": label, "arrival_rate": rate, "seconds": SERVE_SECONDS,
+                   "requests_per_s": ok.size / max(elapsed - warm, 1e-9),
+                   "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
+                   "slo_ms": SERVE_SLO_MS,
+                   "slo_attainment": int((ok <= SERVE_SLO_MS / 1e3).sum()) / max(len(measured), 1),
+                   "mean_batch_occupancy": (srv.batcher.occupancy_sum - b0[1]) / max(batches, 1),
+                   "batches": batches,
+                   "spills": st["cache_spills"] - st0["cache_spills"],
+                   "promotes": st["cache_promotes"] - st0["cache_promotes"],
+                   "rejects": srv.batcher.rejected - rej0,
+                   "errors": sum(r[2] == "error" for r in records),
+                   "unanswered": len(futures) - len(records), **workers,
+                   "reloads": srv.reloads - reloads0,
+                   "warmup_requests": len(records) - len(measured), "card": card}
+            say("serve", json.dumps(row))
+            if (row["reloads"] < 1 or not ok.size or row["errors"] or row["unanswered"]
+                    or any(workers.values())):
+                fail(f"serve load {label} at {rate}/s: {row}")
+            rows.append(row)
+        srv.check()
+    finally:
+        srv.stop()
+    return rows
+
+
+def serve_phase(dev, tmp):
+    """Phase 25: the serving plane (M14a) at the atari preset's widths on
+    catch (84x84x1, nature encoder, LSTM 512, 3 actions): served answers
+    bit for bit equal to reference_act at every bucket, fp32 and bf16,
+    serial and pipelined; a served batch on the card against the same on
+    the CPU; the int8 arm's drift; open-loop load at three rates per arm;
+    the carry bytes per session and one cache of 1,000,000 sessions; and no
+    LSTM kernel launched across the phase."""
+    import gc
+
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.serve import LocalClient, PolicyServer, ServeConfig, reference_act
+
+    t0 = time.perf_counter()
+    card = card_line()
+    launches0 = dict(K.launch_counts)
+    base = PRESETS["atari"]().replace(action_dim=3, **ON_CATCH_BF16)
+    arms = {"fp32": base.replace(compute_dtype="float32"),
+            "bf16": base.replace(precision="bf16"),
+            "int8": base.replace(precision="bf16", serve_quantization="int8")}
+
+    # parity: every bucket, fp32 and bf16, serial and pipelined
+    for label in ("fp32", "bf16"):
+        for pipelined in (False, True):
+            srv = serve_parity(arms[label], f"{label} {'pipelined' if pipelined else 'serial'}",
+                               pipelined, dev)
+        # one served batch on the card against the same batch on the CPU
+        cpu = PolicyServer(arms[label], ServeConfig(buckets=(32,), cache_capacity=64),
+                           params={k: v.cpu() for k, v in srv.served_params().items()},
+                           device="cpu")
+        rng = np.random.default_rng(5)
+        obs = rng.integers(0, 255, (32, *base.obs_shape), dtype=np.uint8)
+        group = [[[(f"cpu-{i}", obs[i], 0.0, True) for i in range(32)]]]
+        got, want = (np.stack([r.q for r in _serve_through_loop(s, group)[0][0][0]])
+                     for s in (srv, cpu))
+        tol = {} if label == "fp32" else BF16_AGREE
+        rtol, atol = tol.get("rtol", 1e-4), tol.get("atol", 1e-5)
+        ok = bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+        say("serve", f"{label}: one bucket-32 batch on the card against the CPU: max |dq| "
+            f"{float(np.abs(got - want).max()):.3e} (rtol {rtol}, atol {atol})")
+        if not ok:
+            fail(f"serve {label}: the card's batch differs from the CPU's")
+        del srv, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the int8 arm: bit for bit its dequantized reference, drift bounded
+    # against the float arm on one session's stream
+    scfg = ServeConfig(buckets=(2, 4), max_wait_ms=1.0, cache_capacity=16)
+    fp = PolicyServer(arms["fp32"], scfg, device=dev)
+    q8 = PolicyServer(arms["fp32"].replace(serve_quantization="int8"), scfg, device=dev)
+    for s in (fp, q8):
+        s.warmup()
+        s.start()
+    deq = q8.served_params()
+    rng = np.random.default_rng(0)
+    h = c = torch.zeros((1, base.hidden_dim), device=dev)
+    last, drift, top = 0, 0.0, 0.0
+    try:
+        for t in range(12):
+            o = rng.integers(0, 255, base.obs_shape, dtype=np.uint8)
+            r = 0.0 if t == 0 else float(rng.random())
+            a = LocalClient(fp).act("s", o, reward=r, reset=t == 0)
+            b = LocalClient(q8).act("s", o, reward=r, reset=t == 0)
+            qr, (h, c) = reference_act(q8.net, deq, o[None], np.array([last]),
+                                       np.array([r], np.float32), (h, c), min_batch=b.bucket,
+                                       row=b.row)
+            if not np.array_equal(qr[0].cpu().numpy(), b.q):
+                fail("serve int8: the served Q differs from reference_act on the "
+                     "dequantized parameters")
+            last = b.action
+            drift = max(drift, float(np.abs(b.q - a.q).max()))
+            top = max(top, float(np.abs(a.q).max()))
+    finally:
+        fp.stop()
+        q8.stop()
+    say("serve", f"int8 ({q8.quantized_leaves} leaves): bit for bit its dequantized reference; "
+        f"Q drift against fp32 {drift:.3e} of max |Q| {top:.3e} = {drift / top:.4f} (bound "
+        f"{INT8_DRIFT})")
+    if drift / top >= INT8_DRIFT:
+        fail(f"serve int8: drift {drift / top:.4f} over {INT8_DRIFT}")
+    del fp, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # open-loop load, three rates an arm
+    rows = {label: serve_load(cfg, label, dev, tmp, card) for label, cfg in arms.items()}
+
+    # sessions per card
+    from r2d2_tpu_torch.serve.state_cache import RecurrentStateCache
+
+    per = {lb: RecurrentStateCache(1, base.hidden_dim, dtype=arms[lb].state_dtype,
+                                   device=dev).session_carry_bytes for lb in ("fp32", "bf16")}
+    big = PolicyServer(arms["fp32"], ServeConfig(buckets=(32,), cache_capacity=SESSIONS_PER_CARD),
+                       device=dev)
+    big.warmup()
+    res = _serve_through_loop(big, [[[(f"big-{i}", obs[i], 0.0, True)
+                                      for i in range(32)]]])[0][0][0]
+    slots = [big.cache._slots[f"big-{i}"] for i in range(32)]
+    q, _ = reference_act(big.net, big.served_params(), obs, np.zeros(32, np.int32),
+                         np.zeros(32, np.float32),
+                         (torch.zeros((32, base.hidden_dim), device=dev),) * 2, min_batch=32)
+    if not np.array_equal(np.stack([r.q for r in res]), q.cpu().numpy()):
+        fail("serve: the batch on the 1,000,000-session cache's last rows differs from "
+             "reference_act")
+    say("serve", f"sessions per card: {per['fp32']} carry bytes a session in fp32, "
+        f"{per['bf16']} in bf16 (H={base.hidden_dim}); a cache of {SESSIONS_PER_CARD:,} "
+        f"sessions holds {big.cache.device_bytes():,} bytes on the card; a batch of 32 on its "
+        f"rows {min(slots)}..{max(slots)} equals reference_act bit for bit")
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moved = {k: v - launches0.get(k, 0) for k, v in K.launch_counts.items()
+             if v != launches0.get(k, 0)}
+    if moved:
+        fail(f"serve: the phase launched LSTM kernels: {moved}")
+    say("serve", f"[{card}] no LSTM kernel launched across the phase; phase "
+        f"{time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -3156,6 +3601,13 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         multitask_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 25. serving: the session cache, the micro-batcher, the PolicyServer ------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        serve_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -192,6 +192,23 @@ class R2D2Config:
     snapshot_every: int = 0
     metrics_path: Optional[str] = None  # jsonl metrics file
 
+    # --- serving plane (serve/) ---------------------------------------------
+    # "int8": per-output-channel symmetric int8 weights for the encoder and
+    # head kernels (ops/quantize.py), quantized at every publish and
+    # dequantized in the serve step; "none" serves the parameters as they are
+    serve_quantization: str = "none"
+    # sessions the host spill slab holds (serve/state_cache.py): an evicted
+    # session's carry is demoted there and promoted back intact; 0 = off, an
+    # evicted session restarts from the zero state
+    serve_spill: int = 0
+    # the depth-2 serve pipeline: a completion worker resolves batch k
+    # while the serve loop stages and dispatches batch k + 1; False serves
+    # each batch to its end before the next (the same answers, bit for bit)
+    serve_pipeline: bool = True
+    # seconds between serve metrics records (0.0: one per batch), plus a
+    # record at every params version
+    serve_log_interval: float = 0.0
+
     # --- derived ----------------------------------------------------------
     @property
     def resolved_compute_dtype(self) -> str:
@@ -355,6 +372,13 @@ class R2D2Config:
                 f"unknown model_preset {self.model_preset!r}; one of "
                 f"{sorted(MODEL_PRESETS)} (config.MODEL_PRESETS)"
             )
+        if self.serve_quantization not in ("none", "int8"):
+            raise ValueError(f"unknown serve_quantization {self.serve_quantization!r}; "
+                             "'none' or 'int8'")
+        if self.serve_spill < 0:
+            raise ValueError("serve_spill must be >= 0 (0 disables the spill slab)")
+        if self.serve_log_interval < 0.0:
+            raise ValueError("serve_log_interval must be >= 0 (0.0 logs every batch)")
         if self.block_codec not in ("none", "delta-zlib"):
             raise ValueError(f"unknown block_codec {self.block_codec!r}")
         if self.replay_disk_capacity < 0:
@@ -720,3 +744,15 @@ def parse_overrides(pairs) -> dict:
         else:
             out[key] = raw
     return out
+
+
+def apply_cli_overrides(cfg: R2D2Config, set_pairs=None, ablate_zero_state: bool = False
+                        ) -> R2D2Config:
+    """One resolution order for every demo and CLI: the `--set` pairs
+    first, then the zero-state ablation flag, so the flag's contract
+    (burn_in_steps=0 and zero_state_replay) always wins."""
+    if set_pairs:
+        cfg = cfg.replace(**parse_overrides(set_pairs))
+    if ablate_zero_state:
+        cfg = cfg.replace(burn_in_steps=0, zero_state_replay=True)
+    return cfg

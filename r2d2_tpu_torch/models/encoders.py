@@ -21,7 +21,12 @@ padding of ``MaxPool2d`` matches it.
 
 `dtype` is the compute dtype, as flax's ``Dense(dtype=...)`` and
 ``Conv(dtype=...)`` take it: float32 parameters cast to it where they are
-used, the input cast to it, every layer computed in it.
+used, the input cast to it, every layer computed in it. Every layer rounds
+where flax's does: the product (convolution or matmul) is rounded to the
+dtype, then the bias is added and the sum rounded again (flax's
+``y = dot(x, w); y += b``). A bias fused into the product would round once,
+which in bfloat16 moves outputs by a unit of the last place where flax's
+do not (:func:`_conv`, :func:`_linear`).
 """
 
 from __future__ import annotations
@@ -58,6 +63,19 @@ def conv(in_ch: int, out_ch: int, k: int, stride: int, generator) -> nn.Conv2d:
     return layer
 
 
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax's Dense(dtype=dtype): the matmul rounded, then the bias added."""
+    return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def _conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype,
+          padding: int = 0) -> torch.Tensor:
+    """flax's Conv(dtype=dtype), NCHW: the convolution rounded, then the
+    bias added."""
+    y = F.conv2d(x, layer.weight.to(dtype), None, stride=layer.stride, padding=padding)
+    return y + layer.bias.to(dtype)[:, None, None]
+
+
 class _LatentTail(nn.Module):
     def __init__(self, in_dim: int, latent_dim: int, depth: int, generator,
                  dtype: torch.dtype = torch.float32):
@@ -71,7 +89,7 @@ class _LatentTail(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for layer in self.dense:
-            x = F.relu(F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype)))
+            x = F.relu(_linear(x, layer, self.dtype))
         return x
 
 
@@ -95,8 +113,7 @@ class NatureEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW for the convolutions
         for layer in self.convs:
-            x = F.relu(F.conv2d(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype),
-                                stride=layer.stride))
+            x = F.relu(_conv(x, layer, self.dtype))
         # flatten in NHWC order, as the JAX trunk does
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.tail(x)
@@ -111,7 +128,7 @@ def same_pool_pads(size: int, window: int = 3, stride: int = 2) -> Tuple[int, in
 
 def _conv_same(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """3x3 stride-1 SAME convolution: symmetric padding of 1."""
-    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype), padding=1)
+    return _conv(x, layer, dtype, padding=1)
 
 
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,12 @@ Registered sites (KNOWN_SITES): the ones wired into the port.
 - disk.promote        one disk-resident block's page-in and decode
                       (replay/disk_tier.py)
 - codec.decode        one encoded field's decode (replay/codec.py)
+- serve.reload        the serve plane's checkpoint hot reload
+                      (serve/server.py)
+- serve.replica_stall top of every serve-loop iteration: "stall:S" wedges
+                      the serve loop for S seconds, "error" exercises its
+                      supervised restart (serve/server.py)
+- serve.client        one TCP client round trip (serve/client.py)
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ KNOWN_SITES = (
     "disk.write",
     "disk.promote",
     "codec.decode",
+    "serve.reload",
+    "serve.replica_stall",
+    "serve.client",
 )
 
 

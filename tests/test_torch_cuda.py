@@ -28,9 +28,15 @@ largest entry. Two launches still give the same bits. All five bf16
 forms sum their products on the tensor cores (mma.sync), whose f32 sums
 take yet another order (K4's and K5's dWh from dz in two bf16 planes,
 about 16 bits of it): the same class holds them.
+
+Serving (r2d2_tpu_torch/serve): the pipelined server's pinned read-back
+and its event against the serial server bit for bit, the cache written in
+place across one session's back-to-back batches, and a bf16 carry's spill
+round trip, all on the card.
 """
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -964,3 +970,124 @@ def test_procmaze_core_on_the_card_equals_the_cpu(cuda):
             assert torch.equal(x.cpu(), y), t
     own = env.reset(256, torch.Generator(device=cuda).manual_seed(1), cuda)
     assert own.walls.is_cuda and not (own.agent == own.goal).all(-1).any()
+
+
+# ---------------------------------------------------------------- serving
+
+
+def _serve_pair(precision, pipeline, **serve_kw):
+    from r2d2_tpu_torch.serve import PolicyServer, ServeConfig
+
+    cfg = tiny_test().replace(precision=precision, serve_pipeline=pipeline)
+    scfg = ServeConfig(buckets=(2, 4, 8), max_wait_ms=1.0, cache_capacity=16, epsilon=0.3,
+                       **serve_kw)
+    return PolicyServer(cfg, scfg, device="cuda"), cfg
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_serve_pinned_read_back_under_the_depth2_pipeline(cuda, precision):
+    """Through the running server (start(): the serve loop, and when
+    pipelined the completion worker behind the depth-2 semaphore), every
+    request queued before the loop starts and each completion held 5 ms,
+    so two batches are in flight and a staging set is reused while the
+    batch before it completes: each record's q and actions come back
+    through its staging set's pinned buffers and its event, and equal the
+    serial server's answers bit for bit; the two sets' buffers alternate."""
+    import threading
+
+    ser, cfg = _serve_pair(precision, False)
+    pipe, _ = _serve_pair(precision, True)
+    rng = np.random.default_rng(0)
+    specs = [[(f"s{(b + i) % 5}", rng.integers(0, 255, cfg.obs_shape, dtype=np.uint8),
+               float(rng.normal())) for i in range(1 + b % 4)] for b in range(10)]
+    out, recs, depth = {}, [], [0, 0]
+    lock = threading.Lock()
+    for name, srv in (("ser", ser), ("pipe", pipe)):
+        srv.warmup()
+        stage, complete = srv._stage_and_dispatch, srv._complete
+
+        def staged(batch, stage=stage, name=name):
+            rec = stage(batch)
+            if name == "pipe":
+                with lock:
+                    recs.append((rec.q_host.is_pinned(), rec.event is not None,
+                                 rec.q_host.data_ptr()))
+                    depth[0] += 1
+                    depth[1] = max(depth)
+            return rec
+
+        def completed(rec, complete=complete, name=name):
+            if name == "pipe":
+                time.sleep(0.005)
+                with lock:
+                    depth[0] -= 1
+            complete(rec)
+
+        srv._stage_and_dispatch, srv._complete = staged, completed
+        futures = [[srv.submit(sid, o, reward=r) for sid, o, r in rows] for rows in specs]
+        srv.start(watch_checkpoints=False)
+        try:
+            out[name] = [[f.result(timeout=30.0) for f in fs] for fs in futures]
+            assert srv.check() == {"worker_restarts": 0, "worker_stalls": 0}
+        finally:
+            srv.stop()
+    for a_batch, b_batch in zip(out["ser"], out["pipe"]):
+        for a, b in zip(a_batch, b_batch):
+            assert (a.action, a.bucket, a.row) == (b.action, b.bucket, b.row)
+            np.testing.assert_array_equal(a.q, b.q)
+    assert ser._rng.bit_generator.state == pipe._rng.bit_generator.state
+    assert depth[1] == 2 and all(pinned and event for pinned, event, _ in recs)
+    # the two sets of a bucket take turns (at most two per bucket in use)
+    assert len({ptr for *_, ptr in recs}) <= 2 * len(pipe.batcher.buckets)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_serve_commit_in_place_across_back_to_back_batches(cuda, precision):
+    """One session's requests in consecutive batches: each batch writes the
+    cache's own tensors in place (the same storage throughout) and the next
+    gathers that write, answers equal to the reference carried on, bit for
+    bit."""
+    from r2d2_tpu_torch.serve import reference_act
+
+    srv, cfg = _serve_pair(precision, True)
+    srv.warmup()
+    storage = [t.data_ptr() for t in srv.cache.arrays()]
+    params = srv.served_params()
+    rng = np.random.default_rng(1)
+    h = c = torch.zeros((1, cfg.hidden_dim), device="cuda")
+    last = 0
+    srv.start(watch_checkpoints=False)
+    try:
+        for t in range(6):
+            obs = rng.integers(0, 255, cfg.obs_shape, dtype=np.uint8)
+            res = srv.submit("one", obs, reward=0.5, reset=t == 0, epsilon=0.0).result(10.0)
+            q, (h, c) = reference_act(srv.net, params, obs[None], np.array([last]),
+                                      np.array([0.0 if t == 0 else 0.5], np.float32), (h, c),
+                                      min_batch=res.bucket, row=res.row)
+            h, c = h.to(cfg.state_dtype), c.to(cfg.state_dtype)
+            np.testing.assert_array_equal(q[0].cpu().numpy(), res.q)
+            last = res.action
+    finally:
+        srv.stop()
+    assert [t.data_ptr() for t in srv.cache.arrays()] == storage
+
+
+def test_serve_bf16_spill_round_trip_on_the_card(cuda):
+    """A bf16 carry demoted from the card to the host slab and promoted back
+    keeps its bits."""
+    from r2d2_tpu_torch.serve.state_cache import RecurrentStateCache
+
+    cache = RecurrentStateCache(capacity=2, hidden_dim=64, dtype=torch.bfloat16,
+                                spill_capacity=4, device="cuda")
+    (slot,), _ = cache.assign(["a"])
+    h = torch.randn(1, 64, device="cuda").to(torch.bfloat16)
+    cache.write(torch.tensor([int(slot)], device="cuda"), h, -h,
+                torch.tensor([2], device="cuda"), torch.tensor([0.75], device="cuda"))
+    cache.assign(["b"])
+    cache.assign(["c"])  # a demoted to the slab
+    assert cache.spilled("a") and not cache._spill_h.is_cuda
+    (slot2,), fresh = cache.assign(["a"])
+    assert not fresh[0]
+    assert torch.equal(cache.h[slot2].view(torch.int16), h[0].view(torch.int16))
+    assert torch.equal(cache.c[slot2].view(torch.int16), (-h)[0].view(torch.int16))
+    assert int(cache.last_action[slot2]) == 2 and float(cache.last_reward[slot2]) == 0.75

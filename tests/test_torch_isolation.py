@@ -1,8 +1,10 @@
 """The port stands alone: importing r2d2_tpu_torch and every one of its
 modules (and running chip_smoke.py) loads nothing of JAX, flax, optax or the
 JAX package, nor ml_dtypes (the chip machine's installs do not name it: the
-port keeps bf16 carries on the host as uint16 bits), and chip_smoke.py fails
-cleanly where it cannot run."""
+port keeps bf16 carries on the host as uint16 bits), the serving plane and
+the int8 quantization on their own included, and no source line of the
+package, chip_smoke.py, the port's demos or its tools imports them; chip_smoke.py
+fails cleanly where it cannot run."""
 
 import os
 import re
@@ -41,8 +43,27 @@ def test_importing_every_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 40  # every module, the fault plane, snapshots and tiers included
+    # every module: the fault plane, snapshots, tiers and the serving plane included
+    assert int(count) >= 47
     assert bad.strip() == "[]"
+
+
+SERVE_ONLY = """
+import sys
+import r2d2_tpu_torch.ops.quantize, r2d2_tpu_torch.serve, r2d2_tpu_torch.serve.__main__
+from r2d2_tpu_torch.serve import PolicyServer, PolicyClient, reference_act
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(bad)
+"""
+
+
+def test_the_serving_plane_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", SERVE_ONLY.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def _python_files():
@@ -51,6 +72,12 @@ def _python_files():
             if n.endswith(".py"):
                 yield os.path.join(d, n)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for n in sorted(os.listdir(os.path.join(ROOT, "examples"))):
+        if n.startswith("torch_") and n.endswith(".py"):
+            yield os.path.join(ROOT, "examples", n)
+    for n in sorted(os.listdir(os.path.join(ROOT, "tools"))):
+        if n.endswith(".py"):
+            yield os.path.join(ROOT, "tools", n)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
