@@ -229,6 +229,34 @@ its own lines; any failure exits non-zero and prints no result:
           session and a
           cache of 1,000,000 sessions, a batch on its last rows bit for bit;
           no LSTM kernel launched across the phase.
+26. fleet the serving fleet and the live loop (r2d2_tpu_torch/serve/multi.py,
+          degrade.py, scenarios.py, autoscale.py; liveloop/) at the atari
+          preset's widths on catch, bf16 as it ships, two replicas on one
+          card, each with its own module: the ladder's admission shed
+          inside its budget; (a) 16 interleaved sessions, every answer its
+          replica's reference_act at its bucket and row bit for bit,
+          placements least-loaded, no session moving; (b) checkpoints
+          through the fleet's watcher in fp32 and int8 weights, both
+          replicas at one (step, version); (d) rungs 0 -> 3 -> 0 pinned in
+          lockstep, the step kept, the version bumped, answers bit for bit
+          under each arm, probe Q drift of bf16 under 5% and int8 under
+          INT8_DRIFT; (c) the busier replica killed with a round queued:
+          its sessions migrated, none lost, every answer continuing its
+          carry bit for bit; (e) a scripted autoscaler adding a warmed
+          replica at the fleet's version and draining one through
+          migration; (f) flash_crowd and replica_kill with the ladder and
+          the autoscaler running, one readiness row each (failing on a
+          lost session, a timeout or transport outcome, or a kill not at
+          its event); (g) 16 catch sessions served through LocalClient
+          feeding a LiveLoopPlane, a LiveLoopTrainer on that replay
+          checkpointing every LIVE_SAVE_INTERVAL updates, each update
+          exactly 2 K1-bf16 + 1 K2-bf16, the fleet hot-reloading on both
+          replicas, no session lost and no worker restart or stall, and the
+          tap's blocks equal, stamps included, to an offline
+          SequenceAccumulator's fed the served stream as recorded; ms per
+          live update over the wall, served requests/s and p99, the peak.
+          Then K1-bf16 and K2-bf16 timed at the live replay's seams, their
+          rows in the kernels line with the live loop's launches.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -380,6 +408,28 @@ SESSIONS_PER_CARD = 1_000_000
 # the int8 arm's Q drift against the float arm, as a fraction of the largest
 # |Q| (tests/test_serve.py TestServeInt8)
 INT8_DRIFT = 0.05
+# phase 26: the fleet and the live loop at the atari widths, bf16 as the
+# preset ships it, two replicas on one card. The parity sessions and their
+# rounds; the queue bound of the ladder's admission check and the shed
+# budget it arms; the scenarios' seconds, base rate and sessions; the live
+# loop's catch sessions, their request rate each, its save cadence, the
+# updates it runs, the updates it runs after the traffic stops (the same
+# process, the fleet idle) and its deadline (s), and the tap's queue depth (deep
+# enough that the check against the offline accumulator sees no drop)
+FLEET_SESSIONS = 16
+FLEET_ROUNDS = 3
+FLEET_QUEUE = 64
+FLEET_SHED_BUDGET = 8
+SCENARIO_SECONDS = 2.5
+SCENARIO_RATE = 100.0
+SCENARIO_SESSIONS = 32
+LIVE_SESSIONS = 16
+LIVE_RATE = 25.0
+LIVE_SAVE_INTERVAL = 8
+LIVE_UPDATES = 48
+LIVE_IDLE_UPDATES = 8
+LIVE_DEADLINE = 45.0
+LIVE_TAP_DEPTH = 4096
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -2595,6 +2645,525 @@ def serve_phase(dev, tmp):
     return rows
 
 
+def _offline_blocks(cfg, rows):
+    """A session's served rows (tap records: obs, action, q, reward, reset,
+    epsilon, version, carries) through a bare SequenceAccumulator with the
+    serving shift applied by hand, as tests/test_torch_liveloop.py's
+    offline reference does, the final partial cut from its pending Q (the
+    tap's flush). -> [(block, priorities, episode reward, eps stamps,
+    version stamps)]."""
+    import numpy as np
+    from r2d2_tpu_torch.replay.accumulator import SequenceAccumulator
+
+    acc, out, eps_s, ver_s, pending = SequenceAccumulator(cfg), [], [], [], None
+
+    def cut(last_q):
+        out.append((*acc.finish(last_qval=last_q), np.asarray(eps_s, np.float32),
+                    np.asarray(ver_s, np.int64)))
+        eps_s.clear()
+        ver_s.clear()
+
+    for t, r in enumerate(rows):
+        if t == 0:
+            acc.reset(r["obs"])
+        else:
+            a, q, hid, eps, ver = pending
+            acc.add(a, r["reward"], r["obs"], q, hid)
+            eps_s.append(eps)
+            ver_s.append(ver)
+            if r["reset"]:
+                cut(None)
+                acc.reset(r["obs"])
+            elif acc.size == cfg.block_length:
+                cut(r["q"])
+        pending = (r["action"], r["q"], np.stack([r["h"], r["c"]]), r["eps"], r["version"])
+    if acc.size > 0:
+        cut(pending[1])
+    return out
+
+
+def fleet_phase(dev, tmp):
+    """Phase 26: the serving fleet (M14b) and the live loop (M15) at the
+    atari preset's widths on catch, bf16 as the preset ships it, two
+    replicas on one card: (a) fleet parity and affinity, (b) reloads in
+    lockstep, (d) the ladder's rungs, (c) a kill with migration, (e) a
+    scripted autoscaler's scale-up and drain, (f) the flash_crowd and
+    replica_kill scenarios with the ladder and the autoscaler running, (g)
+    the live loop training on served traffic and hot-reloading the fleet.
+    -> the live loop's kernel launches and a batch of its replay's seams,
+    for the kernels line."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.learner import init_train_state
+    from r2d2_tpu_torch.envs.catch import CatchHostEnv
+    from r2d2_tpu_torch.liveloop import LiveLoopPlane, LiveLoopTrainer
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.serve import (
+        RUNGS,
+        AutoscaleConfig,
+        Autoscaler,
+        LocalClient,
+        MultiDeviceServer,
+        QueueFullError,
+        ScenarioRunner,
+        ServeConfig,
+        SessionRouter,
+        builtin_scenarios,
+        reference_act,
+    )
+    from r2d2_tpu_torch.utils.checkpoint import latest_checkpoint_step, save_checkpoint
+
+    t0 = time.perf_counter()
+    card = card_line()
+    base = PRESETS["atari"]().replace(action_dim=3, **ON_CATCH_BF16)
+    H = base.hidden_dim
+
+    # (a)-(e) on one fleet: the ladder on, pinned at rung 0 until (d)
+    ckpt = os.path.join(tmp, "fleet")
+    os.makedirs(ckpt)
+    cfg = base.replace(serve_degrade=True, serve_spill=4 * FLEET_SESSIONS)
+    fleet = MultiDeviceServer(cfg, ServeConfig(buckets=SERVE_BUCKETS, max_wait_ms=1.0,
+                                               queue_depth=FLEET_QUEUE, cache_capacity=64,
+                                               poll_interval_s=0.05),
+                              checkpoint_dir=ckpt, devices=[dev, dev])
+    a_net, b_net = (r.net for r in fleet.replicas)
+    if a_net is b_net or {p.data_ptr() for p in a_net.parameters()} & {
+            p.data_ptr() for p in b_net.parameters()}:
+        fail("fleet: two replicas share a network module")
+    fleet.degrade.pin(0)
+    fleet.warmup()
+    shapes = [r.trace_count for r in fleet.replicas]
+    if shapes != [3 * len(SERVE_BUCKETS)] * 2:
+        fail(f"fleet: warmup ran {shapes} step shapes, not 3 arms x {len(SERVE_BUCKETS)} buckets")
+
+    # the admission rung's bounded shed, on queues no loop drains yet
+    fleet.degrade.pin("admit")
+    limit = fleet.replicas[0].batcher.stats()["admit_limit"]
+    fleet.set_admission(limit, budget=FLEET_SHED_BUDGET)
+    per = limit + FLEET_SHED_BUDGET + 4
+    obs0 = np.zeros(base.obs_shape, np.uint8)
+    futs = [fleet.submit(f"shed-{i}", obs0, reset=True) for i in range(2 * per)]
+    shed = sum(isinstance(f.exception(timeout=0) if f.done() else None, QueueFullError)
+               for f in futs)
+    if shed != 2 * FLEET_SHED_BUDGET or fleet.stats()["shed"] != shed:
+        fail(f"fleet: {shed} sheds of {2 * per} submissions at the watermark {limit} with a "
+             f"budget of {FLEET_SHED_BUDGET} a replica")
+    fleet.degrade.pin(0)
+    fleet.start()
+    admitted = [f for f in futs if not (f.done() and f.exception() is not None)]
+    for f in admitted:
+        f.result(timeout=30.0)
+    for i in range(2 * per):
+        fleet.evict(f"shed-{i}")
+    say("fleet", f"ladder admission at queue {limit} of {FLEET_QUEUE}: {shed} of {2 * per} "
+        f"submissions shed with QueueFullError inside a budget of {FLEET_SHED_BUDGET} a "
+        f"replica, then admitted again; the {len(admitted)} admitted all answered")
+
+    zero = torch.zeros((1, H), device=dev)
+    sess = {}
+    rng = np.random.default_rng(26)
+
+    def serve_round(sids, label, kill=None):
+        """One request a session, all queued at once (the batches form by
+        replica); each answer against its replica's reference_act at its
+        bucket and row, the session's carry and action carried on. `kill`
+        retires that replica while the round is queued. -> the kill's
+        outcome."""
+        obs = rng.integers(0, 255, (len(sids), *base.obs_shape), dtype=np.uint8)
+        rew = rng.normal(size=len(sids)).astype(np.float32)
+        fresh = [sid not in sess for sid in sids]
+        fs = [fleet.submit(sid, obs[i], reward=float(rew[i]), reset=fresh[i])
+              for i, sid in enumerate(sids)]
+        outcome = None if kill is None else fleet.kill_replica(kill)
+        for i, (sid, f) in enumerate(zip(sids, fs)):
+            res = f.result(timeout=30.0)
+            rep = fleet.replica_for(sid)
+            h, c, last = sess.get(sid, (zero, zero, 0))
+            reward = 0.0 if fresh[i] else float(rew[i])
+            q, (h, c) = reference_act(rep.net, rep.served_params(), obs[i][None],
+                                      np.array([last]), np.array([reward], np.float32), (h, c),
+                                      min_batch=res.bucket, row=res.row)
+            if not np.array_equal(q[0].cpu().numpy(), res.q) or \
+                    res.params_version != rep._published[2]:
+                fail(f"fleet {label}: {sid} at bucket {res.bucket} row {res.row} (version "
+                     f"{res.params_version}) differs from its replica's reference_act (max |dq| "
+                     f"{float(np.abs(q[0].cpu().numpy() - res.q).max()):.3e})")
+            sess[sid] = (h.to(cfg.state_dtype), c.to(cfg.state_dtype), res.action)
+        return outcome
+
+    def lockstep(label):
+        alive = fleet._alive()
+        cells = {(r._published[1], r._published[2], r._published[3]) for r in alive}
+        want = {(fleet._ckpt_step, fleet._version, fleet._arm)}
+        if cells != want:
+            fail(f"fleet {label}: the replicas publish {cells}, the fleet {want}")
+
+    # (a) parity and affinity
+    sids = [f"fleet-{i}" for i in range(FLEET_SESSIONS)]
+    serve_round(sids, "parity")
+    owners = {sid: fleet.router.peek(sid) for sid in sids}
+    sim = SessionRouter(2)
+    if [sim.route(sid) for sid in sids] != [owners[s] for s in sids] or \
+            fleet.router.counts() != [FLEET_SESSIONS // 2] * 2:
+        fail(f"fleet: placements {owners} are not least-loaded (counts "
+             f"{fleet.router.counts()})")
+    for k in range(FLEET_ROUNDS - 1):
+        serve_round(sids, "parity")
+    if {sid: fleet.router.peek(sid) for sid in sids} != owners:
+        fail("fleet: a session changed replica")
+    say("fleet", f"(a) {FLEET_SESSIONS} sessions x {FLEET_ROUNDS} rounds over 2 replicas on "
+        f"{dev} (each its own module): every answer equals its replica's reference_act at its "
+        f"bucket and row bit for bit; placements least-loaded (counts "
+        f"{fleet.router.counts()}, as a fresh router places them); no session moved")
+
+    # (b) reloads through the fleet's watcher, the full arm then int8
+    _, state = init_train_state(cfg, dev, seed=fleet.serve_cfg.seed)
+
+    def publish(step, scale):
+        with torch.no_grad():
+            for p in state.net.parameters():
+                p.mul_(scale)
+        state.step = step
+        save_checkpoint(ckpt, state, 0, 0.0)
+        deadline = time.monotonic() + 20.0
+        while fleet._ckpt_step != step and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if fleet._ckpt_step != step or latest_checkpoint_step(ckpt) != step:
+            fail(f"fleet: the watcher never published step {step}")
+
+    publish(1, 1.01)
+    lockstep("reload fp32")
+    serve_round(sids, "reload fp32")
+    fleet.set_arm("int8")
+    publish(2, 0.99)
+    lockstep("reload int8")
+    q8 = [{k: v for k, v in r._published[0].items() if isinstance(v, dict)}
+          for r in fleet.replicas]
+    if not q8[0] or q8[0].keys() != q8[1].keys() or any(
+            not torch.equal(q8[0][k][kk], q8[1][k][kk]) for k in q8[0] for kk in q8[0][k]):
+        fail("fleet: the replicas' int8 tensors differ after the reload")
+    serve_round(sids, "reload int8")
+    fleet.set_arm("full")
+    say("fleet", f"(b) checkpoints 1 (fp32 weights) and 2 (int8, {len(q8[0])} quantized leaves "
+        f"each, the same bits on both) through the watcher: both replicas at (step, version) "
+        f"({fleet._ckpt_step}, {fleet._version}) in lockstep; every answer bit for bit its "
+        f"reference; {fleet.reloads} reloads")
+
+    # (d) the ladder, pinned 0 -> 3 -> 0
+    probes = rng.integers(0, 255, (4, *base.obs_shape), dtype=np.uint8)
+    probe_q = {}
+    stamps0 = len(fleet.degrade.transitions)
+    for n, rung in enumerate((0, 1, 2, 3, 2, 1, 0)):
+        before = (fleet._ckpt_step, fleet._version, fleet._arm)
+        fleet.degrade.pin(rung)
+        arm = {2: "bf16", 3: "int8"}.get(rung, "full")
+        lockstep(f"rung {RUNGS[rung]}")
+        if fleet._arm != arm or fleet._ckpt_step != before[0] or \
+                fleet._version != before[1] + (arm != before[2]):
+            fail(f"fleet: rung {RUNGS[rung]} published {fleet._arm} at (step, version) "
+                 f"({fleet._ckpt_step}, {fleet._version}) after {before}")
+        serve_round(sids, f"rung {RUNGS[rung]}")
+        pf = [fleet.submit(f"probe-{n}-{k}", probes[k], reset=True) for k in range(4)]
+        probe_q.setdefault(arm, np.stack([f.result(timeout=30.0).q for f in pf]))
+        for k in range(4):
+            fleet.evict(f"probe-{n}-{k}")
+    top = float(np.abs(probe_q["full"]).max())
+    drift = {a: float(np.abs(probe_q[a] - probe_q["full"]).max()) / top for a in ("bf16", "int8")}
+    stamps = fleet.degrade.transitions[stamps0:]
+    if drift["bf16"] >= 0.05 or drift["int8"] >= INT8_DRIFT or len(stamps) != 6 or any(
+            t[3] != "pinned" for t in stamps):
+        fail(f"fleet ladder: drift {drift}, transitions {stamps}")
+    say("fleet", f"(d) rungs 0->3->0 pinned on both replicas in lockstep, ckpt_step kept, the "
+        f"version bumped at each arm change; every answer bit for bit its reference under the "
+        f"arm it was served in; probe Q drift against the full arm: bf16 {drift['bf16']:.4f}, "
+        f"int8 {drift['int8']:.4f} of max |Q| {top:.3e} (bounds 0.05, {INT8_DRIFT}); "
+        f"{len(stamps)} transitions stamped 'pinned'; [{card}]")
+
+    # (c) kill the busier replica with a round queued on it
+    counts = fleet.router.counts()
+    victim = max(range(2), key=lambda i: (counts[i], i))
+    out = serve_round(sids, "kill", kill=victim)
+    st = fleet.stats()
+    if out != {"migrated": counts[victim], "lost": 0, "restarted": 0} or st["sessions_lost"]:
+        fail(f"fleet: the kill of replica {victim} ({counts[victim]} sessions): {out}")
+    serve_round(sids, "after the kill")
+    say("fleet", f"(c) replica {victim} killed with a round queued: {out['migrated']} sessions "
+        f"migrated (its {counts[victim]}), 0 lost, {st['requests_rerouted']} queued requests "
+        f"carried over; every answer continues its carry bit for bit")
+
+    # (e) a scripted autoscaler: pressure adds a warmed replica, health
+    # drains the less-loaded one through migration
+    auto = Autoscaler(fleet, AutoscaleConfig(min_replicas=1, max_replicas=2, dwell_up=2,
+                                             dwell_down=2, cooldown_s=0.0, min_samples=4,
+                                             drain_requires_idle=False))
+    auto.window.reset()
+    for _ in range(8):
+        auto.window.observe(0.2)
+    events = [auto.evaluate_once() for _ in range(2)]
+    new = fleet.replicas[-1]
+    if events != [None, "up"] or fleet.active_replicas() != 2 or \
+            new.trace_count != 3 * len(SERVE_BUCKETS):
+        fail(f"fleet autoscale up: {events}, {fleet.active_replicas()} active, the new "
+             f"replica's step shapes {new.trace_count}")
+    lockstep("scale up")
+    gen_b = [f"fleet-b{i}" for i in range(FLEET_SESSIONS // 2)]
+    serve_round(sids + gen_b, "scaled up")
+    if any(fleet.replica_for(s) is not new for s in gen_b):
+        fail("fleet: new sessions did not go to the added (least-loaded) replica")
+    auto.window.reset()
+    for _ in range(8):
+        auto.window.observe(0.001)
+    events = [auto.evaluate_once() for _ in range(2)]
+    st = fleet.stats()
+    if events != [None, "down"] or fleet.active_replicas() != 1 or st["sessions_lost"] or \
+            st["sessions_migrated"] != counts[victim] + len(gen_b):
+        fail(f"fleet autoscale down: {events}, {st['sessions_migrated']} migrated, "
+             f"{st['sessions_lost']} lost")
+    serve_round(sids + gen_b, "drained")
+    fleet.check()
+    say("fleet", f"(e) scripted signal: a pressured window added replica {len(fleet.replicas) - 1} "
+        f"(warmed, {new.trace_count} step shapes, at the fleet's version {fleet._version}), "
+        f"{len(gen_b)} new sessions landed on it; a healthy one drained it through migration "
+        f"({len(gen_b)} migrated, 0 lost); every answer of the {len(sids) + len(gen_b)} "
+        f"sessions bit for bit; phase so far {time.perf_counter() - t0:.1f}s")
+    fleet.stop()
+    del fleet, auto, a_net, b_net, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) scenarios with the ladder and the autoscaler running
+    f_cfg = base.replace(serve_degrade=True, serve_autoscale=True, serve_devices=2,
+                         autoscale_min_replicas=2, autoscale_max_replicas=3,
+                         serve_degrade_slo_ms=SERVE_SLO_MS, serve_spill=8 * SCENARIO_SESSIONS)
+    fleet = MultiDeviceServer(f_cfg, ServeConfig(buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                                                 cache_capacity=64), devices=[dev, dev])
+    fleet.warmup()
+    fleet.start()
+    specs = {s.name: s for s in builtin_scenarios(base_rate=SCENARIO_RATE,
+                                                  duration_s=SCENARIO_SECONDS,
+                                                  sessions=SCENARIO_SESSIONS, seed=0)}
+    try:
+        for name in ("flash_crowd", "replica_kill"):
+            s0 = fleet.stats()
+            row = ScenarioRunner(fleet, specs[name], slo_ms=SERVE_SLO_MS).run()
+            s1 = fleet.stats()
+            row.update({
+                "sessions_lost": s1["sessions_lost"] - s0["sessions_lost"],
+                "sessions_migrated": s1["sessions_migrated"] - s0["sessions_migrated"],
+                "scale_ups": s1["autoscale_scale_ups"] - s0["autoscale_scale_ups"],
+                "scale_downs": s1["autoscale_scale_downs"] - s0["autoscale_scale_downs"],
+                "rung_ups": s1["degrade_rung_ups"] - s0["degrade_rung_ups"],
+                "rung_downs": s1["degrade_rung_downs"] - s0["degrade_rung_downs"],
+                "active_replicas": fleet.active_replicas(), "card": card})
+            say("fleet", "(f) " + json.dumps(row))
+            kills = 1 if specs[name].kill_at > 0 else 0
+            if (row["sessions_lost"] or row["errors"]["timeout"] or row["errors"]["transport"]
+                    or row["replica_kills"] != kills or not row["ok"]):
+                fail(f"fleet scenario {name}: {row}")
+        counts = fleet.check()
+        if any(counts.values()):
+            fail(f"fleet scenarios: worker restarts or stalls {counts}")
+    finally:
+        fleet.stop()
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the live loop: catch sessions served by the fleet feed replay,
+    # the trainer learns from it and the fleet hot-reloads its checkpoints
+    g_cfg = base.replace(liveloop=True, checkpoint_dir=os.path.join(tmp, "live"),
+                         save_interval=LIVE_SAVE_INTERVAL, serve_spill=4 * LIVE_SESSIONS,
+                         liveloop_tap_depth=LIVE_TAP_DEPTH)
+    trainer = LiveLoopTrainer(g_cfg, device=dev)
+    fleet = MultiDeviceServer(g_cfg, ServeConfig(buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                                                 cache_capacity=64, poll_interval_s=0.25),
+                              checkpoint_dir=g_cfg.checkpoint_dir, devices=[dev, dev])
+    plane = LiveLoopPlane(g_cfg, fleet, trainer.replay, seed=0)
+    records, emitted = [], []
+    observe = plane.tap.observe_batch
+
+    def record(sids, obs, actions, q, rewards, resets, eps, ckpt_step, version, h, c, slots,
+               rows=None):
+        records.append((list(sids), obs, np.array(actions), np.array(q), rewards, resets,
+                        eps, int(version), rows))
+        return observe(sids, obs, actions, q, rewards, resets, eps, ckpt_step, version, h, c,
+                       slots, rows=rows)
+
+    def emit(block, prios, ep_reward):
+        emitted.append((block, prios, ep_reward, plane.tap.audit_tail[-1]))
+        plane.bridge.offer(block, prios, ep_reward)
+
+    plane.tap.observe_batch = record
+    plane.tap.set_emit(emit)
+    fleet.warmup()
+    fleet.start(watch_checkpoints=True)
+    plane.start()
+    versions0 = [r._published[2] for r in fleet.replicas]
+    stop, lock = threading.Event(), threading.Lock()
+    client_log = {f"live-{i}": [] for i in range(LIVE_SESSIONS)}
+    lat = []
+
+    def session(i):
+        sid = f"live-{i}"
+        env = CatchHostEnv(height=g_cfg.obs_shape[0], width=g_cfg.obs_shape[1], seed=1000 + i)
+        srng = np.random.default_rng(1000 + i)
+        client = LocalClient(fleet)
+        obs, reward, reset = env.reset(), 0.0, True
+        while not stop.is_set():
+            t_sub = time.perf_counter()
+            res = client.act(sid, obs, reward=reward, reset=reset)
+            with lock:
+                lat.append((t_sub, time.perf_counter() - t_sub))
+            client_log[sid].append((obs, np.float32(reward), reset, res.action))
+            obs, reward, done, _ = env.step(res.action)
+            reset = bool(done)
+            if done:
+                obs = env.reset()  # the terminal reward rides the reset request
+            time.sleep(srng.exponential(1.0 / LIVE_RATE))
+
+    threads = [threading.Thread(target=session, args=(i,), daemon=True)
+               for i in range(LIVE_SESSIONS)]
+    for th in threads:
+        th.start()
+    t_live = time.perf_counter()
+    deadline = time.monotonic() + LIVE_DEADLINE
+    updates, bad, t_train = 0, [], None
+    launches = {}  # the measured launches of every live update, added up
+
+    def update():
+        before = dict(K.launch_counts)
+        n = trainer.train(1)
+        moved = {k: v - before.get(k, 0) for k, v in K.launch_counts.items()
+                 if v != before.get(k, 0)}
+        if moved != {"lstm_fwd_bf16": 2, "lstm_seq_bwd_bf16": 1}:
+            bad.append(moved)
+        for k, v in moved.items():
+            launches[k] = launches.get(k, 0) + v
+        return n
+
+    try:
+        while updates < LIVE_UPDATES and time.monotonic() < deadline:
+            plane.check()
+            if not trainer.can_train():
+                time.sleep(0.05)
+                continue
+            if t_train is None:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t_train = time.perf_counter()
+            updates += update()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the fleet reloads the last checkpoint before the traffic stops
+        last_ckpt = latest_checkpoint_step(g_cfg.checkpoint_dir)
+        wait_until = time.monotonic() + 10.0
+        while fleet._ckpt_step != last_ckpt and time.monotonic() < wait_until:
+            time.sleep(0.05)
+        # the same updates with the traffic stopped: what serving beside the
+        # learner costs it
+        stop.set()
+        for th in threads:
+            th.join(timeout=10.0)
+        idle = 0
+        t_idle = time.perf_counter()
+        while idle < LIVE_IDLE_UPDATES and trainer.can_train():
+            idle += update()
+        torch.cuda.synchronize()
+        idle_ms = 1e3 * (time.perf_counter() - t_idle) / max(idle, 1)
+        # the tap's and the ingest's restarts and stalls, read while their
+        # workers still run (stop() drops the supervisor)
+        loop_counts = plane.check()
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=10.0)
+        plane.stop()
+        trainer.finish()
+        counts = fleet.check()
+        st = fleet.stats()
+        fleet.stop()
+    loop = plane.stats()
+    versions1 = [r._published[2] for r in fleet.replicas]
+    if t_train is None or updates < LIVE_UPDATES or idle < LIVE_IDLE_UPDATES or bad:
+        ready = "never" if t_train is None else f"after {t_train - t_live:.1f}s"
+        fail(f"liveloop: {updates} updates of {LIVE_UPDATES} in {LIVE_DEADLINE:.0f}s (replay "
+             f"ready {ready}, {trainer.replay.env_steps} transitions), launches off 2 K1-bf16 "
+             f"+ 1 K2-bf16 in {len(bad)}: {bad[:3]}")
+    if (st["reloads"] < 1 or not all(b > a for a, b in zip(versions0, versions1))
+            or st["sessions_lost"] or any(counts.values()) or any(loop_counts.values())
+            or loop["tap_captured_steps"] <= 0 or loop["bridge_ingested_blocks"] <= 0
+            or loop["tap_dropped_batches"]):
+        fail(f"liveloop: reloads {st['reloads']}, versions {versions0} -> {versions1}, lost "
+             f"{st['sessions_lost']}, workers {counts} {loop_counts}, loop {loop}")
+    # the served stream as the tap recorded it is the clients' own stream
+    rows_of = {sid: [] for sid in client_log}
+    for sids, obs, actions, q, rewards, resets, eps, version, (h_rows, c_rows) in records:
+        for i, sid in enumerate(sids):
+            rows_of[sid].append(dict(obs=obs[i], action=int(actions[i]), q=q[i],
+                                     reward=float(rewards[i]), reset=bool(resets[i]),
+                                     eps=float(eps[i]), version=version, h=h_rows[i],
+                                     c=c_rows[i]))
+    for sid, log in client_log.items():
+        rows = rows_of[sid]
+        if len(rows) != len(log) or any(
+                not np.array_equal(r["obs"], o) or r["reward"] != float(rw) or r["reset"] != rs
+                or r["action"] != a for r, (o, rw, rs, a) in zip(rows, log)):
+            fail(f"liveloop: the tap's record of {sid} is not the stream its client served")
+    # the tap's blocks against an offline accumulator fed that stream
+    per = {sid: [] for sid in client_log}
+    for block, prios, ep_reward, audit in emitted:
+        per[audit["session"]].append((block, prios, ep_reward, audit))
+    n_blocks = 0
+    for sid, rows in rows_of.items():
+        want = _offline_blocks(g_cfg, rows)
+        got = per[sid]
+        if len(got) != len(want):
+            fail(f"liveloop: {sid} emitted {len(got)} blocks, the offline accumulator "
+                 f"{len(want)}")
+        for (gb, gp, ge, audit), (wb, wp, we, w_eps, w_ver) in zip(got, want):
+            same = all(np.array_equal(np.asarray(getattr(gb, f)), np.asarray(getattr(wb, f)))
+                       for f in ("obs", "last_action", "last_reward", "action", "n_step_reward",
+                                 "gamma", "hidden", "burn_in_steps", "learning_steps",
+                                 "forward_steps"))
+            if not (same and gb.num_sequences == wb.num_sequences and np.array_equal(gp, wp)
+                    and ge == we and np.array_equal(audit["epsilon"], w_eps)
+                    and np.array_equal(audit["params_version"], w_ver)):
+                fail(f"liveloop: a block of {sid} differs from the offline accumulator's")
+            n_blocks += 1
+    wall = t_end - t_train
+    spans = trainer.trainer.update_seconds
+    alone = statistics.median(spans[-(updates + idle):-idle]) * 1e3
+    idle_alone = statistics.median(spans[-idle:]) * 1e3
+    served = [d for t, d in lat if t_train <= t <= t_end]
+    p99 = float(np.percentile(served, 99) * 1e3)
+    vstamps = sorted({int(v) for *_, a in emitted for v in a["params_version"]})
+    say("fleet", f"(g) live loop: {LIVE_SESSIONS} catch sessions at {LIVE_RATE:.0f} requests/s "
+        f"each through LocalClient, two replicas on {dev}; replay at learning_starts "
+        f"{g_cfg.learning_starts} after {t_train - t_live:.1f}s; {updates} updates of "
+        f"{{lstm_fwd_bf16: 2, lstm_seq_bwd_bf16: 1}} each, {1e3 * wall / updates:.2f} ms per "
+        f"live update over the wall (the update's own span, host clock, median {alone:.2f} "
+        f"ms; {updates // LIVE_SAVE_INTERVAL} checkpoints saved on the way); with the traffic "
+        f"stopped {idle} more: {idle_ms:.2f} ms each over the wall, span {idle_alone:.2f} ms; "
+        f"served {len(served) / wall:.1f} requests/s, p99 "
+        f"{p99:.2f} ms during training; peak allocated {peak:.3f} GiB (update and fleet); "
+        f"{st['reloads']} reloads, params_version {versions0} -> {versions1}; tap "
+        f"{loop['tap_captured_steps']} steps, {loop['tap_emitted_blocks']} blocks, "
+        f"{loop['bridge_ingested_blocks']} ingested, stamps carry versions {vstamps}; "
+        f"{n_blocks} blocks equal the offline accumulator's fed the recorded served stream, "
+        f"stamps included; [{card}]")
+    sampled = trainer.replay.sample_batch(np.random.default_rng(0))
+    del trainer, fleet, plane
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("fleet", f"[{card}] phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "burn": sampled.burn_in_steps}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -3610,6 +4179,25 @@ def main():
         serve_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # 26. the fleet and the live loop: serve -> replay -> learn -> reload ------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        live = fleet_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    burn_l = torch.from_numpy(live["burn"]).to(dev)
+    rows_l = time_bf16(T, B, H, D, burn_l, int((T - burn_l.long()).sum()),
+                       int((T - 1 - burn_l.long()).clamp(min=0).sum()), flush, "liveloop")
+    for name, n in live["launches"].items():
+        t_ms, p_ms, b_ms, b_by, lib_ms = rows_l[name]
+        kernels.append({
+            "name": name, "path": "liveloop", "route": "cuda",
+            "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
+            "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
+            "launches": n, "max_abs_err": errs[name], "ms": t_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
+        })
 
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")

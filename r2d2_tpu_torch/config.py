@@ -206,8 +206,54 @@ class R2D2Config:
     # each batch to its end before the next (the same answers, bit for bit)
     serve_pipeline: bool = True
     # seconds between serve metrics records (0.0: one per batch), plus a
-    # record at every params version
+    # record at every params version and serve arm
     serve_log_interval: float = 0.0
+    # replicas of the serve stack (serve/multi.py), one per device unless
+    # the caller lists devices: a session's carry lives on one replica, a
+    # new session goes to the least-loaded one, a reload publishes to all
+    serve_devices: int = 1
+    # the degradation ladder (serve/degrade.py): a "degrade-controller"
+    # worker steps full -> admission shed -> bf16 weights -> int8 weights
+    # and a slab shed under queue / p99 / SLO pressure; False builds none
+    serve_degrade: bool = False
+    # the ladder's p99 target in milliseconds (the autoscaler's SLO too)
+    serve_degrade_slo_ms: float = 50.0
+    # the autoscaler (serve/autoscale.py): an "autoscaler" worker adds a
+    # warmed replica under sustained pressure and drains an idle one
+    # through session migration when healthy; False builds none
+    serve_autoscale: bool = False
+    # the fleet-size band it moves in (serve_devices is the starting size)
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 2
+    # consecutive pressured / healthy ticks before a scale event
+    autoscale_dwell_up: int = 2
+    autoscale_dwell_down: int = 12
+    # quiet seconds after a scale event, and the evaluation tick
+    autoscale_cooldown_s: float = 2.0
+    autoscale_interval_s: float = 0.25
+    # scale-up pressure judges p99 against this fraction of the SLO (a
+    # replica takes seconds to warm; recovery judges the full SLO)
+    autoscale_pressure_margin: float = 0.8
+    # a drain candidate's request-free seconds
+    autoscale_idle_age_s: float = 1.0
+    # True: a drain waits until some replica is idle; False: the healthy
+    # dwell alone drains the least-loaded replica
+    autoscale_drain_requires_idle: bool = True
+
+    # --- live loop (liveloop/) -------------------------------------------------
+    # serve -> replay -> learn -> publish: a tap on every replica turns the
+    # served steps into replay blocks, a trainer learns from them and its
+    # checkpoints hot-reload into the fleet; False installs nothing
+    liveloop: bool = False
+    # share of new sessions that explore, each with a sticky epsilon drawn
+    # from the Ape-X ladder over base_eps / eps_alpha; the rest are greedy
+    liveloop_explore_fraction: float = 0.5
+    # rungs of that ladder
+    liveloop_eps_rungs: int = 8
+    # bounded hand-off depths (drop-oldest, counted): served batch records
+    # awaiting the tap, and finished blocks awaiting replay
+    liveloop_tap_depth: int = 256
+    liveloop_queue_depth: int = 64
 
     # --- derived ----------------------------------------------------------
     @property
@@ -379,6 +425,80 @@ class R2D2Config:
             raise ValueError("serve_spill must be >= 0 (0 disables the spill slab)")
         if self.serve_log_interval < 0.0:
             raise ValueError("serve_log_interval must be >= 0 (0.0 logs every batch)")
+        if self.serve_devices < 1:
+            raise ValueError(
+                "serve_devices must be >= 1 (replicas of the serve stack "
+                "over local devices, serve/multi.py)"
+            )
+        if self.serve_degrade_slo_ms <= 0.0:
+            raise ValueError(
+                "serve_degrade_slo_ms is the degradation ladder's p99 "
+                "latency target in milliseconds (serve/degrade.py); it "
+                "must be > 0"
+            )
+        if self.autoscale_min_replicas < 1:
+            raise ValueError(
+                "autoscale_min_replicas must be >= 1 (the autoscaler may "
+                "never drain the last replica, serve/autoscale.py)"
+            )
+        if self.autoscale_max_replicas < self.autoscale_min_replicas:
+            raise ValueError(
+                "autoscale_max_replicas must be >= autoscale_min_replicas "
+                "(the fleet-size band the autoscaler moves inside)"
+            )
+        if self.autoscale_dwell_up < 1 or self.autoscale_dwell_down < 1:
+            raise ValueError(
+                "autoscale_dwell_up/autoscale_dwell_down are consecutive-"
+                "tick hysteresis dwells; both must be >= 1"
+            )
+        if self.autoscale_cooldown_s < 0.0:
+            raise ValueError(
+                "autoscale_cooldown_s is the post-scale-event quiet period "
+                "in seconds; it must be >= 0"
+            )
+        if self.autoscale_interval_s <= 0.0:
+            raise ValueError(
+                "autoscale_interval_s is the autoscaler's evaluation tick "
+                "interval in seconds; it must be > 0"
+            )
+        if self.autoscale_idle_age_s < 0.0:
+            raise ValueError(
+                "autoscale_idle_age_s is the drain candidate's idle "
+                "threshold in seconds; it must be >= 0"
+            )
+        if not 0.0 < self.autoscale_pressure_margin <= 1.0:
+            raise ValueError(
+                "autoscale_pressure_margin is the fraction of the SLO "
+                "budget at which scale-up pressure triggers; it must be "
+                "in (0, 1]"
+            )
+        if self.serve_autoscale and not (
+            self.autoscale_min_replicas
+            <= self.serve_devices
+            <= self.autoscale_max_replicas
+        ):
+            raise ValueError(
+                "serve_autoscale requires the starting fleet size "
+                f"(serve_devices={self.serve_devices}) to sit inside "
+                f"[autoscale_min_replicas={self.autoscale_min_replicas}, "
+                f"autoscale_max_replicas={self.autoscale_max_replicas}]"
+            )
+        if not 0.0 <= self.liveloop_explore_fraction <= 1.0:
+            raise ValueError(
+                "liveloop_explore_fraction is the share of live sessions "
+                "assigned an exploring epsilon from the ladder; it must "
+                "be in [0, 1]"
+            )
+        if self.liveloop_eps_rungs < 1:
+            raise ValueError(
+                "liveloop_eps_rungs must be >= 1 (rungs of the per-"
+                "session exploration ladder, ops/epsilon.py)"
+            )
+        if self.liveloop_tap_depth < 1 or self.liveloop_queue_depth < 1:
+            raise ValueError(
+                "liveloop_tap_depth and liveloop_queue_depth are bounded "
+                "hand-off queue depths; both must be >= 1"
+            )
         if self.block_codec not in ("none", "delta-zlib"):
             raise ValueError(f"unknown block_codec {self.block_codec!r}")
         if self.replay_disk_capacity < 0:

@@ -98,6 +98,16 @@ class ReplayBuffer(ReplayControlPlane):
                 block.num_sequences, int(block.learning_steps.sum()), priorities, episode_reward
             )
 
+    def add_blocks_batch(self, items) -> None:
+        """Write (block, priorities, episode_reward) triples in order under
+        one lock acquisition, as add_block would one by one (the live
+        loop's ingest bridge drains a burst this way)."""
+        with self.lock:
+            for block, priorities, episode_reward in items:
+                self._write_block_locked(block, self.block_ptr)
+                self._account_add(block.num_sequences, int(block.learning_steps.sum()),
+                                  priorities, episode_reward)
+
     def sample_batch(self, rng: np.random.Generator) -> SampledBatch:
         """Draw a fixed-shape batch by stratified prioritized sampling."""
         cfg = self.cfg

@@ -15,10 +15,15 @@ wire format is the same):
 
 The checkpoint watcher keeps polling `--ckpt`, so a run still training
 there goes live at each new save without a restart. Ctrl-C or a SIGTERM
-stops it. Serves on the card
-unless `--device cpu`. The JAX CLI's --devices above 1 and --autoscale (the
-multi-device fleet) are not ported yet, and its --compile-cache has no
-counterpart: the port compiles no XLA.
+stops it. Serves on the card unless `--device cpu`. `--devices N` serves a
+fleet of N replicas behind a session router (serve/multi.py): on the card
+one per GPU, `cuda:0 .. cuda:N-1`; with `--device cpu` all N on the CPU.
+`--autoscale` makes it elastic (serve/autoscale.py; its bounds through
+`--set autoscale_min_replicas=1 autoscale_max_replicas=4 ...`):
+
+    python -m r2d2_tpu_torch.serve --device cpu --devices 2 --autoscale --dryrun 12
+
+The JAX CLI's --compile-cache has no counterpart: the port compiles no XLA.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import time
 
 import numpy as np
 
-from r2d2_tpu_torch.config import PRESETS, apply_cli_overrides
+from r2d2_tpu_torch.config import PRESETS, apply_cli_overrides, resolve_device
 from r2d2_tpu_torch.serve.client import LocalClient, serve_tcp
+from r2d2_tpu_torch.serve.multi import MultiDeviceServer
 from r2d2_tpu_torch.serve.server import PolicyServer, ServeConfig
 from r2d2_tpu_torch.utils.metrics import MetricsLogger
 
@@ -58,9 +64,16 @@ def main(argv=None) -> int:
                    help="checkpoint watcher poll cadence (seconds)")
     p.add_argument("--epsilon", type=float, default=0.0)
     p.add_argument("--metrics", default=None, help="jsonl metrics path")
+    p.add_argument("--devices", type=int, default=None,
+                   help="serve replicas with session-affinity routing (serve/multi.py); "
+                        "default cfg.serve_devices (1: one server)")
     p.add_argument("--spill", type=int, default=None,
                    help="host spill slab capacity in sessions (default cfg.serve_spill; 0 "
                         "disables: evicted sessions restart fresh)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="elastic fleet (serve/autoscale.py): add a replica under sustained "
+                        "SLO pressure, drain an idle one through session migration; bounds "
+                        "and dwells through --set autoscale_min_replicas=1 ...")
     p.add_argument("--dryrun", type=int, default=0, metavar="N",
                    help="serve N synthetic requests in-process (no TCP) and exit 0")
     p.add_argument("--device", default="cuda",
@@ -68,16 +81,32 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     cfg = apply_cli_overrides(PRESETS[args.preset](), args.set)
+    if args.devices is not None:
+        cfg = cfg.replace(serve_devices=args.devices)
     if args.spill is not None:
         cfg = cfg.replace(serve_spill=args.spill)
+    if args.autoscale:
+        cfg = cfg.replace(serve_autoscale=True)
     serve_cfg = ServeConfig(buckets=tuple(args.buckets), max_wait_ms=args.max_wait_ms,
                             queue_depth=args.queue_depth, cache_capacity=args.cache_capacity,
                             poll_interval_s=args.poll_interval, epsilon=args.epsilon)
     metrics = MetricsLogger(args.metrics) if args.metrics else None
-    server = PolicyServer(cfg, serve_cfg, checkpoint_dir=args.ckpt, metrics=metrics,
-                          device=args.device)
-    print(f"[serve] warming up {len(serve_cfg.buckets)} bucket shapes on {server.device}",
-          file=sys.stderr)
+    if cfg.serve_devices > 1 or cfg.serve_autoscale:
+        # an elastic fleet of one is still a fleet: only it can add, drain
+        # and route
+        devices = None
+        if resolve_device(args.device).type == "cpu":
+            devices = ["cpu"] * cfg.serve_devices
+        server = MultiDeviceServer(cfg, serve_cfg, checkpoint_dir=args.ckpt, metrics=metrics,
+                                   devices=devices)
+        elastic = (f" (elastic, {cfg.autoscale_min_replicas}..{cfg.autoscale_max_replicas})"
+                   if cfg.serve_autoscale else "")
+        print(f"[serve] {cfg.serve_devices} replicas{elastic}: "
+              f"{[str(d) for d in server.devices]}", file=sys.stderr)
+    else:
+        server = PolicyServer(cfg, serve_cfg, checkpoint_dir=args.ckpt, metrics=metrics,
+                              device=args.device)
+    print(f"[serve] warming up {len(serve_cfg.buckets)} bucket shapes", file=sys.stderr)
     server.warmup()
     server.start()
     if args.dryrun:
@@ -91,7 +120,8 @@ def main(argv=None) -> int:
             server.check()
             st = server.stats()
             print(f"[serve] dryrun ok: {args.dryrun} requests, ckpt_step={st['ckpt_step']} "
-                  f"step shapes={st['trace_count']}", file=sys.stderr)
+                  f"step shapes={st['trace_count']} devices={st.get('serve_devices', 1)}",
+                  file=sys.stderr)
             return 0
         finally:
             server.stop()

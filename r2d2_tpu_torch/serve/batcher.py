@@ -196,9 +196,21 @@ class MicroBatcher:
         # same-session requests deferred out of a batch, FIFO per session
         self._deferred: "deque[ServeRequest]" = deque()
         self._lock = threading.Lock()
+        # the degradation ladder's admission watermark (serve/degrade.py):
+        # None admits up to the queue bound; an int sheds a submission once
+        # the queue holds that many, while the shed allowance lasts (a
+        # bounded shed: one decision cannot starve the queue). Written
+        # under the lock, read without it (a watermark may be one late)
+        self._admit_limit: Optional[int] = None
+        self._shed_allowance = 0
+        self._closed = False
+        # the last submission's arrival (admitted or shed): the idle signal
+        # the autoscaler's drain reads
+        self.last_submit_t = time.monotonic()
         self.batches = 0
         self.requests = 0
         self.rejected = 0
+        self.shed = 0  # rejections by the admission watermark
         self.deferrals = 0
         self.occupancy_sum = 0  # real rows summed over batches
         self.padded_sum = 0  # bucket rows summed over batches
@@ -224,6 +236,22 @@ class MicroBatcher:
             epsilon=None if epsilon is None else float(epsilon),
             task=int(task),
         )
+        self.last_submit_t = time.monotonic()
+        if self._closed:
+            fut.set_exception(QueueFullError("serve queue closed (replica retired)"))
+            return fut
+        limit = self._admit_limit
+        if limit is not None and self._q.qsize() >= limit:
+            with self._lock:
+                if self._shed_allowance > 0:
+                    self._shed_allowance -= 1
+                    self.shed += 1
+                    self.rejected += 1
+                    fut.set_exception(QueueFullError(
+                        f"admission control: queue depth >= {limit} "
+                        "(degrade-ladder shed)"))
+                    return fut
+                # the shed budget is spent: admit (the bounded shed)
         try:
             self._q.put_nowait(req)
         except queue.Full:
@@ -238,6 +266,21 @@ class MicroBatcher:
 
     def qsize(self) -> int:
         return self._q.qsize() + len(self._deferred)
+
+    def set_admission(self, limit: Optional[int], budget: int = 0) -> None:
+        """Install (limit=None: clear) the ladder's admission watermark;
+        `budget` re-arms the shed allowance, after which submissions are
+        admitted again (the controller re-arms it every tick)."""
+        with self._lock:
+            self._admit_limit = None if limit is None else max(int(limit), 1)
+            self._shed_allowance = max(int(budget), 0)
+
+    def close(self) -> None:
+        """Refuse every later submission with QueueFullError: a retired
+        replica's queue fails fast instead of stranding futures no serve
+        loop will resolve."""
+        with self._lock:
+            self._closed = True
 
     # -------------------------------------------------------------- batching
 
@@ -317,9 +360,12 @@ class MicroBatcher:
             batches = max(self.batches, 1)
             return {
                 "queue_depth": self.qsize(),
+                "last_request_age_s": time.monotonic() - self.last_submit_t,
                 "batches": self.batches,
                 "requests": self.requests,
                 "rejected": self.rejected,
+                "shed": self.shed,
+                "admit_limit": self._admit_limit,
                 "deferrals": self.deferrals,
                 "mean_batch_occupancy": self.occupancy_sum / batches,
                 # real rows / padded rows: how much of the compiled shapes

@@ -24,28 +24,46 @@ workers do:
   completes each batch itself; both share one stage/dispatch body and
   complete in dispatch order, so their answers are the same bit for bit;
 - ``ckpt-watcher``: polls the checkpoint series (utils/checkpoint.py) and
-  publishes new parameters.
+  publishes new parameters;
+- ``degrade-controller`` (cfg.serve_degrade): one tick of the degradation
+  ladder (serve/degrade.py) at its cadence.
 
 Hot reload is one attribute swap: the parameters travel as one ``(params,
-ckpt_step, version)`` tuple, read once a batch, so every request of a batch
-is answered by one checkpoint, and in-flight batches complete under the
-parameters they were dispatched with. The parameters are the network's
-state_dict, cloned onto the serving device at publish (under
-serve_quantization="int8", the encoder's and head's weights as int8 and a
-scale, ops/quantize.py, dequantized in each step); the step runs the
-network through ``torch.func.functional_call``, so a publish never writes
-into a module another thread uses.
+ckpt_step, version, arm)`` tuple, read once a batch, so every request of a
+batch is answered by one checkpoint and one weight format, and in-flight
+batches complete under the parameters they were dispatched with. The
+parameters are the network's state_dict, cloned onto the serving device at
+publish in the arm's format: "full" as the config says (the encoder's and
+head's weights as int8 and a scale under serve_quantization="int8",
+ops/quantize.py), "bf16" every float tensor rounded to bfloat16, "int8"
+quantized whatever the config. The step dequantizes int8 and upcasts bf16
+back to float32 (where JAX promotes a bf16 weight against f32 activations;
+torch's linear and conv refuse mixed dtypes), so only the weights' rounding
+drifts, never the activations. It runs the network through
+``torch.func.functional_call`` on this server's own module, so a publish
+never writes into a module another thread uses, and no two replicas of a
+fleet (serve/multi.py) share one.
 
-The JAX package counts the step's traces (one per bucket shape); the port
-compiles nothing, and ``trace_count`` counts the distinct (weight format,
-bucket) step shapes it has run instead: ``warmup`` runs each bucket once,
-so traffic adds none.
+The live loop (liveloop/) hangs two hooks here: ``eps_assigner`` gives
+each session its sticky exploration epsilon at staging, and ``tap``
+records every served batch. The step writes the cache's tensors in place,
+so the tap's gather of the batch's new carries runs at dispatch, on the
+serving stream right after the write and before the next batch's step,
+into new float32 tensors copied to pinned buffers behind the batch's
+event; the completion side hands them to the tap.
+
+The JAX package counts the step's traces (one per bucket shape and weight
+format); the port compiles nothing, and ``trace_count`` counts the
+distinct (weight format, bucket) step shapes it has run instead: ``warmup``
+runs each bucket once (in every arm the ladder may publish, when it is
+on), so traffic adds none.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -58,10 +76,11 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from r2d2_tpu_torch.config import R2D2Config, resolve_device
+from r2d2_tpu_torch.config import R2D2Config, resolve_device, set_fp32_numerics
 from r2d2_tpu_torch.learner import init_train_state
 from r2d2_tpu_torch.ops.quantize import dequantize_tree, quantize_tree
-from r2d2_tpu_torch.serve.batcher import BucketStaging, MicroBatcher, ServeRequest
+from r2d2_tpu_torch.serve.batcher import BucketStaging, MicroBatcher, ServeRequest, StagedBatch
+from r2d2_tpu_torch.serve.degrade import DegradeConfig, DegradeController
 from r2d2_tpu_torch.serve.state_cache import RecurrentStateCache
 from r2d2_tpu_torch.utils.checkpoint import latest_checkpoint_step, restore_checkpoint
 from r2d2_tpu_torch.utils.faults import Backoff, InjectedFault, fault_point, total_retries
@@ -110,18 +129,29 @@ class ServeResult:
 class _PipelineRecord:
     """One dispatched batch between DISPATCH and COMPLETE: its provenance,
     q and the actions (device tensors), and their pinned host copies and
-    the event after those copies (on the card; None on the CPU)."""
+    the event after those copies (on the card; None on the CPU). `staged`
+    is its staging set (handed out again only after this record
+    completes); `tap` the tap it was dispatched under and `tap_rows` the
+    batch's new carries gathered for it (host tensors once `event` has
+    passed)."""
 
     batch: List[ServeRequest]
     n: int
     bucket: int
     ckpt_step: int
     version: int
+    arm: str
     q: torch.Tensor
     action: torch.Tensor
     q_host: Optional[torch.Tensor]
     action_host: Optional[torch.Tensor]
     event: Optional[object]
+    staged: StagedBatch
+    tap: Optional[object] = None
+    tap_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+ARMS = ("full", "bf16", "int8")
 
 
 class _Acting(nn.Module):
@@ -221,6 +251,8 @@ class PolicyServer:
         metrics: Optional[MetricsLogger] = None,
         device="cuda",
         name: str = "",
+        template=None,
+        degrade: Optional[DegradeController] = None,
     ):
         self.cfg = cfg
         self.serve_cfg = serve_cfg
@@ -228,10 +260,15 @@ class PolicyServer:
         self.metrics = metrics
         self.device = resolve_device(device)
         self.name = name  # the workers' name suffix
-        # the template restores checkpoints; the acting module is the serve
-        # step's alone (functional_call swaps its parameters while it runs)
-        _, self._template = init_train_state(cfg, self.device, seed=serve_cfg.seed)
-        self.net = copy.deepcopy(self._template.net).requires_grad_(False)
+        # the template restores checkpoints (a fleet passes its own, built
+        # once); the acting module is this server's alone, on its device
+        # (functional_call swaps its parameters while it runs)
+        if template is None:
+            _, template = init_train_state(cfg, self.device, seed=serve_cfg.seed)
+        elif self.device.type == "cuda":
+            set_fp32_numerics()
+        self._template = template
+        self.net = copy.deepcopy(template.net).to(self.device).requires_grad_(False)
         self._acting = _Acting(self.net)
         ckpt_step = -1
         if params is None:
@@ -241,15 +278,19 @@ class PolicyServer:
                 params, ckpt_step = state.net.state_dict(), int(state.step)
             else:
                 params = self._template.net.state_dict()  # fresh init (smoke serving)
-        self.quantized = cfg.serve_quantization == "int8"
         self.quantized_leaves = 0
         # guards the publish cell, the counters and the in-flight handoff
-        # between the serve loop, the completion worker, the watcher and
-        # stop(); the slow half of a publish (clone, quantize) runs outside
+        # between the serve loop, the completion worker, the watcher, the
+        # ladder and stop(); the slow half of a publish (clone, cast,
+        # quantize, copy to the device) runs outside
         self._state_lock = threading.Lock()
-        # the hot-reload cell: one attribute holding one tuple, read once a
-        # batch
-        self._published: Tuple[Dict[str, object], int, int] = ({}, ckpt_step, -1)
+        # the hot-reload cell: one attribute holding one tuple (params,
+        # ckpt_step, version, arm), read once a batch
+        self._published: Tuple[Dict[str, object], int, int, str] = ({}, ckpt_step, -1, "full")
+        # the parameters as given, which every arm is prepared from (a
+        # bf16 -> int8 switch must not round twice)
+        self._params_raw = params
+        self.arm_switches = 0
         self.publish(params, ckpt_step, version=0)
 
         if serve_cfg.cache_capacity < max(serve_cfg.buckets):
@@ -279,14 +320,31 @@ class PolicyServer:
         self.metrics_skipped = 0
         self._metrics_last_t = float("-inf")
         self._metrics_last_version: Optional[int] = None
+        self._metrics_last_arm: Optional[str] = None
         self._task_dims = (np.asarray(cfg.task_action_dims, np.int64)
                            if cfg.task_action_dims else None)
         self._step_shapes: set = set()
+        # the live loop's hooks (liveloop/loop.py installs both; None serves
+        # as before): the tap records served batches, the assigner gives
+        # each session its sticky exploration epsilon
+        self.tap = None
+        self.eps_assigner = None
+        # pinned host buffers of the tap's carry rows, per staging set
+        self._tap_readback: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.reloads = 0
         self.reload_errors = 0
         self._watch_backoff = Backoff(base=serve_cfg.poll_interval_s, factor=2.0,
                                       max_delay=max(30.0, serve_cfg.poll_interval_s))
         self._inflight: List[ServeRequest] = []
+        # the degradation ladder (serve/degrade.py), off by default; a
+        # fleet passes its one shared controller in and runs its worker
+        # itself
+        self.degrade = degrade
+        if degrade is None and cfg.serve_degrade:
+            self.degrade = DegradeController(self, DegradeConfig(slo_ms=cfg.serve_degrade_slo_ms))
+        # more per-request latency observers (the autoscaler's own window
+        # when there is no ladder to share one with)
+        self._latency_sinks: tuple = ()
         self.supervisor: Optional[Supervisor] = None
         self._serve_worker = None
         self._watch_worker = None
@@ -298,48 +356,133 @@ class PolicyServer:
         """The distinct (weight format, bucket) step shapes run so far."""
         return len(self._step_shapes)
 
-    def prepare_for_publish(self, params: Mapping[str, torch.Tensor]):
-        """The slow half of a publish, with no lock held: a copy of every
-        tensor on the serving device, the selected weights quantized first
-        under serve_quantization="int8" (on the host). -> (params, the
-        number of quantized leaves)."""
+    def _int8(self, arm: str) -> bool:
+        """Whether an arm's weights are int8 (the int8 arm, or the full arm
+        under serve_quantization="int8")."""
+        return arm == "int8" or (arm == "full" and self.cfg.serve_quantization == "int8")
+
+    def prepare_for_publish(self, params: Mapping[str, torch.Tensor], arm: Optional[str] = None):
+        """The slow half of a publish, with no lock held: the arm's weight
+        format (int8 quantization or the bf16 cast, on the host) and a copy
+        of every tensor on the serving device. `arm` None keeps the
+        published one. -> (params, the number of quantized leaves, arm), for
+        install_prepared."""
+        if arm is None:
+            arm = self._published[3]
+        if arm not in ARMS:
+            raise ValueError(f"unknown serve arm {arm!r}")
         host = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
         leaves = 0
-        if self.quantized:
+        if self._int8(arm):
             host, leaves = quantize_tree(host)
+        elif arm == "bf16":
+            host = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                    for k, v in host.items()}
         out = {k: ({kk: vv.to(self.device) for kk, vv in v.items()} if isinstance(v, dict)
                    else v.to(self.device)) for k, v in host.items()}
-        return out, leaves
+        return out, leaves, arm
+
+    def _install(self, prepared, ckpt_step: int, version: Optional[int], raw_params) -> None:
+        # install_prepared's body; the caller holds _state_lock
+        params, leaves, arm = prepared
+        self.quantized_leaves = leaves
+        if raw_params is not None:
+            self._params_raw = raw_params
+        if version is None:
+            version = self._published[2] + 1
+        self._published = (params, int(ckpt_step), version, arm)
+
+    def install_prepared(self, prepared, ckpt_step: int, version: Optional[int] = None,
+                         raw_params=None) -> None:
+        """The O(1) half of a publish, under the lock: swap the publish cell
+        and bump the version (or take the fleet's). `raw_params` renews the
+        parameters the arms are prepared from."""
+        with self._state_lock:
+            self._install(prepared, ckpt_step, version, raw_params)
 
     def publish(self, params: Mapping[str, torch.Tensor], ckpt_step: int,
-                version: Optional[int] = None) -> None:
+                version: Optional[int] = None, arm: Optional[str] = None) -> None:
         """Publish a parameter set: prepare it outside the lock, then swap
-        the publish cell in one guarded write."""
-        prepared, leaves = self.prepare_for_publish(params)
-        with self._state_lock:
-            self.quantized_leaves = leaves
-            if version is None:
-                version = self._published[2] + 1
-            self._published = (prepared, int(ckpt_step), version)
+        the publish cell in one guarded write. With `arm` None it is
+        prepared in the live arm, and again if an arm switch landed
+        meanwhile: a reload never undoes the ladder's rung."""
+        while True:
+            live = self._published[3]
+            prepared = self.prepare_for_publish(params, live if arm is None else arm)
+            with self._state_lock:
+                if arm is None and self._published[3] != live:
+                    continue
+                self._install(prepared, ckpt_step, version, params)
+            return
+
+    def set_arm(self, arm: str) -> bool:
+        """Switch the ladder's weight format: prepare the raw parameters in
+        `arm` outside every lock and swap the cell, keeping ckpt_step and
+        bumping the version. -> False when `arm` is already live, checked
+        again under the lock (two switches to one arm bump it once). A
+        reload that lands while it prepares makes it prepare again from the
+        new parameters, never label the old ones with the new step."""
+        while True:
+            with self._state_lock:
+                raw, live = self._params_raw, self._published[3]
+            if arm == live:
+                return False
+            params, leaves, _ = self.prepare_for_publish(raw, arm)
+            with self._state_lock:
+                _, ckpt_step, version, live = self._published
+                if arm == live:
+                    return False
+                if self._params_raw is not raw:
+                    continue  # a reload landed meanwhile
+                self.quantized_leaves = leaves
+                self._published = (params, ckpt_step, version + 1, arm)
+                self.arm_switches += 1
+            return True
+
+    def _compute_params(self, params, arm: str) -> Dict[str, torch.Tensor]:
+        """A published set as the step computes with it: int8 dequantized,
+        bf16 upcast to float32 (the weights' rounding stays, the
+        activations keep their dtype)."""
+        if self._int8(arm):
+            return dequantize_tree(params)
+        if arm == "bf16":
+            return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in params.items()}
+        return dict(params)
 
     def served_params(self) -> Dict[str, torch.Tensor]:
         """The float parameters the published set serves with (dequantized
-        under int8): what reference_act takes to hold the server to."""
-        params = self._published[0]
-        return dequantize_tree(params) if self.quantized else dict(params)
+        under int8, upcast under bf16): what reference_act takes to hold the
+        server to."""
+        params, _, _, arm = self._published
+        return self._compute_params(params, arm)
+
+    # -------------------------------------------------- degrade surface
+    # (serve/degrade.py drives these; serve/multi.py has the same)
+
+    @property
+    def queue_bound(self) -> int:
+        return self.serve_cfg.queue_depth
+
+    def queue_depth(self) -> int:
+        return self.batcher.qsize()
+
+    def set_admission(self, limit: Optional[int], budget: int = 0) -> None:
+        self.batcher.set_admission(limit, budget=budget)
+
+    def shed_spill(self, keep_fraction: float) -> int:
+        return self.cache.shed_spill(keep_fraction)
 
     # ------------------------------------------------------------ the step
 
     @torch.no_grad()
-    def _step(self, params, bucket: int, obs, rewards, slots, reset_mask, explore,
+    def _step(self, params, arm: str, bucket: int, obs, rewards, slots, reset_mask, explore,
               random_actions, task):
         """Gather the batch's rows, zero the rows that start fresh, act, and
         write the new rows back into the cache in place. Pad rows all use
         the scratch row (their writes collide there harmlessly; the real
         rows are unique)."""
-        self._step_shapes.add(("int8" if self.quantized else "float", bucket))
-        if self.quantized:
-            params = dequantize_tree(params)
+        self._step_shapes.add(("int8" if self._int8(arm) else arm, bucket))
+        params = self._compute_params(params, arm)
         h_store, c_store, la_store, _ = self.cache.arrays()
         zero = reset_mask[:, None]
         h = torch.where(zero, 0, h_store.index_select(0, slots))
@@ -362,8 +505,14 @@ class PolicyServer:
         self.cache.reset(session_id)
 
     def evict(self, session_id: str) -> None:
-        """Disconnect: free the session's device row and any slab row."""
+        """Disconnect: free the session's device row and any slab row, and
+        release its live-loop epsilon and partial block (MultiDeviceServer
+        has the same surface)."""
         self.cache.evict(session_id)
+        if self.eps_assigner is not None:
+            self.eps_assigner.forget(session_id)
+        if self.tap is not None:
+            self.tap.observe_evict(session_id)
 
     def _run_batch(self, batch: List[ServeRequest]) -> None:
         # the batch joins the in-flight set before any work: a crash past
@@ -398,8 +547,8 @@ class PolicyServer:
         and the actions. Nothing here waits for the device; _complete
         does."""
         # one read of the publish cell: the whole batch, and its results'
-        # provenance, come from one parameter set
-        params, ckpt_step, version = self._published
+        # provenance, come from one parameter set in one format
+        params, ckpt_step, version, arm = self._published
         n = len(batch)
         bucket = self.batcher.bucket_for(n)
         slots, fresh = self.cache.assign([r.session_id for r in batch])
@@ -413,10 +562,15 @@ class PolicyServer:
         staged.reset_mask[:n] |= fresh
         staged.slots[:n] = slots
         staged.slots[n:] = self.cache.pad_slot
-        # per-row exploration: a request's override, else ServeConfig.epsilon;
-        # the coin and random-action draws happen iff any row explores, in
-        # the JAX package's order and count
-        if any(r.epsilon is not None for r in batch):
+        # per-row exploration: a request's override, else the session's
+        # live-loop epsilon, else ServeConfig.epsilon; the coin and
+        # random-action draws happen iff any row explores, in the JAX
+        # package's order and count (the assigner draws in arrival order)
+        assigner = self.eps_assigner
+        if assigner is not None:
+            staged.eps[:n] = [r.epsilon if r.epsilon is not None
+                              else assigner.epsilon_for(r.session_id) for r in batch]
+        elif any(r.epsilon is not None for r in batch):
             staged.eps[:n] = [self.serve_cfg.epsilon if r.epsilon is None else r.epsilon
                               for r in batch]
         if float(staged.eps.max()) > 0.0:
@@ -427,11 +581,20 @@ class PolicyServer:
             else:
                 staged.randoms[:] = self._rng.integers(0, self.cfg.action_dim, bucket)
         task = None if staged.task is None else self._to_device(staged.task)
+        slots_dev = self._to_device(staged.slots, torch.long)
         q, action = self._step(
-            params, bucket, self._to_device(staged.obs), self._to_device(staged.rewards),
-            self._to_device(staged.slots, torch.long), self._to_device(staged.reset_mask),
+            params, arm, bucket, self._to_device(staged.obs), self._to_device(staged.rewards),
+            slots_dev, self._to_device(staged.reset_mask),
             self._to_device(staged.explore), self._to_device(staged.randoms, torch.int32),
             task)
+        tap = self.tap
+        tap_rows = None
+        if tap is not None:
+            # the batch's new carries, gathered now: the step wrote them in
+            # place, and the next batch's step writes the cache again (the
+            # stream orders this gather between the two)
+            h_store, c_store, _, _ = self.cache.arrays()
+            tap_rows = tap.gather_rows(h_store, c_store, slots_dev[:n])
         q_host = action_host = event = None
         if self.device.type == "cuda":
             # the read-back into this staging set's pinned buffers, and an
@@ -444,11 +607,22 @@ class PolicyServer:
             q_host, action_host = bufs
             q_host.copy_(q, non_blocking=True)
             action_host.copy_(action, non_blocking=True)
+            if tap_rows is not None:
+                tbufs = self._tap_readback.get(id(staged.obs))
+                if tbufs is None:
+                    shape = (bucket, tap_rows[0].shape[1])
+                    tbufs = (torch.empty(shape, dtype=torch.float32, pin_memory=True),
+                             torch.empty(shape, dtype=torch.float32, pin_memory=True))
+                    self._tap_readback[id(staged.obs)] = tbufs
+                tbufs[0][:n].copy_(tap_rows[0], non_blocking=True)
+                tbufs[1][:n].copy_(tap_rows[1], non_blocking=True)
+                tap_rows = (tbufs[0][:n], tbufs[1][:n])
             event = torch.cuda.Event()
             event.record()
         return _PipelineRecord(batch=batch, n=n, bucket=bucket, ckpt_step=ckpt_step,
-                               version=version, q=q, action=action, q_host=q_host,
-                               action_host=action_host, event=event)
+                               version=version, arm=arm, q=q, action=action, q_host=q_host,
+                               action_host=action_host, event=event, staged=staged, tap=tap,
+                               tap_rows=tap_rows)
 
     def _complete(self, rec: _PipelineRecord) -> None:
         """COMPLETE: wait for the batch's read-back (the only wait on the
@@ -471,21 +645,44 @@ class PolicyServer:
             done = set(map(id, rec.batch))
             self._inflight = [r for r in self._inflight if id(r) not in done]
             self.completed_batches += 1
+        n = rec.n
+        if rec.tap is not None:
+            # the live loop's capture, after the clients have their answers:
+            # copies of the staging rows and the carry rows (their buffers
+            # are staged again once this record retires)
+            staged = rec.staged
+            h_rows, c_rows = (t.numpy().copy() for t in rec.tap_rows)
+            rec.tap.observe_batch(
+                [r.session_id for r in rec.batch], staged.obs[:n].copy(), act_np[:n],
+                q_np[:n], staged.rewards[:n].copy(), staged.reset_mask[:n].copy(),
+                staged.eps[:n].copy(), rec.ckpt_step, rec.version, None, None,
+                staged.slots[:n].copy(), rows=(h_rows, c_rows))
+        if self.degrade is not None or self._latency_sinks:
+            # the ladder's latency window and any other sinks: each answered
+            # request's queue-to-answer latency, as its client saw it
+            for r in rec.batch:
+                lat = t_done - r.t_enqueue
+                if self.degrade is not None:
+                    self.degrade.observe(lat)
+                for sink in self._latency_sinks:
+                    sink.observe(lat)
         if self.metrics is not None:
             self._log_serve_metrics(rec, t_done)
 
     def _log_serve_metrics(self, rec: _PipelineRecord, t_done: float) -> None:
         """cfg.serve_log_interval=0.0 logs every batch; a positive interval
-        logs on that cadence plus every params version's first batch, and
-        counts the batches it skips."""
+        logs on that cadence plus the first batch of every params version
+        and arm, and counts the batches it skips."""
         interval = self.cfg.serve_log_interval
         with self._state_lock:
-            force = rec.version != self._metrics_last_version
+            force = (rec.arm != self._metrics_last_arm
+                     or rec.version != self._metrics_last_version)
             due = interval <= 0.0 or (t_done - self._metrics_last_t) >= interval
             if not (due or force):
                 self.metrics_skipped += 1
                 return
             self._metrics_last_t = t_done
+            self._metrics_last_arm = rec.arm
             self._metrics_last_version = rec.version
             completed, skipped = self.completed_batches, self.metrics_skipped
         self.metrics.log({
@@ -496,6 +693,7 @@ class PolicyServer:
             "latency_s_oldest": t_done - rec.batch[0].t_enqueue,
             "ckpt_step": rec.ckpt_step,
             "params_version": rec.version,
+            "serve_arm": rec.arm,
             "reloads": self.reloads,
             "trace_count": self.trace_count,
             "completed_batches": completed,
@@ -534,6 +732,15 @@ class PolicyServer:
         batch = self.batcher.next_batch(timeout=0.25)
         if batch:
             self._run_batch(batch)
+
+    def _degrade_iteration(self) -> None:
+        """The degrade-controller worker's body: one evaluation tick, then
+        the cadence's wait on the stop event."""
+        self.degrade.evaluate_once()
+        if self.supervisor is not None:
+            self.supervisor.stop.wait(self.degrade.cfg.eval_interval_s)
+        else:
+            time.sleep(self.degrade.cfg.eval_interval_s)
 
     def _serve_recover(self) -> None:
         """Restart hook: fail the in-flight futures so no client waits
@@ -584,15 +791,24 @@ class PolicyServer:
     def warmup(self) -> None:
         """Run every bucket's step once on a pad-only batch (writes touch
         only the scratch row), with the staging buffers allocated, so live
-        traffic meets no first-call cost and adds no step shape."""
+        traffic meets no first-call cost and adds no step shape. With a
+        ladder, the bf16 and int8 arms run too (from prepared copies; the
+        publish cell does not move): an arm switch fires under overload,
+        where a first call's cost hurts most."""
         self._staging.warm(self.cfg.obs_shape, np.uint8)
-        params = self._published[0]
+        params, _, _, arm = self._published
+        warm = [(arm, params)]
+        if self.degrade is not None:
+            for rung_arm in ("bf16", "int8"):
+                if rung_arm != arm:
+                    warm.append((rung_arm, self.prepare_for_publish(self._params_raw,
+                                                                    rung_arm)[0]))
         dev = self.device
-        for bucket in self.batcher.buckets:
+        for (warm_arm, warm_params), bucket in itertools.product(warm, self.batcher.buckets):
             task = (torch.zeros(bucket, dtype=torch.int32, device=dev)
                     if self.cfg.num_tasks > 1 else None)
             q, _ = self._step(
-                params, bucket,
+                warm_params, warm_arm, bucket,
                 torch.zeros((bucket, *self.cfg.obs_shape), dtype=torch.uint8, device=dev),
                 torch.zeros(bucket, device=dev),
                 torch.full((bucket,), self.cache.pad_slot, dtype=torch.long, device=dev),
@@ -620,6 +836,11 @@ class PolicyServer:
         if watch_checkpoints:
             self._watch_worker = self.supervisor.spawn(
                 "ckpt-watcher" + suffix, lambda: self._watch_iteration(),
+                max_restarts=self.serve_cfg.max_restarts)
+        if self.degrade is not None and self.degrade.server is self:
+            # a fleet's replicas share its controller and run no worker
+            self.supervisor.spawn(
+                "degrade-controller" + suffix, lambda: self._degrade_iteration(),
                 max_restarts=self.serve_cfg.max_restarts)
 
     def check(self) -> Dict[str, int]:
@@ -660,6 +881,8 @@ class PolicyServer:
             "trace_count": self.trace_count,
             "ckpt_step": self._published[1],
             "params_version": self._published[2],
+            "serve_arm": self._published[3],
+            "arm_switches": self.arm_switches,
             "serve_quantization": self.cfg.serve_quantization,
             "quantized_leaves": self.quantized_leaves,
             "completed_batches": self.completed_batches,
@@ -668,4 +891,10 @@ class PolicyServer:
         }
         out.update(self.batcher.stats())
         out.update(self.cache.stats())
+        if self.eps_assigner is not None:
+            out.update(self.eps_assigner.stats())
+        if self.tap is not None:
+            out.update(self.tap.stats())
+        if self.degrade is not None and self.degrade.server is self:
+            out.update(self.degrade.stats())
         return out

@@ -39,6 +39,17 @@ Registered sites (KNOWN_SITES): the ones wired into the port.
                       the serve loop for S seconds, "error" exercises its
                       supervised restart (serve/server.py)
 - serve.client        one TCP client round trip (serve/client.py)
+- serve.replica_kill  one poll per dispatched scenario event: "error" kills
+                      the busiest replica at that event
+                      (serve/scenarios.py)
+- serve.slow_client   one straggler request before it is sent
+                      (serve/scenarios.py)
+- liveloop.tap        top of every tap drain (liveloop/loop.py)
+- liveloop.ingest     top of every ingest drain (liveloop/loop.py); the
+                      bridge's add into replay retries under the same name
+- autoscale.evaluate  top of every autoscaler tick (serve/autoscale.py)
+- autoscale.scale_up  a scale-up decision, before the replica is added
+- autoscale.scale_down a drain decision, before the victim is picked
 """
 
 from __future__ import annotations
@@ -66,6 +77,13 @@ KNOWN_SITES = (
     "serve.reload",
     "serve.replica_stall",
     "serve.client",
+    "serve.replica_kill",
+    "serve.slow_client",
+    "liveloop.tap",
+    "liveloop.ingest",
+    "autoscale.evaluate",
+    "autoscale.scale_up",
+    "autoscale.scale_down",
 )
 
 

@@ -32,7 +32,11 @@ about 16 bits of it): the same class holds them.
 Serving (r2d2_tpu_torch/serve): the pipelined server's pinned read-back
 and its event against the serial server bit for bit, the cache written in
 place across one session's back-to-back batches, and a bf16 carry's spill
-round trip, all on the card.
+round trip, all on the card. The fleet (serve/multi.py) and the live loop
+(liveloop/): two replicas on cuda:0 answering bit for bit as their own
+reference_act, with the tap's carries (gathered at dispatch, read back
+through pinned buffers) equal to the reference's; and the closed loop on
+catch, whose served return improves as it trains on its own traffic.
 """
 
 import copy
@@ -1091,3 +1095,94 @@ def test_serve_bf16_spill_round_trip_on_the_card(cuda):
     assert torch.equal(cache.h[slot2].view(torch.int16), h[0].view(torch.int16))
     assert torch.equal(cache.c[slot2].view(torch.int16), (-h)[0].view(torch.int16))
     assert int(cache.last_action[slot2]) == 2 and float(cache.last_reward[slot2]) == 0.75
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_fleet_of_two_on_one_card_bit_for_bit(cuda, precision):
+    """Two replicas on cuda:0, each with its own module: every answer equals
+    its replica's reference_act at its bucket and row, and the carries the
+    tap gathered at dispatch are the reference's, bit for bit."""
+    from r2d2_tpu_torch.liveloop import LiveLoopPlane
+    from r2d2_tpu_torch.serve import LocalClient, MultiDeviceServer, ServeConfig, reference_act
+
+    cfg = tiny_test().replace(precision=precision, serve_spill=16, liveloop=True,
+                              liveloop_explore_fraction=0.0)
+    srv = MultiDeviceServer(cfg, ServeConfig(buckets=(2, 4, 8), max_wait_ms=1.0,
+                                             cache_capacity=16), devices=[cuda, cuda])
+    assert srv.replicas[0].net is not srv.replicas[1].net
+
+    class _Sink:
+        def add_blocks_batch(self, items):
+            pass
+
+    plane = LiveLoopPlane(cfg, srv, _Sink())
+    records = []
+    observe = plane.tap.observe_batch
+
+    def spy(sids, *args, rows=None, **kw):
+        records.append((list(sids), rows[0].copy(), rows[1].copy()))
+        return observe(sids, *args, rows=rows, **kw)
+
+    plane.tap.observe_batch = spy
+    srv.warmup()
+    srv.start()
+    client = LocalClient(srv)
+    rng = np.random.default_rng(3)
+    sessions = [f"card-{s}" for s in range(6)]
+    carry = {sid: (torch.zeros((1, cfg.hidden_dim), device=cuda),) * 2 + (0,)
+             for sid in sessions}
+    want = {}
+    try:
+        for t in range(5):
+            for sid in sessions:
+                obs = rng.integers(0, 255, cfg.obs_shape, dtype=np.uint8)
+                reward = 0.0 if t == 0 else float(rng.normal())
+                res = client.act(sid, obs, reward=reward, reset=t == 0)
+                replica = srv.replica_for(sid)
+                h, c, last = carry[sid]
+                q, (h, c) = reference_act(replica.net, replica.served_params(), obs[None],
+                                          np.array([last]), np.array([reward], np.float32),
+                                          (h, c), min_batch=res.bucket, row=res.row)
+                np.testing.assert_array_equal(q[0].cpu().numpy(), res.q)
+                h, c = h.to(cfg.state_dtype), c.to(cfg.state_dtype)
+                carry[sid] = (h, c, res.action)
+                want.setdefault(sid, []).append((h[0].float().cpu().numpy(),
+                                                 c[0].float().cpu().numpy()))
+        deadline = time.monotonic() + 10.0
+        while len(records) < 30 and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        plane.stop()
+        srv.stop()
+    assert srv.router.counts() == [3, 3]
+    got = {}
+    for sids, h_rows, c_rows in records:
+        for i, sid in enumerate(sids):
+            got.setdefault(sid, []).append((h_rows[i], c_rows[i]))
+    for sid in sessions:
+        assert len(got[sid]) == 5
+        for (gh, gc), (wh, wc) in zip(got[sid], want[sid]):
+            np.testing.assert_array_equal(gh, wh)
+            np.testing.assert_array_equal(gc, wc)
+
+
+def test_liveloop_return_improves_on_catch(cuda, tmp_path):
+    """The closed loop on the card at the JAX test's sizes (30 s, 6
+    sessions, two replicas on cuda:0): the fleet hot-reloads what the
+    trainer learns from its own traffic, no session is lost, and the served
+    return of the second half beats the first's."""
+    # pytest puts tests/ on the path (no package there: a site-packages
+    # "tests" package would shadow one)
+    from torch_liveloop_catch import run_liveloop_catch
+
+    seconds = 30.0
+    stats, loop_stats, episodes = run_liveloop_catch(tmp_path, "cuda", seconds=seconds)
+    assert stats["sessions_lost"] == 0 and stats["reloads"] >= 1
+    assert stats["params_version"] > 0
+    assert loop_stats["tap_captured_steps"] > 0 and loop_stats["bridge_ingested_blocks"] > 0
+    half1 = [r for t, r in episodes if t < seconds / 2]
+    half2 = [r for t, r in episodes if t >= seconds / 2]
+    print(f"liveloop on the card: {len(half1)} + {len(half2)} episodes, mean return "
+          f"{np.mean(half1):.3f} -> {np.mean(half2):.3f}, {stats['reloads']} reloads")
+    assert len(half1) >= 10 and len(half2) >= 10
+    assert float(np.mean(half2)) > float(np.mean(half1))

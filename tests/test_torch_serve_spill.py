@@ -4,8 +4,8 @@ that left the device in fp32 and bf16, the slab's LRU drop and the
 promote/demote ordering within one batch, reset and evict dropping spilled
 state, a spilled session served exactly as one never evicted, sessions at
 8x the cache capacity keeping their carries, and a migration export and
-import. The JAX package's fleet (serve/multi.py) is not ported yet, so its
-router and multi-device cases have no counterpart here. tiny_test shapes."""
+import. The router and the multi-device cases are in
+tests/test_torch_serve_fleet.py. tiny_test shapes."""
 
 from __future__ import annotations
 
