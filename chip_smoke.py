@@ -257,6 +257,26 @@ its own lines; any failure exits non-zero and prints no result:
           live update over the wall, served requests/s and p99, the peak.
           Then K1-bf16 and K2-bf16 timed at the live replay's seams, their
           rows in the kernels line with the live loop's launches.
+27. pod   the pod loop (r2d2_tpu_torch/transport) across real processes on
+          the card: `python -m r2d2_tpu_torch.transport.podloop` as one
+          learner and two serve hosts on cuda:0 (tests/torch_podloop.py
+          drives them), the atari preset on catch in bf16, the replay cut
+          as in phase 26; 16 closed-loop catch sessions through
+          PolicyClient in 4 client processes, 8 to a host, 25 requests/s
+          each, for 50 s; at 40% of the window h0 is SIGKILLed and
+          relaunched with its host id, spool directory and serve port. It
+          fails on a duplicate block, a lost session, a learner that died
+          or did not train through the outage, an h0 mark that did not pass
+          its value at the kill or that misses a block the relaunched h0
+          numbered, a host with no reload or with a version the learner did
+          not broadcast, any learner update not exactly 2 K1-bf16 + 1
+          K2-bf16 (the learner process's own counts), a host that launched
+          an LSTM kernel, or a child that exits non-zero. Printed beside
+          phase 26's live-loop row: ingest lag, served requests/s and
+          latency, the learner's ms per update, peak and launches,
+          broadcasts and reloads, wire bytes, the drill. Then K1-bf16 and
+          K2-bf16 timed at the seams of a batch the learner drew, their
+          "podloop" rows in the kernels line with its launches.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -430,6 +450,17 @@ LIVE_UPDATES = 48
 LIVE_IDLE_UPDATES = 8
 LIVE_DEADLINE = 45.0
 LIVE_TAP_DEPTH = 4096
+# phase 27: the pod loop, a learner and two serve hosts as processes on one
+# card at the atari preset's widths, the replay cut as phase 26 cuts it;
+# the sessions and offered rate of phase 26's live loop, in client
+# processes of 4 sessions; a window that leaves h0 time to serve after its
+# relaunch (a host takes about 20 s to come up on the card)
+POD_SETS = ("buffer_capacity=16000", "learning_starts=2000")
+POD_HOSTS = 2
+POD_SESSIONS = 16
+POD_RATE = 25.0
+POD_SECONDS = 50.0
+POD_KILL_AT = 0.4
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -3161,7 +3192,102 @@ def fleet_phase(dev, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     say("fleet", f"[{card}] phase {time.perf_counter() - t0:.1f}s")
-    return {"launches": launches, "burn": sampled.burn_in_steps}
+    return {"launches": launches, "burn": sampled.burn_in_steps,
+            "row": {"ms_per_update_wall": 1e3 * wall / updates, "update_span_ms": alone,
+                    "alone_span_ms": idle_alone, "requests_per_s": len(served) / wall,
+                    "p99_ms": p99, "peak_gib": peak}}
+
+
+def pod_phase(tmp, live):
+    """Phase 27: the pod loop across processes on the card. `live` is phase
+    26's live-loop row (the same widths and offered rate in one process).
+    -> the learner process's kernel launches and a batch's seams."""
+    import numpy as np
+
+    from r2d2_tpu_torch.transport.podloop import podloop_config
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_podloop import pod_failures, run_pod
+
+    t0 = time.perf_counter()
+    card = card_line()
+    want = {"lstm_fwd_bf16": 2, "lstm_seq_bwd_bf16": 1}
+    res = run_pod(tmp, device="cuda", preset="atari", sets=POD_SETS, hosts=POD_HOSTS,
+                  sessions=POD_SESSIONS, rate=POD_RATE, seconds=POD_SECONDS,
+                  kill_frac=POD_KILL_AT)
+    bad = pod_failures(res, expected_launches=want)
+    lr, hosts = res["learner"], res["hosts"]
+    updates = int(lr.get("learner_updates", 0))
+    lat = res["latency_ms"]
+
+    def fmt(v):
+        return "none" if v is None else f"{v:.2f}"
+
+    say("pod", f"[{card}] {POD_HOSTS} serve hosts and a learner as processes on cuda:0, "
+        f"atari widths on catch in bf16 ({', '.join(POD_SETS)}); ready in "
+        f"{max(res['ready_s'].values()):.1f}s; {POD_SESSIONS} sessions at {POD_RATE:.0f} requests/s each "
+        f"({res['offered_per_s']:.0f}/s offered) in {len(res['ready_s']) - 1 - POD_HOSTS} "
+        f"client processes for {res['wall_s']:.1f}s")
+    say("pod", f"ingest lag p50 {fmt(lr.get('ingest_lag_p50_ms'))} ms, p95 "
+        f"{fmt(lr.get('ingest_lag_p95_ms'))} ms, max {fmt(lr.get('ingest_lag_max_ms'))} ms "
+        f"(the last 512 blocks); {lr.get('ingest_blocks')} blocks ingested")
+    say("pod", f"served {res['requests_per_s']:.1f} requests/s, p50 {fmt(lat[50])} ms, p95 "
+        f"{fmt(lat[95])} ms, p99 {fmt(lat[99])} ms, {res['request_errors']} request errors "
+        f"(the outage's included), {res['episodes']} episodes")
+    wall_ms = 1e3 * lr.get("train_wall_s", 0.0) / max(updates, 1)
+    say("pod", f"learner: {updates} updates, {wall_ms:.2f} ms per update over the wall "
+        f"({1e3 * lr.get('train_s', 0.0) / max(updates, 1):.2f} inside train(): sampling, "
+        f"the update, a checkpoint save every 20; "
+        f"{1e3 * lr.get('broadcast_s', 0.0) / max(updates, 1):.2f} flattening and encoding "
+        f"broadcasts), the update's span median {fmt(lr.get('update_ms_p50'))} ms; peak allocated "
+        f"{fmt(lr.get('peak_allocated_gib'))} GiB; launches {lr.get('lstm_launches')}, per "
+        f"update {lr.get('launches_per_update')}")
+    say("pod", f"beside phase 26's live loop in one process (the same widths and offered "
+        f"rate): {live['ms_per_update_wall']:.2f} ms per update over the wall, span "
+        f"{live['update_span_ms']:.2f} ms ({live['alone_span_ms']:.2f} with the traffic "
+        f"stopped), served {live['requests_per_s']:.1f} requests/s, p99 "
+        f"{live['p99_ms']:.2f} ms, peak {live['peak_gib']:.3f} GiB")
+    # what one request costs an interpreter on each side of the JSON-lines
+    # frontend at these widths, on this machine's CPU (a host's own serving
+    # time is not taken apart)
+    obs = np.zeros(podloop_config("atari", overrides=POD_SETS).obs_shape, np.uint8)
+    obs[1, 40] = obs[83, 30:33] = 255
+    t = time.perf_counter()
+    for _ in range(100):
+        line = json.dumps({"session": "s", "obs": obs.tolist(), "reward": 0.0, "reset": False})
+    enc_ms = 10 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    for _ in range(100):
+        np.asarray(json.loads(line)["obs"], np.uint8)
+    dec_ms = 10 * (time.perf_counter() - t)
+    say("pod", f"the JSON-lines frontend at {obs.shape}: {len(line)} bytes a request; "
+        f"{enc_ms:.2f} ms to encode one (client), {dec_ms:.2f} ms to decode it (host), "
+        f"host clock; each host served {[h.get('requests') for h in hosts]} requests "
+        f"(h0's since its relaunch)")
+    say("pod", f"checkpoints broadcast {lr.get('ingest_ckpts_broadcast')} (last version "
+        f"{lr.get('params_version')}); reloads {[h.get('reloads') for h in hosts]}, "
+        f"params_version {[h.get('params_version') for h in hosts]} (h0's since its "
+        f"relaunch)")
+    say("pod", f"wire: {lr.get('ingest_bytes_on_wire')} bytes received, "
+        f"{lr.get('ingest_bytes_decoded')} decoded, codec ratio "
+        f"{lr.get('ingest_codec_ratio')}; hosts sent "
+        f"{[h.get('transport_bytes_on_wire') for h in hosts]} bytes")
+    say("pod", f"drill: h0 SIGKILLed at {res['t_kill_s']:.1f}s (seq {res['h0_seq_at_kill']}, "
+        f"learner step {res['step_at_kill']}), back on its port at {res['t_back_s']:.1f}s "
+        f"(learner step {res['step_at_relaunch']}); h0's mark at the end "
+        f"{lr.get('ingest_host_seq', {}).get('h0')}, the relaunched h0 spooled "
+        f"{hosts[0].get('transport_spooled_blocks')} up to seq "
+        f"{hosts[0].get('transport_next_seq', 0) - 1}, reconnects "
+        f"{hosts[0].get('transport_reconnects')}; duplicate blocks "
+        f"{lr.get('ingest_duplicate_blocks')}, sessions lost "
+        f"{[h.get('sessions_lost') for h in hosts]}; exit codes {res['rcs']}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    if bad:
+        for name, log in res.get("logs", {}).items():
+            say("pod", f"{name} stderr tail: {log}")
+        fail(f"pod: {'; '.join(bad)}")
+    return {"launches": lr["lstm_launches"],
+            "burn": np.asarray(lr["sampled_burn_in"], np.int32)}
 
 
 def main():
@@ -4193,6 +4319,25 @@ def main():
         t_ms, p_ms, b_ms, b_by, lib_ms = rows_l[name]
         kernels.append({
             "name": name, "path": "liveloop", "route": "cuda",
+            "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
+            "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
+            "launches": n, "max_abs_err": errs[name], "ms": t_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
+        })
+
+    # 27. the pod loop: serve hosts and a learner as processes on the card ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pod = pod_phase(tmp, live["row"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    burn_p = torch.from_numpy(pod["burn"]).to(dev)
+    rows_p = time_bf16(T, B, H, D, burn_p, int((T - burn_p.long()).sum()),
+                       int((T - 1 - burn_p.long()).clamp(min=0).sum()), flush, "podloop")
+    for name, n in pod["launches"].items():
+        t_ms, p_ms, b_ms, b_by, lib_ms = rows_p[name]
+        kernels.append({
+            "name": name, "path": "podloop", "route": "cuda",
             "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
             "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
             "launches": n, "max_abs_err": errs[name], "ms": t_ms, "plain_ms": p_ms,

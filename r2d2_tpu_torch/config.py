@@ -255,6 +255,26 @@ class R2D2Config:
     liveloop_tap_depth: int = 256
     liveloop_queue_depth: int = 64
 
+    # --- block-stream transport (transport/) ---------------------------------
+    # the live loop across processes: a serve host's BlockStreamPublisher
+    # takes the bridge's replay sink and streams finished blocks to the
+    # learner's IngestService; read only where those endpoints are built
+    # (the pod loop's processes, tests). The publisher's unacked spool, in
+    # blocks: when full the OLDEST block is shed and counted
+    transport_spool_depth: int = 512
+    # the spool's directory ("" = in memory only): every spooled block is
+    # written as <host>/<seq>.blk before it may be sent, and a restarted
+    # host reloads its unacked tail and sequence numbering from there
+    transport_spool_dir: str = ""
+    # the publisher's heartbeat cadence on an idle stream, and the silence
+    # after which the ingest service reaps a host connection (it must
+    # exceed the cadence, or healthy quiet hosts flap)
+    transport_heartbeat_s: float = 1.0
+    transport_dead_peer_s: float = 10.0
+    # one connect-and-handshake attempt's timeout (the reconnect loop
+    # backs off between attempts)
+    transport_connect_timeout_s: float = 5.0
+
     # --- derived ----------------------------------------------------------
     @property
     def resolved_compute_dtype(self) -> str:
@@ -498,6 +518,23 @@ class R2D2Config:
             raise ValueError(
                 "liveloop_tap_depth and liveloop_queue_depth are bounded "
                 "hand-off queue depths; both must be >= 1"
+            )
+        if self.transport_spool_depth < 1:
+            raise ValueError(
+                "transport_spool_depth bounds the publisher's unacked "
+                "block spool; it must be >= 1"
+            )
+        if self.transport_heartbeat_s <= 0.0 or self.transport_connect_timeout_s <= 0.0:
+            raise ValueError(
+                "transport_heartbeat_s and transport_connect_timeout_s "
+                "must be > 0"
+            )
+        if self.transport_dead_peer_s <= self.transport_heartbeat_s:
+            raise ValueError(
+                "transport_dead_peer_s is the ingest service's silence "
+                "threshold for reaping a host connection; it must exceed "
+                "transport_heartbeat_s (with headroom) or healthy idle "
+                "hosts flap"
             )
         if self.block_codec not in ("none", "delta-zlib"):
             raise ValueError(f"unknown block_codec {self.block_codec!r}")

@@ -50,6 +50,21 @@ Registered sites (KNOWN_SITES): the ones wired into the port.
 - autoscale.evaluate  top of every autoscaler tick (serve/autoscale.py)
 - autoscale.scale_up  a scale-up decision, before the replica is added
 - autoscale.scale_down a drain decision, before the victim is picked
+- transport.connect   the publisher's connect and handshake to the
+                      learner's ingest service, retried under jittered
+                      backoff (transport/publisher.py)
+- transport.send      one framed send on the publisher's socket: an "error"
+                      drops the connection, and the unacked spool tail is
+                      sent again after the reconnect handshake
+- transport.recv      one framed receive (ACK, CKPT, HEARTBEAT) on the
+                      publisher's socket
+- transport.spool     the publisher's per-block spool write (the
+                      at-least-once persistence point; on disk when
+                      transport_spool_dir is set)
+- ingest.accept       the ingest service's accept of one host connection
+                      (transport/ingest.py)
+- ingest.dedup        the per-host sequence-number admission check of every
+                      received BLOCK frame (the exactly-once seam)
 """
 
 from __future__ import annotations
@@ -84,6 +99,12 @@ KNOWN_SITES = (
     "autoscale.evaluate",
     "autoscale.scale_up",
     "autoscale.scale_down",
+    "transport.connect",
+    "transport.send",
+    "transport.recv",
+    "transport.spool",
+    "ingest.accept",
+    "ingest.dedup",
 )
 
 

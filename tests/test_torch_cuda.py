@@ -1186,3 +1186,89 @@ def test_liveloop_return_improves_on_catch(cuda, tmp_path):
           f"{np.mean(half1):.3f} -> {np.mean(half2):.3f}, {stats['reloads']} reloads")
     assert len(half1) >= 10 and len(half2) >= 10
     assert float(np.mean(half2)) > float(np.mean(half1))
+
+
+def test_transport_loopback_trains_and_reloads_on_the_card(cuda, tmp_path):
+    """The block stream in one process on cuda:0: a one-replica fleet
+    serves catch sessions, its tap's blocks go through a
+    BlockStreamPublisher and an IngestService over loopback into a
+    LiveLoopTrainer's replay; one update launches K1 twice and K2 once; the
+    learner's CKPT, broadcast back on the same socket and installed through
+    publish_params, serves the learner's parameters bit for bit, and the
+    answers equal reference_act under them."""
+    from r2d2_tpu_torch.envs.catch import CatchHostEnv
+    from r2d2_tpu_torch.liveloop import LiveLoopPlane, LiveLoopTrainer
+    from r2d2_tpu_torch.serve import LocalClient, MultiDeviceServer, ServeConfig, reference_act
+    from r2d2_tpu_torch.transport import BlockStreamPublisher, IngestService, framing
+
+    cfg = tiny_test().replace(env_name="catch", action_dim=3, liveloop=True, serve_spill=16,
+                              checkpoint_dir=str(tmp_path / "ckpt"),
+                              transport_heartbeat_s=0.2, transport_dead_peer_s=5.0)
+    trainer = LiveLoopTrainer(cfg, device=cuda)
+    svc = IngestService(cfg, trainer.replay)
+    svc.start()
+    srv = MultiDeviceServer(cfg, ServeConfig(buckets=(2, 4, 8), max_wait_ms=1.0,
+                                             cache_capacity=16, poll_interval_s=3600.0),
+                            devices=[cuda])
+    template = dict(srv._params_host)
+    applied = []
+
+    def apply(leaves, step, version):
+        srv.publish_params(framing.params_from_leaves(leaves, template), step, version=version)
+        applied.append(version)
+
+    pub = BlockStreamPublisher(cfg, ("127.0.0.1", svc.port), "h0", on_checkpoint=apply)
+    plane = LiveLoopPlane(cfg, srv, replay=pub)
+    pub.audit_source = lambda: plane.tap.audit_tail[-1] if plane.tap.audit_tail else None
+    srv.warmup()
+    srv.start(watch_checkpoints=False)
+    plane.start()
+    pub.start()
+    client = LocalClient(srv)
+    try:
+        envs = [CatchHostEnv(height=cfg.obs_shape[0], width=cfg.obs_shape[1], seed=s)
+                for s in range(4)]
+        state = [(e.reset(), 0.0, True) for e in envs]
+        deadline = time.monotonic() + 120.0
+        while not trainer.can_train() and time.monotonic() < deadline:
+            for i, e in enumerate(envs):
+                obs, reward, reset = state[i]
+                res = client.act(f"s{i}", obs, reward=reward, reset=reset)
+                obs, reward, done, _ = e.step(res.action)
+                state[i] = (e.reset() if done else obs, reward, bool(done))
+        assert trainer.can_train(), svc.stats()
+        assert svc.stats()["ingest_duplicate_blocks"] == 0
+        before = dict(lstm_kernel.launch_counts)
+        assert trainer.train(1) == 1
+        moved = {k: v - before[k] for k, v in lstm_kernel.launch_counts.items()
+                 if v != before[k]}
+        assert moved == {"lstm_fwd": 2, "lstm_seq_bwd": 1}
+        learned = {k: v.detach().clone() for k, v in
+                   trainer.trainer.state.net.state_dict().items()}
+        svc.broadcast_checkpoint(framing.params_to_leaves(trainer.trainer.state.net),
+                                 trainer.step, 1)
+        deadline = time.monotonic() + 30.0
+        while applied != [1] and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert applied == [1] and srv.stats()["params_version"] == 1
+        replica = srv.replicas[0]
+        served = replica.served_params()
+        for k, v in learned.items():
+            assert torch.equal(served[k].to(v.device), v), k
+        h = c = torch.zeros((1, cfg.hidden_dim), device=cuda)
+        last, rng = 0, np.random.default_rng(7)
+        for t in range(4):
+            obs = rng.integers(0, 255, cfg.obs_shape, dtype=np.uint8)
+            res = client.act("after-reload", obs, reward=0.0, reset=t == 0)
+            assert res.params_version == 1
+            q, (h, c) = reference_act(replica.net, learned, obs[None], np.array([last]),
+                                      np.array([0.0], np.float32), (h, c),
+                                      min_batch=res.bucket, row=res.row)
+            np.testing.assert_array_equal(q[0].cpu().numpy(), res.q)
+            last = res.action
+    finally:
+        plane.stop()
+        pub.stop(flush_deadline_s=1.0)
+        srv.stop()
+        svc.stop()
+        trainer.finish()

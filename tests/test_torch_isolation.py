@@ -1,9 +1,10 @@
 """The port stands alone: importing r2d2_tpu_torch and every one of its
 modules (and running chip_smoke.py) loads nothing of JAX, flax, optax or the
 JAX package, nor ml_dtypes (the chip machine's installs do not name it: the
-port keeps bf16 carries on the host as uint16 bits), the serving plane and
-the int8 quantization on their own included, and no source line of the
-package, chip_smoke.py, the port's demos or its tools imports them; chip_smoke.py
+port keeps bf16 carries on the host as uint16 bits), the serving plane, the
+int8 quantization and the transport with its pod harness on their own
+included, and no source line of the package, chip_smoke.py, the port's
+demos, its tools or the helpers its card suite shares imports them; chip_smoke.py
 fails cleanly where it cannot run."""
 
 import os
@@ -43,8 +44,9 @@ def test_importing_every_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    # every module: the fault plane, snapshots, tiers and the serving plane included
-    assert int(count) >= 47
+    # every module: the fault plane, snapshots, tiers, the serving plane and
+    # the transport included
+    assert int(count) >= 76
     assert bad.strip() == "[]"
 
 
@@ -66,6 +68,25 @@ def test_the_serving_plane_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+TRANSPORT_ONLY = """
+import sys
+sys.path.insert(0, "tests")
+import r2d2_tpu_torch.transport.podloop, torch_podloop
+from r2d2_tpu_torch.transport import BlockStreamPublisher, IngestService, framing
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(bad)
+"""
+
+
+def test_the_transport_and_its_pod_harness_load_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", TRANSPORT_ONLY.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _python_files():
     for d, _, names in os.walk(os.path.join(ROOT, "r2d2_tpu_torch")):
         for n in names:
@@ -78,6 +99,10 @@ def _python_files():
     for n in sorted(os.listdir(os.path.join(ROOT, "tools"))):
         if n.endswith(".py"):
             yield os.path.join(ROOT, "tools", n)
+    # the helpers the card's suite and chip_smoke.py share (the pod harness)
+    for n in sorted(os.listdir(os.path.join(ROOT, "tests"))):
+        if n.startswith("torch_") and n.endswith(".py"):
+            yield os.path.join(ROOT, "tests", n)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
