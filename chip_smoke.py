@@ -166,10 +166,11 @@ its own lines; any failure exits non-zero and prints no result:
           2NK + NK; a device snapshot round trip at 16,000 transitions.
           Then, bf16 and fp32 in the same call, ms per update over the wall
           (16 updates inline, acting included) of the host plane (16,000,
-          native core), the tiered plane at K=4, the device plane at K=1
-          and K=4 and the device priority plane at K=4, N=2 (all at
-          2,000,000), each with its launches, update peak, store bytes on
-          the card and, under the profiler, the device's busy share.
+          native core), the device plane at K=1 and K=4 and, in bf16
+          only, the device priority plane at K=4, N=2 (all at 2,000,000),
+          each with its launches, update peak, store bytes on the card
+          and, under the profiler, the device's busy share (the tiered
+          K=4 row is phase 20's).
 22. fused --mode fused (collector and replay on the card) at the same
           widths, max_episode_steps cut to the 400-step chunk: on the card
           a collector chunk's blocks equal the host actor's
@@ -277,6 +278,29 @@ its own lines; any failure exits non-zero and prints no result:
           broadcasts and reloads, wire bytes, the drill. Then K1-bf16 and
           K2-bf16 timed at the seams of a batch the learner drew, their
           "podloop" rows in the kernels line with its launches.
+28. dp    data parallelism (r2d2_tpu_torch/parallel, replay/sharded_store.py,
+          replay/multihost_store.py): (a) the atari_v4_8 preset on catch
+          (84x84x1, nature, LSTM 512, T=85, batch 64 in four shards of 16,
+          bf16, the default arm), the paper's 2,000,000 transitions in four
+          stores on cuda:0 (learning_starts cut to 2,000, the actors from
+          256 to 8), through Trainer.run_inline: 8 timed updates at K=1 and
+          at K=4, each exactly 8 K1-bf16 + 4 K2-bf16 (2*dp and dp); ms per
+          update over the wall and the learner_update span beside phase
+          21's dp=1 device plane, the update peak, the store's bytes a
+          shard; one sharded update against the CPU's plain versions and
+          against the dp=1 update on the same 64 rows on the card (1e-2 /
+          1e-3), and with a replica per shard (every replica bit-identical
+          to the stepped state); a sharded snapshot at 16,000 transitions
+          restored bit for bit. (b) two ranks of `python -m
+          r2d2_tpu_torch.train --distributed --replay multihost --dp 2` on
+          cuda:0 under torchrun's variables and gloo, one shard each (batch
+          32 a shard), the replay cut as phase 26's: 8 updates, each rank
+          exactly 2 K1-bf16 + 1 K2-bf16 an update, the parameters of both
+          ranks bit-identical, ms per update and the time in the gradient
+          and MIN all-reduces, the device of the tensors gloo reduced.
+          Then K1-bf16 and K2-bf16 at the shard's shapes (B=16 and B=32),
+          held against their plain versions there and timed, their
+          "sharded" and "multihost" rows in the kernels line.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -377,16 +401,17 @@ TIERED_KS = (1, 4)
 TIERED_UPDATES = 16
 TIERED_PROFILED = 8
 # phases 21 and 22: the device planes at the paper's capacity; the rows of
-# phase 21 as (plane, K, N, capacity), timed as phase 20's
-DEVICE_ROWS = (("host", 1, 1, 16_000), ("tiered", 4, 1, TIERED_CAPACITY),
-               ("device", 1, 1, TIERED_CAPACITY), ("device", 4, 1, TIERED_CAPACITY),
-               ("device", 4, 2, TIERED_CAPACITY))
+# phase 21 as (plane, K, N, capacity), timed as phase 20's; the superstep's
+# row (the device priority plane through the Trainer) in bf16 only
+DEVICE_ROWS = (("host", 1, 1, 16_000), ("device", 1, 1, TIERED_CAPACITY),
+               ("device", 4, 1, TIERED_CAPACITY))
+SUPERSTEP_ROW = ("device", 4, 2, TIERED_CAPACITY)
 DEVICE_K = 4
 SNAPSHOT_CAPACITY = 16_000
 # phase 22: dispatches timed after 2 that warm the path; the envs of the
 # block check; the store of the megastep check (40 blocks: the preset's 8
 # envs' chunk written and the next one reserved)
-FUSED_DISPATCHES = 6
+FUSED_DISPATCHES = 4
 BLOCK_CHECK_ENVS = 16
 MEGA_CAPACITY = 16_000
 # phase 23: the procgen_impala preset with its replay cut as the other phases
@@ -461,6 +486,17 @@ POD_SESSIONS = 16
 POD_RATE = 25.0
 POD_SECONDS = 50.0
 POD_KILL_AT = 0.4
+# phase 28: the atari_v4_8 preset (dp=4, batch 64, the paper's 2,000,000
+# transitions in four shards) on catch, its four shards on cuda:0, with
+# learning_starts cut as the other phases cut it and the preset's 256 actors
+# cut to the atari preset's 8; updates timed per K after one dispatch (at
+# least 2 updates) that warms the path; the multihost run's two ranks on
+# cuda:0 (one shard each, batch 32 a shard), the replay cut as phase 26's
+DP_CUT = dict(env_name="catch", learning_starts=2_000, num_actors=8)
+DP_KS = (1, 4)
+DP_UPDATES = 8
+MULTIHOST_SETS = ("buffer_capacity=16000", "learning_starts=2000", "num_actors=8")
+MULTIHOST_UPDATES = 8
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -1636,7 +1672,7 @@ def device_phase(dev, tmp):
     steps, the device tree against the host tree, a superstep of N=2
     against two of N=1, a device snapshot round trip at a small capacity),
     then the planes' rows in bf16 and fp32 (tiered_rows over
-    DEVICE_ROWS)."""
+    DEVICE_ROWS, and SUPERSTEP_ROW in bf16)."""
     import copy
     import gc
 
@@ -1804,7 +1840,8 @@ def device_phase(dev, tmp):
     # the planes' rows, bf16 and fp32, in this call
     rows = {}
     for label, extra in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
-        rows[label], last = tiered_rows(label, b_cfg.replace(**extra), dev, specs=DEVICE_ROWS)
+        specs = DEVICE_ROWS + ((SUPERSTEP_ROW,) if label == "bf16" else ())
+        rows[label], last = tiered_rows(label, b_cfg.replace(**extra), dev, specs=specs)
         del last
         gc.collect()
         torch.cuda.empty_cache()
@@ -3290,6 +3327,233 @@ def pod_phase(tmp, live):
             "burn": np.asarray(lr["sampled_burn_in"], np.int32)}
 
 
+def dp_phase(dev, tmp, device_rows):
+    """Phase 28: data parallelism. (a) the atari_v4_8 preset's sharded plane
+    in one process, its four shards on cuda:0; (b) the multihost plane, two
+    ranks of the train CLI on cuda:0 over gloo. -> the kernel launches of
+    (a)'s K=1 run and of a rank, and the seams of (a)'s shard batches.
+    `device_rows`: phase 21's rows, printed beside (a)'s."""
+    import gc
+    import socket
+
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.config import PRESETS
+    from r2d2_tpu_torch.learner import (
+        DeviceBatch,
+        TrainState,
+        make_optimizer,
+        make_sharded_train_step,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
+    from r2d2_tpu_torch.replay.snapshot import restore_replay, save_replay
+    from r2d2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = PRESETS["atari_v4_8"]().replace(**DP_CUT)
+    dp = base.dp_size
+    devices = ",".join(["cuda:0"] * dp)
+    shard_b = base.batch_size // dp
+    say("dp", f"atari_v4_8 on catch: obs {base.obs_shape} {base.encoder}, hidden "
+        f"{base.hidden_dim}, T={base.seq_len}, batch {base.batch_size} in {dp} shards of "
+        f"{shard_b} on {devices}, {base.compute_dtype}; cut: learning_starts 50000 -> "
+        f"{base.learning_starts}, num_actors 256 -> {base.num_actors}; replay "
+        f"{base.buffer_capacity} transitions (the paper's), {base.buffer_capacity // dp} a shard")
+
+    def want(n, shards):
+        return {"lstm_fwd_bf16": 2 * shards * n, "lstm_seq_bwd_bf16": shards * n}
+
+    def sharded_update(net, target, cfg, batches, where, step, replicate=False):
+        """One sharded update on `where` from copies of the networks: (loss,
+        priorities, gradient norm, each parameter's clipped gradient norm),
+        the state after it and the step function."""
+        on = copy.deepcopy(net).to(where)
+        tg = copy.deepcopy(target).to(where)
+        st = TrainState(on, tg, make_optimizer(cfg, on.parameters()), step)
+        fn = make_sharded_train_step(cfg, replicate=replicate)
+        st, m, p = fn(st, [b.rows(slice(None), where) for b in batches])
+        norms = torch.stack([q.grad.float().norm() for q in st.net.parameters()])
+        return [x.detach().float().cpu() for x in (m["loss"], p.reshape(-1), m["grad_norm"],
+                                                   norms)], st, fn
+
+    def held(label, got, ref, tol):
+        bad = []
+        for name, a, b in zip(AGREE_NAMES, got, ref):
+            diff = float((a - b).abs().max())
+            if not torch.allclose(a, b, **tol):
+                bad.append(f"{name} {diff:.3e}")
+            say("dp", f"{label} {name}: {a.flatten()[0].item():.6f} vs "
+                f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e})")
+        if bad:
+            fail(f"dp: {label}: " + ", ".join(bad))
+
+    rows, out = {}, {}
+    for k in DP_KS:
+        warm = max(2, k)
+        tr = Trainer(base.replace(updates_per_dispatch=k, training_steps=warm), device=devices)
+        if tr.backward_arm != ("default", 0) or tr.mesh.dp != dp:
+            fail(f"dp: atari_v4_8 resolved to {tr.backward_arm} over {tr.mesh}")
+        tr.run_inline()
+        tr.cfg = tr.cfg.replace(training_steps=warm + DP_UPDATES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        n0 = len(tr.update_seconds)
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        tr.run_inline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {key: v for key, v in K.launch_counts.items() if v}
+        if launches != want(DP_UPDATES, dp):
+            fail(f"dp: sharded K={k}: {DP_UPDATES} updates launched {launches}, expected "
+                 f"{want(DP_UPDATES, dp)}")
+        m = tr.metrics()
+        if not math.isfinite(m["loss"]):
+            fail(f"dp: sharded K={k}: loss {m['loss']}")
+        row = {"path": "sharded", "K": k, "dp": dp, "updates": DP_UPDATES,
+               "ms_per_update_wall": wall * 1e3 / DP_UPDATES,
+               "learner_update_ms_per_update": statistics.median(tr.update_seconds[n0:]) * 1e3 / k,
+               "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "allocated_gib": before / 2**30,
+               "store_gb_per_shard": tr.replay.nbytes() / 1e9,
+               "launches_per_update": {key: v // DP_UPDATES for key, v in launches.items()},
+               "loss": m["loss"], "env_steps": m["env_steps"]}
+        say("dp", f"[{card}] " + json.dumps(row))
+        rows[k] = row
+        if k == 1:
+            out["launches"] = launches
+            cfg = tr.cfg
+            si = tr.replay.sample_indices(np.random.default_rng(28))
+            batches = tr.replay.run_with_stores(
+                lambda st: tr.plane.gather_fn(st, si.b, si.s, si.is_weights))
+            out["burn"] = [b.burn_in_steps.clone() for b in batches]
+            net, target, step = tr.state.net, tr.state.target_net, tr.state.step
+            t = time.perf_counter()
+            card_res, card_st, _ = sharded_update(net, target, cfg, batches, dev, step)
+            cpu_res, _, _ = sharded_update(net, target, cfg, batches, "cpu", step)
+            held(f"one sharded update (dp={dp}, {si.b.size} rows) on the card vs the CPU's plain "
+                 f"versions", card_res, cpu_res, BF16_AGREE)
+            say("dp", f"card vs CPU in {time.perf_counter() - t:.1f}s")
+            whole = DeviceBatch(*(torch.cat(x) for x in zip(*batches)))
+            on = copy.deepcopy(net)
+            st1 = TrainState(on, copy.deepcopy(target), make_optimizer(cfg, on.parameters()), step)
+            st1, m1, p1 = make_train_step(cfg.replace(dp_size=1, replay_plane="device"))(st1, whole)
+            norms1 = torch.stack([q.grad.float().norm() for q in st1.net.parameters()])
+            held(f"the dp={dp} update vs the device plane's dp=1 update on the same "
+                 f"{si.b.size} rows, on the card", card_res,
+                 [x.detach().float().cpu() for x in (m1["loss"], p1, m1["grad_norm"], norms1)],
+                 BF16_AGREE)
+            rep_res, rep_st, rep_fn = sharded_update(net, target, cfg, batches, dev, step,
+                                                     replicate=True)
+            held(f"the dp={dp} update with a replica per shard vs one shared module",
+                 rep_res, card_res, BF16_AGREE)
+            same = all(torch.equal(a, b) for a, b in zip(rep_res, card_res))
+            for rnet, rtarget in rep_fn.replicas.values():
+                for a, b in ((rnet, rep_st.net), (rtarget, rep_st.target_net)):
+                    if not all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters())):
+                        fail("dp: a replica differs from the stepped state after the update")
+            say("dp", f"{len(rep_fn.replicas)} replicas on {dev} besides the state: each "
+                f"bit-identical to the stepped state; the replicated update "
+                f"{'equals' if same else 'differs in low bits from'} the shared one bit for bit; "
+                f"the trainer's shards share its one module on one card "
+                f"({len(tr.plane.step_fn.replicas)} replicas)")
+            del card_st, rep_st, rep_fn, st1, batches, whole
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k, row in rows.items():
+        one = device_rows.get("bf16", {}).get(f"device K={k}")
+        beside = (f"phase 21's bf16 device plane dp=1 at K={k}: {one['ms_per_update']:.2f} ms "
+                  "per update over the wall" if one else "phase 21 has no bf16 row at this K")
+        say("dp", f"[{card}] sharded dp={dp} K={k}: {row['ms_per_update_wall']:.2f} ms per update "
+            f"over the wall, learner_update {row['learner_update_ms_per_update']:.2f} ms per "
+            f"update; {beside}; update peak {row['peak_gib']:.3f} GiB, store "
+            f"{row['store_gb_per_shard']:.2f} GB a shard")
+
+    # a sharded snapshot at SNAPSHOT_CAPACITY transitions
+    s_cfg = base.replace(buffer_capacity=SNAPSHOT_CAPACITY)
+    tr = Trainer(s_cfg, device=devices)
+    tr.warmup()
+    path = os.path.join(tmp, "sharded_snapshot.npz")
+    save_replay(tr.replay, path)
+    fresh = ShardedDeviceReplay(s_cfg, tr.mesh)
+    restore_replay(fresh, path)
+    for a, b in zip(tr.replay.stores, fresh.stores):
+        for key, x in a.items():
+            if not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                               b[key].view(torch.int16) if x.dtype == torch.bfloat16 else b[key]):
+                fail(f"dp: the sharded snapshot round trip changed store {key}")
+    for a, b in zip(tr.replay.shards, fresh.shards):
+        if not (np.array_equal(a.tree.leaves(), b.tree.leaves())
+                and (a.block_ptr, a.size, a.ptr_advances) == (b.block_ptr, b.size, b.ptr_advances)):
+            fail("dp: the sharded snapshot round trip changed a shard's tree or counters")
+    if fresh._rr != tr.replay._rr:
+        fail("dp: the sharded snapshot round trip moved the round-robin cursor")
+    say("dp", f"sharded snapshot at {SNAPSHOT_CAPACITY} transitions in {dp} shards: "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, restored bit for bit (stores, trees, counters)")
+    del tr, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks of the train CLI, one shard each, gloo on one card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        argv = [sys.executable, "-m", "r2d2_tpu_torch.train", "--distributed", "--replay",
+                "multihost", "--dp", "2", "--preset", "atari_v4_8", "--env", "catch",
+                "--device", "cuda:0", "--steps", str(MULTIHOST_UPDATES)]
+        for kv in MULTIHOST_SETS:
+            argv += ["--set", kv]
+        procs.append(subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    t = time.perf_counter()
+    ranks, errs = [], []
+    try:
+        for pr in procs:
+            o, e = pr.communicate(timeout=300)
+            errs.append(e)
+            if pr.returncode != 0:
+                fail(f"dp: a multihost rank exited {pr.returncode}: {e[-2000:]}")
+            ranks.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    n = MULTIHOST_UPDATES
+    for r in ranks:
+        if r["kernel_launches"] != want(n, 1) or r["process_count"] != 2 or r["dp"] != 2:
+            fail(f"dp: multihost rank {r['process_index']}: launches {r['kernel_launches']} "
+                 f"(expected {want(n, 1)}), {r['process_count']} processes, dp {r['dp']}")
+        g, mn = r["gradient_allreduce_s"], r["min_priority_allreduce_s"]
+        say("dp", f"[{card}] multihost rank {r['process_index']} of 2 on {r['local_devices']}: "
+            f"{r['step']} updates, loss {r['loss']:.6f}, {r['ms_per_update_wall']:.2f} ms per "
+            f"update over the wall, learner_update {r['update_span_ms_p50']:.2f} ms; gradient "
+            f"all-reduce {g * 1e3 / r['gradient_allreduce_calls']:.2f} ms a call, MIN all-reduce "
+            f"{mn * 1e3 / r['min_priority_allreduce_calls']:.2f} ms a call, denominator "
+            f"{r['denominator_allreduce_s'] * 1e3 / r['denominator_allreduce_calls']:.2f} ms "
+            f"(host clock, waits for the other rank included); the tensors gloo reduced by "
+            f"collective {r['collective_paths']}; launches {r['kernel_launches']}")
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        fail("dp: the two ranks' parameters differ after the last update")
+    say("dp", f"multihost: both ranks' parameters bit-identical after {n} updates (sha256 "
+        f"{ranks[0]['params_sha256'][:16]}...); {time.perf_counter() - t:.1f}s for the two "
+        f"processes; NCCL not used (two ranks on one card); phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    out["rank_launches"] = ranks[0]["kernel_launches"]
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -3681,10 +3945,11 @@ def main():
             f"equals lstm_seq_bwd_bf16's rounded to bf16, every seam")
 
     def time_bf16(T, B, H, D, burn, kept, carried, flush, label):
-        """The bf16 forms' times at (T, B, H) with the main path's seams,
-        and one bf16 LSTM layer of input width D through the port and
-        through cuDNN: {name: (ms, plain ms, bound ms, bound by, library
-        ms or None)}."""
+        """The bf16 forms at (T, B, H) with the main path's seams, each held
+        against its plain version on the operands it is timed on, and one
+        bf16 LSTM layer of input width D through the port and through
+        cuDNN: {name: (ms, plain ms, bound ms, bound by, library ms or None,
+        max |kernel - plain|)}."""
         proj, wh, h0, c0, _, walk, ckpt, _ = bf16_operands(T, B, H, 40)
         S = 5
         reps = 15 if H <= 512 else 5
@@ -3752,8 +4017,29 @@ def main():
         # bf16 form, not one call for its function
         pair_ms = median_ms(lambda: K._outer_dwh(walk[2], K.lstm_seq_bwd(*walk, burn), wh),
                             reps, flush)
+
+        def held(name, got, want):
+            """max |got - want| over a form's outputs; fails past the bf16
+            tolerances (dWh, K4's and K5's second output: BF16_DWH_TOL x
+            max |dWh|)."""
+            got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+            worst = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                diff = (a.float() - b.float()).abs()
+                e = float(diff.max())
+                worst = max(worst, e)
+                if i == 1 and name in ("lstm_seq_bwd_fused_bf16", "lstm_seq_bwd_ckpt_bf16"):
+                    ok = e <= BF16_DWH_TOL * float(b.float().abs().max())
+                else:
+                    ok = bool((diff <= BF16_ATOL + BF16_RTOL * b.float().abs()).all())
+                if not ok:
+                    fail(f"{name} disagrees with its plain version at {label} (T={T} B={B} "
+                         f"H={H}), output {i}: {e:.3e}")
+            return worst
+
         out = {}
         for name, (fn, plain) in runs.items():
+            err = held(name, fn(), plain())
             t_ms = median_ms(fn, reps, flush)
             p_ms = median_ms(plain, 3, flush)
             flops, nbytes = work[name]
@@ -3761,14 +4047,15 @@ def main():
             t_tc, t_fma = flops / PEAK_BF16_FLOPS * 1e3, flops / PEAK_FP32_FLOPS * 1e3
             b_ms, b_by = (t_tc, "operations") if t_tc >= t_bytes else (t_bytes, "bytes")
             fma_ms = max(t_fma, t_bytes)
-            out[name] = (t_ms, p_ms, b_ms, b_by, lib.get(name))
+            out[name] = (t_ms, p_ms, b_ms, b_by, lib.get(name), err)
             lib_s = f"{lib[name]:.3f} ms" if name in lib else "none"
             say("time", f"{name} at {label} (T={T} B={B} H={H}, "
                 f"{K._geometry(B, H, K._SOURCE[name], dev, torch.bfloat16)}): {t_ms:.3f} ms "
                 f"(plain {p_ms:.3f} ms); bound {b_ms:.4f} ms by {b_by} at the bf16 tensor "
                 f"cores' {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s ({b_ms / t_ms:.1%}), {fma_ms:.4f} ms "
                 f"at the fp32 FMA peak ({fma_ms / t_ms:.1%}); {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.1f} MB; cuDNN LSTM bf16 {lib_s}; on {card}")
+                f"{nbytes / 1e6:.1f} MB; cuDNN LSTM bf16 {lib_s}; max |kernel - plain| "
+                f"{err:.3e}; on {card}")
         say("time", f"bf16 default arm's pair at {label} (lstm_seq_bwd_bf16 + hprev^T @ dz "
             f"matmul) {pair_ms:.3f} ms beside lstm_seq_bwd_fused_bf16 "
             f"{out['lstm_seq_bwd_fused_bf16'][0]:.3f} ms")
@@ -4208,7 +4495,7 @@ def main():
                                  (B, 2048, (burn16, kept16, carried16), "xl")):
         rows = time_bf16(T, Bh, Hh, D - H + Hh, *seams, flush, label)
         if label == "atari":
-            for name, (t_ms, p_ms, b_ms, b_by, lib_ms) in rows.items():
+            for name, (t_ms, p_ms, b_ms, b_by, lib_ms, _) in rows.items():
                 kernels.append({
                     "name": name, "route": "cuda",
                     "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
@@ -4274,7 +4561,7 @@ def main():
     # 21. the device planes at the paper's replay capacity ---------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        device_phase(dev, tmp)
+        device_rows = device_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4316,12 +4603,12 @@ def main():
     rows_l = time_bf16(T, B, H, D, burn_l, int((T - burn_l.long()).sum()),
                        int((T - 1 - burn_l.long()).clamp(min=0).sum()), flush, "liveloop")
     for name, n in live["launches"].items():
-        t_ms, p_ms, b_ms, b_by, lib_ms = rows_l[name]
+        t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_l[name]
         kernels.append({
             "name": name, "path": "liveloop", "route": "cuda",
             "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
             "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
-            "launches": n, "max_abs_err": errs[name], "ms": t_ms, "plain_ms": p_ms,
+            "launches": n, "max_abs_err": err, "ms": t_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
         })
 
@@ -4335,14 +4622,36 @@ def main():
     rows_p = time_bf16(T, B, H, D, burn_p, int((T - burn_p.long()).sum()),
                        int((T - 1 - burn_p.long()).clamp(min=0).sum()), flush, "podloop")
     for name, n in pod["launches"].items():
-        t_ms, p_ms, b_ms, b_by, lib_ms = rows_p[name]
+        t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_p[name]
         kernels.append({
             "name": name, "path": "podloop", "route": "cuda",
             "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
             "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
-            "launches": n, "max_abs_err": errs[name], "ms": t_ms, "plain_ms": p_ms,
+            "launches": n, "max_abs_err": err, "ms": t_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
         })
+
+    # 28. data parallelism: the sharded plane and two ranks over gloo --------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        dpr = dp_phase(dev, tmp, device_rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for path, burn_d, counts in (
+            ("sharded", dpr["burn"][0], dpr["launches"]),
+            ("multihost", torch.cat(dpr["burn"][:2]), dpr["rank_launches"])):
+        rows_d = time_bf16(T, len(burn_d), H, D, burn_d, int((T - burn_d.long()).sum()),
+                           int((T - 1 - burn_d.long()).clamp(min=0).sum()), flush, path)
+        for name, n in counts.items():
+            t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_d[name]
+            kernels.append({
+                "name": name, "path": path, "route": "cuda",
+                "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
+                "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
+                "launches": n, "max_abs_err": err, "ms": t_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
+                "batch": len(burn_d),
+            })
 
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")

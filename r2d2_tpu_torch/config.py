@@ -139,9 +139,13 @@ class R2D2Config:
     # "tiered" (the full-capacity host store with K batches gathered into
     # a pinned ring and copied on a side stream into one of two device
     # slabs while the learner's K-update dispatch consumes the other;
-    # replay/tiered_store.py) or "device" (the store on the card, an update
+    # replay/tiered_store.py), "device" (the store on the card, an update
     # shipping only its sample coordinates and gathering its windows in the
-    # step; replay/device_store.py)
+    # step; replay/device_store.py), "sharded" (dp_size device stores, one
+    # per shard of the mesh, each shard gathering and differentiating its
+    # batch_size/dp rows; replay/sharded_store.py) or "multihost" (the
+    # sharded plane across processes, each owning its local shards, the
+    # gradients summed over torch.distributed; replay/multihost_store.py)
     replay_plane: str = "host"
     # experience collection: "host" (VectorizedActor, env stepped on the
     # host) or "device" (collect.DeviceCollector: policy, env dynamics and
@@ -173,6 +177,15 @@ class R2D2Config:
     replay_disk_dir: str = ""
     replay_disk_capacity: int = 0
     block_codec: str = "none"
+
+    # --- parallelism ------------------------------------------------------
+    # data-parallel shards of the learner batch (parallel/mesh.py): each of
+    # dp_size shards takes batch_size/dp rows, and the gradients are summed
+    # over the shards before one clipped Adam step. On the host plane the
+    # sampled batch is split; the sharded and multihost planes keep one
+    # store per shard. On the multihost plane dp_size <= 1 means every
+    # shard of every process
+    dp_size: int = 1
 
     # --- infra ------------------------------------------------------------
     seed: int = 0
@@ -352,9 +365,10 @@ class R2D2Config:
         from r2d2_tpu_torch.ops.lstm_kernel import choose_backward_arm
 
         B = self.batch_size if batch_size is None else batch_size
+        # the residuals live per shard: the batch splits over dp
         return choose_backward_arm(
             self.seq_len,
-            max(B, 1),
+            max(B // max(self.dp_size, 1), 1),
             self.hidden_dim,
             self.resolved_compute_dtype,
             self.backward_residual_budget_mb * (1 << 20),
@@ -558,8 +572,16 @@ class R2D2Config:
                     "are paged in + decoded); set replay_plane='tiered' "
                     "or replay_disk_capacity=0"
                 )
-        if self.replay_plane not in ("host", "tiered", "device"):
+        if self.replay_plane not in ("host", "tiered", "device", "sharded", "multihost"):
             raise ValueError(f"unknown replay_plane {self.replay_plane!r}")
+        if self.dp_size < 1:
+            raise ValueError("dp_size must be >= 1")
+        if self.dp_size > 1 and self.replay_plane in ("tiered", "device"):
+            raise ValueError(
+                f"dp_size={self.dp_size} on replay_plane={self.replay_plane!r}: the port's "
+                "tiered and device planes hold one store on one device; data parallelism "
+                "runs on replay_plane='host', 'sharded' or 'multihost'"
+            )
         if self.snapshot_every < 0:
             raise ValueError("snapshot_every must be >= 0")
         if self.snapshot_every > 0 and not self.snapshot_replay:
@@ -576,11 +598,12 @@ class R2D2Config:
             raise ValueError(f"unknown collector {self.collector!r}")
         if self.updates_per_dispatch < 1:
             raise ValueError("updates_per_dispatch must be >= 1")
-        if self.updates_per_dispatch > 1 and self.replay_plane not in ("tiered", "device"):
+        if self.updates_per_dispatch > 1 and self.replay_plane not in (
+                "tiered", "device", "sharded", "multihost"):
             raise ValueError(
-                "updates_per_dispatch > 1 is implemented for the tiered and "
-                "device replay planes (staged K-batch chunks / fused in-step "
-                "gathers)"
+                "updates_per_dispatch > 1 is implemented for the tiered, device, "
+                "sharded and multihost replay planes (staged K-batch chunks / fused "
+                "in-step gathers)"
             )
         if self.training_steps % self.updates_per_dispatch != 0:
             raise ValueError(
@@ -589,6 +612,12 @@ class R2D2Config:
             )
         if self.priority_plane not in ("host", "device"):
             raise ValueError(f"unknown priority_plane {self.priority_plane!r}")
+        if self.priority_plane == "device" and self.replay_plane in ("sharded", "multihost"):
+            raise ValueError(
+                f"priority_plane='device' on replay_plane={self.replay_plane!r} needs the "
+                "sharded superstep and its stacked device trees, which the port does not "
+                "have yet; use priority_plane='host' there"
+            )
         if self.priority_plane == "device" and self.replay_plane != "device":
             raise ValueError(
                 "priority_plane='device' keeps the sum tree on the card next to "
@@ -608,11 +637,24 @@ class R2D2Config:
                 "* superstep_dispatches (each superstep advances the step "
                 "counter by that amount)"
             )
+        if self.collector == "device" and self.replay_plane in ("sharded", "multihost"):
+            raise ValueError(
+                f"collector='device' on replay_plane={self.replay_plane!r} needs the sharded "
+                "fused runners, which the port does not have yet; use collector='host' there"
+            )
         if self.collector == "device" and self.replay_plane != "device":
             raise ValueError(
                 "collector='device' writes packed blocks straight into the "
                 "device store; it requires replay_plane='device'"
             )
+        if self.replay_plane == "sharded":
+            if self.dp_size <= 1:
+                raise ValueError("replay_plane='sharded' needs a device mesh "
+                                 "(dp_size > 1)")
+            if self.num_blocks % self.dp_size != 0:
+                raise ValueError("num_blocks must divide evenly over dp_size")
+            if self.batch_size % self.dp_size != 0:
+                raise ValueError("batch_size must divide evenly over dp_size")
         if self.env_name:
             self._validate_env_geometry(self.env_name, self.obs_shape)
         for i, task_env in enumerate(self.multitask_envs):
@@ -831,8 +873,24 @@ def tiny_test() -> R2D2Config:
     ).validate()
 
 
+def atari_v4_8(game: str = "MsPacman") -> R2D2Config:
+    """256 actors and a data-parallel learner over four shards (BASELINE.json
+    config 2): batch 64 split 16 a shard, bf16 compute, and the paper's
+    2,000,000-transition replay held as four device stores of 500,000
+    (replay_plane="sharded")."""
+    return R2D2Config(
+        env_name=game,
+        num_actors=256,
+        dp_size=4,
+        batch_size=64,
+        compute_dtype="bfloat16",
+        replay_plane="sharded",
+    ).validate()
+
+
 PRESETS = {
     "atari": default_atari,
+    "atari_v4_8": atari_v4_8,
     "procgen_impala": procgen_impala,
     "long_context": long_context,
     "tiny_test": tiny_test,

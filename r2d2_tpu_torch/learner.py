@@ -100,6 +100,12 @@ class DeviceBatch(_BatchFields):
             task = torch.from_numpy(np.asarray(task, np.int32)).to(device, non_blocking=True)
         return cls(*out, task=task)
 
+    def rows(self, sl: slice, device=None) -> "DeviceBatch":
+        """Rows `sl` of every field (a dp shard's slice), on `device`."""
+        return DeviceBatch(*(x[sl].to(device or x.device) for x in self),
+                           task=None if self.task is None else self.task[sl].to(
+                               device or self.task.device))
+
     def tensors(self):
         """The batch's tensors, the task's where there is one."""
         return [*self] + ([] if self.task is None else [self.task])
@@ -314,20 +320,27 @@ def make_train_step(cfg: R2D2Config):
         state.optimizer.zero_grad(set_to_none=True)
         loss, (priorities, aux) = loss_fn(state.net, state.target_net, b, denom)
         loss.backward()
-        grads = [p.grad for p in params]
-        g_norm = clip_by_global_norm_(grads, cfg.grad_norm)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr_at(cfg, state.step)
-        state.optimizer.step()
-        state.step += 1
-        if state.step % cfg.target_net_update_interval == 0:
-            with torch.no_grad():
-                for t, p in zip(state.target_net.parameters(), params):
-                    t.copy_(p)
+        g_norm = _apply_gradients(cfg, state, params)
         metrics = {"loss": loss.detach(), "grad_norm": g_norm, **aux}
         return state, metrics, priorities
 
     return train_step
+
+
+def _apply_gradients(cfg: R2D2Config, state: TrainState, params) -> torch.Tensor:
+    """The optimizer half of an update, on the gradients in `params`' .grad:
+    the global-norm clip, one Adam step at this update's learning rate, the
+    step count and the target sync. -> the pre-clip gradient norm."""
+    g_norm = clip_by_global_norm_([p.grad for p in params], cfg.grad_norm)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr_at(cfg, state.step)
+    state.optimizer.step()
+    state.step += 1
+    if state.step % cfg.target_net_update_interval == 0:
+        with torch.no_grad():
+            for t, p in zip(state.target_net.parameters(), params):
+                t.copy_(p)
+    return g_norm
 
 
 def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int):
@@ -440,3 +453,179 @@ def make_batch_train_step(cfg: R2D2Config):
     """(state, DeviceBatch) -> (state, metrics, priorities) over a batch
     gathered at sample time (make_gather_step)."""
     return make_train_step(cfg)
+
+
+# --------------------------------------------------------------------------
+# data parallelism (r2d2_tpu/learner.py's sharded steps)
+# --------------------------------------------------------------------------
+
+
+def tree_sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sum over halves, recursively: ((x0 + x1) + (x2 + x3)) for four. A
+    process owning an aligned half of the shards sums its half in the same
+    order, so the sum over two processes (one addition, which commutes
+    exactly) has the bits of the sum in one process."""
+    if len(xs) == 1:
+        return xs[0]
+    h = (len(xs) + 1) // 2
+    return tree_sum(xs[:h]) + tree_sum(xs[h:])
+
+
+def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
+                            collectives=None, replicate: bool = False):
+    """(state, batches) -> (state, metrics, priorities (n, B/dp)): one update
+    over the n dp shards this process owns, `batches` holding each shard's
+    DeviceBatch on its shard's device (r2d2_tpu/learner.py
+    ``_raw_train_step(axis_name="dp")`` under shard_map):
+
+    - the loss denominator (valid learning steps) is summed over every
+      shard of every process before any loss is formed, so each shard's
+      loss is its part of the global loss;
+    - each shard's gradient, loss and aux are taken apart, summed over this
+      process's shards (tree_sum) and then across processes (`collectives`,
+      parallel/multihost.Collectives; none in one process): a sum, not
+      torch DDP's mean, since the per-shard mask sums differ;
+    - one global-norm clip and one Adam step on the summed gradient, and
+      the target sync, as make_train_step.
+
+    ``is_from_priorities``: the batches' is_weights carry raw tree
+    priorities, normalised here against the minimum positive priority over
+    every shard (a MIN across processes), in float32 as JAX's pmin form.
+
+    A shard off the state's device runs on a replica of the networks on its
+    device, made at its first update and given the stepped parameters after
+    each; shards on the state's device run on the state's networks in turn.
+    ``step.replicas`` holds them. ``replicate=True`` gives every shard but
+    the first a replica even on one device: a test seam, so that one CPU or
+    one card runs the path the shards of several cards take."""
+    loss_fn = make_loss_fn(cfg)
+    replicas: dict = {}
+    synced: dict = {}  # the state.step each replica last took
+
+    def nets_of(state: TrainState, i: int, device):
+        key = i if replicate else device
+        primary = 0 if replicate else next(state.net.parameters()).device
+        if key == primary:
+            return state.net, state.target_net
+        if key not in replicas:
+            replicas[key] = (copy.deepcopy(state.net).to(device),
+                             copy.deepcopy(state.target_net).to(device).requires_grad_(False))
+            synced[key] = state.step
+        elif synced[key] != state.step:
+            # another step function moved the state since this replica's sync
+            _copy_params(replicas[key], state)
+            synced[key] = state.step
+        return replicas[key]
+
+    def reduce(t: torch.Tensor, what: str, op: str = "sum") -> torch.Tensor:
+        if collectives is None:
+            return t
+        return (collectives.sum_ if op == "sum" else collectives.min_)(t, what)
+
+    def step(state: TrainState, batches: Sequence[DeviceBatch]):
+        params = list(state.net.parameters())
+        home = params[0].device
+        if cfg.zero_state_replay:
+            batches = [b._replace(hidden=torch.zeros_like(b.hidden)) for b in batches]
+        steps = sum(int(b.learning_steps.sum()) for b in batches)
+        denom = reduce(torch.tensor([steps], dtype=torch.int64), "denominator")
+        denom = torch.clamp(denom[0].float(), min=1.0)
+        if is_from_priorities:
+            pos = torch.stack([torch.where(b.is_weights > 0, b.is_weights.float(),
+                                           torch.tensor(float("inf"), device=b.is_weights.device)
+                                           ).min().to(home) for b in batches])
+            min_p = reduce(pos.min().reshape(1), "min_priority", op="min")[0]
+            min_p = torch.where(torch.isfinite(min_p), min_p, torch.ones_like(min_p))
+            batches = [b._replace(is_weights=torch.pow(
+                torch.maximum(b.is_weights.float(), min_p.to(b.is_weights.device))
+                / min_p.to(b.is_weights.device), -cfg.is_exponent)) for b in batches]
+        flats, stats, prios = [], [], []
+        for i, b in enumerate(batches):
+            dev = b.obs.device
+            net, target = nets_of(state, i, dev)
+            net.zero_grad(set_to_none=True)
+            loss, (priorities, aux) = loss_fn(net, target, b, denom.to(dev))
+            loss.backward()
+            flats.append(torch.cat([p.grad.reshape(-1) for p in net.parameters()]).to(home))
+            stats.append(torch.stack([loss.detach(), aux["q_mean"], aux["target_mean"],
+                                      aux["td_abs_mean"]]).to(home))
+            prios.append(priorities.to(home))
+        grad = reduce(tree_sum(flats), "gradient")
+        summed = reduce(tree_sum(stats), "loss")
+        state.net.zero_grad(set_to_none=True)
+        offset = 0
+        for p in params:
+            p.grad = grad[offset:offset + p.numel()].view_as(p).clone()
+            offset += p.numel()
+        g_norm = _apply_gradients(cfg, state, params)
+        for key, pair in replicas.items():
+            pair[0].zero_grad(set_to_none=True)
+            _copy_params(pair, state)
+            synced[key] = state.step
+        metrics = {"loss": summed[0], "grad_norm": g_norm, "q_mean": summed[1],
+                   "target_mean": summed[2], "td_abs_mean": summed[3]}
+        return state, metrics, torch.stack(prios)
+
+    step.replicas = replicas
+    return step
+
+
+@torch.no_grad()
+def _copy_params(pair, state: TrainState) -> None:
+    """A replica (net, target) takes the state's parameters."""
+    for dst, src in zip(pair[0].parameters(), state.net.parameters()):
+        dst.copy_(src)
+    for dst, src in zip(pair[1].parameters(), state.target_net.parameters()):
+        dst.copy_(src)
+
+
+def make_sharded_gather_step(cfg: R2D2Config):
+    """(stores, b, s, w) -> one DeviceBatch per shard: shard i's rows
+    gathered from its own store `stores[i]` with its (B/dp,) coordinates
+    b[i], s[i], w[i] (b local to the shard), on the shard's device."""
+    gather = make_store_gather(cfg)
+
+    def gather_shards(stores, b, s, w):
+        return [gather(st, torch.as_tensor(b[i]), torch.as_tensor(s[i]), torch.as_tensor(w[i]))
+                for i, st in enumerate(stores)]
+
+    return gather_shards
+
+
+def make_sharded_fused_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
+                                  collectives=None, replicate: bool = False):
+    """(state, stores, b, s, w) -> (state, metrics, priorities (n, B/dp)):
+    the update over dp-sharded device stores (replay/sharded_store.py), each
+    shard gathering its rows from its own store, then
+    make_sharded_train_step. b, s, w are (n, B/dp) per-shard coordinates,
+    b local to each shard; with is_from_priorities, w holds raw priorities."""
+    step = make_sharded_train_step(cfg, is_from_priorities, collectives, replicate)
+    gather = make_sharded_gather_step(cfg)
+
+    def fused(state: TrainState, stores, b, s, w):
+        return step(state, gather(stores, b, s, w))
+
+    fused.replicas = step.replicas
+    return fused
+
+
+def make_sharded_fused_multi_train_step(cfg: R2D2Config, num_steps: int,
+                                        is_from_priorities: bool = False,
+                                        collectives=None):
+    """K sharded updates in one dispatch (the axis form of
+    make_multi_update_core): (state, stores, b, s, w) with (K, n, B/dp)
+    coordinates -> (state, the last step's metrics, priorities
+    (K, n, B/dp)); the same as K make_sharded_fused_train_step calls."""
+    step = make_sharded_fused_train_step(cfg, is_from_priorities, collectives)
+
+    def multi(state: TrainState, stores, b, s, w):
+        if len(b) != num_steps:
+            raise ValueError(f"coordinate stack has {len(b)} steps, expected {num_steps}")
+        prios = []
+        for k in range(num_steps):
+            state, metrics, p = step(state, stores, b[k], s[k], w[k])
+            prios.append(p)
+        return state, metrics, torch.stack(prios)
+
+    multi.replicas = step.replicas
+    return multi

@@ -3,7 +3,9 @@ the part the host plane runs): sum-tree priorities, the circular block
 pointer, eviction and size accounting, clamped stratified sampling of
 sequence coordinates, the stale-priority pointer-window rejection (with
 full-lap detection), and the per-slot stamp clock that replaces that
-window under the tiered plane's disk tier; the device planes' hooks: a
+window under the tiered plane's disk tier; ``shard_config``, the 1/dp
+view of a config that each shard of the sharded planes runs on; the device
+planes' hooks: a
 device sum tree kept in step with every host tree write (``dtree``,
 ``priority_plane="device"``) and the contiguous ring reservations of a
 batched block writer (``_reserve_contiguous``, ``_reserve_advance``). With
@@ -22,6 +24,24 @@ import numpy as np
 
 from r2d2_tpu_torch.config import R2D2Config
 from r2d2_tpu_torch.replay.sum_tree import SumTree
+
+
+def shard_config(cfg: R2D2Config, dp: int) -> R2D2Config:
+    """The per-shard (1/dp) view of a config, for the dp-sharded replay
+    planes: each shard's control plane sees its slice of capacity and batch
+    and knows nothing of the mesh (collection and dispatch are the parent
+    plane's)."""
+    return cfg.replace(
+        buffer_capacity=cfg.buffer_capacity // dp,
+        learning_starts=max(cfg.learning_starts // dp, 1),
+        batch_size=cfg.batch_size // dp,
+        dp_size=1,
+        replay_plane="host",
+        collector="host",
+        updates_per_dispatch=1,
+        priority_plane="host",
+        superstep_dispatches=1,
+    )
 
 
 class ReplayControlPlane:

@@ -1,6 +1,8 @@
 """Replay snapshots: the whole replay state on disk, for a true resume (port
-of r2d2_tpu/replay/snapshot.py, the host and device kinds; the tiered store
-is a ReplayBuffer and snapshots as one, its disk tier's manifest included).
+of r2d2_tpu/replay/snapshot.py: the host, device, sharded and multihost
+kinds; the tiered store is a ReplayBuffer and snapshots as one, its disk
+tier's manifest included; re-dealing a snapshot across another layout is
+not ported).
 The device kind copies the card's stores to the host (at the paper's 2M
 transitions that is 15.6 GB of frames) and, under priority_plane="device",
 the device tree's float32 leaves (`dtree_leaves`), which are what sampling
@@ -32,7 +34,9 @@ import numpy as np
 import torch
 
 from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+from r2d2_tpu_torch.replay.multihost_store import MultiHostShardedReplay
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
 from r2d2_tpu_torch.utils.faults import fault_point
 
 STORE_FIELDS = (
@@ -80,6 +84,10 @@ class TopologyMismatch(ValueError):
 
 
 def _kind(replay) -> str:
+    if isinstance(replay, MultiHostShardedReplay):
+        return "multihost"
+    if isinstance(replay, ShardedDeviceReplay):
+        return "sharded"
     if isinstance(replay, DeviceReplayBuffer):
         return "device"
     if isinstance(replay, ReplayBuffer):
@@ -88,26 +96,39 @@ def _kind(replay) -> str:
 
 
 def snapshot_topology(replay, tp: int = 1) -> Dict[str, np.ndarray]:
-    """The topology manifest a snapshot embeds, for the one-process host
-    and device planes: one logical shard holding every block."""
+    """The topology manifest a snapshot embeds: the plane, its dp shards
+    and blocks per shard, the process layout and the global shard ids this
+    file holds, their global block ranges, and the draw streams' identity
+    (the multihost plane's are keyed (seed, global shard id, epoch))."""
+    from r2d2_tpu_torch.parallel.multihost import process_count, process_index
+
     plane = _kind(replay)
     cfg = replay.cfg
     nb = cfg.num_blocks
     disk = getattr(replay, "disk", None)
+    dp, local_ids, bps, seed, epoch = 1, [0], nb, 0, 0
+    procs, pid = 1, 0
+    if plane == "multihost":
+        dp, local_ids, bps = replay.dp, list(replay.local_ids), replay.blocks_per_shard
+        seed, epoch = replay._seed, replay._epoch
+        procs, pid = process_count(), process_index()
+    elif plane == "sharded":
+        dp, local_ids, bps = replay.dp, list(replay.local_ids), replay.blocks_per_shard
     return {
         "plane": np.asarray(plane),
-        "dp": np.asarray(1, np.int64),
+        "dp": np.asarray(dp, np.int64),
         "tp": np.asarray(tp, np.int64),
-        "process_count": np.asarray(1, np.int64),
-        "process_index": np.asarray(0, np.int64),
+        "process_count": np.asarray(procs, np.int64),
+        "process_index": np.asarray(pid, np.int64),
         "num_blocks": np.asarray(nb, np.int64),
-        "blocks_per_shard": np.asarray(nb, np.int64),
+        "blocks_per_shard": np.asarray(bps, np.int64),
         "seqs_per_block": np.asarray(cfg.seqs_per_block, np.int64),
-        "local_ids": np.asarray([0], np.int64),
-        "slab_ranges": np.asarray([[0, nb]], np.int64),
-        "rng_streams": np.asarray([0], np.int64),
-        "rng_seed": np.asarray(0, np.int64),
-        "rng_epoch": np.asarray(0, np.int64),
+        "local_ids": np.asarray(local_ids, np.int64),
+        "slab_ranges": np.asarray([[g * bps, (g + 1) * bps] for g in local_ids],
+                                  np.int64).reshape(len(local_ids), 2),
+        "rng_streams": np.asarray(local_ids, np.int64),
+        "rng_seed": np.asarray(seed, np.int64),
+        "rng_epoch": np.asarray(epoch, np.int64),
         "disk_blocks": np.asarray(disk.disk_blocks if disk is not None else 0, np.int64),
     }
 
@@ -140,37 +161,37 @@ def read_manifest(path: str) -> Optional[Dict]:
         return _topology_from(npz)
 
 
-def _plane_state(plane) -> Dict[str, np.ndarray]:
-    d = {"tree_leaves": plane.tree.leaves()}
+def _plane_state(plane, prefix: str = "") -> Dict[str, np.ndarray]:
+    d = {prefix + "tree_leaves": plane.tree.leaves()}
     if plane.dtree is not None:
         # priority_plane="device": the float32 device tree is what sampling
         # reads and what the learner writes back to (the host tree only
         # sees ingestion there)
-        d["dtree_leaves"] = np.asarray(plane.dtree.leaves(), np.float32)
+        d[prefix + "dtree_leaves"] = np.asarray(plane.dtree.leaves(), np.float32)
     for k in _COUNTERS:
-        d[k] = np.asarray(getattr(plane, k))
-    d["learning_sum"] = plane.learning_sum.copy()
-    d["occupied"] = plane.occupied.copy()
-    d["num_seq_store"] = plane.num_seq_store.copy()
+        d[prefix + k] = np.asarray(getattr(plane, k))
+    d[prefix + "learning_sum"] = plane.learning_sum.copy()
+    d[prefix + "occupied"] = plane.occupied.copy()
+    d[prefix + "num_seq_store"] = plane.num_seq_store.copy()
     return d
 
 
-def _restore_plane(plane, d) -> None:
-    plane.tree.load_leaves(d["tree_leaves"])
+def _restore_plane(plane, d, prefix: str = "") -> None:
+    plane.tree.load_leaves(d[prefix + "tree_leaves"])
     if plane.dtree is not None:
         # a snapshot written without a device tree seeds it from the host
         # leaves (float64 -> float32)
-        key = "dtree_leaves" if "dtree_leaves" in d.files else "tree_leaves"
-        plane.dtree.load_leaves(np.asarray(d[key], np.float32))
+        key = "dtree_leaves" if prefix + "dtree_leaves" in d.files else "tree_leaves"
+        plane.dtree.load_leaves(np.asarray(d[prefix + key], np.float32))
     for k in _COUNTERS:
-        if k not in d.files:
+        if prefix + k not in d.files:
             setattr(plane, k, 0)
             continue
-        v = d[k][()]
+        v = d[prefix + k][()]
         setattr(plane, k, float(v) if "reward" in k else int(v))
-    plane.learning_sum[:] = d["learning_sum"]
-    plane.occupied[:] = d["occupied"]
-    plane.num_seq_store[:] = d["num_seq_store"]
+    plane.learning_sum[:] = d[prefix + "learning_sum"]
+    plane.occupied[:] = d[prefix + "occupied"]
+    plane.num_seq_store[:] = d[prefix + "num_seq_store"]
 
 
 def _validated_stores(d, current: Dict[str, np.ndarray],
@@ -252,7 +273,11 @@ def save_replay(
     tensors) rides under the `x_` prefix and restore_replay hands it back.
     `topology` defaults to snapshot_topology(replay)."""
     bf16 = set()
-    if _kind(replay) == "device":
+    kind = _kind(replay)
+    if kind in ("sharded", "multihost"):
+        _save_sharded(replay, path, kind, bf16, extra, topology)
+        return
+    if kind == "device":
         with replay.lock:
             payload = {"kind": np.asarray("device")}
             payload.update(_plane_state(replay))
@@ -284,6 +309,98 @@ def save_replay(
             for i in occ:
                 payload[f"disk_rec_{int(i)}"] = disk.record_bytes(int(i))
     _finish_payload(replay, path, payload, bf16, extra, topology)
+
+
+def _save_sharded(replay, path, kind, bf16, extra, topology) -> None:
+    """The sharded kind: every shard's control plane under ``shard{i}_`` and
+    each store field as the global (num_blocks, ...) array, shard i's slots
+    at rows [i*bps, (i+1)*bps), the JAX package's layout. The multihost
+    kind, one file per process: its local shards' planes and stores under
+    ``g{g}_`` (global shard ids) and ``local_ids``."""
+    with replay.lock:
+        payload = {"kind": np.asarray(kind), "rr": np.asarray(replay._rr)}
+        if kind == "multihost":
+            payload["local_ids"] = np.asarray(replay.local_ids, np.int64)
+            for g, shard, store in zip(replay.local_ids, replay.shards, replay.stores):
+                with shard.lock:
+                    payload.update(_plane_state(shard, prefix=f"g{g}_"))
+                    for k in STORE_FIELDS:
+                        arr, is_bf16 = _host_array(store[k])
+                        payload[f"g{g}_store_{k}"] = arr
+                        if is_bf16:
+                            bf16.add(f"g{g}_store_{k}")
+        else:
+            for i, shard in enumerate(replay.shards):
+                with shard.lock:
+                    payload.update(_plane_state(shard, prefix=f"shard{i}_"))
+            for k in STORE_FIELDS:
+                arr, is_bf16 = _host_array(torch.cat([st[k].cpu() for st in replay.stores]))
+                payload["store_" + k] = arr
+                if is_bf16:
+                    bf16.add("store_" + k)
+    _finish_payload(replay, path, payload, bf16, extra, topology)
+
+
+def _load_into(t: torch.Tensor, v: np.ndarray) -> None:
+    """A store tensor takes a validated numpy array (bfloat16 as its bits)."""
+    v = np.ascontiguousarray(v)
+    src = (torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+           if t.dtype == torch.bfloat16 else torch.from_numpy(v))
+    t.copy_(src)
+
+
+def _store_specs(stores: Dict[str, torch.Tensor], blocks: Optional[int] = None):
+    """The numpy shapes and dtypes of store tensors (bfloat16 as uint16),
+    with `blocks` leading rows in place of theirs."""
+    return {k: types.SimpleNamespace(
+        shape=tuple(t.shape) if blocks is None else (blocks, *t.shape[1:]),
+        dtype=_host_dtype(t)) for k, t in stores.items()}
+
+
+def _restore_sharded(replay, d, kind, saved_topo) -> None:
+    """Restore the sharded or multihost kind; a snapshot of another dp or
+    of other shards raises TopologyMismatch before anything is touched."""
+    current = _plain(snapshot_topology(replay))
+    if kind == "multihost":
+        saved_ids = [int(x) for x in d["local_ids"]]
+        if saved_ids != list(replay.local_ids) or (
+                saved_topo is not None and saved_topo["dp"] != replay.dp):
+            raise TopologyMismatch(
+                saved_topo or {"plane": kind, "local_ids": saved_ids}, current,
+                f"snapshot owns global shards {saved_ids} of dp "
+                f"{saved_topo['dp'] if saved_topo else '?'}, this process owns "
+                f"{list(replay.local_ids)} of dp {replay.dp}")
+        with replay.lock:
+            held = list(zip(replay.local_ids, replay.shards, replay.stores))
+            vals = {}
+            for g, shard, store in held:
+                if len(d[f"g{g}_tree_leaves"]) != shard.tree.capacity:
+                    raise ValueError(f"shard {g}: tree size mismatch")
+                vals[g] = _validated_stores(d, _store_specs(store), prefix=f"g{g}_store_")
+            replay._rr = int(d["rr"][()])
+            for g, shard, store in held:
+                with shard.lock:
+                    _restore_plane(shard, d, prefix=f"g{g}_")
+                    for k in STORE_FIELDS:
+                        _load_into(store[k], vals[g][k])
+        return
+    saved_dp = saved_topo["dp"] if saved_topo else sum(
+        1 for k in d.files if k.startswith("shard") and k.endswith("_block_ptr"))
+    if saved_dp != replay.dp:
+        raise TopologyMismatch(saved_topo or {"plane": kind, "dp": saved_dp}, current,
+                               f"snapshot holds {saved_dp} dp shards, replay has {replay.dp}")
+    with replay.lock:
+        vals = _validated_stores(d, _store_specs(replay.stores[0], replay.cfg.num_blocks))
+        for i, shard in enumerate(replay.shards):
+            if len(d[f"shard{i}_tree_leaves"]) != shard.tree.capacity:
+                raise ValueError(f"shard {i}: tree size mismatch")
+        replay._rr = int(d["rr"][()])
+        bps = replay.blocks_per_shard
+        for i, shard in enumerate(replay.shards):
+            with shard.lock:
+                _restore_plane(shard, d, prefix=f"shard{i}_")
+                for k in STORE_FIELDS:
+                    _load_into(replay.stores[i][k], vals[k][i * bps:(i + 1) * bps])
 
 
 def _finish_payload(replay, path, payload, bf16, extra, topology) -> None:
@@ -321,24 +438,18 @@ def restore_replay(replay, path: str) -> Dict[str, np.ndarray]:
             for k in d.files
             if k.startswith(_EXTRA_PREFIX)
         }
+        if want in ("sharded", "multihost"):
+            _restore_sharded(replay, d, want, saved_topo)
+            return extras
         if want == "device":
             with replay.lock:
-                # the live stores' numpy shapes and dtypes (bfloat16 as its
-                # uint16 bits), checked before anything is touched
-                specs = {k: types.SimpleNamespace(shape=tuple(t.shape), dtype=_host_dtype(t))
-                         for k, t in replay.stores.items()}
-                vals = _validated_stores(d, specs)
+                # checked against the live stores before anything is touched
+                vals = _validated_stores(d, _store_specs(replay.stores))
                 if len(d["tree_leaves"]) != replay.tree.capacity:
                     raise ValueError("tree size mismatch")
                 _restore_plane(replay, d)
                 for k in STORE_FIELDS:
-                    t = replay.stores[k]
-                    v = np.ascontiguousarray(vals[k])
-                    if t.dtype == torch.bfloat16:
-                        src = torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
-                    else:
-                        src = torch.from_numpy(v)
-                    t.copy_(src)
+                    _load_into(replay.stores[k], vals[k])
             return extras
         with replay.lock:
             current = {k: getattr(replay, k + "_store") for k in STORE_FIELDS}

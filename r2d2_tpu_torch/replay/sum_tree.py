@@ -28,6 +28,11 @@ class SumTree:
         self.is_exponent = is_exponent
         self._native = native
 
+    @property
+    def total(self) -> float:
+        """The priority mass of every leaf (the root)."""
+        return float(self.tree[0])
+
     def update(self, idxes: np.ndarray, td_errors: np.ndarray) -> None:
         """Set leaf priorities to td^alpha and resum ancestors bottom-up."""
         if len(idxes) == 0:

@@ -1,4 +1,4 @@
-"""Training orchestrator and CLI (port of r2d2_tpu/train.py, host plane).
+"""Training orchestrator and CLI (port of r2d2_tpu/train.py).
 
 The main path: catch env -> VectorizedActor (acting through the fused
 ε-greedy act tail) -> SequenceAccumulator -> host ReplayBuffer with
@@ -40,6 +40,20 @@ card, each update gathering its windows there from its sample coordinates
 priority_plane=device`` the sum tree is on the card too and ``--set
 superstep_dispatches=N`` runs N x K updates per host re-entry
 (``megastep.make_priority_superstep``).
+
+Data parallelism (``parallel/``): ``--dp N`` splits the batch over N shards
+whose gradients are summed before one clipped Adam step. ``--replay sharded``
+(``replay/sharded_store.py``; the ``atari_v4_8`` preset's plane) keeps one
+device store per shard, each shard gathering its rows from its own;
+``--replay host`` with ``--dp`` splits the sampled batch. ``--device`` lists
+one device per shard, and may repeat one: ``--device
+cuda:0,cuda:0,cuda:0,cuda:0`` runs ``--preset atari_v4_8`` on one card (a
+plain ``cuda`` means cuda:0 .. cuda:N-1 and raises when fewer cards are
+there). ``--distributed --replay multihost`` (``replay/multihost_store.py``)
+joins the process group torchrun's variables describe (gloo) and trains
+one model across processes, each owning the shards of its ``--device``
+list; rank 0 writes the checkpoints and the metrics file, every rank its
+own replay snapshot.
 
 Collection on the card: ``--collector device`` (``collect.DeviceCollector``:
 policy, env dynamics and block packing over a tensor env core, one chunk
@@ -129,6 +143,10 @@ from r2d2_tpu_torch.learner import (
     make_fused_multi_train_step,
     make_fused_train_step,
     make_gather_step,
+    make_sharded_fused_multi_train_step,
+    make_sharded_fused_train_step,
+    make_sharded_gather_step,
+    make_sharded_train_step,
     make_stacked_batch_train_step,
     make_train_step,
     start_read_back,
@@ -140,9 +158,18 @@ from r2d2_tpu_torch.megastep import (
     superstep_uniforms,
 )
 from r2d2_tpu_torch.ops.epsilon import epsilon_ladder
+from r2d2_tpu_torch.parallel.mesh import make_mesh, parse_devices, shard_slices
+from r2d2_tpu_torch.parallel.multihost import (
+    Collectives,
+    initialize_distributed,
+    make_global_mesh,
+    process_index,
+)
 from r2d2_tpu_torch.replay.block import state_tensor
 from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+from r2d2_tpu_torch.replay.multihost_store import MultiHostShardedReplay
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
 from r2d2_tpu_torch.replay.tiered_store import (
     StagedChunk,
     StagingRing,
@@ -225,7 +252,8 @@ class _HostPlane:
     device per update (pageable copies inline; the pinned ring and the side
     stream of `learner.PinnedStager` in threaded mode on the card). The
     batch is copied out of the store at sample time, so a queued item never
-    goes stale."""
+    goes stale. With a mesh (dp_size > 1) the batch's rows are split over
+    the shards' devices and the update is make_sharded_train_step."""
 
     steps_per_update = 1
 
@@ -233,6 +261,10 @@ class _HostPlane:
         self.tr = tr
         self.replay = ReplayBuffer(tr.cfg)
         self.stager: Optional[PinnedStager] = None
+        self.sharded_fn = None
+        if tr.mesh is not None:
+            self.sharded_fn = make_sharded_train_step(tr.cfg)
+            self.slices = shard_slices(tr.cfg.batch_size, tr.mesh.dp)
 
     def _draw_and_lift(self, lift_fn):
         with span("replay/sample"):
@@ -263,7 +295,12 @@ class _HostPlane:
         if event is not None:
             with self.tr.xfer.wait():
                 dev = PinnedStager.consume(dev, event)
-        state, m, priorities = self.tr.step_fn(state, dev)
+        if self.sharded_fn is not None:
+            shards = [dev.rows(sl, d) for sl, d in zip(self.slices, self.tr.mesh.devices)]
+            state, m, priorities = self.sharded_fn(state, shards)
+            priorities = priorities.reshape(-1)
+        else:
+            state, m, priorities = self.tr.step_fn(state, dev)
         self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
         return state, m
 
@@ -491,14 +528,175 @@ class _DevicePlane:
         return state, m
 
 
-_PLANES = {"host": _HostPlane, "tiered": _TieredPlane, "device": _DevicePlane}
+class _ShardedPlane:
+    """dp-sharded device replay in one process (replay/sharded_store.py):
+    one store per shard, each shard gathering its rows from its own store
+    and the shards' gradients summed (learner.make_sharded_fused_train_step).
+    K=1 as the device plane: coordinates, gathered at update time (inline)
+    or at sample time (threaded, a copy no write can change); K>1: K draws
+    and the K-update dispatch under one lock hold, the priorities read back
+    one dispatch late."""
+
+    def __init__(self, tr: "Trainer"):
+        if tr.mesh is None:
+            raise ValueError("replay_plane='sharded' needs dp_size > 1")
+        self.tr = tr
+        cfg = tr.cfg
+        self.replay = ShardedDeviceReplay(cfg, tr.mesh)
+        self.K = self.steps_per_update = cfg.updates_per_dispatch
+        self._pending = None  # the deferred (priorities, draws) pair
+        if self.K > 1:
+            self.multi_fn = make_sharded_fused_multi_train_step(cfg, self.K)
+        self.step_fn = make_sharded_fused_train_step(cfg)
+        self.gather_fn = make_sharded_gather_step(cfg)
+        self.batch_step_fn = make_sharded_train_step(cfg)
+
+    def sample(self, pipelined: bool = False):
+        if self.K > 1:
+            # drawn at update time, under the dispatch's lock hold
+            return ("multi", None, None, None)
+        with span("replay/sample"):
+            si = self.replay.sample_indices(self.tr.sample_rng)
+            coords = (si.b, si.s, si.is_weights)
+            stamp = (si.old_ptrs, si.old_advances)
+            if pipelined:
+                batch = self.replay.run_with_stores(lambda stores: self.gather_fn(stores, *coords))
+                return "batch", batch, si.idxes, stamp
+            return "coords", coords, si.idxes, stamp
+
+    def _multi_update(self, state):
+        def dispatch(stores, draws):
+            b, s, w = (np.stack([getattr(d, f) for d in draws]) for f in ("b", "s", "is_weights"))
+            return self.multi_fn(state, stores, b, s, w)
+
+        draws, (new_state, m, priorities) = self.replay.sample_and_run(
+            self.tr.sample_rng, self.K, dispatch)
+        prev, self._pending = self._pending, (start_read_back(priorities), draws)
+        if prev is not None:
+            self.drain_pending(prev)
+        return new_state, m
+
+    def drain_pending(self, pending=None) -> None:
+        """Apply a deferred (priorities (K, dp, B/dp), draws) pair: the
+        previous one at each K-update dispatch; with no argument the one
+        left."""
+        if pending is None:
+            pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        prios, draws = pending
+        for row, d in zip(finish_read_back(prios), draws):
+            self.replay.update_priorities(d.idxes, row, d.old_ptrs, d.old_advances)
+
+    def capture_pending(self) -> Optional[dict]:
+        """The preemption's capture of the deferred write-back (as
+        _TieredPlane.capture_pending)."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return None
+        prios, draws = pending
+        return {
+            "prios": finish_read_back(prios),
+            "idxes": np.stack([np.asarray(d.idxes) for d in draws]),
+            "old_ptr": np.asarray([d.old_ptrs for d in draws], np.int64),
+            "old_advances": np.asarray([d.old_advances for d in draws], np.int64),
+        }
+
+    def restore_pending(self, d: dict) -> None:
+        draws = [types.SimpleNamespace(idxes=np.asarray(idx), old_ptrs=[int(x) for x in p],
+                                       old_advances=[int(x) for x in a])
+                 for idx, p, a in zip(d["idxes"], d["old_ptr"], d["old_advances"])]
+        self._pending = (np.asarray(d["prios"]), draws)
+
+    def update(self, state, item):
+        kind, payload, idxes, stamp = item
+        if kind == "multi":
+            return self._multi_update(state)
+        if kind == "batch":
+            state, m, priorities = self.batch_step_fn(state, payload)
+        else:
+            state, m, priorities = self.replay.run_with_stores(
+                lambda stores: self.step_fn(state, stores, *payload))
+        old_ptrs, old_adv = stamp
+        self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptrs, old_adv)
+        return state, m
+
+
+class _MultiHostPlane:
+    """This process's shards of a dp mesh across processes
+    (replay/multihost_store.py): every process runs the same loop, and the
+    updates are collective, so the processes stay in lockstep through them;
+    collection, the draws and the priority write-backs are local. K>1 folds
+    K collective updates into one dispatch with the read-back deferred one
+    dispatch (replay.run_step_k)."""
+
+    def __init__(self, tr: "Trainer"):
+        if tr.mesh is None:
+            raise ValueError("the multihost plane needs a mesh")
+        self.tr = tr
+        cfg = tr.cfg
+        self.replay = MultiHostShardedReplay(cfg, tr.mesh, seed=cfg.seed + 3)
+        self.K = self.steps_per_update = cfg.updates_per_dispatch
+        if self.K > 1:
+            self.multi_fn = make_sharded_fused_multi_train_step(
+                cfg, self.K, is_from_priorities=True, collectives=tr.collectives)
+        self.step_fn = make_sharded_fused_train_step(cfg, is_from_priorities=True,
+                                                     collectives=tr.collectives)
+
+    def sample(self, pipelined: bool = False):
+        # drawn inside run_step(_k), with the dispatch
+        return ("multihost", None, None, None)
+
+    def update(self, state, item):
+        if self.K > 1:
+            return self.replay.run_step_k(self.multi_fn, state, self.K)
+        return self.replay.run_step(self.step_fn, state)
+
+    def drain_pending(self, pending=None) -> None:
+        self.replay.drain_pending(pending)
+
+    def log_extras(self) -> dict:
+        return self.tr.collectives.stats()
+
+
+_PLANES = {"host": _HostPlane, "tiered": _TieredPlane, "device": _DevicePlane,
+           "sharded": _ShardedPlane, "multihost": _MultiHostPlane}
+
+
+def build_mesh(cfg: R2D2Config, device):
+    """The dp mesh a config asks for, or None: on the multihost plane the
+    mesh over every process's shards, `device` listing this process's (one
+    each); elsewhere, with dp_size > 1, `device` either lists dp_size
+    devices (they may repeat) or is a single CUDA device, which means cuda:0
+    .. cuda:dp-1 and raises when fewer cards are visible."""
+    devices = parse_devices(device)
+    if cfg.replay_plane == "multihost":
+        return make_global_mesh(devices, dp=cfg.dp_size if cfg.dp_size > 1 else None)
+    if cfg.dp_size <= 1:
+        if len(devices) > 1:
+            raise ValueError(f"{len(devices)} devices given for dp_size=1")
+        return None
+    if len(devices) == 1:
+        if devices[0].type != "cuda":
+            raise ValueError(
+                f"dp_size={cfg.dp_size} needs {cfg.dp_size} devices; list them "
+                f"(--device {','.join([str(devices[0])] * cfg.dp_size)})")
+        return make_mesh(cfg.dp_size)
+    return make_mesh(cfg.dp_size, devices)
 
 
 class Trainer:
     def __init__(self, cfg: R2D2Config, vec_env=None, device="cuda", resume: bool = False,
                  metrics: Optional[MetricsLogger] = None, profile_dir: Optional[str] = None,
                  profile_steps: int = 20, fn_env=None):
-        self.device = resolve_device(device)
+        # the dp mesh, and the device of this process's first shard, which
+        # holds the learner state (and the actors and the envs' tensors)
+        self.collectives = Collectives()
+        self.mesh = build_mesh(cfg, device)
+        if self.mesh is not None:
+            self.device = self.mesh.devices[self.mesh.processes.index(process_index())]
+        else:
+            self.device = resolve_device(parse_devices(device)[0])
         self.vec_env = self.fn_env = None
         if cfg.collector == "device":
             self.fn_env = fn_env if fn_env is not None else build_fn_env(cfg)
@@ -545,9 +743,22 @@ class Trainer:
         self._resume_carry: dict = {}
         self.plane = _PLANES[cfg.replay_plane](self)
         self.replay = self.plane.replay
-        if self.resumed and cfg.snapshot_replay and self._restore_replay_snapshot():
-            # the restored env steps are in the checkpoint's count already
-            self.env_steps_offset -= self.replay.env_steps
+        if self.resumed and cfg.snapshot_replay:
+            # the restored env steps are in the checkpoint's count already.
+            # Across processes every rank takes part in the count and in
+            # the verdict (a rank without a snapshot adds 0; a failed
+            # restore on any rank fails them all)
+            restored, error = 0, None
+            try:
+                if self._restore_replay_snapshot():
+                    restored = self.replay.env_steps
+            except Exception as e:  # noqa: BLE001 — agreed below
+                error = e
+            if self.collectives.any(error is not None, "restore"):
+                if error is not None:
+                    raise error
+                raise RuntimeError("replay snapshot restore failed on another process")
+            self.env_steps_offset -= self.collectives.sum_int(restored, "restore")
         self.param_store = ParamStore(self.state.net)
         if cfg.collector == "device":
             self.actor = DeviceCollector(cfg, copy.deepcopy(self.state.net), self.param_store,
@@ -564,7 +775,10 @@ class Trainer:
                 seed=cfg.seed + 1,
                 device=self.device,
             )
-        self.metrics_logger = metrics or MetricsLogger(cfg.metrics_path, cfg.log_interval)
+        # across processes, rank 0 writes the metrics file (every rank logs
+        # to stderr)
+        self.metrics_logger = metrics or MetricsLogger(
+            cfg.metrics_path if process_index() == 0 else None, cfg.log_interval)
         # the latest un-emitted (metrics, step, extra); see _log
         self._pending_log = None
         self._last_log_emit = 0.0
@@ -588,8 +802,10 @@ class Trainer:
         self._preempt.set()
 
     def _preempt_now(self) -> bool:
-        """Checked once per run-loop iteration."""
-        if self._preempt.is_set():
+        """Checked once per run-loop iteration. Across processes every rank
+        takes part (the loops are in lockstep through the collective
+        updates), so one rank's SIGTERM cuts them all at the same step."""
+        if self.collectives.any(self._preempt.is_set(), "preempt"):
             self.preempted = True
         return self.preempted
 
@@ -693,14 +909,31 @@ class Trainer:
         written after the replay snapshot and its carry. A resume keys off
         the latest finalized checkpoint, so a crash between the two leaves
         the previous pair in force."""
-        if latest_checkpoint_step(self.cfg.checkpoint_dir) == self._step:
-            return  # the cadence already checkpointed this step
-        save_checkpoint(self.cfg.checkpoint_dir, self.state, self.env_steps,
-                        self.wall_minutes_offset + (time.time() - self._start_time) / 60.0)
+        # the cadence may have checkpointed this step already. Rank 0 writes
+        # the checkpoints, so its view decides, on every rank alike: the
+        # save below is a collective
+        written = (process_index() == 0
+                   and latest_checkpoint_step(self.cfg.checkpoint_dir) == self._step)
+        if self.collectives.any(written, "finalize"):
+            return
+        self._save_checkpoint()
+
+    def _save_checkpoint(self) -> None:
+        """A checkpoint of the learner state with the run's global env
+        steps. Every process takes part in the count; rank 0 writes (the
+        state is the same on every rank)."""
+        env_steps = self._global_env_steps()
+        if process_index() == 0:
+            save_checkpoint(self.cfg.checkpoint_dir, self.state, env_steps,
+                            self.wall_minutes_offset + (time.time() - self._start_time) / 60.0)
 
     # -------------------------------------------------------- replay snapshot
 
     def _replay_snapshot_path(self) -> str:
+        # the multihost plane snapshots per process (each owns its shards)
+        if self.cfg.replay_plane == "multihost":
+            return os.path.join(self.cfg.checkpoint_dir,
+                                f"replay_snapshot_p{process_index()}.npz")
         return os.path.join(self.cfg.checkpoint_dir, "replay_snapshot.npz")
 
     def _restore_replay_snapshot(self) -> bool:
@@ -788,8 +1021,7 @@ class Trainer:
         if step // cfg.publish_interval > prev // cfg.publish_interval:
             self.param_store.publish(self.state.net)
         if step // cfg.save_interval > prev // cfg.save_interval:
-            save_checkpoint(cfg.checkpoint_dir, self.state, self.env_steps,
-                            self.wall_minutes_offset + (time.time() - self._start_time) / 60.0)
+            self._save_checkpoint()
         if cfg.snapshot_every > 0 and step // cfg.snapshot_every > prev // cfg.snapshot_every:
             # the record before a snapshot lands in the metrics file first
             self._flush_log()
@@ -797,8 +1029,15 @@ class Trainer:
 
     @property
     def env_steps(self) -> int:
-        """Run-total env steps: this run's and the resumed checkpoint's."""
+        """Run-total env steps: this run's and the resumed checkpoint's (this
+        process's shards only on the multihost plane)."""
         return self.replay.env_steps + self.env_steps_offset
+
+    def _global_env_steps(self) -> int:
+        """Run-total env steps over every process: a sum across them, which
+        every rank reaches in lockstep (a checkpoint crossing). The offset,
+        restored from a checkpoint, is a global total already."""
+        return self.collectives.sum_int(self.replay.env_steps, "env_steps") + self.env_steps_offset
 
     def finish_updates(self) -> None:
         """Apply the plane's deferred work (the tiered plane's last
@@ -960,7 +1199,12 @@ class Trainer:
         """Actor thread + sampler thread + learner loop, the workers under a
         Supervisor: a crashed actor or sampler iteration is restarted (the
         actor through VectorizedActor.resync) with its traceback recorded,
-        and a worker that stays dead or stalls fails the run."""
+        and a worker that stays dead or stalls fails the run. Not on the
+        multihost plane: a rank waiting on its queue would fall out of the
+        ranks' lockstep collectives (run_inline keeps them in step)."""
+        if self.cfg.replay_plane == "multihost":
+            raise ValueError("run_threaded does not run on the multihost plane: its ranks "
+                             "make their collectives in lockstep; use run_inline (--mode inline)")
         self.reset_clock()
         batch_q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
         sup = self._sup = self._make_supervisor()
@@ -1146,6 +1390,19 @@ class Trainer:
         }
 
 
+def params_digest(net: torch.nn.Module) -> str:
+    """SHA-256 of a network's parameters' bytes, in order: equal digests on
+    two ranks mean bit-identical replicas."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in net.parameters():
+        t = p.detach().cpu().contiguous()
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.dtype == torch.bfloat16
+                 else t.numpy().tobytes())
+    return h.hexdigest()
+
+
 def _carried(x, like: torch.Tensor) -> torch.Tensor:
     """A carried published parameter (a tensor, or a snapshot's numpy array
     with bfloat16 as uint16 bits) on `like`'s device, in its dtype."""
@@ -1169,11 +1426,21 @@ def main(argv=None):
     p.add_argument("--collector", default=None, choices=["host", "device"],
                    help="experience collection: the host actor, or whole chunks on the "
                         "card (collect.py; tensor env cores only)")
-    p.add_argument("--replay", default=None, choices=["host", "tiered", "device"],
+    p.add_argument("--replay", default=None,
+                   choices=["host", "tiered", "device", "sharded", "multihost"],
                    help="replay data plane (default: the preset's replay_plane): host "
                         "ships one batch per update; tiered stages K batches per dispatch "
                         "through pinned memory (replay/tiered_store.py); device holds the "
-                        "store on the card and gathers in the step (replay/device_store.py)")
+                        "store on the card and gathers in the step (replay/device_store.py); "
+                        "sharded holds one device store per dp shard "
+                        "(replay/sharded_store.py); multihost does so across the processes "
+                        "of --distributed (replay/multihost_store.py)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel shards (overrides the preset's dp_size)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun's variables describe "
+                        "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; gloo) before building "
+                        "the trainer; pair with --replay multihost")
     p.add_argument("--updates-per-dispatch", type=int, default=None,
                    help="K learner updates per dispatch (tiered and device planes; alone, "
                         "it moves the host plane to the device plane)")
@@ -1194,11 +1461,19 @@ def main(argv=None):
                    help="write a Chrome trace of the updates after the first here")
     p.add_argument("--profile-steps", type=int, default=20)
     p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without a GPU) or cpu")
+                   help="cuda (default; raises without a GPU) or cpu; or a comma-separated "
+                        "list, one device per local dp shard (they may repeat: "
+                        "cuda:0,cuda:0,cuda:0,cuda:0 runs four shards on one card); a plain "
+                        "cuda with dp > 1 means cuda:0 .. cuda:dp-1")
     p.add_argument("--seed", type=int, default=None)
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.mode != "inline" and (args.distributed or args.replay == "multihost"):
+        p.error("--distributed and --replay multihost run --mode inline only (the ranks' "
+                "collectives stay in lockstep there)")
+    if args.distributed and not initialize_distributed():
+        raise SystemExit("--distributed: no process group to join (WORLD_SIZE unset or 1)")
+    device = resolve_device(parse_devices(args.device)[0])
     if device.type == "cuda":
         # init_train_state sets the card's numerics (config.set_fp32_numerics)
         print("TF32 is off for cuBLAS matmuls and cuDNN convolutions; bf16 matmuls sum "
@@ -1217,6 +1492,8 @@ def main(argv=None):
         overrides["metrics_path"] = args.metrics
     if args.replay:
         overrides["replay_plane"] = args.replay
+    if args.dp is not None:
+        overrides["dp_size"] = args.dp
     if args.mode == "fused" and args.collector is None:
         args.collector = "device"  # the only collector run_fused takes
     if args.collector:
@@ -1239,8 +1516,8 @@ def main(argv=None):
     # deterministic fault injection for drills (R2D2_FAULTS; utils/faults.py),
     # a no-op when the variable is unset
     install_from_env()
-    trainer = Trainer(cfg, device=device, resume=args.resume, profile_dir=args.profile_dir,
-                      profile_steps=args.profile_steps)
+    trainer = Trainer(cfg, device=args.device, resume=args.resume,
+                      profile_dir=args.profile_dir, profile_steps=args.profile_steps)
     t0 = time.perf_counter()
     try:
         if args.mode == "threaded":
@@ -1264,6 +1541,28 @@ def main(argv=None):
     out["resumed_from"] = trainer._initial_step if trainer.resumed else None
     out["preempted"] = trainer.preempted
     out["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    ends = trainer.update_ends
+    if len(ends) > 1:
+        # the dispatches' host clock: ms per update between the first
+        # dispatch's end and the last's (acting included), and the median
+        # dispatch (the learner_update span) per update
+        n = trainer.plane.steps_per_update
+        out["ms_per_update_wall"] = (ends[-1] - ends[0]) * 1e3 / ((len(ends) - 1) * n)
+        out["update_span_ms_p50"] = float(np.median(trainer.update_seconds)) * 1e3 / n
+    if trainer.mesh is not None:
+        out["dp"] = trainer.mesh.dp
+        out["local_devices"] = [str(trainer.mesh.devices[g])
+                                for g, p in enumerate(trainer.mesh.processes)
+                                if p == process_index()]
+    if cfg.replay_plane == "multihost":
+        out["process_index"] = process_index()
+        out["process_count"] = trainer.collectives.world
+        out["params_sha256"] = params_digest(trainer.state.net)
+        out.update(trainer.collectives.stats())
+    if device.type == "cuda":
+        from r2d2_tpu_torch.ops import lstm_kernel
+
+        out["kernel_launches"] = {k: v for k, v in lstm_kernel.launch_counts.items() if v}
     print(json.dumps(out))
     if trainer.preempted:
         # the SIGTERM became a clean cut: replay snapshot, carry and a

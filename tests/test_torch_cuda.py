@@ -1272,3 +1272,50 @@ def test_transport_loopback_trains_and_reloads_on_the_card(cuda, tmp_path):
         srv.stop()
         svc.stop()
         trainer.finish()
+
+
+def test_sharded_update_on_one_card_equals_the_device_plane(cuda):
+    """A dp=2 sharded update with both shards on cuda:0 (their stores, their
+    rows, their gradients summed) against the device plane's update on the
+    same blocks and coordinates on the card: rtol 1e-4 / atol 1e-5, and 2
+    forward + 1 seam-backward launches per shard."""
+    from r2d2_tpu_torch.learner import make_fused_train_step, make_sharded_fused_train_step
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+    from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
+
+    from torch_multihost_child import synth_block
+
+    dp = 2
+    cfg = tiny_test().replace(replay_plane="sharded", dp_size=dp, learning_starts=16)
+    sharded = ShardedDeviceReplay(cfg, make_mesh(dp, ["cuda:0"] * dp))
+    device = DeviceReplayBuffer(cfg.replace(replay_plane="device", dp_size=1), cuda)
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        block, prios = synth_block(cfg, rng), rng.uniform(0.5, 2.0, cfg.seqs_per_block)
+        sharded.add_block(block, prios, None)
+        device.add_block(block, prios, None)
+    si = sharded.sample_indices(np.random.default_rng(1))
+    # block k sits in shard k % dp at local slot k // dp, and at slot k on
+    # the device plane
+    b_dev = (si.b * dp + np.arange(dp)[:, None]).reshape(-1)
+    net = init_params(cfg, seed=1, device=cuda)
+    states = []
+    for _ in range(2):
+        online = copy.deepcopy(net)
+        target = copy.deepcopy(net).requires_grad_(False)
+        states.append(TrainState(online, target, make_optimizer(cfg, online.parameters()), 0))
+    lstm_kernel.reset_launch_counts()
+    a, ma, pa = make_sharded_fused_train_step(cfg)(states[0], sharded.stores, si.b, si.s,
+                                                   si.is_weights)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in lstm_kernel.launch_counts.items() if v}
+    assert launches == {"lstm_fwd": 2 * dp, "lstm_seq_bwd": dp}, launches
+    coords = [torch.from_numpy(x).to(cuda) for x in (b_dev, si.s.reshape(-1),
+                                                       si.is_weights.reshape(-1))]
+    b, mb, pb = make_fused_train_step(cfg)(states[1], device.stores, *coords)
+    for k in ma:
+        torch.testing.assert_close(ma[k], mb[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pa.reshape(-1), pb, rtol=1e-4, atol=1e-5)
+    for x, y in zip(a.net.parameters(), b.net.parameters()):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)

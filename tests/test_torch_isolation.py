@@ -2,8 +2,9 @@
 modules (and running chip_smoke.py) loads nothing of JAX, flax, optax or the
 JAX package, nor ml_dtypes (the chip machine's installs do not name it: the
 port keeps bf16 carries on the host as uint16 bits), the serving plane, the
-int8 quantization and the transport with its pod harness on their own
-included, and no source line of the package, chip_smoke.py, the port's
+int8 quantization, the transport with its pod harness and the
+data-parallel planes (parallel/, the sharded and multihost stores, the
+ranks' helper tests/torch_multihost_child.py) on their own included, and no source line of the package, chip_smoke.py, the port's
 demos, its tools or the helpers its card suite shares imports them; chip_smoke.py
 fails cleanly where it cannot run."""
 
@@ -44,9 +45,9 @@ def test_importing_every_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    # every module: the fault plane, snapshots, tiers, the serving plane and
-    # the transport included
-    assert int(count) >= 76
+    # every module: the fault plane, snapshots, tiers, the serving plane,
+    # the transport and the data-parallel planes included
+    assert int(count) >= 81
     assert bad.strip() == "[]"
 
 
@@ -87,6 +88,28 @@ def test_the_transport_and_its_pod_harness_load_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+PARALLEL_ONLY = """
+import sys
+sys.path.insert(0, "tests")
+import r2d2_tpu_torch.parallel, r2d2_tpu_torch.parallel.mesh, r2d2_tpu_torch.parallel.multihost
+import r2d2_tpu_torch.replay.sharded_store, r2d2_tpu_torch.replay.multihost_store
+import torch_multihost_child
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(bad)
+"""
+
+
+def test_the_data_parallel_planes_and_their_child_load_no_jax():
+    """parallel/, the sharded and multihost stores and the ranks' helper
+    (tests/torch_multihost_child.py), on their own."""
+    out = subprocess.run(
+        [sys.executable, "-c", PARALLEL_ONLY.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _python_files():
     for d, _, names in os.walk(os.path.join(ROOT, "r2d2_tpu_torch")):
         for n in names:
@@ -99,7 +122,8 @@ def _python_files():
     for n in sorted(os.listdir(os.path.join(ROOT, "tools"))):
         if n.endswith(".py"):
             yield os.path.join(ROOT, "tools", n)
-    # the helpers the card's suite and chip_smoke.py share (the pod harness)
+    # the helpers the card's suite and chip_smoke.py share (the pod harness,
+    # the multihost ranks' helper)
     for n in sorted(os.listdir(os.path.join(ROOT, "tests"))):
         if n.startswith("torch_") and n.endswith(".py"):
             yield os.path.join(ROOT, "tests", n)

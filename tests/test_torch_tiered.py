@@ -330,11 +330,11 @@ def test_stacked_step_matches_jax():
 
 def test_the_tiered_config_is_validated_as_jax_validates():
     base = {f.name: getattr(tiny_test(), f.name) for f in dataclasses.fields(R2D2Config)}
-    # the port's planes are host, tiered and device; JAX's sharded planes
-    # wait for their module, and any other value is unknown
-    with pytest.raises(ValueError, match="unknown replay_plane 'sharded'"):
-        tiny_test().replace(replay_plane="sharded")
-    for kw in (dict(updates_per_dispatch=0),
+    # the port has every plane of the JAX package (the sharded one needs a
+    # dp mesh, as JAX's does), and any other value is unknown
+    with pytest.raises(ValueError, match="unknown replay_plane 'shared'"):
+        tiny_test().replace(replay_plane="shared")
+    for kw in (dict(replay_plane="sharded"), dict(updates_per_dispatch=0),
                dict(replay_plane="tiered", updates_per_dispatch=3, training_steps=50),
                dict(deterministic_staging=True), dict(snapshot_every=-1),
                dict(snapshot_every=5)):
