@@ -113,7 +113,7 @@ its own lines; any failure exits non-zero and prints no result:
           also with use_native_replay=False, the numpy gathers, beside the
           native core's), env steps per update, the updates' peak device
           memory, and in threaded mode TransferTimer's overlap fraction,
-          h2d and wait seconds; then 6 more updates under
+          h2d and wait seconds; then 3 more updates under
           torch.profiler (inline and threaded, native and numpy, always;
           the other rows with --profile): the device's busy share and the
           host time under the spans replay/sample and learner_update, the
@@ -141,7 +141,7 @@ its own lines; any failure exits non-zero and prints no result:
 20. tiered the tiered replay plane at the paper's 2,000,000 transitions
           (learning_starts cut to 2,000), bf16 and fp32, K=1 and K=4 updates
           per dispatch, beside the host plane at the same capacity in the
-          same call: ms per update over the wall (16 updates inline, acting
+          same call: ms per update over the wall (8 updates inline, acting
           included), launches per dispatch (2K forward + K backward,
           counted from 0 just before), the update peak and the two slabs'
           size, TransferTimer's overlap, the process's resident memory with
@@ -165,7 +165,7 @@ its own lines; any failure exits non-zero and prints no result:
           write-backs; a superstep of N=2 equals two of N=1 and launches
           2NK + NK; a device snapshot round trip at 16,000 transitions.
           Then, bf16 and fp32 in the same call, ms per update over the wall
-          (16 updates inline, acting included) of the host plane (16,000,
+          (8 updates inline, acting included) of the host plane (16,000,
           native core), the device plane at K=1 and K=4 and, in bf16
           only, the device priority plane at K=4, N=2 (all at 2,000,000),
           each with its launches, update peak, store bytes on the card
@@ -179,17 +179,17 @@ its own lines; any failure exits non-zero and prints no result:
           chunk with the entry parameters, K=4 fused updates, the slab
           write) at 16,000 transitions; the device evaluator's scores and
           truncated count; then Trainer.run_fused at 2,000,000, bf16 and
-          fp32: ms per dispatch, updates per second, the chunk's env steps
-          per second (and in bf16 its kernel launches, by the profiler),
-          launches 2K + K per dispatch; and the CLI's --mode fused once in
-          a subprocess.
+          fp32, 2 timed dispatches: ms per dispatch, updates per second,
+          the chunk's env steps per second (and in bf16 its kernel
+          launches, by the profiler), launches 2K + K per dispatch; and the
+          CLI's --mode fused once through its main(), at 16,000 transitions.
 23. procgen the procgen_impala preset (procmaze 64x64x3 -> IMPALA (16, 32,
           32) -> LSTM 512, T=85, B=64), replay cut to 16,000 transitions
           (learning_starts 2,000): the procmaze core on the card equals the
-          CPU's bit for bit from the same draws (64 envs, 100 steps); a
+          CPU's bit for bit from the same draws (64 envs, 50 steps); a
           96-step collector chunk over 16 envs equals the host actor's
           SequenceAccumulator blocks (as phase 22, compare_blocks), fp32
-          and bf16; 8 inline updates in bf16 and fp32, each 2 K1 + 1 K2 of
+          and bf16; 4 inline updates in bf16 and fp32, each 2 K1 + 1 K2 of
           its dtype, ms per update alone and over the wall, the update
           peak; one update held against the CPU (fp32 1e-4 / 1e-5; bf16
           1e-2 / 1e-3 on the whole update, priorities included, and on the
@@ -197,7 +197,7 @@ its own lines; any failure exits non-zero and prints no result:
           priorities' distance printed beside the IMPALA encoder's derived
           rounding bound carried to them, encoder_bound_priorities);
           run_fused with the device collector (K=2, launches 2K + K); the
-          CLI once. 4 more updates of each dtype under torch.profiler:
+          CLI once. 2 more updates of each dtype under torch.profiler:
           device time by kernel, busy share.
 24. multitask MultiTaskTrainer over keydoor, drift, banditgrid and catch at
           the atari preset's widths (84x84x1, nature, LSTM 512, T=85, B=64
@@ -207,7 +207,8 @@ its own lines; any failure exits non-zero and prints no result:
           (1e-4 / 1e-5; bf16 1e-2 / 1e-3), 8 updates through train() of 2
           K1 + 1 K2 each, every stored action below its task's count, ms
           per update alone and over the wall, the update peak, per-task env
-          steps, per-task evaluation rows; the sweep CLI's --multitask once.
+          steps, per-task evaluation rows; the sweep CLI's --multitask once
+          (through its main()).
 
 25. serve the serving plane (r2d2_tpu_torch/serve) at the atari preset's
           widths on catch (84x84x1, nature encoder, LSTM 512, 3 actions):
@@ -264,7 +265,8 @@ its own lines; any failure exits non-zero and prints no result:
           drives them), the atari preset on catch in bf16, the replay cut
           as in phase 26; 16 closed-loop catch sessions through
           PolicyClient in 4 client processes, 8 to a host, 25 requests/s
-          each, for 50 s; at 40% of the window h0 is SIGKILLed and
+          each, for 36 s (stretched to 10 s past h0's return); at 30%
+          of the window h0 is SIGKILLed and
           relaunched with its host id, spool directory and serve port. It
           fails on a duplicate block, a lost session, a learner that died
           or did not train through the outage, an h0 mark that did not pass
@@ -301,6 +303,39 @@ its own lines; any failure exits non-zero and prints no result:
           Then K1-bf16 and K2-bf16 at the shard's shapes (B=16 and B=32),
           held against their plain versions there and timed, their
           "sharded" and "multihost" rows in the kernels line.
+29. elastic M13b: elastic resharding, the sharded device planes, tp and
+          fsdp. (a) the atari_v4_8 preset (bf16, dp=4 on cuda:0 x 4, replay
+          16,000 / 2,000) through the train CLI's main in this process:
+          6 updates uninterrupted; a run cut by
+          R2D2_FAULTS="trainer.update@3=sigterm" (exit 85); the exact
+          reshard (dp=4 -> dp=4) of its snapshot equal to a plain restore
+          bit for bit (stores, trees, counters); a re-deal to dp=2 keeping
+          the global counters; --resume --reshard at dp=4 ending on the
+          uninterrupted run's networks and Adam state bit for bit, at
+          dp=2 and at dp=1 on the device priority plane (exit 0 each);
+          Trainer.reshard_live(dp_size=1) leaving the replay and state a
+          fresh --reshard resume restores, bit for bit; the reshard's
+          seconds and bytes. (b) at the paper's 2,000,000 transitions in
+          four stores: priority_plane=device through Trainer.run_inline,
+          supersteps of N=2 x K=4, each exactly N*K*dp*(2 K1-bf16 + 1
+          K2-bf16), and one sharded superstep update held against the
+          unsharded update of the same rows (1e-2 / 1e-3); --mode fused
+          with the device collector on the sharded plane (K=4, each
+          dispatch K*dp*(2 + 1) launches), and a sharded megastep at
+          16,000 against its parts (the per-shard chunks bit for bit, the
+          K updates against the unsharded ones on the concatenated store,
+          1e-2 / 1e-3); two gloo ranks of the CLI's --mode fused on the
+          multihost plane (MultiHostFusedRunner), their parameters
+          bit-identical; ms per update over the wall, ms per dispatch and
+          the update peak. (c) the wide model (hidden 1024) at the atari
+          widths (T=85, B=64, bf16) on one card: 2 updates each of manual
+          tp=2 x fsdp=2 (2*fsdp K1 + fsdp K2 an update), gspmd tp=2 and
+          gspmd fsdp=2 (2 K1 + 1 K2), held against the tp=1 updates (loss,
+          priorities and parameters, 1e-2 / 1e-3), the moment shards'
+          shapes; PolicyServer(mesh=) with tp=2 answering 32 requests as
+          mesh=None does, bit for bit. Then K1-bf16 and K2-bf16 at each
+          path's shapes, held against their plain versions and timed,
+          their rows in the kernels line.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -371,8 +406,8 @@ E2E = {"bf16": (12, 6), "fp32": (8, 4), "long_context bf16": (4, 2),
        "long_context fp32": (4, 2)}
 # phase 15: learner updates timed per mode, after 2 that warm the path, and
 # the updates profiled after them (processing the trace of each costs time)
-MODE_UPDATES = 16
-PROFILED_UPDATES = 6
+MODE_UPDATES = 8
+PROFILED_UPDATES = 3
 # phase 16: a hidden size that is a multiple of neither 4 nor 8
 ODD_HIDDEN = 510
 # phase 17: batches compared bit for bit, and timed, native against numpy
@@ -398,8 +433,8 @@ THREADED_CUT = (8, 4)
 # TIERED_PROFILED more under the profiler
 TIERED_CAPACITY = 2_000_000
 TIERED_KS = (1, 4)
-TIERED_UPDATES = 16
-TIERED_PROFILED = 8
+TIERED_UPDATES = 8
+TIERED_PROFILED = 4
 # phases 21 and 22: the device planes at the paper's capacity; the rows of
 # phase 21 as (plane, K, N, capacity), timed as phase 20's; the superstep's
 # row (the device priority plane through the Trainer) in bf16 only
@@ -411,17 +446,17 @@ SNAPSHOT_CAPACITY = 16_000
 # phase 22: dispatches timed after 2 that warm the path; the envs of the
 # block check; the store of the megastep check (40 blocks: the preset's 8
 # envs' chunk written and the next one reserved)
-FUSED_DISPATCHES = 4
+FUSED_DISPATCHES = 2
 BLOCK_CHECK_ENVS = 16
 MEGA_CAPACITY = 16_000
 # phase 23: the procgen_impala preset with its replay cut as the other phases
 # cut theirs; updates per dtype; the procmaze core's card-vs-CPU check (envs,
 # steps); fused dispatches of K updates on procmaze
 PROCGEN_CUT = dict(buffer_capacity=16_000, learning_starts=2_000)
-PROCGEN_UPDATES = 8
-PROCMAZE_CHECK = (64, 100)
+PROCGEN_UPDATES = 4
+PROCMAZE_CHECK = (64, 50)
 PROCGEN_FUSED_K = 2
-PROCGEN_PROFILED = 4
+PROCGEN_PROFILED = 2
 # phase 24: the multi-task family (the sweep's default maze,drift,bandit and
 # its catch anchor) at the atari preset's widths, its replay cut likewise
 MULTITASK_TASKS = ("keydoor", "drift", "banditgrid", "catch")
@@ -442,7 +477,7 @@ SERVE_SESSIONS = 256
 SERVE_CACHE = 32
 SERVE_SPILL = 512
 SERVE_RATES = (500, 2000, 8000)
-SERVE_SECONDS = 3.0
+SERVE_SECONDS = 1.5
 SERVE_SLO_MS = 50.0
 SERVE_STEPS = 4
 # the parity check's hold on each pipelined completion (ms): the serve loop
@@ -471,21 +506,22 @@ SCENARIO_SESSIONS = 32
 LIVE_SESSIONS = 16
 LIVE_RATE = 25.0
 LIVE_SAVE_INTERVAL = 8
-LIVE_UPDATES = 48
+LIVE_UPDATES = 24
 LIVE_IDLE_UPDATES = 8
 LIVE_DEADLINE = 45.0
 LIVE_TAP_DEPTH = 4096
 # phase 27: the pod loop, a learner and two serve hosts as processes on one
 # card at the atari preset's widths, the replay cut as phase 26 cuts it;
 # the sessions and offered rate of phase 26's live loop, in client
-# processes of 4 sessions; a window that leaves h0 time to serve after its
-# relaunch (a host takes about 20 s to come up on the card)
+# processes of 4 sessions; the window is stretched past the relaunched h0's
+# return (a host takes about 20-28 s to come up on the card) to leave it
+# time to serve
 POD_SETS = ("buffer_capacity=16000", "learning_starts=2000")
 POD_HOSTS = 2
 POD_SESSIONS = 16
 POD_RATE = 25.0
-POD_SECONDS = 50.0
-POD_KILL_AT = 0.4
+POD_SECONDS = 36.0
+POD_KILL_AT = 0.3
 # phase 28: the atari_v4_8 preset (dp=4, batch 64, the paper's 2,000,000
 # transitions in four shards) on catch, its four shards on cuda:0, with
 # learning_starts cut as the other phases cut it and the preset's 256 actors
@@ -497,6 +533,27 @@ DP_KS = (1, 4)
 DP_UPDATES = 8
 MULTIHOST_SETS = ("buffer_capacity=16000", "learning_starts=2000", "num_actors=8")
 MULTIHOST_UPDATES = 8
+# phase 29: (a) the reshard drill on the atari_v4_8 preset at dp=4 on cuda:0,
+# the replay cut as phase 28's multihost run (16,000 / 2,000): RESHARD_UPDATES
+# updates, the cut at RESHARD_AT; (b) the sharded device planes at the
+# paper's capacity: supersteps of N x K updates (one warms the path, then
+# SUPERSTEPS timed), fused dispatches of K (FUSED_SHARDED_WARM warm, then
+# FUSED_SHARDED timed), the two multihost ranks' fused run cut as phase
+# 28's (MULTIHOST_FUSED updates); (c) tp and fsdp on the wide model
+# (hidden 1024) at the atari widths, TP_UPDATES updates a layout, and one
+# bucket of SERVE_MESH_REQUESTS requests served through PolicyServer(mesh=)
+RESHARD_UPDATES = 6
+RESHARD_AT = 3
+SUPERSTEP_NK = (2, 4)
+SUPERSTEPS = 2
+FUSED_SHARDED_K = 4
+FUSED_SHARDED_WARM = 0
+FUSED_SHARDED = 2
+MULTIHOST_FUSED = 4
+FUSED_RANK_STARTS = 600
+TP_UPDATES = 2
+TP_LAYOUTS = (("manual tp=2 x fsdp=2", 2, 2), ("gspmd tp=2", 2, 1), ("gspmd fsdp=2", 1, 2))
+SERVE_MESH_REQUESTS = 32
 # the disk-tier check: 2 host blocks and 24 disk blocks under them (an
 # 84x84 catch episode fills one 400-step block with 82 steps, so 26 blocks
 # reach learning_starts=2,000 and the disk ring wraps soon after)
@@ -1186,6 +1243,41 @@ runpy.run_module("r2d2_tpu_torch.train", run_name="__main__", alter_sys=True)
 """
 
 
+def cli_main(main, args, fault=None):
+    """An entry point's main(ARGS) in this process (no interpreter start or
+    CUDA context of its own): -> (exit code, the JSON lines it printed).
+    Launch counts are zeroed first; `fault` is R2D2_FAULTS for the call."""
+    import contextlib
+    import io
+
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.utils import faults
+
+    buf = io.StringIO()
+    code = 0
+    K.reset_launch_counts()
+    if fault:
+        os.environ["R2D2_FAULTS"] = fault
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(args)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    finally:
+        os.environ.pop("R2D2_FAULTS", None)
+        faults.uninstall()
+    return code, [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+
+
+def train_main(args, fault=None):
+    """`python -m r2d2_tpu_torch.train ARGS` in this process (cli_main):
+    -> (exit code, its JSON line or {})."""
+    from r2d2_tpu_torch import train
+
+    code, lines = cli_main(train.main, args, fault)
+    return code, (lines[-1] if lines else {})
+
+
 def run_cli(tmp, tag, ckpt, args, faults=None):
     """One trainer CLI run of the preemption drill (bf16 atari preset on
     catch, replay cut). -> (exit code, last JSON line or None, per-update
@@ -1436,7 +1528,9 @@ def tiered_rows(label, base, dev, specs=None):
         else:
             row["obs_store_virtual_gb"] = tr.replay.obs_store.nbytes / 1e9
         for phase in ("timed", "profiled"):
+            # whole dispatches, and two to time between (a superstep is 8)
             n = TIERED_UPDATES if phase == "timed" else TIERED_PROFILED
+            n = -(-max(n, 2 * q if phase == "timed" else q) // q) * q
             tr.cfg = tr.cfg.replace(training_steps=tr.cfg.training_steps + n)
             tr.xfer.reset()
             torch.cuda.synchronize()
@@ -1846,7 +1940,7 @@ def device_phase(dev, tmp):
         gc.collect()
         torch.cuda.empty_cache()
     say("device", f"[{card}] ms per update over the wall (acting included), {TIERED_UPDATES} "
-        "updates inline: " + "; ".join(
+        "updates inline (two supersteps for the N=2 row): " + "; ".join(
             f"{label} " + ", ".join(f"{name} {r['ms_per_update']:.2f}" for name, r in rs.items())
             for label, rs in rows.items()))
     say("device", "busy share, update peak GiB, store GB on the card: " + "; ".join(
@@ -2091,18 +2185,17 @@ def fused_phase(dev, tmp):
                     for label, r in rows.items())
         + f"; the bf16 chunk launched {rows['bf16']['chunk_kernel_launches']} kernels")
 
-    # the CLI's --mode fused, once, in a subprocess
+    # the CLI's --mode fused, once, through its main()
     args = ["--preset", "atari", "--env", "catch", "--mode", "fused", "--updates-per-dispatch",
             str(k), "--steps", str(2 * k), "--set",
-            f"learning_starts={ON_CATCH['learning_starts']}", "--set", "max_episode_steps=400"]
-    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.train", *args], cwd=HERE,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        fail(f"fused: the CLI's --mode fused exited {out.returncode}: {out.stderr[-2000:]}")
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+            f"learning_starts={ON_CATCH['learning_starts']}", "--set", "max_episode_steps=400",
+            "--set", f"buffer_capacity={MEGA_CAPACITY}"]
+    code, res = train_main(args)
+    if code != 0:
+        fail(f"fused: the CLI's --mode fused exited {code}")
     if res["mode"] != "fused" or res["step"] != 2 * k or not math.isfinite(res["loss"]):
         fail(f"fused: the CLI's --mode fused gave {res}")
-    say("fused", f"CLI --mode fused (bf16, {TIERED_CAPACITY} transitions): step {res['step']}, "
+    say("fused", f"CLI --mode fused (bf16, {MEGA_CAPACITY} transitions): step {res['step']}, "
         f"loss {res['loss']:.6f}, {res['env_steps']} env steps, {res['seconds']:.1f}s "
         f"({time.perf_counter() - t0:.1f}s in the phase)")
     return rows
@@ -2246,16 +2339,14 @@ def procgen_phase(dev, tmp):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the CLI, once
+    # the CLI, once, through its main()
     args = ["--preset", "procgen_impala", "--steps", str(n), "--set",
             f"learning_starts={PROCGEN_CUT['learning_starts']}", "--set",
             f"buffer_capacity={PROCGEN_CUT['buffer_capacity']}", "--set",
             f"checkpoint_dir={os.path.join(tmp, 'procgen_ckpt')}"]
-    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.train", *args], cwd=HERE,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        fail(f"procgen: the CLI exited {out.returncode}: {out.stderr[-2000:]}")
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    code, res = train_main(args)
+    if code != 0:
+        fail(f"procgen: the CLI exited {code}")
     if res["step"] != n or not math.isfinite(res["loss"]):
         fail(f"procgen: the CLI gave {res}")
     say("procgen", f"CLI --preset procgen_impala --steps {n}: step {res['step']}, loss "
@@ -2356,14 +2447,16 @@ def multitask_phase(dev, tmp):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # the sweep CLI's --multitask (the atari preset maps to tiny_test there)
+    # the sweep CLI's --multitask (the atari preset maps to tiny_test there),
+    # through its main()
+    from r2d2_tpu_torch import sweep
+
     root = os.path.join(tmp, "sweep")
-    out = subprocess.run([sys.executable, "-m", "r2d2_tpu_torch.sweep", "--multitask",
-                          "--preset", "tiny_test", "--steps", "4", "--root", root], cwd=HERE,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        fail(f"multitask: the sweep CLI exited {out.returncode}: {out.stderr[-2000:]}")
-    srows = [json.loads(line) for line in out.stdout.strip().splitlines()[-4:]]
+    code, lines = cli_main(sweep.main, ["--multitask", "--preset", "tiny_test", "--steps", "4",
+                                        "--root", root])
+    if code != 0:
+        fail(f"multitask: the sweep CLI exited {code}")
+    srows = lines[-4:]
     if [r["env"] for r in srows] != ["keydoor", "drift", "banditgrid", "catch"]:
         fail(f"multitask: the sweep CLI printed {srows}")
     say("multitask", "sweep --multitask --preset tiny_test --steps 4: one row per task: "
@@ -3554,6 +3647,490 @@ def dp_phase(dev, tmp, device_rows):
     return out
 
 
+def elastic_phase(dev, tmp):
+    """Phase 29: M13b on the card (see the module docstring). -> {path:
+    (burn seams of one batch shard, launches, hidden, LSTM input width)}
+    for the kernels line."""
+    import gc
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.collect import CollectDraws, make_collect_fn
+    from r2d2_tpu_torch.config import PRESETS, apply_model_preset, parse_overrides
+    from r2d2_tpu_torch.learner import (
+        DeviceBatch,
+        ShardedAdam,
+        TrainState,
+        init_train_state,
+        make_multi_update_core,
+        make_optimizer,
+        make_sharded_gather_step,
+        make_sharded_train_step,
+        make_train_step,
+        shard_optimizer,
+    )
+    from r2d2_tpu_torch.megastep import (
+        env_rows,
+        make_sharded_megastep,
+        make_sharded_priority_superstep,
+        superstep_generators,
+        superstep_uniforms,
+    )
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.parallel.mesh import data_shard_devices, make_mesh, shard_slices
+    from r2d2_tpu_torch.replay import device_sum_tree as dst
+    from r2d2_tpu_torch.replay.control_plane import shard_config
+    from r2d2_tpu_torch.replay.reshard import reshard_replay, snapshot_paths
+    from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
+    from r2d2_tpu_torch.replay.snapshot import STORE_FIELDS, restore_replay
+    from r2d2_tpu_torch.serve import PolicyServer, ServeConfig
+    from r2d2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    base = PRESETS["atari_v4_8"]().replace(**DP_CUT)
+    dp = base.dp_size
+    d0 = "cuda:0" if torch.device(dev).type == "cuda" else "cpu"
+    dp4 = ",".join([d0] * dp)
+    COUNTERS = ("block_ptr", "size", "env_steps", "num_episodes", "episode_reward_sum",
+                "total_episodes", "total_reward_sum", "ptr_advances")
+    H, D = base.hidden_dim, base.hidden_dim + 3 + 1
+
+    def want(updates, shards, bwd="lstm_seq_bwd_bf16"):
+        return {"lstm_fwd_bf16": 2 * shards * updates, bwd: shards * updates}
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def same_replay(a, b, what):
+        for sa, sb in zip(a.stores, b.stores):
+            for key in STORE_FIELDS:
+                if not torch.equal(bits(sa[key]), bits(sb[key])):
+                    fail(f"elastic: {what}: store {key} differs")
+        for x, y in zip(a.shards, b.shards):
+            if not (np.array_equal(x.tree.leaves(), y.tree.leaves())
+                    and all(getattr(x, c) == getattr(y, c) for c in COUNTERS)):
+                fail(f"elastic: {what}: a shard's tree or counters differ")
+
+    def same_state(a, b, what):
+        for x, y in zip(list(a.net.parameters()) + list(a.target_net.parameters()),
+                        list(b.net.parameters()) + list(b.target_net.parameters())):
+            if not torch.equal(x, y):
+                fail(f"elastic: {what}: the networks differ")
+        sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+        for i in sa:
+            if not all(torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
+                       for k in sa[i]):
+                fail(f"elastic: {what}: the Adam state differs")
+
+    # (a) the reshard drill ------------------------------------------------
+    n, k = RESHARD_UPDATES, RESHARD_AT
+    common = ["--preset", "atari_v4_8", "--env", "catch", "--snapshot-replay", "--steps", str(n),
+              "--set", f"save_interval={n}", "--set", "log_interval=0"]
+    for kv in MULTIHOST_SETS:
+        common += ["--set", kv]
+    dirs = {name: os.path.join(tmp, name) for name in "abcdef"}
+
+    def ckpt(name):
+        return ["--set", f"checkpoint_dir={dirs[name]}"]
+
+    t = time.perf_counter()
+    code_a, res_a = train_main(common + ["--device", dp4] + ckpt("a"))
+    code_b, res_b = train_main(common + ["--device", dp4] + ckpt("b"), fault=f"trainer.update@{k}=sigterm")
+    if code_a != 0 or code_b != 85 or not res_b.get("preempted"):
+        fail(f"elastic: the dp=4 runs exited {code_a} and {code_b} (want 0 and 85)")
+    say("elastic", f"atari_v4_8 dp={dp} on {dp4}: uninterrupted {n} updates (exit 0) and cut at "
+        f"{k} (exit 85) in {time.perf_counter() - t:.1f}s")
+    s_cfg = base.replace(**parse_overrides(MULTIHOST_SETS))
+    paths = snapshot_paths(dirs["b"])
+    nbytes = sum(os.path.getsize(q) for q in paths)
+    mesh4 = make_mesh(dp, [d0] * dp)
+    exact, plain = ShardedDeviceReplay(s_cfg, mesh4), ShardedDeviceReplay(s_cfg, mesh4)
+    t = time.perf_counter()
+    reshard_replay(exact, paths)
+    exact_s = time.perf_counter() - t
+    restore_replay(plain, paths[0])
+    same_replay(exact, plain, "the exact reshard vs a plain restore")
+    redeal = ShardedDeviceReplay(s_cfg.replace(dp_size=2), make_mesh(2, [d0] * 2))
+    t = time.perf_counter()
+    reshard_replay(redeal, paths)
+    redeal_s = time.perf_counter() - t
+    for c in ("env_steps", "size", "num_episodes", "total_episodes", "episode_reward_sum",
+              "total_reward_sum"):
+        if sum(getattr(x, c) for x in redeal.shards) != sum(getattr(x, c) for x in plain.shards):
+            fail(f"elastic: the re-deal to dp=2 changed the global {c}")
+    say("elastic", f"[{card}] the snapshot ({nbytes / 1e6:.1f} MB): exact reshard dp=4 -> 4 in "
+        f"{exact_s * 1e3:.1f} ms, bit for bit a plain restore (stores, trees, counters); re-deal "
+        f"dp=4 -> 2 in {redeal_s * 1e3:.1f} ms, {len(redeal)} transitions, the global counters "
+        f"kept")
+    for name in "cdef":
+        shutil.copytree(dirs["b"], dirs[name])
+    code_c, res_c = train_main(common + ["--device", dp4, "--resume", "--reshard"] + ckpt("c"))
+    ta, tc = load_checkpoint_tensors(dirs["a"], n), load_checkpoint_tensors(dirs["c"], n)
+    if code_c != 0 or res_c.get("resumed_from") != k or ta.keys() != tc.keys():
+        fail(f"elastic: the dp=4 resume exited {code_c}: {res_c}")
+    diff = [key for key in ta if not torch.equal(bits(ta[key]), bits(tc[key]))]
+    if diff:
+        fail(f"elastic: the resumed dp=4 run ends off the uninterrupted one: {diff[:5]}")
+    code_d, res_d = train_main(common + ["--device", f"{d0},{d0}", "--dp", "2", "--resume",
+                                  "--reshard"] + ckpt("d"))
+    code_e, res_e = train_main(common + ["--device", d0, "--replay", "device", "--dp", "1",
+                                  "--resume", "--reshard", "--set", "priority_plane=device"]
+                        + ckpt("e"))
+    for tag, code, res in (("dp=2", code_d, res_d), ("dp=1 device priority plane", code_e, res_e)):
+        if code != 0 or res.get("step") != n or res.get("resumed_from") != k or "reshard_s" not in res:
+            fail(f"elastic: the {tag} --reshard resume exited {code}: {res}")
+        say("elastic", f"[{card}] --resume --reshard at {tag}: exit 0 at step {res['step']}, "
+            f"loss {res['loss']:.6f}, reshard {res['reshard_s'] * 1e3:.1f} ms over "
+            f"{res['reshard_bytes'] / 1e6:.1f} MB, launches {res.get('kernel_launches')}")
+    if res_d.get("kernel_launches") != want(n - k, 2):
+        fail(f"elastic: the dp=2 resume launched {res_d.get('kernel_launches')}")
+    say("elastic", f"--resume --reshard at dp=4 (the exact path): networks and Adam state after "
+        f"update {n} equal the uninterrupted run's bit for bit ({len(ta)} tensors)")
+    live_cfg = s_cfg.replace(checkpoint_dir=dirs["f"], snapshot_replay=True)
+    live = Trainer(live_cfg, device=dp4, resume=True)
+    info = live.reshard_live(dp_size=1, replay_plane="device", devices=[d0])
+    fresh = Trainer(live_cfg.replace(dp_size=1, replay_plane="device", reshard_on_resume=True),
+                    device=d0, resume=True)
+    for key in STORE_FIELDS:
+        if not torch.equal(bits(live.replay.stores[key]), bits(fresh.replay.stores[key])):
+            fail(f"elastic: reshard_live's store {key} differs from the resumed one")
+    if not (np.array_equal(live.replay.tree.leaves(), fresh.replay.tree.leaves())
+            and all(getattr(live.replay, c) == getattr(fresh.replay, c) for c in COUNTERS)):
+        fail("elastic: reshard_live's tree or counters differ from the resumed one")
+    same_state(live.state, fresh.state, "reshard_live vs snapshot + resume")
+    say("elastic", f"[{card}] reshard_live(dp_size=1) from dp=4: {info['seconds'] * 1e3:.1f} ms "
+        f"(snapshot, rebuild, re-deal; {info['bytes'] / 1e6:.1f} MB), {info['replay_size']} "
+        f"transitions, env steps {info['env_steps']} kept; replay and learner state equal a fresh "
+        f"--reshard resume of the same snapshot bit for bit")
+    si = redeal.sample_indices(np.random.default_rng(29))
+    out["reshard"] = (redeal.run_with_stores(lambda st: make_sharded_gather_step(s_cfg)(
+        st, si.b, si.s, si.is_weights))[0].burn_in_steps, res_d.get("kernel_launches"), H, D)
+    del live, fresh, exact, plain, redeal
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the sharded device planes at 2,000,000 ---------------------------
+    N, kk = SUPERSTEP_NK
+    ss_cfg = base.replace(priority_plane="device", updates_per_dispatch=kk,
+                          superstep_dispatches=N, training_steps=N * kk)
+    tr = Trainer(ss_cfg, device=dp4)
+    tr.run_inline()
+    tr.cfg = tr.cfg.replace(training_steps=N * kk * (1 + SUPERSTEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    tr.run_inline()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != want(N * kk * SUPERSTEPS, dp):
+        fail(f"elastic: {SUPERSTEPS} sharded supersteps launched {launches}")
+    updates = N * kk * SUPERSTEPS
+    row = {"path": "sharded superstep", "dp": dp, "N": N, "K": kk, "updates": updates,
+           "ms_per_update_wall": wall * 1e3 / updates, "ms_per_dispatch": wall * 1e3 / (N * SUPERSTEPS),
+           "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+           "store_gb_per_shard": tr.replay.nbytes() / 1e9,
+           "launches_per_superstep": {key: v // SUPERSTEPS for key, v in launches.items()},
+           "loss": tr.metrics()["loss"]}
+    say("elastic", f"[{card}] " + json.dumps(row))
+    # one sharded superstep update against the unsharded update of its rows
+    rp, mesh = tr.replay, tr.mesh
+    scfg = shard_config(ss_cfg, dp)
+    L, S, Bs = dst.tree_layers(scfg.num_sequences), scfg.seqs_per_block, scfg.batch_size
+    u = [superstep_uniforms(superstep_generators(29, 0, 1, dev, shard=i), 1, Bs, dev)
+         for i in range(dp)]
+
+    def fresh_state():
+        on = copy.deepcopy(tr.state.net)
+        return TrainState(on, copy.deepcopy(tr.state.target_net),
+                          make_optimizer(ss_cfg, on.parameters()), tr.state.step)
+
+    one_cfg = ss_cfg.replace(updates_per_dispatch=1, superstep_dispatches=1)
+    with rp.lock:
+        trees = [sh.dtree.tree for sh in rp.shards]
+        nss = [torch.from_numpy(sh.num_seq_store.copy()).to(dev) for sh in rp.shards]
+        st_a, _, m_a = make_sharded_priority_superstep(one_cfg, mesh, 1, 1)(
+            fresh_state(), rp.stores, trees, nss, u)
+        bs, ss, ps = [], [], []
+        for i in range(dp):
+            leaf = dst.tree_descend(trees[i], L, u[i][0, 0])
+            ps.append(dst.priorities_of(trees[i], L, leaf))
+            bs.append(leaf // S)
+            ss.append(torch.minimum(leaf % S, torch.clamp(nss[i][bs[-1]] - 1, min=0)))
+        batches = make_sharded_gather_step(ss_cfg)(rp.stores, bs, ss, ps)
+    p = torch.cat(ps)
+    min_p = p[p > 0].min()
+    w = torch.pow(torch.maximum(p, min_p) / min_p, -ss_cfg.is_exponent)
+    whole = DeviceBatch(*(torch.cat(x) for x in zip(*batches)))._replace(is_weights=w)
+    st_b, m_b, _ = make_train_step(ss_cfg.replace(dp_size=1, replay_plane="device"))(
+        fresh_state(), whole)
+    for name in ("loss", "grad_norm"):
+        a_, b_ = m_a[name].float().cpu(), m_b[name].float().cpu()
+        if not torch.allclose(a_, b_, **BF16_AGREE):
+            fail(f"elastic: sharded superstep {name} {float(a_)} vs unsharded {float(b_)}")
+    for x, y in zip(st_a.net.parameters(), st_b.net.parameters()):
+        if not torch.allclose(x.float(), y.float(), **BF16_AGREE):
+            fail("elastic: the sharded superstep's parameters differ from the unsharded update's")
+    say("elastic", f"one sharded superstep update (4 trees, {len(whole.obs)} rows) vs the dp=1 "
+        f"update of the same rows on the card: loss {float(m_a['loss']):.6f} vs "
+        f"{float(m_b['loss']):.6f}, gradient norm {float(m_a['grad_norm']):.6f} vs "
+        f"{float(m_b['grad_norm']):.6f}, parameters within 1e-2 / 1e-3")
+    out["sharded_superstep"] = (batches[0].burn_in_steps, launches, H, D)
+    del tr, st_a, st_b, batches, whole, rp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --mode fused on the sharded plane at 2,000,000
+    kf = FUSED_SHARDED_K
+    f_cfg = base.replace(collector="device", max_episode_steps=base.block_length, updates_per_dispatch=kf,
+                         training_steps=kf * FUSED_SHARDED_WARM)
+    tr = Trainer(f_cfg, device=dp4)
+    tr.run_fused()
+    tr.cfg = tr.cfg.replace(training_steps=kf * (FUSED_SHARDED_WARM + FUSED_SHARDED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    tr.run_fused()
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in K.launch_counts.items() if v}
+    if launches != want(kf * FUSED_SHARDED, dp):
+        fail(f"elastic: {FUSED_SHARDED} sharded fused dispatches launched {launches}")
+    ends = tr.update_ends[-FUSED_SHARDED:]
+    ms = (ends[-1] - ends[0]) * 1e3 / (FUSED_SHARDED - 1)
+    row = {"path": "sharded fused", "dp": dp, "K": kf, "envs": f_cfg.num_actors,
+           "ms_per_dispatch": ms, "ms_per_update": ms / kf,
+           "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+           "launches_per_dispatch": {key: v // FUSED_SHARDED for key, v in launches.items()},
+           "loss": tr.metrics()["loss"], "env_steps": tr.metrics()["env_steps"]}
+    say("elastic", f"[{card}] " + json.dumps(row))
+    out["sharded_fused"] = (out["sharded_superstep"][0], launches, H, D)
+    fn_env, E = tr.fn_env, f_cfg.num_actors
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a sharded megastep at 16,000 against its parts
+    m_cfg = f_cfg.replace(buffer_capacity=16_000, action_dim=3, learning_starts=FUSED_RANK_STARTS)
+    El, chunk = E // dp, min(m_cfg.block_length, m_cfg.max_episode_steps)
+    _, st0 = init_train_state(m_cfg, dev)
+    rp = ShardedDeviceReplay(m_cfg, mesh4)
+    from r2d2_tpu_torch.actor import ParamStore
+    from r2d2_tpu_torch.collect import DeviceCollector
+
+    col = DeviceCollector(m_cfg, copy.deepcopy(st0.net), ParamStore(st0.net), fn_env, rp,
+                          seed=3, device=dev)
+    while not rp.can_sample():
+        col.step()
+    before_stores = [{key: x.clone() for key, x in st.items()} for st in rp.stores]
+    rng = np.random.default_rng(29)
+    draws = [rp.sample_indices(rng) for _ in range(kf)]
+    b, s, w = (np.stack([getattr(d_, f) for d_ in draws]) for f in ("b", "s", "is_weights"))
+    env0 = fn_env.reset(E, torch.Generator(device=dev).manual_seed(5), dev)
+    eps = col.epsilons
+    st_a = copy.deepcopy(st0)
+    starts = [1] * dp
+    gens = [torch.Generator(device=dev).manual_seed(40 + i) for i in range(dp)]
+    st_a, m_a, p_a, chunk_a, env_a = make_sharded_megastep(m_cfg, fn_env, [d0] * dp, E, chunk,
+                                                           kf)(
+        st_a, rp.stores, [env_rows(env0, slice(i * El, (i + 1) * El), dev) for i in range(dp)],
+        [eps[i * El:(i + 1) * El] for i in range(dp)], [CollectDraws(g) for g in gens],
+        [st_a.net] * dp, b, s, w, starts)
+    bps = m_cfg.num_blocks // dp
+    glob = {key: torch.cat([st[key] for st in before_stores]) for key in before_stores[0]}
+    flat = [torch.from_numpy(np.ascontiguousarray(x.reshape(kf, -1))).to(dev)
+            for x in (b + (np.arange(dp) * bps)[None, :, None], s, w)]
+    st_b, m_b, p_b = make_multi_update_core(m_cfg.replace(replay_plane="device", dp_size=1), kf)(
+        copy.deepcopy(st0), glob, *flat)
+    if not (torch.allclose(p_a.reshape(kf, -1).float(), p_b.float(), **BF16_AGREE)
+            and torch.allclose(m_a["loss"].float(), m_b["loss"].float(), **BF16_AGREE)
+            and all(torch.allclose(x.float(), y.float(), **BF16_AGREE)
+                    for x, y in zip(st_a.net.parameters(), st_b.net.parameters()))):
+        fail("elastic: the sharded megastep's updates differ from the unsharded ones")
+    collect = make_collect_fn(m_cfg, fn_env, El, chunk)
+    for i in range(dp):
+        sl = slice(i * El, (i + 1) * El)
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        fields, *book, env_f = collect(copy.deepcopy(st0.net), env_rows(env0, sl, dev), eps[sl],
+                                       CollectDraws(g))
+        if not (all(torch.equal(x[sl], y) for x, y in zip(chunk_a, book))
+                and all(torch.equal(x, y) for x, y in zip(env_a[i], env_f))
+                and all(torch.equal(bits(rp.stores[i][key][1:1 + El]), bits(v))
+                        for key, v in fields.items())):
+            fail(f"elastic: the sharded megastep's chunk of shard {i} differs from its own")
+    say("elastic", f"a sharded megastep (dp={dp}, {E} envs, K={kf}) at 16,000 against its parts "
+        f"on the card: each shard's chunk, slab and next env state bit for bit, the K updates "
+        f"against the dp=1 updates on the concatenated store within 1e-2 / 1e-3 (loss "
+        f"{float(m_a['loss']):.6f} vs {float(m_b['loss']):.6f})")
+    del rp, col, st_a, st_b, glob, before_stores
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two gloo ranks of the CLI's --mode fused on the multihost plane
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        env.pop("R2D2_FAULTS", None)
+        argv = [sys.executable, "-m", "r2d2_tpu_torch.train", "--distributed", "--replay",
+                "multihost", "--mode", "fused", "--dp", "2", "--preset", "atari_v4_8", "--env",
+                "catch", "--device", d0, "--steps", str(MULTIHOST_FUSED),
+                "--updates-per-dispatch", "2", "--set", f"max_episode_steps={base.block_length}"]
+        for kv in MULTIHOST_SETS:
+            argv += ["--set", kv]
+        # one collection chunk of 8 envs (656 transitions) opens sampling
+        argv += ["--set", f"learning_starts={FUSED_RANK_STARTS}"]
+        procs.append(subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    ranks = []
+    t = time.perf_counter()
+    try:
+        for pr in procs:
+            o, e = pr.communicate(timeout=300)
+            if pr.returncode != 0:
+                fail(f"elastic: a multihost fused rank exited {pr.returncode}: {e[-2000:]}")
+            ranks.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for r in ranks:
+        if (r["mode"] != "fused" or r.get("kernel_launches") != want(MULTIHOST_FUSED, 1)
+                or r["process_count"] != 2):
+            fail(f"elastic: multihost fused rank {r.get('process_index')}: {r}")
+        say("elastic", f"[{card}] multihost fused rank {r['process_index']} of 2: {r['step']} "
+            f"updates, loss {r['loss']:.6f}, {r['ms_per_update_wall']:.2f} ms per update over "
+            f"the wall, gradient all-reduce {r['gradient_allreduce_s'] * 1e3 / r['gradient_allreduce_calls']:.2f} "
+            f"ms a call, launches {r.get('kernel_launches')}")
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        fail("elastic: the multihost fused ranks' parameters differ")
+    say("elastic", f"MultiHostFusedRunner: both ranks' parameters bit-identical after "
+        f"{MULTIHOST_FUSED} updates ({time.perf_counter() - t:.1f}s for the two processes)")
+    # a rank's batch shard is 32 rows of this preset, as the dp=2 reshard's
+    out["multihost_fused"] = (out["reshard"][0], ranks[0].get("kernel_launches"), H, D)
+
+    # (c) tp and fsdp on the wide model at the atari widths ------------------
+    w_cfg = apply_model_preset(PRESETS["atari"]().replace(env_name="catch", action_dim=3), "wide")
+    Hw, Bw, T = w_cfg.hidden_dim, w_cfg.batch_size, w_cfg.seq_len
+    rng = np.random.default_rng(9)
+    arrs = dict(
+        obs=torch.from_numpy(rng.integers(0, 255, (Bw, T, *w_cfg.obs_shape), dtype=np.uint8)),
+        last_action=torch.from_numpy(rng.integers(0, 3, (Bw, T))),
+        last_reward=torch.from_numpy(rng.normal(size=(Bw, T)).astype(np.float32)),
+        hidden=torch.from_numpy((rng.normal(size=(Bw, 2, Hw)) * 0.3).astype(np.float32)),
+        action=torch.from_numpy(rng.integers(0, 3, (Bw, w_cfg.learning_steps))),
+        n_step_reward=torch.from_numpy(rng.normal(size=(Bw, w_cfg.learning_steps)).astype(np.float32)),
+        gamma=torch.full((Bw, w_cfg.learning_steps), w_cfg.gamma ** w_cfg.forward_steps),
+        burn_in_steps=torch.full((Bw,), w_cfg.burn_in_steps, dtype=torch.int32),
+        learning_steps=torch.full((Bw,), w_cfg.learning_steps, dtype=torch.int32),
+        forward_steps=torch.full((Bw,), w_cfg.forward_steps, dtype=torch.int32),
+        is_weights=torch.from_numpy(rng.uniform(0.3, 1.0, Bw).astype(np.float32)))
+    batch = DeviceBatch(**{key: v.to(dev) for key, v in arrs.items()})
+    _, w_state = init_train_state(w_cfg, dev)
+    ref = copy.deepcopy(w_state)
+    ref_step = make_train_step(w_cfg)
+    ref_step(copy.deepcopy(w_state), batch)  # warms the wide path
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TP_UPDATES):
+        ref, m_ref, p_ref = ref_step(ref, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t) * 1e3 / TP_UPDATES
+    arm_kernel = {"default": "lstm_seq_bwd_bf16", "fused_dwh": "lstm_seq_bwd_fused_bf16",
+                  "ckpt": "lstm_seq_bwd_ckpt_bf16"}
+    for label, tp, fsdp in TP_LAYOUTS:
+        c = w_cfg.replace(tp_size=tp, fsdp_size=fsdp)
+        manual = c.resolved_partitioning == "manual"
+        mesh = make_mesh(1, [d0] * (tp * fsdp), tp=tp, fsdp=fsdp)
+        axes = ("dp", "fsdp") if manual else ("dp",)
+        shards = len(data_shard_devices(mesh, axes))
+        arm = c.resolve_backward_arm(device="cuda")
+        st = copy.deepcopy(w_state)
+        shard_optimizer(c, st, mesh)
+        step = make_sharded_train_step(c, mesh=mesh, data_axes=axes)
+        parts = [batch.rows(sl, dev) for sl in shard_slices(Bw, shards)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        for _ in range(TP_UPDATES):
+            st, m, p = step(st, parts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {key: v for key, v in K.launch_counts.items() if v}
+        if launches != want(TP_UPDATES, shards, arm_kernel[arm[0]]):
+            fail(f"elastic: {label} launched {launches} over {TP_UPDATES} updates "
+                 f"(arm {arm}, {shards} batch shards)")
+        got = [m["loss"], p.reshape(-1), m["grad_norm"]]
+        for name, a_, b_ in zip(("loss", "priorities", "grad_norm"), got,
+                                (m_ref["loss"], p_ref, m_ref["grad_norm"])):
+            if not torch.allclose(a_.float(), b_.float(), **BF16_AGREE):
+                fail(f"elastic: {label} {name} differs from the tp=1 update's "
+                     f"(max |diff| {float((a_.float() - b_.float()).abs().max()):.3e})")
+        worst = max(float((x.detach().float() - y.detach().float()).abs().max())
+                    for x, y in zip(st.net.parameters(), ref.net.parameters()))
+        if not all(torch.allclose(x.float(), y.float(), **BF16_AGREE)
+                   for x, y in zip(st.net.parameters(), ref.net.parameters())):
+            fail(f"elastic: {label}: parameters after {TP_UPDATES} updates differ from tp=1's "
+                 f"(max |diff| {worst:.3e})")
+        shard_shapes = (st.optimizer.moment_shards() if isinstance(st.optimizer, ShardedAdam)
+                        else None)
+        row = {"path": label, "tp": tp, "fsdp": fsdp, "partitioning": c.resolved_partitioning,
+               "batch_shards": shards, "arm": list(arm), "updates": TP_UPDATES,
+               "ms_per_update": wall * 1e3 / TP_UPDATES, "ms_per_update_tp1": ref_ms,
+               "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "launches_per_update": {key: v // TP_UPDATES for key, v in launches.items()},
+               "loss": float(m["loss"]), "loss_tp1": float(m_ref["loss"]),
+               "max_param_diff_vs_tp1": worst}
+        say("elastic", f"[{card}] " + json.dumps(row))
+        if shard_shapes:
+            say("elastic", f"{label}: Adam moment shards (mu; nu alike) of core.wh "
+                f"{shard_shapes['core.wh']}, core.wi {shard_shapes['core.wi']}, Dense_0 "
+                f"{shard_shapes['enc.tail.dense.0.weight']}, adv_out "
+                f"{shard_shapes['adv_out.weight']}, one on each fsdp member's device")
+        out[f"tp_{label.split()[0]}_{tp}x{fsdp}"] = (parts[0].burn_in_steps, launches, Hw,
+                                                     Hw + 3 + 1)
+        del st, step, parts
+    say("elastic", f"tp / fsdp: every layout within 1e-2 / 1e-3 of the tp=1 update's loss, "
+        f"priorities and parameters after {TP_UPDATES} updates")
+
+    # one bucket through PolicyServer(mesh=) and mesh=None
+    scfg_s = ServeConfig(buckets=(SERVE_MESH_REQUESTS,), max_wait_ms=0.0,
+                         cache_capacity=SERVE_MESH_REQUESTS)
+    obs = rng.integers(0, 255, (SERVE_MESH_REQUESTS, *w_cfg.obs_shape), dtype=np.uint8)
+    answers = {}
+    for label, kw in (("mesh", dict(mesh=make_mesh(1, [d0, d0], tp=2))), ("plain", dict(device=dev))):
+        srv = PolicyServer(w_cfg, scfg_s, **kw)
+        srv.warmup()
+        res, _ = _serve_through_loop(srv, [[[(f"s{i}", obs[i], 0.0, True)
+                                              for i in range(SERVE_MESH_REQUESTS)]]])
+        answers[label] = res[0][0]
+        if label == "mesh":
+            pieces = srv._published[0]["core.wh"].pieces
+            say("elastic", f"PolicyServer(mesh=tp 2): core.wh held as {len(pieces)} slices "
+                f"{[tuple(x.shape) for x in pieces]} on {[str(x.device) for x in pieces]}")
+        del srv
+    for a_, b_ in zip(answers["mesh"], answers["plain"]):
+        if not (a_.action == b_.action and np.array_equal(a_.q, b_.q)):
+            fail("elastic: PolicyServer(mesh=) answered otherwise than mesh=None")
+    say("elastic", f"PolicyServer(mesh=) answered {SERVE_MESH_REQUESTS} requests (bf16 wide) as "
+        f"mesh=None does, q and actions bit for bit; phase {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -3944,12 +4521,13 @@ def main():
             f"max|dWh|; two launches of each give identical bits; lstm_seq_bwd_fused_bf16's dz "
             f"equals lstm_seq_bwd_bf16's rounded to bf16, every seam")
 
-    def time_bf16(T, B, H, D, burn, kept, carried, flush, label):
-        """The bf16 forms at (T, B, H) with the main path's seams, each held
-        against its plain version on the operands it is timed on, and one
-        bf16 LSTM layer of input width D through the port and through
-        cuDNN: {name: (ms, plain ms, bound ms, bound by, library ms or None,
-        max |kernel - plain|)}."""
+    def time_bf16(T, B, H, D, burn, kept, carried, flush, label, forms=None):
+        """The bf16 forms at (T, B, H) with the main path's seams (only
+        `forms` where given: a path's launched forms), each held against its
+        plain version on the operands it is timed on, and one bf16 LSTM
+        layer of input width D through the port and through cuDNN: {name:
+        (ms, plain ms, bound ms, bound by, library ms or None, max |kernel -
+        plain|)}."""
         proj, wh, h0, c0, _, walk, ckpt, _ = bf16_operands(T, B, H, 40)
         S = 5
         reps = 15 if H <= 512 else 5
@@ -3964,6 +4542,8 @@ def main():
             "lstm_seq_bwd_ckpt_bf16": (lambda: K.lstm_seq_bwd_ckpt(*ckpt(S), burn, S),
                                        lambda: K.lstm_seq_bwd_ckpt_plain(*ckpt(S), burn, S)),
         }
+        if forms is not None:
+            runs = {name: run for name, run in runs.items() if name in forms}
         mm = 2 * H * 4 * H
         bh, bh4, f4, b2 = B * H, B * 4 * H, 4, 2
         # the matmul FLOPs and the bytes each function must move: bf16
@@ -3998,25 +4578,25 @@ def main():
             with torch.no_grad():
                 lib["lstm_fwd_bf16"] = median_ms(lambda: lstm16(x16, (h0[None], c0[None])),
                                                  reps, flush)
-            xg = x16.clone().requires_grad_(True)
-            h0g, c0g = (v[None].clone().requires_grad_(True) for v in (h0, c0))
-            y, (hT, cT) = lstm16(xg, (h0g, c0g))
-            leaves = [xg, h0g, c0g, *lstm16.parameters()]
-            grads = tuple(v.to(torch.bfloat16) for v in (walk[0], walk[6][None], walk[6][None]))
-            lib["lstm_bwd_bf16"] = median_ms(
-                lambda: torch.autograd.grad((y, hT, cT), leaves, grads, retain_graph=True),
-                reps, flush)
+            if "lstm_bwd_bf16" in runs:
+                xg = x16.clone().requires_grad_(True)
+                h0g, c0g = (v[None].clone().requires_grad_(True) for v in (h0, c0))
+                y, (hT, cT) = lstm16(xg, (h0g, c0g))
+                leaves = [xg, h0g, c0g, *lstm16.parameters()]
+                grads = tuple(v.to(torch.bfloat16)
+                              for v in (walk[0], walk[6][None], walk[6][None]))
+                lib["lstm_bwd_bf16"] = median_ms(
+                    lambda: torch.autograd.grad((y, hT, cT), leaves, grads, retain_graph=True),
+                    reps, flush)
         except Exception as e:  # a yardstick only: the port never calls it
             say("time", f"{label}: cuDNN LSTM in bf16 not taken by torch: {e!r}"[:300])
         say("time", f"one bf16 LSTM layer at {label}, input projection included, T={T} B={B} "
             f"D={D} H={H}: forward through the port (matmul + lstm_fwd_bf16) {layer_ms:.3f} ms; "
             f"torch.nn.LSTM (cuDNN, bf16) " + (
-                f"forward {lib['lstm_fwd_bf16']:.3f} ms, backward (dx, dWi, dWh, db, dh0, dc0) "
-                f"{lib['lstm_bwd_bf16']:.3f} ms" if len(lib) == 2 else "not taken"))
-        # the bf16 default arm's backward, two calls: a yardstick for K4's
-        # bf16 form, not one call for its function
-        pair_ms = median_ms(lambda: K._outer_dwh(walk[2], K.lstm_seq_bwd(*walk, burn), wh),
-                            reps, flush)
+                f"forward {lib['lstm_fwd_bf16']:.3f} ms" if "lstm_fwd_bf16" in lib
+                else "not taken") + (
+                f", backward (dx, dWi, dWh, db, dh0, dc0) {lib['lstm_bwd_bf16']:.3f} ms"
+                if "lstm_bwd_bf16" in lib else ""))
 
         def held(name, got, want):
             """max |got - want| over a form's outputs; fails past the bf16
@@ -4056,9 +4636,14 @@ def main():
                 f"at the fp32 FMA peak ({fma_ms / t_ms:.1%}); {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB; cuDNN LSTM bf16 {lib_s}; max |kernel - plain| "
                 f"{err:.3e}; on {card}")
-        say("time", f"bf16 default arm's pair at {label} (lstm_seq_bwd_bf16 + hprev^T @ dz "
-            f"matmul) {pair_ms:.3f} ms beside lstm_seq_bwd_fused_bf16 "
-            f"{out['lstm_seq_bwd_fused_bf16'][0]:.3f} ms")
+        if "lstm_seq_bwd_fused_bf16" in out:
+            # the bf16 default arm's backward, two calls: a yardstick for
+            # K4's bf16 form, not one call for its function
+            pair_ms = median_ms(lambda: K._outer_dwh(walk[2], K.lstm_seq_bwd(*walk, burn), wh),
+                                reps, flush)
+            say("time", f"bf16 default arm's pair at {label} (lstm_seq_bwd_bf16 + hprev^T @ dz "
+                f"matmul) {pair_ms:.3f} ms beside lstm_seq_bwd_fused_bf16 "
+                f"{out['lstm_seq_bwd_fused_bf16'][0]:.3f} ms")
         return out
 
     # 4. the main path -------------------------------------------------------
@@ -4601,7 +5186,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     burn_l = torch.from_numpy(live["burn"]).to(dev)
     rows_l = time_bf16(T, B, H, D, burn_l, int((T - burn_l.long()).sum()),
-                       int((T - 1 - burn_l.long()).clamp(min=0).sum()), flush, "liveloop")
+                       int((T - 1 - burn_l.long()).clamp(min=0).sum()), flush, "liveloop",
+                       forms=set(live["launches"]))
     for name, n in live["launches"].items():
         t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_l[name]
         kernels.append({
@@ -4620,7 +5206,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     burn_p = torch.from_numpy(pod["burn"]).to(dev)
     rows_p = time_bf16(T, B, H, D, burn_p, int((T - burn_p.long()).sum()),
-                       int((T - 1 - burn_p.long()).clamp(min=0).sum()), flush, "podloop")
+                       int((T - 1 - burn_p.long()).clamp(min=0).sum()), flush, "podloop",
+                       forms=set(pod["launches"]))
     for name, n in pod["launches"].items():
         t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_p[name]
         kernels.append({
@@ -4641,7 +5228,8 @@ def main():
             ("sharded", dpr["burn"][0], dpr["launches"]),
             ("multihost", torch.cat(dpr["burn"][:2]), dpr["rank_launches"])):
         rows_d = time_bf16(T, len(burn_d), H, D, burn_d, int((T - burn_d.long()).sum()),
-                           int((T - 1 - burn_d.long()).clamp(min=0).sum()), flush, path)
+                           int((T - 1 - burn_d.long()).clamp(min=0).sum()), flush, path,
+                           forms=set(counts))
         for name, n in counts.items():
             t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_d[name]
             kernels.append({
@@ -4651,6 +5239,32 @@ def main():
                 "launches": n, "max_abs_err": err, "ms": t_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
                 "batch": len(burn_d),
+            })
+
+    # 29. M13b: the reshard, the sharded device planes, tp and fsdp -------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        el = elastic_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timed = {}  # paths at the same shapes and seams share one timing
+    for path, (burn_e, counts, h_e, d_e) in el.items():
+        key = (h_e, d_e, tuple(burn_e.tolist()), tuple(sorted(counts)))
+        if key not in timed:
+            timed[key] = time_bf16(T, len(burn_e), h_e, d_e, burn_e,
+                                   int((T - burn_e.long()).sum()),
+                                   int((T - 1 - burn_e.long()).clamp(min=0).sum()), flush, path,
+                                   forms=set(counts))
+        rows_e = timed[key]
+        for name, n in counts.items():
+            t_ms, p_ms, b_ms, b_by, lib_ms, err = rows_e[name]
+            kernels.append({
+                "name": name, "path": path, "route": "cuda",
+                "source": f"r2d2_tpu_torch/csrc/{K._SOURCE[name]}.cu",
+                "replaces": f"r2d2_tpu/ops/pallas_lstm.py:{sources[K._SOURCE[name]]}",
+                "launches": n, "max_abs_err": err, "ms": t_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
+                "batch": len(burn_e), "hidden": h_e,
             })
 
     if args.profile:

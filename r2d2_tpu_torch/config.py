@@ -181,11 +181,28 @@ class R2D2Config:
     # --- parallelism ------------------------------------------------------
     # data-parallel shards of the learner batch (parallel/mesh.py): each of
     # dp_size shards takes batch_size/dp rows, and the gradients are summed
-    # over the shards before one clipped Adam step. On the host plane the
-    # sampled batch is split; the sharded and multihost planes keep one
-    # store per shard. On the multihost plane dp_size <= 1 means every
+    # over the shards before one clipped Adam step. On the host, tiered and
+    # device planes the batch is split; the sharded and multihost planes
+    # keep one store per shard. On the multihost plane dp_size <= 1 means every
     # shard of every process
     dp_size: int = 1
+    # tensor parallelism (models/tp.py): > 1 splits the latent Dense_0, the
+    # LSTM's 4H gate columns and the dueling hiddens into tp contiguous
+    # column slices and the head outs into row slices, one per member of a
+    # batch shard's tp group (parallel/sharding_map.py's table)
+    tp_size: int = 1
+    # the fsdp mesh axis: > 1 shards the Adam moments over it (each
+    # moment's first divisible dim still unsharded); under
+    # partitioning="manual" the batch also splits over it and each member's
+    # gradient lands on its moment shard (ZeRO-2)
+    fsdp_size: int = 1
+    # "gspmd": the batch over dp, whole parameters for the gradients, the
+    # moments over fsdp (ZeRO-1); "manual": the batch over dp x fsdp, the
+    # summed gradients handed to the fsdp moment shards (ZeRO-2), host
+    # plane only; "auto": manual exactly on the tp > 1 x fsdp > 1 cell.
+    # Both run tp through the same shard-local network
+    # (learner.make_parallel_train_step)
+    partitioning: str = "auto"
 
     # --- infra ------------------------------------------------------------
     seed: int = 0
@@ -203,6 +220,10 @@ class R2D2Config:
     # > 0: also snapshot every N learner updates, on a background thread
     # (requires snapshot_replay)
     snapshot_every: int = 0
+    # --resume across another topology (dp, process count, plane family):
+    # a snapshot of another layout is re-split over this one
+    # (replay/reshard.py) instead of raising TopologyMismatch
+    reshard_on_resume: bool = False
     metrics_path: Optional[str] = None  # jsonl metrics file
 
     # --- serving plane (serve/) ---------------------------------------------
@@ -339,6 +360,29 @@ class R2D2Config:
         the trailing +1 seed entry."""
         return self.block_length + self.burn_in_steps + 1
 
+    @property
+    def tp_shards_params(self) -> bool:
+        """tp > 1 splits the parameters (every plane but multihost, which
+        keeps tp = 1), the JAX package's rule."""
+        return self.tp_size > 1 and self.replay_plane != "multihost"
+
+    @property
+    def resolved_partitioning(self) -> str:
+        """"manual" or "gspmd": "auto" is manual exactly on the tp x fsdp
+        cell."""
+        if self.partitioning != "auto":
+            return self.partitioning
+        return "manual" if (self.tp_size > 1 and self.fsdp_size > 1) else "gspmd"
+
+    @property
+    def data_shards(self) -> int:
+        """The batch shards of an update: dp, times fsdp under manual
+        partitioning (the ZeRO-2 data layout)."""
+        shards = max(self.dp_size, 1)
+        if self.resolved_partitioning == "manual":
+            shards *= max(self.fsdp_size, 1)
+        return shards
+
     def resolve_backward_arm(
         self, batch_size: Optional[int] = None, device: str = "cuda"
     ) -> Tuple[str, int]:
@@ -365,10 +409,11 @@ class R2D2Config:
         from r2d2_tpu_torch.ops.lstm_kernel import choose_backward_arm
 
         B = self.batch_size if batch_size is None else batch_size
-        # the residuals live per shard: the batch splits over dp
+        # the residuals live per shard: the batch splits over dp (and over
+        # fsdp too under manual partitioning)
         return choose_backward_arm(
             self.seq_len,
-            max(B // max(self.dp_size, 1), 1),
+            max(B // self.data_shards, 1),
             self.hidden_dim,
             self.resolved_compute_dtype,
             self.backward_residual_budget_mb * (1 << 20),
@@ -415,6 +460,14 @@ class R2D2Config:
             raise ValueError(
                 "lstm_backend='pallas' is the fused LSTM kernel; the lru "
                 "core has none — use lstm_backend='auto'"
+            )
+        if self.tp_shards_params and self.lstm_backend == "pallas":
+            # the JAX package's rule, kept so a config is valid in one
+            # package exactly when it is in the other; the port's "auto"
+            # runs the kernels under tp (on the tp group's gathered weights)
+            raise ValueError(
+                "tp_size > 1 shards the LSTM kernels; the JAX package refuses "
+                "lstm_backend='pallas' there — use lstm_backend='auto'"
             )
         if self.seq_grad_checkpoint < 0:
             raise ValueError("seq_grad_checkpoint must be >= 0 (0 = off)")
@@ -576,12 +629,48 @@ class R2D2Config:
             raise ValueError(f"unknown replay_plane {self.replay_plane!r}")
         if self.dp_size < 1:
             raise ValueError("dp_size must be >= 1")
-        if self.dp_size > 1 and self.replay_plane in ("tiered", "device"):
+        if self.tp_size < 1:
+            raise ValueError("tp_size must be >= 1")
+        if self.fsdp_size < 1:
+            raise ValueError("fsdp_size must be >= 1")
+        if self.fsdp_size > 1 and self.replay_plane == "multihost":
             raise ValueError(
-                f"dp_size={self.dp_size} on replay_plane={self.replay_plane!r}: the port's "
-                "tiered and device planes hold one store on one device; data parallelism "
-                "runs on replay_plane='host', 'sharded' or 'multihost'"
+                "replay_plane='multihost' keeps params and optimizer state "
+                "replicated per process; fsdp_size > 1 is a one-process mesh "
+                "feature (parallel/sharding_map.py)"
             )
+        if self.partitioning not in ("auto", "gspmd", "manual"):
+            raise ValueError(
+                f"unknown partitioning {self.partitioning!r}; 'gspmd' (ZeRO-1 "
+                "moments, the batch over dp), 'manual' (ZeRO-2, the batch over "
+                "dp x fsdp) or 'auto' (manual exactly on the tp x fsdp cell)"
+            )
+        if self.fsdp_size > 1 and self.tp_size > 1 and self.resolved_partitioning != "manual":
+            # the JAX package's rule (GSPMD miscompiles tp x fsdp there),
+            # kept so configs match
+            raise ValueError(
+                "partitioning='gspmd' composes fsdp with dp only; the tp x fsdp "
+                "cell runs under partitioning='manual' (or 'auto')"
+            )
+        if self.resolved_partitioning == "manual":
+            if self.replay_plane != "host":
+                raise ValueError(
+                    "partitioning='manual' is the host-batch train step "
+                    "(learner.make_parallel_train_step's ZeRO-2 form); use "
+                    "replay_plane='host'"
+                )
+            if self.tp_size > 1 and self.hidden_dim % self.tp_size != 0:
+                raise ValueError(
+                    f"manual tp splits the latent/gate/head kernels into contiguous "
+                    f"column slices; hidden_dim={self.hidden_dim} must divide by "
+                    f"tp_size={self.tp_size}"
+                )
+            shards = self.dp_size * self.fsdp_size
+            if self.batch_size % shards != 0:
+                raise ValueError(
+                    f"partitioning='manual' shards the batch over dp x fsdp; "
+                    f"batch_size={self.batch_size} must divide by dp_size*fsdp_size={shards}"
+                )
         if self.snapshot_every < 0:
             raise ValueError("snapshot_every must be >= 0")
         if self.snapshot_every > 0 and not self.snapshot_replay:
@@ -612,16 +701,10 @@ class R2D2Config:
             )
         if self.priority_plane not in ("host", "device"):
             raise ValueError(f"unknown priority_plane {self.priority_plane!r}")
-        if self.priority_plane == "device" and self.replay_plane in ("sharded", "multihost"):
-            raise ValueError(
-                f"priority_plane='device' on replay_plane={self.replay_plane!r} needs the "
-                "sharded superstep and its stacked device trees, which the port does not "
-                "have yet; use priority_plane='host' there"
-            )
-        if self.priority_plane == "device" and self.replay_plane != "device":
+        if self.priority_plane == "device" and self.replay_plane not in ("device", "sharded"):
             raise ValueError(
                 "priority_plane='device' keeps the sum tree on the card next to "
-                "the store; it requires replay_plane='device'"
+                "the store; it requires replay_plane='device' or 'sharded'"
             )
         if self.superstep_dispatches < 1:
             raise ValueError("superstep_dispatches must be >= 1")
@@ -637,20 +720,18 @@ class R2D2Config:
                 "* superstep_dispatches (each superstep advances the step "
                 "counter by that amount)"
             )
-        if self.collector == "device" and self.replay_plane in ("sharded", "multihost"):
-            raise ValueError(
-                f"collector='device' on replay_plane={self.replay_plane!r} needs the sharded "
-                "fused runners, which the port does not have yet; use collector='host' there"
-            )
-        if self.collector == "device" and self.replay_plane != "device":
+        if self.collector == "device" and self.replay_plane in ("host", "tiered"):
             raise ValueError(
                 "collector='device' writes packed blocks straight into the "
-                "device store; it requires replay_plane='device'"
+                "device store; it requires replay_plane='device', 'sharded' "
+                "or 'multihost'"
             )
+        if self.replay_plane == "multihost" and self.tp_size != 1:
+            raise ValueError("replay_plane='multihost' supports tp_size=1")
         if self.replay_plane == "sharded":
-            if self.dp_size <= 1:
+            if self.dp_size * self.tp_size <= 1:
                 raise ValueError("replay_plane='sharded' needs a device mesh "
-                                 "(dp_size > 1)")
+                                 "(dp_size * tp_size > 1)")
             if self.num_blocks % self.dp_size != 0:
                 raise ValueError("num_blocks must divide evenly over dp_size")
             if self.batch_size % self.dp_size != 0:

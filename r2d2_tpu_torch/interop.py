@@ -137,6 +137,24 @@ def params_to_flax(params) -> dict:
     return {"params": out}
 
 
+def flax_leaf(key: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """The flax path (under "params") of the port's parameter `key`, and
+    for each of the port tensor's dims the flax leaf's dim it is: (1, 0)
+    for a Linear weight (a transposed Dense kernel), (3, 2, 0, 1) for a
+    Conv2d weight (OIHW of HWIO), the identity otherwise."""
+    parts = key.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else parts[-1]
+    if parts[0] == "enc":
+        path = _flax_path(".".join(parts[:-1] + ["weight"]))
+        dims = (3, 2, 0, 1) if _is_conv(path) else (1, 0)
+        return ("enc", *path, leaf), dims if leaf == "kernel" else (0,)
+    if parts[0] in _HEADS:
+        return (parts[0], leaf), (1, 0) if leaf == "kernel" else (0,)
+    if parts[0] == "core":
+        return ("core", parts[1]), ()
+    raise KeyError(f"no flax path for parameter {key!r}")
+
+
 def adam_state_from_optax(template: Mapping, names: Sequence[str], mu: Mapping, nu: Mapping,
                           count) -> dict:
     """optax Adam's (mu, nu, count) -> a torch Adam state_dict. `template`

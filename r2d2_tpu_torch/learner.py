@@ -28,7 +28,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -307,9 +307,32 @@ def make_loss_fn(cfg: R2D2Config):
     return loss_fn
 
 
-def make_train_step(cfg: R2D2Config):
+def make_train_step(cfg: R2D2Config, mesh=None):
     """(state, batch) -> (state, metrics, priorities); updates `state` in
-    place. Metrics and priorities stay on the device."""
+    place. Metrics and priorities stay on the device. With a `mesh` (the
+    host, tiered and device planes, whose one store feeds every shard) the
+    batch's rows split over the batch shards' devices (the dp shards, or
+    dp x fsdp under partitioning="manual", ZeRO-2) and the update is
+    make_sharded_train_step's: the shards' gradients summed, each through
+    its tp group, Adam on the fsdp moment shards."""
+    if mesh is not None:
+        from r2d2_tpu_torch.parallel.mesh import (
+            data_shard_devices,
+            manual_data_axes,
+            shard_slices,
+        )
+
+        axes = manual_data_axes(mesh) if cfg.resolved_partitioning == "manual" else ("dp",)
+        sharded = make_sharded_train_step(cfg, mesh=mesh, data_axes=axes)
+        devices = [mesh.device_at(d, 0, f) for d, f in data_shard_devices(mesh, axes)]
+
+        def split_step(state: TrainState, b: DeviceBatch):
+            parts = [b.rows(sl, dev) for sl, dev in
+                     zip(shard_slices(b.obs.shape[0], len(devices)), devices)]
+            state, metrics, priorities = sharded(state, parts)
+            return state, metrics, priorities.reshape(-1)
+
+        return split_step
     loss_fn = make_loss_fn(cfg)
 
     def train_step(state: TrainState, b: DeviceBatch):
@@ -343,13 +366,13 @@ def _apply_gradients(cfg: R2D2Config, state: TrainState, params) -> torch.Tensor
     return g_norm
 
 
-def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int):
+def make_stacked_batch_train_step(cfg: R2D2Config, num_steps: int, mesh=None):
     """K train steps in one dispatch over a staged stacked batch (the
     tiered plane's consumer; r2d2_tpu/learner.py's function of the same
     name): (state, DeviceBatch with (K, B, ...) leaves) -> (state, the
     last step's metrics, priorities (K, B)). Step k trains on the k-th
     slice of every leaf, exactly as K make_train_step calls would."""
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh)
 
     def multi(state: TrainState, stacked: DeviceBatch):
         if stacked.obs.shape[0] != num_steps:
@@ -403,12 +426,12 @@ def make_store_gather(cfg: R2D2Config):
     return gather_batch
 
 
-def make_fused_train_step(cfg: R2D2Config):
+def make_fused_train_step(cfg: R2D2Config, mesh=None):
     """(state, stores, b, s, is_weights) -> (state, metrics, priorities):
     the update over the device store, its windows gathered inside the step,
     so only the (B,) coordinates cross to the card. The same numbers as
     make_train_step on the same batch assembled on the host."""
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh)
     gather = make_store_gather(cfg)
 
     def fused(state: TrainState, stores, b, s, is_weights):
@@ -417,12 +440,12 @@ def make_fused_train_step(cfg: R2D2Config):
     return fused
 
 
-def make_multi_update_core(cfg: R2D2Config, num_steps: int):
+def make_multi_update_core(cfg: R2D2Config, num_steps: int, mesh=None):
     """K updates over (K, B) coordinate stacks, each gathering its batch
     from the store: (state, stores, b, s, w) -> (state, the last step's
     metrics, priorities (K, B)). The same as the K single fused steps on the
     same coordinates; nothing in it reads back to the host."""
-    step = make_fused_train_step(cfg)
+    step = make_fused_train_step(cfg, mesh)
 
     def multi(state: TrainState, stores, b, s, w):
         if b.shape[0] != num_steps:
@@ -436,10 +459,10 @@ def make_multi_update_core(cfg: R2D2Config, num_steps: int):
     return multi
 
 
-def make_fused_multi_train_step(cfg: R2D2Config, num_steps: int):
+def make_fused_multi_train_step(cfg: R2D2Config, num_steps: int, mesh=None):
     """K train steps in one dispatch over the device store (the device
     plane's K > 1 consumer); see make_multi_update_core."""
-    return make_multi_update_core(cfg, num_steps)
+    return make_multi_update_core(cfg, num_steps, mesh)
 
 
 def make_gather_step(cfg: R2D2Config):
@@ -449,10 +472,10 @@ def make_gather_step(cfg: R2D2Config):
     return make_store_gather(cfg)
 
 
-def make_batch_train_step(cfg: R2D2Config):
+def make_batch_train_step(cfg: R2D2Config, mesh=None):
     """(state, DeviceBatch) -> (state, metrics, priorities) over a batch
     gathered at sample time (make_gather_step)."""
-    return make_train_step(cfg)
+    return make_train_step(cfg, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -472,11 +495,13 @@ def tree_sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
-                            collectives=None, replicate: bool = False):
-    """(state, batches) -> (state, metrics, priorities (n, B/dp)): one update
-    over the n dp shards this process owns, `batches` holding each shard's
-    DeviceBatch on its shard's device (r2d2_tpu/learner.py
-    ``_raw_train_step(axis_name="dp")`` under shard_map):
+                            collectives=None, replicate: bool = False, mesh=None,
+                            data_axes: Sequence[str] = ("dp",)):
+    """(state, batches) -> (state, metrics, priorities (n, B/n)): one update
+    over the n batch shards this process owns, `batches` holding each
+    shard's DeviceBatch on its shard's device (r2d2_tpu/learner.py
+    ``_raw_train_step(axis_name="dp")`` under shard_map, and
+    ``make_manual_train_step``):
 
     - the loss denominator (valid learning steps) is summed over every
       shard of every process before any loss is formed, so each shard's
@@ -492,6 +517,15 @@ def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
     priorities, normalised here against the minimum positive priority over
     every shard (a MIN across processes), in float32 as JAX's pmin form.
 
+    ``mesh`` with tp > 1: each batch shard runs through its tp group
+    (models/tp.TPView: column- and row-parallel slices on the members'
+    devices, the LSTM on the gathered gate columns), the shards being the
+    mesh's (d, f) coordinates over ``data_axes`` in order: ("dp",) for the
+    gspmd form, ("dp", "fsdp") for the manual (ZeRO-2) form. Replicated
+    leaves are computed once per shard, so their gradient needs no sum over
+    tp. With fsdp > 1 the state's optimizer is a ShardedAdam, which hands
+    each fsdp member its slice of the summed gradient.
+
     A shard off the state's device runs on a replica of the networks on its
     device, made at its first update and given the stepped parameters after
     each; shards on the state's device run on the state's networks in turn.
@@ -501,6 +535,12 @@ def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
     loss_fn = make_loss_fn(cfg)
     replicas: dict = {}
     synced: dict = {}  # the state.step each replica last took
+    groups = None
+    if mesh is not None and mesh.tp > 1:
+        from r2d2_tpu_torch.parallel.mesh import data_shard_devices
+
+        groups = [mesh.tp_devices(d, f) for d, f in data_shard_devices(mesh, data_axes)]
+    split: dict = {}
 
     def nets_of(state: TrainState, i: int, device):
         key = i if replicate else device
@@ -539,14 +579,26 @@ def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
             batches = [b._replace(is_weights=torch.pow(
                 torch.maximum(b.is_weights.float(), min_p.to(b.is_weights.device))
                 / min_p.to(b.is_weights.device), -cfg.is_exponent)) for b in batches]
+        if groups is not None and not split:
+            from r2d2_tpu_torch.parallel.sharding_map import tp_split_leaves
+
+            split.update(tp_split_leaves(state.net, mesh))
         flats, stats, prios = [], [], []
         for i, b in enumerate(batches):
             dev = b.obs.device
             net, target = nets_of(state, i, dev)
             net.zero_grad(set_to_none=True)
-            loss, (priorities, aux) = loss_fn(net, target, b, denom.to(dev))
+            online = net
+            if groups is not None:
+                from r2d2_tpu_torch.models.tp import TPView
+
+                online = TPView(net, groups[i], split, trainable=True)
+                target = TPView(target, groups[i], split, trainable=False)
+            loss, (priorities, aux) = loss_fn(online, target, b, denom.to(dev))
             loss.backward()
-            flats.append(torch.cat([p.grad.reshape(-1) for p in net.parameters()]).to(home))
+            grads = [online.grad(k) if k in split else p.grad
+                     for k, p in net.named_parameters()]
+            flats.append(torch.cat([g.reshape(-1) for g in grads]).to(home))
             stats.append(torch.stack([loss.detach(), aux["q_mean"], aux["target_mean"],
                                       aux["td_abs_mean"]]).to(home))
             prios.append(priorities.to(home))
@@ -593,13 +645,13 @@ def make_sharded_gather_step(cfg: R2D2Config):
 
 
 def make_sharded_fused_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
-                                  collectives=None, replicate: bool = False):
+                                  collectives=None, replicate: bool = False, mesh=None):
     """(state, stores, b, s, w) -> (state, metrics, priorities (n, B/dp)):
     the update over dp-sharded device stores (replay/sharded_store.py), each
     shard gathering its rows from its own store, then
     make_sharded_train_step. b, s, w are (n, B/dp) per-shard coordinates,
     b local to each shard; with is_from_priorities, w holds raw priorities."""
-    step = make_sharded_train_step(cfg, is_from_priorities, collectives, replicate)
+    step = make_sharded_train_step(cfg, is_from_priorities, collectives, replicate, mesh)
     gather = make_sharded_gather_step(cfg)
 
     def fused(state: TrainState, stores, b, s, w):
@@ -611,12 +663,12 @@ def make_sharded_fused_train_step(cfg: R2D2Config, is_from_priorities: bool = Fa
 
 def make_sharded_fused_multi_train_step(cfg: R2D2Config, num_steps: int,
                                         is_from_priorities: bool = False,
-                                        collectives=None):
+                                        collectives=None, mesh=None):
     """K sharded updates in one dispatch (the axis form of
     make_multi_update_core): (state, stores, b, s, w) with (K, n, B/dp)
     coordinates -> (state, the last step's metrics, priorities
     (K, n, B/dp)); the same as K make_sharded_fused_train_step calls."""
-    step = make_sharded_fused_train_step(cfg, is_from_priorities, collectives)
+    step = make_sharded_fused_train_step(cfg, is_from_priorities, collectives, mesh=mesh)
 
     def multi(state: TrainState, stores, b, s, w):
         if len(b) != num_steps:
@@ -629,3 +681,124 @@ def make_sharded_fused_multi_train_step(cfg: R2D2Config, num_steps: int,
 
     multi.replicas = step.replicas
     return multi
+
+
+# --------------------------------------------------------------------------
+# fsdp: Adam on moment shards (r2d2_tpu/learner.py make_manual_train_step's
+# ZeRO tail; parallel/sharding_map.moment_spec_for)
+# --------------------------------------------------------------------------
+
+
+class ShardedAdam:
+    """Adam whose moments live in fsdp shards, standing in for
+    ``state.optimizer``. Each parameter's mu and nu split along their fsdp
+    dim (sharding_map.moment_spec_for; whole on member 0 where no dim
+    divides), shard f on ``mesh.fsdp_devices()[f]``. step() hands member f
+    its slice of the (summed, clipped) gradient, updates its moment shards
+    and its slice of the parameter there, and writes the slice back into
+    the whole parameter (JAX's reduce-scatter, Adam on the shard and
+    all-gather of the update). The update is optax's scale_by_adam then
+    -lr: mu_hat / (sqrt(nu_hat) + eps).
+
+    state_dict() / load_state_dict() speak torch Adam's format with whole
+    moments, so a checkpoint holds whole moments and resumes into any
+    tp / fsdp layout."""
+
+    def __init__(self, params, mesh, names: Sequence[str], lr: float, eps: float,
+                 betas: Tuple[float, float] = (0.9, 0.999)):
+        from r2d2_tpu_torch.parallel.sharding_map import moment_spec_for
+
+        self.params = list(params)
+        self.mesh = mesh
+        self.names = list(names)
+        self.b1, self.b2 = betas
+        self.eps = eps
+        # the torch Adam whose state_dict format this one reads and writes
+        self._shell = torch.optim.Adam(self.params, lr=lr, eps=eps, betas=betas)
+        self.devices = mesh.fsdp_devices()
+        self.fdims = [moment_spec_for(n, tuple(p.shape), mesh).dim("fsdp")
+                      for n, p in zip(self.names, self.params)]
+        self.count = 0
+        self.mu = [self._zeros(p, fd) for p, fd in zip(self.params, self.fdims)]
+        self.nu = [self._zeros(p, fd) for p, fd in zip(self.params, self.fdims)]
+
+    @property
+    def param_groups(self):
+        return self._shell.param_groups
+
+    def _pieces(self, t: torch.Tensor, fd: Optional[int]) -> List[torch.Tensor]:
+        """The fsdp members' slices of a parameter-shaped tensor (views)."""
+        if fd is None:
+            return [t]
+        n = t.shape[fd] // len(self.devices)
+        return [t.narrow(fd, f * n, n) for f in range(len(self.devices))]
+
+    def _zeros(self, p: torch.Tensor, fd: Optional[int]) -> List[torch.Tensor]:
+        return [torch.zeros_like(piece, device=dev)
+                for piece, dev in zip(self._pieces(p.detach(), fd), self.devices)]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self._shell.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        lr = self.param_groups[0]["lr"]
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        for p, fd, mus, nus in zip(self.params, self.fdims, self.mu, self.nu):
+            for g, w, mu, nu in zip(self._pieces(p.grad, fd), self._pieces(p, fd), mus, nus):
+                g = g.to(mu.device)
+                mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+                nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
+                u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+                w.add_((u * -lr).to(w.device))
+
+    def moment_shards(self) -> Dict[str, List[Tuple[int, ...]]]:
+        """Each parameter's mu shard shapes, by name."""
+        return {n: [tuple(m.shape) for m in mus] for n, mus in zip(self.names, self.mu)}
+
+    def _whole(self, shards: List[torch.Tensor], fd: Optional[int], like: torch.Tensor):
+        if fd is None:
+            return shards[0].to(like.device).clone()
+        return torch.cat([s.to(like.device) for s in shards], dim=fd)
+
+    def state_dict(self) -> dict:
+        if self.count:
+            for p, fd, mus, nus in zip(self.params, self.fdims, self.mu, self.nu):
+                self._shell.state[p] = {
+                    "step": torch.tensor(float(self.count), dtype=torch.float32),
+                    "exp_avg": self._whole(mus, fd, p),
+                    "exp_avg_sq": self._whole(nus, fd, p),
+                }
+        return self._shell.state_dict()
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        self._shell.load_state_dict(sd)
+        self.count = 0
+        for p, fd, mus, nus in zip(self.params, self.fdims, self.mu, self.nu):
+            st = self._shell.state.get(p)
+            if not st:
+                continue
+            self.count = int(st["step"])
+            for dst, src in zip(mus, self._pieces(st["exp_avg"], fd)):
+                dst.copy_(src)
+            for dst, src in zip(nus, self._pieces(st["exp_avg_sq"], fd)):
+                dst.copy_(src)
+        self._shell.state.clear()
+
+
+def shard_optimizer(cfg: R2D2Config, state: TrainState, mesh) -> None:
+    """Put `state` on the mesh's fsdp layout: a ShardedAdam over the
+    network's parameters when fsdp > 1 (its moments taken over from the
+    state's optimizer), the torch Adam otherwise."""
+    names = [n for n, _ in state.net.named_parameters()]
+    params = list(state.net.parameters())
+    sd = state.optimizer.state_dict()
+    if mesh is not None and mesh.fsdp > 1:
+        opt = ShardedAdam(params, mesh, names, cfg.lr, cfg.adam_eps)
+    else:
+        opt = make_optimizer(cfg, params)
+    opt.load_state_dict(sd)
+    state.optimizer = opt

@@ -110,13 +110,16 @@ class NatureEncoder(nn.Module):
             raise ValueError(f"obs {tuple(obs_shape)} is too small for the nature trunk")
         self.tail = _LatentTail(h * w * 64, latent_dim, depth, generator, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The flat trunk output that Dense_0 takes."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW for the convolutions
         for layer in self.convs:
             x = F.relu(_conv(x, layer, self.dtype))
         # flatten in NHWC order, as the JAX trunk does
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.tail(x)
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tail(self.features(x))
 
 
 def same_pool_pads(size: int, window: int = 3, stride: int = 2) -> Tuple[int, int]:
@@ -171,14 +174,17 @@ class ImpalaEncoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.tail = _LatentTail(h * w * c, latent_dim, depth, generator, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The flat trunk output that Dense_0 takes."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW for the convolutions
         for i, layer in enumerate(self.convs):
             x = _max_pool_same(_conv_same(x, layer, self.dtype))
             x = self.blocks[2 * i + 1](self.blocks[2 * i](x))
         # flatten in NHWC order, as the JAX trunk does
-        x = F.relu(x).permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.tail(x)
+        return F.relu(x).permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tail(self.features(x))
 
 
 class MLPEncoder(nn.Module):
@@ -187,8 +193,11 @@ class MLPEncoder(nn.Module):
         super().__init__()
         self.tail = _LatentTail(math.prod(obs_shape), latent_dim, depth, generator, dtype)
 
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tail(x.reshape(x.shape[0], -1))
+        return self.tail(self.features(x))
 
 
 def make_encoder(name: str, obs_shape, latent_dim: int, depth: int = 0, generator=None,

@@ -94,17 +94,21 @@ class LSTM(nn.Module):
         return -(-self.hidden_dim // m) * m
 
     def forward(
-        self, xs: torch.Tensor, carry: Carry, burn_in: Optional[torch.Tensor] = None
+        self, xs: torch.Tensor, carry: Carry, burn_in: Optional[torch.Tensor] = None,
+        params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Carry]:
         """Unroll (B, T, D) inputs from `carry`; returns (B, T, H) + carry.
 
         With `burn_in` (B,) the unroll places a per-row stop-gradient seam
         at step burn_in[b] and runs the backward arm the core was built
         with; without it the gradient runs through every step (the seamless
-        backward). The op is chosen as the JAX ``LSTM.__call__`` chooses."""
+        backward). The op is chosen as the JAX ``LSTM.__call__`` chooses.
+        `params` (wi, wh, b) stand in for the module's own: a tp group's
+        gathered column slices (models/tp.py)."""
         B, T, D = xs.shape
         H, Hp = self.hidden_dim, self.padded_units(xs.device)
-        wi, wh, b = self._params()
+        wi, wh, b = (self._params() if params is None
+                     else tuple(p.to(self.dtype) for p in params))
         xs = xs.to(self.dtype)
         h, c = (x.to(self.dtype) for x in carry)
         if Hp != H:

@@ -122,11 +122,12 @@ class R2D2Network(nn.Module):
 
     # ----------------------------------------------------------------- util
 
-    def _core_input(self, obs, last_action, last_reward):
+    def _core_input(self, obs, last_action, last_reward, view=None):
         """(N, *obs) uint8, (N,) int, (N,) float -> (N, latent+A+1), all in
-        the compute dtype."""
+        the compute dtype. `view` (models/tp.TPView) computes the latent
+        over a tp group's slices."""
         x = obs.to(self.dtype) / 255.0
-        latent = self.enc(x)
+        latent = self.enc(x) if view is None else view.latent(x)
         onehot = F.one_hot(last_action.long(), self.action_dim).to(self.dtype)
         reward = last_reward.to(self.dtype)[:, None]
         return torch.cat([latent, onehot, reward], dim=-1)
@@ -143,9 +144,11 @@ class R2D2Network(nn.Module):
         actions = torch.arange(self.action_dim, device=task.device)
         return actions[None, :] < dims[task.long()][:, None]
 
-    def _dueling(self, h: torch.Tensor, task: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _dueling(self, h: torch.Tensor, task: Optional[torch.Tensor] = None,
+                 view=None) -> torch.Tensor:
         """Dueling Q in float32 whatever the compute dtype: Q = V + A -
-        mean_a A; multi-task as in the module docstring."""
+        mean_a A; multi-task as in the module docstring. `view` computes the
+        heads over a tp group's slices."""
         h = h.float()
         mask = self._task_mask(task)
         if task is not None and self.num_tasks > 1:
@@ -153,8 +156,11 @@ class R2D2Network(nn.Module):
             if h.dim() == 3:  # (B, L, H): one task per sequence
                 onehot = onehot[:, None, :].expand(*h.shape[:2], self.num_tasks)
             h = torch.cat([h, onehot], dim=-1)
-        adv = self.adv_out(F.relu(self.adv_hidden(h)))
-        val = self.val_out(F.relu(self.val_hidden(h)))
+        if view is None:
+            adv = self.adv_out(F.relu(self.adv_hidden(h)))
+            val = self.val_out(F.relu(self.val_hidden(h)))
+        else:
+            adv, val = view.heads(h)
         if mask is None:
             return val + adv - adv.mean(dim=-1, keepdim=True)
         if adv.dim() == 3:
@@ -184,21 +190,26 @@ class R2D2Network(nn.Module):
     # --------------------------------------------------------------- unroll
 
     def unroll(self, obs, last_action, last_reward, hidden, burn_in, learning, forward,
-               task: Optional[torch.Tensor] = None):
+               task: Optional[torch.Tensor] = None, view=None):
         """(B,T,*obs) uint8, (B,T), (B,T), (B,2,H), (B,) x3, task (B,) or
-        None -> (q_learn (B,L,A), q_boot (B,L,A), mask (B,L) f32)."""
+        None -> (q_learn (B,L,A), q_boot (B,L,A), mask (B,L) f32). `view`
+        (models/tp.TPView): the unroll of one batch shard's tp group."""
         B, T = obs.shape[:2]
         L, Fw = self.learning_steps, self.forward_steps
         x = self._core_input(
             obs.reshape(B * T, *obs.shape[2:]),
             last_action.reshape(B * T),
             last_reward.reshape(B * T),
+            view,
         ).reshape(B, T, -1)
         carry = (hidden[:, 0], hidden[:, 1])
+        kw = {}
+        if view is not None and self.recurrent_core == "lstm":
+            kw["params"] = view.core_params()
         if self.recurrent_core == "lstm" and self.fused_sequence:
-            outs, _ = self.core(x, carry, burn_in=burn_in)
+            outs, _ = self.core(x, carry, burn_in=burn_in, **kw)
         else:
-            outs, _ = self.core(x, carry)
+            outs, _ = self.core(x, carry, **kw)
 
         burn_in, learning, forward = burn_in.long(), learning.long(), forward.long()
         t = torch.arange(L, device=obs.device)
@@ -210,7 +221,7 @@ class R2D2Network(nn.Module):
         learn_h = torch.gather(outs, 1, learn_idx[:, :, None].expand(B, L, H))
         boot_h = torch.gather(outs, 1, boot_idx[:, :, None].expand(B, L, H))
         mask = (t[None, :] < learning[:, None]).float()
-        return self._dueling(learn_h, task), self._dueling(boot_h, task), mask
+        return self._dueling(learn_h, task, view), self._dueling(boot_h, task, view), mask
 
     forward = unroll
 

@@ -1,5 +1,6 @@
-"""Multi-process dp-sharded replay (port of r2d2_tpu/replay/multihost_store.py,
-without the fused runner's hooks, which come with the sharded megastep).
+"""Multi-process dp-sharded replay (port of r2d2_tpu/replay/multihost_store.py;
+megastep.MultiHostFusedRunner reserves, draws and drains through it, on the
+local stores themselves where JAX assembles global arrays).
 
 Each process owns the control planes and device stores of its local shards
 (parallel/multihost.local_axis_indices), and its collectors write blocks

@@ -1,5 +1,4 @@
-"""dp-sharded device replay (port of r2d2_tpu/replay/sharded_store.py,
-without the device tree, whose sharded superstep the port does not have).
+"""dp-sharded device replay (port of r2d2_tpu/replay/sharded_store.py).
 
 - Control plane: one host ReplayControlPlane per shard, on the 1/dp view of
   the config (control_plane.shard_config): its sum tree over the shard's
@@ -15,6 +14,13 @@ without the device tree, whose sharded superstep the port does not have).
   over the whole batch, as one tree over the same draws would weigh them.
 - Training: learner.make_sharded_fused_train_step gathers each shard's
   rows from its own store and sums the shards' gradients.
+- priority_plane="device": each shard's float32 DeviceSumTree lives on the
+  shard's device beside its store (the JAX package stacks them into one
+  (dp, tree size) array sharded over dp; ``dtree_stack`` gives that view),
+  kept in step with the shard's host tree by every ingestion and
+  retirement. The sharded superstep (megastep.make_sharded_priority_
+  superstep) samples, trains and writes back against them, dispatched
+  through superstep_run.
 
 Every consumer of the stores dispatches under the buffer lock
 (run_with_stores, sample_and_run), and every write is issued under it, as
@@ -161,6 +167,35 @@ class ShardedDeviceReplay(ShardSet):
 
     def __init__(self, cfg: R2D2Config, mesh: Mesh):
         super().__init__(cfg, mesh, range(mesh.dp))
+        if cfg.priority_plane == "device":
+            from r2d2_tpu_torch.replay.device_sum_tree import DeviceSumTree
+
+            sc = self.shard_cfg
+            for g, sh in zip(self.local_ids, self.shards):
+                sh.attach_device_tree(DeviceSumTree(sc.num_sequences, cfg.prio_exponent,
+                                                    cfg.is_exponent, device=mesh.devices[g]))
+
+    @property
+    def dtree_stack(self) -> Optional[torch.Tensor]:
+        """The shards' device trees stacked (dp, tree size) on the first
+        shard's device (the JAX package's layout), or None."""
+        if self.shards[0].dtree is None:
+            return None
+        dev = self.shards[0].dtree.device
+        return torch.stack([sh.dtree.tree.to(dev) for sh in self.shards])
+
+    def superstep_run(self, fn: Callable):
+        """Dispatch a sharded superstep under one buffer-lock hold:
+        fn(stores, trees, num_seq_store) -> (trees', rest), per shard. The
+        output trees are installed before the lock is released, so every
+        later ingestion write is issued after the superstep. -> rest."""
+        with self.lock:
+            nss = [torch.from_numpy(sh.num_seq_store.copy()).to(sh.dtree.device)
+                   for sh in self.shards]
+            trees_out, rest = fn(self.stores, [sh.dtree.tree for sh in self.shards], nss)
+            for sh, t in zip(self.shards, trees_out):
+                sh.dtree.swap(t)
+            return rest
 
     def can_sample(self) -> bool:
         return (len(self) >= self.cfg.learning_starts

@@ -1,8 +1,8 @@
 """Replay snapshots: the whole replay state on disk, for a true resume (port
 of r2d2_tpu/replay/snapshot.py: the host, device, sharded and multihost
 kinds; the tiered store is a ReplayBuffer and snapshots as one, its disk
-tier's manifest included; re-dealing a snapshot across another layout is
-not ported).
+tier's manifest included; replay/reshard.py re-splits a snapshot across
+another layout).
 The device kind copies the card's stores to the host (at the paper's 2M
 transitions that is 15.6 GB of frames) and, under priority_plane="device",
 the device tree's float32 leaves (`dtree_leaves`), which are what sampling
@@ -80,6 +80,8 @@ class TopologyMismatch(ValueError):
         msg = f"snapshot topology [{_fmt(self.saved)}] != current [{_fmt(self.current)}]"
         if detail:
             msg += f" ({detail})"
+        msg += (" — pass --reshard (cfg.reshard_on_resume) to re-split the snapshot "
+                "over this layout (replay/reshard.py)")
         super().__init__(msg)
 
 

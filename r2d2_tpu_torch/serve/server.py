@@ -240,7 +240,10 @@ class PolicyServer:
     serve.client wrapper), `stop()`. `check()` passes the supervisor's
     restart and stall counters on and raises if a worker died for good.
     `device` is the serving device (the card unless the caller asks for the
-    CPU)."""
+    CPU). `mesh` (parallel/mesh.Mesh) instead places every published
+    parameter set by sharding_map.serve_param_shardings, int8 trees
+    included: each tp member holds its slice on its device, and the step
+    gathers the slices onto the mesh's first device, where it serves."""
 
     def __init__(
         self,
@@ -249,16 +252,21 @@ class PolicyServer:
         params: Optional[Mapping[str, torch.Tensor]] = None,
         checkpoint_dir: Optional[str] = None,
         metrics: Optional[MetricsLogger] = None,
-        device="cuda",
+        device=None,
         name: str = "",
         template=None,
         degrade: Optional[DegradeController] = None,
+        mesh=None,
     ):
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.checkpoint_dir = checkpoint_dir
         self.metrics = metrics
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device_at(0) if mesh is not None
+                                     else "cuda" if device is None else device)
         self.name = name  # the workers' name suffix
         # the template restores checkpoints (a fleet passes its own, built
         # once); the acting module is this server's alone, on its device
@@ -378,6 +386,10 @@ class PolicyServer:
         elif arm == "bf16":
             host = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
                     for k, v in host.items()}
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.sharding_map import place_params
+
+            return place_params(host, self.mesh), leaves, arm
         out = {k: ({kk: vv.to(self.device) for kk, vv in v.items()} if isinstance(v, dict)
                    else v.to(self.device)) for k, v in host.items()}
         return out, leaves, arm
@@ -442,7 +454,12 @@ class PolicyServer:
     def _compute_params(self, params, arm: str) -> Dict[str, torch.Tensor]:
         """A published set as the step computes with it: int8 dequantized,
         bf16 upcast to float32 (the weights' rounding stays, the
-        activations keep their dtype)."""
+        activations keep their dtype); a mesh's placed slices gathered onto
+        the serving device first."""
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.sharding_map import gather_params
+
+            params = gather_params(params, self.device)
         if self._int8(arm):
             return dequantize_tree(params)
         if arm == "bf16":

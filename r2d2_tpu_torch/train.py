@@ -45,7 +45,8 @@ Data parallelism (``parallel/``): ``--dp N`` splits the batch over N shards
 whose gradients are summed before one clipped Adam step. ``--replay sharded``
 (``replay/sharded_store.py``; the ``atari_v4_8`` preset's plane) keeps one
 device store per shard, each shard gathering its rows from its own;
-``--replay host`` with ``--dp`` splits the sampled batch. ``--device`` lists
+``--replay host``, ``tiered`` or ``device`` with ``--dp`` splits each batch
+over the shards. ``--device`` lists
 one device per shard, and may repeat one: ``--device
 cuda:0,cuda:0,cuda:0,cuda:0`` runs ``--preset atari_v4_8`` on one card (a
 plain ``cuda`` means cuda:0 .. cuda:N-1 and raises when fewer cards are
@@ -53,13 +54,21 @@ there). ``--distributed --replay multihost`` (``replay/multihost_store.py``)
 joins the process group torchrun's variables describe (gloo) and trains
 one model across processes, each owning the shards of its ``--device``
 list; rank 0 writes the checkpoints and the metrics file, every rank its
-own replay snapshot.
+own replay snapshot. ``--tp`` and ``--fsdp`` grow the mesh to (dp, tp,
+fsdp), ``--device`` then naming every position: each batch shard runs
+through its tp group (``models/tp.py``) and the Adam moments shard over
+fsdp (``learner.ShardedAdam``); ``partitioning="manual"`` (the tp x fsdp
+default, host plane) also splits the batch over fsdp. ``--resume
+--reshard`` re-splits a replay snapshot of another topology
+(``replay/reshard.py``); ``Trainer.reshard_live`` does it in process.
 
 Collection on the card: ``--collector device`` (``collect.DeviceCollector``:
 policy, env dynamics and block packing over a tensor env core, one chunk
-per call) in either mode above, and ``--mode fused`` (``run_fused``,
-``megastep.FusedSystemRunner``): one dispatch runs K updates and a
-collection chunk, whose blocks land in the store as one slab.
+per call) in either mode above, and ``--mode fused`` (``run_fused``: on
+the device plane ``megastep.FusedSystemRunner``, on the sharded and
+multihost planes ``ShardedFusedRunner`` and ``MultiHostFusedRunner``): one
+dispatch runs K updates and a collection chunk, whose blocks land in the
+store (each shard's) as one slab.
 
 Preemption: a SIGTERM (delivered by the scheduler, or by ``R2D2_FAULTS=
 "trainer.update@5=sigterm"``, utils/faults.py) cuts the run at the next
@@ -149,16 +158,20 @@ from r2d2_tpu_torch.learner import (
     make_sharded_train_step,
     make_stacked_batch_train_step,
     make_train_step,
+    shard_optimizer,
     start_read_back,
 )
 from r2d2_tpu_torch.megastep import (
     FusedSystemRunner,
+    MultiHostFusedRunner,
+    ShardedFusedRunner,
     make_priority_superstep,
+    make_sharded_priority_superstep,
     superstep_generators,
     superstep_uniforms,
 )
 from r2d2_tpu_torch.ops.epsilon import epsilon_ladder
-from r2d2_tpu_torch.parallel.mesh import make_mesh, parse_devices, shard_slices
+from r2d2_tpu_torch.parallel.mesh import make_mesh, parse_devices
 from r2d2_tpu_torch.parallel.multihost import (
     Collectives,
     initialize_distributed,
@@ -252,8 +265,10 @@ class _HostPlane:
     device per update (pageable copies inline; the pinned ring and the side
     stream of `learner.PinnedStager` in threaded mode on the card). The
     batch is copied out of the store at sample time, so a queued item never
-    goes stale. With a mesh (dp_size > 1) the batch's rows are split over
-    the shards' devices and the update is make_sharded_train_step."""
+    goes stale. With a mesh the trainer's step (make_train_step(cfg,
+    mesh)) splits the batch's rows over the batch shards: the dp shards,
+    or the dp x fsdp ones under partitioning="manual" (ZeRO-2), each
+    running through its tp group when tp > 1."""
 
     steps_per_update = 1
 
@@ -261,10 +276,6 @@ class _HostPlane:
         self.tr = tr
         self.replay = ReplayBuffer(tr.cfg)
         self.stager: Optional[PinnedStager] = None
-        self.sharded_fn = None
-        if tr.mesh is not None:
-            self.sharded_fn = make_sharded_train_step(tr.cfg)
-            self.slices = shard_slices(tr.cfg.batch_size, tr.mesh.dp)
 
     def _draw_and_lift(self, lift_fn):
         with span("replay/sample"):
@@ -295,12 +306,7 @@ class _HostPlane:
         if event is not None:
             with self.tr.xfer.wait():
                 dev = PinnedStager.consume(dev, event)
-        if self.sharded_fn is not None:
-            shards = [dev.rows(sl, d) for sl, d in zip(self.slices, self.tr.mesh.devices)]
-            state, m, priorities = self.sharded_fn(state, shards)
-            priorities = priorities.reshape(-1)
-        else:
-            state, m, priorities = self.tr.step_fn(state, dev)
+        state, m, priorities = self.tr.step_fn(state, dev)
         self.replay.update_priorities(idxes, priorities.cpu().numpy(), old_ptr, old_adv)
         return state, m
 
@@ -319,7 +325,7 @@ class _TieredPlane:
         self.tr = tr
         self.replay = TieredReplayBuffer(tr.cfg)
         self.K = self.steps_per_update = tr.cfg.updates_per_dispatch
-        self.multi_fn = make_stacked_batch_train_step(tr.cfg, self.K)
+        self.multi_fn = make_stacked_batch_train_step(tr.cfg, self.K, tr.mesh)
         self._ring: Optional[StagingRing] = None
         self._pipe: Optional[TieredPrefetchPipeline] = None
         self._pending = None  # the deferred (priorities, chunk) pair
@@ -426,12 +432,12 @@ class _DevicePlane:
         if self.device_priority:
             self.N = cfg.superstep_dispatches
             self.steps_per_update = self.N * self.K
-            self.superstep_fn = make_priority_superstep(cfg, self.N, self.K)
+            self.superstep_fn = make_priority_superstep(cfg, self.N, self.K, tr.mesh)
         elif self.K > 1:
-            self.multi_fn = make_fused_multi_train_step(cfg, self.K)
-        self.step_fn = make_fused_train_step(cfg)
+            self.multi_fn = make_fused_multi_train_step(cfg, self.K, tr.mesh)
+        self.step_fn = make_fused_train_step(cfg, tr.mesh)
         self.gather_fn = make_gather_step(cfg)
-        self.batch_step_fn = make_batch_train_step(cfg)
+        self.batch_step_fn = make_batch_train_step(cfg, tr.mesh)
 
     def _superstep_update(self, state):
         """One superstep (megastep.make_priority_superstep). Its draws come
@@ -531,27 +537,54 @@ class _DevicePlane:
 class _ShardedPlane:
     """dp-sharded device replay in one process (replay/sharded_store.py):
     one store per shard, each shard gathering its rows from its own store
-    and the shards' gradients summed (learner.make_sharded_fused_train_step).
-    K=1 as the device plane: coordinates, gathered at update time (inline)
-    or at sample time (threaded, a copy no write can change); K>1: K draws
-    and the K-update dispatch under one lock hold, the priorities read back
-    one dispatch late."""
+    and the shards' gradients summed (learner.make_sharded_fused_train_step;
+    through each shard's tp group when tp > 1). K=1 as the device plane:
+    coordinates, gathered at update time (inline) or at sample time
+    (threaded, a copy no write can change); K>1: K draws and the K-update
+    dispatch under one lock hold, the priorities read back one dispatch
+    late. priority_plane="device": N x K updates per sharded superstep,
+    each shard sampling and writing back against its own device tree."""
 
     def __init__(self, tr: "Trainer"):
         if tr.mesh is None:
-            raise ValueError("replay_plane='sharded' needs dp_size > 1")
+            raise ValueError("replay_plane='sharded' needs dp_size * tp_size > 1")
         self.tr = tr
-        cfg = tr.cfg
-        self.replay = ShardedDeviceReplay(cfg, tr.mesh)
+        cfg, mesh = tr.cfg, tr.mesh
+        self.replay = ShardedDeviceReplay(cfg, mesh)
         self.K = self.steps_per_update = cfg.updates_per_dispatch
         self._pending = None  # the deferred (priorities, draws) pair
-        if self.K > 1:
-            self.multi_fn = make_sharded_fused_multi_train_step(cfg, self.K)
-        self.step_fn = make_sharded_fused_train_step(cfg)
+        self.device_priority = cfg.priority_plane == "device"
+        if self.device_priority:
+            self.N = cfg.superstep_dispatches
+            self.steps_per_update = self.N * self.K
+            self.superstep_fn = make_sharded_priority_superstep(cfg, mesh, self.N, self.K)
+        elif self.K > 1:
+            self.multi_fn = make_sharded_fused_multi_train_step(cfg, self.K, mesh=mesh)
+        self.step_fn = make_sharded_fused_train_step(cfg, mesh=mesh)
         self.gather_fn = make_sharded_gather_step(cfg)
-        self.batch_step_fn = make_sharded_train_step(cfg)
+        self.batch_step_fn = make_sharded_train_step(cfg, mesh=mesh)
+
+    def _superstep_update(self, state):
+        """One sharded superstep; shard i's draws come from generators
+        derived from (seed, the superstep counter, i), so a resume at this
+        step draws them again."""
+        cfg = self.tr.cfg
+        ctr = self.tr._step // self.steps_per_update
+        u = []
+        for i, sh in enumerate(self.replay.shards):
+            dev = sh.dtree.device
+            gens = superstep_generators(cfg.seed + 4, ctr, self.N, dev, shard=i)
+            u.append(superstep_uniforms(gens, self.K, cfg.batch_size // self.replay.dp, dev))
+
+        def dispatch(stores, trees, nss):
+            new_state, trees_out, m = self.superstep_fn(state, stores, trees, nss, u)
+            return trees_out, (new_state, m)
+
+        return self.replay.superstep_run(dispatch)
 
     def sample(self, pipelined: bool = False):
+        if self.device_priority:
+            return ("superstep", None, None, None)
         if self.K > 1:
             # drawn at update time, under the dispatch's lock hold
             return ("multi", None, None, None)
@@ -610,6 +643,8 @@ class _ShardedPlane:
 
     def update(self, state, item):
         kind, payload, idxes, stamp = item
+        if kind == "superstep":
+            return self._superstep_update(state)
         if kind == "multi":
             return self._multi_update(state)
         if kind == "batch":
@@ -664,25 +699,27 @@ _PLANES = {"host": _HostPlane, "tiered": _TieredPlane, "device": _DevicePlane,
 
 
 def build_mesh(cfg: R2D2Config, device):
-    """The dp mesh a config asks for, or None: on the multihost plane the
-    mesh over every process's shards, `device` listing this process's (one
-    each); elsewhere, with dp_size > 1, `device` either lists dp_size
-    devices (they may repeat) or is a single CUDA device, which means cuda:0
-    .. cuda:dp-1 and raises when fewer cards are visible."""
+    """The (dp, tp, fsdp) mesh a config asks for, or None: on the multihost
+    plane the mesh over every process's shards, `device` listing this
+    process's (one each); elsewhere, with dp*tp*fsdp = n > 1, `device`
+    either lists the n positions' devices in (dp, tp, fsdp) order (they may
+    repeat) or is a single CUDA device, which means cuda:0 .. cuda:n-1 and
+    raises when fewer cards are visible."""
     devices = parse_devices(device)
     if cfg.replay_plane == "multihost":
         return make_global_mesh(devices, dp=cfg.dp_size if cfg.dp_size > 1 else None)
-    if cfg.dp_size <= 1:
+    n = cfg.dp_size * cfg.tp_size * cfg.fsdp_size
+    if n <= 1:
         if len(devices) > 1:
             raise ValueError(f"{len(devices)} devices given for dp_size=1")
         return None
     if len(devices) == 1:
         if devices[0].type != "cuda":
             raise ValueError(
-                f"dp_size={cfg.dp_size} needs {cfg.dp_size} devices; list them "
-                f"(--device {','.join([str(devices[0])] * cfg.dp_size)})")
-        return make_mesh(cfg.dp_size)
-    return make_mesh(cfg.dp_size, devices)
+                f"a mesh of dp*tp*fsdp = {n} positions needs {n} devices; list them "
+                f"(--device {','.join([str(devices[0])] * n)})")
+        return make_mesh(cfg.dp_size, tp=cfg.tp_size, fsdp=cfg.fsdp_size)
+    return make_mesh(cfg.dp_size, devices, tp=cfg.tp_size, fsdp=cfg.fsdp_size)
 
 
 class Trainer:
@@ -715,6 +752,10 @@ class Trainer:
         self._prof = None
         self.backward_arm = cfg.resolve_backward_arm(device=self.device.type)
         self.net, self.state = init_train_state(cfg, self.device)
+        if self.mesh is not None and self.mesh.fsdp > 1:
+            # the Adam moments on the fsdp members (learner.ShardedAdam); a
+            # checkpoint holds them whole, so any layout restores it
+            shard_optimizer(cfg, self.state, self.mesh)
         self.env_steps_offset = 0
         self.wall_minutes_offset = 0.0
         self.resumed = False
@@ -731,7 +772,7 @@ class Trainer:
                 "N and K the checkpoint was trained with (or N=K=1)"
             )
         self.sample_rng = np.random.default_rng(cfg.seed + 2)
-        self.step_fn = make_train_step(cfg)
+        self.step_fn = make_train_step(cfg, self.mesh)
         self.xfer = TransferTimer()
         # the preemption protocol: request_preempt (SIGTERM, inside a run
         # mode) sets the event; the run loop honours it at its next
@@ -938,24 +979,112 @@ class Trainer:
 
     def _restore_replay_snapshot(self) -> bool:
         """Restore this run's replay snapshot, if there is one; its extras
-        are the mid-run carry. -> whether replay was restored."""
-        from r2d2_tpu_torch.replay.snapshot import restore_replay
+        are the mid-run carry. A snapshot of another topology (a
+        TopologyMismatch, or no file of this process's name while other
+        snapshot files exist: a changed process layout) is re-split over
+        this layout when cfg.reshard_on_resume (replay/reshard.py), and
+        raises otherwise. -> whether replay was restored."""
+        from r2d2_tpu_torch.replay.reshard import reshard_replay, snapshot_paths
+        from r2d2_tpu_torch.replay.snapshot import (
+            TopologyMismatch,
+            _plain,
+            read_manifest,
+            restore_replay,
+            snapshot_topology,
+        )
 
         snap = self._replay_snapshot_path()
-        if not os.path.exists(snap):
-            return False  # no snapshot: refill from scratch
-        self._resume_carry = restore_replay(self.replay, snap)
+        if os.path.exists(snap):
+            try:
+                self._resume_carry = restore_replay(self.replay, snap)
+                return True
+            except TopologyMismatch:
+                if not self.cfg.reshard_on_resume:
+                    raise
+        else:
+            others = snapshot_paths(self.cfg.checkpoint_dir)
+            if not others:
+                return False  # no snapshot: refill from scratch
+            if not self.cfg.reshard_on_resume:
+                raise TopologyMismatch(
+                    read_manifest(others[0]) or {},
+                    _plain(snapshot_topology(self.replay, tp=self.cfg.tp_size)),
+                    f"no snapshot named {os.path.basename(snap)} for this process, but "
+                    f"{len(others)} snapshot file(s) exist — a changed process layout")
+        t0 = time.perf_counter()
+        paths = snapshot_paths(self.cfg.checkpoint_dir)
+        self._resume_carry = reshard_replay(self.replay, paths)
+        self.reshard_stats = {"reshard_s": time.perf_counter() - t0,
+                              "reshard_bytes": sum(os.path.getsize(q) for q in paths)}
         return True
 
     def save_replay_snapshot(self, extra: Optional[dict] = None) -> str:
         """Write the whole replay (replay/snapshot.py), with `extra` (the
-        preemption carry) in the same atomic write. -> its path."""
-        from r2d2_tpu_torch.replay.snapshot import save_replay
+        preemption carry) in the same atomic write; the manifest records the
+        mesh's tp. -> its path."""
+        from r2d2_tpu_torch.replay.snapshot import save_replay, snapshot_topology
 
         os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
         path = self._replay_snapshot_path()
-        save_replay(self.replay, path, extra=extra)
+        save_replay(self.replay, path, extra=extra,
+                    topology=snapshot_topology(self.replay, tp=self.cfg.tp_size))
         return path
+
+    _RESHARD_LIVE_KEYS = ("dp_size", "tp_size", "fsdp_size", "replay_plane")
+
+    def reshard_live(self, devices=None, **topology) -> dict:
+        """Re-split the replay plane over a new dp / tp / fsdp topology in
+        this process: drain every deferred write-back, snapshot the replay
+        through the preemption's atomic writer, take the new config and
+        mesh (`devices`: its positions' devices; by default this trainer's
+        device repeated), move the optimizer onto the new fsdp layout,
+        rebuild the plane and re-deal the snapshot over it
+        (replay/reshard.py), and point the actor at the new replay. The
+        actor, its streams and the parameters carry straight through, and
+        the replay round-trips losslessly, so the run goes on as one that
+        resumed from that snapshot would. Only the topology keys; one
+        process only (the multihost plane reshards through exit and
+        resume, cfg.reshard_on_resume). -> a summary."""
+        from r2d2_tpu_torch.parallel.multihost import process_count
+        from r2d2_tpu_torch.replay.reshard import reshard_replay, snapshot_paths
+
+        unknown = set(topology) - set(self._RESHARD_LIVE_KEYS)
+        if unknown:
+            raise ValueError(f"reshard_live accepts {self._RESHARD_LIVE_KEYS}, "
+                             f"got {sorted(unknown)}")
+        if (process_count() > 1 or self.cfg.replay_plane == "multihost"
+                or topology.get("replay_plane") == "multihost"):
+            raise NotImplementedError(
+                "live reshard is single-process; multihost topologies reshard "
+                "through exit + resume (cfg.reshard_on_resume)")
+        t0 = time.perf_counter()
+        self.finish_updates()
+        snap = self.save_replay_snapshot()
+        before_env_steps, before_size = self.replay.env_steps, len(self.replay)
+        cfg = self.cfg.replace(**topology)
+        n = cfg.dp_size * cfg.tp_size * cfg.fsdp_size
+        self.mesh = build_mesh(cfg, [self.device] * n if devices is None else devices)
+        self.cfg = cfg
+        self.backward_arm = cfg.resolve_backward_arm(device=self.device.type)
+        shard_optimizer(cfg, self.state, self.mesh)
+        self.step_fn = make_train_step(cfg, self.mesh)
+        self.plane = _PLANES[cfg.replay_plane](self)
+        self.replay = self.plane.replay
+        paths = snapshot_paths(cfg.checkpoint_dir)
+        self._resume_carry = reshard_replay(self.replay, paths)
+        # the restored counters equal the ones before: env_steps_offset holds
+        if hasattr(self.actor, "push_block"):
+            self.actor.push_block = self.replay.add_block
+        if hasattr(self.actor, "replay"):
+            self.actor.replay = self.replay
+        return {
+            "snapshot": snap, "replay_plane": cfg.replay_plane, "dp_size": cfg.dp_size,
+            "tp_size": cfg.tp_size, "fsdp_size": cfg.fsdp_size,
+            "env_steps": self.replay.env_steps, "env_steps_before": before_env_steps,
+            "replay_size": len(self.replay), "replay_size_before": before_size,
+            "seconds": time.perf_counter() - t0,
+            "bytes": sum(os.path.getsize(q) for q in paths),
+        }
 
     def _snapshot_async(self) -> None:
         """A periodic (snapshot_every) snapshot on a background thread; if
@@ -1307,10 +1436,11 @@ class Trainer:
         no worker threads. collect_every=None paces collection from
         cfg.samples_per_insert on the actual counters (0: every dispatch)."""
         cfg = self.cfg
-        if cfg.collector != "device" or cfg.replay_plane != "device":
+        if cfg.collector != "device" or cfg.replay_plane not in ("device", "sharded",
+                                                                   "multihost"):
             raise ValueError(
-                "run_fused needs collector='device' and replay_plane='device' "
-                f"(got {cfg.collector!r}, {cfg.replay_plane!r})"
+                "run_fused needs collector='device' and replay_plane 'device', 'sharded' "
+                f"or 'multihost' (got {cfg.collector!r}, {cfg.replay_plane!r})"
             )
         self.reset_clock()
         # the main-thread watchdog, armed before the warmup: a wedged
@@ -1324,13 +1454,27 @@ class Trainer:
     def _run_fused_body(self, sup: Supervisor, collect_every: Optional[int]) -> None:
         cfg = self.cfg
         self.warmup(beat=sup.main_beat)
-        runner = FusedSystemRunner(
-            cfg, self.device, self.fn_env, self.replay, self.actor.epsilons,
-            self.actor.env_state, self.actor.draws,
-            collect_every=1 if collect_every is None else collect_every,
-            chunk_len=self.actor.chunk, sample_rng=self.sample_rng,
-            samples_per_insert=cfg.samples_per_insert if collect_every is None else 0.0,
-        )
+        pacing = dict(collect_every=1 if collect_every is None else collect_every,
+                      chunk_len=self.actor.chunk, sample_rng=self.sample_rng,
+                      samples_per_insert=cfg.samples_per_insert if collect_every is None
+                      else 0.0)
+        if cfg.replay_plane == "sharded":
+            # the collector's env slots split over the shards, each with a
+            # draw stream of its own
+            runner = ShardedFusedRunner(cfg, self.fn_env, self.replay, self.actor.epsilons,
+                                        self.actor.env_state, cfg.seed + 5, mesh=self.mesh,
+                                        **pacing)
+        elif cfg.replay_plane == "multihost":
+            # global env slots, pinned per global shard (the same streams
+            # whichever process holds a shard)
+            runner = MultiHostFusedRunner(
+                cfg, self.fn_env, self.replay,
+                epsilon_ladder(cfg.num_actors, cfg.base_eps, cfg.eps_alpha),
+                cfg.seed + 5, self.collectives, **pacing)
+        else:
+            runner = FusedSystemRunner(cfg, self.device, self.fn_env, self.replay,
+                                       self.actor.epsilons, self.actor.env_state,
+                                       self.actor.draws, mesh=self.mesh, **pacing)
         self.fused_runner = runner
         pending_log = None
         try:
@@ -1363,7 +1507,10 @@ class Trainer:
                 self._log(*pending_log)
             self._flush_log()
             # the collector continues from the runner's episodes and draws
-            self.actor.env_state = runner.env_state
+            if isinstance(runner, ShardedFusedRunner):
+                self.actor.env_state = runner.env_state_on(self.device)
+            elif isinstance(runner, FusedSystemRunner):
+                self.actor.env_state = runner.env_state
             self.actor.total_steps += runner.total_env_steps
             if cfg.snapshot_replay:
                 # the carry after the hand-back, so it holds the runner's state
@@ -1437,6 +1584,12 @@ def main(argv=None):
                         "of --distributed (replay/multihost_store.py)")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel shards (overrides the preset's dp_size)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel mesh size (overrides the preset's tp_size)")
+    p.add_argument("--fsdp", type=int, default=None,
+                   help="fsdp mesh-axis size (overrides the preset's fsdp_size): the Adam "
+                        "moments shard over it; under partitioning=manual the batch does "
+                        "too. Checkpoints hold whole moments, so --resume crosses layouts")
     p.add_argument("--distributed", action="store_true",
                    help="join the process group torchrun's variables describe "
                         "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; gloo) before building "
@@ -1450,6 +1603,10 @@ def main(argv=None):
                         "over the run preset; --set still wins on single fields")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in checkpoint_dir")
+    p.add_argument("--reshard", action="store_true",
+                   help="with --resume: re-split a replay snapshot of another topology "
+                        "(dp, process count, plane) over this one (replay/reshard.py) "
+                        "instead of raising TopologyMismatch")
     p.add_argument("--snapshot-replay", action="store_true",
                    help="save the whole replay at the end of the run (and, when "
                         "preempted, the mid-run carry with it) and restore it on "
@@ -1468,9 +1625,10 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=None)
     args = p.parse_args(argv)
 
-    if args.mode != "inline" and (args.distributed or args.replay == "multihost"):
-        p.error("--distributed and --replay multihost run --mode inline only (the ranks' "
-                "collectives stay in lockstep there)")
+    if args.mode == "threaded" and (args.distributed or args.replay == "multihost"):
+        p.error("--distributed and --replay multihost run --mode inline or fused (the "
+                "ranks' collectives stay in lockstep there; threaded would let a rank "
+                "waiting on its queue fall out of step)")
     if args.distributed and not initialize_distributed():
         raise SystemExit("--distributed: no process group to join (WORLD_SIZE unset or 1)")
     device = resolve_device(parse_devices(args.device)[0])
@@ -1494,6 +1652,12 @@ def main(argv=None):
         overrides["replay_plane"] = args.replay
     if args.dp is not None:
         overrides["dp_size"] = args.dp
+    if args.tp is not None:
+        overrides["tp_size"] = args.tp
+    if args.fsdp is not None:
+        overrides["fsdp_size"] = args.fsdp
+    if args.reshard:
+        overrides["reshard_on_resume"] = True
     if args.mode == "fused" and args.collector is None:
         args.collector = "device"  # the only collector run_fused takes
     if args.collector:
@@ -1557,8 +1721,11 @@ def main(argv=None):
     if cfg.replay_plane == "multihost":
         out["process_index"] = process_index()
         out["process_count"] = trainer.collectives.world
-        out["params_sha256"] = params_digest(trainer.state.net)
         out.update(trainer.collectives.stats())
+    if trainer.mesh is not None:
+        out["params_sha256"] = params_digest(trainer.state.net)
+        out["tp"], out["fsdp"] = trainer.mesh.tp, trainer.mesh.fsdp
+    out.update(getattr(trainer, "reshard_stats", {}))
     if device.type == "cuda":
         from r2d2_tpu_torch.ops import lstm_kernel
 

@@ -65,6 +65,10 @@ Registered sites (KNOWN_SITES): the ones wired into the port.
                       (transport/ingest.py)
 - ingest.dedup        the per-host sequence-number admission check of every
                       received BLOCK frame (the exactly-once seam)
+- reshard.gather      the elastic resume's read of every snapshot file
+                      (replay/reshard.py)
+- reshard.scatter     the elastic resume's re-split into the new layout
+                      (replay/reshard.py)
 """
 
 from __future__ import annotations
@@ -105,6 +109,8 @@ KNOWN_SITES = (
     "transport.spool",
     "ingest.accept",
     "ingest.dedup",
+    "reshard.gather",
+    "reshard.scatter",
 )
 
 

@@ -1319,3 +1319,154 @@ def test_sharded_update_on_one_card_equals_the_device_plane(cuda):
     torch.testing.assert_close(pa.reshape(-1), pb, rtol=1e-4, atol=1e-5)
     for x, y in zip(a.net.parameters(), b.net.parameters()):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+
+
+def _filled_sharded(cfg, dp, n=8, seed=0):
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.replay.sharded_store import ShardedDeviceReplay
+
+    from torch_multihost_child import synth_block
+
+    replay = ShardedDeviceReplay(cfg, make_mesh(dp, ["cuda:0"] * dp))
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        replay.add_block(synth_block(cfg, rng), rng.uniform(0.5, 2.0, cfg.seqs_per_block),
+                         float(i) if i % 3 == 0 else None)
+    return replay
+
+
+def test_reshard_round_trip_on_the_card(cuda, tmp_path):
+    """A dp=2 sharded snapshot on cuda:0: the exact reshard equals a plain
+    restore bit for bit; the re-deal onto the device plane keeps the global
+    counters and trains, 2 forward + 1 seam-backward launches."""
+    from r2d2_tpu_torch.learner import make_fused_train_step
+    from r2d2_tpu_torch.replay.device_store import DeviceReplayBuffer
+    from r2d2_tpu_torch.replay.reshard import reshard_replay, snapshot_paths
+    from r2d2_tpu_torch.replay.snapshot import restore_replay, save_replay
+
+    cfg = tiny_test().replace(replay_plane="sharded", dp_size=2, learning_starts=16)
+    src = _filled_sharded(cfg, 2)
+    save_replay(src, str(tmp_path / "replay_snapshot.npz"))
+    paths = snapshot_paths(str(tmp_path))
+    exact, plain = _filled_sharded(cfg, 2, n=0), _filled_sharded(cfg, 2, n=0)
+    reshard_replay(exact, paths)
+    restore_replay(plain, paths[0])
+    for a, b in zip(exact.stores, plain.stores):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for a, b in zip(exact.shards, plain.shards):
+        assert np.array_equal(a.tree.leaves(), b.tree.leaves())
+        assert (a.block_ptr, a.size, a.ptr_advances) == (b.block_ptr, b.size, b.ptr_advances)
+    dev = DeviceReplayBuffer(cfg.replace(replay_plane="device", dp_size=1), cuda)
+    reshard_replay(dev, paths)
+    assert dev.env_steps == src.env_steps and len(dev) == len(src)
+    assert dev.num_episodes == sum(sh.num_episodes for sh in src.shards)
+    si = dev.sample_indices(np.random.default_rng(2))
+    net = init_params(cfg, seed=1, device=cuda)
+    st = TrainState(net, copy.deepcopy(net).requires_grad_(False),
+                    make_optimizer(cfg, net.parameters()), 0)
+    lstm_kernel.reset_launch_counts()
+    _, m, _ = make_fused_train_step(cfg)(st, dev.stores, *(torch.from_numpy(x).to(cuda)
+                                                          for x in (si.b, si.s, si.is_weights)))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in lstm_kernel.launch_counts.items() if v} == {
+        "lstm_fwd": 2, "lstm_seq_bwd": 1}
+    assert torch.isfinite(m["loss"])
+
+
+def test_one_sharded_superstep_on_the_card(cuda):
+    """A dp=2 sharded superstep of N=1 x K=2 on cuda:0: each shard's tree
+    on the card, 2*K*dp forward + K*dp seam-backward launches, and the
+    hand-rolled sharded update of the same draws bit for bit."""
+    from r2d2_tpu_torch.learner import make_sharded_fused_multi_train_step
+    from r2d2_tpu_torch.megastep import (
+        make_sharded_priority_superstep,
+        superstep_generators,
+        superstep_uniforms,
+    )
+    from r2d2_tpu_torch.replay import device_sum_tree as dst
+    from r2d2_tpu_torch.replay.control_plane import shard_config
+
+    dp, K = 2, 2
+    cfg = tiny_test().replace(replay_plane="sharded", dp_size=dp, priority_plane="device",
+                              learning_starts=16)
+    replay = _filled_sharded(cfg, dp)
+    assert replay.dtree_stack.device.type == "cuda"
+    scfg = shard_config(cfg, dp)
+    L, S = dst.tree_layers(scfg.num_sequences), scfg.seqs_per_block
+    u = [superstep_uniforms(superstep_generators(5, 0, 1, cuda, shard=i), K, scfg.batch_size,
+                            cuda) for i in range(dp)]
+    trees = [sh.dtree.tree for sh in replay.shards]
+    nss = [torch.from_numpy(sh.num_seq_store.copy()).to(cuda) for sh in replay.shards]
+    net = init_params(cfg, seed=1, device=cuda)
+    states = [TrainState(n, copy.deepcopy(net).requires_grad_(False),
+                         make_optimizer(cfg, n.parameters()), 0)
+              for n in (copy.deepcopy(net), copy.deepcopy(net))]
+    lstm_kernel.reset_launch_counts()
+    a, trees_a, _ = make_sharded_priority_superstep(cfg, replay.mesh, 1, K)(
+        states[0], replay.stores, trees, nss, u)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in lstm_kernel.launch_counts.items() if v} == {
+        "lstm_fwd": 2 * K * dp, "lstm_seq_bwd": K * dp}
+    leaf = torch.stack([torch.stack([dst.tree_descend(t, L, uk) for uk in ui[0]])
+                        for t, ui in zip(trees, u)], 1)
+    p = torch.stack([torch.stack([dst.priorities_of(t, L, leaf[k, i]) for k in range(K)])
+                     for i, t in enumerate(trees)], 1)
+    b = leaf // S
+    s = torch.minimum(leaf % S, torch.clamp(torch.stack(nss)[torch.arange(dp, device=cuda)[None, :, None], b] - 1, min=0))
+    bb, _, _ = make_sharded_fused_multi_train_step(cfg, K, is_from_priorities=True)(
+        states[1], replay.stores, b, s, p)
+    for x, y in zip(a.net.parameters(), bb.net.parameters()):
+        assert torch.equal(x, y)
+    assert any(not torch.equal(x, y) for x, y in zip(trees_a, trees))
+
+
+def test_tp2_fsdp2_update_on_the_card(cuda):
+    """One manual tp=2 x fsdp=2 update on cuda:0 (two batch shards, each
+    through its tp group: the LSTM on the gathered gate columns; Adam on two
+    moment shards) against the one-device update: rtol 1e-4 / atol 1e-5,
+    and 2 forward + 1 seam-backward launches per batch shard."""
+    from r2d2_tpu_torch.learner import (
+        DeviceBatch,
+        ShardedAdam,
+        make_sharded_train_step,
+        make_train_step,
+        shard_optimizer,
+    )
+    from r2d2_tpu_torch.parallel.mesh import make_mesh, shard_slices
+
+    cfg = tiny_test().replace(tp_size=2, fsdp_size=2)
+    assert cfg.resolved_partitioning == "manual"
+    rng = np.random.default_rng(0)
+    B, T, L = cfg.batch_size, cfg.seq_len, cfg.learning_steps
+    batch = DeviceBatch(
+        obs=torch.from_numpy(rng.integers(0, 255, (B, T, *cfg.obs_shape), dtype=np.uint8)),
+        last_action=torch.from_numpy(rng.integers(0, cfg.action_dim, (B, T))),
+        last_reward=torch.from_numpy(rng.normal(size=(B, T)).astype(np.float32)),
+        hidden=torch.from_numpy(rng.normal(size=(B, 2, cfg.hidden_dim)).astype(np.float32)),
+        action=torch.from_numpy(rng.integers(0, cfg.action_dim, (B, L))),
+        n_step_reward=torch.from_numpy(rng.normal(size=(B, L)).astype(np.float32)),
+        gamma=torch.full((B, L), 0.99),
+        burn_in_steps=torch.full((B,), cfg.burn_in_steps, dtype=torch.int32),
+        learning_steps=torch.full((B,), L, dtype=torch.int32),
+        forward_steps=torch.full((B,), cfg.forward_steps, dtype=torch.int32),
+        is_weights=torch.from_numpy(rng.uniform(0.3, 1.0, B).astype(np.float32)),
+    ).rows(slice(None), cuda)
+    net = init_params(cfg, seed=1, device=cuda)
+    states = [TrainState(n, copy.deepcopy(net).requires_grad_(False),
+                         make_optimizer(cfg, n.parameters()), 0)
+              for n in (copy.deepcopy(net), copy.deepcopy(net))]
+    mesh = make_mesh(1, ["cuda:0"] * 4, tp=2, fsdp=2)
+    shard_optimizer(cfg, states[0], mesh)
+    assert isinstance(states[0].optimizer, ShardedAdam)
+    lstm_kernel.reset_launch_counts()
+    a, ma, pa = make_sharded_train_step(cfg, mesh=mesh, data_axes=("dp", "fsdp"))(
+        states[0], [batch.rows(sl, cuda) for sl in shard_slices(B, 2)])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in lstm_kernel.launch_counts.items() if v} == {
+        "lstm_fwd": 4, "lstm_seq_bwd": 2}
+    b, mb, pb = make_train_step(cfg.replace(tp_size=1, fsdp_size=1))(states[1], batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(ma[k], mb[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pa.reshape(-1), pb, rtol=1e-4, atol=1e-5)
+    for x, y in zip(a.net.parameters(), b.net.parameters()):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)

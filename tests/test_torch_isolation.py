@@ -4,7 +4,9 @@ JAX package, nor ml_dtypes (the chip machine's installs do not name it: the
 port keeps bf16 carries on the host as uint16 bits), the serving plane, the
 int8 quantization, the transport with its pod harness and the
 data-parallel planes (parallel/, the sharded and multihost stores, the
-ranks' helper tests/torch_multihost_child.py) on their own included, and no source line of the package, chip_smoke.py, the port's
+ranks' helper tests/torch_multihost_child.py) and M13b's modules (the
+reshard, the placement table, the shard-local tp network, the sharded
+runners) on their own included, and no source line of the package, chip_smoke.py, the port's
 demos, its tools or the helpers its card suite shares imports them; chip_smoke.py
 fails cleanly where it cannot run."""
 
@@ -46,8 +48,8 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
     # every module: the fault plane, snapshots, tiers, the serving plane,
-    # the transport and the data-parallel planes included
-    assert int(count) >= 81
+    # the transport, the data-parallel planes and M13b's modules included
+    assert int(count) >= 84
     assert bad.strip() == "[]"
 
 
@@ -104,6 +106,28 @@ def test_the_data_parallel_planes_and_their_child_load_no_jax():
     (tests/torch_multihost_child.py), on their own."""
     out = subprocess.run(
         [sys.executable, "-c", PARALLEL_ONLY.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+ELASTIC_ONLY = """
+import sys
+import r2d2_tpu_torch.replay.reshard, r2d2_tpu_torch.parallel.sharding_map
+import r2d2_tpu_torch.models.tp, r2d2_tpu_torch.megastep
+from r2d2_tpu_torch.megastep import MultiHostFusedRunner, ShardedFusedRunner
+from r2d2_tpu_torch.learner import ShardedAdam
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(bad)
+"""
+
+
+def test_the_reshard_and_the_tp_fsdp_modules_load_no_jax():
+    """replay/reshard.py, parallel/sharding_map.py, models/tp.py and the
+    sharded runners, on their own."""
+    out = subprocess.run(
+        [sys.executable, "-c", ELASTIC_ONLY.format(forbidden=set(FORBIDDEN))],
         cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr

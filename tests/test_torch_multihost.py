@@ -191,18 +191,19 @@ def test_two_ranks_of_the_cli_train_one_model(tmp_path):
 
 
 def test_threaded_and_fused_modes_are_refused_on_the_multihost_plane(capsys):
-    """The ranks' collectives stay in lockstep only in run_inline: a rank
-    polling its batch queue would pair its preemption check with another
-    rank's update. The CLI refuses the other modes before a group forms."""
+    """The ranks' collectives stay in lockstep in run_inline and run_fused
+    (MultiHostFusedRunner, ported since): a rank polling its batch queue
+    would pair its preemption check with another rank's update. The CLI
+    refuses threaded mode before a group forms."""
     from r2d2_tpu_torch import train
 
-    for mode in ("threaded", "fused"):
+    for mode in ("threaded",):
         for flags in (["--distributed"], ["--replay", "multihost"]):
             with pytest.raises(SystemExit) as e:
                 train.main(["--preset", "tiny_test", "--env", "catch", "--device", "cpu",
                             "--mode", mode, *flags])
             assert e.value.code == 2
-            assert "--mode inline only" in capsys.readouterr().err
+            assert "--mode inline or fused" in capsys.readouterr().err
     cfg = tiny_test().replace(env_name="catch", replay_plane="multihost", dp_size=2,
                               learning_starts=32, training_steps=2)
     tr = train.Trainer(cfg, device="cpu,cpu")

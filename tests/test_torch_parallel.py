@@ -155,9 +155,8 @@ def test_validation_accepts_what_jax_accepts(kw):
     dict(replay_plane="multihost", collector="device"),
 ], ids=["sharded-device-tree", "sharded-device-collector", "multihost-device-collector"])
 def test_sharded_superstep_and_fused_runners_are_refused_until_ported(kw):
-    jax_tiny_test().replace(**kw)  # the JAX package runs them
-    with pytest.raises(ValueError, match="does not have yet"):
-        tiny_test().replace(**kw)
+    # ported: the port takes these configs as the JAX package does
+    assert tiny_test().replace(**kw).replay_plane == jax_tiny_test().replace(**kw).replay_plane
 
 
 def test_atari_v4_8_preset_matches_jax_and_its_arm_is_budgeted_per_shard():

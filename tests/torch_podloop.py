@@ -191,6 +191,11 @@ def run_pod(root, device="cuda", preset="tiny_test", sets=(), hosts=2, sessions=
         res["rcs"]["h0 (killed)"] = h0.proc.wait(timeout=30.0)
         children.remove(h0)
         res["t_kill_s"] = time.time() - t0
+        # the clients keep going while h0 comes back, however long that
+        # takes; the window is set to its final end below
+        for c in clients:
+            c.proc.stdin.write(f"{time.time() + READY_TIMEOUT}\n".encode())
+            c.proc.stdin.flush()
         back = host(0, tag="_relaunched").wait_ready(READY_TIMEOUT)
         res["t_back_s"] = time.time() - t0
         res["relaunched_on_same_port"] = back["serve_port"] == host_ports[0]
