@@ -401,9 +401,16 @@ PRECISION_UPDATES = 4
 ON_CATCH_BF16 = dict(env_name="catch", buffer_capacity=16_000, learning_starts=2_000)
 ON_CATCH = dict(ON_CATCH_BF16, compute_dtype="float32")
 # phase 14: (updates, save_interval) of the end-to-end runs through the
-# entry points, bf16 threaded and fp32 inline
-E2E = {"bf16": (12, 6), "fp32": (8, 4), "long_context bf16": (4, 2),
-       "long_context fp32": (4, 2)}
+# entry points, bf16 threaded and fp32 inline (long_context's, phase 18,
+# evaluate one checkpoint since PR 21, to pay for the env-pool row)
+E2E = {"bf16": (12, 6), "fp32": (8, 4), "long_context bf16": (4, 4),
+       "long_context fp32": (4, 4)}
+# phase 14: the bf16 atari path trained on a host env stepped through
+# ThreadedHostEnvPool (scripted: the stand-in for an ALE fleet, which the
+# card's machine lacks); its workers, inline updates and warmup transitions
+ENVPOOL_WORKERS = 4
+ENVPOOL_UPDATES = 4
+ENVPOOL_CUT = dict(env_name="scripted", buffer_capacity=16_000, learning_starts=256)
 # phase 15: learner updates timed per mode, after 2 that warm the path, and
 # the updates profiled after them (processing the trace of each costs time)
 MODE_UPDATES = 8
@@ -950,6 +957,52 @@ def e2e(label, cfg, mode, dev, tmp, expect=None):
     say("e2e", f"{label}: evaluate_series over {steps} on 8 catch envs in "
         f"{time.perf_counter() - t:.1f}s")
     return tr
+
+
+def envpool_row(cfg, dev):
+    """The threaded host env pool on the bf16 main path, through the entry
+    points a user calls: `env_pool_workers` makes train.build_vec_env hand
+    the actor a ThreadedHostEnvPool, whose `envpool` threads step the host
+    envs while the learner trains ENVPOOL_UPDATES inline updates. Fails
+    unless the pool was built, its threads stepped every env step, and the
+    updates launched their kernels (counts zeroed just before)."""
+    import torch
+    from r2d2_tpu_torch.actor import ThreadedHostEnvPool
+    from r2d2_tpu_torch.ops import lstm_kernel as K
+    from r2d2_tpu_torch.train import Trainer
+
+    t = time.perf_counter()
+    tr = Trainer(cfg.replace(env_pool_workers=ENVPOOL_WORKERS, training_steps=ENVPOOL_UPDATES,
+                             log_interval=0.0, **ENVPOOL_CUT), device=dev)
+    pool = tr.vec_env
+    try:
+        if type(pool) is not ThreadedHostEnvPool:
+            fail(f"envpool: build_vec_env returned {type(pool).__name__}, not the pool")
+        tr.warmup()
+        K.reset_launch_counts()
+        t_run = time.perf_counter()
+        tr.run_inline()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        launches = {k: v for k, v in K.launch_counts.items() if v}
+        threads = sorted(th.name for th in pool._pool._threads)
+    finally:
+        pool.close()
+    want = {"lstm_fwd_bf16": 2 * ENVPOOL_UPDATES, "lstm_seq_bwd_bf16": ENVPOOL_UPDATES}
+    if launches != want:
+        fail(f"envpool: expected the launches {want}, got {launches}")
+    if not threads or len(threads) > ENVPOOL_WORKERS or not all(
+            n.startswith("envpool") for n in threads):
+        fail(f"envpool: the pool's threads {threads}")
+    if tr.actor.total_steps <= 0 or tr.state.step != ENVPOOL_UPDATES:
+        fail(f"envpool: {tr.actor.total_steps} env steps, step {tr.state.step}")
+    say("envpool", f"ThreadedHostEnvPool ({ENVPOOL_WORKERS} workers, threads {threads}) "
+        f"stepped {tr.cfg.num_actors} scripted envs {tr.actor.total_steps} env steps; "
+        f"{ENVPOOL_UPDATES} bf16 updates in {t_run:.2f}s after warmup "
+        f"({time.perf_counter() - t:.1f}s with it), launches {launches}")
+    return {"workers": ENVPOOL_WORKERS, "threads": threads,
+            "env_steps": tr.actor.total_steps, "updates": ENVPOOL_UPDATES,
+            "ms_per_update": t_run * 1e3 / ENVPOOL_UPDATES}
 
 
 def modes(label, cfg, dev, profile):
@@ -5098,6 +5151,7 @@ def main():
     try:
         e2e("bf16", b_cfg, "threaded", dev, tmp)
         e2e("fp32", cfg, "inline", dev, tmp)
+        envpool_row(b_cfg, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

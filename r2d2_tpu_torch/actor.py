@@ -1,5 +1,6 @@
 """Actor: vectorized ε-greedy experience collection (port of
-r2d2_tpu/actor.py: ParamStore, HostEnvPool, VectorizedActor).
+r2d2_tpu/actor.py: ParamStore, HostEnvPool, ThreadedHostEnvPool,
+VectorizedActor).
 
 One actor steps E environments with one batched policy call per env step
 (`R2D2Network.act_select` on the port's device). Per env, as in the JAX
@@ -76,17 +77,62 @@ class HostEnvPool:
     def reset_all(self) -> np.ndarray:
         return np.stack([e.reset() for e in self.envs])
 
+    @staticmethod
+    def _step_one(env, action) -> tuple:
+        """The per-env step and auto-reset, shared by the serial and the
+        threaded pools: (terminal-inclusive obs, reward, done, next obs,
+        which differs from obs only on done)."""
+        o, r, d, _ = env.step(int(action))
+        return o, r, d, (env.reset() if d else o)
+
     def step(self, actions: np.ndarray):
-        out = []
-        for env, a in zip(self.envs, actions):
-            o, r, d, _ = env.step(int(a))
-            out.append((o, r, d, env.reset() if d else o))
-        obs, rewards, dones, nxt = zip(*out)
+        obs, rewards, dones, nxt = zip(
+            *(self._step_one(e, a) for e, a in zip(self.envs, actions))
+        )
         return np.stack(obs), np.asarray(rewards), np.asarray(dones), np.stack(nxt)
 
     def force_reset(self, i: int) -> np.ndarray:
         """Mid-flight reset of one slot (max_episode_steps truncation)."""
         return self.envs[i].reset()
+
+
+class ThreadedHostEnvPool(HostEnvPool):
+    """HostEnvPool whose env steps fan out over a persistent thread pool
+    (threads named ``envpool_*``). It pays for emulators that release the
+    GIL inside step() (ALE); pure-Python envs gain nothing, and the tensor
+    envs have their own vec adapters. Same reset_all()/step() contract as
+    HostEnvPool: the map over the env list keeps per-env order, and each
+    env is stepped by one task at a time, so no env state is shared
+    between the workers."""
+
+    def __init__(self, envs: Sequence, workers: Optional[int] = None):
+        super().__init__(envs)
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(
+            max_workers=workers or min(32, self.num_envs),
+            thread_name_prefix="envpool",
+        )
+
+    def reset_all(self) -> np.ndarray:
+        return np.stack(list(self._pool.map(lambda e: e.reset(), self.envs)))
+
+    def step(self, actions: np.ndarray):
+        obs, rewards, dones, nxt = zip(
+            *self._pool.map(self._step_one, self.envs, actions)
+        )
+        return np.stack(obs), np.asarray(rewards), np.asarray(dones), np.stack(nxt)
+
+    def close(self) -> None:
+        """Release the worker threads (a sweep that builds a pool per game
+        must not keep idle executors). Also called on collection."""
+        self._pool.shutdown(wait=False)
+
+    def __del__(self):  # best effort: an explicit close() is preferred
+        try:
+            self._pool.shutdown(wait=False)
+        except Exception:
+            pass
 
 
 class VectorizedActor:

@@ -194,9 +194,11 @@ def make_collect_core(cfg: R2D2Config, fn_env, num_envs: int, chunk_len: int,
 
         # n-step returns R_t = sum_{k<n} gamma^k r_{t+k}, zero past the end,
         # accumulated in float64 as the accumulator's n_step_returns
-        r64 = torch.cat([rewards.double(),
-                         torch.zeros((E, max(n - 1, 0)), dtype=torch.float64, device=dev)], 1)
-        R = torch.zeros((E, T), dtype=torch.float64, device=dev)
+        # r2d2: disable=float64-op  (E x T scalars, summed in the host accumulator's float64 for its bits)
+        f64 = torch.float64
+        r64 = torch.cat([rewards.to(f64),
+                         torch.zeros((E, max(n - 1, 0)), dtype=f64, device=dev)], 1)
+        R = torch.zeros((E, T), dtype=f64, device=dev)
         for k in range(n):
             R = R + (gamma ** k) * r64[:, k:k + T]
         R = torch.where(valid_T, R, 0.0).float()
@@ -381,6 +383,7 @@ class DeviceCollector:
         self.param_store = param_store
         self.fn_env = fn_env
         self.policy = policy.requires_grad_(False)
+        # r2d2: ephemeral(the ParamStore version last loaded into the policy copy; a resumed run builds a new store from the checkpoint and this line loads it)
         params, self.param_version = param_store.latest()
         self.policy.load_state_dict(params)
         eps = (np.asarray(epsilons, np.float32) if epsilons is not None

@@ -27,6 +27,7 @@ class R2D2Config:
     obs_shape: Tuple[int, ...] = (84, 84, 1)
     action_dim: int = 9
     max_episode_steps: int = 27000
+    noop_max: int = 30  # reference environment.py:9
 
     # --- optimization ----------------------------------------------------
     lr: float = 1e-4
@@ -85,6 +86,11 @@ class R2D2Config:
 
     # --- actor fleet ------------------------------------------------------
     num_actors: int = 8
+    # host env pools: > 0 steps the E envs across a persistent thread pool
+    # of this size (ThreadedHostEnvPool — emulators release the GIL, so a
+    # many-core host parallelizes them; the reference used 8 processes).
+    # 0 = serial loop. Ignored by the tensor vec envs (already batched).
+    env_pool_workers: int = 0
     # threaded mode: target ratio of learner-consumed to collected
     # transitions; below it the actor thread yields to the learner (0 =
     # free-running actors)

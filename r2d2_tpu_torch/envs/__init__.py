@@ -66,4 +66,6 @@ def make_env(cfg, seed: int = 0):
         return ScriptedEnv(obs_shape=cfg.obs_shape, action_dim=adim)
     from r2d2_tpu_torch.envs.atari import create_atari_env
 
-    return create_atari_env(cfg.env_name, noop_start=True, seed=seed)
+    return create_atari_env(
+        cfg.env_name, noop_start=True, noop_max=cfg.noop_max, seed=seed
+    )

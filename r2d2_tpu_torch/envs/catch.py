@@ -266,8 +266,10 @@ class TensorCatchEnv:
     def _uniform_int(lo: torch.Tensor, hi: torch.Tensor,
                      generator: Optional[torch.Generator]) -> torch.Tensor:
         """One integer uniform in [lo, hi] per element, from `generator`."""
-        u = torch.rand(lo.shape, generator=generator, device=lo.device, dtype=torch.float64)
-        return (lo + torch.floor(u * (hi - lo + 1).double()).long()).clamp(max=hi).to(torch.int32)
+        # r2d2: disable=float64-op  (a few scalars per reset: float64 keeps floor(u * span) exact)
+        f64 = torch.float64
+        u = torch.rand(lo.shape, generator=generator, device=lo.device, dtype=f64)
+        return (lo + torch.floor(u * (hi - lo + 1).to(f64)).long()).clamp(max=hi).to(torch.int32)
 
     def reset(self, n: int, generator: Optional[torch.Generator] = None, device="cpu",
               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> CatchState:

@@ -85,5 +85,6 @@ class FnVecEnv:
         term_obs = self.env.render(s2)
         fresh = self.env.reset(self.num_envs, self.generator, self.device, draws=reset_draws)
         self._state = select_rows(done, fresh, s2)
-        return (term_obs.cpu().numpy(), reward.double().cpu().numpy(), done.cpu().numpy(),
+        return (term_obs.cpu().numpy(), reward.cpu().numpy().astype(np.float64),
+                done.cpu().numpy(),
                 self.env.render(self._state).cpu().numpy())

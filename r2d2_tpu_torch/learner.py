@@ -765,9 +765,10 @@ class ShardedAdam:
 
     def state_dict(self) -> dict:
         if self.count:
+            step = float(self.count)
             for p, fd, mus, nus in zip(self.params, self.fdims, self.mu, self.nu):
                 self._shell.state[p] = {
-                    "step": torch.tensor(float(self.count), dtype=torch.float32),
+                    "step": torch.tensor(step, dtype=torch.float32),
                     "exp_avg": self._whole(mus, fd, p),
                     "exp_avg_sq": self._whole(nus, fd, p),
                 }
@@ -781,7 +782,7 @@ class ShardedAdam:
             st = self._shell.state.get(p)
             if not st:
                 continue
-            self.count = int(st["step"])
+            self.count = int(st["step"])  # r2d2: disable=host-sync-in-hot-path  (a loaded host tensor)
             for dst, src in zip(mus, self._pieces(st["exp_avg"], fd)):
                 dst.copy_(src)
             for dst, src in zip(nus, self._pieces(st["exp_avg_sq"], fd)):

@@ -110,19 +110,26 @@ class TransitionTap:
                  emit: Optional[Callable] = None):
         self.cfg = cfg
         self.depth = int(depth if depth is not None else cfg.liveloop_tap_depth)
+        # r2d2: ephemeral(process-local plumbing: the owner rewires the callback via set_emit on every (re)construction, it is never part of replayed state)
         self._emit = emit  # (block, priorities, episode_reward) -> None
         self._lock = threading.Lock()
         self._q: deque = deque()
         self._wake = threading.Event()
         self._sessions: Dict[str, _SessionStream] = {}
+        # r2d2: ephemeral(only guards seam accounting for batches still queued in _q; the tap thread drains _q before any snapshot cut, so it is empty whenever carry_state runs)
         self._broken: set = set()  # sids whose continuity a drop severed
+        # r2d2: ephemeral(pending disconnects are applied by the same process_pending cycle that would precede a snapshot cut; a resumed run re-evicts via live disconnects)
         self._evictions: List[str] = []  # disconnects queued for the tap thread
         # counters (all guarded by _lock) — monitoring only: stats() feeds
         # the metrics stream, never replay or the resume fingerprint, so a
         # resumed process restarts them from zero by design
+        # r2d2: ephemeral(monitoring counter; stats-only, restarts at 0 on resume)
         self.captured_steps = 0
+        # r2d2: ephemeral(monitoring counter; stats-only, restarts at 0 on resume)
         self.emitted_blocks = 0
+        # r2d2: ephemeral(monitoring counter; stats-only, restarts at 0 on resume)
         self.dropped_batches = 0
+        # r2d2: ephemeral(monitoring counter; stats-only, restarts at 0 on resume)
         self.seam_breaks = 0
         # bounded off-policy audit trail: per emitted block, the aligned
         # (epsilon, params_version) stamps of its transitions
@@ -220,6 +227,7 @@ class TransitionTap:
             # or the owning thread (tests, stop(), snapshot) strictly
             # before/after the worker's lifetime. Cross-thread inputs all
             # arrive through the lock-guarded record/eviction queues.
+            # r2d2: disable=cross-thread-unguarded-write  (the contract above)
             st = self._sessions.pop(sid, None)
             if st is not None and st.acc.size > 0:
                 last_q = st.pending[1] if st.pending is not None else None
@@ -248,7 +256,7 @@ class TransitionTap:
             if st is None:
                 st = _SessionStream(self.cfg)
                 st.acc.reset(row_obs)
-                self._sessions[sid] = st
+                self._sessions[sid] = st  # r2d2: disable=cross-thread-unguarded-write  (single-writer contract in process_pending)
             elif rec.resets[i]:
                 if st.pending is not None:
                     # reset-row reward = previous episode's terminal reward;
@@ -305,7 +313,7 @@ class TransitionTap:
                 last_q = st.pending[1] if st.pending is not None else None
                 self._finish(sid, st, last_qval=last_q)
                 cut += 1
-            del self._sessions[sid]
+            del self._sessions[sid]  # r2d2: disable=cross-thread-unguarded-write  (single-writer contract in process_pending)
         return cut
 
     # --------------------------------------------------------- snapshot/stats
@@ -330,7 +338,7 @@ class TransitionTap:
         return out
 
     def restore_carry(self, state: dict) -> None:
-        self._sessions.clear()
+        self._sessions.clear()  # r2d2: disable=cross-thread-unguarded-write  (single-writer contract in process_pending)
         for sid, d in state.items():
             st = _SessionStream(self.cfg)
             st.acc.restore_carry(d)
@@ -344,7 +352,7 @@ class TransitionTap:
                     float(np.asarray(d["pending_eps"])[()]),
                     int(np.asarray(d["pending_version"])[()]),
                 )
-            self._sessions[sid] = st
+            self._sessions[sid] = st  # r2d2: disable=cross-thread-unguarded-write  (single-writer contract in process_pending)
 
     def stats(self) -> dict:
         with self._lock:

@@ -357,9 +357,10 @@ class _ShardedRunnerBase(_DeferredDrainRunner):
         for i, shard in enumerate(shards):
             sl = slice(i * El, (i + 1) * El)
             with shard.lock:
+                # r2d2: disable=host-sync-in-hot-path  (starts are host slot numbers)
                 shard._account_blocks_at(int(starts[i]), num_seq[sl], sizes[sl],
                                          chunk_prios[sl], ep_rewards[sl], dones[sl])
-            recorded += int(sizes[sl].sum())
+            recorded += int(sizes[sl].sum())  # r2d2: disable=host-sync-in-hot-path  (the chunk's host read-back)
         return recorded
 
     def env_state_on(self, device):
@@ -486,12 +487,15 @@ class MultiHostFusedRunner(_ShardedRunnerBase):
         self.replay.update_priorities(d["idxes"], row, d["old_ptrs"], d["old_advances"])
 
 
+def _seed_word(key) -> int:
+    """A 63-bit torch seed as a pure function of the integers in `key`."""
+    word = np.random.SeedSequence([int(k) for k in key]).generate_state(2, np.uint32)
+    return int(word[0]) << 31 ^ int(word[1])
+
+
 def _seeded(device, seed: int, stream: int) -> torch.Generator:
     """A generator on `device` seeded as a pure function of (seed, stream)."""
-    word = np.random.SeedSequence([int(seed), int(stream)]).generate_state(2, np.uint32)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(word[0]) << 31 ^ int(word[1]))
-    return g
+    return torch.Generator(device=device).manual_seed(_seed_word([seed, stream]))
 
 
 def superstep_generators(seed: int, counter: int, num_dispatches: int, device,
@@ -505,10 +509,7 @@ def superstep_generators(seed: int, counter: int, num_dispatches: int, device,
     gens = []
     for d in range(num_dispatches):
         key = [seed, counter, d] if shard is None else [seed, counter, shard, d]
-        word = np.random.SeedSequence(key).generate_state(2, np.uint32)
-        g = torch.Generator(device=device)
-        g.manual_seed(int(word[0]) << 31 ^ int(word[1]))
-        gens.append(g)
+        gens.append(torch.Generator(device=device).manual_seed(_seed_word(key)))
     return gens
 
 

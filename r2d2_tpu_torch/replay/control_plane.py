@@ -103,6 +103,7 @@ class ReplayControlPlane:
 
     # --- accounting (call with self.lock held) ----------------------------
 
+    # r2d2: guarded-by(lock)  (every caller holds self.lock, as the docstring says)
     def _account_block_at(
         self, slot: int, num_sequences: int, learning_total: int,
         priorities: np.ndarray, episode_reward: Optional[float],

@@ -557,12 +557,13 @@ class TieredPrefetchPipeline:
                     time.sleep(0.01)
                     continue
                 self._inflight_state = self.rng.bit_generator.state
+                # r2d2: disable=cross-thread-unguarded-write  (this thread's own; stop() writes it only after joining this thread)
                 self._inflight = stage_chunk(self.replay, self.rng, self.k, self.ring,
                                              self.timer, self._stop)
                 while not self._stop.is_set():
                     try:
                         self.q.put(self._inflight, timeout=0.1)
-                        self._inflight = None
+                        self._inflight = None  # r2d2: disable=cross-thread-unguarded-write  (this thread's own, as above)
                         self._inflight_state = None
                         break
                     except queue.Full:
@@ -609,6 +610,7 @@ class TieredPrefetchPipeline:
             self.ring.release(chunk.slot, consumed=False)
         if self._inflight is not None:
             self.ring.release(self._inflight.slot, consumed=False)
+            # r2d2: disable=cross-thread-unguarded-write  (after the join above: the staging thread is gone)
             self._inflight = None
         states.append(self._inflight_state)
         if rewind:

@@ -137,7 +137,6 @@ class Autoscaler:
         # per-drain provenance: {replica, idle_age_s, inflight,
         # affinities} for every victim actually killed (guarded by _lock)
         self._drain_log: List[Dict[str, object]] = []
-        self._victim_info: Optional[Dict[str, object]] = None
         self.supervisor: Optional[Supervisor] = None
         degrade = getattr(server, "degrade", None)
         if degrade is not None:
@@ -259,14 +258,14 @@ class Autoscaler:
 
     def _scale_down(self) -> Optional[str]:
         fault_point("autoscale.scale_down")
-        victim = self._pick_drain_victim()
-        if victim is not None and self._victim_info is not None:
+        victim, info = self._drain_choice()
+        if victim is not None:
             # drain provenance: WHICH replica went and how quiet it
             # actually was (idle-age straight from the fleet's stats
             # triplet) — the audit trail for "we never drained a replica
             # that was mid-conversation"
             with self._lock:
-                self._drain_log.append(dict(self._victim_info))
+                self._drain_log.append(info)
         if victim is None:
             # drain_requires_idle and every replica is still talking:
             # hold — the armed dwell retries next tick (drain_holds
@@ -302,13 +301,18 @@ class Autoscaler:
         self.window.reset()
 
     def _pick_drain_victim(self) -> Optional[int]:
+        return self._drain_choice()[0]
+
+    def _drain_choice(self) -> Tuple[Optional[int], Optional[Dict[str, object]]]:
         """The drain choice, from the fleet's per-replica idle triplet: a
         truly idle replica (nothing in flight, no request for idle_age_s)
         beats everything; ties and non-idle fleets drain the least-loaded
         by affinity count. Under `drain_requires_idle` (default) a
         non-idle fleet returns None instead — the drain holds until some
-        replica has demonstrably nothing to say. Returns a replica index
-        or None."""
+        replica has demonstrably nothing to say. Returns the replica index
+        and its provenance record for the drain log, or (None, None). The
+        record is returned, never stored: two callers (the worker and a
+        direct evaluate_once) each log their own choice."""
         st = self.server.stats()
         active = st["replica_active"]
         inflight = st["replica_inflight"]
@@ -326,19 +330,14 @@ class Autoscaler:
         if best is None:
             raise RuntimeError("no active replica to drain")
         if self.cfg.drain_requires_idle and best[0][0] != 0:
-            # single writer (the autoscaler's own worker), as below
-            self._victim_info = None
-            return None
+            return None, None
         i = best[1]
-        # single-writer (the autoscaler's own worker); _scale_down copies
-        # it into the locked drain log
-        self._victim_info = {
+        return i, {
             "replica": i,
             "idle_age_s": round(float(ages[i]), 3),
             "inflight": int(inflight[i]),
             "affinities": int(counts[i]),
         }
-        return i
 
     # ------------------------------------------------------------- lifecycle
 

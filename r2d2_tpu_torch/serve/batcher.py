@@ -79,6 +79,10 @@ class StagedBatch:
     eps: np.ndarray        # (bucket,) f32 per-row exploration epsilon
     explore: np.ndarray    # (bucket,) bool
     randoms: np.ndarray    # (bucket,) int — random actions where exploring
+    # the set's own host read-back buffers, by name (the server's q, actions
+    # and tap rows): they live and die with the set, so a set reallocated
+    # for a new geometry starts with none and nothing else holds the old
+    host: dict = dataclasses.field(default_factory=dict)
 
 
 class BucketStaging:
@@ -129,6 +133,7 @@ class BucketStaging:
             "eps": np.zeros(bucket, np.float32),
             "explore": np.zeros(bucket, bool),
             "randoms": np.zeros(bucket, np.int64),
+            "host": {},
         }
 
     def stage(self, requests: List["ServeRequest"], bucket: int,
@@ -173,7 +178,7 @@ class BucketStaging:
         return StagedBatch(
             requests=requests, n=n, bucket=bucket, obs=obs,
             rewards=rewards, reset_mask=reset, slots=bufs["slots"],
-            task=task, eps=eps, explore=explore, randoms=randoms,
+            task=task, eps=eps, explore=explore, randoms=randoms, host=bufs["host"],
         )
 
 

@@ -92,7 +92,7 @@ class SessionRouter:
         if self._per_replica:
             self.max_tracked = self._per_replica * max(sum(self._active), 1)
 
-    def _trim(self) -> None:
+    def _trim(self) -> None:  # r2d2: guarded-by(_lock)  (the caller-holds contract below)
         # caller holds self._lock: LRU-drop down to the (maybe shrunk) bound
         while self.max_tracked and len(self._map) > self.max_tracked:
             _, old_replica = self._map.popitem(last=False)
@@ -519,6 +519,8 @@ class MultiDeviceServer:
         defaults to the next fleet version. An arm switch or a scale event
         that lands while it prepares makes it prepare again."""
         raw = _host_copy(params)
+        ckpt_step = int(ckpt_step)
+        version = None if version is None else int(version)
         while True:
             with self._reload_lock:
                 snap = self._snapshot()
@@ -527,12 +529,12 @@ class MultiDeviceServer:
             with self._reload_lock:
                 if not self._same(snap, self._snapshot()):
                     continue
-                v = self._version + 1 if version is None else int(version)
+                v = self._version + 1 if version is None else version
                 for r, prepared in zip(alive, staged):
-                    r.install_prepared(prepared, int(ckpt_step), version=v, raw_params=raw)
+                    r.install_prepared(prepared, ckpt_step, version=v, raw_params=raw)
                 self._params_host = raw
                 self._version = v
-                self._ckpt_step = int(ckpt_step)
+                self._ckpt_step = ckpt_step
                 self.reloads += 1
             return
 

@@ -140,18 +140,18 @@ def arrival_trace(spec: ScenarioSpec) -> List[Arrival]:
     t = 0.0
     while True:
         # host numpy RNG throughout: no device values in the trace
-        t += float(rng.exponential(1.0 / peak))
+        t += float(rng.exponential(1.0 / peak))  # r2d2: disable=blocking-host-sync-in-serve-step  (a host numpy draw)
         if t >= spec.duration_s:
             break
         if rng.random() >= spec.rate_at(t) / peak:
             continue  # thinned: instantaneous rate is below peak here
-        slot = int(rng.integers(0, spec.sessions))
+        slot = int(rng.integers(0, spec.sessions))  # r2d2: disable=blocking-host-sync-in-serve-step  (a host numpy draw)
         if slot_left[slot] <= 0:
             # session over: open a new one in the slot
             slot_gen[slot] += 1
             slot_sid[slot] = f"s{spec.seed}-{slot}-{slot_gen[slot]}"
             slot_left[slot] = _draw_session_length(rng, spec)
-            slot_slow[slot] = bool(rng.random() < spec.slow_frac)
+            slot_slow[slot] = bool(rng.random() < spec.slow_frac)  # r2d2: disable=blocking-host-sync-in-serve-step  (a host numpy draw)
             slot_started[slot] = False
         reset = not slot_started[slot]
         slot_started[slot] = True
@@ -382,6 +382,7 @@ class ScenarioRunner:
             slo_s = self.slo_ms / 1e3
             buckets: Dict[int, List] = {}
             for t_rel, lat, err in records:
+                # r2d2: disable=blocking-host-sync-in-serve-step  (t_rel is a host float)
                 b = buckets.setdefault(int(t_rel), [0, 0, []])
                 b[0] += 1
                 if err is not None or lat is None or lat > slo_s:

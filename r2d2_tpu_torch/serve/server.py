@@ -128,8 +128,9 @@ class ServeResult:
 @dataclasses.dataclass
 class _PipelineRecord:
     """One dispatched batch between DISPATCH and COMPLETE: its provenance,
-    q and the actions (device tensors), and their pinned host copies and
-    the event after those copies (on the card; None on the CPU). `staged`
+    q and the actions (device tensors), their host copies in the staging
+    set's buffers (pinned on the card), and the event after those copies
+    (on the card; None on the CPU). `staged`
     is its staging set (handed out again only after this record
     completes); `tap` the tap it was dispatched under and `tap_rows` the
     batch's new carries gathered for it (host tensors once `event` has
@@ -143,8 +144,8 @@ class _PipelineRecord:
     arm: str
     q: torch.Tensor
     action: torch.Tensor
-    q_host: Optional[torch.Tensor]
-    action_host: Optional[torch.Tensor]
+    q_host: torch.Tensor
+    action_host: torch.Tensor
     event: Optional[object]
     staged: StagedBatch
     tap: Optional[object] = None
@@ -188,6 +189,17 @@ def _pad_obs(obs: np.ndarray, target: Tuple[int, ...]) -> np.ndarray:
         raise ValueError(f"request obs shape {obs.shape} does not fit the serve "
                          f"obs_shape {target}")
     return np.pad(obs, [(0, t - s) for s, t in zip(obs.shape, target)])
+
+
+def _host_buffer(staged: StagedBatch, name: str, shape, dtype, pin: bool) -> torch.Tensor:
+    """The staging set's host buffer `name` (pinned on the card), made at
+    its first use at this shape and dtype. It belongs to the set: a set's
+    buffers are never handed to another set, and go with it."""
+    buf = staged.host.get(name)
+    if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+        buf = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        staged.host[name] = buf
+    return buf
 
 
 @torch.no_grad()
@@ -316,9 +328,6 @@ class PolicyServer:
                                     queue_depth=serve_cfg.queue_depth)
         self._rng = np.random.default_rng(serve_cfg.seed)
         self._staging = BucketStaging(serve_cfg.buckets, num_tasks=cfg.num_tasks)
-        # pinned read-back buffers (q, actions) of each staging set, keyed by
-        # the set's obs buffer: handed out again only with their set
-        self._readback: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         # the pipeline's depth bound: taken before a batch stages, given back
         # when it completes
         self._depth_sem = threading.Semaphore(2)
@@ -337,8 +346,6 @@ class PolicyServer:
         # each session its sticky exploration epsilon
         self.tap = None
         self.eps_assigner = None
-        # pinned host buffers of the tap's carry rows, per staging set
-        self._tap_readback: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.reloads = 0
         self.reload_errors = 0
         self._watch_backoff = Backoff(base=serve_cfg.poll_interval_s, factor=2.0,
@@ -394,8 +401,8 @@ class PolicyServer:
                    else v.to(self.device)) for k, v in host.items()}
         return out, leaves, arm
 
+    # r2d2: guarded-by(_state_lock)  (install_prepared's body; every caller holds the lock)
     def _install(self, prepared, ckpt_step: int, version: Optional[int], raw_params) -> None:
-        # install_prepared's body; the caller holds _state_lock
         params, leaves, arm = prepared
         self.quantized_leaves = leaves
         if raw_params is not None:
@@ -498,6 +505,9 @@ class PolicyServer:
         write the new rows back into the cache in place. Pad rows all use
         the scratch row (their writes collide there harmlessly; the real
         rows are unique)."""
+        # a record of the shapes served, read by checks; warmup and the serve
+        # loop may both add to it, and set.add is atomic under the GIL
+        # r2d2: disable=cross-thread-unguarded-write  (an atomic set.add; stats only)
         self._step_shapes.add(("int8" if self._int8(arm) else arm, bucket))
         params = self._compute_params(params, arm)
         h_store, c_store, la_store, _ = self.cache.arrays()
@@ -612,28 +622,23 @@ class PolicyServer:
             # stream orders this gather between the two)
             h_store, c_store, _, _ = self.cache.arrays()
             tap_rows = tap.gather_rows(h_store, c_store, slots_dev[:n])
-        q_host = action_host = event = None
-        if self.device.type == "cuda":
-            # the read-back into this staging set's pinned buffers, and an
-            # event after it: _complete waits on the event, nothing else
-            bufs = self._readback.get(id(staged.obs))
-            if bufs is None or bufs[0].shape != q.shape:
-                bufs = (torch.empty(q.shape, dtype=q.dtype, pin_memory=True),
-                        torch.empty(action.shape, dtype=action.dtype, pin_memory=True))
-                self._readback[id(staged.obs)] = bufs
-            q_host, action_host = bufs
-            q_host.copy_(q, non_blocking=True)
-            action_host.copy_(action, non_blocking=True)
-            if tap_rows is not None:
-                tbufs = self._tap_readback.get(id(staged.obs))
-                if tbufs is None:
-                    shape = (bucket, tap_rows[0].shape[1])
-                    tbufs = (torch.empty(shape, dtype=torch.float32, pin_memory=True),
-                             torch.empty(shape, dtype=torch.float32, pin_memory=True))
-                    self._tap_readback[id(staged.obs)] = tbufs
-                tbufs[0][:n].copy_(tap_rows[0], non_blocking=True)
-                tbufs[1][:n].copy_(tap_rows[1], non_blocking=True)
-                tap_rows = (tbufs[0][:n], tbufs[1][:n])
+        # the read-back into this staging set's own host buffers (pinned on
+        # the card, with an event after it: _complete waits on the event,
+        # nothing else); the set is staged again only after this record
+        # completes
+        pin = self.device.type == "cuda"
+        q_host = _host_buffer(staged, "q", q.shape, q.dtype, pin)
+        action_host = _host_buffer(staged, "action", action.shape, action.dtype, pin)
+        q_host.copy_(q, non_blocking=pin)
+        action_host.copy_(action, non_blocking=pin)
+        if tap_rows is not None:
+            shape = (bucket, tap_rows[0].shape[1])
+            tap_rows = tuple(
+                _host_buffer(staged, name, shape, torch.float32, pin)[:n].copy_(
+                    rows, non_blocking=pin)
+                for name, rows in (("tap_h", tap_rows[0]), ("tap_c", tap_rows[1])))
+        event = None
+        if pin:
             event = torch.cuda.Event()
             event.record()
         return _PipelineRecord(batch=batch, n=n, bucket=bucket, ckpt_step=ckpt_step,
@@ -649,9 +654,8 @@ class PolicyServer:
         order either way."""
         if rec.event is not None:
             rec.event.synchronize()
-            q_np, act_np = rec.q_host.numpy().copy(), rec.action_host.numpy().copy()
-        else:
-            q_np, act_np = rec.q.numpy(), rec.action.numpy()
+        # copies: the staging set's buffers are written again two batches on
+        q_np, act_np = rec.q_host.numpy().copy(), rec.action_host.numpy().copy()
         t_done = time.monotonic()
         for i, r in enumerate(rec.batch):
             # _serve_recover may have failed these futures already

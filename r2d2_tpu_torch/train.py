@@ -130,7 +130,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from r2d2_tpu_torch.actor import HostEnvPool, ParamStore, VectorizedActor
+from r2d2_tpu_torch.actor import (
+    HostEnvPool,
+    ParamStore,
+    ThreadedHostEnvPool,
+    VectorizedActor,
+)
 from r2d2_tpu_torch.collect import DeviceCollector
 from r2d2_tpu_torch.config import (
     PRESETS,
@@ -227,7 +232,9 @@ def _build_family_env(cfg: R2D2Config, name: str):
 def build_vec_env(cfg: R2D2Config, seed: int = 0, device="cpu"):
     """One vectorized env spanning cfg.num_actors slots: catch on host
     numpy, the tensor cores of procmaze and the multi-task family through
-    FnVecEnv on `device`, any other name as a pool of host envs."""
+    FnVecEnv on `device`, any other name as a pool of host envs
+    (ThreadedHostEnvPool when cfg.env_pool_workers > 0, else the serial
+    HostEnvPool)."""
     name = cfg.env_name.lower()
     if is_catch_name(name):
         return CatchVecEnv(
@@ -237,7 +244,10 @@ def build_vec_env(cfg: R2D2Config, seed: int = 0, device="cpu"):
     family_env = _build_family_env(cfg, name)
     if family_env is not None:
         return FnVecEnv(family_env, num_envs=cfg.num_actors, seed=seed, device=device)
-    return HostEnvPool([make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)])
+    envs = [make_env(cfg, seed=seed + i) for i in range(cfg.num_actors)]
+    if cfg.env_pool_workers > 0:
+        return ThreadedHostEnvPool(envs, workers=cfg.env_pool_workers)
+    return HostEnvPool(envs)
 
 
 def build_fn_env(cfg: R2D2Config):
@@ -326,7 +336,9 @@ class _TieredPlane:
         self.replay = TieredReplayBuffer(tr.cfg)
         self.K = self.steps_per_update = tr.cfg.updates_per_dispatch
         self.multi_fn = make_stacked_batch_train_step(tr.cfg, self.K, tr.mesh)
+        # r2d2: ephemeral(pinned staging buffers, built lazily by `ring`; capture_pending stops the pipeline and drops every chunk in them, so no replayed state lives here)
         self._ring: Optional[StagingRing] = None
+        # r2d2: ephemeral(lazily rebuilt by _ensure_pipeline on the next sample; capture_pending stops it with an RNG rewind so the resumed pipeline re-draws identically)
         self._pipe: Optional[TieredPrefetchPipeline] = None
         self._pending = None  # the deferred (priorities, chunk) pair
 

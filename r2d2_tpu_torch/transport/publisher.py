@@ -131,7 +131,8 @@ class BlockStreamPublisher:
         if cfg.transport_spool_dir:
             self._spool_path = os.path.join(cfg.transport_spool_dir, host_id)
             os.makedirs(self._spool_path, exist_ok=True)
-            self._load_spool()
+            entries, self._next_seq = self._load_spool()
+            self._spool.extend(entries)
 
     # ------------------------------------------------------------ spool disk
 
@@ -157,9 +158,9 @@ class BlockStreamPublisher:
             return raw
         return None
 
-    def _load_spool(self) -> None:
-        """Crash resume: reload the unacked tail and number past everything
-        ever spooled here. Entries failing the v1 checks are dropped,
+    def _load_spool(self) -> Tuple[List[Tuple[int, bytes]], int]:
+        """Crash resume: the unacked tail, in sequence order, and the next
+        number to issue, past everything ever spooled here. Entries failing the v1 checks are dropped,
         unlinked and counted: a dropped block is a gap the ingest side
         tolerates, a misdecoded one would corrupt replay."""
         entries = []
@@ -183,14 +184,12 @@ class BlockStreamPublisher:
                     pass
                 continue
             entries.append((seq, payload))
-        self._spool.extend(sorted(entries))
         try:
             with open(os.path.join(self._spool_path, SPOOL_HWM)) as f:
                 max_seq = max(max_seq, int(f.read()))
         except (OSError, ValueError):
             pass  # no ack pruned here yet (or an older spool)
-        if max_seq:
-            self._next_seq = max_seq + 1
+        return sorted(entries), max_seq + 1
 
     def _spool_file(self, seq: int) -> str:
         return os.path.join(self._spool_path, f"{seq:012d}.blk")

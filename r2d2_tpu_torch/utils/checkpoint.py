@@ -76,7 +76,8 @@ def list_checkpoint_steps(ckpt_dir: str) -> List[int]:
     if not os.path.isdir(ckpt_dir):
         return []
     steps = []
-    for name in os.listdir(ckpt_dir):
+    # sorted: the filesystem's order varies per host
+    for name in sorted(os.listdir(ckpt_dir)):
         if not name.startswith("step_"):
             continue
         try:

@@ -206,6 +206,52 @@ def test_drain_holds_until_idle_and_logs_the_victim():
         {"replica": 0, "idle_age_s": 9.0, "inflight": 0, "affinities": 1}]
 
 
+def test_concurrent_drains_each_log_their_own_victim():
+    """Drains on several threads at once (the autoscaler's worker and a
+    direct evaluate_once, say): each drain's log entry names the replica
+    that drain killed. The choice used to wait in a shared attribute
+    between the pick and the log, so a pick on another thread in between
+    logged that thread's victim. A stress run with a short switch
+    interval: every thread drains its own replica, and the log's counts
+    must be the kills' counts."""
+    import collections
+    import sys
+    import threading
+
+    class PerThread(_ElasticStub):
+        def stats(self) -> dict:
+            ages = [0.01] * self.n
+            ages[int(threading.current_thread().name.rsplit("-", 1)[1])] = 9.0
+            return {"replica_active": [True] * self.n, "replica_inflight": [0] * self.n,
+                    "replica_last_request_age_s": ages, "router_counts": [1] * self.n}
+
+        def kill_replica(self, idx: int) -> dict:
+            self.events.append(("down", idx))  # the fleet keeps its size
+            return {"migrated": 0, "lost": 0, "restarted": 0}
+
+    stub, auto = _autoscaler(PerThread(n=4), dwell_down=1)
+    rounds = 300
+
+    def drain():
+        for _ in range(rounds):
+            assert auto._scale_down() == "down"
+
+    threads = [threading.Thread(target=drain, name=f"drain-{i}") for i in range(4)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    logged = collections.Counter(e["replica"] for e in auto.stats()["autoscale_drain_log"])
+    killed = collections.Counter(idx for _, idx in stub.events)
+    assert logged == killed == {i: rounds for i in range(4)}
+
+
 def test_pressure_margin_and_stale_window():
     stub, auto = _autoscaler(pressure_margin=0.5)
     for _ in range(8):

@@ -1045,6 +1045,59 @@ def test_serve_pinned_read_back_under_the_depth2_pipeline(cuda, precision):
     assert len({ptr for *_, ptr in recs}) <= 2 * len(pipe.batcher.buckets)
 
 
+def test_serve_read_back_buffers_go_with_their_staging_set(cuda):
+    """The q, action and tap-row read-back buffers are pinned and belong to
+    their staging set: a server with the live-loop tap answers as one
+    without it while every set is reallocated mid-stream, the replaced
+    sets' buffers are freed, and each live set's are sized by its bucket
+    (tests/test_torch_serve_readback.py holds the same on the CPU)."""
+    import gc
+    import weakref
+
+    from r2d2_tpu_torch.liveloop import TransitionTap
+    from r2d2_tpu_torch.serve import PolicyServer, ServeConfig
+
+    cfg = tiny_test()
+
+    def make(tap):
+        srv = PolicyServer(cfg, ServeConfig(buckets=(2, 4), max_wait_ms=1.0,
+                                            cache_capacity=16), device="cuda")
+        if tap:
+            srv.tap = TransitionTap(cfg)
+        srv.warmup()
+        return srv
+
+    def serve(srv, sids, obs, reset):
+        futs = [srv.submit(s, o, reward=0.5, reset=reset) for s, o in zip(sids, obs)]
+        srv._serve_iteration()
+        return [f.result(timeout=30.0) for f in futs]
+
+    def buffers(srv):
+        return {k: dict(b["host"]) for k, b in srv._staging._sets.items() if b["host"]}
+
+    tapped, plain = make(True), make(False)
+    rng = np.random.default_rng(0)
+    replaced = []
+    for r, n in enumerate([2, 3, 2, 4, 3, 2]):
+        obs = [rng.integers(0, 255, cfg.obs_shape, dtype=np.uint8) for _ in range(n)]
+        sids = [f"s{i}" for i in range(n)]
+        for a, b in zip(serve(tapped, sids, obs, r == 0), serve(plain, sids, obs, r == 0)):
+            assert (a.action, a.bucket, a.row) == (b.action, b.bucket, b.row)
+            np.testing.assert_array_equal(a.q, b.q)
+        if r == 3:
+            replaced = [weakref.ref(t) for h in buffers(tapped).values() for t in h.values()]
+            tapped._staging.warm(cfg.obs_shape, np.float32)
+    gc.collect()
+    assert replaced and all(ref() is None for ref in replaced)
+    live = buffers(tapped)
+    assert {bucket for bucket, _ in live} == {2, 4}
+    for (bucket, _), host in live.items():
+        assert set(host) == {"q", "action", "tap_h", "tap_c"}
+        assert all(t.is_pinned() and t.shape[0] == bucket for t in host.values())
+    tapped.tap.process_pending()
+    assert tapped.tap.stats()["tap_captured_steps"] > 0
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_serve_commit_in_place_across_back_to_back_batches(cuda, precision):
     """One session's requests in consecutive batches: each batch writes the

@@ -7,6 +7,7 @@ registered site is wired into the port."""
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -191,3 +192,40 @@ def test_known_sites_are_the_wired_ones():
     assert set(faults.KNOWN_SITES) <= set(jfaults.KNOWN_SITES)
     for site in faults.KNOWN_SITES:
         faults.fault_point(site)  # no plane installed: a no-op
+
+
+def test_codec_decode_site_drilled():
+    """codec.decode through the real decode path: the scheduled call raises
+    before the field is read, and the next call decodes it whole."""
+    from r2d2_tpu_torch.replay.codec import decode_field, encode_field
+
+    arr = np.arange(24, dtype=np.uint8).reshape(2, 3, 4)
+    buf = encode_field(arr)
+    faults.install(faults.FaultPlane(schedule={"codec.decode": {1: "error"}}))
+    with pytest.raises(faults.InjectedFault):
+        decode_field(buf)
+    out, end = decode_field(buf)
+    np.testing.assert_array_equal(out, arr)
+    assert end == len(buf)
+
+
+@pytest.mark.parametrize("site", [
+    "serve.reload",
+    "serve.replica_stall",
+    "serve.replica_kill",
+    "serve.slow_client",
+    "autoscale.evaluate",
+    "autoscale.scale_up",
+    "autoscale.scale_down",
+])
+def test_serve_and_control_loop_sites_drilled(site):
+    """Injection drill for the serve and autoscaler sites, as the JAX
+    package's tests/test_faults.py drills them: each fails on its schedule
+    and recovers on the next call. The port's chaos pass
+    (analysis/determinism.py) counts a site as drilled only where a test
+    that drives the port names it."""
+    assert site in faults.KNOWN_SITES
+    faults.install(faults.FaultPlane(schedule={site: {1: "error"}}))
+    with pytest.raises(faults.InjectedFault):
+        faults.fault_point(site)
+    faults.fault_point(site)

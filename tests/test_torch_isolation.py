@@ -6,7 +6,8 @@ int8 quantization, the transport with its pod harness and the
 data-parallel planes (parallel/, the sharded and multihost stores, the
 ranks' helper tests/torch_multihost_child.py) and M13b's modules (the
 reshard, the placement table, the shard-local tp network, the sharded
-runners) on their own included, and no source line of the package, chip_smoke.py, the port's
+runners) and the source analysis (analysis/, its CLI run over the package)
+on their own included, and no source line of the package, chip_smoke.py, the port's
 demos, its tools or the helpers its card suite shares imports them; chip_smoke.py
 fails cleanly where it cannot run."""
 
@@ -48,8 +49,10 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
     # every module: the fault plane, snapshots, tiers, the serving plane,
-    # the transport, the data-parallel planes and M13b's modules included
-    assert int(count) >= 84
+    # the transport, the data-parallel planes, M13b's modules and the
+    # analysis package (7: its __init__, __main__, findings, ast_rules,
+    # concurrency, determinism and cli) included
+    assert int(count) >= 91
     assert bad.strip() == "[]"
 
 
@@ -132,6 +135,28 @@ def test_the_reshard_and_the_tp_fsdp_modules_load_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+ANALYSIS_ONLY = """
+import sys
+import r2d2_tpu_torch.analysis, r2d2_tpu_torch.analysis.__main__
+from r2d2_tpu_torch.analysis import ast_rules, cli, concurrency, determinism, findings
+rc = cli.main(["--concurrency", "--determinism", "--format", "json",
+               "r2d2_tpu_torch/actor.py", "r2d2_tpu_torch/serve"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(rc, bad, "torch" in sys.modules)
+"""
+
+
+def test_the_analysis_package_loads_no_jax():
+    """The analysis package, its CLI run over part of the port included:
+    it loads neither JAX nor the JAX package (nor torch: it reads source)."""
+    out = subprocess.run(
+        [sys.executable, "-c", ANALYSIS_ONLY.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 [] False"
 
 
 def _python_files():

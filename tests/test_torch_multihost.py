@@ -190,7 +190,7 @@ def test_two_ranks_of_the_cli_train_one_model(tmp_path):
     assert steps == [2, 4, 6]
 
 
-def test_threaded_and_fused_modes_are_refused_on_the_multihost_plane(capsys):
+def test_threaded_mode_alone_is_refused_on_the_multihost_plane(capsys):
     """The ranks' collectives stay in lockstep in run_inline and run_fused
     (MultiHostFusedRunner, ported since): a rank polling its batch queue
     would pair its preemption check with another rank's update. The CLI

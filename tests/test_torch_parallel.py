@@ -154,7 +154,7 @@ def test_validation_accepts_what_jax_accepts(kw):
     dict(replay_plane="sharded", dp_size=2, collector="device"),
     dict(replay_plane="multihost", collector="device"),
 ], ids=["sharded-device-tree", "sharded-device-collector", "multihost-device-collector"])
-def test_sharded_superstep_and_fused_runners_are_refused_until_ported(kw):
+def test_sharded_superstep_and_fused_runner_configs_are_accepted_as_jax_accepts_them(kw):
     # ported: the port takes these configs as the JAX package does
     assert tiny_test().replace(**kw).replay_plane == jax_tiny_test().replace(**kw).replay_plane
 
