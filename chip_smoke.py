@@ -336,6 +336,19 @@ its own lines; any failure exits non-zero and prints no result:
           mesh=None does, bit for bit. Then K1-bf16 and K2-bf16 at each
           path's shapes, held against their plain versions and timed,
           their rows in the kernels line.
+30. graph the graph checks (r2d2_tpu_torch/analysis/graph_rules.py) on the
+          card: scan_entry_points(device="cuda") over every entry point at
+          tiny_test's shapes, fp32 and bf16 (the train step, the
+          multi-task, resharded dp=2 and manual dp2 x tp2 x fsdp2 steps,
+          act and act_select, the unroll, the fused_dwh, ckpt and auto
+          arms, the superstep, the serve step with its int8 arm, the fleet
+          of two, the live-loop gather, the store fields, the trace
+          budget); then the train step and the serve step (none and int8)
+          at the atari widths (T=85, B=64, H=512), fp32 and bf16. Every
+          recorded call runs under torch.cuda.set_sync_debug_mode("error").
+          Any finding fails the phase; the dispatches and launches per
+          update of each train step are printed, and must be equal form by
+          form.
 
 The script's wall time is printed last among the phases. The
 next-to-last lines are the kernels as one JSON object (each form with
@@ -1946,13 +1959,13 @@ def device_phase(dev, tmp):
     tree0 = rp.dtree.tree
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    sa, ta_, _ = make_priority_superstep(cfg, 2, k)(sa, rp.stores, tree0, nss, u)
+    sa, ta_, _ = make_priority_superstep(cfg, 2, k)(sa, rp.stores, tree0.clone(), nss, u)
     torch.cuda.synchronize()
     launches = {key: v for key, v in K.launch_counts.items() if v}
     if launches != {"lstm_fwd": 4 * k, "lstm_seq_bwd": 2 * k}:
         fail(f"device: a superstep of N=2, K={k} launched {launches}")
     ss1 = make_priority_superstep(cfg, 1, k)
-    sb, tb_, _ = ss1(sb, rp.stores, tree0, nss, u[0:1])
+    sb, tb_, _ = ss1(sb, rp.stores, tree0.clone(), nss, u[0:1])
     sb, tb_, _ = ss1(sb, rp.stores, tb_, nss, u[1:2])
     d_tree, ok_t, eq_t = _close(ta_, tb_)
     if not ok_t:
@@ -4184,6 +4197,53 @@ def elastic_phase(dev, tmp):
     return out
 
 
+def graph_phase():
+    """30. The graph checks on the card; fails on any finding."""
+    from r2d2_tpu_torch.analysis import graph_rules as g
+    from r2d2_tpu_torch.analysis.findings import render_text
+    from r2d2_tpu_torch.config import PRESETS
+
+    t0 = time.perf_counter()
+    findings = g.scan_entry_points(device="cuda")
+    say("graph", f"scan_entry_points(device='cuda'), tiny_test shapes, fp32 and bf16: "
+        f"{len(findings)} findings in {time.perf_counter() - t0:.1f}s")
+
+    def per_update(label, trace):
+        n = max(trace.updates, 1)
+        d = {k: v / n for k, v in sorted(trace.dispatches.items())}
+        la = {k: v / n for k, v in sorted(trace.launches.items())}
+        say("graph", f"{label}: per update dispatches {d}, launches {la}")
+        if trace.dispatches != trace.launches:
+            fail(f"graph: {label} dispatched {trace.dispatches} but launched {trace.launches}")
+
+    for p in ("fp32", "bf16"):
+        per_update(f"train_step[{p}]", g.train_step_trace(p, "cuda"))
+        for arm in ("fused_dwh", "ckpt"):
+            per_update(f"backward_arm[{arm}][{p}]", g.backward_arm_train_step_trace(p, arm, "cuda"))
+        per_update(f"manual_train_step[dp=2,tp=2,fsdp=2,{p}]",
+                   g.manual_train_step_trace(p, 2, 2, 2, "cuda"))
+        per_update(f"priority_superstep[{p}]", g.priority_superstep_trace(p, "cuda"))
+    t1 = time.perf_counter()
+    for label, extra in (("fp32", ON_CATCH), ("bf16", ON_CATCH_BF16)):
+        cfg = PRESETS["atari"]().replace(**extra)
+        f, trace = g.scan_train_config(cfg, "cuda", f"atari_train_step[{label}]")
+        findings += f
+        per_update(f"atari_train_step[{label}] (T={cfg.seq_len}, B={cfg.batch_size}, "
+                   f"H={cfg.hidden_dim})", trace)
+        if {k: v for k, v in trace.launches.items() if v} != g.update_forms(cfg, "cuda"):
+            fail(f"graph: atari {label} update launched {trace.launches}")
+        for q in ("none", "int8"):
+            f, _ = g.scan_serve_config(cfg.replace(serve_quantization=q), "cuda",
+                                       f"atari_serve_step[{q},{label}]")
+            findings += f
+    say("graph", f"atari widths, fp32 and bf16: the train step and the serve step (none, "
+        f"int8) under set_sync_debug_mode('error') in {time.perf_counter() - t1:.1f}s")
+    if findings:
+        print(render_text(findings), flush=True)
+        fail(f"graph: {len(findings)} findings on the card")
+    say("graph", f"0 findings; phase {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -5320,6 +5380,9 @@ def main():
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "unit": unit(name),
                 "batch": len(burn_e), "hidden": h_e,
             })
+
+    # 30. the graph checks on the card ----------------------------------------
+    graph_phase()
 
     if args.profile:
         profile_updates(tr, args.profile, "fp32 main path")

@@ -2,7 +2,9 @@
 
     python -m r2d2_tpu_torch.analysis [--format text|json|sarif]
                                       [--changed-only] [--concurrency]
-                                      [--determinism] [paths...]
+                                      [--determinism]
+                                      [--graph [--device cpu|cuda]]
+                                      [paths...]
 
 Default paths: the r2d2_tpu_torch package tree. Exit status 1 when any
 unsuppressed finding remains (suppressed ones are counted in text mode but
@@ -14,6 +16,12 @@ nondeterminism-taint / chaos-coverage pass (determinism.py); both are
 interprocedural, so they always scan the full requested tree. `--format
 sarif` emits SARIF 2.1.0 for CI annotation; rule indices are stable
 because the driver's rule table is the sorted set of rule ids present.
+`--graph` also runs the port's train, act, superstep and serve entry points
+at small shapes and holds them to graph_rules.py's contracts (slower:
+imports torch and the model stack), on `--device` (the card by default;
+with no card it refuses unless given `--device cpu`); combined with
+`--changed-only` its results are served from a cache keyed on a hash of
+the entry points' sources and the device.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from r2d2_tpu_torch.analysis.findings import render_json, render_sarif, render_t
 
 # the default tree: the r2d2_tpu_torch package
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# --changed-only --graph result cache, relative to the repo root (see
+# graph_rules.scan_entry_points_cached); untracked, cheap to delete
+_GRAPH_CACHE = ".r2d2_torch_graph_cache.json"
 
 
 def _changed_files(repo_root: str) -> List[str]:
@@ -56,8 +67,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m r2d2_tpu_torch.analysis",
         description="torch-aware static analysis of the port: host-sync/"
-        "float64/fault-site/lock lints and the interprocedural "
-        "concurrency and determinism passes",
+        "float64/fault-site/lock lints, the interprocedural "
+        "concurrency and determinism passes, and the graph checks",
     )
     parser.add_argument(
         "paths", nargs="*",
@@ -85,7 +96,24 @@ def main(argv=None) -> int:
         "unseeded-RNG taint into deterministic sinks, and chaos-site "
         "coverage",
     )
+    parser.add_argument(
+        "--graph", action="store_true",
+        help="also run the train/act/superstep/serve entry points at both "
+        "precisions and hold them to the graph checks (slow: imports torch; "
+        "cached under --changed-only)",
+    )
+    parser.add_argument(
+        "--device", choices=("cpu", "cuda"), default="cuda",
+        help="where --graph runs the entry points (default: the card; no "
+        "fallback to the CPU)",
+    )
     args = parser.parse_args(argv)
+    if args.graph and args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            parser.error("--graph runs on the card and no CUDA device is available; "
+                         "pass --device cpu to run it on the CPU")
 
     pkg_root = PKG_ROOT
     if args.changed_only:
@@ -116,6 +144,15 @@ def main(argv=None) -> int:
         df, ds = determinism.analyze_paths(whole)
         findings = findings + df
         suppressed = suppressed + ds
+    if args.graph:
+        from r2d2_tpu_torch.analysis import graph_rules
+
+        if args.changed_only:
+            cache = os.path.join(os.path.dirname(pkg_root), _GRAPH_CACHE)
+            findings = findings + graph_rules.scan_entry_points_cached(
+                cache, device=args.device)
+        else:
+            findings = findings + graph_rules.scan_entry_points(device=args.device)
 
     if args.format == "json":
         print(render_json(findings))

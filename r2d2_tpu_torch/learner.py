@@ -567,9 +567,9 @@ def make_sharded_train_step(cfg: R2D2Config, is_from_priorities: bool = False,
         home = params[0].device
         if cfg.zero_state_replay:
             batches = [b._replace(hidden=torch.zeros_like(b.hidden)) for b in batches]
-        steps = sum(int(b.learning_steps.sum()) for b in batches)
-        denom = reduce(torch.tensor([steps], dtype=torch.int64), "denominator")
-        denom = torch.clamp(denom[0].float(), min=1.0)
+        # the valid learning steps summed on the device (an exact int64 sum)
+        steps = tree_sum([b.learning_steps.sum().to(home) for b in batches])
+        denom = torch.clamp(reduce(steps.reshape(1), "denominator")[0].float(), min=1.0)
         if is_from_priorities:
             pos = torch.stack([torch.where(b.is_weights > 0, b.is_weights.float(),
                                            torch.tensor(float("inf"), device=b.is_weights.device)

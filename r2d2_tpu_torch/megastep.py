@@ -542,7 +542,9 @@ def make_priority_superstep(cfg: R2D2Config, num_dispatches: int, num_updates: i
     - dispatch d+1 samples the tree dispatch d left, so superstep-N on
       uniforms u equals N superstep-1 calls on u[d:d+1].
 
-    Nothing in it reads back to the host."""
+    The final tree is written back into `tree` (the JAX package donates
+    it), which the call returns: the device tree keeps one storage across
+    supersteps. Nothing in it reads back to the host."""
     multi_core = make_multi_update_core(cfg, num_updates, mesh)
     L = dst.tree_layers(cfg.num_sequences)
     S = cfg.seqs_per_block
@@ -552,6 +554,7 @@ def make_priority_superstep(cfg: R2D2Config, num_dispatches: int, num_updates: i
             raise ValueError(f"uniforms {tuple(uniforms.shape)} for a superstep of "
                              f"{num_dispatches} x {num_updates}")
         metrics = None
+        entry = tree
         nss = num_seq_store.to(tree.device, torch.int64)
         for d in range(num_dispatches):
             leaf = torch.stack([dst.tree_descend(tree, L, u) for u in uniforms[d]])
@@ -562,7 +565,7 @@ def make_priority_superstep(cfg: R2D2Config, num_dispatches: int, num_updates: i
             idxes = b * S + s  # the clamped global slots, as the host drain's
             for k in range(num_updates):
                 tree = dst.tree_update(tree, L, idxes[k], prios[k], cfg.prio_exponent)
-        return state, tree, metrics
+        return state, entry.copy_(tree), metrics
 
     return superstep
 

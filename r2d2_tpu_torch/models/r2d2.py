@@ -45,6 +45,13 @@ from r2d2_tpu_torch.models.lstm import LSTM, Carry
 from r2d2_tpu_torch.ops.act_tail import epsilon_greedy_actions
 
 
+def one_hot(x: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """(..., n) one-hot of integer `x` in `dtype`, as jax.nn.one_hot forms
+    it: a comparison with arange(n). (F.one_hot reads the class range back
+    to the host on the CPU, twice a call.)"""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
+
+
 class R2D2Network(nn.Module):
     def __init__(
         self,
@@ -128,7 +135,7 @@ class R2D2Network(nn.Module):
         over a tp group's slices."""
         x = obs.to(self.dtype) / 255.0
         latent = self.enc(x) if view is None else view.latent(x)
-        onehot = F.one_hot(last_action.long(), self.action_dim).to(self.dtype)
+        onehot = one_hot(last_action, self.action_dim, self.dtype)
         reward = last_reward.to(self.dtype)[:, None]
         return torch.cat([latent, onehot, reward], dim=-1)
 
@@ -152,7 +159,7 @@ class R2D2Network(nn.Module):
         h = h.float()
         mask = self._task_mask(task)
         if task is not None and self.num_tasks > 1:
-            onehot = F.one_hot(task.long(), self.num_tasks).float()
+            onehot = one_hot(task, self.num_tasks, torch.float32)
             if h.dim() == 3:  # (B, L, H): one task per sequence
                 onehot = onehot[:, None, :].expand(*h.shape[:2], self.num_tasks)
             h = torch.cat([h, onehot], dim=-1)

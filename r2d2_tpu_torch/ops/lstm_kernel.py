@@ -47,7 +47,9 @@ seeds the cell carry.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises. There is no fallback from one to
-the other. Each wrapper counts its kernel launches in ``launch_counts``.
+the other. Each wrapper counts its kernel launches in ``launch_counts``,
+and every call of its form, on any device, in ``dispatch_counts`` (the
+graph checks hold the two equal on the card).
 """
 
 from __future__ import annotations
@@ -78,11 +80,17 @@ KERNELS = SOURCES + BF16_FORMS
 # kernel launches since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+# calls of each kernel form since the last reset_launch_counts(), on any
+# device: a wrapper adds one per call, whether it then runs the plain
+# version (CPU) or launches (CUDA); on the card it equals launch_counts
+dispatch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Zero launch_counts and dispatch_counts."""
+    for counts in (launch_counts, dispatch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _split_gates(z: torch.Tensor, H: int):
@@ -633,6 +641,7 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("wh", wh, (H, 4 * H), dt, dev)
     _check("h0", h0, (B, H), dt, dev)
     _check("c0", c0, (B, H), dt, dev)
+    dispatch_counts[_form("lstm_fwd", dt)] += 1
     if dev.type == "cpu":
         return lstm_fwd_plain(proj_t, wh, h0, c0)
     geo = _geometry(B, H, "lstm_fwd", dev, dt)
@@ -674,6 +683,7 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     dt = _compute_dtype(proj_t, "lstm_seq_bwd")
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
     _check("burn", burn, (B,), torch.int32, dev)
+    dispatch_counts[_form("lstm_seq_bwd", dt)] += 1
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
     geo = _geometry(B, H, "lstm_seq_bwd", dev, dt)
@@ -699,6 +709,7 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     f32 = torch.float32
     dt = _compute_dtype(proj_t, "lstm_bwd")
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
+    dispatch_counts[_form("lstm_bwd", dt)] += 1
     if dev.type == "cpu":
         return lstm_bwd_plain(dout, proj_t, hprev, cprev, cs, wh, dcT)
     geo = _geometry(B, H, "lstm_bwd", dev, dt)
@@ -746,6 +757,7 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     dt = _compute_dtype(proj_t, "lstm_seq_bwd_fused")
     _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt)
     _check("burn", burn, (B,), torch.int32, dev)
+    dispatch_counts[_form("lstm_seq_bwd_fused", dt)] += 1
     if dev.type == "cpu":
         return lstm_seq_bwd_fused_plain(dout, proj_t, hprev, cprev, cs, wh, dcT, burn)
     geo = _geometry(B, H, "lstm_seq_bwd_fused", dev, dt)
@@ -784,6 +796,7 @@ def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
     _check("wh", wh, (H, 4 * H), dt, dev)
     _check("dcT", dcT, (B, H), f32, dev)
     _check("burn", burn, (B,), torch.int32, dev)
+    dispatch_counts[_form("lstm_seq_bwd_ckpt", dt)] += 1
     if dev.type == "cpu":
         return lstm_seq_bwd_ckpt_plain(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S)
     geo = _geometry(B, H, "lstm_seq_bwd_ckpt", dev, dt)

@@ -857,7 +857,8 @@ def test_megastep_and_superstep_on_the_card_match_the_cpu(cuda):
         uu = torch.from_numpy(rng.random((2, k, cfg.batch_size)).astype(np.float32)) \
             if d == "cpu" else results["cpu"]["u"]
         st, tree, m2 = make_priority_superstep(cfg, 2, k)(
-            st, stores, replay.dtree.tree.to(d), torch.from_numpy(replay.num_seq_store).to(d),
+            st, stores, replay.dtree.tree.clone().to(d),
+            torch.from_numpy(replay.num_seq_store).to(d),
             uu.to(d))
         results[d] = dict(m=m, p=p, chunk=chunk, stores=stores, tree=tree, m2=m2, u=uu,
                           mega=mega_launches, sup=dict(lstm_kernel.launch_counts))
@@ -1523,3 +1524,25 @@ def test_tp2_fsdp2_update_on_the_card(cuda):
     torch.testing.assert_close(pa.reshape(-1), pb, rtol=1e-4, atol=1e-5)
     for x, y in zip(a.net.parameters(), b.net.parameters()):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+
+
+def test_graph_gate_on_the_card(cuda):
+    """The graph checks over every entry point on cuda:0, each recorded call
+    under set_sync_debug_mode("error"): 0 findings, and on every train step
+    the kernel dispatches equal the launches form by form (no plain version
+    ran on the card): 2 forwards + 1 backward of the arm's form an update."""
+    from r2d2_tpu_torch.analysis import graph_rules as g
+    from r2d2_tpu_torch.analysis.findings import render_text
+
+    findings = g.scan_entry_points(device="cuda")
+    assert findings == [], render_text(findings)
+    for p, sfx in (("fp32", ""), ("bf16", "_bf16")):
+        trace = g.train_step_trace(p, "cuda")
+        assert trace.dispatches == trace.launches == {f"lstm_fwd{sfx}": 4,
+                                                      f"lstm_seq_bwd{sfx}": 2}
+        for arm, form in (("fused_dwh", "lstm_seq_bwd_fused"), ("ckpt", "lstm_seq_bwd_ckpt")):
+            trace = g.backward_arm_train_step_trace(p, arm, "cuda")
+            assert trace.dispatches == trace.launches == {f"lstm_fwd{sfx}": 4,
+                                                          f"{form}{sfx}": 2}
+        trace = g.priority_superstep_trace(p, "cuda")
+        assert trace.dispatches == trace.launches

@@ -6,10 +6,11 @@ int8 quantization, the transport with its pod harness and the
 data-parallel planes (parallel/, the sharded and multihost stores, the
 ranks' helper tests/torch_multihost_child.py) and M13b's modules (the
 reshard, the placement table, the shard-local tp network, the sharded
-runners) and the source analysis (analysis/, its CLI run over the package)
-on their own included, and no source line of the package, chip_smoke.py, the port's
-demos, its tools or the helpers its card suite shares imports them; chip_smoke.py
-fails cleanly where it cannot run."""
+runners) and the source analysis (analysis/, its CLI run over the package;
+the graph checks load torch, the rest not even that) on their own
+included, and no source line of the package, chip_smoke.py, the port's
+demos, its tools or the helpers its card suite shares imports them;
+chip_smoke.py fails cleanly where it cannot run."""
 
 import os
 import re
@@ -50,9 +51,9 @@ def test_importing_every_module_loads_no_jax():
     count, bad = out.stdout.split(" ", 1)
     # every module: the fault plane, snapshots, tiers, the serving plane,
     # the transport, the data-parallel planes, M13b's modules and the
-    # analysis package (7: its __init__, __main__, findings, ast_rules,
-    # concurrency, determinism and cli) included
-    assert int(count) >= 91
+    # analysis package (8: its __init__, __main__, findings, ast_rules,
+    # concurrency, determinism, graph_rules and cli) included
+    assert int(count) >= 92
     assert bad.strip() == "[]"
 
 
@@ -157,6 +158,29 @@ def test_the_analysis_package_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "0 [] False"
+
+
+GRAPH_ONLY = """
+import sys
+import r2d2_tpu_torch.analysis.graph_rules as g
+findings = g.scan_act("fp32", device="cpu") + g.scan_liveloop_gather("bf16", device="cpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(len(findings), bad, "torch" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("case", ["graph_rules", "cli without --graph"])
+def test_graph_rules_load_no_jax_and_the_analysis_without_it_no_torch(case):
+    """graph_rules (run on two entry points) loads torch and no JAX; the
+    analysis package and its CLI without --graph load neither."""
+    code = GRAPH_ONLY if case == "graph_rules" else ANALYSIS_ONLY
+    out = subprocess.run(
+        [sys.executable, "-c", code.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    want = "0 [] True" if case == "graph_rules" else "0 [] False"
+    assert out.stdout.strip().splitlines()[-1] == want
 
 
 def _python_files():

@@ -74,10 +74,11 @@ def test_superstep_of_n_is_n_superstep_ones(warm_trainer):
     nss = torch.from_numpy(rp.num_seq_store)
     tree0 = rp.dtree.tree
     u = superstep_uniforms(superstep_generators(17, 0, 2, "cpu"), K, cfg.batch_size, "cpu")
+    # a superstep writes its final tree into the tree it was given
     sA, treeA, mA = make_priority_superstep(cfg, 2, K)(
-        copy.deepcopy(tr.state), rp.stores, tree0, nss, u)
+        copy.deepcopy(tr.state), rp.stores, tree0.clone(), nss, u)
     one = make_priority_superstep(cfg, 1, K)
-    sB, treeB, _ = one(copy.deepcopy(tr.state), rp.stores, tree0, nss, u[0:1])
+    sB, treeB, _ = one(copy.deepcopy(tr.state), rp.stores, tree0.clone(), nss, u[0:1])
     sB, treeB, mB = one(sB, rp.stores, treeB, nss, u[1:2])
     assert torch.equal(treeA, treeB) and not torch.equal(treeA, tree0)
     _same_state(sA, sB)
@@ -97,7 +98,7 @@ def test_superstep_is_its_hand_rolled_parts(warm_trainer):
     tree0 = rp.dtree.tree
     u = superstep_uniforms(superstep_generators(23, 0, 1, "cpu"), K, cfg.batch_size, "cpu")
     sA, treeA, _ = make_priority_superstep(cfg, 1, K)(
-        copy.deepcopy(tr.state), rp.stores, tree0, torch.from_numpy(nss), u)
+        copy.deepcopy(tr.state), rp.stores, tree0.clone(), torch.from_numpy(nss), u)
     leaf = np.stack([dst.tree_descend(tree0, L, uk).numpy() for uk in u[0]])
     w = np.stack([dst.is_weights(tree0, L, torch.from_numpy(li), cfg.is_exponent).numpy()
                   for li in leaf])
@@ -155,7 +156,7 @@ def test_superstep_matches_jax_with_its_draws(n):
     key = jax.random.PRNGKey(31)
     u = torch.from_numpy(_jax_uniforms(key, n, K, cfg.batch_size))
     pstate, ptree, pm = make_priority_superstep(cfg, n, K)(
-        pstate, dev.stores, dev.dtree.tree, torch.from_numpy(dev.num_seq_store), u)
+        pstate, dev.stores, dev.dtree.tree.clone(), torch.from_numpy(dev.num_seq_store), u)
     jstate, jtree, jm = jax_superstep(jcfg, net, n, K, donate=False)(
         jstate, jbuf.stores, jbuf.dtree.tree, jnp.asarray(jbuf.num_seq_store), key)
     np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]), rtol=1e-4, atol=1e-5)
