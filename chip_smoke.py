@@ -18,7 +18,8 @@ its own lines; any failure exits non-zero and prints no result:
           per row; the checkpointed backward at every divisor stride of T,
           with seams on segment boundaries too. The column split of every
           kernel (units per block, grid, threads, k-tile, wh slice pinned
-          or streamed) is printed per shape; at the atari widths two
+          or streamed, and the cluster K2 and K3 launch with) is printed
+          per shape; at the atari widths two
           launches of each must give the same bits (K3: dz, dh0, dc0; K4:
           dz and dWh; K5: dz and dWh at S=5), K4's dz must equal K2's bit
           for bit at the same inputs (the same walk in the same geometry),
@@ -49,7 +50,10 @@ its own lines; any failure exits non-zero and prints no result:
           the main path sampled; the default arm's backward pair (K2 and
           the hprev^T @ dz matmul) beside K4, as a yardstick; T grid
           barriers alone at the forward's geometry (the column split's
-          floor); the forward and the four backwards also at xl, with
+          floor); the exchange alone in K2's geometry, both forms (T - 1
+          steps of barrier + exchange into the stage ring, no product),
+          through cp.async and through K2's bulk ring, which splits K2's
+          step into barrier, exchange and products; the forward and the four backwards also at xl, with
           cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
@@ -4948,6 +4952,26 @@ def main():
     say("time", f"{T} grid barriers alone at lstm_fwd's geometry {K._geometry(B, H, 'lstm_fwd', dev)}: "
         f"{bar_ms:.3f} ms, {bar_ms / T * 1e3:.2f} us per barrier; lstm_fwd "
         f"{times['lstm_fwd'][0]:.3f} ms, lstm_seq_bwd {times['lstm_seq_bwd'][0]:.3f} ms")
+    # the exchange alone, in K2's geometry (both forms): its T - 1 steps of
+    # one grid barrier and the carry product's exchange into the stage
+    # ring, no product, through cp.async (K4's and K5's) and through the
+    # bulk ring in clusters (K2's and K3's); a step of K2 is then a barrier,
+    # an exchange and the products with the rest
+    for dt, k2_ms in ((torch.float32, times["lstm_seq_bwd"][0]), (torch.bfloat16, None)):
+        geo = K._geometry(B, H, "lstm_seq_bwd", dev, dt)
+        ex = {bulk: median_ms(lambda: K.exchange_alone(T, B, H, dev, dt, bulk))
+              for bulk in (False, True)}
+        per_bar, steps = bar_ms / T, T - 1
+        split = {b: (ex[b] - steps * per_bar) / steps * 1e3 for b in ex}
+        line = (f"exchange alone, {K._form('lstm_seq_bwd', dt)}'s geometry {geo}: {steps} steps "
+                f"of barrier + exchange, no product: cp.async {ex[False]:.3f} ms, bulk ring "
+                f"(cluster {geo.cluster}) {ex[True]:.3f} ms; a step's exchange {split[False]:.2f} "
+                f"us through cp.async, {split[True]:.2f} us through the ring, a barrier "
+                f"{per_bar * 1e3:.2f} us")
+        if k2_ms is not None:
+            line += (f"; of lstm_seq_bwd's {k2_ms / T * 1e3:.2f} us a step the products and the "
+                     f"rest take {(k2_ms / T - per_bar) * 1e3 - split[True]:.2f} us")
+        say("time", line)
 
     # the forward and the four backwards at the xl width, where auto takes
     # the checkpointed arm

@@ -11,8 +11,9 @@
 // gate columns (j, H+j, 2H+j, 3H+j) of wh, for all B batch rows. Each step
 // ends in one grid barrier, after which every block reads the whole step's
 // exchanged rows (h_t in the forward, dz_t in the backward) from global
-// memory through L2 only (cp.async.cg: never the non-coherent read-only
-// path nor L1, since other blocks wrote them in this launch).
+// memory through L2 only (cp.async.cg, or the TMA's bulk copies: never the
+// non-coherent read-only path nor L1, since other blocks wrote them in
+// this launch).
 //
 // Row chunks. The block walks the batch in chunks of Bc rows (Bc a
 // multiple of 4), each staged, multiplied and finished before the next,
@@ -24,9 +25,12 @@
 // read back from its own cs output).
 //
 // The exchanged rows are read in column tiles through a kStages-buffer
-// cp.async pipeline, so several tiles' copies fly while one is multiplied;
-// each block starts at its own tile (blockIdx modulo the tile count), so
-// the SMs do not all ask the same L2 lines at once.
+// pipeline, so several tiles' copies fly while one is multiplied; each
+// block starts at its own tile (blockIdx modulo the tile count), so the
+// SMs do not all ask the same L2 lines at once. K1, K4 and K5 copy them
+// with cp.async (pipelined_tiles); the carry product of K2 and K3 takes
+// them through TMA bulk copies into an mbarrier ring ("The exchange"
+// below).
 //
 // The FMA products (float32) are register-tiled, since shared memory, not
 // the FMA units, bounds a thread that loads two values per four FMAs. A
@@ -53,7 +57,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
 #include <type_traits>
+#if !defined(__CUDACC__)
+#include <atomic>  // the CPU emulation's mbarriers
+#include <chrono>
+#include <thread>
+#endif
 
 namespace colsplit {
 
@@ -170,6 +181,184 @@ __device__ __forceinline__ void grid_barrier(int* bar) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The bulk exchange's primitives (sm_90): mbarriers in shared memory, TMA
+// bulk copies global -> shared that complete their bytes on one (alone or
+// multicast to every block of a cluster), and the cluster's rank and
+// barrier. Off the card (the CPU emulation of the tests, compiled by a
+// host compiler: not nvcc's host pass, where these bodies are empty) an
+// mbarrier is one 64-bit word changed by compare-and-swap, a bulk copy a
+// memcpy that then completes its bytes on the barrier, a wait a spin
+// (then naps) until the word's phase moves, and a cluster one block.
+
+#if !defined(__CUDACC__)
+// The emulated mbarrier word: the phase (bit 63), the arrivals a phase
+// takes (bits 48-62), the arrivals still pending (bits 32-47) and the
+// transaction count (bits 0-31, signed: a copy may complete before its
+// bytes are announced). A phase completes when no arrival is pending and
+// the count is 0; the next one then waits for all its arrivals again.
+// A waiter yields, then sleeps in short naps, until the phase moves.
+inline void mbar_update(uint64_t* bar, int arrivals, int tx) {
+  std::atomic_ref<uint64_t> word(*bar);
+  uint64_t old = word.load(), next;
+  do {
+    const uint64_t count = (old >> 48) & 0x7fff, phase = old & (1ull << 63);
+    const uint64_t pending = (((old >> 32) & 0xffff) - arrivals) & 0xffff;
+    const uint32_t txc = (uint32_t)old + (uint32_t)tx;
+    const bool done = pending == 0 && txc == 0;
+    next = (done ? phase ^ (1ull << 63) : phase) | count << 48 | (done ? count : pending) << 32 |
+           txc;
+  } while (!word.compare_exchange_weak(old, next));
+}
+#endif
+
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ unsigned shared_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+#endif
+
+// an mbarrier whose phases complete after `count` arrivals each (and the
+// bytes those arrivals announce)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_u32(bar)), "r"(count)
+               : "memory");
+#elif !defined(__CUDACC__)
+  std::atomic_ref<uint64_t>(*bar).store((uint64_t)count << 48 | (uint64_t)count << 32);
+#endif
+}
+
+// the barriers' init visible to the cluster's other blocks (and to the
+// copies' completions) before anyone uses them
+__device__ __forceinline__ void fence_mbarrier_init() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+// one arrival on bar that also announces `bytes` of bulk copies to it
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_u32(bar)),
+               "r"(bytes)
+               : "memory");
+#elif !defined(__CUDACC__)
+  mbar_update(bar, 1, (int)bytes);
+#endif
+}
+
+// one arrival on this block's bar
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_u32(bar)) : "memory");
+#elif !defined(__CUDACC__)
+  mbar_update(bar, 1, 0);
+#endif
+}
+
+// one arrival (a release at cluster scope) on the barrier at bar's offset
+// in block `rank` of this block's cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          shared_u32(bar)),
+      "r"(rank)
+      : "memory");
+#elif !defined(__CUDACC__)
+  (void)rank;  // the emulation's clusters are one block
+  mbar_update(bar, 1, 0);
+#endif
+}
+
+// wait until the phase of bar with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+#if defined(__CUDA_ARCH__)
+  const unsigned a = shared_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+#elif !defined(__CUDACC__)
+  std::atomic_ref<uint64_t> word(*bar);
+  for (int spins = 0; (int)(word.load() >> 63) == parity; ++spins) {
+    if (spins < 64)
+      std::this_thread::yield();
+    else
+      std::this_thread::sleep_for(std::chrono::microseconds(20));
+  }
+#endif
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// src to this block's shared dst by TMA, completing on this block's bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(shared_u32(dst)), "l"(src), "r"(bytes), "r"(shared_u32(bar))
+      : "memory");
+#elif !defined(__CUDACC__)
+  std::memcpy(dst, src, bytes);
+  mbar_update(bar, 0, -(int)bytes);
+#endif
+}
+
+// bulk_copy into dst's offset of every block of the cluster in `mask`
+// (bit r: rank r), each completing on the barrier at bar's offset there
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(shared_u32(dst)),
+      "l"(src), "r"(bytes), "r"(shared_u32(bar)), "h"(mask)
+      : "memory");
+#elif !defined(__CUDACC__)
+  (void)mask;  // a cluster of one block
+  bulk_copy(dst, src, bytes, bar);
+#endif
+}
+
+// This thread's earlier accesses, and those it acquired (other SMs' stores
+// seen through the grid barrier), ordered before its later bulk copies,
+// which run in the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+#endif
+}
+
+// this block's rank in its cluster (0 without one)
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r = 0;
+#if defined(__CUDA_ARCH__)
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+#endif
+  return (int)r;
+}
+
+// every thread of every block of the cluster meets here (release /
+// acquire: each block's earlier shared-memory work is seen by the others)
+__device__ __forceinline__ void cluster_sync() {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+#else
+  __syncthreads();
+#endif
 }
 
 // This thread's item: row group rg, column group col (a unit, or a group
@@ -721,7 +910,36 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // layout: the gate columns gate-major in rows of wc_ld_tc(Hb) (pinned:
 // padded with zero rows to a multiple of 16), the rows of wr padded to
 // Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
-template <class E, bool kChunked>
+//
+// The exchange (kBulk; K2 and K3). The carry product's tiles of x_t come
+// in by TMA: x_t is written in a tiled layout (tiled(), exchange_elems():
+// per chunk, tile by tile, each tile's Bc rows of kt + kVec elements, as
+// the stage buffer holds them), so each tile is one bulk copy into the
+// same kStages stage buffers and padded rows the cp.async pipeline fills
+// (K4 and K5 keep that one), and the products read them as before. Each
+// stage s has a "full" mbarrier (one arrival that announces the tile's
+// bytes, then the copies' bytes) and an "empty" one (one arrival per warp
+// of every block of the cluster once it is done with the stage); both sit
+// in a row padding of wr that no copy or product touches (ring_full; 16
+// bytes: two barriers). Where wh is streamed, the block first writes its
+// rows of wh tile by tile in the same way (tile_wh), and each tile's rows
+// come in by a second bulk copy. Warp 0's lane 0 issues: it waits for the
+// stage to be empty, announces the bytes and issues the copies; no other
+// thread copies, and no block barrier runs per tile.
+//
+// A cluster of C blocks (consecutive blockIdx, ranks 0..C-1) shares one
+// stream of tiles: position q of a carry product is tile (x0 + q) mod n
+// (x0 the cluster's first block), issued by rank q mod C with multicast
+// into every block of the cluster, so each block reads 1/C of the
+// exchanged bytes from L2. Rank k uses positions k .. k + n - 1 (n + C -
+// 1 positions in all; the others it waits on and frees unused), which are
+// the tiles blockIdx.x mod n, +1, ... (mod n): its tiles in its own order,
+// so every sum keeps its order and its bits. A stage is refilled only
+// after every warp of every block of the cluster freed it, and position
+// counts run on over steps and chunks (pos), so the barriers' phases do.
+// (On the H100 a cluster of 2 took longer than one block alone;
+// lstm_kernel._CLUSTER picks the size.)
+template <class E, bool kChunked, bool kBulk = false>
 struct Walk {
   static constexpr bool kTC = !kF32<E>;
   const E* wh;
@@ -738,16 +956,19 @@ struct Walk {
   int q;                // the chunk that row, seam and dc describe
   int row[4], seam[4];  // the item's rows, clamped for padding rows
   float dc[4];          // the item's dc carry
+  int cluster, rank;    // kBulk: the cluster's blocks and this one's rank
+  const E* wt;          // kBulk, wh streamed: the block's tiles of wh (tile_wh)
+  int pos;              // kBulk: the ring positions this block has passed
 
   __device__ __forceinline__ Walk(float* smem, const E* wh_, const float* dcT, const int* burn_,
                                   int B_, int H_, int Hb_, int kt_, int pinned_, int Bc_,
-                                  float* carry)
+                                  float* carry, int cluster_ = 1)
       : wh(wh_), burn(burn_), B(B_), H(H_), Hb(Hb_), kt(kt_), pinned(pinned_), Bc(Bc_),
         chunks((B_ + Bc_ - 1) / Bc_), j0(blockIdx.x * Hb_),
         n_units(imin(Hb_, H_ - (int)blockIdx.x * Hb_)), nrg(Bc_ / 4),
         Hbp(kTC ? (Hb_ + 7) & ~7 : (Hb_ + 3) & ~3),
         ld(kt_ + kVec<E>), wr_ld((pinned_ ? 4 * H_ : kt_) + kVec<E>), it(Bc_ / 4, Hb_),
-        ic(Bc_ / 4, ((Hb_ + 3) & ~3) / 4) {
+        ic(Bc_ / 4, ((Hb_ + 3) & ~3) / 4), cluster(cluster_), rank(0), wt(nullptr), pos(0) {
     const int H4 = 4 * H;
     if constexpr (kTC)
       wc_elems = (pinned ? (H + 15) & ~15 : kStages * kt) * wc_ld_tc(Hb);
@@ -772,6 +993,22 @@ struct Walk {
       red = tail;
       for (int i = threadIdx.x; i < slab; i += blockDim.x) dh_s[i] = 0.0f;
       zero_smem(smem, tiles_bytes);
+    }
+    if constexpr (kBulk) {
+      rank = cluster_rank();
+      if (threadIdx.x == 0) {
+        const int warps = (blockDim.x + 31) / 32;
+        for (int s = 0; s < kStages; ++s) {
+          mbar_init(ring_full(s), 1);
+          mbar_init(ring_empty(s), cluster * warps);
+        }
+        fence_mbarrier_init();
+      }
+      // every block's barriers set before any block copies or arrives
+      if (cluster > 1)
+        cluster_sync();
+      else
+        __syncthreads();
     }
     j = j0 + imin(it.col, n_units - 1);
     unit_ok = it.col < n_units;
@@ -870,6 +1107,14 @@ struct Walk {
                           d_o * og * (1.0f - og)};
       const size_t o = (size_t)row[r] * 4 * H + j;
       E x[4];
+      if constexpr (kBulk) {  // x_t the tiled exchange, f_t the f32 dz
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          x_t[tiled(r, j + g * H)] = from_f32<E>(v[g]);
+          f_t[o + g * H] = v[g];
+        }
+        continue;
+      }
 #pragma unroll
       for (int g = 0; g < 4; ++g) x_t[o + g * H] = x[g] = from_f32<E>(v[g]);
       if constexpr (!kF32<E>) {
@@ -890,6 +1135,140 @@ struct Walk {
     }
   }
 
+  // the ring's barriers of stage s, in a row padding of wr that no copy or
+  // product touches: pinned, row s's; streamed, that of the last real row
+  // of wr's buffer s (which the buffer's bulk copy leaves out)
+  __device__ __forceinline__ uint64_t* ring_full(int s) const {
+    const E* row = pinned ? wr + s * wr_ld : wr + (s * Hbp + n_units - 1) * wr_ld;
+    return reinterpret_cast<uint64_t*>(const_cast<E*>(row) + wr_ld - kVec<E>);
+  }
+
+  // kBulk, wh streamed: the block's rows of wh tile by tile (each tile
+  // n_units rows of wr_ld, as wr's buffer holds them) in wt_all, its part
+  // at blockIdx.x (lstm_kernel._exchange_ring sizes it), so that a tile's
+  // rows come in by one bulk copy; written once, before the walk
+  __device__ __forceinline__ void tile_wh(E* wt_all) {
+    if (pinned) return;
+    constexpr int V = kVec<E>;
+    const int H4 = 4 * H, n = n_tiles(), per = kt / V, rows = n_units * per;
+    E* mine = wt_all + (size_t)blockIdx.x * n * Hbp * wr_ld;
+    wt = mine;
+    for (int idx = threadIdx.x; idx < n * rows; idx += blockDim.x) {
+      const int tile = idx / rows, r = idx - tile * rows, u = r / per, v = V * (r - u * per);
+      const int m = tile * kt + v;
+      if (m < H4)
+        *reinterpret_cast<float4*>(mine + ((size_t)tile * Hbp + u) * wr_ld + v) =
+            *reinterpret_cast<const float4*>(wh + (size_t)(j0 + u) * H4 + m);
+    }
+    fence_proxy_async();  // these stores before this block's bulk copies of them
+    __syncthreads();
+  }
+
+  // kBulk: the exchange's tiles of kt columns (n of them over 4H), tile
+  // by tile, each as the staged tile it becomes: Bc rows of ld elements
+  // (the padding unwritten); chunk c's tiles together
+  __device__ __forceinline__ int n_tiles() const { return (4 * H + kt - 1) / kt; }
+  // the element of the item's row r of the current chunk, column m
+  __device__ __forceinline__ size_t tiled(int r, int m) const {
+    const int tile = m / kt;
+    return ((size_t)(q * n_tiles() + tile) * Bc + it.rg + r * nrg) * ld + m - tile * kt;
+  }
+  // kBulk: the elements of one step's exchange (one slot of the ring xch)
+  __device__ __forceinline__ size_t exchange_elems() const {
+    return (size_t)chunks * n_tiles() * Bc * ld;
+  }
+  // chunk c's block of the exchange x_t: its rows (4H apart), or kBulk
+  // its tiles
+  __device__ __forceinline__ const E* chunk_of(const E* x_t, int c) const {
+    return kBulk ? x_t + (size_t)c * n_tiles() * Bc * ld : x_t + (size_t)first(c) * 4 * H;
+  }
+  __device__ __forceinline__ uint64_t* ring_empty(int s) const { return ring_full(s) + 1; }
+
+  // The carry product's exchange: a chunk x (chunk_of; complete, after the
+  // grid barrier) of `rows` real rows in tiles of kt columns into the
+  // staging buffers, with wh's rows of the block's units beside each
+  // tile where wh is streamed; use(tile, buf) on each tile once it has
+  // landed, in the order blockIdx.x mod n, +1, ... (mod n). The buffers
+  // are free for the caller after it.
+  template <class Use>
+  __device__ __forceinline__ void exchange(const E* x, int rows, Use use) {
+    const int H4 = 4 * H, n = (H4 + kt - 1) / kt;
+    if constexpr (kBulk) {
+      bulk_tiles(x, rows, n, use);
+    } else {
+      pipelined_tiles(
+          n, blockIdx.x % n,
+          [&](int tile, int buf) {
+            const int m0 = tile * kt, mn = imin(kt, H4 - m0);
+            stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
+            if (!pinned)
+              stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
+          },
+          use);
+    }
+  }
+
+  // exchange through the bulk ring (kBulk: "The exchange" above)
+  template <class Use>
+  __device__ __forceinline__ void bulk_tiles(const E* x, int rows, int n, Use use) {
+    const int P = n + cluster - 1, x0 = (int)blockIdx.x - rank;
+    const int lane = threadIdx.x & 31;
+    const bool issuer = threadIdx.x < 32;  // warp 0
+    const uint16_t all = (uint16_t)((1u << cluster) - 1);
+    // position q into its stage: warp 0, all lanes together
+    auto produce = [&](int q) {
+      const int g = pos + q, s = g % kStages, tile = (x0 + q) % n;
+      const unsigned tile_bytes = rows * ld * (unsigned)sizeof(E);
+      // wh streamed: the tile's rows of wh but the last row's padding
+      const unsigned wh_bytes = pinned ? 0 : (n_units * wr_ld - kVec<E>) * (unsigned)sizeof(E);
+      if (lane == 0) {
+        if (g >= kStages) mbar_wait(ring_empty(s), (g / kStages - 1) & 1);
+        mbar_arrive_expect_tx(ring_full(s), tile_bytes + wh_bytes);
+        if (!pinned)  // this block's own rows of wh
+          bulk_copy(wr + s * Hbp * wr_ld, wt + (size_t)tile * Hbp * wr_ld, wh_bytes,
+                    ring_full(s));
+        if (q % cluster == rank) {  // the tile's rows, padded, in one copy
+          E* dst = st + s * Bc * ld;
+          const E* src = x + (size_t)tile * Bc * ld;
+          if (cluster > 1)
+            bulk_copy_multicast(dst, src, tile_bytes, ring_full(s), all);
+          else
+            bulk_copy(dst, src, tile_bytes, ring_full(s));
+        }
+      }
+      __syncwarp();
+    };
+    if (issuer) {
+      fence_proxy_async();
+      for (int q = 0; q < imin(kStages - 1, P); ++q) produce(q);
+    }
+    for (int q = 0; q < P; ++q) {
+      // the stage position q - 1 held: every block's warps free it first
+      if (issuer && q + kStages - 1 < P) produce(q + kStages - 1);
+      const int g = pos + q, s = g % kStages, k = q - rank;
+      mbar_wait(ring_full(s), (g / kStages) & 1);
+      if (k >= 0 && k < n) use((x0 + q) % n, s);
+      __syncwarp();
+      if (lane == 0) {
+        if (cluster > 1) {
+          for (int r = 0; r < cluster; ++r) mbar_arrive_cluster(ring_empty(s), r);
+        } else {
+          mbar_arrive(ring_empty(s));
+        }
+      }
+    }
+    pos += P;
+    __syncthreads();  // the buffers are free for the caller
+  }
+
+  // the walk's end: with a cluster, no block leaves while another may
+  // still arrive on its barriers
+  __device__ __forceinline__ void finish() {
+    if constexpr (kBulk) {
+      if (cluster > 1) cluster_sync();
+    }
+  }
+
   // a[r][u] = sum_m x_t[c*Bc + rg + r*nrg, m] * wh[j0 + 4col + u, m] for
   // the owner of carry item (rg, col), over the 4H columns m in tiles;
   // x_t complete (after the grid barrier)
@@ -900,16 +1279,8 @@ struct Walk {
       const int H4 = 4 * H;
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.0f;
-      const int n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
-      const E* x = x_t + (size_t)first(c) * H4;
-      pipelined_tiles(
-          n, blockIdx.x % n,
-          [&](int tile, int buf) {
-            const int m0 = tile * kt, mn = imin(kt, H4 - m0);
-            stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
-            if (!pinned)
-              stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
-          },
+      exchange(
+          chunk_of(x_t, c), imin(Bc, B - first(c)),
           [&](int tile, int buf) {
             if (ic.slice >= ic.ks) return;
             const int m0 = tile * kt, mn = imin(kt, H4 - m0);
@@ -942,19 +1313,12 @@ struct Walk {
   // of 16 wide (4H is a multiple of 32, kt of 16). red: the slices' planes,
   // Bc x (Hbp + 1) floats each.
   __device__ __forceinline__ void carry_product_tc(float (&a)[4][4], const E* x_t, int c) {
-    const int H4 = 4 * H, n = (H4 + kt - 1) / kt, rows = imin(Bc, B - first(c));
+    const int H4 = 4 * H;
     const int mt = Bc / 16, ldr = Hbp + 1;
-    const E* x = x_t + (size_t)first(c) * H4;
     const Warps w(mt * (Hbp / 8));
     float acc[kMaxWarpTiles][1][4] = {};
-    pipelined_tiles(
-        n, blockIdx.x % n,
-        [&](int tile, int buf) {
-          const int m0 = tile * kt, mn = imin(kt, H4 - m0);
-          stage_rows(st + buf * Bc * ld, ld, x, H4, rows, m0, mn);
-          if (!pinned)
-            stage_rows(wr + buf * Hbp * wr_ld, wr_ld, wh + (size_t)j0 * H4, H4, n_units, m0, mn);
-        },
+    exchange(
+        chunk_of(x_t, c), imin(Bc, B - first(c)),
         [&](int tile, int buf) {
           const int m0 = tile * kt, mn = imin(kt, H4 - m0);
           const E* b = pinned ? wr + m0 : wr + buf * Hbp * wr_ld;
@@ -1248,35 +1612,59 @@ struct Walk {
 };
 
 // A cooperative launch: every block resident at once, or no launch. The
-// grid is checked against the card's occupancy for this kernel first.
+// grid is checked against the card's occupancy for this kernel first:
+// blocks per SM, or with a cluster of C > 1 blocks (grid a multiple of C)
+// clusters resident at once, and launched with that cluster dimension.
 template <class... Exp, class... Act>
-cudaError_t launch_cooperative(void (*kernel)(Exp...), int grid, int threads, int smem,
-                               void* stream, Act... args) {
+cudaError_t launch_cooperative_cluster(void (*kernel)(Exp...), int grid, int threads, int smem,
+                                       int cluster, void* stream, Act... args) {
   cudaError_t e;
+  if (cluster < 1 || grid % cluster) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
-  if (e != cudaSuccess) return e;
-  if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = (unsigned)cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (cluster == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
+    if (e != cudaSuccess) return e;
+    if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  } else {
+    int clusters = 0;
+    cfg.attrs = attr + 1;  // the query takes the cluster dimension alone
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (grid / cluster > clusters) return cudaErrorCooperativeLaunchTooLarge;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+  }
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <class... Exp, class... Act>
+cudaError_t launch_cooperative(void (*kernel)(Exp...), int grid, int threads, int smem,
+                               void* stream, Act... args) {
+  return launch_cooperative_cluster(kernel, grid, threads, smem, 1, stream, args...);
 }
 
 }  // namespace colsplit

@@ -16,8 +16,8 @@
 // the Pallas kernel does: the gates are recomputed from the bf16 hprev,
 // and the carry product is bf16(dz) @ wh^T summed in f32. dz_t rounded to
 // bf16 is what the blocks exchange, in a two-step ring (xch) as in
-// lstm_seq_bwd.cu: a block may still read step t's while another writes
-// step t-1's. The product after step 0 reads the ring too, so dh0 is
+// lstm_seq_bwd.cu (float32: dz_t itself, in the same ring). The product
+// after step 0 reads the ring too, so dh0 is
 // bf16(dz_0) @ wh^T, as the Pallas kernel's last carry.
 //
 // What bounds it on this card. Each (row, step) does two H x 4H products,
@@ -34,13 +34,16 @@
 // persistent cooperative grid owns Hb hidden units, their gate columns and
 // rows of wh (pinned in shared memory at H=512, streamed at H=2048) and all
 // B rows; per step it recomputes its gates, writes its columns of dz[t]
-// (in float32 the output and the exchange buffer), meets the grid at one
+// and of the exchange ring, meets the grid at one
 // barrier, and forms dh for its units from the whole dz[t] against wh's
 // rows (no wh^T copy). The carry also runs after step 0, so T barriers:
 // each block then writes dh0 for its units from that product and dc0 from
 // its dc registers. A batch wider than one chunk of rows is walked in
 // chunks inside each step, the carry then kept in the block's slabs of
-// `carry`.
+// `carry`. The carry product takes the exchanged dz_t through the bulk ring
+// (TMA bulk copies, one a tile, into an mbarrier ring), as lstm_seq_bwd.cu
+// does ("The exchange" there and in column_split.cuh), with every sum in
+// the cp.async walk's order.
 
 #include <cuda_runtime.h>
 
@@ -59,24 +62,24 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 const float* __restrict__ cs,     // (T, B, H)
                 const E* __restrict__ wh,         // (H, 4H)
                 const float* __restrict__ dcT,    // (B, H)
-                float* dz,                        // (T, B, 4H); float: read back by other blocks
+                float* dz,                        // (T, B, 4H)
                 float* __restrict__ dh0,          // (B, H)
                 float* __restrict__ dc0,          // (B, H)
-                E* xch,        // bf16: (2, B, 4H) exchange ring; float: unused
+                E* xch,        // the exchange ring (lstm_kernel._exchange_ring)
                 float* carry,  // more than one chunk: (2, grid, chunks*Bc, Hb)
                 int* bar,      // (2,) grid barrier, zeroed
-                int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
+                int T, int B, int H, int Hb, int kt, int pinned, int Bc, int cluster) {
   extern __shared__ float smem[];
   // bf16: both products on the tensor cores (Walk::kTC)
-  Walk<E, kChunked> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<E, kChunked, true> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry,
+                            cluster);
+  w.tile_wh(xch + 2 * w.exchange_elems());  // where wh is streamed
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    E* x_t;  // what the blocks exchange: dz_t itself, or bf16(dz_t)
-    if constexpr (kF32<E>)
-      x_t = dz_t;
-    else
-      x_t = xch + (t & 1) * 4 * BH;
+    // what the blocks exchange: dz_t (bf16: rounded), in the two-step ring
+    // (a block may still read step t's while another writes step t-1's)
+    E* x_t = xch + (t & 1) * w.exchange_elems();
     for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
                                 cprev + t * BH, cs + t * BH, x_t, dz_t);
@@ -91,18 +94,19 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
     }
   }
   w.store_dc(dc0);
+  w.finish();
 }
 
 template <class E>
 int launch(const float* dout, const E* proj, const E* hprev, const float* cprev, const float* cs,
            const E* wh, const float* dcT, float* dz, float* dh0, float* dc0, E* xch,
            float* carry, int* bar, int T, int B, int H, int Hb, int grid, int threads, int kt,
-           int pinned, int smem, int Bc, void* stream) {
+           int pinned, int smem, int Bc, int cluster, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(
-      B > Bc ? lstm_bwd_kernel<E, true> : lstm_bwd_kernel<E, false>, grid, threads, smem, stream,
-      dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb, kt,
-      pinned, Bc);
+  return (int)launch_cooperative_cluster(
+      B > Bc ? lstm_bwd_kernel<E, true> : lstm_bwd_kernel<E, false>, grid, threads, smem, cluster,
+      stream, dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
+      kt, pinned, Bc, cluster);
 }
 
 }  // namespace
@@ -111,9 +115,10 @@ extern "C" int lstm_bwd_launch(const float* dout, const float* proj, const float
                                const float* cprev, const float* cs, const float* wh,
                                const float* dcT, float* dz, float* dh0, float* dc0, float* xch,
                                float* carry, int* bar, int T, int B, int H, int Hb, int grid,
-                               int threads, int kt, int pinned, int smem, int Bc, void* stream) {
+                               int threads, int kt, int pinned, int smem, int Bc, int cluster,
+                               void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, stream);
+                grid, threads, kt, pinned, smem, Bc, cluster, stream);
 }
 
 extern "C" int lstm_bwd_bf16_launch(const float* dout, const bf16* proj, const bf16* hprev,
@@ -121,9 +126,9 @@ extern "C" int lstm_bwd_bf16_launch(const float* dout, const bf16* proj, const b
                                     const float* dcT, float* dz, float* dh0, float* dc0,
                                     bf16* xch, float* carry, int* bar, int T, int B, int H,
                                     int Hb, int grid, int threads, int kt, int pinned, int smem,
-                                    int Bc, void* stream) {
+                                    int Bc, int cluster, void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, stream);
+                grid, threads, kt, pinned, smem, Bc, cluster, stream);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

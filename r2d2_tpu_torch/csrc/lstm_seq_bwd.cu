@@ -17,8 +17,8 @@
 // bf16 (cprev, cs, dout and dcT stay f32) and writes dz in f32, as the
 // Pallas kernel does: the gates are recomputed from the bf16 hprev, and
 // the carry product is bf16(dz) @ wh^T summed in f32. dz_t rounded to
-// bf16 is what the blocks exchange (a two-step ring, xch, since a block
-// may still read step t's while another writes step t-1's). It runs both
+// bf16 is what the blocks exchange (in the two-step ring xch, as the f32
+// dz_t is in float32; see "The exchange" below). It runs both
 // products on the tensor cores (column_split.cuh, mma.sync m16n8k16, bf16
 // operands summed in f32), as the bf16 forms of K1, K3, K4 and K5 do.
 //
@@ -36,13 +36,32 @@
 // hidden units, their four gate columns of wh (for the recompute) and their
 // Hb rows of wh (for the carry), pinned in shared memory where they fit
 // (32 KB each at H=512) or streamed in k-tiles (H=2048), and all B rows;
-// dz[t] is both the output and the exchange buffer (bf16: the ring), read
-// whole by every block after the barrier. The (dh, dc) carry of the
+// each writes its columns of dz[t] and of the exchange ring, which every
+// block reads whole after the barrier. The (dh, dc) carry of the
 // block's units never leaves the SM. No wh^T copy is needed: the carry
 // reads wh's rows. A batch wider than one chunk of rows is walked in
 // chunks inside each step, the carry then kept in the block's slabs of
 // `carry`. The bf16 form takes K4's bf16 split (lstm_kernel.lstm_geometry),
 // so that K4's bf16 dz is this form's f32 dz rounded, bit for bit.
+//
+// The exchange. Each step every block reads the whole exchanged dz_t (B x
+// 4H; 512 KB in float32, 256 KB in bf16 at the atari widths) through L2,
+// four times the bytes of the forward's h_t, so the exchange, not the
+// products or the barrier, held the step. The carry product takes it
+// through the bulk ring (column_split.cuh, "The exchange"): dz_t is
+// written in the ring xch (a two-step ring: a block may still read step
+// t's while another writes step t-1's) tile by tile, each tile laid out
+// as the stage buffer holds it, so one thread issues one TMA bulk copy a
+// tile into the kStages stage buffers, each stage with a full and an empty
+// mbarrier: no thread spends registers or a copy group on it and no block
+// barrier runs per tile. Where wh is streamed, each block lays out its
+// rows of wh the same way once, and a second bulk copy brings a tile's.
+// The grid can also be launched in clusters (lstm_kernel.Geometry.cluster)
+// whose blocks share one stream of tiles by multicast; on the H100 that
+// took longer, so the clusters are single blocks. Each block multiplies
+// its tiles in its own order, so the bits are those of the cp.async walk
+// K4 keeps. lstm_seq_bwd_exchange_launch runs the exchange alone, for
+// timing.
 
 #include <cuda_runtime.h>
 
@@ -62,22 +81,21 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     const E* __restrict__ wh,         // (H, 4H)
                     const float* __restrict__ dcT,    // (B, H)
                     const int* __restrict__ burn,     // (B,)
-                    float* dz,      // (T, B, 4H); float: read back by other blocks
-                    E* xch,         // bf16: (2, B, 4H) exchange ring; float: unused
+                    float* dz,      // (T, B, 4H)
+                    E* xch,         // the exchange ring (lstm_kernel._exchange_ring)
                     float* carry,   // more than one chunk: (2, grid, chunks*Bc, Hb)
                     int* bar,       // (2,) grid barrier, zeroed
-                    int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
+                    int T, int B, int H, int Hb, int kt, int pinned, int Bc, int cluster) {
   extern __shared__ float smem[];
   // bf16: both products on the tensor cores (Walk::kTC)
-  Walk<E, kChunked> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  Walk<E, kChunked, true> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry, cluster);
+  w.tile_wh(xch + 2 * w.exchange_elems());  // where wh is streamed
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
-    E* x_t;  // what the blocks exchange: dz_t itself, or bf16(dz_t)
-    if constexpr (kF32<E>)
-      x_t = dz_t;
-    else
-      x_t = xch + (t & 1) * 4 * BH;
+    // what the blocks exchange: dz_t (bf16: rounded), in the two-step ring
+    // (a block may still read step t's while another writes step t-1's)
+    E* x_t = xch + (t & 1) * w.exchange_elems();
     for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
                                cprev + t * BH, cs + t * BH, x_t, dz_t);
@@ -89,18 +107,64 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
       w.template store_carry<true>(a, t, c);
     }
   }
+  w.finish();
+}
+
+// The exchange alone, for timing: the walk's T - 1 steps of one grid
+// barrier and the carry product's exchange of x (B, 4H) into the stage
+// ring, chunk by chunk, with no product (kBulk: the bulk ring, x an
+// exchange ring of lstm_kernel._exchange_ring's size, its first slot
+// exchanged; else the cp.async pipeline, x (B, 4H) rows), in the seam
+// backward's geometry.
+template <class E, bool kChunked, bool kBulk>
+__global__ void __launch_bounds__(kTensorCoreFormThreads<E>)
+exchange_kernel(E* x, const E* __restrict__ wh, const float* __restrict__ dcT,
+                float* carry, int* bar, int T, int B, int H, int Hb, int kt, int pinned, int Bc,
+                int cluster) {
+  extern __shared__ float smem[];
+  Walk<E, kChunked, kBulk> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry, cluster);
+  if constexpr (kBulk) w.tile_wh(x + 2 * w.exchange_elems());
+  copies_commit();  // the pinned slices of wh, which no gate product waits for here
+  copies_wait<0>();
+  __syncthreads();
+  for (int t = T - 1; t > 0; --t) {
+    grid_barrier(bar);
+    for (int c = 0; c < w.n_chunks(); ++c)
+      w.exchange(w.chunk_of(x, c), imin(Bc, B - w.first(c)), [](int, int) {});
+  }
+  w.finish();
 }
 
 template <class E>
 int launch(const float* dout, const E* proj, const E* hprev, const float* cprev, const float* cs,
            const E* wh, const float* dcT, const int* burn, float* dz, E* xch, float* carry,
            int* bar, int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned,
-           int smem, int Bc, void* stream) {
+           int smem, int Bc, int cluster, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative(
+  return (int)launch_cooperative_cluster(
       B > Bc ? lstm_seq_bwd_kernel<E, true> : lstm_seq_bwd_kernel<E, false>, grid, threads, smem,
-      stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb, kt,
-      pinned, Bc);
+      cluster, stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H,
+      Hb, kt, pinned, Bc, cluster);
+}
+
+template <class E, bool kBulk>
+int launch_exchange(E* x, const E* wh, const float* dcT, float* carry, int* bar, int T,
+                    int B, int H, int Hb, int grid, int threads, int kt, int pinned, int smem,
+                    int Bc, int cluster, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  return (int)launch_cooperative_cluster(
+      B > Bc ? exchange_kernel<E, true, kBulk> : exchange_kernel<E, false, kBulk>, grid, threads,
+      smem, cluster, stream, x, wh, dcT, carry, bar, T, B, H, Hb, kt, pinned, Bc, cluster);
+}
+
+template <class E>
+int launch_exchange(int bulk, E* x, const E* wh, const float* dcT, float* carry, int* bar,
+                    int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned,
+                    int smem, int Bc, int cluster, void* stream) {
+  return bulk ? launch_exchange<E, true>(x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt,
+                                         pinned, smem, Bc, cluster, stream)
+              : launch_exchange<E, false>(x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt,
+                                          pinned, smem, Bc, cluster, stream);
 }
 
 }  // namespace
@@ -109,10 +173,10 @@ extern "C" int lstm_seq_bwd_launch(const float* dout, const float* proj, const f
                                    const float* cprev, const float* cs, const float* wh,
                                    const float* dcT, const int* burn, float* dz, float* xch,
                                    float* carry, int* bar, int T, int B, int H, int Hb, int grid,
-                                   int threads, int kt, int pinned, int smem, int Bc,
+                                   int threads, int kt, int pinned, int smem, int Bc, int cluster,
                                    void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, stream);
+                grid, threads, kt, pinned, smem, Bc, cluster, stream);
 }
 
 extern "C" int lstm_seq_bwd_bf16_launch(const float* dout, const bf16* proj, const bf16* hprev,
@@ -120,9 +184,31 @@ extern "C" int lstm_seq_bwd_bf16_launch(const float* dout, const bf16* proj, con
                                         const float* dcT, const int* burn, float* dz, bf16* xch,
                                         float* carry, int* bar, int T, int B, int H, int Hb,
                                         int grid, int threads, int kt, int pinned, int smem,
-                                        int Bc, void* stream) {
+                                        int Bc, int cluster, void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, stream);
+                grid, threads, kt, pinned, smem, Bc, cluster, stream);
+}
+
+// The exchange alone (exchange_kernel): bulk 1 the bulk ring (x one slot
+// of the ring's layout), 0 the cp.async pipeline (x (B, 4H), or larger);
+// wh (H, 4H), dcT (B, H), the carry
+// workspace where the batch takes more than one chunk, and a zeroed
+// barrier, with the seam backward's geometry and cluster.
+extern "C" int lstm_seq_bwd_exchange_launch(float* x, const float* wh, const float* dcT,
+                                            float* carry, int* bar, int T, int B, int H, int Hb,
+                                            int grid, int threads, int kt, int pinned, int smem,
+                                            int Bc, int cluster, int bulk, void* stream) {
+  return launch_exchange(bulk, x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt, pinned,
+                         smem, Bc, cluster, stream);
+}
+
+extern "C" int lstm_seq_bwd_exchange_bf16_launch(bf16* x, const bf16* wh, const float* dcT,
+                                                 float* carry, int* bar, int T, int B, int H,
+                                                 int Hb, int grid, int threads, int kt,
+                                                 int pinned, int smem, int Bc, int cluster,
+                                                 int bulk, void* stream) {
+  return launch_exchange(bulk, x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt, pinned,
+                         smem, Bc, cluster, stream);
 }
 
 extern "C" const char* lstm_seq_bwd_error_string(int code) {

@@ -10,8 +10,8 @@ warps, the memory model or speed: the kernels themselves are held against
 the plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
 The emulated subset is small on purpose: one `extern __shared__` array,
-cooperative launches through the template `cudaLaunchKernelEx`,
-`__syncthreads`, `__ldg`, `__ldcg`,
+cooperative launches through the template `cudaLaunchKernelEx` (clusters
+of one block), `__syncthreads`, `__syncwarp`, `__ldg`, `__ldcg`,
 `__threadfence`, `__nanosleep`, an integer `atomicAdd`, `float4`, `uint2`,
 `__uint_as_float`, 1-D thread and block indices (`__launch_bounds__` is
 dropped), and of cuda_bf16.h the type `__nv_bfloat16` with its two
@@ -22,10 +22,15 @@ to four blocks; a misplaced exchange or barrier reads another block's
 columns before they are written. Each kernel also runs at a thread
 ceiling cut so far that the batch takes two or more row chunks (the last
 one ragged), and the bf16 forms of all five run against their plain
-versions in bf16 (K4's with dWh windows that do and do not divide T). A kernel whose body leaves the subset (clusters,
-warp intrinsics, wgmma, TMA) is dropped from this test and is held
-against its plain version by tests/test_torch_cuda.py and chip_smoke.py
-only; the header is not meant to grow into a CUDA emulator.
+versions in bf16 (K4's with dWh windows that do and do not divide T).
+The bulk exchange of K2 and K3 (TMA bulk copies into an mbarrier ring)
+runs on the scalar host bodies column_split.cuh gives its primitives: an
+mbarrier a 64-bit word, a bulk copy a memcpy that completes its bytes on
+it, a cluster one block; the ring is also run where it wraps many times
+a step. A kernel whose body leaves the subset (multicast across clusters,
+warp intrinsics, wgmma) is held against its plain version by
+tests/test_torch_cuda.py and chip_smoke.py only; the header is not meant
+to grow into a CUDA emulator.
 
 Tolerance: both sides sum in float32 in other orders; forward 1e-5, dz 1e-4
 absolute, and dz exactly zero below each row's seam. dWh is held to 1e-4 of
@@ -77,8 +82,9 @@ def _emulated(name, out_dir):
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)  # a register budget: no CPU meaning
-    # every kernel is a cooperative launch (column_split.cuh)
-    assert "launch_cooperative(" in src, f"{name}.cu: launches?"
+    # every kernel is a cooperative launch (column_split.cuh; K2's and K3's
+    # in clusters)
+    assert re.search(r"launch_cooperative(_cluster)?\(", src), f"{name}.cu: launches?"
     cpp = os.path.join(out_dir, f"{name}.cpp")
     with open(cpp, "w") as f:
         f.write(src)
@@ -128,7 +134,9 @@ TC_CHUNK_ROWS = 16
 
 
 def _emulated_geometry(name, B, H, max_threads=512):
-    """The emulated geometry of kernel form `name`. A tensor-core form
+    """The emulated geometry of kernel form `name`, in clusters of one
+    block (the emulation's; K2 and K3 take their bulk exchange all the
+    same, with one block issuing its own tiles). A tensor-core form
     (every bf16 form) owns at most 64 units a block (one thread per 4 rows
     and unit, 16 rows, 256 threads), so it takes more blocks where H needs
     them;
@@ -138,10 +146,10 @@ def _emulated_geometry(name, B, H, max_threads=512):
     itemsize = 2 if name.endswith("_bf16") else 4
     if not lstm_kernel.tensor_cores(src, itemsize):
         return lstm_kernel.lstm_geometry(B, H, src, EMULATED_SMS, SMEM_LIMIT, itemsize,
-                                         max_threads)
+                                         max_threads)._replace(cluster=1)
     rows = TC_CHUNK_ROWS if max_threads < 512 else None
     return lstm_kernel.lstm_geometry(B, H, src, max(EMULATED_SMS, -(-H // 64)), SMEM_LIMIT,
-                                     itemsize, 512, rows)
+                                     itemsize, 512, rows)._replace(cluster=1)
 
 
 def _split(kernels, name, tensors, T, B, H, *ints, max_threads=512):
@@ -149,13 +157,19 @@ def _split(kernels, name, tensors, T, B, H, *ints, max_threads=512):
     (its dtype's, within `max_threads`), with the walk's carry workspace
     where the batch takes more than one chunk and a zeroed grid barrier;
     `ints` (K5's S) come between H and the geometry. -> the geometry."""
-    src = lstm_kernel._SOURCE[name]
     g = _emulated_geometry(name, B, H, max_threads)
+    _launch_at(kernels, name, tensors, T, B, H, g, *ints)
+    return g
+
+
+def _launch_at(kernels, name, tensors, T, B, H, g, *ints):
+    """Launch kernel form `name` at geometry g (as _split does)."""
+    src = lstm_kernel._SOURCE[name]
     if src != "lstm_fwd":
         tensors = (*tensors, lstm_kernel._carry_workspace(g, B, "cpu"))
+    cluster = (g.cluster,) if src in lstm_kernel.EXCHANGE else ()
     _call(kernels[name], (*tensors, torch.zeros(2, dtype=torch.int32)), T, B, H, *ints,
-          *lstm_kernel._geometry_ints(g))
-    return g
+          *lstm_kernel._geometry_ints(g), *cluster)
 
 
 # (T, B, H): a ragged batch tile, H not a multiple of the 32-thread warp,
@@ -218,10 +232,8 @@ def _fwd(kernels, proj, wh, h0, c0, mt=512):
 def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
     T, B, H = cs.shape
     dz = torch.empty(T, B, 4 * H)
-    if proj.dtype == torch.float32:
-        name, xch = "lstm_seq_bwd", None
-    else:
-        name, xch = "lstm_seq_bwd_bf16", torch.empty(2, B, 4 * H, dtype=proj.dtype)
+    name = lstm_kernel._form("lstm_seq_bwd", proj.dtype)
+    xch = lstm_kernel._exchange_ring(_emulated_geometry(name, B, H, mt), B, H, proj.dtype, "cpu")
     _split(kernels, name, (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch), T, B, H,
            max_threads=mt)
     return dz
@@ -230,10 +242,8 @@ def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
 def _seamless(kernels, dout, proj, hprev, cprev, cs, wh, dcT, mt=512):
     T, B, H = cs.shape
     dz, dh0, dc0 = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
-    if proj.dtype == torch.float32:
-        name, xch = "lstm_bwd", None
-    else:
-        name, xch = "lstm_bwd_bf16", torch.empty(2, B, 4 * H, dtype=proj.dtype)
+    name = lstm_kernel._form("lstm_bwd", proj.dtype)
+    xch = lstm_kernel._exchange_ring(_emulated_geometry(name, B, H, mt), B, H, proj.dtype, "cpu")
     _split(kernels, name, (dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch), T, B, H,
            max_threads=mt)
     return dz, dh0, dc0
@@ -694,3 +704,82 @@ def _check_dwh_from_recomputed_h(kernels, walk, args, dwh):
     dz32 = lstm_kernel.lstm_seq_bwd_plain(*own, burn)
     own_dwh = hprev.float().reshape(T * B, H).T @ dz32.reshape(T * B, 4 * H)
     _assert_dwh_close(dwh, own_dwh)
+
+
+# ---------------------------------------------------------------------------
+# the bulk exchange of K2 and K3: a stage ring that wraps many times a step
+# ---------------------------------------------------------------------------
+
+
+# column_split.cuh kStages: the stages of the exchange's ring
+STAGES = 4
+# (T, B, H, shared memory, thread ceiling): a shared-memory limit that
+# narrows the k-tile until the carry product's 4H columns take at least 3 *
+# STAGES tiles, so the ring wraps several times a step and its barriers'
+# phases run on over steps and chunks; one chunk (the first two) and two or
+# more
+RING_SHAPES = [(5, 9, 40, 30000, 512), (4, 6, 96, 60000, 512), (4, 13, 64, 30000, 512),
+               (3, 37, 64, 30000, 64)]
+# bf16, (T, B, H, shared memory, rows a chunk): the tensor-core split at
+# (20, 96) in 62,000 bytes (12 tiles of 32 columns), and that split cut
+# into chunks of 16 rows
+RING_SHAPES_BF16 = [(4, 20, 96, 62000, None), (3, 20, 96, 62000, 16)]
+
+
+def _check_ring(kernels, T, B, H, g, dtype, fused):
+    """K2 (seams 0, mid, T-1, mixed) and K3 at geometry g against their
+    plain versions, each twice for the same bits; with `fused`, K4's dz at
+    g equal to K2's (bf16: rounded) bit for bit."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H, dtype)
+    walk = _walk(proj, wh, h0, c0, outs, cs, dout, dcT)
+    f32 = dtype == torch.float32
+    tol = dict(rtol=0, atol=1e-4) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    sfx = "" if f32 else "_bf16"
+    xch = lstm_kernel._exchange_ring(g, B, H, dtype, "cpu")
+
+    def seam(burn):
+        dz = torch.empty(T, B, 4 * H)
+        _launch_at(kernels, "lstm_seq_bwd" + sfx, (*walk, burn, dz, xch), T, B, H, g)
+        return dz
+
+    def seamless():
+        out = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
+        _launch_at(kernels, "lstm_bwd" + sfx, (*walk, *out, xch), T, B, H, g)
+        return out
+
+    for burn_np in _burns(rng, T, B):
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        dz = seam(burn)
+        torch.testing.assert_close(dz, lstm_kernel.lstm_seq_bwd_plain(*walk, burn), **tol)
+        _assert_zero_below_seam(dz, burn_np)
+        assert torch.equal(seam(burn), dz)
+        if fused:
+            f_dz, dwh = torch.empty(T, B, 4 * H, dtype=dtype), torch.empty(H, 4 * H)
+            dz_lo, W = lstm_kernel.fused_dwh_window(T, B, H, dtype, "cpu")
+            _launch_at(kernels, "lstm_seq_bwd_fused" + sfx,
+                       (*walk, burn, f_dz, dwh, dz_lo), T, B, H, g._replace(cluster=1), W)
+            assert torch.equal(f_dz, dz if f32 else dz.to(dtype))
+    got = seamless()
+    for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(seamless(), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,B,H,smem,mt", RING_SHAPES)
+def test_emulated_bulk_exchange_ring_wraps_in_float32(kernels, T, B, H, smem, mt):
+    g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", EMULATED_SMS, smem, 4, mt)
+    assert -(-4 * H // g.k_tile) >= 3 * STAGES, g
+    assert g[:7] == lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd_fused", EMULATED_SMS, smem, 4,
+                                              mt)[:7]
+    _check_ring(kernels, T, B, H, g._replace(cluster=1), torch.float32, fused=True)
+
+
+@pytest.mark.parametrize("T,B,H,smem,rows", RING_SHAPES_BF16)
+def test_emulated_bulk_exchange_ring_wraps_in_bf16(kernels, T, B, H, smem, rows):
+    g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", max(EMULATED_SMS, -(-H // 64)), smem, 2)
+    assert -(-4 * H // g.k_tile) >= 3 * STAGES, g
+    if rows:  # the split cut into row chunks (K4's dWh stage is not sized for it)
+        g = g._replace(rows=rows)
+        assert g.chunks(B) >= 2
+    _check_ring(kernels, T, B, H, g._replace(cluster=1), BF16, fused=rows is None)
