@@ -18,8 +18,7 @@ its own lines; any failure exits non-zero and prints no result:
           per row; the checkpointed backward at every divisor stride of T,
           with seams on segment boundaries too. The column split of every
           kernel (units per block, grid, threads, k-tile, wh slice pinned
-          or streamed, and the cluster K2 and K3 launch with) is printed
-          per shape; at the atari widths two
+          or streamed) is printed per shape; at the atari widths two
           launches of each must give the same bits (K3: dz, dh0, dc0; K4:
           dz and dWh; K5: dz and dWh at S=5), K4's dz must equal K2's bit
           for bit at the same inputs (the same walk in the same geometry),
@@ -53,8 +52,8 @@ its own lines; any failure exits non-zero and prints no result:
           floor); the exchange alone in K2's geometry, both forms (T - 1
           steps of barrier + exchange into the stage ring, no product),
           through cp.async and through K2's bulk ring, which splits K2's
-          step into barrier, exchange and products; the forward and the four backwards also at xl, with
-          cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
+          step into barrier, exchange and products; the forward and the
+          four backwards also at xl, with cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
           and B=256, H=2048 (T=85): against their plain versions, two
@@ -370,14 +369,17 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import concurrent.futures
 import copy
 import dataclasses
 import json
 import math
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -443,7 +445,7 @@ NATIVE_TIMED = 20
 # one (fp32), and the chunk of the chunked LRU form
 LONG_CONTEXT_CUT = dict(buffer_capacity=16_384, learning_starts=6_144)
 LC_UPDATES = 4
-LC_AGREE = 2
+LC_AGREE = 1
 LC_CHUNK = 128
 # phase 19: the preemption drill through the CLI on the bf16 main path (the
 # replay cut as the other atari phases): PREEMPT_UPDATES updates
@@ -816,18 +818,87 @@ def agree(tr, label, rtol=1e-4, atol=1e-5, sampled=None, latents=None, results=N
     encoder outputs: encoder_latents); prints every comparison, then fails
     if one is outside rtol / atol; -> the batch.
     `results`, a dict, receives both sides' (loss, priorities, gradient
-    norm, per-parameter norms) under "cuda" and "cpu"."""
-    import torch
-
+    norm, per-parameter norms) under "cuda" and "cpu".
+    Without `results` or `latents` the CPU half runs on copies of the
+    networks and the batch taken now, on the agree worker once
+    agree_release() or agree_drain() lets it, and agree_drain() prints and
+    holds it."""
     if sampled is None:
         sampled = tr.replay.sample_batch(tr.sample_rng)
     t = time.perf_counter()
+    nets = (tr.state.net, tr.state.target_net)
+    card = one_update(*nets, tr.cfg, sampled, "cuda", latents)
+    if results is None and latents is None:
+        taken = (*(copy.deepcopy(n).cpu() for n in nets), tr.cfg, copy.deepcopy(sampled))
+        _AGREE_PENDING.append((label, rtol, atol, len(sampled.idxes), card,
+                               _agree_submit(*taken)))
+        return sampled
     results = {} if results is None else results
-    results.update({where: one_update(tr.state.net, tr.state.target_net, tr.cfg, sampled,
-                                      where, latents)
-                    for where in ("cuda", "cpu")})
+    results["cuda"] = card
+    results["cpu"] = one_update(*nets, tr.cfg, sampled, "cpu", latents)
+    agree_report(label, rtol, atol, len(sampled.idxes), card, results["cpu"],
+                 time.perf_counter() - t)
+    return sampled
+
+
+# agree's deferred CPU halves: one worker thread (torch's CPU ops release
+# the interpreter lock, so the card's phases go on beside it), which runs
+# them only while the gate is open: between agree_release() and the next
+# agree_drain(), in phases that time no host-bound work and no launch-bound
+# sequence (the plain versions' and the libraries' times); the comparisons
+# owed, in order. A daemon: a failed phase's exit never waits for it.
+_AGREE_WORKER = []
+_AGREE_JOBS = queue.Queue()
+_AGREE_GATE = threading.Event()
+_AGREE_PENDING = []
+
+
+def _agree_loop():
+    while True:
+        job, args = _AGREE_JOBS.get()
+        _AGREE_GATE.wait()
+        try:
+            t = time.perf_counter()
+            job.set_result((one_update(*args, "cpu"), time.perf_counter() - t))
+        except BaseException as e:  # handed to agree_drain, which raises it
+            job.set_exception(e)
+
+
+def _agree_submit(net, target, cfg, sampled):
+    if not _AGREE_WORKER:
+        _AGREE_WORKER.append(threading.Thread(target=_agree_loop, name="agree", daemon=True))
+        _AGREE_WORKER[0].start()
+    job = concurrent.futures.Future()
+    _AGREE_JOBS.put((job, (net, target, cfg, sampled)))
+    return job
+
+
+def agree_release():
+    """Let the agree worker run the CPU halves owed, beside the phases
+    that follow, until the next agree_drain()."""
+    _AGREE_GATE.set()
+
+
+def agree_drain():
+    """Run every deferred CPU half of agree to its end, print its
+    comparisons and fail on the first outside its limits; the gate closes
+    again after. Called before phases 11, 15, 17, 20, 25 and 30 (the
+    wrappers' dispatch counts); agree_release() before 9, 14 and 19."""
+    _AGREE_GATE.set()
+    while _AGREE_PENDING:
+        label, rtol, atol, rows, card, job = _AGREE_PENDING.pop(0)
+        cpu, seconds = job.result()
+        agree_report(label, rtol, atol, rows, card, cpu, seconds)
+    _AGREE_GATE.clear()
+
+
+def agree_report(label, rtol, atol, rows, card, cpu, seconds):
+    """Print the card's and the CPU's (loss, priorities, gradient norm,
+    per-parameter norms) side by side; fail if one is outside rtol / atol."""
+    import torch
+
     bad = []
-    for name, a, b in zip(AGREE_NAMES, results["cuda"], results["cpu"]):
+    for name, a, b in zip(AGREE_NAMES, card, cpu):
         diff = float((a - b).abs().max())
         excess = float(((a - b).abs() - (atol + rtol * b.abs())).max())
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
@@ -835,11 +906,10 @@ def agree(tr, label, rtol=1e-4, atol=1e-5, sampled=None, latents=None, results=N
         say("agree", f"{label} {name}: card {a.flatten()[0].item():.6f} vs cpu "
             f"{b.flatten()[0].item():.6f} (max |diff| {diff:.3e}, largest |cpu| "
             f"{float(b.abs().max()):.3e}, excess over rtol {rtol} atol {atol}: {excess:+.3e})")
-    say("agree", f"{label}: {len(sampled.idxes)} rows, {time.perf_counter() - t:.1f}s")
+    say("agree", f"{label}: {rows} rows, {seconds:.1f}s")
     if bad:
         fail(f"{label}: through the kernels differs from the CPU's plain versions: "
              + ", ".join(bad))
-    return sampled
 
 
 # the trainer's host spans (utils/profiling.py); the profiler also shows
@@ -1352,6 +1422,12 @@ def run_cli(tmp, tag, ckpt, args, faults=None):
     """One trainer CLI run of the preemption drill (bf16 atari preset on
     catch, replay cut). -> (exit code, last JSON line or None, per-update
     losses {step: loss}, per-update (idxes, priorities), stderr tail)."""
+    return finish_cli(start_cli(tmp, tag, ckpt, args, faults))
+
+
+def start_cli(tmp, tag, ckpt, args, faults=None):
+    """run_cli's process, started and not waited for (finish_cli waits):
+    independent runs of the drill share the card at once."""
     metrics = os.path.join(tmp, f"{tag}.jsonl")
     prios = os.path.join(tmp, f"{tag}_prios.npz")
     cmd = [sys.executable, "-c", _RECORDED_CLI, "--preset", "atari", "--env", "catch",
@@ -1365,8 +1441,22 @@ def run_cli(tmp, tag, ckpt, args, faults=None):
     env.pop("R2D2_FAULTS", None)
     if faults:
         env["R2D2_FAULTS"] = faults
-    t = time.perf_counter()
-    out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tag, faults, metrics, prios, time.perf_counter()
+
+
+def finish_cli(started):
+    """Wait for a start_cli process (killed after 900 s) -> run_cli's
+    tuple."""
+    proc, tag, faults, metrics, prios, t = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
     last = None
     for line in reversed(out.stdout.strip().splitlines()):
         if line.startswith("{"):
@@ -1406,7 +1496,8 @@ def load_checkpoint_tensors(ckpt, step):
 
 def preempt_phase(dev, tmp):
     """Phase 19: the preemption protocol on the card. Three CLI runs of the
-    bf16 main path: uninterrupted for PREEMPT_UPDATES updates, cut by
+    bf16 main path (the first two at once): uninterrupted for
+    PREEMPT_UPDATES updates, cut by
     R2D2_FAULTS="trainer.update@PREEMPT_AT=sigterm" (exit 85, the replay
     snapshot with its carry and a finalized checkpoint at the cut), then
     --resume (exit 0). The first resumed update's loss and priorities must
@@ -1427,11 +1518,15 @@ def preempt_phase(dev, tmp):
     n, k = PREEMPT_UPDATES, PREEMPT_AT
     t0 = time.perf_counter()
     a_dir, bc_dir = os.path.join(tmp, "a"), os.path.join(tmp, "bc")
-    rc_a, last_a, loss_a, prio_a, err_a = run_cli(tmp, "uninterrupted", a_dir, [])
+    # the uninterrupted and the cut run are independent processes: both at once
+    runs = [start_cli(tmp, "uninterrupted", a_dir, []),
+            start_cli(tmp, "cut", bc_dir, [], faults=f"trainer.update@{k}=sigterm")]
+    try:
+        rc_a, last_a, loss_a, prio_a, err_a = finish_cli(runs[0])
+    finally:
+        rc_b, last_b, loss_b, prio_b, err_b = finish_cli(runs[1])
     if rc_a != 0 or len(prio_a) != n:
         fail(f"preempt: the uninterrupted run exited {rc_a}: {err_a}")
-    rc_b, last_b, loss_b, prio_b, err_b = run_cli(tmp, "cut", bc_dir, [],
-                                                  faults=f"trainer.update@{k}=sigterm")
     snap = os.path.join(bc_dir, "replay_snapshot.npz")
     if rc_b != 85 or not (last_b or {}).get("preempted"):
         fail(f"preempt: the SIGTERM run exited {rc_b}, not 85: {err_b}")
@@ -4278,7 +4373,8 @@ def main():
     names = _build.sources()
     libraries = _build.build(names)
     say("build", f"nvcc built {', '.join(n + '.cu' for n in names)} in "
-        f"{time.perf_counter() - t:.1f}s")
+        f"{time.perf_counter() - t:.1f}s (each: " + ", ".join(
+            f"{n} {s_:.1f}s" for n, s_ in sorted(_build.build_seconds.items())) + ")")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -4955,7 +5051,7 @@ def main():
     # the exchange alone, in K2's geometry (both forms): its T - 1 steps of
     # one grid barrier and the carry product's exchange into the stage
     # ring, no product, through cp.async (K4's and K5's) and through the
-    # bulk ring in clusters (K2's and K3's); a step of K2 is then a barrier,
+    # bulk ring (K2's and K3's); a step of K2 is then a barrier,
     # an exchange and the products with the rest
     for dt, k2_ms in ((torch.float32, times["lstm_seq_bwd"][0]), (torch.bfloat16, None)):
         geo = K._geometry(B, H, "lstm_seq_bwd", dev, dt)
@@ -4965,7 +5061,7 @@ def main():
         split = {b: (ex[b] - steps * per_bar) / steps * 1e3 for b in ex}
         line = (f"exchange alone, {K._form('lstm_seq_bwd', dt)}'s geometry {geo}: {steps} steps "
                 f"of barrier + exchange, no product: cp.async {ex[False]:.3f} ms, bulk ring "
-                f"(cluster {geo.cluster}) {ex[True]:.3f} ms; a step's exchange {split[False]:.2f} "
+                f"{ex[True]:.3f} ms; a step's exchange {split[False]:.2f} "
                 f"us through cp.async, {split[True]:.2f} us through the ring, a barrier "
                 f"{per_bar * 1e3:.2f} us")
         if k2_ms is not None:
@@ -5033,6 +5129,7 @@ def main():
     say("time", f"SM clock under a queue of lstm_fwd launches, max: {loaded}")
 
     # 9. the batch in row chunks --------------------------------------------
+    agree_release()  # phases 9 and 10 time single launches only
     for i, shape in enumerate(CHUNKED):
         check_chunks(*shape, seed=20 + i)
         check_chunks_bf16(*shape, seed=25 + i)
@@ -5044,6 +5141,7 @@ def main():
         f"{k} {v:.3e}" for k, v in errs.items()))
 
     # 11. the atari preset in its own bf16 -----------------------------------
+    agree_drain()
     b_cfg = PRESETS["atari"]().replace(**ON_CATCH_BF16)
     t = time.perf_counter()
     b_tr, b_launches, b_m, b_ms, b_peak = drive(b_cfg, UPDATES, dev)
@@ -5228,6 +5326,7 @@ def main():
                 })
 
     # 14. the main path end to end: checkpoints, metrics, resume, evaluation
+    agree_release()
     import shutil
     import tempfile
 
@@ -5240,6 +5339,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 15. threaded against inline on both main paths --------------------------
+    agree_drain()
     for label, m_cfg in (("bf16", b_cfg), ("fp32", cfg)):
         modes(label, m_cfg, dev, args.profile)
 
@@ -5258,6 +5358,7 @@ def main():
         del o_tr
 
     # 17. the native replay core against the numpy gathers ------------------
+    agree_drain()
     native_phase(tr)
 
     # 18. the long_context preset at full width -------------------------------
@@ -5268,6 +5369,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 19. preemption: the cut, the snapshot and the bitwise resume -----------
+    agree_release()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         preempt_phase(dev, tmp)
@@ -5275,6 +5377,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 20. the tiered plane at the paper's replay capacity ----------------------
+    agree_drain()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         tiered_phase(dev, tmp)
@@ -5310,6 +5413,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 25. serving: the session cache, the micro-batcher, the PolicyServer ------
+    agree_drain()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serve_phase(dev, tmp)
@@ -5406,6 +5510,7 @@ def main():
             })
 
     # 30. the graph checks on the card ----------------------------------------
+    agree_drain()
     graph_phase()
 
     if args.profile:

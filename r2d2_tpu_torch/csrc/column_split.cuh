@@ -184,14 +184,13 @@ __device__ __forceinline__ void grid_barrier(int* bar) {
 }
 
 // ---------------------------------------------------------------------------
-// The bulk exchange's primitives (sm_90): mbarriers in shared memory, TMA
-// bulk copies global -> shared that complete their bytes on one (alone or
-// multicast to every block of a cluster), and the cluster's rank and
-// barrier. Off the card (the CPU emulation of the tests, compiled by a
-// host compiler: not nvcc's host pass, where these bodies are empty) an
-// mbarrier is one 64-bit word changed by compare-and-swap, a bulk copy a
-// memcpy that then completes its bytes on the barrier, a wait a spin
-// (then naps) until the word's phase moves, and a cluster one block.
+// The bulk exchange's primitives (sm_90): mbarriers in shared memory and
+// TMA bulk copies global -> shared that complete their bytes on one. Off
+// the card (the CPU emulation of the tests, compiled by a host compiler:
+// not nvcc's host pass, where these bodies are empty) an mbarrier is one
+// 64-bit word changed by compare-and-swap, a bulk copy a memcpy that then
+// completes its bytes on the barrier, and a wait a spin (then naps) until
+// the word's phase moves.
 
 #if !defined(__CUDACC__)
 // The emulated mbarrier word: the phase (bit 63), the arrivals a phase
@@ -231,8 +230,8 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 #endif
 }
 
-// the barriers' init visible to the cluster's other blocks (and to the
-// copies' completions) before anyone uses them
+// the barriers' init visible to the copies' completions (the async
+// proxy) before anyone uses them
 __device__ __forceinline__ void fence_mbarrier_init() {
 #if defined(__CUDA_ARCH__)
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -255,22 +254,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 #if defined(__CUDA_ARCH__)
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_u32(bar)) : "memory");
 #elif !defined(__CUDACC__)
-  mbar_update(bar, 1, 0);
-#endif
-}
-
-// one arrival (a release at cluster scope) on the barrier at bar's offset
-// in block `rank` of this block's cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
-      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
-          shared_u32(bar)),
-      "r"(rank)
-      : "memory");
-#elif !defined(__CUDACC__)
-  (void)rank;  // the emulation's clusters are one block
   mbar_update(bar, 1, 0);
 #endif
 }
@@ -314,22 +297,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 #endif
 }
 
-// bulk_copy into dst's offset of every block of the cluster in `mask`
-// (bit r: rank r), each completing on the barrier at bar's offset there
-__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, unsigned bytes,
-                                                    uint64_t* bar, uint16_t mask) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(shared_u32(dst)),
-      "l"(src), "r"(bytes), "r"(shared_u32(bar)), "h"(mask)
-      : "memory");
-#elif !defined(__CUDACC__)
-  (void)mask;  // a cluster of one block
-  bulk_copy(dst, src, bytes, bar);
-#endif
-}
-
 // This thread's earlier accesses, and those it acquired (other SMs' stores
 // seen through the grid barrier), ordered before its later bulk copies,
 // which run in the async proxy
@@ -339,26 +306,34 @@ __device__ __forceinline__ void fence_proxy_async() {
 #endif
 }
 
-// this block's rank in its cluster (0 without one)
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r = 0;
-#if defined(__CUDA_ARCH__)
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-#endif
-  return (int)r;
-}
+// The exchange ring of K2 and K3 (Walk's kBulk, "The exchange" below), in
+// elements of E: two steps' slots of the tiled exchange (per chunk of Bc
+// rows, n tiles of kt columns over 4H, each tile Bc rows of kt + kVec),
+// then, where wh is streamed, each block's tiles of its rows of wh (Hbp
+// rows of kt + kVec a tile). The one account of its layout: the walk
+// places its parts by it, and the wrappers size the ring by it through
+// the sources' <source>_exchange_ring_elems (lstm_kernel._exchange_ring).
+template <class E>
+struct ExchangeRing {
+  int n, ld, Bc, chunks, Hbp, pinned;
+  __host__ __device__ ExchangeRing(int B, int H, int Hb, int kt, int pinned_, int Bc_)
+      : n((4 * H + kt - 1) / kt), ld(kt + kVec<E>), Bc(Bc_), chunks((B + Bc_ - 1) / Bc_),
+        Hbp(kF32<E> ? (Hb + 3) & ~3 : (Hb + 7) & ~7), pinned(pinned_) {}
+  // a chunk's tiles; a step's slot
+  __host__ __device__ size_t chunk() const { return (size_t)n * Bc * ld; }
+  __host__ __device__ size_t step() const { return chunks * chunk(); }
+  // block b's tiles of wh, after the two slots
+  __host__ __device__ size_t wh_at(int b) const { return 2 * step() + (size_t)b * n * Hbp * ld; }
+  // the ring of a grid of `grid` blocks
+  __host__ __device__ size_t elems(int grid) const { return pinned ? 2 * step() : wh_at(grid); }
+};
 
-// every thread of every block of the cluster meets here (release /
-// acquire: each block's earlier shared-memory work is seen by the others)
-__device__ __forceinline__ void cluster_sync() {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-#else
-  __syncthreads();
-#endif
+// ExchangeRing's elems for `itemsize`-byte values (4: float, 2: bf16), on
+// the host: what a source's <source>_exchange_ring_elems returns
+inline long long exchange_ring_elems(int itemsize, int B, int H, int Hb, int grid, int kt,
+                                     int pinned, int Bc) {
+  return (long long)(itemsize == 4 ? ExchangeRing<float>(B, H, Hb, kt, pinned, Bc).elems(grid)
+                                   : ExchangeRing<bf16>(B, H, Hb, kt, pinned, Bc).elems(grid));
 }
 
 // This thread's item: row group rg, column group col (a unit, or a group
@@ -912,33 +887,23 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
 //
 // The exchange (kBulk; K2 and K3). The carry product's tiles of x_t come
-// in by TMA: x_t is written in a tiled layout (tiled(), exchange_elems():
+// in by TMA: x_t is written in a tiled layout (tiled(), ExchangeRing:
 // per chunk, tile by tile, each tile's Bc rows of kt + kVec elements, as
 // the stage buffer holds them), so each tile is one bulk copy into the
 // same kStages stage buffers and padded rows the cp.async pipeline fills
 // (K4 and K5 keep that one), and the products read them as before. Each
 // stage s has a "full" mbarrier (one arrival that announces the tile's
 // bytes, then the copies' bytes) and an "empty" one (one arrival per warp
-// of every block of the cluster once it is done with the stage); both sit
-// in a row padding of wr that no copy or product touches (ring_full; 16
-// bytes: two barriers). Where wh is streamed, the block first writes its
-// rows of wh tile by tile in the same way (tile_wh), and each tile's rows
-// come in by a second bulk copy. Warp 0's lane 0 issues: it waits for the
-// stage to be empty, announces the bytes and issues the copies; no other
-// thread copies, and no block barrier runs per tile.
-//
-// A cluster of C blocks (consecutive blockIdx, ranks 0..C-1) shares one
-// stream of tiles: position q of a carry product is tile (x0 + q) mod n
-// (x0 the cluster's first block), issued by rank q mod C with multicast
-// into every block of the cluster, so each block reads 1/C of the
-// exchanged bytes from L2. Rank k uses positions k .. k + n - 1 (n + C -
-// 1 positions in all; the others it waits on and frees unused), which are
-// the tiles blockIdx.x mod n, +1, ... (mod n): its tiles in its own order,
-// so every sum keeps its order and its bits. A stage is refilled only
-// after every warp of every block of the cluster freed it, and position
-// counts run on over steps and chunks (pos), so the barriers' phases do.
-// (On the H100 a cluster of 2 took longer than one block alone;
-// lstm_kernel._CLUSTER picks the size.)
+// once it is done with the stage); both sit in a row padding of wr that
+// no copy or product touches (ring_full; 16 bytes: two barriers). Where
+// wh is streamed, the block first writes its rows of wh tile by tile in
+// the same way (tile_wh), and each tile's rows come in by a second bulk
+// copy. Warp 0's lane 0 issues: it waits for the stage to be empty,
+// announces the bytes and issues the copies; no other thread copies, and
+// no block barrier runs per tile. The tiles come in the cp.async
+// pipeline's order (blockIdx.x mod n, +1, ... mod n), so every sum keeps
+// its order and its bits; position counts run on over steps and chunks
+// (pos), and so do the barriers' phases. ExchangeRing sizes the ring.
 template <class E, bool kChunked, bool kBulk = false>
 struct Walk {
   static constexpr bool kTC = !kF32<E>;
@@ -956,19 +921,18 @@ struct Walk {
   int q;                // the chunk that row, seam and dc describe
   int row[4], seam[4];  // the item's rows, clamped for padding rows
   float dc[4];          // the item's dc carry
-  int cluster, rank;    // kBulk: the cluster's blocks and this one's rank
   const E* wt;          // kBulk, wh streamed: the block's tiles of wh (tile_wh)
   int pos;              // kBulk: the ring positions this block has passed
 
   __device__ __forceinline__ Walk(float* smem, const E* wh_, const float* dcT, const int* burn_,
                                   int B_, int H_, int Hb_, int kt_, int pinned_, int Bc_,
-                                  float* carry, int cluster_ = 1)
+                                  float* carry)
       : wh(wh_), burn(burn_), B(B_), H(H_), Hb(Hb_), kt(kt_), pinned(pinned_), Bc(Bc_),
         chunks((B_ + Bc_ - 1) / Bc_), j0(blockIdx.x * Hb_),
         n_units(imin(Hb_, H_ - (int)blockIdx.x * Hb_)), nrg(Bc_ / 4),
         Hbp(kTC ? (Hb_ + 7) & ~7 : (Hb_ + 3) & ~3),
         ld(kt_ + kVec<E>), wr_ld((pinned_ ? 4 * H_ : kt_) + kVec<E>), it(Bc_ / 4, Hb_),
-        ic(Bc_ / 4, ((Hb_ + 3) & ~3) / 4), cluster(cluster_), rank(0), wt(nullptr), pos(0) {
+        ic(Bc_ / 4, ((Hb_ + 3) & ~3) / 4), wt(nullptr), pos(0) {
     const int H4 = 4 * H;
     if constexpr (kTC)
       wc_elems = (pinned ? (H + 15) & ~15 : kStages * kt) * wc_ld_tc(Hb);
@@ -995,20 +959,14 @@ struct Walk {
       zero_smem(smem, tiles_bytes);
     }
     if constexpr (kBulk) {
-      rank = cluster_rank();
       if (threadIdx.x == 0) {
-        const int warps = (blockDim.x + 31) / 32;
         for (int s = 0; s < kStages; ++s) {
           mbar_init(ring_full(s), 1);
-          mbar_init(ring_empty(s), cluster * warps);
+          mbar_init(ring_empty(s), (blockDim.x + 31) / 32);
         }
         fence_mbarrier_init();
       }
-      // every block's barriers set before any block copies or arrives
-      if (cluster > 1)
-        cluster_sync();
-      else
-        __syncthreads();
+      __syncthreads();  // the barriers set before any copy or arrival
     }
     j = j0 + imin(it.col, n_units - 1);
     unit_ok = it.col < n_units;
@@ -1143,15 +1101,20 @@ struct Walk {
     return reinterpret_cast<uint64_t*>(const_cast<E*>(row) + wr_ld - kVec<E>);
   }
 
+  // the ring's layout (ExchangeRing)
+  __device__ __forceinline__ ExchangeRing<E> ring() const {
+    return ExchangeRing<E>(B, H, Hb, kt, pinned, Bc);
+  }
+
   // kBulk, wh streamed: the block's rows of wh tile by tile (each tile
-  // n_units rows of wr_ld, as wr's buffer holds them) in wt_all, its part
-  // at blockIdx.x (lstm_kernel._exchange_ring sizes it), so that a tile's
-  // rows come in by one bulk copy; written once, before the walk
-  __device__ __forceinline__ void tile_wh(E* wt_all) {
+  // n_units rows of wr_ld, as wr's buffer holds them) in its part of the
+  // ring xch, so that a tile's rows come in by one bulk copy; written
+  // once, before the walk
+  __device__ __forceinline__ void tile_wh(E* xch) {
     if (pinned) return;
     constexpr int V = kVec<E>;
     const int H4 = 4 * H, n = n_tiles(), per = kt / V, rows = n_units * per;
-    E* mine = wt_all + (size_t)blockIdx.x * n * Hbp * wr_ld;
+    E* mine = xch + ring().wh_at(blockIdx.x);
     wt = mine;
     for (int idx = threadIdx.x; idx < n * rows; idx += blockDim.x) {
       const int tile = idx / rows, r = idx - tile * rows, u = r / per, v = V * (r - u * per);
@@ -1173,14 +1136,14 @@ struct Walk {
     const int tile = m / kt;
     return ((size_t)(q * n_tiles() + tile) * Bc + it.rg + r * nrg) * ld + m - tile * kt;
   }
-  // kBulk: the elements of one step's exchange (one slot of the ring xch)
-  __device__ __forceinline__ size_t exchange_elems() const {
-    return (size_t)chunks * n_tiles() * Bc * ld;
+  // kBulk: the exchange of step t, its slot of the ring xch
+  __device__ __forceinline__ E* exchange_at(E* xch, int t) const {
+    return xch + (t & 1) * ring().step();
   }
   // chunk c's block of the exchange x_t: its rows (4H apart), or kBulk
   // its tiles
   __device__ __forceinline__ const E* chunk_of(const E* x_t, int c) const {
-    return kBulk ? x_t + (size_t)c * n_tiles() * Bc * ld : x_t + (size_t)first(c) * 4 * H;
+    return kBulk ? x_t + c * ring().chunk() : x_t + (size_t)first(c) * 4 * H;
   }
   __device__ __forceinline__ uint64_t* ring_empty(int s) const { return ring_full(s) + 1; }
 
@@ -1211,10 +1174,8 @@ struct Walk {
   // exchange through the bulk ring (kBulk: "The exchange" above)
   template <class Use>
   __device__ __forceinline__ void bulk_tiles(const E* x, int rows, int n, Use use) {
-    const int P = n + cluster - 1, x0 = (int)blockIdx.x - rank;
-    const int lane = threadIdx.x & 31;
+    const int x0 = blockIdx.x, lane = threadIdx.x & 31;
     const bool issuer = threadIdx.x < 32;  // warp 0
-    const uint16_t all = (uint16_t)((1u << cluster) - 1);
     // position q into its stage: warp 0, all lanes together
     auto produce = [&](int q) {
       const int g = pos + q, s = g % kStages, tile = (x0 + q) % n;
@@ -1227,46 +1188,26 @@ struct Walk {
         if (!pinned)  // this block's own rows of wh
           bulk_copy(wr + s * Hbp * wr_ld, wt + (size_t)tile * Hbp * wr_ld, wh_bytes,
                     ring_full(s));
-        if (q % cluster == rank) {  // the tile's rows, padded, in one copy
-          E* dst = st + s * Bc * ld;
-          const E* src = x + (size_t)tile * Bc * ld;
-          if (cluster > 1)
-            bulk_copy_multicast(dst, src, tile_bytes, ring_full(s), all);
-          else
-            bulk_copy(dst, src, tile_bytes, ring_full(s));
-        }
+        // the tile's rows, padded, in one copy
+        bulk_copy(st + s * Bc * ld, x + (size_t)tile * Bc * ld, tile_bytes, ring_full(s));
       }
       __syncwarp();
     };
     if (issuer) {
       fence_proxy_async();
-      for (int q = 0; q < imin(kStages - 1, P); ++q) produce(q);
+      for (int q = 0; q < imin(kStages - 1, n); ++q) produce(q);
     }
-    for (int q = 0; q < P; ++q) {
-      // the stage position q - 1 held: every block's warps free it first
-      if (issuer && q + kStages - 1 < P) produce(q + kStages - 1);
-      const int g = pos + q, s = g % kStages, k = q - rank;
+    for (int q = 0; q < n; ++q) {
+      // the stage position q - 1 held: every warp frees it first
+      if (issuer && q + kStages - 1 < n) produce(q + kStages - 1);
+      const int g = pos + q, s = g % kStages;
       mbar_wait(ring_full(s), (g / kStages) & 1);
-      if (k >= 0 && k < n) use((x0 + q) % n, s);
+      use((x0 + q) % n, s);
       __syncwarp();
-      if (lane == 0) {
-        if (cluster > 1) {
-          for (int r = 0; r < cluster; ++r) mbar_arrive_cluster(ring_empty(s), r);
-        } else {
-          mbar_arrive(ring_empty(s));
-        }
-      }
+      if (lane == 0) mbar_arrive(ring_empty(s));
     }
-    pos += P;
+    pos += n;
     __syncthreads();  // the buffers are free for the caller
-  }
-
-  // the walk's end: with a cluster, no block leaves while another may
-  // still arrive on its barriers
-  __device__ __forceinline__ void finish() {
-    if constexpr (kBulk) {
-      if (cluster > 1) cluster_sync();
-    }
   }
 
   // a[r][u] = sum_m x_t[c*Bc + rg + r*nrg, m] * wh[j0 + 4col + u, m] for
@@ -1612,59 +1553,35 @@ struct Walk {
 };
 
 // A cooperative launch: every block resident at once, or no launch. The
-// grid is checked against the card's occupancy for this kernel first:
-// blocks per SM, or with a cluster of C > 1 blocks (grid a multiple of C)
-// clusters resident at once, and launched with that cluster dimension.
+// grid is checked against the card's occupancy for this kernel first.
 template <class... Exp, class... Act>
-cudaError_t launch_cooperative_cluster(void (*kernel)(Exp...), int grid, int threads, int smem,
-                                       int cluster, void* stream, Act... args) {
+cudaError_t launch_cooperative(void (*kernel)(Exp...), int grid, int threads, int smem,
+                               void* stream, Act... args) {
   cudaError_t e;
-  if (cluster < 1 || grid % cluster) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  cudaLaunchAttribute attr[2];
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
+  if (e != cudaSuccess) return e;
+  if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = (unsigned)cluster;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = (cudaStream_t)stream;
-  if (cluster == 1) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
-    if (e != cudaSuccess) return e;
-    if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  } else {
-    int clusters = 0;
-    cfg.attrs = attr + 1;  // the query takes the cluster dimension alone
-    cfg.numAttrs = 1;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (e != cudaSuccess) return e;
-    if (grid / cluster > clusters) return cudaErrorCooperativeLaunchTooLarge;
-    cfg.attrs = attr;
-    cfg.numAttrs = 2;
-  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
-}
-
-template <class... Exp, class... Act>
-cudaError_t launch_cooperative(void (*kernel)(Exp...), int grid, int threads, int smem,
-                               void* stream, Act... args) {
-  return launch_cooperative_cluster(kernel, grid, threads, smem, 1, stream, args...);
 }
 
 }  // namespace colsplit

@@ -65,21 +65,20 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                 float* dz,                        // (T, B, 4H)
                 float* __restrict__ dh0,          // (B, H)
                 float* __restrict__ dc0,          // (B, H)
-                E* xch,        // the exchange ring (lstm_kernel._exchange_ring)
+                E* xch,        // the exchange ring (ExchangeRing)
                 float* carry,  // more than one chunk: (2, grid, chunks*Bc, Hb)
                 int* bar,      // (2,) grid barrier, zeroed
-                int T, int B, int H, int Hb, int kt, int pinned, int Bc, int cluster) {
+                int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
   // bf16: both products on the tensor cores (Walk::kTC)
-  Walk<E, kChunked, true> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry,
-                            cluster);
-  w.tile_wh(xch + 2 * w.exchange_elems());  // where wh is streamed
+  Walk<E, kChunked, true> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry);
+  w.tile_wh(xch);  // where wh is streamed
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
     // what the blocks exchange: dz_t (bf16: rounded), in the two-step ring
     // (a block may still read step t's while another writes step t-1's)
-    E* x_t = xch + (t & 1) * w.exchange_elems();
+    E* x_t = w.exchange_at(xch, t);
     for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
                                 cprev + t * BH, cs + t * BH, x_t, dz_t);
@@ -94,19 +93,18 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
     }
   }
   w.store_dc(dc0);
-  w.finish();
 }
 
 template <class E>
 int launch(const float* dout, const E* proj, const E* hprev, const float* cprev, const float* cs,
            const E* wh, const float* dcT, float* dz, float* dh0, float* dc0, E* xch,
            float* carry, int* bar, int T, int B, int H, int Hb, int grid, int threads, int kt,
-           int pinned, int smem, int Bc, int cluster, void* stream) {
+           int pinned, int smem, int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative_cluster(
-      B > Bc ? lstm_bwd_kernel<E, true> : lstm_bwd_kernel<E, false>, grid, threads, smem, cluster,
-      stream, dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
-      kt, pinned, Bc, cluster);
+  return (int)launch_cooperative(
+      B > Bc ? lstm_bwd_kernel<E, true> : lstm_bwd_kernel<E, false>, grid, threads, smem, stream,
+      dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb, kt,
+      pinned, Bc);
 }
 
 }  // namespace
@@ -115,10 +113,9 @@ extern "C" int lstm_bwd_launch(const float* dout, const float* proj, const float
                                const float* cprev, const float* cs, const float* wh,
                                const float* dcT, float* dz, float* dh0, float* dc0, float* xch,
                                float* carry, int* bar, int T, int B, int H, int Hb, int grid,
-                               int threads, int kt, int pinned, int smem, int Bc, int cluster,
-                               void* stream) {
+                               int threads, int kt, int pinned, int smem, int Bc, void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, cluster, stream);
+                grid, threads, kt, pinned, smem, Bc, stream);
 }
 
 extern "C" int lstm_bwd_bf16_launch(const float* dout, const bf16* proj, const bf16* hprev,
@@ -126,9 +123,16 @@ extern "C" int lstm_bwd_bf16_launch(const float* dout, const bf16* proj, const b
                                     const float* dcT, float* dz, float* dh0, float* dc0,
                                     bf16* xch, float* carry, int* bar, int T, int B, int H,
                                     int Hb, int grid, int threads, int kt, int pinned, int smem,
-                                    int Bc, int cluster, void* stream) {
+                                    int Bc, void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, cluster, stream);
+                grid, threads, kt, pinned, smem, Bc, stream);
+}
+
+// The exchange ring's elements (xch, of `itemsize`-byte values) at the
+// seamless backward's geometry (column_split.cuh ExchangeRing)
+extern "C" long long lstm_bwd_exchange_ring_elems(int itemsize, int B, int H, int Hb, int grid,
+                                                  int kt, int pinned, int Bc) {
+  return exchange_ring_elems(itemsize, B, H, Hb, grid, kt, pinned, Bc);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

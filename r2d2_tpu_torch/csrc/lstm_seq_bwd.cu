@@ -56,12 +56,10 @@
 // mbarrier: no thread spends registers or a copy group on it and no block
 // barrier runs per tile. Where wh is streamed, each block lays out its
 // rows of wh the same way once, and a second bulk copy brings a tile's.
-// The grid can also be launched in clusters (lstm_kernel.Geometry.cluster)
-// whose blocks share one stream of tiles by multicast; on the H100 that
-// took longer, so the clusters are single blocks. Each block multiplies
-// its tiles in its own order, so the bits are those of the cp.async walk
-// K4 keeps. lstm_seq_bwd_exchange_launch runs the exchange alone, for
-// timing.
+// Each block multiplies its tiles in the cp.async walk's order, so the
+// bits are those of the walk K4 keeps. lstm_seq_bwd_exchange_launch runs
+// the exchange alone, for timing; lstm_seq_bwd_exchange_ring_elems sizes
+// the ring.
 
 #include <cuda_runtime.h>
 
@@ -82,20 +80,20 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
                     const float* __restrict__ dcT,    // (B, H)
                     const int* __restrict__ burn,     // (B,)
                     float* dz,      // (T, B, 4H)
-                    E* xch,         // the exchange ring (lstm_kernel._exchange_ring)
+                    E* xch,         // the exchange ring (ExchangeRing)
                     float* carry,   // more than one chunk: (2, grid, chunks*Bc, Hb)
                     int* bar,       // (2,) grid barrier, zeroed
-                    int T, int B, int H, int Hb, int kt, int pinned, int Bc, int cluster) {
+                    int T, int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
   // bf16: both products on the tensor cores (Walk::kTC)
-  Walk<E, kChunked, true> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry, cluster);
-  w.tile_wh(xch + 2 * w.exchange_elems());  // where wh is streamed
+  Walk<E, kChunked, true> w(smem, wh, dcT, burn, B, H, Hb, kt, pinned, Bc, carry);
+  w.tile_wh(xch);  // where wh is streamed
   const size_t BH = (size_t)B * H;
   for (int t = T - 1; t >= 0; --t) {
     float* dz_t = dz + t * 4 * BH;
     // what the blocks exchange: dz_t (bf16: rounded), in the two-step ring
     // (a block may still read step t's while another writes step t-1's)
-    E* x_t = xch + (t & 1) * w.exchange_elems();
+    E* x_t = w.exchange_at(xch, t);
     for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<true>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
                                cprev + t * BH, cs + t * BH, x_t, dz_t);
@@ -107,64 +105,51 @@ lstm_seq_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
       w.template store_carry<true>(a, t, c);
     }
   }
-  w.finish();
 }
 
 // The exchange alone, for timing: the walk's T - 1 steps of one grid
 // barrier and the carry product's exchange of x (B, 4H) into the stage
-// ring, chunk by chunk, with no product (kBulk: the bulk ring, x an
-// exchange ring of lstm_kernel._exchange_ring's size, its first slot
-// exchanged; else the cp.async pipeline, x (B, 4H) rows), in the seam
-// backward's geometry.
-template <class E, bool kChunked, bool kBulk>
+// ring, with no product (kBulk: the bulk ring, x an exchange ring
+// (ExchangeRing), its first slot exchanged; else the cp.async pipeline,
+// x (B, 4H) rows), in the seam backward's geometry with the batch in one
+// chunk.
+template <class E, bool kBulk>
 __global__ void __launch_bounds__(kTensorCoreFormThreads<E>)
-exchange_kernel(E* x, const E* __restrict__ wh, const float* __restrict__ dcT,
-                float* carry, int* bar, int T, int B, int H, int Hb, int kt, int pinned, int Bc,
-                int cluster) {
+exchange_kernel(E* x, const E* __restrict__ wh, const float* __restrict__ dcT, int* bar, int T,
+                int B, int H, int Hb, int kt, int pinned, int Bc) {
   extern __shared__ float smem[];
-  Walk<E, kChunked, kBulk> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, carry, cluster);
-  if constexpr (kBulk) w.tile_wh(x + 2 * w.exchange_elems());
+  Walk<E, false, kBulk> w(smem, wh, dcT, nullptr, B, H, Hb, kt, pinned, Bc, nullptr);
+  if constexpr (kBulk) w.tile_wh(x);
   copies_commit();  // the pinned slices of wh, which no gate product waits for here
   copies_wait<0>();
   __syncthreads();
   for (int t = T - 1; t > 0; --t) {
     grid_barrier(bar);
-    for (int c = 0; c < w.n_chunks(); ++c)
-      w.exchange(w.chunk_of(x, c), imin(Bc, B - w.first(c)), [](int, int) {});
+    w.exchange(w.chunk_of(x, 0), B, [](int, int) {});
   }
-  w.finish();
 }
 
 template <class E>
 int launch(const float* dout, const E* proj, const E* hprev, const float* cprev, const float* cs,
            const E* wh, const float* dcT, const int* burn, float* dz, E* xch, float* carry,
            int* bar, int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned,
-           int smem, int Bc, int cluster, void* stream) {
+           int smem, int Bc, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative_cluster(
+  return (int)launch_cooperative(
       B > Bc ? lstm_seq_bwd_kernel<E, true> : lstm_seq_bwd_kernel<E, false>, grid, threads, smem,
-      cluster, stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H,
-      Hb, kt, pinned, Bc, cluster);
-}
-
-template <class E, bool kBulk>
-int launch_exchange(E* x, const E* wh, const float* dcT, float* carry, int* bar, int T,
-                    int B, int H, int Hb, int grid, int threads, int kt, int pinned, int smem,
-                    int Bc, int cluster, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return 0;
-  return (int)launch_cooperative_cluster(
-      B > Bc ? exchange_kernel<E, true, kBulk> : exchange_kernel<E, false, kBulk>, grid, threads,
-      smem, cluster, stream, x, wh, dcT, carry, bar, T, B, H, Hb, kt, pinned, Bc, cluster);
+      stream, dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb, kt,
+      pinned, Bc);
 }
 
 template <class E>
-int launch_exchange(int bulk, E* x, const E* wh, const float* dcT, float* carry, int* bar,
-                    int T, int B, int H, int Hb, int grid, int threads, int kt, int pinned,
-                    int smem, int Bc, int cluster, void* stream) {
-  return bulk ? launch_exchange<E, true>(x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt,
-                                         pinned, smem, Bc, cluster, stream)
-              : launch_exchange<E, false>(x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt,
-                                          pinned, smem, Bc, cluster, stream);
+int launch_exchange(int bulk, E* x, const E* wh, const float* dcT, int* bar, int T, int B, int H,
+                    int Hb, int grid, int threads, int kt, int pinned, int smem, int Bc,
+                    void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  if (B > Bc) return (int)cudaErrorInvalidValue;  // one chunk
+  return (int)launch_cooperative(bulk ? exchange_kernel<E, true> : exchange_kernel<E, false>,
+                                 grid, threads, smem, stream, x, wh, dcT, bar, T, B, H, Hb, kt,
+                                 pinned, Bc);
 }
 
 }  // namespace
@@ -173,10 +158,10 @@ extern "C" int lstm_seq_bwd_launch(const float* dout, const float* proj, const f
                                    const float* cprev, const float* cs, const float* wh,
                                    const float* dcT, const int* burn, float* dz, float* xch,
                                    float* carry, int* bar, int T, int B, int H, int Hb, int grid,
-                                   int threads, int kt, int pinned, int smem, int Bc, int cluster,
+                                   int threads, int kt, int pinned, int smem, int Bc,
                                    void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, cluster, stream);
+                grid, threads, kt, pinned, smem, Bc, stream);
 }
 
 extern "C" int lstm_seq_bwd_bf16_launch(const float* dout, const bf16* proj, const bf16* hprev,
@@ -184,31 +169,36 @@ extern "C" int lstm_seq_bwd_bf16_launch(const float* dout, const bf16* proj, con
                                         const float* dcT, const int* burn, float* dz, bf16* xch,
                                         float* carry, int* bar, int T, int B, int H, int Hb,
                                         int grid, int threads, int kt, int pinned, int smem,
-                                        int Bc, int cluster, void* stream) {
+                                        int Bc, void* stream) {
   return launch(dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch, carry, bar, T, B, H, Hb,
-                grid, threads, kt, pinned, smem, Bc, cluster, stream);
+                grid, threads, kt, pinned, smem, Bc, stream);
 }
 
-// The exchange alone (exchange_kernel): bulk 1 the bulk ring (x one slot
-// of the ring's layout), 0 the cp.async pipeline (x (B, 4H), or larger);
-// wh (H, 4H), dcT (B, H), the carry
-// workspace where the batch takes more than one chunk, and a zeroed
-// barrier, with the seam backward's geometry and cluster.
-extern "C" int lstm_seq_bwd_exchange_launch(float* x, const float* wh, const float* dcT,
-                                            float* carry, int* bar, int T, int B, int H, int Hb,
-                                            int grid, int threads, int kt, int pinned, int smem,
-                                            int Bc, int cluster, int bulk, void* stream) {
-  return launch_exchange(bulk, x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt, pinned,
-                         smem, Bc, cluster, stream);
+// The exchange alone (exchange_kernel): bulk 1 the bulk ring (x a ring of
+// lstm_seq_bwd_exchange_ring_elems), 0 the cp.async pipeline (x (B, 4H),
+// or larger); wh (H, 4H), dcT (B, H) and a zeroed barrier, with the seam
+// backward's geometry, the batch in one chunk (else cudaErrorInvalidValue).
+extern "C" int lstm_seq_bwd_exchange_launch(float* x, const float* wh, const float* dcT, int* bar,
+                                            int T, int B, int H, int Hb, int grid, int threads,
+                                            int kt, int pinned, int smem, int Bc, int bulk,
+                                            void* stream) {
+  return launch_exchange(bulk, x, wh, dcT, bar, T, B, H, Hb, grid, threads, kt, pinned, smem, Bc,
+                         stream);
 }
 
 extern "C" int lstm_seq_bwd_exchange_bf16_launch(bf16* x, const bf16* wh, const float* dcT,
-                                                 float* carry, int* bar, int T, int B, int H,
-                                                 int Hb, int grid, int threads, int kt,
-                                                 int pinned, int smem, int Bc, int cluster,
-                                                 int bulk, void* stream) {
-  return launch_exchange(bulk, x, wh, dcT, carry, bar, T, B, H, Hb, grid, threads, kt, pinned,
-                         smem, Bc, cluster, stream);
+                                                 int* bar, int T, int B, int H, int Hb, int grid,
+                                                 int threads, int kt, int pinned, int smem,
+                                                 int Bc, int bulk, void* stream) {
+  return launch_exchange(bulk, x, wh, dcT, bar, T, B, H, Hb, grid, threads, kt, pinned, smem, Bc,
+                         stream);
+}
+
+// The exchange ring's elements (xch, of `itemsize`-byte values) at the
+// seam backward's geometry (column_split.cuh ExchangeRing)
+extern "C" long long lstm_seq_bwd_exchange_ring_elems(int itemsize, int B, int H, int Hb,
+                                                      int grid, int kt, int pinned, int Bc) {
+  return exchange_ring_elems(itemsize, B, H, Hb, grid, kt, pinned, Bc);
 }
 
 extern "C" const char* lstm_seq_bwd_error_string(int code) {

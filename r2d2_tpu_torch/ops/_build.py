@@ -21,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -35,8 +37,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# the text nvcc printed for each library built by this process
+# the text nvcc printed for each library built by this process, and the
+# seconds from the start of its build() to the end of its nvcc
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -71,6 +75,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         raise RuntimeError(f"nvcc not found (looked for {nvcc}); the CUDA "
                            "toolkit is needed to build the kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for n in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -79,10 +84,19 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
+
+    def finish(n, proc):
+        build_logs[n] = proc.communicate()[0]
+        build_seconds[n] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=finish, args=(n, proc)) for n, (_, proc) in procs.items()]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     failed = []
     for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[n] = log
+        log = build_logs[n]
         if proc.returncode != 0:
             failed.append(f"--- {n}.cu (exit {proc.returncode})\n{log}")
             os.unlink(tmp)

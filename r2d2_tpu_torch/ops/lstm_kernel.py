@@ -64,8 +64,8 @@ import torch
 # (pointers, ints), then the stream
 _SOURCE_SIGNATURES = {
     "lstm_fwd": (7, 10),             # ..., barrier, T, B, H, then the Geometry
-    "lstm_seq_bwd": (12, 11),        # ..., the Geometry, then its cluster
-    "lstm_bwd": (13, 11),
+    "lstm_seq_bwd": (12, 10),
+    "lstm_bwd": (13, 10),
     "lstm_seq_bwd_fused": (13, 11),  # ..., barrier, T, B, H, W, then the Geometry
     "lstm_seq_bwd_ckpt": (14, 11),   # ..., barrier, T, B, H, S, then the Geometry
 }
@@ -320,15 +320,6 @@ def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt) -> None:
 COLUMN_SPLIT = SOURCES
 # the kernels with a dWh pass (Walk::add_dwh; in bf16 Walk::add_dwh_tc)
 _DWH_PASS = ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
-# the kernels whose carry product takes the exchanged rows through TMA bulk
-# copies into an mbarrier ring, shared by multicast across a cluster of
-# _CLUSTER blocks (column_split.cuh "The exchange"): K2 and K3, both forms;
-# the split is the one K4 and K5 take, with the cluster beside it. One
-# block: on the H100 (700 W) clusters of 2 took 1.2-2x the time of single
-# blocks at every width, and of 4 are more than the card holds at once
-# (tools/exchange_clusters.py; PERF.md, PR 23)
-EXCHANGE = ("lstm_seq_bwd", "lstm_bwd")
-_CLUSTER = 1
 # the tensor-core forms whose split leaves room for that pass's stage: K4
 # and K5, and K2, so that K4-bf16 walks in K2-bf16's split (its dz is
 # K2-bf16's f32 dz rounded, bit for bit)
@@ -376,9 +367,7 @@ def tensor_core_layout(units: int) -> Tuple[int, int]:
 
 
 class Geometry(NamedTuple):
-    """How a column-split kernel cuts its work, passed to it as ints; the
-    bulk-exchange kernels (EXCHANGE) also take the cluster they launch
-    with."""
+    """How a column-split kernel cuts its work, passed to it as ints."""
 
     units: int       # hidden units per block (Hb); the last block may own fewer
     grid: int        # blocks, all resident at once (a cooperative launch)
@@ -388,8 +377,6 @@ class Geometry(NamedTuple):
     smem_bytes: int  # dynamic shared memory per block
     rows: int        # batch rows per chunk (a multiple of 4); the batch padded
                      # to 4 when one chunk holds it
-    cluster: int = 1  # blocks a cluster (EXCHANGE: multicast of the exchange;
-                      # the grid a multiple of it), else 1
 
     def chunks(self, B: int) -> int:
         return -(-B // self.rows)
@@ -519,15 +506,6 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
     raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
 
 
-def _with_cluster(kernel: str, g: Geometry) -> Geometry:
-    """g with the cluster of `kernel`'s launch: for EXCHANGE the largest
-    power of two up to _CLUSTER that divides the grid, else 1."""
-    c = _CLUSTER if kernel in EXCHANGE else 1
-    while g.grid % c:
-        c //= 2
-    return g._replace(cluster=c)
-
-
 @functools.lru_cache(maxsize=None)
 def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
                   itemsize: int = 4, max_threads: int = _MAX_THREADS,
@@ -553,8 +531,7 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
     The tensor-core forms (``tensor_cores``: every bf16 form) take their
     own layout (``_tensor_core_geometry``): units a multiple of 4, chunks
     of whole 16-row tiles, k-tiles a multiple of 16, threads in whole
-    warps. K2 and K3 (EXCHANGE) take the split K4 and K5 take, and launch
-    it in clusters (``cluster``, see ``_with_cluster``).
+    warps.
     Raises ValueError where no tile fits even a chunk of 4 rows, or H is
     not a multiple of 16 bytes of the operands (the kernels copy 16-byte
     rows)."""
@@ -568,8 +545,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
                          f"{itemsize}-byte values)")
     backward = kernel != "lstm_fwd"
     if tensor_cores(kernel, itemsize):
-        return _with_cluster(kernel, _tensor_core_geometry(
-            B, H, backward, num_sms, smem_limit, max_threads, max_rows, kernel in _DWH_STAGE))
+        return _tensor_core_geometry(B, H, backward, num_sms, smem_limit, max_threads, max_rows,
+                                     kernel in _DWH_STAGE)
     units = -(-H // num_sms)
     grid = -(-H // units)
     if units > max_threads:
@@ -613,8 +590,7 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
                 if (kernel in _DWH_PASS and _dwh_tile_rows(
                         H, units, threads, kt, pinned, rows, Hbp, itemsize) < 1):
                     continue
-                return _with_cluster(kernel, Geometry(units, grid, threads, kt, pinned, nbytes,
-                                                      rows))
+                return Geometry(units, grid, threads, kt, pinned, nbytes, rows)
     raise ValueError(f"no tile of B={B}, H={H} fits {smem_limit} bytes of shared memory")
 
 
@@ -630,7 +606,6 @@ def _geometry(B: int, H: int, kernel: str, dev, dtype=torch.float32) -> Geometry
 
 
 def _geometry_ints(g: Geometry) -> Tuple[int, ...]:
-    """The split's ints (EXCHANGE's kernels take the cluster after them)."""
     return (g.units, g.grid, g.threads, g.k_tile, int(g.pinned), g.smem_bytes, g.rows)
 
 
@@ -643,18 +618,22 @@ def _carry_workspace(g: Geometry, B: int, dev):
     return torch.empty(2 * g.grid * chunks * g.rows * g.units, dtype=torch.float32, device=dev)
 
 
-def _exchange_ring(g: Geometry, B: int, H: int, dtype, dev) -> torch.Tensor:
-    """The two-step exchange ring of K2 and K3 (EXCHANGE), in the compute
-    dtype: per step, each chunk's tiles of k_tile columns of dz, each as
-    the staged tile it becomes (rows of k_tile + 16 bytes); then, where wh
-    is streamed, each block's rows of wh in tiles of the same width (its
-    carry units padded to 4, or in bf16 to 8)."""
-    tiles = -(-4 * H // g.k_tile)
-    ld = g.k_tile + _ROW_PAD_BYTES // dtype.itemsize
-    step = g.chunks(B) * tiles * g.rows * ld
-    units = tensor_core_layout(g.units)[1] if dtype.itemsize == 2 else 4 * -(-g.units // 4)
-    wh_tiles = 0 if g.pinned else g.grid * tiles * units * ld
-    return torch.empty(2 * step + wh_tiles, dtype=dtype, device=dev)
+def _exchange_ring(source: str, g: Geometry, B: int, H: int, dtype, dev,
+                   lib=None) -> torch.Tensor:
+    """The exchange ring of K2 and K3 (both forms take the carry product's
+    rows through TMA bulk copies out of it: column_split.cuh "The
+    exchange") in the compute dtype, sized by the kernel's source itself (<source>_exchange_ring_elems,
+    column_split.cuh ExchangeRing, the one account of its layout), from
+    `lib` or the built library of `source`."""
+    if lib is None:
+        from r2d2_tpu_torch.ops import _build
+
+        lib = _build.load(source)
+    fn = getattr(lib, f"{source}_exchange_ring_elems")
+    fn.argtypes = [_I] * 8
+    fn.restype = ctypes.c_longlong
+    n = fn(dtype.itemsize, B, H, g.units, g.grid, g.k_tile, int(g.pinned), g.rows)
+    return torch.empty(n, dtype=dtype, device=dev)
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
@@ -717,9 +696,9 @@ def exchange_alone(T: int, B: int, H: int, dev, dtype=torch.float32, bulk: bool 
     """Launch the seam backward's exchange alone (csrc/lstm_seq_bwd.cu,
     ``exchange_kernel``): T - 1 steps of one grid barrier and the carry
     product's exchange of one step of the exchange ring into the stage
-    ring, no product; `bulk` the bulk ring, else the cp.async pipeline; in K2's
-    geometry at (B, H) in `dtype`, or `geo`. For timing; counts no
-    launch."""
+    ring, no product; `bulk` the bulk ring, else the cp.async pipeline; in
+    K2's geometry at (B, H) in `dtype`, or `geo`, with the batch in one
+    chunk. For timing; counts no launch."""
     from r2d2_tpu_torch.ops import _build
 
     geo = geo or _geometry(B, H, "lstm_seq_bwd", dev, dtype)
@@ -727,17 +706,15 @@ def exchange_alone(T: int, B: int, H: int, dev, dtype=torch.float32, bulk: bool 
     lib = _build.load("lstm_seq_bwd")
     fn = (lib.lstm_seq_bwd_exchange_launch if dtype == torch.float32
           else lib.lstm_seq_bwd_exchange_bf16_launch)
-    fn.argtypes = [_P] * 5 + [_I] * 12 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 11 + [_P]
     fn.restype = _I
-    x = _exchange_ring(geo, B, H, dtype, dev).zero_()
+    x = _exchange_ring("lstm_seq_bwd", geo, B, H, dtype, dev, lib).zero_()
     wh = torch.zeros((H, 4 * H), dtype=dtype, device=dev)
     dcT = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    carry = _carry_workspace(geo, B, dev)
     bar = _barrier(dev)
     with torch.cuda.device(dev):
-        code = fn(x.data_ptr(), wh.data_ptr(), dcT.data_ptr(),
-                  0 if carry is None else carry.data_ptr(), bar.data_ptr(), T, B, H,
-                  *_geometry_ints(geo), geo.cluster, int(bulk),
+        code = fn(x.data_ptr(), wh.data_ptr(), dcT.data_ptr(), bar.data_ptr(), T, B, H,
+                  *_geometry_ints(geo), int(bulk),
                   torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError(f"exchange launch failed: {err_str(code).decode()} ({code})")
@@ -760,11 +737,11 @@ def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     _check_aligned("hprev", hprev)
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    xch = _exchange_ring(geo, B, H, dt, dev)  # dz (bf16: rounded), what the blocks exchange
+    xch = _exchange_ring("lstm_seq_bwd", geo, B, H, dt, dev)  # dz (bf16: rounded), exchanged
     _launch(_form("lstm_seq_bwd", dt),
             (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, xch,
              _carry_workspace(geo, B, dev), _barrier(dev)),
-            (T, B, H, *_geometry_ints(geo), geo.cluster), dev)
+            (T, B, H, *_geometry_ints(geo)), dev)
     return dz
 
 
@@ -787,11 +764,11 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     dz = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
-    xch = _exchange_ring(geo, B, H, dt, dev)  # dz (bf16: rounded), what the blocks exchange
+    xch = _exchange_ring("lstm_bwd", geo, B, H, dt, dev)  # dz (bf16: rounded), exchanged
     _launch(_form("lstm_bwd", dt),
             (dout, proj_t, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch,
              _carry_workspace(geo, B, dev), _barrier(dev)),
-            (T, B, H, *_geometry_ints(geo), geo.cluster), dev)
+            (T, B, H, *_geometry_ints(geo)), dev)
     return dz, dh0, dc0
 
 

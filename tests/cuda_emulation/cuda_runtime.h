@@ -5,9 +5,8 @@
 // __syncthreads and one per warp (32 threads, the last one ragged) for
 // __syncwarp, shared memory poisoned so a read before a write shows.
 // A cooperative cudaLaunchKernelEx runs all its blocks at once, so a grid
-// barrier built on atomics meets; its clusters are one block (a launch
-// with a larger cluster dimension is refused). It says nothing about
-// warps' lockstep, the memory model or speed.
+// barrier built on atomics meets. It says nothing about warps' lockstep,
+// the memory model or speed.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -19,6 +18,7 @@
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -42,12 +42,9 @@ inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorCooperativeLaunchTooLarge = 82,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16,
-       cudaLaunchAttributeCooperative = 2, cudaLaunchAttributeClusterDimension = 4 };
+       cudaLaunchAttributeCooperative = 2 };
 typedef void* cudaStream_t;
-struct cudaLaunchAttribute {
-  int id;
-  struct { int cooperative; struct { unsigned x, y, z; } clusterDim; } val;
-};
+struct cudaLaunchAttribute { int id; struct { int cooperative; } val; };
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
   cudaLaunchAttribute* attrs; unsigned numAttrs;
@@ -56,7 +53,6 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1 << 16; return 0; }
 template <class F> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
-template <class F> inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) { *n = 1 << 16; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
@@ -81,9 +77,6 @@ template <class F> void run_blocks(unsigned n, int threads, size_t smem_bytes, F
 
 template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
-  for (unsigned a = 0; a < cfg->numAttrs; ++a)
-    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension && cfg->attrs[a].val.clusterDim.x > 1)
-      return cudaErrorInvalidValue;
   blockDim = cfg->blockDim;
   gridDim = cfg->gridDim;
   run_blocks(cfg->gridDim.x, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, [&] { kernel(args...); });

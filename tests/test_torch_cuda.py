@@ -209,8 +209,8 @@ def test_fused_dwh_dz_is_the_seam_backwards_bit_for_bit(cuda, shape):
 
 
 # K2 and K3 take their carry product's rows through TMA bulk copies into an
-# mbarrier ring, multicast across a cluster (column_split.cuh "The
-# exchange"): the atari widths, the wide model's batch 96 and xl
+# mbarrier ring (column_split.cuh "The exchange"): the atari widths, the
+# wide model's batch 96 and xl
 EXCHANGE_SHAPES = [(85, 64, 512), (85, 96, 1024), (85, 64, 2048)]
 
 
@@ -221,8 +221,7 @@ def test_bulk_exchange_kernels_on_the_card(cuda, shape, dtype):
     three launches of each giving the same bits, and K4's dz equal to
     K2's bit for bit (bf16: K4-bf16's dz is K2-bf16's f32 dz rounded): K4
     keeps the cp.async exchange in the same split, so equal bits say the
-    ring moved bytes and changed no sum. The geometry reports the cluster
-    K2 and K3 launch with (K4: none)."""
+    ring moved bytes and changed no sum."""
     T, B, H = shape
     proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, dtype, T * B + H)
     outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
@@ -230,10 +229,6 @@ def test_bulk_exchange_kernels_on_the_card(cuda, shape, dtype):
             torch.cat([c0.float()[None], cs[:-1]]), cs, wh, dcT)
     f32 = dtype == torch.float32
     tol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
-    for kernel in ("lstm_seq_bwd", "lstm_bwd"):
-        geo = lstm_kernel._geometry(B, H, kernel, cuda, dtype)
-        assert geo.cluster == lstm_kernel._CLUSTER and geo.grid % geo.cluster == 0, geo
-    assert lstm_kernel._geometry(B, H, "lstm_seq_bwd_fused", cuda, dtype).cluster == 1
     for burn in (torch.zeros_like(mixed), torch.full_like(mixed, T // 2),
                  torch.full_like(mixed, T - 1), mixed):
         dz = lstm_kernel.lstm_seq_bwd(*walk, burn)
@@ -248,53 +243,6 @@ def test_bulk_exchange_kernels_on_the_card(cuda, shape, dtype):
     for _ in range(2):
         for a, b in zip(lstm_kernel.lstm_bwd(*walk), got):
             assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-def test_bulk_exchange_multicast_in_clusters_of_two_keeps_the_bits(cuda, dtype):
-    """K2 and K3 launched in clusters of 2 (the exchange shared by
-    multicast, each block using its own window of the cluster's stream)
-    give the bits of the wrappers' launch, at the atari and xl widths."""
-    for T, B, H in ((85, 64, 512), (85, 64, 2048)):
-        proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, dtype, 7)
-        outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
-        walk = (dout, proj, torch.cat([h0[None], outs[:-1]]),
-                torch.cat([c0.float()[None], cs[:-1]]), cs, wh, dcT)
-        for name, extra in (("lstm_seq_bwd", (mixed,)), ("lstm_bwd", ())):
-            geo = lstm_kernel._geometry(B, H, name, cuda, dtype)._replace(cluster=2)
-            outs2 = [torch.empty(T, B, 4 * H, device=cuda)]
-            if name == "lstm_bwd":
-                outs2 += [torch.empty(B, H, device=cuda), torch.empty(B, H, device=cuda)]
-            lstm_kernel._launch(
-                lstm_kernel._form(name, dtype),
-                (*walk, *extra, *outs2, lstm_kernel._exchange_ring(geo, B, H, dtype, cuda),
-                 lstm_kernel._carry_workspace(geo, B, cuda), lstm_kernel._barrier(cuda)),
-                (T, B, H, *lstm_kernel._geometry_ints(geo), geo.cluster), cuda)
-            want = getattr(lstm_kernel, name)(*walk, *extra)
-            for a, b in zip(outs2, want if name == "lstm_bwd" else (want,)):
-                assert torch.equal(a, b)
-
-
-def test_bulk_exchange_refuses_a_cluster_grid_that_cannot_be_resident(cuda):
-    """A launch in clusters of 2 whose grid the card cannot hold at once
-    (twice its SMs, one block per SM) is refused by the occupancy check of
-    clusters and raises; nothing runs and nothing is counted: no
-    fallback."""
-    T, B, H = 4, 64, 512
-    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, torch.float32, 0)
-    cs = torch.zeros(T, B, H, device=cuda)
-    geo = lstm_kernel._geometry(B, H, "lstm_seq_bwd", cuda)._replace(cluster=2)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    bad = geo._replace(grid=2 * sms - 2 * sms % geo.cluster)
-    dz = torch.zeros(T, B, 4 * H, device=cuda)
-    before = dict(lstm_kernel.launch_counts)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        lstm_kernel._launch(
-            "lstm_seq_bwd",
-            (dout, proj, cs, cs, cs, wh, dcT, mixed, dz, None, None, lstm_kernel._barrier(cuda)),
-            (T, B, H, *lstm_kernel._geometry_ints(bad), bad.cluster), cuda)
-    torch.cuda.synchronize()
-    assert lstm_kernel.launch_counts == before and not dz.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])

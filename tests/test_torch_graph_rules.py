@@ -357,9 +357,13 @@ def _fault_second_forward(monkeypatch):
 
 def _fault_rebound(monkeypatch):
     orig = learner._apply_gradients
+    # the storages rebound away, kept alive: a freed one could be handed
+    # to a later clone at the address the check compares
+    replaced = []
 
     def apply(cfg, state, params):
         norm = orig(cfg, state, params)
+        replaced.append(state.net.core.wh.data)
         state.net.core.wh.data = state.net.core.wh.data.clone()
         return norm
 

@@ -10,8 +10,8 @@ warps, the memory model or speed: the kernels themselves are held against
 the plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
 The emulated subset is small on purpose: one `extern __shared__` array,
-cooperative launches through the template `cudaLaunchKernelEx` (clusters
-of one block), `__syncthreads`, `__syncwarp`, `__ldg`, `__ldcg`,
+cooperative launches through the template `cudaLaunchKernelEx`,
+`__syncthreads`, `__syncwarp`, `__ldg`, `__ldcg`,
 `__threadfence`, `__nanosleep`, an integer `atomicAdd`, `float4`, `uint2`,
 `__uint_as_float`, 1-D thread and block indices (`__launch_bounds__` is
 dropped), and of cuda_bf16.h the type `__nv_bfloat16` with its two
@@ -26,9 +26,9 @@ versions in bf16 (K4's with dWh windows that do and do not divide T).
 The bulk exchange of K2 and K3 (TMA bulk copies into an mbarrier ring)
 runs on the scalar host bodies column_split.cuh gives its primitives: an
 mbarrier a 64-bit word, a bulk copy a memcpy that completes its bytes on
-it, a cluster one block; the ring is also run where it wraps many times
-a step. A kernel whose body leaves the subset (multicast across clusters,
-warp intrinsics, wgmma) is held against its plain version by
+it; the ring is also run where it wraps many times a step. A kernel
+whose body leaves the subset (clusters, warp intrinsics, wgmma) is held
+against its plain version by
 tests/test_torch_cuda.py and chip_smoke.py only; the header is not meant
 to grow into a CUDA emulator.
 
@@ -82,9 +82,8 @@ def _emulated(name, out_dir):
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)  # a register budget: no CPU meaning
-    # every kernel is a cooperative launch (column_split.cuh; K2's and K3's
-    # in clusters)
-    assert re.search(r"launch_cooperative(_cluster)?\(", src), f"{name}.cu: launches?"
+    # every kernel is a cooperative launch (column_split.cuh)
+    assert "launch_cooperative(" in src, f"{name}.cu: launches?"
     cpp = os.path.join(out_dir, f"{name}.cpp")
     with open(cpp, "w") as f:
         f.write(src)
@@ -95,7 +94,7 @@ def _emulated(name, out_dir):
         check=True, capture_output=True, text=True,
     )
     dll = ctypes.CDLL(lib)
-    forms = {}
+    forms = {f"{name}_lib": dll}  # the library itself (the ring's size)
     for form, src_name in lstm_kernel._SOURCE.items():
         if src_name != name:
             continue
@@ -134,9 +133,7 @@ TC_CHUNK_ROWS = 16
 
 
 def _emulated_geometry(name, B, H, max_threads=512):
-    """The emulated geometry of kernel form `name`, in clusters of one
-    block (the emulation's; K2 and K3 take their bulk exchange all the
-    same, with one block issuing its own tiles). A tensor-core form
+    """The emulated geometry of kernel form `name`. A tensor-core form
     (every bf16 form) owns at most 64 units a block (one thread per 4 rows
     and unit, 16 rows, 256 threads), so it takes more blocks where H needs
     them;
@@ -146,10 +143,10 @@ def _emulated_geometry(name, B, H, max_threads=512):
     itemsize = 2 if name.endswith("_bf16") else 4
     if not lstm_kernel.tensor_cores(src, itemsize):
         return lstm_kernel.lstm_geometry(B, H, src, EMULATED_SMS, SMEM_LIMIT, itemsize,
-                                         max_threads)._replace(cluster=1)
+                                         max_threads)
     rows = TC_CHUNK_ROWS if max_threads < 512 else None
     return lstm_kernel.lstm_geometry(B, H, src, max(EMULATED_SMS, -(-H // 64)), SMEM_LIMIT,
-                                     itemsize, 512, rows)._replace(cluster=1)
+                                     itemsize, 512, rows)
 
 
 def _split(kernels, name, tensors, T, B, H, *ints, max_threads=512):
@@ -167,9 +164,8 @@ def _launch_at(kernels, name, tensors, T, B, H, g, *ints):
     src = lstm_kernel._SOURCE[name]
     if src != "lstm_fwd":
         tensors = (*tensors, lstm_kernel._carry_workspace(g, B, "cpu"))
-    cluster = (g.cluster,) if src in lstm_kernel.EXCHANGE else ()
     _call(kernels[name], (*tensors, torch.zeros(2, dtype=torch.int32)), T, B, H, *ints,
-          *lstm_kernel._geometry_ints(g), *cluster)
+          *lstm_kernel._geometry_ints(g))
 
 
 # (T, B, H): a ragged batch tile, H not a multiple of the 32-thread warp,
@@ -229,11 +225,16 @@ def _fwd(kernels, proj, wh, h0, c0, mt=512):
     return outs, cs
 
 
+def _ring(kernels, source, g, B, H, dtype):
+    """K2's or K3's exchange ring at g, sized by the emulated source."""
+    return lstm_kernel._exchange_ring(source, g, B, H, dtype, "cpu", kernels[f"{source}_lib"])
+
+
 def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
     T, B, H = cs.shape
     dz = torch.empty(T, B, 4 * H)
     name = lstm_kernel._form("lstm_seq_bwd", proj.dtype)
-    xch = lstm_kernel._exchange_ring(_emulated_geometry(name, B, H, mt), B, H, proj.dtype, "cpu")
+    xch = _ring(kernels, "lstm_seq_bwd", _emulated_geometry(name, B, H, mt), B, H, proj.dtype)
     _split(kernels, name, (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, xch), T, B, H,
            max_threads=mt)
     return dz
@@ -243,7 +244,7 @@ def _seamless(kernels, dout, proj, hprev, cprev, cs, wh, dcT, mt=512):
     T, B, H = cs.shape
     dz, dh0, dc0 = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
     name = lstm_kernel._form("lstm_bwd", proj.dtype)
-    xch = lstm_kernel._exchange_ring(_emulated_geometry(name, B, H, mt), B, H, proj.dtype, "cpu")
+    xch = _ring(kernels, "lstm_bwd", _emulated_geometry(name, B, H, mt), B, H, proj.dtype)
     _split(kernels, name, (dout, proj, hprev, cprev, cs, wh, dcT, dz, dh0, dc0, xch), T, B, H,
            max_threads=mt)
     return dz, dh0, dc0
@@ -735,16 +736,17 @@ def _check_ring(kernels, T, B, H, g, dtype, fused):
     f32 = dtype == torch.float32
     tol = dict(rtol=0, atol=1e-4) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
     sfx = "" if f32 else "_bf16"
-    xch = lstm_kernel._exchange_ring(g, B, H, dtype, "cpu")
+    seam_ring, seamless_ring = (_ring(kernels, s, g, B, H, dtype) for s in ("lstm_seq_bwd",
+                                                                             "lstm_bwd"))
 
     def seam(burn):
         dz = torch.empty(T, B, 4 * H)
-        _launch_at(kernels, "lstm_seq_bwd" + sfx, (*walk, burn, dz, xch), T, B, H, g)
+        _launch_at(kernels, "lstm_seq_bwd" + sfx, (*walk, burn, dz, seam_ring), T, B, H, g)
         return dz
 
     def seamless():
         out = torch.empty(T, B, 4 * H), torch.empty(B, H), torch.empty(B, H)
-        _launch_at(kernels, "lstm_bwd" + sfx, (*walk, *out, xch), T, B, H, g)
+        _launch_at(kernels, "lstm_bwd" + sfx, (*walk, *out, seamless_ring), T, B, H, g)
         return out
 
     for burn_np in _burns(rng, T, B):
@@ -757,7 +759,7 @@ def _check_ring(kernels, T, B, H, g, dtype, fused):
             f_dz, dwh = torch.empty(T, B, 4 * H, dtype=dtype), torch.empty(H, 4 * H)
             dz_lo, W = lstm_kernel.fused_dwh_window(T, B, H, dtype, "cpu")
             _launch_at(kernels, "lstm_seq_bwd_fused" + sfx,
-                       (*walk, burn, f_dz, dwh, dz_lo), T, B, H, g._replace(cluster=1), W)
+                       (*walk, burn, f_dz, dwh, dz_lo), T, B, H, g, W)
             assert torch.equal(f_dz, dz if f32 else dz.to(dtype))
     got = seamless()
     for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
@@ -770,9 +772,8 @@ def _check_ring(kernels, T, B, H, g, dtype, fused):
 def test_emulated_bulk_exchange_ring_wraps_in_float32(kernels, T, B, H, smem, mt):
     g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", EMULATED_SMS, smem, 4, mt)
     assert -(-4 * H // g.k_tile) >= 3 * STAGES, g
-    assert g[:7] == lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd_fused", EMULATED_SMS, smem, 4,
-                                              mt)[:7]
-    _check_ring(kernels, T, B, H, g._replace(cluster=1), torch.float32, fused=True)
+    assert g == lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd_fused", EMULATED_SMS, smem, 4, mt)
+    _check_ring(kernels, T, B, H, g, torch.float32, fused=True)
 
 
 @pytest.mark.parametrize("T,B,H,smem,rows", RING_SHAPES_BF16)
@@ -782,4 +783,4 @@ def test_emulated_bulk_exchange_ring_wraps_in_bf16(kernels, T, B, H, smem, rows)
     if rows:  # the split cut into row chunks (K4's dWh stage is not sized for it)
         g = g._replace(rows=rows)
         assert g.chunks(B) >= 2
-    _check_ring(kernels, T, B, H, g._replace(cluster=1), BF16, fused=rows is None)
+    _check_ring(kernels, T, B, H, g, BF16, fused=rows is None)

@@ -217,9 +217,8 @@ def test_column_split_geometry_at_the_atari_batch(H_, kernel):
         assert g.pinned and (g.units, g.grid) == (4, 128)
     if H_ == 2048:
         assert not g.pinned and (g.units, g.grid) == (16, 128)
-    if kernel != "lstm_fwd":  # one split; K2 and K3 launch it in clusters
-        assert g[:7] == port.lstm_geometry(B_, H_, "lstm_seq_bwd", H100_SMS, H100_SMEM)[:7]
-    assert g.cluster == (port._CLUSTER if kernel in port.EXCHANGE else 1)
+    if kernel != "lstm_fwd":
+        assert g == port.lstm_geometry(B_, H_, "lstm_seq_bwd", H100_SMS, H100_SMEM)
     if kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
         assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, B_,
                                    4 * -(-g.units // 4)) >= 1
@@ -271,7 +270,7 @@ def test_column_split_geometry_of_the_seam_bf16_forms_is_one_split(shape):
     for kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
         assert port.tensor_cores(kernel, 2)
         g = port.lstm_geometry(B_, H_, kernel, H100_SMS, H100_SMEM, 2)
-        assert tuple(g)[:7] == _SEAM_BF16_GEOMETRY[shape], kernel
+        assert tuple(g) == _SEAM_BF16_GEOMETRY[shape], kernel
 
 
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
@@ -304,15 +303,14 @@ def test_column_split_geometry_splits_every_batch(H_, itemsize):
             else:
                 assert g.threads % (groups * g.units) == 0
             assert g.smem_bytes <= H100_SMEM and g.grid <= H100_SMS
-            assert g.grid % g.cluster == 0 and (g.cluster == 1 or kernel in port.EXCHANGE)
             seam = kernel in ("lstm_seq_bwd", "lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
             if seam and port.tensor_cores(kernel, itemsize):
                 rows = port._dwh_tc_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows)
                 assert rows >= 16 and rows % 16 == 0
-                assert g[:7] == port.lstm_geometry(B_, H_, "lstm_seq_bwd_ckpt", H100_SMS,
-                                                   H100_SMEM, itemsize)[:7]
+                assert g == port.lstm_geometry(B_, H_, "lstm_seq_bwd_ckpt", H100_SMS, H100_SMEM,
+                                               itemsize)
                 k3 = port.lstm_geometry(B_, H_, "lstm_bwd", H100_SMS, H100_SMEM, itemsize)
-                assert g[:7] == k3[:7] or port._dwh_tc_tile_rows(
+                assert g == k3 or port._dwh_tc_tile_rows(
                     H_, k3.units, k3.threads, k3.k_tile, k3.pinned, k3.rows) < 16
             elif kernel in ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt"):
                 assert port._dwh_tile_rows(H_, g.units, g.threads, g.k_tile, g.pinned, g.rows,
