@@ -52,7 +52,10 @@ its own lines; any failure exits non-zero and prints no result:
           floor); the exchange alone in K2's geometry, both forms (T - 1
           steps of barrier + exchange into the stage ring, no product),
           through cp.async and through K2's bulk ring, which splits K2's
-          step into barrier, exchange and products; the forward and the
+          step into barrier, exchange and products; likewise K1's step,
+          both forms, at the atari widths and at xl (the exchange of h
+          alone, and at xl with and without the streamed gate columns,
+          in K1's geometry); the forward and the
           four backwards also at xl, with cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
@@ -5050,9 +5053,9 @@ def main():
         f"{times['lstm_fwd'][0]:.3f} ms, lstm_seq_bwd {times['lstm_seq_bwd'][0]:.3f} ms")
     # the exchange alone, in K2's geometry (both forms): its T - 1 steps of
     # one grid barrier and the carry product's exchange into the stage
-    # ring, no product, through cp.async (K4's and K5's) and through the
-    # bulk ring (K2's and K3's); a step of K2 is then a barrier,
-    # an exchange and the products with the rest
+    # ring, no product, through cp.async (K4's) and through the bulk ring
+    # (K2's, K3's and K5's); a step of K2 is then a barrier, an exchange
+    # and the products with the rest
     for dt, k2_ms in ((torch.float32, times["lstm_seq_bwd"][0]), (torch.bfloat16, None)):
         geo = K._geometry(B, H, "lstm_seq_bwd", dev, dt)
         ex = {bulk: median_ms(lambda: K.exchange_alone(T, B, H, dev, dt, bulk))
@@ -5121,6 +5124,37 @@ def main():
         f"H={Hx}: forward {cudnn_x_ms:.3f} ms, backward (dx, dWi, dWh, db, dh0, dc0) "
         f"{cudnn_x_bwd_ms:.3f} ms (median of 5)")
     del cudnn_x, y, hT, cT, leaves
+
+    # K1's step, both forms, at the atari widths and at xl (wh streamed): a
+    # barrier, the gate product's exchange of h (the exchange alone in K1's
+    # geometry, through cp.async and through the bulk ring; at xl also
+    # without the gate columns, so that their copy shows) and the products
+    # with the rest
+    per_bar = bar_ms / T
+    for dt in (torch.float32, torch.bfloat16):
+        for Hs, k1_args in ((H, (proj, wh, h0, c0)), (Hx, (projx, whx, hx[0], cx[0]))):
+            k1_args = tuple(a.to(dt) for a in k1_args)
+            k1_ms = median_ms(lambda: K.lstm_fwd(*k1_args), reps=5, flush=flush)
+            geo = K._geometry(B, Hs, "lstm_fwd", dev, dt)
+            step = {}
+            for bulk in (False, True):
+                for cols in ((True,) if geo.pinned else (True, False)):
+                    ex_ms = median_ms(lambda: K.exchange_alone(T, B, Hs, dev, dt, bulk,
+                                                               source="lstm_fwd", cols=cols),
+                                      reps=5)
+                    step[bulk, cols] = (ex_ms - (T - 1) * per_bar) / (T - 1) * 1e3
+            k1_step = k1_ms / T * 1e3
+            line = (f"{K._form('lstm_fwd', dt)}'s step at H={Hs} ({geo}): {k1_ms:.3f} ms, "
+                    f"{k1_step:.2f} us a step: a barrier {per_bar * 1e3:.2f} us, the exchange "
+                    f"of h {step[True, True]:.2f} us through the bulk ring "
+                    f"({step[False, True]:.2f} through cp.async)")
+            if not geo.pinned:
+                line += (f", of which h alone {step[True, False]:.2f} ({step[False, False]:.2f}),"
+                         f" so the streamed gate columns {step[True, True] - step[True, False]:.2f}"
+                         f" ({step[False, True] - step[False, False]:.2f})")
+            line += (f"; the products and the rest "
+                     f"{k1_step - per_bar * 1e3 - step[True, True]:.2f} us")
+            say("time", line)
 
     for _ in range(120):  # about a second of queued forward launches
         K.lstm_fwd(proj, wh, h0, c0)

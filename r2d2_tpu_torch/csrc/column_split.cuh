@@ -27,10 +27,12 @@
 // The exchanged rows are read in column tiles through a kStages-buffer
 // pipeline, so several tiles' copies fly while one is multiplied; each
 // block starts at its own tile (blockIdx modulo the tile count), so the
-// SMs do not all ask the same L2 lines at once. K1, K4 and K5 copy them
-// with cp.async (pipelined_tiles); the carry product of K2 and K3 takes
-// them through TMA bulk copies into an mbarrier ring ("The exchange"
-// below).
+// SMs do not all ask the same L2 lines at once. The exchanges take them
+// through TMA bulk copies into an mbarrier ring ("The exchange" below):
+// K1's gate product and K5's recompute (h_t, GateRing) and the carry
+// product of K2, K3 and K5 (dz_t). K4's carry product and every walk's
+// gate recompute (from h the forward or K5's recompute saved in rows)
+// copy rows with cp.async (pipelined_tiles, GateRows).
 //
 // The FMA products (float32) are register-tiled, since shared memory, not
 // the FMA units, bounds a thread that loads two values per four FMAs. A
@@ -62,8 +64,6 @@
 #include <type_traits>
 #if !defined(__CUDACC__)
 #include <atomic>  // the CPU emulation's mbarriers
-#include <chrono>
-#include <thread>
 #endif
 
 namespace colsplit {
@@ -197,19 +197,22 @@ __device__ __forceinline__ void grid_barrier(int* bar) {
 // takes (bits 48-62), the arrivals still pending (bits 32-47) and the
 // transaction count (bits 0-31, signed: a copy may complete before its
 // bytes are announced). A phase completes when no arrival is pending and
-// the count is 0; the next one then waits for all its arrivals again.
-// A waiter yields, then sleeps in short naps, until the phase moves.
+// the count is 0; the next one then waits for all its arrivals again. The
+// update that completes a phase wakes the waiters, which block on the
+// word (std::atomic_ref::wait) until the phase moves, with no nap.
 inline void mbar_update(uint64_t* bar, int arrivals, int tx) {
   std::atomic_ref<uint64_t> word(*bar);
   uint64_t old = word.load(), next;
+  bool done;
   do {
     const uint64_t count = (old >> 48) & 0x7fff, phase = old & (1ull << 63);
     const uint64_t pending = (((old >> 32) & 0xffff) - arrivals) & 0xffff;
     const uint32_t txc = (uint32_t)old + (uint32_t)tx;
-    const bool done = pending == 0 && txc == 0;
+    done = pending == 0 && txc == 0;
     next = (done ? phase ^ (1ull << 63) : phase) | count << 48 | (done ? count : pending) << 32 |
            txc;
   } while (!word.compare_exchange_weak(old, next));
+  if (done) word.notify_all();
 }
 #endif
 
@@ -273,12 +276,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 #elif !defined(__CUDACC__)
   std::atomic_ref<uint64_t> word(*bar);
-  for (int spins = 0; (int)(word.load() >> 63) == parity; ++spins) {
-    if (spins < 64)
-      std::this_thread::yield();
-    else
-      std::this_thread::sleep_for(std::chrono::microseconds(20));
-  }
+  for (uint64_t w = word.load(); (int)(w >> 63) == parity; w = word.load()) word.wait(w);
 #endif
 }
 
@@ -306,34 +304,60 @@ __device__ __forceinline__ void fence_proxy_async() {
 #endif
 }
 
-// The exchange ring of K2 and K3 (Walk's kBulk, "The exchange" below), in
-// elements of E: two steps' slots of the tiled exchange (per chunk of Bc
-// rows, n tiles of kt columns over 4H, each tile Bc rows of kt + kVec),
-// then, where wh is streamed, each block's tiles of its rows of wh (Hbp
-// rows of kt + kVec a tile). The one account of its layout: the walk
-// places its parts by it, and the wrappers size the ring by it through
-// the sources' <source>_exchange_ring_elems (lstm_kernel._exchange_ring).
+// the row of the gate columns wc in the tensor-core layout: 4Hb + 8
+__host__ __device__ __forceinline__ int wc_ld_tc(int Hb) { return 4 * Hb + kVec<bf16>; }
+
+// The exchange ring of the bulk exchange ("The exchange" below), in
+// elements of E: two steps' slots of each exchange the kernel takes by
+// bulk copy, then, where wh is streamed, each block's tiles of wh. A slot
+// holds, per chunk of Bc rows, the exchange's tiles of kt columns, each
+// Bc rows of kt + kVec (as the stage buffer holds it): first the carry
+// product's (dz over 4H, n tiles; K2, K3, K5), then the gate product's (h
+// over H, nh tiles; K1, K5). A block's tiles of wh are its rows for the
+// carry product (Hbp rows of kt + kVec a tile), then its gate columns for
+// the gate product (a tile as wc's buffer holds it: float, kt rows of 4Hb;
+// bf16, kt rows of wc_ld_tc(Hb)). The one account of its layout: the
+// kernels place their parts by it, and the wrappers size the ring by it
+// through the sources' <source>_exchange_ring_elems
+// (lstm_kernel._exchange_ring).
 template <class E>
 struct ExchangeRing {
-  int n, ld, Bc, chunks, Hbp, pinned;
-  __host__ __device__ ExchangeRing(int B, int H, int Hb, int kt, int pinned_, int Bc_)
-      : n((4 * H + kt - 1) / kt), ld(kt + kVec<E>), Bc(Bc_), chunks((B + Bc_ - 1) / Bc_),
-        Hbp(kF32<E> ? (Hb + 3) & ~3 : (Hb + 7) & ~7), pinned(pinned_) {}
-  // a chunk's tiles; a step's slot
+  int n, nh, kt, ld, Bc, chunks, Hbp, wc_tile, pinned;
+  __host__ __device__ ExchangeRing(int B, int H, int Hb, int kt_, int pinned_, int Bc_, bool carry,
+                                   bool gate)
+      : n(carry ? (4 * H + kt_ - 1) / kt_ : 0), nh(gate ? (H + kt_ - 1) / kt_ : 0), kt(kt_),
+        ld(kt_ + kVec<E>), Bc(Bc_), chunks((B + Bc_ - 1) / Bc_),
+        Hbp(kF32<E> ? (Hb + 3) & ~3 : (Hb + 7) & ~7),
+        wc_tile(kt_ * (kF32<E> ? 4 * Hb : wc_ld_tc(Hb))), pinned(pinned_) {}
+  // the carry product's exchange: a chunk's tiles; a step's slot
   __host__ __device__ size_t chunk() const { return (size_t)n * Bc * ld; }
   __host__ __device__ size_t step() const { return chunks * chunk(); }
-  // block b's tiles of wh, after the two slots
-  __host__ __device__ size_t wh_at(int b) const { return 2 * step() + (size_t)b * n * Hbp * ld; }
+  // the gate product's: a chunk's tiles; a step's slot; its two slots
+  __host__ __device__ size_t h_chunk() const { return (size_t)nh * Bc * ld; }
+  __host__ __device__ size_t h_step() const { return chunks * h_chunk(); }
+  __host__ __device__ size_t h_at() const { return 2 * step(); }
+  // the element of row b (of the batch) and column j in a gate slot
+  __host__ __device__ size_t h_pos(int b, int j) const {
+    const int q = b / Bc, tile = j / kt;
+    return ((size_t)(q * nh + tile) * Bc + b - q * Bc) * ld + j - tile * kt;
+  }
+  // block b's tiles of wh: its rows (the carry product's), then its gate
+  // columns (the gate product's)
+  __host__ __device__ size_t wh_at(int b) const {
+    return h_at() + 2 * h_step() + (size_t)b * ((size_t)n * Hbp * ld + (size_t)nh * wc_tile);
+  }
+  __host__ __device__ size_t wc_at(int b) const { return wh_at(b) + (size_t)n * Hbp * ld; }
   // the ring of a grid of `grid` blocks
-  __host__ __device__ size_t elems(int grid) const { return pinned ? 2 * step() : wh_at(grid); }
+  __host__ __device__ size_t elems(int grid) const { return pinned ? wh_at(0) : wh_at(grid); }
 };
 
 // ExchangeRing's elems for `itemsize`-byte values (4: float, 2: bf16), on
 // the host: what a source's <source>_exchange_ring_elems returns
 inline long long exchange_ring_elems(int itemsize, int B, int H, int Hb, int grid, int kt,
-                                     int pinned, int Bc) {
-  return (long long)(itemsize == 4 ? ExchangeRing<float>(B, H, Hb, kt, pinned, Bc).elems(grid)
-                                   : ExchangeRing<bf16>(B, H, Hb, kt, pinned, Bc).elems(grid));
+                                     int pinned, int Bc, bool carry, bool gate) {
+  return (long long)(itemsize == 4
+                         ? ExchangeRing<float>(B, H, Hb, kt, pinned, Bc, carry, gate).elems(grid)
+                         : ExchangeRing<bf16>(B, H, Hb, kt, pinned, Bc, carry, gate).elems(grid));
 }
 
 // This thread's item: row group rg, column group col (a unit, or a group
@@ -408,6 +432,59 @@ __device__ __forceinline__ void pipelined_tiles(int n, int first, Issue issue, U
   __syncthreads();  // the buffers are free for the caller
 }
 
+// The bulk exchange's stage ring ("The exchange" below): stage s has a
+// full mbarrier, full(s), and an empty one right after it. Thread 0 sets
+// them up: one arrival a phase for full (it announces the bytes), one per
+// warp for empty. The caller then runs a block barrier before any copy.
+template <class Full>
+__device__ __forceinline__ void ring_init(Full full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(full(s) + 1, (blockDim.x + 31) / 32);
+    }
+    fence_mbarrier_init();
+  }
+}
+
+// Tiles 0..n-1 through the stage ring, in the order first, first + 1, ...
+// (mod n), as pipelined_tiles takes them: each into the stage of its ring
+// position (pos, which runs on over calls, as do the barriers' phases).
+// Warp 0's lane 0 issues: once every warp has freed the stage, issue(c, s,
+// bar) announces tile c's bytes on bar (full(s)) and starts its bulk
+// copies; use(c, s) reads it once they have landed. No block barrier runs
+// per tile; the buffers are free for the caller after it.
+template <class Full, class Issue, class Use>
+__device__ __forceinline__ void ring_tiles(Full full, int& pos, int n, int first, Issue issue,
+                                           Use use) {
+  const int lane = threadIdx.x & 31;
+  const bool issuer = threadIdx.x < 32;  // warp 0
+  // position q into its stage: warp 0, all lanes together
+  auto produce = [&](int q) {
+    const int g = pos + q, s = g % kStages;
+    if (lane == 0) {
+      if (g >= kStages) mbar_wait(full(s) + 1, (g / kStages - 1) & 1);
+      issue((first + q) % n, s, full(s));
+    }
+    __syncwarp();
+  };
+  if (issuer) {
+    fence_proxy_async();  // the rows the grid barrier made visible, before the copies
+    for (int q = 0; q < imin(kStages - 1, n); ++q) produce(q);
+  }
+  for (int q = 0; q < n; ++q) {
+    // the stage position q - 1 held: every warp frees it first
+    if (issuer && q + kStages - 1 < n) produce(q + kStages - 1);
+    const int g = pos + q, s = g % kStages;
+    mbar_wait(full(s), (g / kStages) & 1);
+    use((first + q) % n, s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(full(s) + 1);
+  }
+  pos += n;
+  __syncthreads();  // the buffers are free for the caller
+}
+
 // st[b][v] = x[b][c0 + v] for b < rows, v < cn (cn a multiple of kVec),
 // rows ld elements apart, as 16-byte copies through L2
 template <class E>
@@ -447,48 +524,42 @@ __device__ __forceinline__ void load_cols(float* wc, const float* __restrict__ w
 
 // acc[r][g] = sum_k h[rg + r*nrg, k] * wh[k, g*H + j0 + col], for the
 // owner of item (rg, col); col runs over Hb units (past n_units: zero
-// columns). h holds the chunk's `rows` real rows (of Bc); it is read in
-// k-tiles of kt columns into the kStages staging buffers st (Bc rows of
-// kt + kVec elements each); pinned: wc holds all H rows of the block's
-// columns, streamed: kStages k-tile buffers of them, copied beside h's.
-template <class E>
-__device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
-                                             const E* __restrict__ wh, E* wc, E* st, float* red,
-                                             const Item& it, int rows, int Bc, int H, int Hb,
-                                             int j0, int n_units, int kt, int pinned) {
+// columns). tiles(use) brings the chunk's rows of h in k-tiles of kt
+// columns into the kStages staging buffers st (Bc rows of kt + kVec
+// elements each) and, where wh is streamed, the block's gate columns of
+// the same k rows into wc's buffers, calling use(c, buf) on each k-tile
+// c once it has landed (GateRows: cp.async; GateRing: the bulk ring);
+// pinned: wc holds all H rows of the block's columns.
+template <class Tiles>
+__device__ __forceinline__ void gate_product(float (&acc)[4][4], Tiles tiles, const float* wc,
+                                             const float* st, float* red, const Item& it, int Bc,
+                                             int H, int Hb, int kt, int pinned) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-  const int ld = kt + kVec<E>, n = (H + kt - 1) / kt, nrg = Bc / 4;
-  pipelined_tiles(
-      n, blockIdx.x % n,
-      [&](int c, int buf) {
-        const int k0 = c * kt, kn = imin(kt, H - k0);
-        stage_rows(st + buf * Bc * ld, ld, h, H, rows, k0, kn);
-        if (!pinned) load_cols(wc + buf * kt * 4 * Hb, wh, H, j0, n_units, Hb, k0, kn);
-      },
-      [&](int c, int buf) {
-        if (it.slice >= it.ks) return;
-        const int k0 = c * kt, kn = imin(kt, H - k0);
-        const E* s = st + buf * Bc * ld + it.rg * ld;
-        const E* w = (pinned ? wc + (size_t)k0 * 4 * Hb : wc + buf * kt * 4 * Hb) + it.col * 4;
-        for (int k = 4 * it.slice; k < kn; k += 4 * it.ks) {
-          float4 hv[4];
+  const int ld = kt + kVec<float>, nrg = Bc / 4;
+  tiles([&](int c, int buf) {
+    if (it.slice >= it.ks) return;
+    const int k0 = c * kt, kn = imin(kt, H - k0);
+    const float* s = st + buf * Bc * ld + it.rg * ld;
+    const float* w = (pinned ? wc + (size_t)k0 * 4 * Hb : wc + buf * kt * 4 * Hb) + it.col * 4;
+    for (int k = 4 * it.slice; k < kn; k += 4 * it.ks) {
+      float4 hv[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) hv[r] = load4(s + r * nrg * ld + k);
+      for (int r = 0; r < 4; ++r) hv[r] = load4(s + r * nrg * ld + k);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 wq = load4(w + (k + q) * 4 * Hb);
+      for (int q = 0; q < 4; ++q) {
+        const float4 wq = load4(w + (k + q) * 4 * Hb);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float x = q == 0 ? hv[r].x : q == 1 ? hv[r].y : q == 2 ? hv[r].z : hv[r].w;
-              acc[r][0] = fmaf(x, wq.x, acc[r][0]);
-              acc[r][1] = fmaf(x, wq.y, acc[r][1]);
-              acc[r][2] = fmaf(x, wq.z, acc[r][2]);
-              acc[r][3] = fmaf(x, wq.w, acc[r][3]);
-            }
-          }
+        for (int r = 0; r < 4; ++r) {
+          const float x = q == 0 ? hv[r].x : q == 1 ? hv[r].y : q == 2 ? hv[r].z : hv[r].w;
+          acc[r][0] = fmaf(x, wq.x, acc[r][0]);
+          acc[r][1] = fmaf(x, wq.y, acc[r][1]);
+          acc[r][2] = fmaf(x, wq.z, acc[r][2]);
+          acc[r][3] = fmaf(x, wq.w, acc[r][3]);
         }
-      });
+      }
+    }
+  });
   reduce_slices(acc, red, it);
 }
 
@@ -529,9 +600,6 @@ __device__ __forceinline__ void gate_product(float (&acc)[4][4], const E* h,
 // loops; the fragments themselves are checked on the card only.
 
 constexpr int kMaxWarpTiles = 2;
-
-// the row of the gate columns wc in the tensor-core layout: 4Hb + 8
-__device__ __forceinline__ int wc_ld_tc(int Hb) { return 4 * Hb + kVec<bf16>; }
 
 // How the block's warps share a product of `tiles` warp tiles: warp w owns
 // tiles group + j*groups (j < nt) in k-slice w / groups, of ks; a warp
@@ -731,37 +799,25 @@ __device__ __forceinline__ void zero_tile(bf16* x, int ld, int nr, int c0, int c
     x[(idx / w) * ld + c0 + idx % w] = from_f32<bf16>(0.0f);
 }
 
-// gate_product on the tensor cores: the same acc for the same owners. wc
-// in the tensor-core layout, rows wc_ld_tc(Hb) apart: pinned, all H rows
-// and zero rows up to a multiple of 16; streamed, kStages kt-row buffers.
-// red: the slices' planes, Bc x (4Hb + 1) floats each.
-__device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], const bf16* h,
-                                                const bf16* __restrict__ wh, bf16* wc, bf16* st,
-                                                float* red, const Item& it, int rows, int Bc,
-                                                int H, int Hb, int j0, int n_units, int kt,
-                                                int pinned) {
+// gate_product on the tensor cores: the same acc for the same owners,
+// from the same tiles(use). wc in the tensor-core layout, rows
+// wc_ld_tc(Hb) apart: pinned, all H rows and zero rows up to a multiple of
+// 16; streamed, kStages kt-row buffers. A k-tile ending off a multiple of
+// 16 comes with its k16 zero padding in both operands. red: the slices'
+// planes, Bc x (4Hb + 1) floats each.
+template <class Tiles>
+__device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], Tiles tiles, const bf16* wc,
+                                                const bf16* st, float* red, const Item& it,
+                                                int Bc, int H, int Hb, int kt, int pinned) {
   const int ld = kt + kVec<bf16>, ldw = wc_ld_tc(Hb), N = 4 * Hb, ldr = N + 1, mt = Bc / 16;
-  const int n = (H + kt - 1) / kt, nrg = Bc / 4;
+  const int nrg = Bc / 4;
   const Warps w(mt * (N / 16));
   float a[kMaxWarpTiles][2][4] = {};
-  pipelined_tiles(
-      n, blockIdx.x % n,
-      [&](int c, int buf) {
-        const int k0 = c * kt, kn = imin(kt, H - k0), k16 = (kn + 15) & ~15;
-        bf16* s = st + buf * Bc * ld;
-        stage_rows(s, ld, h, H, rows, k0, kn);
-        zero_tile(s, ld, Bc, kn, k16);
-        if (!pinned) {
-          bf16* wb = wc + buf * kt * ldw;
-          copy_cols_tc(wb, ldw, wh, H, j0, n_units, Hb, k0, kn);
-          zero_tile(wb + kn * ldw, ldw, k16 - kn, 0, N);
-        }
-      },
-      [&](int c, int buf) {
-        const int k0 = c * kt, kn = imin(kt, H - k0);
-        const bf16* b = pinned ? wc + (size_t)k0 * ldw : wc + buf * kt * ldw;
-        mma_tile<2, true>(a, w, mt, st + buf * Bc * ld, ld, b, ldw, (kn + 15) & ~15);
-      });
+  tiles([&](int c, int buf) {
+    const int k0 = c * kt, kn = imin(kt, H - k0);
+    const bf16* b = pinned ? wc + (size_t)k0 * ldw : wc + buf * kt * ldw;
+    mma_tile<2, true>(a, w, mt, st + buf * Bc * ld, ld, b, ldw, (kn + 15) & ~15);
+  });
   mma_store<2>(a, w, mt, red, ldr);
   __syncthreads();
 #pragma unroll
@@ -771,6 +827,148 @@ __device__ __forceinline__ void gate_product_tc(float (&acc)[4][4], const bf16* 
       acc[r][g] = it.owner() ? mma_sum(red, w, Bc, ldr, it.rg + r * nrg, g * Hb + it.col) : 0.0f;
   }
   __syncthreads();  // red is free again
+}
+
+// gate_product, on the FMA units (float) or the tensor cores (bf16)
+template <class E, class Tiles>
+__device__ __forceinline__ void gates(float (&acc)[4][4], Tiles tiles, const E* wc, const E* st,
+                                      float* red, const Item& it, int Bc, int H, int Hb, int kt,
+                                      int pinned) {
+  if constexpr (kF32<E>)
+    gate_product(acc, tiles, wc, st, red, it, Bc, H, Hb, kt, pinned);
+  else
+    gate_product_tc(acc, tiles, wc, st, red, it, Bc, H, Hb, kt, pinned);
+}
+
+// The gate product's tiles through the cp.async pipeline (its `tiles`):
+// the k-tiles of the chunk's `rows` rows of h (H apart) into the staging
+// buffers and, where wh is streamed, the block's gate columns of the same
+// k rows into wc's (float: one 4-byte copy each; bf16: 8- or 16-byte
+// pieces, and the k16 zero padding of a ragged tile in both operands),
+// tile by tile from blockIdx.x mod n.
+template <class E>
+struct GateRows {
+  const E* h;
+  const E* wh;
+  E *wc, *st;
+  int rows, Bc, H, Hb, j0, n_units, kt, pinned;
+
+  template <class Use>
+  __device__ __forceinline__ void operator()(Use use) const {
+    const int ld = kt + kVec<E>, n = (H + kt - 1) / kt;
+    pipelined_tiles(
+        n, blockIdx.x % n,
+        [&](int c, int buf) {
+          const int k0 = c * kt, kn = imin(kt, H - k0);
+          E* s = st + buf * Bc * ld;
+          stage_rows(s, ld, h, H, rows, k0, kn);
+          if constexpr (kF32<E>) {
+            if (!pinned) load_cols(wc + buf * kt * 4 * Hb, wh, H, j0, n_units, Hb, k0, kn);
+          } else {
+            const int k16 = (kn + 15) & ~15, ldw = wc_ld_tc(Hb);
+            zero_tile(s, ld, Bc, kn, k16);
+            if (!pinned) {
+              bf16* wb = wc + buf * kt * ldw;
+              copy_cols_tc(wb, ldw, wh, H, j0, n_units, Hb, k0, kn);
+              zero_tile(wb + kn * ldw, ldw, k16 - kn, 0, 4 * Hb);
+            }
+          }
+        },
+        use);
+  }
+};
+
+// The gate product's tiles through the bulk ring (its `tiles`; "The
+// exchange" below): tile c of the chunk's tiles x of the gate product's
+// exchange (`rows` real rows a tile, ExchangeRing) by one bulk copy into
+// stage buffer s and, where wh is streamed, the block's tile c of gate
+// columns (wt, tile_cols) by a second into wc's buffer s, in
+// pipelined_tiles' order, on the stage ring of full(s) and pos. Where a
+// step has fewer tiles than the ring keeps in flight (kStages - 1), a
+// tile's rows go in kStages - 1 copies, so that the TMA still has that
+// many to work on (the bf16 forward at the atari widths takes two tiles
+// of 256 columns a step: with one copy a tile it ran 4-12% slower than
+// with cp.async on an H100).
+template <class E, class Full>
+struct GateRing {
+  const E* x;
+  const E* wt;
+  E *wc, *st;
+  int rows, Bc, H, Hb, kt, pinned;
+  Full full;
+  int& pos;
+  template <class Use>
+  __device__ __forceinline__ void operator()(Use use) const {
+    const int ld = kt + kVec<E>, n = (H + kt - 1) / kt;
+    const int ldw = kF32<E> ? 4 * Hb : wc_ld_tc(Hb);
+    const unsigned tile_bytes = rows * ld * (unsigned)sizeof(E);
+    const int piece = n < kStages - 1 ? (rows + kStages - 2) / (kStages - 1) : rows;
+    ring_tiles(
+        full, pos, n, blockIdx.x % n,
+        [&](int c, int s, uint64_t* bar) {
+          // the tile's real k rows of columns (bf16: with their k16 padding)
+          const int kn = imin(kt, H - c * kt), kr = kF32<E> ? kn : (kn + 15) & ~15;
+          const unsigned wc_bytes = pinned ? 0 : kr * ldw * (unsigned)sizeof(E);
+          mbar_arrive_expect_tx(bar, tile_bytes + wc_bytes);
+          if (!pinned) bulk_copy(wc + s * kt * ldw, wt + (size_t)c * kt * ldw, wc_bytes, bar);
+          for (int r0 = 0; r0 < rows; r0 += piece)
+            bulk_copy(st + (s * Bc + r0) * ld, x + ((size_t)c * Bc + r0) * ld,
+                      imin(piece, rows - r0) * ld * (unsigned)sizeof(E), bar);
+        },
+        use);
+  }
+};
+
+template <class E, class Full>
+__device__ __forceinline__ GateRing<E, Full> gate_ring(const E* x, const E* wt, E* wc, E* st,
+                                                       int rows, int Bc, int H, int Hb, int kt,
+                                                       int pinned, Full full, int& pos) {
+  return {x, wt, wc, st, rows, Bc, H, Hb, kt, pinned, full, pos};
+}
+
+// The block's gate columns of wh tile by tile into wt (ExchangeRing's
+// wc_at), each tile as wc's buffer holds it (float: kt rows of 4Hb, a
+// unit's four gates side by side; bf16: kt rows of wc_ld_tc(Hb), gate-major,
+// zero past the last real k row), padding units zero: written once, before
+// the steps, so that GateRing brings a tile's columns in one bulk copy.
+template <class E>
+__device__ __forceinline__ void tile_cols(E* wt, const E* __restrict__ wh, int H, int j0,
+                                          int n_units, int Hb, int kt) {
+  const int n = (H + kt - 1) / kt, ldw = kF32<E> ? 4 * Hb : wc_ld_tc(Hb), per = kt * ldw;
+  for (int idx = threadIdx.x; idx < n * per; idx += blockDim.x) {
+    const int c = idx / per, r = idx - c * per, k = c * kt + r / ldw, e = r % ldw;
+    const int g = kF32<E> ? e % 4 : e / Hb, u = kF32<E> ? e / 4 : e % Hb;
+    const bool real = k < H && u < n_units && g < 4;
+    wt[idx] = real ? wh[(size_t)k * 4 * H + g * H + j0 + u] : from_f32<E>(0.0f);
+  }
+  fence_proxy_async();  // these stores before this block's bulk copies of them
+  __syncthreads();
+}
+
+// The block's units' columns of h (B, H) into the gate product's slot x
+// (ring.h_pos): an input read whole by every block (K1's h0, K5's
+// checkpoints), exchanged as the steps' h are
+template <class E>
+__device__ __forceinline__ void tile_h(E* x, const ExchangeRing<E>& ring, const E* h, int B, int H,
+                                       int j0, int n_units) {
+  for (int idx = threadIdx.x; idx < B * n_units; idx += blockDim.x) {
+    const int b = idx / n_units, j = j0 + idx - b * n_units;
+    x[ring.h_pos(b, j)] = h[(size_t)b * H + j];
+  }
+}
+
+// bf16: the k16 padding of the gate product's last tile (H a multiple of
+// 8, not of 16), zero in both slots' real rows, which the tensor cores
+// read and no step writes; the blocks share the rows
+template <class E>
+__device__ __forceinline__ void zero_h_padding(E* x, const ExchangeRing<E>& ring, int B, int H) {
+  if constexpr (!kF32<E>) {
+    if (H % 16 == 0) return;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 2 * B; i += gridDim.x * blockDim.x) {
+      E* row = x + (i / B) * ring.h_step() + ring.h_pos(i % B, H - 1) + 1;
+      *reinterpret_cast<float4*>(row) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
 }
 
 // The dWh tile product of K4's and K5's bf16 forms: out[k][n] +=
@@ -861,8 +1059,8 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // in chunks of Bc. A step t is, chunk by chunk,
 //   1. dz_step: recompute the block's Bc x 4Hb gates from h_{t-1}, form
 //      dz[t] for its columns from its (dh, dc) carry and write it into
-//      the exchange buffer x_t (E; for float the output dz itself) and,
-//      where given, a float32 copy f_t;
+//      the exchange (kBulk: the ring's tiles) and, where given, its
+//      outputs (dz in E, a float32 copy, or bf16's low plane);
 //   2. the caller's grid barrier;
 //   3. carry_product: read the whole chunk of x_t (Bc x 4H) through L2
 //      and form dh for the block's units against its rows of wh;
@@ -886,25 +1084,27 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // padded with zero rows to a multiple of 16), the rows of wr padded to
 // Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
 //
-// The exchange (kBulk; K2 and K3). The carry product's tiles of x_t come
-// in by TMA: x_t is written in a tiled layout (tiled(), ExchangeRing:
+// The exchange (kBulk; K2, K3 and K5). The carry product's tiles of x_t
+// come in by TMA: x_t is written in a tiled layout (tiled(), ExchangeRing:
 // per chunk, tile by tile, each tile's Bc rows of kt + kVec elements, as
 // the stage buffer holds them), so each tile is one bulk copy into the
 // same kStages stage buffers and padded rows the cp.async pipeline fills
-// (K4 and K5 keep that one), and the products read them as before. Each
-// stage s has a "full" mbarrier (one arrival that announces the tile's
-// bytes, then the copies' bytes) and an "empty" one (one arrival per warp
-// once it is done with the stage); both sit in a row padding of wr that
-// no copy or product touches (ring_full; 16 bytes: two barriers). Where
-// wh is streamed, the block first writes its rows of wh tile by tile in
-// the same way (tile_wh), and each tile's rows come in by a second bulk
-// copy. Warp 0's lane 0 issues: it waits for the stage to be empty,
-// announces the bytes and issues the copies; no other thread copies, and
-// no block barrier runs per tile. The tiles come in the cp.async
+// (K4 keeps that one), and the products read them as before. Each stage s
+// has a "full" mbarrier (one arrival that announces the tile's bytes, then
+// the copies' bytes) and an "empty" one (one arrival per warp once it is
+// done with the stage); both sit in a row padding of wr that no copy or
+// product touches (stages(); 16 bytes: two barriers). Where wh is
+// streamed, the block first writes its rows of wh tile by tile in the same
+// way (tile_wh), and each tile's rows come in by a second bulk copy. Warp
+// 0's lane 0 issues: it waits for the stage to be empty, announces the
+// bytes and issues the copies; no other thread copies, and no block
+// barrier runs per tile (ring_tiles). The tiles come in the cp.async
 // pipeline's order (blockIdx.x mod n, +1, ... mod n), so every sum keeps
 // its order and its bits; position counts run on over steps and chunks
-// (pos), and so do the barriers' phases. ExchangeRing sizes the ring.
-template <class E, bool kChunked, bool kBulk = false>
+// (pos), and so do the barriers' phases. ExchangeRing sizes the ring;
+// with kGates it also holds the gate product's exchange of h (K5's
+// recompute, on the same stage ring: GateRing).
+template <class E, bool kChunked, bool kBulk = false, bool kGates = false>
 struct Walk {
   static constexpr bool kTC = !kF32<E>;
   const E* wh;
@@ -959,13 +1159,7 @@ struct Walk {
       zero_smem(smem, tiles_bytes);
     }
     if constexpr (kBulk) {
-      if (threadIdx.x == 0) {
-        for (int s = 0; s < kStages; ++s) {
-          mbar_init(ring_full(s), 1);
-          mbar_init(ring_empty(s), (blockDim.x + 31) / 32);
-        }
-        fence_mbarrier_init();
-      }
+      ring_init(stages());
       __syncthreads();  // the barriers set before any copy or arrival
     }
     j = j0 + imin(it.col, n_units - 1);
@@ -1010,13 +1204,14 @@ struct Walk {
 
   // Step t's dz columns of this block for chunk c, from h_{t-1} (hprev),
   // c_{t-1} (cprev) and c_t (ct), each (B, H), dout (B, H) and proj
-  // (B, 4H), written into x_t (B, 4H) and, where given (bf16 only), f_t:
-  // the f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, the dWh
+  // (B, 4H), written (kBulk) into the exchange's slot xch_t (tiled), and
+  // into x_t (B, 4H) where given and, where given (bf16 only), f_t: the
+  // f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, the dWh
   // pass of K4 and K5); the dc carry moves on to step t-1.
   template <bool kSeam, class F>
   __device__ __forceinline__ void dz_step(int t, int c, const float* dout, const E* proj,
                                           const E* hprev, const float* cprev, const float* ct,
-                                          E* x_t, F* f_t) {
+                                          E* x_t, F* f_t, E* xch_t = nullptr) {
     if constexpr (kChunked) {
       set_chunk(c);
       if (it.owner()) {
@@ -1039,12 +1234,10 @@ struct Walk {
       c_prev[r] = load ? __ldcg(cprev + o) : 0.0f;
     }
     float acc[4][4];
-    if constexpr (kTC)
-      gate_product_tc(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it,
-                      imin(Bc, B - first(q)), Bc, H, Hb, j0, n_units, kt, pinned);
-    else
-      gate_product(acc, hprev + (size_t)first(q) * H, wh, wc, st, red, it, imin(Bc, B - first(q)),
-                   Bc, H, Hb, j0, n_units, kt, pinned);
+    gates(acc,
+          GateRows<E>{hprev + (size_t)first(q) * H, wh, wc, st, imin(Bc, B - first(q)), Bc, H, Hb,
+                      j0, n_units, kt, pinned},
+          wc, st, red, it, Bc, H, Hb, kt, pinned);
     if (!it.owner()) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -1065,16 +1258,16 @@ struct Walk {
                           d_o * og * (1.0f - og)};
       const size_t o = (size_t)row[r] * 4 * H + j;
       E x[4];
-      if constexpr (kBulk) {  // x_t the tiled exchange, f_t the f32 dz
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          x_t[tiled(r, j + g * H)] = from_f32<E>(v[g]);
-          f_t[o + g * H] = v[g];
-        }
-        continue;
+      for (int g = 0; g < 4; ++g) x[g] = from_f32<E>(v[g]);
+      if constexpr (kBulk) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xch_t[tiled(r, j + g * H)] = x[g];
       }
+      if (x_t) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) x_t[o + g * H] = x[g] = from_f32<E>(v[g]);
+        for (int g = 0; g < 4; ++g) x_t[o + g * H] = x[g];
+      }
       if constexpr (!kF32<E>) {
         if (f_t) {
 #pragma unroll
@@ -1093,17 +1286,29 @@ struct Walk {
     }
   }
 
-  // the ring's barriers of stage s, in a row padding of wr that no copy or
-  // product touches: pinned, row s's; streamed, that of the last real row
-  // of wr's buffer s (which the buffer's bulk copy leaves out)
-  __device__ __forceinline__ uint64_t* ring_full(int s) const {
-    const E* row = pinned ? wr + s * wr_ld : wr + (s * Hbp + n_units - 1) * wr_ld;
-    return reinterpret_cast<uint64_t*>(const_cast<E*>(row) + wr_ld - kVec<E>);
+  // the stage ring's barriers (ring_tiles' full(s)), in a row padding of
+  // wr that no copy or product touches: pinned, row s's; streamed, that of
+  // the last real row of wr's buffer s (which the buffer's bulk copy leaves
+  // out)
+  __device__ __forceinline__ auto stages() const {
+    E* base = wr + (pinned ? 0 : n_units - 1) * wr_ld + wr_ld - kVec<E>;
+    const int stride = pinned ? wr_ld : Hbp * wr_ld;
+    return [base, stride](int s) { return reinterpret_cast<uint64_t*>(base + s * stride); };
+  }
+
+  // kBulk: the stage ring's barriers set up again, and its positions
+  // counted from 0, after a pass that staged other data over them (K5's
+  // dWh pass uses every tile buffer where wh is streamed). No copy is in
+  // flight, and every phase has completed.
+  __device__ __forceinline__ void reset_ring() {
+    ring_init(stages());
+    pos = 0;
+    __syncthreads();
   }
 
   // the ring's layout (ExchangeRing)
   __device__ __forceinline__ ExchangeRing<E> ring() const {
-    return ExchangeRing<E>(B, H, Hb, kt, pinned, Bc);
+    return ExchangeRing<E>(B, H, Hb, kt, pinned, Bc, true, kGates);
   }
 
   // kBulk, wh streamed: the block's rows of wh tile by tile (each tile
@@ -1145,8 +1350,6 @@ struct Walk {
   __device__ __forceinline__ const E* chunk_of(const E* x_t, int c) const {
     return kBulk ? x_t + c * ring().chunk() : x_t + (size_t)first(c) * 4 * H;
   }
-  __device__ __forceinline__ uint64_t* ring_empty(int s) const { return ring_full(s) + 1; }
-
   // The carry product's exchange: a chunk x (chunk_of; complete, after the
   // grid barrier) of `rows` real rows in tiles of kt columns into the
   // staging buffers, with wh's rows of the block's units beside each
@@ -1174,40 +1377,16 @@ struct Walk {
   // exchange through the bulk ring (kBulk: "The exchange" above)
   template <class Use>
   __device__ __forceinline__ void bulk_tiles(const E* x, int rows, int n, Use use) {
-    const int x0 = blockIdx.x, lane = threadIdx.x & 31;
-    const bool issuer = threadIdx.x < 32;  // warp 0
-    // position q into its stage: warp 0, all lanes together
-    auto produce = [&](int q) {
-      const int g = pos + q, s = g % kStages, tile = (x0 + q) % n;
-      const unsigned tile_bytes = rows * ld * (unsigned)sizeof(E);
-      // wh streamed: the tile's rows of wh but the last row's padding
-      const unsigned wh_bytes = pinned ? 0 : (n_units * wr_ld - kVec<E>) * (unsigned)sizeof(E);
-      if (lane == 0) {
-        if (g >= kStages) mbar_wait(ring_empty(s), (g / kStages - 1) & 1);
-        mbar_arrive_expect_tx(ring_full(s), tile_bytes + wh_bytes);
-        if (!pinned)  // this block's own rows of wh
-          bulk_copy(wr + s * Hbp * wr_ld, wt + (size_t)tile * Hbp * wr_ld, wh_bytes,
-                    ring_full(s));
-        // the tile's rows, padded, in one copy
-        bulk_copy(st + s * Bc * ld, x + (size_t)tile * Bc * ld, tile_bytes, ring_full(s));
-      }
-      __syncwarp();
-    };
-    if (issuer) {
-      fence_proxy_async();
-      for (int q = 0; q < imin(kStages - 1, n); ++q) produce(q);
-    }
-    for (int q = 0; q < n; ++q) {
-      // the stage position q - 1 held: every warp frees it first
-      if (issuer && q + kStages - 1 < n) produce(q + kStages - 1);
-      const int g = pos + q, s = g % kStages;
-      mbar_wait(ring_full(s), (g / kStages) & 1);
-      use((x0 + q) % n, s);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(ring_empty(s));
-    }
-    pos += n;
-    __syncthreads();  // the buffers are free for the caller
+    const unsigned tile_bytes = rows * ld * (unsigned)sizeof(E);
+    // wh streamed: the tile's rows of wh but the last row's padding
+    const unsigned wh_bytes = pinned ? 0 : (n_units * wr_ld - kVec<E>) * (unsigned)sizeof(E);
+    ring_tiles(stages(), pos, n, blockIdx.x % n, [&](int tile, int s, uint64_t* bar) {
+      mbar_arrive_expect_tx(bar, tile_bytes + wh_bytes);
+      if (!pinned)  // this block's own rows of wh
+        bulk_copy(wr + s * Hbp * wr_ld, wt + (size_t)tile * Hbp * wr_ld, wh_bytes, bar);
+      // the tile's rows, padded, in one copy
+      bulk_copy(st + s * Bc * ld, x + (size_t)tile * Bc * ld, tile_bytes, bar);
+    }, use);
   }
 
   // a[r][u] = sum_m x_t[c*Bc + rg + r*nrg, m] * wh[j0 + 4col + u, m] for

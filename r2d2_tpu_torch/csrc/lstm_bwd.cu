@@ -79,9 +79,12 @@ lstm_bwd_kernel(const float* __restrict__ dout,   // (T, B, H)
     // what the blocks exchange: dz_t (bf16: rounded), in the two-step ring
     // (a block may still read step t's while another writes step t-1's)
     E* x_t = w.exchange_at(xch, t);
+    E* rows = nullptr;  // the dz output: float, rows of E; bf16, the f32 copy
+    if constexpr (kF32<E>) rows = dz_t;
     for (int c = 0; c < w.n_chunks(); ++c)
       w.template dz_step<false>(t, c, dout + t * BH, proj + t * 4 * BH, hprev + t * BH,
-                                cprev + t * BH, cs + t * BH, x_t, dz_t);
+                                cprev + t * BH, cs + t * BH, rows, kF32<E> ? nullptr : dz_t,
+                                x_t);
     grid_barrier(bar);  // x_t complete before anyone reads it
     for (int c = 0; c < w.n_chunks(); ++c) {
       float a[4][4];
@@ -132,7 +135,7 @@ extern "C" int lstm_bwd_bf16_launch(const float* dout, const bf16* proj, const b
 // seamless backward's geometry (column_split.cuh ExchangeRing)
 extern "C" long long lstm_bwd_exchange_ring_elems(int itemsize, int B, int H, int Hb, int grid,
                                                   int kt, int pinned, int Bc) {
-  return exchange_ring_elems(itemsize, B, H, Hb, grid, kt, pinned, Bc);
+  return exchange_ring_elems(itemsize, B, H, Hb, grid, kt, pinned, Bc, true, false);
 }
 
 extern "C" const char* lstm_bwd_error_string(int code) {

@@ -63,11 +63,11 @@ import torch
 # the kernel sources (csrc/<name>.cu), each with its C arguments:
 # (pointers, ints), then the stream
 _SOURCE_SIGNATURES = {
-    "lstm_fwd": (7, 10),             # ..., barrier, T, B, H, then the Geometry
+    "lstm_fwd": (8, 10),             # ..., barrier, T, B, H, then the Geometry
     "lstm_seq_bwd": (12, 10),
     "lstm_bwd": (13, 10),
     "lstm_seq_bwd_fused": (13, 11),  # ..., barrier, T, B, H, W, then the Geometry
-    "lstm_seq_bwd_ckpt": (14, 11),   # ..., barrier, T, B, H, S, then the Geometry
+    "lstm_seq_bwd_ckpt": (15, 11),   # ..., barrier, T, B, H, S, then the Geometry
 }
 SOURCES = tuple(_SOURCE_SIGNATURES)
 # the bf16 forms: the same source and C arguments, entry point <name>_launch
@@ -334,6 +334,9 @@ _SLICED_THREADS = 256
 _MAX_K_TILE = 128
 _ROW_PAD_BYTES = 16
 _STAGES = 4
+# the bulk ring's mbarriers, a full and an empty one a stage: K1 keeps them
+# in shared memory of their own (the walk, in a row padding of wh's rows)
+_RING_BARRIER_BYTES = 16 * _STAGES
 
 # the sources whose bf16 forms run their products on the tensor cores: all
 # five (column_split.cuh: mma.sync m16n8k16, rows of 16, warp tiles of 16 x
@@ -490,6 +493,8 @@ def _tensor_core_geometry(B: int, H: int, backward: bool, num_sms: int, smem_lim
                 nbytes = _STAGES * rows * (kt * 2 + _ROW_PAD_BYTES) + 4 * red
                 if backward and one_chunk:
                     nbytes += 4 * rows * units
+                if not backward:
+                    nbytes += _RING_BARRIER_BYTES
                 if pinned:
                     nbytes += k16 * (N * 2 + _ROW_PAD_BYTES)
                     if backward:
@@ -576,6 +581,8 @@ def lstm_geometry(B: int, H: int, kernel: str, num_sms: int, smem_limit: int,
                 nbytes = _STAGES * rows * (kt * itemsize + _ROW_PAD_BYTES) + 64 * threads
                 if backward and one_chunk:
                     nbytes += 4 * rows * units
+                if not backward:
+                    nbytes += _RING_BARRIER_BYTES
                 # the wh slice: gate columns, and (walk) rows padded to 4 units
                 if pinned:
                     nbytes += H * 4 * units * itemsize
@@ -620,9 +627,10 @@ def _carry_workspace(g: Geometry, B: int, dev):
 
 def _exchange_ring(source: str, g: Geometry, B: int, H: int, dtype, dev,
                    lib=None) -> torch.Tensor:
-    """The exchange ring of K2 and K3 (both forms take the carry product's
-    rows through TMA bulk copies out of it: column_split.cuh "The
-    exchange") in the compute dtype, sized by the kernel's source itself (<source>_exchange_ring_elems,
+    """The exchange ring of K1, K2, K3 and K5 (both forms take their
+    exchanged rows through TMA bulk copies out of it: column_split.cuh "The
+    exchange"; K1 h_t, K2 and K3 dz_t, K5 both) in the compute dtype, sized
+    by the kernel's source itself (<source>_exchange_ring_elems,
     column_split.cuh ExchangeRing, the one account of its layout), from
     `lib` or the built library of `source`."""
     if lib is None:
@@ -663,12 +671,12 @@ def lstm_fwd(proj_t, wh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     if dev.type == "cpu":
         return lstm_fwd_plain(proj_t, wh, h0, c0)
     geo = _geometry(B, H, "lstm_fwd", dev, dt)
-    _check_aligned("h0", h0)
     if tensor_cores("lstm_fwd", dt.itemsize):
         _check_aligned("wh", wh)  # its gate columns come in 8- and 16-byte copies
     outs = torch.empty((T, B, H), dtype=dt, device=dev)
     cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    _launch(_form("lstm_fwd", dt), (proj_t, wh, h0, c0, outs, cs, _barrier(dev)),
+    xch = _exchange_ring("lstm_fwd", geo, B, H, dt, dev)  # h_t, exchanged
+    _launch(_form("lstm_fwd", dt), (proj_t, wh, h0, c0, outs, cs, xch, _barrier(dev)),
             (T, B, H, *_geometry_ints(geo)), dev)
     return outs, cs
 
@@ -692,30 +700,41 @@ def grid_barriers(n: int, B: int, H: int, dev) -> None:
 
 
 def exchange_alone(T: int, B: int, H: int, dev, dtype=torch.float32, bulk: bool = True,
-                   geo: Geometry = None) -> None:
-    """Launch the seam backward's exchange alone (csrc/lstm_seq_bwd.cu,
-    ``exchange_kernel``): T - 1 steps of one grid barrier and the carry
-    product's exchange of one step of the exchange ring into the stage
-    ring, no product; `bulk` the bulk ring, else the cp.async pipeline; in
-    K2's geometry at (B, H) in `dtype`, or `geo`, with the batch in one
-    chunk. For timing; counts no launch."""
+                   geo: Geometry = None, source: str = "lstm_seq_bwd",
+                   cols: bool = True) -> None:
+    """Launch one exchange alone, for timing (its source's
+    ``exchange_kernel``): T - 1 steps of one grid barrier and the exchange
+    of one step of the exchange ring into the stage ring, no product; `bulk`
+    the bulk ring, else the cp.async pipeline; with the batch in one chunk,
+    in the geometry of `source` at (B, H) in `dtype`, or `geo`. `source`
+    "lstm_seq_bwd": the carry product's exchange of dz (K2, K3, K5);
+    "lstm_fwd": the gate product's of h (K1, K5's recompute), with `cols`
+    the block's gate columns of wh beside each tile where wh is streamed.
+    Counts no launch."""
     from r2d2_tpu_torch.ops import _build
 
-    geo = geo or _geometry(B, H, "lstm_seq_bwd", dev, dtype)
-    _, err_str = _kernel(_form("lstm_seq_bwd", dtype))
-    lib = _build.load("lstm_seq_bwd")
-    fn = (lib.lstm_seq_bwd_exchange_launch if dtype == torch.float32
-          else lib.lstm_seq_bwd_exchange_bf16_launch)
-    fn.argtypes = [_P] * 4 + [_I] * 11 + [_P]
-    fn.restype = _I
-    x = _exchange_ring("lstm_seq_bwd", geo, B, H, dtype, dev, lib).zero_()
+    if source not in ("lstm_seq_bwd", "lstm_fwd"):
+        raise ValueError(f"no exchange probe in {source!r}")
+    geo = geo or _geometry(B, H, source, dev, dtype)
+    _, err_str = _kernel(_form(source, dtype))
+    lib = _build.load(source)
+    fn = getattr(lib, f"{source}_exchange{'' if dtype == torch.float32 else '_bf16'}_launch")
+    x = _exchange_ring(source, geo, B, H, dtype, dev, lib).zero_()
     wh = torch.zeros((H, 4 * H), dtype=dtype, device=dev)
-    dcT = torch.zeros((B, H), dtype=torch.float32, device=dev)
     bar = _barrier(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if source == "lstm_fwd":
+        fn.argtypes = [_P] * 3 + [_I] * 12 + [_P]
+        args = (x.data_ptr(), wh.data_ptr(), bar.data_ptr(), T, B, H, *_geometry_ints(geo),
+                int(bulk), int(cols), stream)
+    else:
+        fn.argtypes = [_P] * 4 + [_I] * 11 + [_P]
+        dcT = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        args = (x.data_ptr(), wh.data_ptr(), dcT.data_ptr(), bar.data_ptr(), T, B, H,
+                *_geometry_ints(geo), int(bulk), stream)
+    fn.restype = _I
     with torch.cuda.device(dev):
-        code = fn(x.data_ptr(), wh.data_ptr(), dcT.data_ptr(), bar.data_ptr(), T, B, H,
-                  *_geometry_ints(geo), int(bulk),
-                  torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(*args)
     if code != 0:
         raise RuntimeError(f"exchange launch failed: {err_str(code).decode()} ({code})")
 
@@ -860,8 +879,10 @@ def lstm_seq_bwd_ckpt(dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, S: int):
                     ("dz_lo", dz_lo)):
         if t is not None:
             _check_aligned(name, t)
+    # the recompute's h_t and the walk's dz_t (bf16: rounded), exchanged
+    xch = _exchange_ring("lstm_seq_bwd_ckpt", geo, B, H, dt, dev)
     _launch(_form("lstm_seq_bwd_ckpt", dt),
-            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo,
+            (dout, proj_t, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, seg_h, seg_c, dz_lo, xch,
              _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, S, *_geometry_ints(geo)), dev)
     return dz, dwh

@@ -254,6 +254,71 @@ def test_exchange_alone_runs_both_exchanges(cuda, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+def test_forward_exchange_alone_runs_both_exchanges(cuda, dtype):
+    """The forward's probe: T - 1 steps of a grid barrier and K1's exchange
+    of h with no product, through the bulk ring and through cp.async, at
+    the atari widths (wh pinned) and at xl (streamed: with and without the
+    gate columns)."""
+    for H in (512, 2048):
+        for bulk in (True, False):
+            for cols in (True, False):
+                lstm_kernel.exchange_alone(85, 64, H, cuda, dtype, bulk, source="lstm_fwd",
+                                           cols=cols)
+    torch.cuda.synchronize()
+
+
+# K1 takes h_t, and K5 both h_t (its recompute) and dz_t (its walk), through
+# TMA bulk copies into the mbarrier ring, with wh's gate columns beside each
+# tile where wh is streamed (xl): the atari widths, the wide model's batch
+# 96 and xl
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", EXCHANGE_SHAPES, ids=str)
+def test_gate_ring_kernels_on_the_card(cuda, shape, dtype):
+    """K1 (outs, cs) and K5 (dz, dWh at S=5 and S=85, mixed seams) against
+    their plain versions, three launches of each giving the same bits."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, dtype, T * B + H + 1)
+    f32 = dtype == torch.float32
+    tol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    for a, b in zip((outs, cs), lstm_kernel.lstm_fwd_plain(proj, wh, h0, c0)):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    for _ in range(2):
+        assert all(map(torch.equal, (outs, cs), lstm_kernel.lstm_fwd(proj, wh, h0, c0)))
+    for S in (5, 85):
+        args = _ckpt_args(dout, proj, outs, cs, h0, c0, wh, dcT, mixed, S)
+        dz, dwh = lstm_kernel.lstm_seq_bwd_ckpt(*args)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(*args)
+        torch.testing.assert_close(dz.float(), p_dz.float(), **tol)
+        bound = 1e-4 if f32 else BF16_DWH
+        assert float((dwh - p_dwh).abs().max()) <= bound * float(p_dwh.abs().max())
+        for _ in range(2):
+            assert all(map(torch.equal, (dz, dwh), lstm_kernel.lstm_seq_bwd_ckpt(*args)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+def test_gate_rings_sized_by_their_sources(cuda, dtype):
+    """lstm_fwd_exchange_ring_elems and lstm_seq_bwd_ckpt_exchange_ring_elems
+    against the layout counted here: two slots of the gate product's tiles
+    (per chunk, ceil(H / kt) tiles of Bc rows of kt + 16 bytes), and where
+    wh is streamed every block's tiles of gate columns (kt rows of 4Hb;
+    bf16 4Hb + 8); K5's ring is K2's and K1's side by side."""
+    for B, H in ((64, 512), (96, 1024), (64, 2048), (1024, 512), (256, 2048)):
+        g = lstm_kernel._geometry(B, H, "lstm_fwd", cuda, dtype)
+        vec = 16 // dtype.itemsize
+        row = g.units * 4 if dtype == torch.float32 else g.units * 4 + vec
+        nh = -(-H // g.k_tile)
+        want = 2 * g.chunks(B) * nh * g.rows * (g.k_tile + vec)
+        if not g.pinned:
+            want += g.grid * nh * g.k_tile * row
+        assert lstm_kernel._exchange_ring("lstm_fwd", g, B, H, dtype, cuda).numel() == want
+        g5 = lstm_kernel._geometry(B, H, "lstm_seq_bwd_ckpt", cuda, dtype)
+        rings = [lstm_kernel._exchange_ring(src, g5, B, H, dtype, cuda).numel()
+                 for src in ("lstm_seq_bwd_ckpt", "lstm_seq_bwd", "lstm_fwd")]
+        assert rings[0] == rings[1] + rings[2], (B, H, g5, rings)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     T, B, H = 4, 3, 8
     proj = torch.zeros(T, B, 4 * H, device=cuda)

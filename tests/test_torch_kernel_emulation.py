@@ -23,10 +23,11 @@ columns before they are written. Each kernel also runs at a thread
 ceiling cut so far that the batch takes two or more row chunks (the last
 one ragged), and the bf16 forms of all five run against their plain
 versions in bf16 (K4's with dWh windows that do and do not divide T).
-The bulk exchange of K2 and K3 (TMA bulk copies into an mbarrier ring)
-runs on the scalar host bodies column_split.cuh gives its primitives: an
-mbarrier a 64-bit word, a bulk copy a memcpy that completes its bytes on
-it; the ring is also run where it wraps many times a step. A kernel
+The bulk exchange of K1, K2, K3 and K5 (TMA bulk copies into an mbarrier
+ring) runs on the scalar host bodies column_split.cuh gives its
+primitives: an mbarrier a 64-bit word whose waiters block on it until its
+phase moves, a bulk copy a memcpy that completes its bytes on it; each
+ring is also run where it wraps many times a step. A kernel
 whose body leaves the subset (clusters, warp intrinsics, wgmma) is held
 against its plain version by
 tests/test_torch_cuda.py and chip_smoke.py only; the header is not meant
@@ -217,17 +218,20 @@ def _assert_zero_below_seam(dz, burn_np):
         assert not dz[: int(burn_np[b]), b].any()
 
 
+def _ring(kernels, source, g, B, H, dtype):
+    """The exchange ring of K1, K2, K3 or K5 at g, sized by the emulated
+    source."""
+    return lstm_kernel._exchange_ring(source, g, B, H, dtype, "cpu", kernels[f"{source}_lib"])
+
+
 def _fwd(kernels, proj, wh, h0, c0, mt=512):
     T, B, H4 = proj.shape
-    outs, cs = torch.empty(T, B, H4 // 4, dtype=proj.dtype), torch.empty(T, B, H4 // 4)
+    H = H4 // 4
+    outs, cs = torch.empty(T, B, H, dtype=proj.dtype), torch.empty(T, B, H)
     name = "lstm_fwd" if proj.dtype == torch.float32 else "lstm_fwd_bf16"
-    _split(kernels, name, (proj, wh, h0, c0, outs, cs), T, B, H4 // 4, max_threads=mt)
+    xch = _ring(kernels, "lstm_fwd", _emulated_geometry(name, B, H, mt), B, H, proj.dtype)
+    _split(kernels, name, (proj, wh, h0, c0, outs, cs, xch), T, B, H, max_threads=mt)
     return outs, cs
-
-
-def _ring(kernels, source, g, B, H, dtype):
-    """K2's or K3's exchange ring at g, sized by the emulated source."""
-    return lstm_kernel._exchange_ring(source, g, B, H, dtype, "cpu", kernels[f"{source}_lib"])
 
 
 def _seam(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512):
@@ -277,7 +281,8 @@ def _ckpt(kernels, dout, proj, outs, cs, h0, c0, wh, dcT, burn, S, mt=512):
         name, dz_lo = "lstm_seq_bwd_ckpt", None
     else:  # the low plane of dz that the bf16 form's dWh pass sums
         name, dz_lo = "lstm_seq_bwd_ckpt_bf16", torch.empty(S, B, 4 * H, dtype=dt)
-    _split(kernels, name, (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, *seg, dz_lo),
+    xch = _ring(kernels, "lstm_seq_bwd_ckpt", _emulated_geometry(name, B, H, mt), B, H, dt)
+    _split(kernels, name, (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, *seg, dz_lo, xch),
            T, B, H, S, max_threads=mt)
     return dz, dwh, h_ckpt, c_ckpt
 
@@ -696,9 +701,11 @@ def _check_dwh_from_recomputed_h(kernels, walk, args, dwh):
     h_ckpt, c_ckpt = h0[None].contiguous(), c0.float()[None].contiguous()
     dz, dwh2 = torch.empty(T, B, 4 * H, dtype=BF16), torch.empty(H, 4 * H)
     seg_h, seg_c = torch.empty(S + 1, B, H, dtype=BF16), torch.empty(S + 1, B, H)
+    xch = _ring(kernels, "lstm_seq_bwd_ckpt",
+                _emulated_geometry("lstm_seq_bwd_ckpt_bf16", B, H, mt), B, H, BF16)
     _split(kernels, "lstm_seq_bwd_ckpt_bf16",
            (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh2, seg_h, seg_c,
-            torch.empty(S, B, 4 * H, dtype=BF16)), T, B, H, S, max_threads=mt)
+            torch.empty(S, B, 4 * H, dtype=BF16), xch), T, B, H, S, max_threads=mt)
     assert torch.equal(dwh2, dwh)
     hprev = torch.cat([h0[None], seg_h[1:S]])
     own = (dout, proj, hprev, *walk[3:])
@@ -708,23 +715,40 @@ def _check_dwh_from_recomputed_h(kernels, walk, args, dwh):
 
 
 # ---------------------------------------------------------------------------
-# the bulk exchange of K2 and K3: a stage ring that wraps many times a step
+# the bulk exchange of K1, K2, K3 and K5: a stage ring that wraps many times
+# a step
 # ---------------------------------------------------------------------------
 
 
 # column_split.cuh kStages: the stages of the exchange's ring
 STAGES = 4
-# (T, B, H, shared memory, thread ceiling): a shared-memory limit that
-# narrows the k-tile until the carry product's 4H columns take at least 3 *
-# STAGES tiles, so the ring wraps several times a step and its barriers'
-# phases run on over steps and chunks; one chunk (the first two) and two or
-# more
-RING_SHAPES = [(5, 9, 40, 30000, 512), (4, 6, 96, 60000, 512), (4, 13, 64, 30000, 512),
-               (3, 37, 64, 30000, 64)]
-# bf16, (T, B, H, shared memory, rows a chunk): the tensor-core split at
-# (20, 96) in 62,000 bytes (12 tiles of 32 columns), and that split cut
-# into chunks of 16 rows
-RING_SHAPES_BF16 = [(4, 20, 96, 62000, None), (3, 20, 96, 62000, 16)]
+# (T, B, H, shared memory, thread ceiling, kernel): a shared-memory limit
+# that narrows the k-tile until the carry product's 4H columns take at
+# least 3 * STAGES tiles, so the ring wraps several times a step and its
+# barriers' phases run on over steps and chunks; one chunk (the first two)
+# and two or more; "walk" runs K2, K3 and K4 there. Then K1's and K5's
+# rings, where the gate product's H columns take 12 tiles of 8 (K5: at
+# S=2, two segments): wh pinned with one chunk, streamed with four.
+RING_SHAPES = [pytest.param(*shape, "walk", id="-".join(map(str, shape))) for shape in (
+    (5, 9, 40, 30000, 512), (4, 6, 96, 60000, 512), (4, 13, 64, 30000, 512), (3, 37, 64, 30000, 64))]
+RING_SHAPES += [
+    pytest.param(5, 9, 96, 48500, 512, "lstm_fwd", id="K1-pinned-5-9-96"),
+    pytest.param(4, 13, 96, 26000, 512, "lstm_fwd", id="K1-streamed-chunks-4-13-96"),
+    pytest.param(4, 9, 96, 86800, 512, "lstm_seq_bwd_ckpt", id="K5-pinned-4-9-96"),
+    pytest.param(4, 13, 96, 30000, 512, "lstm_seq_bwd_ckpt", id="K5-streamed-chunks-4-13-96"),
+]
+# bf16, (T, B, H, shared memory, rows a chunk, kernel): the tensor-core
+# split at (20, 96) in 62,000 bytes (12 tiles of 32 columns), and that split
+# cut into chunks of 16 rows; K1's gate product in 12 tiles of 16 with wh
+# pinned (the split's k-tile narrowed to 16) and streamed in two chunks,
+# and K5's in 12 tiles of 32, streamed, in two chunks
+RING_SHAPES_BF16 = [pytest.param(*shape, "walk", id="-".join(map(str, shape))) for shape in (
+    (4, 20, 96, 62000, None), (3, 20, 96, 62000, 16))]
+RING_SHAPES_BF16 += [
+    pytest.param(3, 9, 192, 232448, None, "lstm_fwd", id="K1-pinned-3-9-192"),
+    pytest.param(3, 20, 192, 41500, 16, "lstm_fwd", id="K1-streamed-chunks-3-20-192"),
+    pytest.param(4, 20, 384, 110000, 16, "lstm_seq_bwd_ckpt", id="K5-streamed-chunks-4-20-384"),
+]
 
 
 def _check_ring(kernels, T, B, H, g, dtype, fused):
@@ -768,17 +792,76 @@ def _check_ring(kernels, T, B, H, g, dtype, fused):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("T,B,H,smem,mt", RING_SHAPES)
-def test_emulated_bulk_exchange_ring_wraps_in_float32(kernels, T, B, H, smem, mt):
+def _check_gate_ring(kernels, T, B, H, g, dtype, source):
+    """K1 (outs, cs) or K5 (dz, dWh at S=2, seams on and inside segments)
+    at geometry g against their plain versions, each twice for the same
+    bits; K5's ring is K2's and K1's side by side (ExchangeRing)."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H, dtype)
+    f32 = dtype == torch.float32
+    sfx = "" if f32 else "_bf16"
+    tol = dict(rtol=0, atol=1e-5) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    ring = _ring(kernels, source, g, B, H, dtype)
+    if source == "lstm_fwd":
+        def fwd():
+            got = torch.empty(T, B, H, dtype=dtype), torch.empty(T, B, H)
+            _launch_at(kernels, "lstm_fwd" + sfx, (proj, wh, h0, c0, *got, ring), T, B, H, g)
+            return got
+        got = fwd()
+        for a, b in zip(got, (outs, cs)):
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        assert all(map(torch.equal, got, fwd()))
+        return
+    assert ring.numel() == sum(_ring(kernels, s, g, B, H, dtype).numel()
+                               for s in ("lstm_seq_bwd", "lstm_fwd"))
+    S = 2
+    h_ckpt = torch.cat([h0[None], outs[S - 1 : T - 1 : S]]).contiguous()
+    c_ckpt = torch.cat([c0.float()[None], cs[S - 1 : T - 1 : S]]).contiguous()
+
+    def ckpt(burn):
+        dz, dwh = torch.empty(T, B, 4 * H, dtype=dtype), torch.empty(H, 4 * H)
+        seg = torch.empty(S + 1, B, H, dtype=dtype), torch.empty(S + 1, B, H)
+        dz_lo = None if f32 else torch.empty(S, B, 4 * H, dtype=dtype)
+        _launch_at(kernels, "lstm_seq_bwd_ckpt" + sfx,
+                   (dout, proj, h_ckpt, c_ckpt, wh, dcT, burn, dz, dwh, *seg, dz_lo, ring),
+                   T, B, H, g, S)
+        return dz, dwh
+
+    for burn_np in _seams_for(rng, T, B, S)[:2]:
+        burn = torch.from_numpy(burn_np.astype(np.int32))
+        dz, dwh = ckpt(burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_ckpt_plain(dout, proj, h_ckpt, c_ckpt, wh, dcT,
+                                                          burn, S)
+        torch.testing.assert_close(dz.float(), p_dz.float(),
+                                   **(dict(rtol=0, atol=1e-4) if f32 else tol))
+        _assert_dwh_close(dwh, p_dwh)
+        _assert_zero_below_seam(dz, burn_np)
+        assert all(map(torch.equal, (dz, dwh), ckpt(burn)))
+
+
+@pytest.mark.parametrize("T,B,H,smem,mt,kernel", RING_SHAPES)
+def test_emulated_bulk_exchange_ring_wraps_in_float32(kernels, T, B, H, smem, mt, kernel):
+    if kernel != "walk":
+        g = lstm_kernel.lstm_geometry(B, H, kernel, EMULATED_SMS, smem, 4, mt)
+        assert -(-H // g.k_tile) >= 3 * STAGES, g
+        _check_gate_ring(kernels, T, B, H, g, torch.float32, kernel)
+        return
     g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", EMULATED_SMS, smem, 4, mt)
     assert -(-4 * H // g.k_tile) >= 3 * STAGES, g
     assert g == lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd_fused", EMULATED_SMS, smem, 4, mt)
     _check_ring(kernels, T, B, H, g, torch.float32, fused=True)
 
 
-@pytest.mark.parametrize("T,B,H,smem,rows", RING_SHAPES_BF16)
-def test_emulated_bulk_exchange_ring_wraps_in_bf16(kernels, T, B, H, smem, rows):
-    g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", max(EMULATED_SMS, -(-H // 64)), smem, 2)
+@pytest.mark.parametrize("T,B,H,smem,rows,kernel", RING_SHAPES_BF16)
+def test_emulated_bulk_exchange_ring_wraps_in_bf16(kernels, T, B, H, smem, rows, kernel):
+    sms = max(EMULATED_SMS, -(-H // 64))
+    if kernel != "walk":
+        g = lstm_kernel.lstm_geometry(B, H, kernel, sms, smem, 2, 512, rows)
+        if g.pinned:  # the pinned split's k-tile narrowed: more tiles, no more bytes
+            g = g._replace(k_tile=16)
+        assert -(-H // g.k_tile) >= 3 * STAGES, g
+        _check_gate_ring(kernels, T, B, H, g, BF16, kernel)
+        return
+    g = lstm_kernel.lstm_geometry(B, H, "lstm_seq_bwd", sms, smem, 2)
     assert -(-4 * H // g.k_tile) >= 3 * STAGES, g
     if rows:  # the split cut into row chunks (K4's dWh stage is not sized for it)
         g = g._replace(rows=rows)

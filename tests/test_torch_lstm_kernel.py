@@ -225,13 +225,14 @@ def test_column_split_geometry_at_the_atari_batch(H_, kernel):
 
 
 # the column split of every kernel before row chunks, where it fit:
-# (units, grid, threads, k_tile, pinned, smem_bytes) at 132 SMs, 232,448 B
+# (units, grid, threads, k_tile, pinned, smem_bytes) at 132 SMs, 232,448 B;
+# K1's shared memory also holds its bulk ring's mbarriers (64 bytes)
 _PR5_GEOMETRY = {
-    (64, 512): {k: (4, 128, 256, 128, True, 184320 if k == "lstm_fwd" else 218176)
+    (64, 512): {k: (4, 128, 256, 128, True, 184320 + 64 if k == "lstm_fwd" else 218176)
                 for k in port.SOURCES},
-    (128, 2048): {k: (16, 128, 512, 32, False, 139264 if k == "lstm_fwd" else 156672)
+    (128, 2048): {k: (16, 128, 512, 32, False, 139264 + 64 if k == "lstm_fwd" else 156672)
                   for k in port.SOURCES},
-    (512, 512): {k: (4, 128, 512, 16, True, 229376) if k == "lstm_fwd"
+    (512, 512): {k: (4, 128, 512, 16, True, 229376 + 64) if k == "lstm_fwd"
                  else (4, 128, 512, 8, True, 204864) for k in port.SOURCES},
 }
 

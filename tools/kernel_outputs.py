@@ -10,7 +10,8 @@ form at every shape beside another commit's.
 `save` runs every kernel form, the five kernels in float32 and in bf16, at
 eight shapes (ragged small ones, the atari, wide B=96 and xl widths, and two
 batches walked in row chunks), on inputs drawn from fixed seeds on the card
-(K2, K4 and K5 with mixed seams; K5 at S=5 where 5 divides T, else 1), and
+(K2, K4 and K5 with mixed seams; K5 at S=5 where 5 divides T, else 1, and
+where T > 5 also at S=T, one segment: "lstm_seq_bwd_ckpt_whole"), and
 writes to OUT each output's SHA-256, an evenly strided sample of at most
 2^16 of its values, and the form's time (median of 5 launches, CUDA events,
 each after a write of 64 MiB that evicts the 50 MB L2). `--root DIR`
@@ -18,7 +19,12 @@ imports r2d2_tpu_torch from DIR instead of this checkout, e.g. an unpacked
 `git archive` of another commit; make both records in one run on one card.
 `compare` prints, per form and shape, whether the two records hold the
 same bits and, where they do not, the largest difference over the sample
-against the sample's largest value, and the two times.
+against the sample's largest value, and the two times; for K1 and K5 also
+the bound (bound_ms): the least time an H100 could take for the same work,
+the larger of the bytes the function must move (each input read once,
+each output written once) over 3.35 TB/s and its matmul FLOPs (K5: on the
+(row, step) pairs the seams keep) over the FMA units' 67 TFLOP/s (float32)
+or the tensor cores' 989 TFLOP/s (bf16), as chip_smoke.py counts them.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -34,6 +40,30 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((7, 5, 32), (13, 67, 96), (3, 2, 640), (85, 64, 512), (85, 64, 2048),
           (85, 96, 1024), (85, 1024, 512), (85, 256, 2048))
 SAMPLE = 1 << 16
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+
+
+def bound_ms(name, T, B, H, burn, S):
+    """(ms, "bytes" or "operations") of K1 or K5 (`name`, a bf16 form's
+    ending in _bf16) at (T, B, H), K5 at stride S with seams `burn`; else
+    None."""
+    bf16 = name.endswith("_bf16")
+    e, f4, mm, bh, bh4, h4h = (2 if bf16 else 4), 4, 2 * H * 4 * H, B * H, B * 4 * H, H * 4 * H
+    if name.startswith("lstm_fwd"):
+        flops, nbytes = mm * T * B, e * (T * bh4 + h4h + 2 * bh + T * bh) + f4 * T * bh
+    elif name.startswith("lstm_seq_bwd_ckpt"):
+        kept = int((T - burn.long()).sum())
+        carried = int((T - 1 - burn.long()).clamp(min=0).sum())
+        flops = mm * (T * B + 2 * kept + carried)
+        # proj, the checkpoints' h, wh and the dz out in the compute dtype;
+        # dout, the checkpoints' c, dcT, burn and dWh in f32
+        nbytes = (e * (T * bh4 + (T // S) * bh + h4h + T * bh4)
+                  + f4 * (T * bh + (T // S) * bh + bh + B + h4h))
+    else:
+        return None
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def record(t):
@@ -92,13 +122,19 @@ def save(out, root):
             S = 5 if T % 5 == 0 else 1
             ckpt = (dout, proj, torch.cat([h0[None], outs[S - 1 : T - 1 : S]]),
                     torch.cat([c0.float()[None], cs[S - 1 : T - 1 : S]]), wh, dcT, burn, S)
+            whole = (dout, proj, h0[None], c0.float()[None], wh, dcT, burn, T)
             sfx = "" if dt == torch.float32 else "_bf16"
-            for name, fn in (("lstm_fwd", lambda: K.lstm_fwd(proj, wh, h0, c0)),
-                             ("lstm_seq_bwd", lambda: (K.lstm_seq_bwd(*walk, burn),)),
-                             ("lstm_bwd", lambda: K.lstm_bwd(*walk)),
-                             ("lstm_seq_bwd_fused", lambda: K.lstm_seq_bwd_fused(*walk, burn)),
-                             ("lstm_seq_bwd_ckpt", lambda: K.lstm_seq_bwd_ckpt(*ckpt))):
-                rec[(name + sfx, (T, B, H))] = ([record(x) for x in fn()], median_ms(fn, flush))
+            forms = [("lstm_fwd", lambda: K.lstm_fwd(proj, wh, h0, c0)),
+                     ("lstm_seq_bwd", lambda: (K.lstm_seq_bwd(*walk, burn),)),
+                     ("lstm_bwd", lambda: K.lstm_bwd(*walk)),
+                     ("lstm_seq_bwd_fused", lambda: K.lstm_seq_bwd_fused(*walk, burn)),
+                     ("lstm_seq_bwd_ckpt", lambda: K.lstm_seq_bwd_ckpt(*ckpt))]
+            if T > 5:
+                forms.append(("lstm_seq_bwd_ckpt_whole", lambda: K.lstm_seq_bwd_ckpt(*whole)))
+            for name, fn in forms:
+                s = T if name.endswith("whole") else S
+                rec[(name + sfx, (T, B, H))] = ([record(x) for x in fn()], median_ms(fn, flush),
+                                                bound_ms(name + sfx, T, B, H, burn, s))
         print(f"T={T} B={B} H={H}: every form in float32 and bf16 recorded", flush=True)
     torch.save(rec, out)
     print(f"{len(rec)} output sets -> {out}")
@@ -114,8 +150,10 @@ def compare(a_path, b_path):
         if key not in a or key not in b:
             print(f"{name} {shape}: in one record only")
             continue
-        (outs_a, ms_a), (outs_b, ms_b) = a[key], b[key]
+        (outs_a, ms_a, bound), (outs_b, ms_b, _) = a[key], b[key]
         times = f"; {ms_a:.3f} ms, {ms_b:.3f} ms"
+        if bound:
+            times += f" (bound {bound[0]:.4f} ms by {bound[1]})"
         diffs = []
         for (ha, sa), (hb, sb) in zip(outs_a, outs_b):
             if ha == hb:
