@@ -55,7 +55,10 @@ its own lines; any failure exits non-zero and prints no result:
           step into barrier, exchange and products; likewise K1's step,
           both forms, at the atari widths and at xl (the exchange of h
           alone, and at xl with and without the streamed gate columns,
-          in K1's geometry); the forward and the
+          in K1's geometry); K4's step, both forms, at the atari widths
+          and at xl: barrier, exchange, the dWh pass (a launch's passes
+          alone) and products, beside K2 and the default arm's pair in
+          the same call; the forward and the
           four backwards also at xl, with cuDNN's fp32 LSTM forward and backward there (TF32 off); and the
           SM clock read while forward launches are queued.
 9. chunks all five kernels with the batch in row chunks, at B=1024, H=512
@@ -397,8 +400,8 @@ PEAK_BYTES = 3.35e12
 # orders, differences carried through T recurrent steps
 ATOL = 1e-4
 RTOL = 1e-4
-# dWh summed in the kernel (per column slice; K4 over (t, b), K5 segments
-# newest first) against the plain version's per-step matmuls: each entry
+# dWh summed in the kernel (per column slice; K4 windows of steps, K5
+# segments, newest first) against the plain version's per-step matmuls: each entry
 # sums T*B products of both signs, so the error is held against the
 # largest entry, not entry by entry
 DWH_TOL = 1e-4
@@ -5053,9 +5056,9 @@ def main():
         f"{times['lstm_fwd'][0]:.3f} ms, lstm_seq_bwd {times['lstm_seq_bwd'][0]:.3f} ms")
     # the exchange alone, in K2's geometry (both forms): its T - 1 steps of
     # one grid barrier and the carry product's exchange into the stage
-    # ring, no product, through cp.async (K4's) and through the bulk ring
-    # (K2's, K3's and K5's); a step of K2 is then a barrier, an exchange
-    # and the products with the rest
+    # ring, no product, through cp.async (the walks' before the ring) and
+    # through the bulk ring (every walk's); a step of K2 is then a barrier,
+    # an exchange and the products with the rest
     for dt, k2_ms in ((torch.float32, times["lstm_seq_bwd"][0]), (torch.bfloat16, None)):
         geo = K._geometry(B, H, "lstm_seq_bwd", dev, dt)
         ex = {bulk: median_ms(lambda: K.exchange_alone(T, B, H, dev, dt, bulk))
@@ -5155,6 +5158,33 @@ def main():
             line += (f"; the products and the rest "
                      f"{k1_step - per_bar * 1e3 - step[True, True]:.2f} us")
             say("time", line)
+
+    # K4's step, both forms, at the atari widths and at xl (wh streamed): a
+    # barrier, the exchange of dz (the exchange alone on the bulk ring in
+    # K4's geometry), the dWh pass (a launch's passes alone, no walk:
+    # lstm_kernel.dwh_pass_alone) and the products with the rest; and K4
+    # beside K2 and the default arm's pair (K2 + the hprev^T @ dz matmul),
+    # in the same call: what the pass, run before the window step's grid
+    # barrier, costs the step
+    for dt in (torch.float32, torch.bfloat16):
+        for Hs, wk in ((H, walk), (Hx, walkx)):
+            wk = tuple(a.to(dt) if i in (1, 2, 5) else a for i, a in enumerate(wk))
+            k4_ms = median_ms(lambda: K.lstm_seq_bwd_fused(*wk, burn), reps=5, flush=flush)
+            k2_ms = median_ms(lambda: K.lstm_seq_bwd(*wk, burn), reps=5, flush=flush)
+            pair = median_ms(lambda: K._outer_dwh(wk[2], K.lstm_seq_bwd(*wk, burn), wk[5]),
+                             reps=5, flush=flush)
+            geo = K._geometry(B, Hs, "lstm_seq_bwd_fused", dev, dt)
+            ex_ms = median_ms(lambda: K.exchange_alone(T, B, Hs, dev, dt, True, geo=geo), reps=5)
+            pass_ms = median_ms(lambda: K.dwh_pass_alone(wk[2], dt), reps=5, flush=flush)
+            ex, pass_us = (ex_ms - (T - 1) * per_bar) / (T - 1) * 1e3, pass_ms / T * 1e3
+            k4_step = k4_ms / T * 1e3
+            say("time", f"{K._form('lstm_seq_bwd_fused', dt)}'s step at H={Hs} ({geo}): "
+                f"{k4_ms:.3f} ms, {k4_step:.2f} us a step: a barrier {per_bar * 1e3:.2f} us, the "
+                f"exchange of dz {ex:.2f} us (bulk ring), the dWh pass {pass_us:.2f} us alone "
+                f"({pass_ms:.3f} ms a launch), the products and the rest "
+                f"{k4_step - per_bar * 1e3 - ex - pass_us:.2f} us; beside "
+                f"{K._form('lstm_seq_bwd', dt)} {k2_ms:.3f} ms the pass costs the step "
+                f"{(k4_ms - k2_ms) / T * 1e3:.2f} us; the default arm's pair {pair:.3f} ms")
 
     for _ in range(120):  # about a second of queued forward launches
         K.lstm_fwd(proj, wh, h0, c0)

@@ -30,9 +30,10 @@
 // SMs do not all ask the same L2 lines at once. The exchanges take them
 // through TMA bulk copies into an mbarrier ring ("The exchange" below):
 // K1's gate product and K5's recompute (h_t, GateRing) and the carry
-// product of K2, K3 and K5 (dz_t). K4's carry product and every walk's
-// gate recompute (from h the forward or K5's recompute saved in rows)
-// copy rows with cp.async (pipelined_tiles, GateRows).
+// product of K2, K3, K4 and K5 (dz_t); so does K4's dWh pass
+// (Walk::add_dwh_window). Every walk's gate recompute (from h the forward
+// or K5's recompute saved in rows) and K5's dWh pass copy rows with
+// cp.async (pipelined_tiles, GateRows).
 //
 // The FMA products (float32) are register-tiled, since shared memory, not
 // the FMA units, bounds a thread that loads two values per four FMAs. A
@@ -230,6 +231,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
                : "memory");
 #elif !defined(__CUDACC__)
   std::atomic_ref<uint64_t>(*bar).store((uint64_t)count << 48 | (uint64_t)count << 32);
+#endif
+}
+
+// bar no longer an mbarrier (every phase complete, no copy in flight), so
+// that its bytes may hold other data
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(shared_u32(bar)) : "memory");
 #endif
 }
 
@@ -432,14 +441,15 @@ __device__ __forceinline__ void pipelined_tiles(int n, int first, Issue issue, U
   __syncthreads();  // the buffers are free for the caller
 }
 
-// The bulk exchange's stage ring ("The exchange" below): stage s has a
-// full mbarrier, full(s), and an empty one right after it. Thread 0 sets
-// them up: one arrival a phase for full (it announces the bytes), one per
-// warp for empty. The caller then runs a block barrier before any copy.
-template <class Full>
+// The bulk exchange's stage ring ("The exchange" below) of kS stages:
+// stage s has a full mbarrier, full(s), and an empty one right after it.
+// Thread 0 sets them up: one arrival a phase for full (it announces the
+// bytes), one per warp for empty. The caller then runs a block barrier
+// before any copy.
+template <int kS = kStages, class Full>
 __device__ __forceinline__ void ring_init(Full full) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(full(s), 1);
       mbar_init(full(s) + 1, (blockDim.x + 31) / 32);
     }
@@ -447,36 +457,54 @@ __device__ __forceinline__ void ring_init(Full full) {
   }
 }
 
+// The stage ring's barriers invalidated (thread 0), every phase complete
+// and no copy in flight, before a pass stages other data over them
+template <int kS = kStages, class Full>
+__device__ __forceinline__ void ring_inval(Full full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_inval(full(s));
+      mbar_inval(full(s) + 1);
+    }
+  }
+}
+
 // Tiles 0..n-1 through the stage ring, in the order first, first + 1, ...
 // (mod n), as pipelined_tiles takes them: each into the stage of its ring
-// position (pos, which runs on over calls, as do the barriers' phases).
-// Warp 0's lane 0 issues: once every warp has freed the stage, issue(c, s,
-// bar) announces tile c's bytes on bar (full(s)) and starts its bulk
-// copies; use(c, s) reads it once they have landed. No block barrier runs
-// per tile; the buffers are free for the caller after it.
-template <class Full, class Issue, class Use>
+// position (pos, which runs on over calls, as do the barriers' phases), of
+// kS stages.
+// Warp 0 issues: once every warp has freed the stage, issue(c, s, bar)
+// (lane 0; kWarp: issue(c, s, bar, lane) on every lane of warp 0)
+// announces tile c's bytes on bar (full(s)) and starts its bulk copies;
+// use(c, s) reads it once they have landed. No block barrier runs per
+// tile; the buffers are free for the caller after it.
+template <bool kWarp = false, int kS = kStages, class Full, class Issue, class Use>
 __device__ __forceinline__ void ring_tiles(Full full, int& pos, int n, int first, Issue issue,
                                            Use use) {
   const int lane = threadIdx.x & 31;
   const bool issuer = threadIdx.x < 32;  // warp 0
   // position q into its stage: warp 0, all lanes together
   auto produce = [&](int q) {
-    const int g = pos + q, s = g % kStages;
-    if (lane == 0) {
-      if (g >= kStages) mbar_wait(full(s) + 1, (g / kStages - 1) & 1);
+    const int g = pos + q, s = g % kS;
+    if constexpr (kWarp) {
+      if (lane == 0 && g >= kS) mbar_wait(full(s) + 1, (g / kS - 1) & 1);
+      __syncwarp();  // the stage is free for every lane's copies
+      issue((first + q) % n, s, full(s), lane);
+    } else if (lane == 0) {
+      if (g >= kS) mbar_wait(full(s) + 1, (g / kS - 1) & 1);
       issue((first + q) % n, s, full(s));
     }
     __syncwarp();
   };
   if (issuer) {
     fence_proxy_async();  // the rows the grid barrier made visible, before the copies
-    for (int q = 0; q < imin(kStages - 1, n); ++q) produce(q);
+    for (int q = 0; q < imin(kS - 1, n); ++q) produce(q);
   }
   for (int q = 0; q < n; ++q) {
     // the stage position q - 1 held: every warp frees it first
-    if (issuer && q + kStages - 1 < n) produce(q + kStages - 1);
-    const int g = pos + q, s = g % kStages;
-    mbar_wait(full(s), (g / kStages) & 1);
+    if (issuer && q + kS - 1 < n) produce(q + kS - 1);
+    const int g = pos + q, s = g % kS;
+    mbar_wait(full(s), (g / kS) & 1);
     use((first + q) % n, s);
     __syncwarp();
     if (lane == 0) mbar_arrive(full(s) + 1);
@@ -971,6 +999,47 @@ __device__ __forceinline__ void zero_h_padding(E* x, const ExchangeRing<E>& ring
   }
 }
 
+// The row of K4's dWh window (DwhWindow) and of a stage's dz columns in
+// its dWh pass: float, a unit's four gates side by side (4Hb + 4); bf16,
+// gate-major as wc (wc_ld_tc)
+template <class E>
+__host__ __device__ __forceinline__ int window_ld(int Hb) {
+  return kF32<E> ? 4 * Hb + 4 : wc_ld_tc(Hb);
+}
+
+// K4's window of dz for its dWh pass (Walk::add_dwh_window), shaped
+// (planes, grid, rows, ld) as lstm_kernel.fused_dwh_window allocates it:
+// per plane and block, rows m = s*B + b (s the step's slot, t % W), each
+// the block's dz columns of row b as a stage of the pass holds them
+// (window_ld), so that one bulk copy brings a tile's rows. float has one
+// plane, dz; bf16 two, hi = bf16(dz) (the dz it writes) and lo =
+// bf16(dz - hi). bf16 rows are W*B rounded up to 16 and start zero: the
+// tensor cores read the rows past a window as the m padding of its last
+// tile, and only the newest window, the first the walk adds, may be
+// ragged.
+template <class E>
+struct DwhWindow {
+  E* mine;       // this block's rows of plane 0
+  int rows, ld;  // rows a block, elements a row
+  size_t plane;  // elements a plane
+  __device__ __forceinline__ DwhWindow(E* win, int W, int B, int Hb)
+      : rows(kF32<E> ? W * B : (W * B + 15) & ~15), ld(window_ld<E>(Hb)) {
+    plane = (size_t)gridDim.x * rows * ld;
+    mine = win + (size_t)blockIdx.x * rows * ld;
+  }
+  // the first row of slot s
+  __device__ __forceinline__ E* slot(int s, int B) const { return mine + (size_t)s * B * ld; }
+  // bf16: the block's rows of both planes zeroed (16 bytes at a time), once
+  __device__ __forceinline__ void zero() const {
+    if constexpr (!kF32<E>) {
+      const int n = rows * ld / kVec<E>;
+      for (int p = 0; p < 2; ++p)
+        for (int i = threadIdx.x; i < n; i += blockDim.x)
+          reinterpret_cast<float4*>(mine + p * plane)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+};
+
 // The dWh tile product of K4's and K5's bf16 forms: out[k][n] +=
 // sum_m h[m][k] * (hi[m][n] + lo[m][n]), the f32 dz carried in two bf16
 // planes (hi its rounding, lo the rounding of the rest). M = dWh rows k,
@@ -1084,12 +1153,13 @@ __device__ __forceinline__ void mma_tile_at(float (&acc)[kDwhTiles / kNW][kNW][2
 // padded with zero rows to a multiple of 16), the rows of wr padded to
 // Hbp = Hb rounded up to 8, and the slices' planes of sums in red.
 //
-// The exchange (kBulk; K2, K3 and K5). The carry product's tiles of x_t
+// The exchange (kBulk; K2, K3, K4 and K5). The carry product's tiles of x_t
 // come in by TMA: x_t is written in a tiled layout (tiled(), ExchangeRing:
 // per chunk, tile by tile, each tile's Bc rows of kt + kVec elements, as
 // the stage buffer holds them), so each tile is one bulk copy into the
 // same kStages stage buffers and padded rows the cp.async pipeline fills
-// (K4 keeps that one), and the products read them as before. Each stage s
+// (exchange() without kBulk, kept for timing), and the products read them
+// as before. Each stage s
 // has a "full" mbarrier (one arrival that announces the tile's bytes, then
 // the copies' bytes) and an "empty" one (one arrival per warp once it is
 // done with the stage); both sit in a row padding of wr that no copy or
@@ -1206,12 +1276,15 @@ struct Walk {
   // c_{t-1} (cprev) and c_t (ct), each (B, H), dout (B, H) and proj
   // (B, 4H), written (kBulk) into the exchange's slot xch_t (tiled), and
   // into x_t (B, 4H) where given and, where given (bf16 only), f_t: the
-  // f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, the dWh
-  // pass of K4 and K5); the dc carry moves on to step t-1.
+  // f32 dz (F float) or the low plane bf16(dz - x_t) (F bf16, K5's dWh
+  // pass), and where given into win_t, the step's slot of K4's dWh window
+  // (DwhWindow: float dz; bf16 x_t's value and the low plane, win_plane
+  // elements on); the dc carry moves on to step t-1.
   template <bool kSeam, class F>
   __device__ __forceinline__ void dz_step(int t, int c, const float* dout, const E* proj,
                                           const E* hprev, const float* cprev, const float* ct,
-                                          E* x_t, F* f_t, E* xch_t = nullptr) {
+                                          E* x_t, F* f_t, E* xch_t = nullptr,
+                                          E* win_t = nullptr, size_t win_plane = 0) {
     if constexpr (kChunked) {
       set_chunk(c);
       if (it.owner()) {
@@ -1267,6 +1340,18 @@ struct Walk {
       if (x_t) {
 #pragma unroll
         for (int g = 0; g < 4; ++g) x_t[o + g * H] = x[g];
+      }
+      if (win_t) {
+        E* wrow = win_t + (size_t)row[r] * window_ld<E>(Hb);
+        if constexpr (kF32<E>) {
+          *reinterpret_cast<float4*>(wrow + 4 * it.col) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            wrow[g * Hb + it.col] = x[g];
+            wrow[win_plane + g * Hb + it.col] = from_f32<bf16>(v[g] - to_f32(x[g]));
+          }
+        }
       }
       if constexpr (!kF32<E>) {
         if (f_t) {
@@ -1707,6 +1792,231 @@ struct Walk {
               if (!active) return;
               const int mn = imin(mt, M - c * mt);
               const bf16* hs = reinterpret_cast<const bf16*>(tiles + buf * stage);
+              const bf16* ph = hs + mt * h_ld;
+              mma_tile_at<kNW>(acc, kt16, hs, h_ld, ph, ph + mt * d_ld, d_ld, kl, nl,
+                               (mn + 15) & ~15);
+            });
+        if (!active) continue;
+#pragma unroll
+        for (int jk = 0; jk < kKW; ++jk) {
+#pragma unroll
+          for (int jn = 0; jn < kNW; ++jn) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float* p = jk < kt16 ? out(jk, jn, q, e) : nullptr;
+                if (p) *p = acc[jk][jn][q][e];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // K4's dWh pass, both forms: the block's columns of dWh set (or, with
+  // accumulate, added to) the window's sum over m = s*B + b, in that order
+  // per output, of h_s[b, k] * dz[m, g*H + j0 + u], hrows(s) the (B, H) h
+  // entering the window's step s (E) and dz its rows of `win` (DwhWindow),
+  // `steps` of them. The products, the k passes and so each output's
+  // order are add_dwh's (float, on the FMA units) and add_dwh_tc's (bf16,
+  // the two planes on the tensor cores; a stage a multiple of 16 rows, so
+  // its size moves no sum); every stage comes in by TMA bulk copies on a
+  // stage ring of its own (kPassStages), cut from the staging
+  // tiles, or where wh is streamed from every tile buffer (ring_tiles,
+  // warp 0 issuing): each of the stage's rows of h (the pass's kn columns)
+  // one copy into its padded stage row, and its rows of each window plane
+  // one copy, since the window holds them as the stage does. No 4-byte
+  // copies, and no block barrier per stage. The ring's barriers sit in
+  // red, which the pass does not use, set up at its start and invalidated
+  // at its end; where wh is streamed the stages cover the walk's ring
+  // barriers, invalidated before and set up again after (reset_ring). The
+  // caller orders the window's writes, and every warp's use of the walk's
+  // ring, before this (a block barrier).
+  // the stages of add_dwh_window's ring, cut from the same buffers: bf16
+  // 2 (fewer, larger stages: on an H100 2 took the pass less time than 3,
+  // 4 or 6 at the atari, wide and xl widths); float kStages, since its
+  // walk runs at the register cap of 512 threads and spilled with 2
+  static constexpr int kPassStages = kF32<E> ? kStages : 2;
+
+  template <class HRows>
+  __device__ __forceinline__ void add_dwh_window(float* dwh, HRows hrows,
+                                                 const DwhWindow<E>& win, int steps,
+                                                 bool accumulate) {
+    char* tiles = reinterpret_cast<char*>(pinned ? st : wc);
+    const int region = (pinned ? st_elems : wc_elems + wr_elems + st_elems) * (int)sizeof(E);
+    const int stage = (region / kPassStages) & ~15;
+    auto bars = [b = reinterpret_cast<uint64_t*>(red)](int s) { return b + 2 * s; };
+    fence_proxy_async();  // this thread's window writes before the bulk copies of them
+    if (!pinned) ring_inval(stages());
+    ring_init<kPassStages>(bars);
+    __syncthreads();  // the barriers set before any copy or arrival
+    int rpos = 0;
+    if constexpr (kTC) {
+      const int nb = Hb / 4;  // the block's n16 columns of tiles
+      if (nb % 4 == 0)
+        window_tc<4>(dwh, hrows, win, steps, accumulate, tiles, stage, bars, rpos);
+      else if (nb % 2 == 0)
+        window_tc<2>(dwh, hrows, win, steps, accumulate, tiles, stage, bars, rpos);
+      else
+        window_tc<1>(dwh, hrows, win, steps, accumulate, tiles, stage, bars, rpos);
+    } else {
+      window_fma(dwh, hrows, win, steps, accumulate, tiles, stage, bars, rpos);
+    }
+    ring_inval<kPassStages>(bars);
+    if (pinned)
+      __syncthreads();  // red and the buffers are free for the caller
+    else
+      reset_ring();
+  }
+
+  // add_dwh_window on the FMA units: add_dwh's thread (kg, ug) and order
+  template <class HRows, class Bars>
+  __device__ __forceinline__ void window_fma(float* dwh, HRows hrows, const DwhWindow<E>& win,
+                                             int steps, bool accumulate, char* tiles, int stage,
+                                             Bars bars, int& rpos) {
+    constexpr int V = kVec<E>;
+    const int H4 = 4 * H;
+    const int ug = threadIdx.x % Hb, kg = threadIdx.x / Hb;
+    const int kc = imin(H, 4 * ((int)blockDim.x / Hb) / V * V);
+    const int h_ld = kc + V, d_ld = win.ld;
+    // rows a stage, each row of h copied by a lane of warp 0: a block of
+    // fewer than 32 threads (a thread ceiling cut that low) takes no more
+    // than it has lanes
+    int mt = stage / ((h_ld + d_ld) * 4);
+    if (blockDim.x < 32) mt = imin(mt, (int)blockDim.x);
+    const int M = steps * B, n = (M + mt - 1) / mt;
+    for (int k0 = 0; k0 < H; k0 += kc) {
+      const int kn = imin(kc, H - k0);
+      const bool mine = 4 * kg < kn && ug < n_units;
+      float* out = dwh + (size_t)(k0 + 4 * kg) * H4 + j0 + ug;
+      float acc[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[kk][g] = mine && accumulate ? out[kk * H4 + g * H] : 0.0f;
+      }
+      ring_tiles<true, kPassStages>(
+          bars, rpos, n, 0,
+          [&](int c, int s, uint64_t* bar, int lane) {
+            const int m0 = c * mt, mn = imin(mt, M - m0);
+            float* hs = reinterpret_cast<float*>(tiles + s * stage);
+            if (lane == 0) {
+              mbar_arrive_expect_tx(bar, (unsigned)(mn * (kn + d_ld)) * 4u);
+              bulk_copy(hs + mt * h_ld, win.mine + (size_t)m0 * d_ld, mn * d_ld * 4u, bar);
+            }
+            for (int m = lane; m < mn; m += 32) {
+              const int sm = (m0 + m) / B, b = m0 + m - sm * B;
+              bulk_copy(hs + m * h_ld, hrows(sm) + (size_t)b * H + k0, kn * 4u, bar);
+            }
+          },
+          [&](int c, int s) {
+            if (!mine) return;
+            const int mn = imin(mt, M - c * mt);
+            const float* hs = reinterpret_cast<const float*>(tiles + s * stage);
+            const float* ds = hs + mt * h_ld + 4 * ug;
+            hs += 4 * kg;
+            for (int m = 0; m < mn; ++m) {
+              const float4 h4 = load4(hs + m * h_ld);
+              const float4 d4 = load4(ds + m * d_ld);
+              const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                acc[kk][0] = fmaf(hv[kk], d4.x, acc[kk][0]);
+                acc[kk][1] = fmaf(hv[kk], d4.y, acc[kk][1]);
+                acc[kk][2] = fmaf(hv[kk], d4.z, acc[kk][2]);
+                acc[kk][3] = fmaf(hv[kk], d4.w, acc[kk][3]);
+              }
+            }
+          });
+      if (mine) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) out[kk * H4 + g * H] = acc[kk][g];
+        }
+      }
+    }
+  }
+
+  // add_dwh_window on the tensor cores: dwh_tc_passes' warp tiles, passes
+  // and order. A stage's rows past the window's (the m padding of its last
+  // tile) are zero rows of both planes against copies of a real row of h;
+  // its k padding (H a multiple of 8, not of 16) is left as the stage
+  // holds it, and only reaches the dWh rows past H, which are not stored.
+  // Not inlined: its accumulators would sit beside the walk's state in the
+  // walk's loop, which then spilled inside its tile loops; called, the
+  // walk's registers are saved once a window.
+  template <int kNW, class HRows, class Bars>
+  __device__ __noinline__ void window_tc(float* dwh, HRows hrows, const DwhWindow<E>& win,
+                                            int steps, bool accumulate, char* tiles, int stage,
+                                            Bars bars, int& rpos) {
+    constexpr int kKW = kDwhTiles / kNW;
+    const int H4 = 4 * H, lane = threadIdx.x & 31;
+    const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+    const int NG = Hb / 4 / kNW, ngp = imin(NG, warps), kgp = warps / ngp;
+    const int kc = imin(kgp * kKW * 16, (H + 15) & ~15);
+    const int h_ld = kc + kVec<bf16>, d_ld = win.ld;
+    const int mt = stage / ((h_ld + 2 * d_ld) * (int)sizeof(E)) / 16 * 16;
+    const int M = steps * B, n = (M + mt - 1) / mt;
+    const int kl = warp / ngp * kKW * 16;  // the warp's first k column of a pass
+    const int g = lane >> 2, tq = lane & 3;
+    for (int k0 = 0; k0 < H; k0 += kc) {
+      const int kn = imin(kc, H - k0), kn16 = (kn + 15) & ~15;
+      const int kt16 = imin(kKW, (kn16 - kl) / 16);  // the warp's real k16 rows
+      for (int ng0 = 0; ng0 < NG; ng0 += ngp) {
+        const int ng = ng0 + warp % ngp, nl = ng * kNW * 16;
+        const bool active = warp < kgp * ngp && ng < NG && kt16 > 0;
+        // dwh[k][gate*H + j0 + u] of accumulator element (jk, jn, q, e),
+        // or null for a padding row or unit
+        auto out = [&](int jk, int jn, int q, int e) -> float* {
+          const int k = k0 + kl + 16 * jk + g + 8 * (e >> 1);
+          const int col = nl + 16 * jn + 8 * q + 2 * tq + (e & 1), gate = col / Hb;
+          const int u = col - gate * Hb;
+          return k < H && u < n_units ? dwh + (size_t)k * H4 + gate * H + j0 + u : nullptr;
+        };
+        float acc[kKW][kNW][2][4];
+#pragma unroll
+        for (int jk = 0; jk < kKW; ++jk) {
+#pragma unroll
+          for (int jn = 0; jn < kNW; ++jn) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float* p = active && accumulate && jk < kt16 ? out(jk, jn, q, e) : nullptr;
+                acc[jk][jn][q][e] = p ? *p : 0.0f;
+              }
+            }
+          }
+        }
+        ring_tiles<true, kPassStages>(
+            bars, rpos, n, 0,
+            [&](int c, int s, uint64_t* bar, int issuer_lane) {
+              const int m0 = c * mt, mn = imin(mt, M - m0), m16 = (mn + 15) & ~15;
+              bf16* hs = reinterpret_cast<bf16*>(tiles + s * stage);
+              if (issuer_lane == 0) {
+                // both planes' rows of the tile, with its m padding (zero)
+                const unsigned pb = m16 * d_ld * 2u;
+                mbar_arrive_expect_tx(bar, (unsigned)(m16 * kn) * 2u + 2 * pb);
+                bf16* ph = hs + mt * h_ld;
+                bulk_copy(ph, win.mine + (size_t)m0 * d_ld, pb, bar);
+                bulk_copy(ph + mt * d_ld, win.mine + win.plane + (size_t)m0 * d_ld, pb, bar);
+              }
+              // the rows of h, the m padding a copy of the last real one
+              // (finite, against zero planes: the stage may hold anything
+              // there, the walk's ring barriers too); a tensor-core block
+              // is whole warps
+              for (int m = issuer_lane; m < m16; m += 32) {
+                const int r = m0 + imin(m, mn - 1), sm = r / B, b = r - sm * B;
+                bulk_copy(hs + m * h_ld, hrows(sm) + (size_t)b * H + k0, kn * 2u, bar);
+              }
+            },
+            [&](int c, int s) {
+              if (!active) return;
+              const int mn = imin(mt, M - c * mt);
+              const bf16* hs = reinterpret_cast<const bf16*>(tiles + s * stage);
               const bf16* ph = hs + mt * h_ld;
               mma_tile_at<kNW>(acc, kt16, hs, h_ld, ph, ph + mt * d_ld, d_ld, kl, nl,
                                (mn + 15) & ~15);

@@ -57,7 +57,8 @@
 // barrier runs per tile. Where wh is streamed, each block lays out its
 // rows of wh the same way once, and a second bulk copy brings a tile's.
 // Each block multiplies its tiles in the cp.async walk's order, so the
-// bits are those of the walk K4 keeps. lstm_seq_bwd_exchange_launch runs
+// bits are those of that walk; K4 (lstm_seq_bwd_fused.cu) walks on the
+// same ring. lstm_seq_bwd_exchange_launch runs
 // the exchange alone, for timing; lstm_seq_bwd_exchange_ring_elems sizes
 // the ring.
 

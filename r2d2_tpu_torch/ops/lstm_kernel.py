@@ -66,7 +66,7 @@ _SOURCE_SIGNATURES = {
     "lstm_fwd": (8, 10),             # ..., barrier, T, B, H, then the Geometry
     "lstm_seq_bwd": (12, 10),
     "lstm_bwd": (13, 10),
-    "lstm_seq_bwd_fused": (13, 11),  # ..., barrier, T, B, H, W, then the Geometry
+    "lstm_seq_bwd_fused": (14, 11),  # ..., barrier, T, B, H, W, then the Geometry
     "lstm_seq_bwd_ckpt": (15, 11),   # ..., barrier, T, B, H, S, then the Geometry
 }
 SOURCES = tuple(_SOURCE_SIGNATURES)
@@ -318,7 +318,9 @@ def _check_walk(dout, proj_t, hprev, cprev, cs, wh, dcT, dev, dt) -> None:
 # reverse walk's K2, K3, K4 and K5 (K4 and K5 also stage their dWh tiles
 # in the walk's buffers)
 COLUMN_SPLIT = SOURCES
-# the kernels with a dWh pass (Walk::add_dwh; in bf16 Walk::add_dwh_tc)
+# the kernels with a dWh pass (K5: Walk::add_dwh, in bf16 Walk::add_dwh_tc;
+# K4: Walk::add_dwh_window, in the same buffers, in bf16 cut into 2
+# stages, so a stage of its holds at least twice the rows counted here)
 _DWH_PASS = ("lstm_seq_bwd_fused", "lstm_seq_bwd_ckpt")
 # the tensor-core forms whose split leaves room for that pass's stage: K4
 # and K5, and K2, so that K4-bf16 walks in K2-bf16's split (its dz is
@@ -627,9 +629,9 @@ def _carry_workspace(g: Geometry, B: int, dev):
 
 def _exchange_ring(source: str, g: Geometry, B: int, H: int, dtype, dev,
                    lib=None) -> torch.Tensor:
-    """The exchange ring of K1, K2, K3 and K5 (both forms take their
+    """The exchange ring of the five kernels (both forms take their
     exchanged rows through TMA bulk copies out of it: column_split.cuh "The
-    exchange"; K1 h_t, K2 and K3 dz_t, K5 both) in the compute dtype, sized
+    exchange"; K1 h_t, K2, K3 and K4 dz_t, K5 both) in the compute dtype, sized
     by the kernel's source itself (<source>_exchange_ring_elems,
     column_split.cuh ExchangeRing, the one account of its layout), from
     `lib` or the built library of `source`."""
@@ -739,6 +741,33 @@ def exchange_alone(T: int, B: int, H: int, dev, dtype=torch.float32, bulk: bool 
         raise RuntimeError(f"exchange launch failed: {err_str(code).decode()} ({code})")
 
 
+def dwh_pass_alone(hprev: torch.Tensor, dtype=torch.float32) -> None:
+    """Launch K4's dWh passes alone, for timing (lstm_seq_bwd_fused.cu
+    ``dwh_pass_kernel``): the T / DWH_WINDOW windows of a launch over hprev
+    (T, B, H) in `dtype` and a window as it stands, no walk and no grid
+    barrier, in K4's geometry with the batch in one chunk. Counts no
+    launch."""
+    from r2d2_tpu_torch.ops import _build
+
+    T, B, H = hprev.shape
+    dev = hprev.device
+    geo = _geometry(B, H, "lstm_seq_bwd_fused", dev, dtype)
+    _, err_str = _kernel(_form("lstm_seq_bwd_fused", dtype))
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    fn = getattr(_build.load("lstm_seq_bwd_fused"), f"lstm_seq_bwd_fused_dwh{sfx}_launch")
+    fn.argtypes = [_P] * 5 + [_I] * 11 + [_P]
+    fn.restype = _I
+    win, W = fused_dwh_window(T, B, geo, dtype, dev)
+    wh = torch.zeros((H, 4 * H), dtype=dtype, device=dev)
+    dcT = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(hprev.data_ptr(), wh.data_ptr(), dcT.data_ptr(), dwh.data_ptr(), win.data_ptr(),
+                  T, B, H, W, *_geometry_ints(geo), torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"dWh pass launch failed: {err_str(code).decode()} ({code})")
+
+
 def lstm_seq_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT, burn) -> torch.Tensor:
     """dz (T,B,4H) float32 of the seam backward. proj_t, hprev and wh in
     float32 or bfloat16, the rest float32. Kernel on CUDA, plain version
@@ -791,20 +820,31 @@ def lstm_bwd(dout, proj_t, hprev, cprev, cs, wh, dcT):
     return dz, dh0, dc0
 
 
-# the steps of dz that lstm_seq_bwd_fused's bf16 form adds into dWh at once
-# (the window), as K5's bf16 form does its segment's, S=5 at xl
-DWH_WINDOW = 5
+# the steps of dz that lstm_seq_bwd_fused adds into dWh at once (the
+# window): each window reads and writes the block's dWh columns once, so
+# fewer windows move fewer bytes (17: five windows at T=85, faster than
+# windows of 5 in both forms at every width tried on an H100) for a larger
+# window (33 MB at the wide model's batch 96 in bf16, against the f32 dz's
+# 134)
+DWH_WINDOW = 17
 
 
-def fused_dwh_window(T: int, B: int, H: int, dtype, device):
-    """The window of lstm_seq_bwd_fused's bf16 form: the low plane
-    bf16(dz - bf16(dz)) of W = min(DWH_WINDOW, T) steps, (W, B, 4H) bf16.
-    With the dz output it is the unrounded dz that dWh sums, W steps at a
-    time, never a (T, B, 4H) f32 copy. -> (window or None in float32, W)."""
+def fused_dwh_window(T: int, B: int, g: Geometry, dtype, device, steps: int = None):
+    """The window of lstm_seq_bwd_fused's dWh pass at geometry g: the dz
+    columns of each block for W = min(DWH_WINDOW, T) steps (or `steps`),
+    laid out as a stage of the pass holds them (column_split.cuh
+    DwhWindow), so that one TMA bulk copy brings a stage's rows of a plane:
+    (planes, grid, rows, ld) in the compute dtype. float32: one plane, dz,
+    W*B rows of a unit's four gates side by side (4 units + 4); bf16: two,
+    bf16(dz) and the low plane bf16(dz - bf16(dz)), the unrounded dz that
+    dWh sums, W*B rows rounded up to 16, gate-major (4 units + 8). Never a
+    (T, B, 4H) f32 copy of dz. -> (window, W)."""
+    W = min(DWH_WINDOW, T) if steps is None else steps
     if dtype == torch.float32:
-        return None, 0
-    W = min(DWH_WINDOW, T)
-    return torch.empty((W, B, 4 * H), dtype=dtype, device=device), W
+        planes, rows, ld = 1, W * B, 4 * g.units + 4
+    else:
+        planes, rows, ld = 2, 16 * -(-W * B // 16), 4 * g.units + 8
+    return torch.empty((planes, g.grid, rows, ld), dtype=dtype, device=device), W
 
 
 def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
@@ -812,10 +852,11 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     with dWh formed in the kernel. proj_t, hprev and wh in float32 or
     bfloat16, the rest float32. Kernel on CUDA, plain version on the CPU;
     the same operand checks on both. On the card dz is lstm_seq_bwd's bit
-    for bit (the same walk in the same geometry; in bf16 its f32 dz
-    rounded); dz and dWh differ from the plain version by summation order
-    only, except that the bf16 form sums dz into dWh to about 16 bits (two
-    bf16 planes)."""
+    for bit (the same walk on the same exchange in the same geometry; in
+    bf16 its f32 dz rounded); dz and dWh differ from the plain version by
+    summation order only (dWh: windows of DWH_WINDOW steps, newest first),
+    except that the bf16 form sums dz into dWh to about 16 bits (two bf16
+    planes)."""
     dev = _device_of(cs, "lstm_seq_bwd_fused")
     T, B, H = cs.shape
     dt = _compute_dtype(proj_t, "lstm_seq_bwd_fused")
@@ -829,12 +870,10 @@ def lstm_seq_bwd_fused(dout, proj_t, hprev, cprev, cs, wh, dcT, burn):
     _check_aligned("wh", wh)
     dz = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dwh = torch.empty((H, 4 * H), dtype=torch.float32, device=dev)
-    dz_lo, W = fused_dwh_window(T, B, H, dt, dev)
-    if dz_lo is not None:  # bf16: both dz planes copied 8 or 16 bytes at a time
-        _check_aligned("dz", dz)
-        _check_aligned("dz_lo", dz_lo)
+    win, W = fused_dwh_window(T, B, geo, dt, dev)  # the pass's dz, by bulk copies
+    xch = _exchange_ring("lstm_seq_bwd_fused", geo, B, H, dt, dev)  # dz (bf16: rounded)
     _launch(_form("lstm_seq_bwd_fused", dt),
-            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz_lo,
+            (dout, proj_t, hprev, cprev, cs, wh, dcT, burn, dz, dwh, win, xch,
              _carry_workspace(geo, B, dev), _barrier(dev)),
             (T, B, H, W, *_geometry_ints(geo)), dev)
     return dz, dwh

@@ -20,6 +20,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct float4 { float x, y, z, w; };

@@ -188,15 +188,21 @@ def test_plain_fused_dwh_backward_bf16_matches_pallas(burn_name):
 
 
 def test_fused_dwh_bf16_window_does_not_grow_with_T():
-    """K4's bf16 form keeps W = min(5, T) steps of dz's bf16 low plane for
-    its dWh pass (the dz output is the high plane), never a (T, B, 4H)
-    float32 copy; its float32 form needs none."""
+    """K4's bf16 form keeps W = min(17, T) steps of dz's two bf16 planes for
+    its dWh pass, each block's columns laid out as the pass stages them
+    (rows of 4 units + 8), never a (T, B, 4H) float32 copy; its float32 form
+    keeps W steps of the f32 dz (rows of 4 units + 4)."""
     for T_, B_, H_ in ((85, 96, 1024), (850, 96, 1024), (3, 4, 8)):
-        window, W = port.fused_dwh_window(T_, B_, H_, BF16, "cpu")
+        g = port.lstm_geometry(B_, H_, "lstm_seq_bwd_fused", 132, 232448, 2)
+        window, W = port.fused_dwh_window(T_, B_, g, BF16, "cpu")
         assert W == min(port.DWH_WINDOW, T_) and window.dtype == BF16
-        assert tuple(window.shape) == (W, B_, 4 * H_)
-    assert port.fused_dwh_window(85, 96, 1024, BF16, "cpu")[0].nbytes == 5 * 96 * 4096 * 2
-    assert port.fused_dwh_window(85, 96, 1024, torch.float32, "cpu") == (None, 0)
+        assert tuple(window.shape) == (2, g.grid, 16 * -(-W * B_ // 16), 4 * g.units + 8)
+    g = port.lstm_geometry(96, 1024, "lstm_seq_bwd_fused", 132, 232448, 2)
+    window = port.fused_dwh_window(85, 96, g, BF16, "cpu")[0]
+    assert window.nbytes == 2 * 128 * 1632 * 40 * 2 <= 85 * 96 * 4096 * 4 // 4
+    g = port.lstm_geometry(96, 1024, "lstm_seq_bwd_fused", 132, 232448, 4)
+    window, W = port.fused_dwh_window(85, 96, g, torch.float32, "cpu")
+    assert W == 17 and tuple(window.shape) == (1, 128, 1632, 36)
 
 
 def test_wrappers_take_bf16_where_pallas_does_and_refuse_the_rest():

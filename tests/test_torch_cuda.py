@@ -10,11 +10,12 @@ Tolerances: the kernels and the plain versions both work in float32 but sum
 the H-long (and 4H-long) dot products in other orders, and the recurrence
 carries those differences through T steps; 1e-4 absolute (dz also 1e-4
 relative) holds them with room at T=85, H=512. dWh, summed in the kernel
-(K4 per column slice over (t, b), K5 per column slice and segment), is
+(K4 per column slice, windows of 17 steps newest first, K5 per column
+slice and segment), is
 held to 1e-4 of its largest entry: each entry sums T*B products of both
 signs, so entries that cancel to near zero have no meaningful relative
-error. K4's dz is held to K2's bit for bit: the same walk in the same
-geometry.
+error. K4's dz is held to K2's bit for bit: the same walk on the same
+exchange in the same geometry.
 
 Row chunks: batches wider than one block's threads (B=600 at H=512, B=200
 at H=2048) are walked in two chunks per step, held to the same bounds.
@@ -208,9 +209,9 @@ def test_fused_dwh_dz_is_the_seam_backwards_bit_for_bit(cuda, shape):
                            lstm_kernel.lstm_seq_bwd(*walk, burn))
 
 
-# K2 and K3 take their carry product's rows through TMA bulk copies into an
-# mbarrier ring (column_split.cuh "The exchange"): the atari widths, the
-# wide model's batch 96 and xl
+# K2, K3 and K4 take their carry product's rows through TMA bulk copies
+# into an mbarrier ring (column_split.cuh "The exchange"): the atari widths,
+# the wide model's batch 96 and xl
 EXCHANGE_SHAPES = [(85, 64, 512), (85, 96, 1024), (85, 64, 2048)]
 
 
@@ -220,8 +221,7 @@ def test_bulk_exchange_kernels_on_the_card(cuda, shape, dtype):
     """K2 (seams 0, mid, T-1, mixed) and K3 against their plain versions,
     three launches of each giving the same bits, and K4's dz equal to
     K2's bit for bit (bf16: K4-bf16's dz is K2-bf16's f32 dz rounded): K4
-    keeps the cp.async exchange in the same split, so equal bits say the
-    ring moved bytes and changed no sum."""
+    walks on the same ring in the same split."""
     T, B, H = shape
     proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, dtype, T * B + H)
     outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
@@ -243,6 +243,53 @@ def test_bulk_exchange_kernels_on_the_card(cuda, shape, dtype):
     for _ in range(2):
         for a, b in zip(lstm_kernel.lstm_bwd(*walk), got):
             assert torch.equal(a, b)
+
+
+# K4 on the ring, its dWh pass on a stage ring of its own: the exchange
+# shapes and two batches walked in row chunks
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", EXCHANGE_SHAPES + [(85, 1024, 512), (85, 256, 2048)], ids=str)
+def test_fused_dwh_on_the_ring_on_the_card(cuda, shape, dtype):
+    """K4 (seams 0 and mixed) against its plain version (dWh to 1e-4 of its
+    largest entry, bf16 BF16_DWH), two more launches giving the same bits,
+    and its dz K2's bit for bit (bf16: K2-bf16's f32 dz rounded)."""
+    T, B, H = shape
+    proj, wh, h0, c0, dout, dcT, mixed = _operands(cuda, T, B, H, dtype, T * B + H + 2)
+    outs, cs = lstm_kernel.lstm_fwd(proj, wh, h0, c0)
+    walk = (dout, proj, torch.cat([h0[None], outs[:-1]]),
+            torch.cat([c0.float()[None], cs[:-1]]), cs, wh, dcT)
+    f32 = dtype == torch.float32
+    tol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    for burn in (torch.zeros_like(mixed), mixed):
+        dz, dwh = lstm_kernel.lstm_seq_bwd_fused(*walk, burn)
+        p_dz, p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)
+        torch.testing.assert_close(dz.float(), p_dz.float(), **tol)
+        bound = 1e-4 if f32 else BF16_DWH
+        assert float((dwh - p_dwh).abs().max()) <= bound * float(p_dwh.abs().max())
+        seam = lstm_kernel.lstm_seq_bwd(*walk, burn)
+        assert torch.equal(dz, seam if f32 else seam.to(BF16))
+        for _ in range(2):
+            assert all(map(torch.equal, (dz, dwh), lstm_kernel.lstm_seq_bwd_fused(*walk, burn)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+def test_fused_ring_is_the_seam_backwards(cuda, dtype):
+    """lstm_seq_bwd_fused_exchange_ring_elems sizes K4's ring as K2's at the
+    same split (column_split.cuh ExchangeRing, the carry product's part)."""
+    for B, H in ((64, 512), (96, 1024), (64, 2048), (1024, 512), (256, 2048)):
+        g = lstm_kernel._geometry(B, H, "lstm_seq_bwd_fused", cuda, dtype)
+        rings = [lstm_kernel._exchange_ring(src, g, B, H, dtype, cuda).numel()
+                 for src in ("lstm_seq_bwd_fused", "lstm_seq_bwd")]
+        assert rings[0] == rings[1], (B, H, g, rings)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+def test_dwh_pass_alone_runs(cuda, dtype):
+    """K4's timing probe: a launch's dWh passes with no walk, at the atari
+    widths (wh pinned) and at xl (streamed)."""
+    for H in (512, 2048):
+        lstm_kernel.dwh_pass_alone(torch.zeros(85, 64, H, dtype=dtype, device=cuda), dtype)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])

@@ -22,12 +22,13 @@ to four blocks; a misplaced exchange or barrier reads another block's
 columns before they are written. Each kernel also runs at a thread
 ceiling cut so far that the batch takes two or more row chunks (the last
 one ragged), and the bf16 forms of all five run against their plain
-versions in bf16 (K4's with dWh windows that do and do not divide T).
-The bulk exchange of K1, K2, K3 and K5 (TMA bulk copies into an mbarrier
-ring) runs on the scalar host bodies column_split.cuh gives its
-primitives: an mbarrier a 64-bit word whose waiters block on it until its
-phase moves, a bulk copy a memcpy that completes its bytes on it; each
-ring is also run where it wraps many times a step. A kernel
+versions in bf16 (K4's with dWh windows that do and do not divide T, in
+both forms). The bulk exchange of all five (TMA bulk copies into an
+mbarrier ring) and K4's dWh pass on its own ring run on the scalar host
+bodies column_split.cuh gives their primitives: an mbarrier a 64-bit word
+whose waiters block on it until its phase moves, a bulk copy a memcpy that
+completes its bytes on it; each ring is also run where it wraps many times
+a step, wh pinned and streamed. A kernel
 whose body leaves the subset (clusters, warp intrinsics, wgmma) is held
 against its plain version by
 tests/test_torch_cuda.py and chip_smoke.py only; the header is not meant
@@ -36,7 +37,8 @@ to grow into a CUDA emulator.
 Tolerance: both sides sum in float32 in other orders; forward 1e-5, dz 1e-4
 absolute, and dz exactly zero below each row's seam. dWh is held to 1e-4 of
 its largest entry: each entry sums T*B products in another order (K4:
-per column slice over (t, b); K5: per segment, newest first), and entries
+per column slice, windows of steps newest first, (t, b) in each; K5: per
+segment, newest first), and entries
 that cancel to near zero have no meaningful relative error. The
 column-split kernels sum every output in one fixed order, so two launches
 give the same bits, and K4 walks as K2 does in K2's geometry, so its dz
@@ -219,7 +221,7 @@ def _assert_zero_below_seam(dz, burn_np):
 
 
 def _ring(kernels, source, g, B, H, dtype):
-    """The exchange ring of K1, K2, K3 or K5 at g, sized by the emulated
+    """The exchange ring of kernel `source` at g, sized by the emulated
     source."""
     return lstm_kernel._exchange_ring(source, g, B, H, dtype, "cpu", kernels[f"{source}_lib"])
 
@@ -254,18 +256,32 @@ def _seamless(kernels, dout, proj, hprev, cprev, cs, wh, dcT, mt=512):
     return dz, dh0, dc0
 
 
+# the dWh window of the emulated K4 launches, in steps: several windows at
+# these T, the newest ragged at T=7 and 6 (the wrapper's DWH_WINDOW takes
+# one)
+WINDOW = 5
+
+
 def _fused(kernels, dout, proj, hprev, cprev, cs, wh, dcT, burn, mt=512, window=None):
-    """K4's (dz, dwh); the bf16 form with the wrapper's window of dz's low
-    plane, or one of `window` steps."""
-    T, B, H = cs.shape
-    dt = proj.dtype
+    """K4's (dz, dwh) at the emulated geometry, with a dWh window of
+    min(WINDOW, T) steps, or of `window` steps."""
+    B, H = cs.shape[1:]
+    g = _emulated_geometry(lstm_kernel._form("lstm_seq_bwd_fused", proj.dtype), B, H, mt)
+    return _fused_at(kernels, (dout, proj, hprev, cprev, cs, wh, dcT), burn, g, window)
+
+
+def _fused_at(kernels, walk, burn, g, window=None):
+    """K4's (dz, dwh) at geometry g, on its exchange ring, with its dWh
+    window laid out as the wrapper lays it out, of min(WINDOW, T) steps or
+    of `window` steps."""
+    T, B, H = walk[4].shape
+    dt = walk[1].dtype
     dz, dwh = torch.empty(T, B, 4 * H, dtype=dt), torch.empty(H, 4 * H)
-    dz_lo, W = lstm_kernel.fused_dwh_window(T, B, H, dt, "cpu")
-    if window is not None:
-        dz_lo, W = torch.empty(window, B, 4 * H, dtype=dt), window
-    _split(kernels, lstm_kernel._form("lstm_seq_bwd_fused", dt),
-           (dout, proj, hprev, cprev, cs, wh, dcT, burn, dz, dwh, dz_lo), T, B, H, W,
-           max_threads=mt)
+    win, W = lstm_kernel.fused_dwh_window(T, B, g, dt, "cpu",
+                                          min(WINDOW, T) if window is None else window)
+    xch = _ring(kernels, "lstm_seq_bwd_fused", g, B, H, dt)
+    _launch_at(kernels, lstm_kernel._form("lstm_seq_bwd_fused", dt),
+               (*walk, burn, dz, dwh, win, xch), T, B, H, g, W)
     return dz, dwh
 
 
@@ -470,6 +486,26 @@ def test_emulated_kernels_in_row_chunks_give_the_same_bits_every_launch(kernels,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("T,B,H,mt", [(7, 5, 32, 512), (7, 5, 32, 8), (7, 4, 4, 1)])
+def test_emulated_fused_dwh_window_may_not_divide_T(kernels, T, B, H, mt):
+    """K4 in float32 with dWh windows of 1, 3 (T=7: the newest window one
+    step) and T steps, one chunk, row chunks, and blocks of one thread (a
+    stage of the pass would hold more rows than warp 0 has lanes): dWh the
+    same sum in other orders, to 1e-4 of its largest entry, the same bits
+    on a second launch, and the same dz bits in every case."""
+    rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H)
+    walk = _walk(proj, wh, h0, c0, outs, cs, dout, dcT)
+    burn = torch.from_numpy(rng.integers(0, T, B).astype(np.int32))
+    p_dwh = lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)[1]
+    dz = []
+    for window in (1, 3, T):
+        got = _fused(kernels, *walk, burn, mt, window)
+        _assert_dwh_close(got[1], p_dwh)
+        assert all(map(torch.equal, got, _fused(kernels, *walk, burn, mt, window)))
+        dz.append(got[0])
+    assert all(torch.equal(d, dz[0]) for d in dz)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 forms of K1, K2 and K5
 # ---------------------------------------------------------------------------
@@ -556,7 +592,7 @@ def _check_bf16_fused(kernels, walk, burn_np, mt, window=None):
                          + [BF16_N_GROUP_SHAPE])
 def test_emulated_bf16_seamless_and_fused_dwh_match_plain_versions(kernels, T, B, H, mt):
     """K3-bf16 (dz, dh0, dc0 in f32) and K4-bf16 (seams 0, mid, T-1,
-    mixed; the wrapper's window of min(5, T) steps, ragged at T=7 and 6;
+    mixed; a window of min(WINDOW, T) steps, ragged at T=7 and 6;
     its dWh pass the transposed-A product of both dz planes) with bf16
     operands, one chunk and row chunks, against their bf16 plain versions
     on the plain forward's residuals; each launched twice for the same
@@ -715,7 +751,7 @@ def _check_dwh_from_recomputed_h(kernels, walk, args, dwh):
 
 
 # ---------------------------------------------------------------------------
-# the bulk exchange of K1, K2, K3 and K5: a stage ring that wraps many times
+# the bulk exchange of all five kernels: a stage ring that wraps many times
 # a step
 # ---------------------------------------------------------------------------
 
@@ -725,12 +761,14 @@ STAGES = 4
 # (T, B, H, shared memory, thread ceiling, kernel): a shared-memory limit
 # that narrows the k-tile until the carry product's 4H columns take at
 # least 3 * STAGES tiles, so the ring wraps several times a step and its
-# barriers' phases run on over steps and chunks; one chunk (the first two)
-# and two or more; "walk" runs K2, K3 and K4 there. Then K1's and K5's
+# barriers' phases run on over steps and chunks; wh streamed with one
+# chunk (the first two) and two or more, then pinned with one chunk and
+# three; "walk" runs K2, K3 and K4 there. Then K1's and K5's
 # rings, where the gate product's H columns take 12 tiles of 8 (K5: at
 # S=2, two segments): wh pinned with one chunk, streamed with four.
 RING_SHAPES = [pytest.param(*shape, "walk", id="-".join(map(str, shape))) for shape in (
-    (5, 9, 40, 30000, 512), (4, 6, 96, 60000, 512), (4, 13, 64, 30000, 512), (3, 37, 64, 30000, 64))]
+    (5, 9, 40, 30000, 512), (4, 6, 96, 60000, 512), (4, 13, 64, 30000, 512), (3, 37, 64, 30000, 64),
+    (6, 5, 32, 26500, 512), (4, 21, 32, 23000, 512))]
 RING_SHAPES += [
     pytest.param(5, 9, 96, 48500, 512, "lstm_fwd", id="K1-pinned-5-9-96"),
     pytest.param(4, 13, 96, 26000, 512, "lstm_fwd", id="K1-streamed-chunks-4-13-96"),
@@ -738,12 +776,14 @@ RING_SHAPES += [
     pytest.param(4, 13, 96, 30000, 512, "lstm_seq_bwd_ckpt", id="K5-streamed-chunks-4-13-96"),
 ]
 # bf16, (T, B, H, shared memory, rows a chunk, kernel): the tensor-core
-# split at (20, 96) in 62,000 bytes (12 tiles of 32 columns), and that split
-# cut into chunks of 16 rows; K1's gate product in 12 tiles of 16 with wh
+# split at (20, 96) in 62,000 bytes (12 tiles of 32 columns), that split
+# cut into chunks of 16 rows (K2 and K3 only: K4's dWh stage needs more
+# rows) and the split of a batch of 33 in two chunks of 32 (12 tiles of
+# 32, wh streamed); K1's gate product in 12 tiles of 16 with wh
 # pinned (the split's k-tile narrowed to 16) and streamed in two chunks,
 # and K5's in 12 tiles of 32, streamed, in two chunks
 RING_SHAPES_BF16 = [pytest.param(*shape, "walk", id="-".join(map(str, shape))) for shape in (
-    (4, 20, 96, 62000, None), (3, 20, 96, 62000, 16))]
+    (4, 20, 96, 62000, None), (3, 20, 96, 62000, 16), (3, 33, 96, 57000, None))]
 RING_SHAPES_BF16 += [
     pytest.param(3, 9, 192, 232448, None, "lstm_fwd", id="K1-pinned-3-9-192"),
     pytest.param(3, 20, 192, 41500, 16, "lstm_fwd", id="K1-streamed-chunks-3-20-192"),
@@ -753,8 +793,9 @@ RING_SHAPES_BF16 += [
 
 def _check_ring(kernels, T, B, H, g, dtype, fused):
     """K2 (seams 0, mid, T-1, mixed) and K3 at geometry g against their
-    plain versions, each twice for the same bits; with `fused`, K4's dz at
-    g equal to K2's (bf16: rounded) bit for bit."""
+    plain versions, each twice for the same bits; with `fused`, K4 at g
+    too: its dWh against the plain version, twice for the same bits, and
+    its dz equal to K2's (bf16: rounded) bit for bit."""
     rng, proj, wh, h0, c0, outs, cs, dout, dcT = _operands(T, B, H, dtype)
     walk = _walk(proj, wh, h0, c0, outs, cs, dout, dcT)
     f32 = dtype == torch.float32
@@ -780,11 +821,10 @@ def _check_ring(kernels, T, B, H, g, dtype, fused):
         _assert_zero_below_seam(dz, burn_np)
         assert torch.equal(seam(burn), dz)
         if fused:
-            f_dz, dwh = torch.empty(T, B, 4 * H, dtype=dtype), torch.empty(H, 4 * H)
-            dz_lo, W = lstm_kernel.fused_dwh_window(T, B, H, dtype, "cpu")
-            _launch_at(kernels, "lstm_seq_bwd_fused" + sfx,
-                       (*walk, burn, f_dz, dwh, dz_lo), T, B, H, g, W)
+            f_dz, dwh = _fused_at(kernels, walk, burn, g)
             assert torch.equal(f_dz, dz if f32 else dz.to(dtype))
+            _assert_dwh_close(dwh, lstm_kernel.lstm_seq_bwd_fused_plain(*walk, burn)[1])
+            assert all(map(torch.equal, (f_dz, dwh), _fused_at(kernels, walk, burn, g)))
     got = seamless()
     for a, b in zip(got, lstm_kernel.lstm_bwd_plain(*walk)):
         torch.testing.assert_close(a, b, **tol)

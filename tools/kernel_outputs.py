@@ -12,6 +12,8 @@ eight shapes (ragged small ones, the atari, wide B=96 and xl widths, and two
 batches walked in row chunks), on inputs drawn from fixed seeds on the card
 (K2, K4 and K5 with mixed seams; K5 at S=5 where 5 divides T, else 1, and
 where T > 5 also at S=T, one segment: "lstm_seq_bwd_ckpt_whole"), and
+the default arm's backward beside K4 ("default_pair": K2, then dWh =
+hprev^T @ dz as one matmul outside it, the same function in two calls), and
 writes to OUT each output's SHA-256, an evenly strided sample of at most
 2^16 of its values, and the form's time (median of 5 launches, CUDA events,
 each after a write of 64 MiB that evicts the 50 MB L2). `--root DIR`
@@ -19,12 +21,13 @@ imports r2d2_tpu_torch from DIR instead of this checkout, e.g. an unpacked
 `git archive` of another commit; make both records in one run on one card.
 `compare` prints, per form and shape, whether the two records hold the
 same bits and, where they do not, the largest difference over the sample
-against the sample's largest value, and the two times; for K1 and K5 also
-the bound (bound_ms): the least time an H100 could take for the same work,
-the larger of the bytes the function must move (each input read once,
-each output written once) over 3.35 TB/s and its matmul FLOPs (K5: on the
-(row, step) pairs the seams keep) over the FMA units' 67 TFLOP/s (float32)
-or the tensor cores' 989 TFLOP/s (bf16), as chip_smoke.py counts them.
+against the sample's largest value, and the two times; for K1, K4 and K5
+also the bound (bound_ms): the least time an H100 could take for the same
+work, the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its matmul FLOPs (K4
+and K5: on the (row, step) pairs the seams keep) over the FMA units' 67
+TFLOP/s (float32) or the tensor cores' 989 TFLOP/s (bf16), as
+chip_smoke.py counts them.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -44,16 +47,23 @@ PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def bound_ms(name, T, B, H, burn, S):
-    """(ms, "bytes" or "operations") of K1 or K5 (`name`, a bf16 form's
-    ending in _bf16) at (T, B, H), K5 at stride S with seams `burn`; else
-    None."""
+    """(ms, "bytes" or "operations") of K1, K4 or K5 (`name`, a bf16 form's
+    ending in _bf16) at (T, B, H), K4 and K5 with seams `burn`, K5 at
+    stride S; else None."""
     bf16 = name.endswith("_bf16")
     e, f4, mm, bh, bh4, h4h = (2 if bf16 else 4), 4, 2 * H * 4 * H, B * H, B * 4 * H, H * 4 * H
+    kept = int((T - burn.long()).sum())
+    carried = int((T - 1 - burn.long()).clamp(min=0).sum())
     if name.startswith("lstm_fwd"):
         flops, nbytes = mm * T * B, e * (T * bh4 + h4h + 2 * bh + T * bh) + f4 * T * bh
+    elif name.startswith("lstm_seq_bwd_fused"):
+        # the gate recompute and dWh on the kept (row, step) pairs, the carry
+        # on the carried ones; proj, hprev, wh and the dz out in the compute
+        # dtype, dout, cprev, cs, dcT, burn and dWh in f32
+        flops = mm * (2 * kept + carried)
+        nbytes = (e * (T * bh4 + T * bh + h4h + T * bh4)
+                  + f4 * (3 * T * bh + bh + B + h4h))
     elif name.startswith("lstm_seq_bwd_ckpt"):
-        kept = int((T - burn.long()).sum())
-        carried = int((T - 1 - burn.long()).clamp(min=0).sum())
         flops = mm * (T * B + 2 * kept + carried)
         # proj, the checkpoints' h, wh and the dz out in the compute dtype;
         # dout, the checkpoints' c, dcT, burn and dWh in f32
@@ -64,6 +74,12 @@ def bound_ms(name, T, B, H, burn, S):
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def default_pair(K, walk, burn):
+    """The default arm's backward: (dz, dWh) of K2 and one matmul."""
+    dz = K.lstm_seq_bwd(*walk, burn)
+    return dz, K._outer_dwh(walk[2], dz, walk[5])
 
 
 def record(t):
@@ -131,6 +147,7 @@ def save(out, root):
                      ("lstm_seq_bwd_ckpt", lambda: K.lstm_seq_bwd_ckpt(*ckpt))]
             if T > 5:
                 forms.append(("lstm_seq_bwd_ckpt_whole", lambda: K.lstm_seq_bwd_ckpt(*whole)))
+            forms.append(("default_pair", lambda: default_pair(K, walk, burn)))
             for name, fn in forms:
                 s = T if name.endswith("whole") else S
                 rec[(name + sfx, (T, B, H))] = ([record(x) for x in fn()], median_ms(fn, flush),
